@@ -1,0 +1,229 @@
+"""The fused 3D (video) LISTA forward on hand-written CUDA kernels
+(counterpart of cdlnet_tpu/kernels/lista3d.py).
+
+The K-iteration loop runs in the stride-phase (space-to-depth) layout:
+y2 = space_to_depth(yp) has Cp = C*s^3 channels on the (Dc, Hc, Wc) code
+grid, and both strided convolutions become stride-1 correlations over
+Qd x Qh x Qw phase taps. Each iteration is two kernel launches:
+
+  lista3d_syn_residual   r = [mask *] (B_k^T z) [- y2]
+  lista3d_ana_threshold  z = ST(z - A_k r, tau_k)
+
+k = 0 is the analysis with r = -y2 and z = 0, and the final x2 = B_0^T z is
+the synthesis without mask and y2: 2K launches per clip. The code tensor z
+stays in device memory between launches (at the flagship shape it is
+~22 MB, which the 50 MB L2 mostly holds). Tensors are (N, ch, Dc, Hc, Wc),
+contiguous, fp32.
+
+Each wrapper runs its CUDA kernel on CUDA tensors, or raises; it runs the
+plain PyTorch version beside it (the same function on F.conv3d over the
+phase channels) only for CPU tensors. `launches` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import collections
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+from cdlnet_tpu_torch.core.ops import ST
+from cdlnet_tpu_torch.ops import polyphase as pp
+
+# kernel launches per wrapper name; plain (CPU) calls do not count
+launches: collections.Counter = collections.Counter()
+
+
+@dataclass(frozen=True)
+class Geom:
+    """Phase-domain geometry of the stride-s conv with kernel P = (kD, kH,
+    kW) and padding pads: per dim, taps q in [q_lo, q_hi]."""
+
+    s: int
+    P: tuple
+    pads: tuple
+
+    @property
+    def taps(self):
+        return [pp._tap_ranges(self.P[i], self.pads[i], self.s) for i in range(3)]
+
+    @property
+    def off_a(self):
+        """Analysis tap offsets: input index = output index + q + q_lo."""
+        return tuple(lo for lo, _ in self.taps)
+
+    @property
+    def off_s(self):
+        """Synthesis (flipped-tap) offsets: -(Q-1) - q_lo == -q_hi."""
+        return tuple(-hi for _, hi in self.taps)
+
+
+def prep_A2m_3d(A: torch.Tensor, s: int, pads) -> torch.Tensor:
+    """Phase-domain analysis banks in kernel layout (K, Cp, Qd, Qh, Qw, M):
+    input channel, taps, then the output code channel, contiguous."""
+    A2, _, _, _ = pp.polyphase_weights(A, s, pads, 3)  # (K, M, Cp, Qd, Qh, Qw)
+    return A2.permute(0, 2, 3, 4, 5, 1).contiguous()
+
+
+def prep_B2m_3d(B: torch.Tensor, s: int, pads) -> torch.Tensor:
+    """Phase-domain synthesis banks in kernel layout (K, M, Qd, Qh, Qw, Cp),
+    taps flipped, so the synthesis is a correlation like the analysis."""
+    _, B2t, _, _ = pp.polyphase_weights(B, s, pads, 3)  # (K, M, Cp, Qd, Qh, Qw)
+    return B2t.permute(0, 1, 3, 4, 5, 2).contiguous()
+
+
+def _correlate_plain(x, wt, off):
+    """out[n,o,p] = sum_{i,q} wt[i,q,o] * x[n,i,p+q+off], zero outside x.
+    wt: (I, Qd, Qh, Qw, O); off: per-dim (D, H, W) tap offsets."""
+    Q = wt.shape[1:4]
+    pad = []
+    for q, o in zip(reversed(Q), reversed(off)):  # F.pad order: W, H, D
+        pad += [-o, q - 1 + o]
+    return F.conv3d(F.pad(x, pad), wt.permute(4, 0, 1, 2, 3))
+
+
+def lista3d_ana_threshold_plain(r, z, wa, tau, geom):
+    """Plain version of lista3d_ana_threshold."""
+    u = _correlate_plain(r, wa, geom.off_a)
+    v = -u if z is None else z - u
+    return ST(v, tau[:, :, None, None, None])
+
+
+def lista3d_syn_residual_plain(z, ws, geom, mask=None, y=None):
+    """Plain version of lista3d_syn_residual."""
+    r = _correlate_plain(z, ws, geom.off_s)
+    if mask is not None:
+        r = mask * r
+    return r if y is None else r - y
+
+
+def _check(name, t, shape):
+    if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: the CUDA kernel takes contiguous float32 CUDA tensors, "
+            f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
+        )
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(err, name):
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed (cudaError {err})")
+
+
+def lista3d_ana_threshold(r, z, wa, tau, geom):
+    """z_new = ST(z - A_k r, tau): the analysis + soft threshold.
+
+    r: (N, Cp, Dc, Hc, Wc) residual; z: (N, M, Dc, Hc, Wc) codes, or None
+    for zeros (k = 0); wa: (Cp, Qd, Qh, Qw, M) from prep_A2m_3d; tau: (N, M);
+    geom: the Geom of the banks. Returns a new code tensor.
+    """
+    if r.device.type == "cpu":
+        return lista3d_ana_threshold_plain(r, z, wa, tau, geom)
+    from cdlnet_tpu_torch.kernels._build import library
+
+    lib = library()
+    N, Cp, D, H, W = r.shape
+    M = wa.shape[-1]
+    Qd, Qh, Qw = wa.shape[1:4]
+    _check("r", r, r.shape)
+    _check("wa", wa, (Cp, Qd, Qh, Qw, M))
+    _check("tau", tau, (N, M))
+    if z is not None:
+        _check("z", z, (N, M, D, H, W))
+    out = torch.empty((N, M, D, H, W), dtype=r.dtype, device=r.device)
+    err = lib.lista3d_ana_threshold(
+        _ptr(r), _ptr(wa), _ptr(z), _ptr(tau), _ptr(out),
+        N, Cp, M, D, H, W, Qd, Qh, Qw, *geom.off_a, geom.s, *geom.P, *geom.pads,
+        torch.cuda.current_stream(r.device).cuda_stream,
+    )
+    _raise_on(err, "lista3d_ana_threshold")
+    launches["lista3d_ana_threshold"] += 1
+    return out
+
+
+def lista3d_syn_residual(z, ws, geom, mask=None, y=None):
+    """r = [mask *] (B_k^T z) [- y]: the synthesis (+ residual).
+
+    z: (N, M, Dc, Hc, Wc); ws: (M, Qd, Qh, Qw, Cp) from prep_B2m_3d; geom:
+    the Geom of the banks; mask, y: (N, Cp, Dc, Hc, Wc) or None. Returns
+    (N, Cp, Dc, Hc, Wc).
+    """
+    if z.device.type == "cpu":
+        return lista3d_syn_residual_plain(z, ws, geom, mask=mask, y=y)
+    from cdlnet_tpu_torch.kernels._build import library
+
+    lib = library()
+    N, M, D, H, W = z.shape
+    Cp = ws.shape[-1]
+    Qd, Qh, Qw = ws.shape[1:4]
+    _check("z", z, z.shape)
+    _check("ws", ws, (M, Qd, Qh, Qw, Cp))
+    for name, t in (("mask", mask), ("y", y)):
+        if t is not None:
+            _check(name, t, (N, Cp, D, H, W))
+    out = torch.empty((N, Cp, D, H, W), dtype=z.dtype, device=z.device)
+    err = lib.lista3d_syn_residual(
+        _ptr(z), _ptr(ws), _ptr(mask), _ptr(y), _ptr(out),
+        N, M, Cp, D, H, W, Qd, Qh, Qw, *geom.off_s,
+        torch.cuda.current_stream(z.device).cuda_stream,
+    )
+    _raise_on(err, "lista3d_syn_residual")
+    launches["lista3d_syn_residual"] += 1
+    return out
+
+
+def lista3d_fused(yp, A, B, t, c, stride=1, mask=None, return_z=True):
+    """Fused 3D LISTA + final dictionary synthesis.
+
+    yp: (N, C, D, H, W) pre-processed clip batch (D, H, W divisible by
+    stride); A, B: (K, M, C, Pd, Ph, Pw); t: (K, 2, M, 1, 1, 1); c: scalar
+    or (N, 1, 1, 1, 1). Returns (xphat (N, C, D, H, W), z (N, M, Dc, Hc, Wc)
+    or None) — ops.lista.lista_3d + conv_transpose3d(B[0]) to fp32
+    reassociation tolerance. Inference only on CUDA: the reverse kernels are
+    not ported yet.
+    """
+    if yp.device.type == "cuda" and torch.is_grad_enabled() and any(
+        p.requires_grad for p in (A, B, t)
+    ):
+        raise NotImplementedError(
+            "lista3d_fused has no backward on CUDA yet (the reverse kernel is "
+            "still to be ported, see ROADMAP.md): run under torch.no_grad() or "
+            "torch.inference_mode()"
+        )
+    N, C, D, H, W = yp.shape
+    K, M = A.shape[0], A.shape[1]
+    P = A.shape[-3:]
+    s = stride
+    if D % s or H % s or W % s:
+        raise ValueError(f"clip {(D, H, W)} is not divisible by stride {s}")
+    pads = tuple(p // 2 for p in P)
+    geom = Geom(s, tuple(P), pads)
+
+    wa = prep_A2m_3d(A, s, pads)
+    ws = prep_B2m_3d(B, s, pads)
+    y2 = pp.space_to_depth(yp, s, 3).contiguous()  # (N, Cp, Dc, Hc, Wc)
+    m2 = (
+        pp.space_to_depth(mask.expand(yp.shape), s, 3).contiguous()
+        if mask is not None
+        else None
+    )
+    c_arr = torch.as_tensor(c, dtype=yp.dtype, device=yp.device).reshape(-1)
+    c_arr = c_arr.expand(N)
+    # tau[k] = t[k,0] + c * t[k,1] per sample: (K, N, M)
+    tau = (t[None, :, 0, :, 0, 0, 0] + c_arr[:, None, None] * t[None, :, 1, :, 0, 0, 0])
+    tau = tau.transpose(0, 1).contiguous()
+
+    z = lista3d_ana_threshold(-y2, None, wa[0], tau[0], geom)
+    for k in range(1, K):
+        r = lista3d_syn_residual(z, ws[k], geom, mask=m2, y=y2)
+        z = lista3d_ana_threshold(r, z, wa[k], tau[k], geom)
+    x2 = lista3d_syn_residual(z, ws[0], geom)
+    xphat = pp.depth_to_space(x2, s, 3, C)
+    return xphat, (z if return_z else None)

@@ -1,0 +1,2 @@
+from cdlnet_tpu_torch.models.base import MODEL_REGISTRY, build_model
+from cdlnet_tpu_torch.models.cdlnet_video import CDLNetVideo

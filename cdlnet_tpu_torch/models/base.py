@@ -1,0 +1,52 @@
+"""Model registry and shared helpers (counterpart of
+cdlnet_tpu/models/base.py).
+
+Dispatch is by exact name from an args.json 'type' + 'model' (reference
+schema). The `backend` field keeps the reference schema's values: "pallas"
+and "cuda" select the hand-written kernels (kernels/lista3d.py), "xla"
+selects the plain PyTorch loop (ops/lista.py).
+"""
+
+from __future__ import annotations
+
+import torch
+
+MODEL_REGISTRY: dict = {}
+BACKENDS = ("pallas", "cuda", "xla")
+
+
+def register(name):
+    def deco(cls):
+        MODEL_REGISTRY[name] = cls
+        return cls
+
+    return deco
+
+
+def build_model(model_type: str, model_args: dict):
+    """Construct a model from an args.json 'type' + 'model'. The 'init' key
+    (power-method init at construction in the reference) is stripped: the
+    model's init() takes it explicitly."""
+    if model_type not in MODEL_REGISTRY:
+        raise NotImplementedError(
+            f"model type {model_type!r} is not ported to cdlnet_tpu_torch yet "
+            "(see ROADMAP.md)"
+        )
+    kwargs = {k: v for k, v in model_args.items() if k != "init"}
+    return MODEL_REGISTRY[model_type](**kwargs)
+
+
+def sigma_scale(sigma, adaptive: bool, ndim: int):
+    """Threshold scale factor c = sigma/255 (0 if not adaptive or sigma None).
+
+    Accepts scalars or per-sample arrays; reshapes (N,) to (N,1,...,1) so it
+    broadcasts against (N, M, *spatial) codes.
+    """
+    if sigma is None or not adaptive:
+        return 0.0
+    if isinstance(sigma, (int, float)):
+        return float(sigma) / 255.0
+    c = torch.as_tensor(sigma, dtype=torch.float32) / 255.0
+    if c.ndim == 1:
+        c = c.reshape((-1,) + (1,) * (ndim - 1))
+    return c

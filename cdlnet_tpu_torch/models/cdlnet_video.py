@@ -1,0 +1,98 @@
+"""CDLNetVideo: 3D spatiotemporal convolutional dictionary learning network
+(counterpart of cdlnet_tpu/models/cdlnet_video.py).
+
+The LISTA loop over Conv3d/ConvTranspose3d on (N, C, D, H, W) clips.
+P is (kD, kH, kW) as nn.Conv3d reads it, so P=(7,7,5) means temporal
+extent 7 and width extent 5; an int P is cubed.
+
+Parameters, under the JAX package's params names:
+  A, B: (K, M, C, kD, kH, kW) analysis (Conv3d) / synthesis
+        (ConvTranspose3d, in=M, out=C) weights; t: (K, 2, M, 1, 1, 1).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from cdlnet_tpu_torch.core.ops import uball_project
+from cdlnet_tpu_torch.core.preprocess import post_process_3d, pre_process_3d
+from cdlnet_tpu_torch.core.solvers import power_method
+from cdlnet_tpu_torch.kernels.lista3d import lista3d_fused
+from cdlnet_tpu_torch.models.base import BACKENDS, register, sigma_scale
+from cdlnet_tpu_torch.ops.conv import conv3d, conv_transpose3d
+from cdlnet_tpu_torch.ops.lista import lista_3d
+
+
+@register("CDLNetVideo")
+class CDLNetVideo(nn.Module):
+    def __init__(self, K: int = 3, M: int = 64, P=(7, 7, 5), s: int = 1,
+                 C: int = 1, t0: float = 0.0, adaptive: bool = False,
+                 depth: int = 3, residual: bool = False, backend: str = "xla"):
+        super().__init__()
+        if residual:
+            raise NotImplementedError(
+                "CDLNetVideo residual blocks are not ported yet (see ROADMAP.md)"
+            )
+        if backend not in BACKENDS:
+            raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+        self.K, self.M, self.s, self.C = K, M, s, C
+        self.P = (P,) * 3 if isinstance(P, int) else tuple(P)
+        self.t0, self.adaptive, self.depth = t0, adaptive, depth
+        self.backend = backend
+        self.A = nn.Parameter(torch.zeros(K, M, C, *self.P))
+        self.B = nn.Parameter(torch.zeros(K, M, C, *self.P))
+        self.t = nn.Parameter(torch.zeros(K, 2, M, 1, 1, 1))
+
+    @property
+    def pad(self):
+        return (self.P[0] // 2, self.P[1] // 2, self.P[2] // 2)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator | None = None, init: bool = True):
+        """Fill the parameters: one random filter bank W shared by every
+        A_k and B_k, spectrally normalized by the power method (200
+        iterations of D D^T on a (1, C, depth, 128, 128) probe) when `init`,
+        and t = t0. Random numbers come from `generator` on the CPU, so a
+        seed gives the same weights on every device. Returns self."""
+        dev = self.A.device
+        W = torch.randn(self.M, self.C, *self.P, generator=generator).to(dev)
+        if init:
+            def DDt(x):
+                return conv_transpose3d(
+                    conv3d(x, W, stride=self.s, padding=self.pad), W,
+                    stride=self.s, padding=self.pad, output_padding=self.s - 1,
+                )
+
+            b0 = torch.rand(1, self.C, self.depth, 128, 128, generator=generator)
+            L, _, _ = power_method(DDt, b0.to(dev), num_iter=200)
+            W = W / torch.sqrt(L)
+        self.A.copy_(W.expand_as(self.A))
+        self.B.copy_(W.expand_as(self.B))
+        self.t.fill_(self.t0)
+        return self
+
+    @torch.no_grad()
+    def project(self):
+        """In place: t >= 0 and each (k, m, c) filter on the l2 unit ball
+        over (kD, kH, kW), as the JAX package's project() does."""
+        self.t.clamp_(min=0.0)
+        self.A.copy_(uball_project(self.A, axes=(3, 4, 5)))
+        self.B.copy_(uball_project(self.B, axes=(3, 4, 5)))
+        return self
+
+    def forward(self, y, sigma=None, mask=None, return_z=False):
+        """Denoise clip batch y (N, C, D, H, W). Returns (xhat, z), z the
+        final codes (N, M, D/s, H/s, W/s) when return_z, else None."""
+        yp, prm, mask = pre_process_3d(y, self.s, mask=mask)
+        c = sigma_scale(sigma, self.adaptive, 5)
+        if isinstance(c, torch.Tensor):
+            c = c.to(yp.device, yp.dtype)
+        if self.backend in ("pallas", "cuda"):
+            xphat, z = lista3d_fused(yp, self.A, self.B, self.t, c,
+                                     stride=self.s, mask=mask, return_z=return_z)
+        else:
+            z = lista_3d(yp, self.A, self.B, self.t, c, mask=mask, stride=self.s)
+            xphat = conv_transpose3d(z, self.B[0], stride=self.s, padding=self.pad,
+                                     output_padding=self.s - 1)
+        return post_process_3d(xphat, prm), (z if return_z else None)

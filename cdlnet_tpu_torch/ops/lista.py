@@ -1,0 +1,42 @@
+"""The unrolled 3D LISTA loop in plain PyTorch (counterpart of
+cdlnet_tpu/ops/lista.py::lista_3d):
+
+    z0    = ST(A0 y, tau_0)
+    z_k   = ST(z - A_k (mask * B_k z - y), tau_k),   k = 1..K-1
+    tau_k = t[k,0] + c * t[k,1]          (c = sigma/255 if adaptive else 0)
+
+This is the reference the hand kernels (kernels/lista3d.py) are held to.
+"""
+
+from __future__ import annotations
+
+from cdlnet_tpu_torch.core.ops import ST
+from cdlnet_tpu_torch.ops.conv import conv3d, conv_transpose3d
+
+
+def _threshold(t_k, c):
+    """tau_k = t[k, 0:1] + c * t[k, 1:2]; broadcasts (1,M,1,1,1) with c."""
+    return t_k[0:1] + c * t_k[1:2]
+
+
+def lista_3d(yp, A, B, t, c, mask=None, stride=1, residual=None):
+    """Run the K-iteration 3D (video) LISTA loop; returns the final codes z
+    (N, M, D/s, H/s, W/s).
+
+    yp: (N, C, D, H, W); A, B: (K, M, C, Pd, Ph, Pw); t: (K, 2, M, 1, 1, 1);
+    c: scalar or (N, 1, 1, 1, 1); mask: optional (N, C, D, H, W).
+    """
+    if residual is not None:
+        raise NotImplementedError(
+            "residual-block LISTA is not ported yet (see ROADMAP.md)"
+        )
+    Pd, Ph, Pw = A.shape[-3:]
+    pad = (Pd // 2, Ph // 2, Pw // 2)
+    z = ST(conv3d(yp, A[0], stride=stride, padding=pad), _threshold(t[0], c))
+    for k in range(1, A.shape[0]):
+        Bz = conv_transpose3d(z, B[k], stride=stride, padding=pad,
+                              output_padding=stride - 1)
+        r = Bz - yp if mask is None else mask * Bz - yp
+        z = ST(z - conv3d(r, A[k], stride=stride, padding=pad),
+               _threshold(t[k], c))
+    return z

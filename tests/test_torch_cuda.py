@@ -1,0 +1,125 @@
+"""The CUDA kernels of cdlnet_tpu_torch against their plain PyTorch versions,
+on the GPU. Every test here needs a CUDA card and skips without one.
+
+This file imports no jax, so it runs where jax is not installed; the
+repository's conftest.py imports jax, so on such a machine run
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cdlnet_tpu_torch.kernels import lista3d as L
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _setup(P, s, M, N, D, H, W, C=1, seed=0):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    pads = tuple(p // 2 for p in P)
+    geom = L.Geom(s, P, pads)
+    A = 0.1 * f(1, M, C, *P)
+    B = 0.1 * f(1, M, C, *P)
+    wa = L.prep_A2m_3d(A, s, pads)[0]
+    ws = L.prep_B2m_3d(B, s, pads)[0]
+    Cp = C * s**3
+    Dc, Hc, Wc = D // s, H // s, W // s
+    r = f(N, Cp, Dc, Hc, Wc)
+    z = f(N, M, Dc, Hc, Wc)
+    y = f(N, Cp, Dc, Hc, Wc)
+    mask = torch.from_numpy((rng.uniform(size=(N, Cp, Dc, Hc, Wc)) > 0.5).astype(np.float32))
+    tau = torch.from_numpy(rng.uniform(0.0, 0.5, (N, M)).astype(np.float32))
+    return dict(wa=wa, ws=ws, r=r, z=z, y=y, mask=mask, tau=tau,
+                geom=geom)
+
+
+SHAPES = [
+    # P, s, M, N, D, H, W, C — asymmetric taps, ragged M and code-grid
+    # widths, several colour channels (phase = channel % s^3)
+    ((7, 7, 5), 2, 13, 2, 8, 16, 16, 1),
+    ((7, 7, 5), 2, 40, 1, 16, 36, 150, 1),
+    ((5, 5, 3), 2, 32, 1, 16, 128, 128, 1),
+    ((5, 5, 3), 1, 9, 2, 6, 10, 70, 1),
+    ((5, 5, 3), 2, 6, 1, 8, 12, 20, 3),
+]
+
+
+def _rel(a, b):
+    return float((a.cpu() - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("P,s,M,N,D,H,W,C", SHAPES)
+@pytest.mark.parametrize("first", [False, True])
+def test_ana_threshold_matches_plain(cuda, P, s, M, N, D, H, W, C, first):
+    d = _setup(P, s, M, N, D, H, W, C)
+    z = None if first else d["z"]
+    ref = L.lista3d_ana_threshold_plain(d["r"], z, d["wa"], d["tau"], d["geom"])
+    got = L.lista3d_ana_threshold(
+        d["r"].to(cuda), None if z is None else z.to(cuda), d["wa"].to(cuda),
+        d["tau"].to(cuda), d["geom"])
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert _rel(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("P,s,M,N,D,H,W,C", SHAPES)
+@pytest.mark.parametrize("residual", [False, True])
+def test_syn_residual_matches_plain(cuda, P, s, M, N, D, H, W, C, residual):
+    d = _setup(P, s, M, N, D, H, W, C)
+    mask, y = (d["mask"], d["y"]) if residual else (None, None)
+    ref = L.lista3d_syn_residual_plain(d["z"], d["ws"], d["geom"], mask=mask, y=y)
+    got = L.lista3d_syn_residual(
+        d["z"].to(cuda), d["ws"].to(cuda), d["geom"],
+        mask=None if mask is None else mask.to(cuda),
+        y=None if y is None else y.to(cuda))
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert _rel(got, ref) <= 1e-5
+
+
+def test_fused_on_cuda_matches_cpu_and_counts_launches(cuda):
+    rng = np.random.default_rng(3)
+    K, M, P, s = 3, 13, (7, 7, 5), 2
+    yp = torch.from_numpy(0.3 * rng.standard_normal((2, 1, 8, 16, 16)).astype(np.float32))
+    A = torch.from_numpy(0.1 * rng.standard_normal((K, M, 1, *P)).astype(np.float32))
+    B = torch.from_numpy(0.1 * rng.standard_normal((K, M, 1, *P)).astype(np.float32))
+    t = torch.from_numpy(0.02 * np.abs(rng.standard_normal((K, 2, M, 1, 1, 1))).astype(np.float32))
+    c = torch.tensor([0.1, 0.2]).reshape(2, 1, 1, 1, 1)
+    mask = torch.from_numpy((rng.uniform(size=yp.shape) > 0.5).astype(np.float32))
+    x_ref, z_ref = L.lista3d_fused(yp, A, B, t, c, stride=s, mask=mask)
+    L.launches.clear()
+    x, z = L.lista3d_fused(*(v.to(cuda) for v in (yp, A, B, t, c)), stride=s,
+                           mask=mask.to(cuda))
+    torch.cuda.synchronize()
+    assert dict(L.launches) == {"lista3d_ana_threshold": K, "lista3d_syn_residual": K}
+    np.testing.assert_allclose(x.cpu().numpy(), x_ref.numpy(), atol=1e-4)
+    np.testing.assert_allclose(z.cpu().numpy(), z_ref.numpy(), atol=1e-4)
+
+
+def test_fused_on_cuda_refuses_grad(cuda):
+    K, M, P = 2, 4, (3, 3, 3)
+    A = torch.zeros(K, M, 1, *P, device=cuda, requires_grad=True)
+    yp = torch.zeros(1, 1, 4, 8, 8, device=cuda)
+    t = torch.zeros(K, 2, M, 1, 1, 1, device=cuda)
+    with pytest.raises(NotImplementedError):
+        L.lista3d_fused(yp, A, A.detach(), t, 0.0, stride=2)
+
+
+def test_wrapper_rejects_non_contiguous(cuda):
+    d = _setup((5, 5, 3), 2, 8, 1, 8, 16, 16)
+    r = d["r"].to(cuda).transpose(3, 4)
+    with pytest.raises(ValueError):
+        L.lista3d_ana_threshold(r, None, d["wa"].to(cuda), d["tau"].to(cuda), d["geom"])
+
