@@ -1,11 +1,11 @@
 """Build and load the hand-written CUDA kernels (kernels/csrc/*.cu).
 
-The sources compile with nvcc into one shared library with a plain C
-interface, loaded with ctypes — no PyTorch headers, so a build takes
-seconds. The library is built at first use into kernels/_build/ (listed in
-.gitignore), named by a hash of the sources and flags, so a changed source
-rebuilds and an unchanged one loads the cached file. Nothing here runs at
-import time.
+Each source compiles with its own nvcc, all started together, and the
+objects link into one shared library with a plain C interface, loaded with
+ctypes — no PyTorch headers, so a build takes seconds. The library is built
+at first use into kernels/_build/ (listed in .gitignore), named by a hash of
+the sources, headers and flags, so a changed file rebuilds and an unchanged
+one loads the cached library. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -24,15 +24,20 @@ SRC_DIR = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# entry point -> argtypes (pointers, then ints, then the stream)
+_F = ctypes.c_float
+# entry point -> argtypes (pointers, then ints and floats, then the stream)
 SIGNATURES = {
     "lista3d_ana_threshold": [_P] * 5 + [_I] * 19 + [_P],
     "lista3d_syn_residual": [_P] * 5 + [_I] * 12 + [_P],
+    "lista3d_syn_adjoint": [_P] * 7 + [_I] * 19 + [_F, _P],
+    "lista3d_syn_adjoint_parts": [_I] * 3,
+    "lista3d_wgrad": [_P] * 4 + [_I] * 12 + [_F, _P],
+    "lista3d_wgrad_splits": [_I] * 4,
 }
 
 
@@ -54,9 +59,9 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(SRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"cdlnet_kernels_{h.hexdigest()[:16]}.so"
@@ -72,23 +77,29 @@ def build() -> tuple[Path, float]:
         return so, 0.0
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())],
-            capture_output=True, text=True,
-        )
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+            for src, obj in zip(_sources(), objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]  # waits for every nvcc
+        failed = [(p.returncode, log) for p, log in zip(procs, logs) if p.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"({rc})\n{log}" for rc, log in failed))
+        lib = os.path.join(tmp, so.name)
+        proc = subprocess.run([nvcc, "-shared", "-o", lib, *objs],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+                f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
             )
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)  # atomic: a concurrent build never loads half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        so.with_suffix(".log").write_text("".join(logs))
+        os.replace(lib, so)  # atomic: a concurrent build never loads half a file
     return so, time.perf_counter() - t0
 
 

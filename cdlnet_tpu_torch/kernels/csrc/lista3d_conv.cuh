@@ -1,0 +1,378 @@
+// The stride-1 phase-domain 3D correlation shared by the forward kernels
+// (lista3d.cu) and the synthesis adjoint of the reverse pass
+// (lista3d_bwd.cu), fp32 on the CUDA cores, for Hopper (sm_90a):
+//
+//   out[n,o,d,h,w] = sum_{i,a,b,c} wt[i,a,b,c,o] * in[n,i,d+a+od,h+b+oh,w+c+ow]
+//
+// with zero outside the input volume (the reference Conv3d's zero padding,
+// handled by explicit bounds checks while staging the input tile), followed
+// by one of three fused epilogues:
+//
+//   kAnalysis:  out = ST(z - u, tau[n, o]); z == NULL reads as zeros.
+//   kSynthesis: out = [mask *] u [- y].
+//   kAdjoint:   dz = [base +] alpha * u; out = 1{z != 0} * dz, and per
+//               block and output channel the sum of -sign(z) * dz into
+//               part[block][n, o] (summed in a fixed order afterwards).
+//
+// What bounds it on this card: fp32 FMAs. At the flagship shape (M=169,
+// Cp=8, 8x64x64 code grid, 4x4x3 phase taps) one call is ~4.25 GFLOP per
+// clip in the phase form, while the code tensor is ~22 MB per clip, which
+// the 50 MB L2 mostly holds between calls. So the design keeps the FMA
+// units fed: each thread owns OT output channels x 8 output columns in
+// registers (64 accumulators), the input tile with its halo and the block's
+// weight slice are staged in shared memory per input-channel stage by
+// cp.async (double-buffered where one block fills an SM's registers, so
+// that one stage's copies fly while the previous stage computes), and each
+// (tap) step is 8 conflict-free input loads + 2 broadcast float4 weight
+// loads for 64 FMAs. The analysis and the adjoint skip each input phase's
+// structurally zero taps (36% of the phase form's FMAs at the flagship
+// shape). The synthesis has few outputs (Cp) and a long contraction
+// (M x taps), so its block splits the input channels over G thread groups
+// and sums the groups' partials in shared memory, and two blocks split the
+// channels again (atomicAdd into a zeroed output) with one pipeline buffer
+// each, so that two blocks share an SM: measured on the H100, more resident
+// warps was what moved both forward kernels. The same shared-memory pass
+// makes every epilogue store coalesced.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kPX = 8;            // output columns per thread (stride kTPX)
+constexpr int kTPX = 8;           // threads along a tile row
+constexpr int kTW = kPX * kTPX;   // tile width: 64 columns
+constexpr int kMaxSmem = 227 * 1024;
+
+enum Epilogue { kAnalysis = 0, kSynthesis = 1, kAdjoint = 2 };
+
+struct ConvArgs {
+  const float* in;     // (N, I, D, H, W)
+  const float* wt;     // (I, Qd, Qh, Qw, O)
+  float* out;          // (N, O, D, H, W)
+  const float* z;      // analysis: old codes, or NULL for zeros;
+                       // adjoint: the codes whose support masks dz
+  const float* tau;    // analysis: (N, O)
+  const float* mask;   // synthesis: (N, O, D, H, W) or NULL
+  const float* y;      // synthesis: (N, O, D, H, W) or NULL
+  const float* base;   // adjoint: (N, O, D, H, W) or NULL for zeros
+  float* part;         // adjoint: (D * tiles, N, O) per-block tau partials
+  float alpha;         // adjoint: scale of the correlation
+  int N, I, O, D, H, W;
+  int Qd, Qh, Qw;
+  int od, oh, ow;
+  // analysis and adjoint, s > 0: input channel i is stride phase i % s^3 of
+  // a stride-s conv with kernel P and padding pad, so its weights vanish
+  // outside a box of taps per dim, and the box is all the FMAs it needs
+  int s;
+  int P[3], pad[3];
+};
+
+// Row pitch of the staged input tile: the smallest p >= cols with
+// p % 32 == kTPX, so a warp (4 rows x 8 threads) reads 32 distinct banks.
+__host__ __device__ inline int row_pitch(int cols) {
+  int p = cols;
+  while ((p & 31) != kTPX) ++p;
+  return p;
+}
+
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+// One pipeline buffer (floats): a stage's input tile and weight slice.
+template <int OB, int TH, int G, int IC>
+__host__ __device__ inline int stage_floats(int Qd, int Qh, int Qw) {
+  const int stage = G * IC;
+  return round4(stage * Qd * (TH + Qh - 1) * row_pitch(kTW + Qw - 1)) +
+         round4(stage * Qd * Qh * Qw * OB);
+}
+
+// Shared memory (floats) of one block: NBUF pipeline buffers, reused
+// afterwards for the G groups' partial sums.
+template <int OB, int TH, int G, int IC, int NBUF>
+__host__ __device__ inline int smem_floats(int Qd, int Qh, int Qw) {
+  const int bufs = NBUF * stage_floats<OB, TH, G, IC>(Qd, Qh, Qw);
+  const int red = G * OB * TH * kTW;
+  return bufs > red ? bufs : red;
+}
+
+// 4-byte global -> shared copy that bypasses registers; valid == false
+// writes a zero (src-size 0), and src must then still be a mapped address.
+__device__ inline void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ inline int floordiv(int x, int y) {
+  return x >= 0 ? x / y : -((-x + y - 1) / y);
+}
+
+// Taps [lo, hi) of one dim whose phase-ph weights can be nonzero: the
+// original kernel index s * (q + q0) + ph + p must lie in [0, P).
+__device__ inline void tap_box(int s, int ph, int P, int p, int q0, int Q,
+                               int& lo, int& hi) {
+  lo = max(0, floordiv(-ph - p + s - 1, s) - q0);
+  hi = min(Q, floordiv(P - 1 - ph - p, s) - q0 + 1);
+}
+
+// One tap's operands: kPX inputs (stride kTPX, conflict-free across the
+// warp) and OT weights (two broadcast float4 loads per 8).
+template <int OT>
+__device__ inline void load_tap(float* x, float* w, const float* xs,
+                                const float* ws) {
+#pragma unroll
+  for (int p = 0; p < kPX; ++p) x[p] = xs[p * kTPX];
+#pragma unroll
+  for (int j = 0; j < OT; j += 4) {
+    const float4 v4 = *reinterpret_cast<const float4*>(ws + j);
+    w[j] = v4.x;
+    w[j + 1] = v4.y;
+    w[j + 2] = v4.z;
+    w[j + 3] = v4.w;
+  }
+}
+
+// OB output channels per block, OT per thread, TH tile rows, G input-channel
+// groups per block, IC input channels per group and stage, KS blocks that
+// split the input channels (their partial sums meet by atomicAdd in a
+// zeroed output: exact order-independence holds for KS <= 2), NBUF
+// pipeline buffers (2: the next stage's copies overlap this stage's FMAs;
+// 1: half the shared memory, so more blocks share an SM instead).
+template <int OB, int OT, int TH, int G, int IC, int KS, int NBUF, int EPI>
+__global__ void __launch_bounds__(kThreads)
+lista3d_conv(const ConvArgs a) {
+  static_assert(G * (OB / OT) * TH * kTPX == kThreads, "thread layout");
+  static_assert(OT % 4 == 0 && OB % OT == 0, "float4 weight loads");
+  static_assert(KS == 1 || (KS == 2 && EPI == kSynthesis),
+                "only the linear synthesis epilogue splits, over 2 blocks");
+  static_assert(NBUF == 1 || NBUF == 2, "one or two pipeline buffers");
+  static_assert(EPI != kAdjoint || (kThreads % OB == 0 && kThreads / OB <= 32),
+                "adjoint: a power-of-two thread group per output channel");
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+
+  const int T = a.Qd * a.Qh * a.Qw;
+  const int rows = TH + a.Qh - 1;
+  const int cols = kTW + a.Qw - 1;
+  const int pitch = row_pitch(cols);
+  const int in_ch = a.Qd * rows * pitch;  // floats per staged channel
+  const int stage = G * IC;
+
+  const int tiles_w = (a.W + kTW - 1) / kTW;
+  const int w0 = (blockIdx.x % tiles_w) * kTW;
+  const int h0 = (blockIdx.x / tiles_w) * TH;
+  const int d = blockIdx.y;
+  const int o_tiles = (a.O + OB - 1) / OB;
+  const int ks = blockIdx.z % KS;
+  const int n = blockIdx.z / KS / o_tiles;
+  const int o0 = (blockIdx.z / KS % o_tiles) * OB;
+
+  const int tid = threadIdx.x;
+  const int tx = tid % kTPX;
+  const int ty = (tid / kTPX) % TH;
+  const int oc = (tid / (kTPX * TH)) % (OB / OT);
+  const int g = tid / (kTPX * TH * (OB / OT));
+
+  float acc[OT][kPX];
+#pragma unroll
+  for (int j = 0; j < OT; ++j)
+#pragma unroll
+    for (int p = 0; p < kPX; ++p) acc[j][p] = 0.f;
+
+  const size_t plane = (size_t)a.H * a.W;
+  const float* in_n = a.in + (size_t)n * a.I * a.D * plane;
+  const int buf_floats = stage_floats<OB, TH, G, IC>(a.Qd, a.Qh, a.Qw);
+  const int w_off = round4(stage * in_ch);
+  // this block's input channels [i_begin, i_end), whole stages per split
+  const int per_split = ((a.I + stage - 1) / stage + KS - 1) / KS * stage;
+  const int i_begin = ks * per_split;
+  const int i_end = min(a.I, i_begin + per_split);
+
+  // Issue the asynchronous copies of input channels [i0, i0 + stage) into
+  // pipeline buffer b: one warp per staged row (channel, depth tap, row),
+  // lanes along it, zeros outside the volume; then the weight slice.
+  auto issue = [&](int i0, int b) {
+    float* s_in = smem + b * buf_floats;
+    float* s_w = s_in + w_off;
+    const int lines = stage * a.Qd * rows;
+    for (int line = tid / 32; line < lines; line += kThreads / 32) {
+      const int r = line % rows;
+      const int q = (line / rows) % a.Qd;
+      const int ci = line / (rows * a.Qd);
+      const int i = i0 + ci;
+      const int dd = d + q + a.od, hh = h0 + r + a.oh;
+      const bool row_ok =
+          i < i_end && dd >= 0 && dd < a.D && hh >= 0 && hh < a.H;
+      const float* src =
+          row_ok ? in_n + ((size_t)i * a.D + dd) * plane + (size_t)hh * a.W
+                 : a.in;
+      float* dst = s_in + ci * in_ch + (q * rows + r) * pitch;
+      for (int col = tid % 32; col < cols; col += 32) {
+        const int ww = w0 + col + a.ow;
+        const bool ok = row_ok && ww >= 0 && ww < a.W;
+        cp_async4(dst + col, ok ? src + ww : a.in, ok);
+      }
+    }
+    const int w_elems = stage * T * OB;
+    for (int e = tid; e < w_elems; e += kThreads) {
+      const int t = e / OB;  // ci * T + tap
+      const int og = o0 + e % OB;
+      const bool ok = i0 + t / T < i_end && og < a.O;
+      cp_async4(s_w + e, ok ? a.wt + ((size_t)i0 * T + t) * a.O + og : a.wt,
+                ok);
+    }
+    cp_async_commit();
+  };
+
+  // NBUF == 2: the copies of stage s+1 fly while stage s computes.
+  if (NBUF == 2 && i_begin < i_end) issue(i_begin, 0);
+  for (int i0 = i_begin, b = 0; i0 < i_end; i0 += stage, b ^= NBUF - 1) {
+    if (NBUF == 1) {
+      issue(i0, 0);
+      cp_async_wait<0>();
+    } else if (i0 + stage < i_end) {
+      issue(i0 + stage, b ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // stage s has landed for every thread
+    const float* s_in = smem + b * buf_floats;
+    const float* s_w = s_in + w_off;
+
+#pragma unroll
+    for (int ic = 0; ic < IC; ++ic) {
+      const int ci = g * IC + ic;
+      const float* xin = s_in + ci * in_ch + ty * pitch + tx;
+      const float* wv = s_w + ci * T * OB + oc * OT;
+      int qd0 = 0, qd1 = a.Qd, qh0 = 0, qh1 = a.Qh, qw0 = 0, qw1 = a.Qw;
+      if (EPI != kSynthesis && a.s > 0) {  // skip the phase's zero taps
+        const int ph = (i0 + ci) % (a.s * a.s * a.s);
+        tap_box(a.s, ph / (a.s * a.s), a.P[0], a.pad[0], a.od, a.Qd, qd0, qd1);
+        tap_box(a.s, ph / a.s % a.s, a.P[1], a.pad[1], a.oh, a.Qh, qh0, qh1);
+        tap_box(a.s, ph % a.s, a.P[2], a.pad[2], a.ow, a.Qw, qw0, qw1);
+      }
+      for (int q = qd0; q < qd1; ++q) {
+        for (int r = qh0; r < qh1; ++r) {
+          const float* xrow = xin + (q * rows + r) * pitch;
+          const float* wrow = wv + (q * a.Qh + r) * a.Qw * OB;
+          for (int c = qw0; c < qw1; ++c) {
+            float x[kPX], w[OT];
+            load_tap<OT>(x, w, xrow + c, wrow + c * OB);
+#pragma unroll
+            for (int j = 0; j < OT; ++j)
+#pragma unroll
+              for (int p = 0; p < kPX; ++p)
+                acc[j][p] = fmaf(w[j], x[p], acc[j][p]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // buffer b is free for the copies issued next round
+  }
+
+  // partial sums of the G groups -> shared memory (G, OB, TH, kTW)
+  float* red = smem;
+#pragma unroll
+  for (int j = 0; j < OT; ++j)
+#pragma unroll
+    for (int p = 0; p < kPX; ++p)
+      red[((g * OB + oc * OT + j) * TH + ty) * kTW + tx + p * kTPX] =
+          acc[j][p];
+  __syncthreads();
+
+  const int outs = OB * TH * kTW;
+  for (int e = tid; e < outs; e += kThreads) {
+    float u = 0.f;
+#pragma unroll
+    for (int gg = 0; gg < G; ++gg) u += red[gg * outs + e];
+    const int col = e % kTW;
+    const int r = (e / kTW) % TH;
+    const int og = o0 + e / (kTW * TH);
+    const int hh = h0 + r, ww = w0 + col;
+    const bool inside = og < a.O && hh < a.H && ww < a.W;
+    // adjoint: red[e] (read only by this thread) now takes -sign(z) * dz
+    if (EPI == kAdjoint) red[e] = 0.f;
+    if (!inside) continue;
+    const size_t idx = (((size_t)n * a.O + og) * a.D + d) * plane +
+                       (size_t)hh * a.W + ww;
+    if (EPI == kAnalysis) {
+      const float v = (a.z ? a.z[idx] : 0.f) - u;
+      const float m = fmaxf(fabsf(v) - a.tau[n * a.O + og], 0.f);
+      a.out[idx] = v > 0.f ? m : (v < 0.f ? -m : 0.f);  // sign(v) * m
+    } else if (EPI == kAdjoint) {
+      const float dz = (a.base ? a.base[idx] : 0.f) + a.alpha * u;
+      const float zc = a.z[idx];
+      a.out[idx] = zc != 0.f ? dz : 0.f;
+      red[e] = zc > 0.f ? -dz : (zc < 0.f ? dz : 0.f);
+    } else {
+      if (a.mask) u *= a.mask[idx];
+      if (a.y && ks == 0) u -= a.y[idx];
+      if (KS == 1)
+        a.out[idx] = u;
+      else
+        atomicAdd(a.out + idx, u);
+    }
+  }
+
+  if (EPI == kAdjoint) {
+    // per output channel: TPC threads sum its TH x kTW terms in a fixed
+    // order, then a fixed shuffle tree combines them (deterministic)
+    __syncthreads();
+    constexpr int TPC = kThreads / OB;
+    const int per = TH * kTW;
+    const int ol = tid / TPC, j = tid % TPC;
+    float sum = 0.f;
+    for (int e = j; e < per; e += TPC) sum += red[ol * per + e];
+#pragma unroll
+    for (int off = TPC / 2; off > 0; off >>= 1)
+      sum += __shfl_down_sync(0xffffffffu, sum, off, TPC);
+    if (j == 0 && o0 + ol < a.O) {
+      const size_t blk = (size_t)d * gridDim.x + blockIdx.x;
+      a.part[(blk * a.N + n) * a.O + o0 + ol] = sum;
+    }
+  }
+}
+
+template <int OB, int OT, int TH, int G, int IC, int KS, int NBUF, int EPI>
+int launch(const ConvArgs& a, cudaStream_t stream) {
+  if (a.N <= 0 || a.I <= 0 || a.O <= 0 || a.D <= 0 || a.H <= 0 || a.W <= 0 ||
+      a.Qd <= 0 || a.Qh <= 0 || a.Qw <= 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(float) *
+      (size_t)smem_floats<OB, TH, G, IC, NBUF>(a.Qd, a.Qh, a.Qw);
+  const int tiles = ((a.W + kTW - 1) / kTW) * ((a.H + TH - 1) / TH);
+  const int zdim = a.N * ((a.O + OB - 1) / OB) * KS;
+  if (smem > (size_t)kMaxSmem || a.D > 65535 || zdim > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  auto kern = lista3d_conv<OB, OT, TH, G, IC, KS, NBUF, EPI>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (KS > 1) {  // the split blocks accumulate into a zeroed output
+    err = cudaMemsetAsync(a.out, 0,
+                          sizeof(float) * a.N * a.O * a.D * (size_t)a.H * a.W,
+                          stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kern<<<dim3(tiles, a.D, zdim), kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The analysis configuration, shared by lista3d_ana_threshold and the
+// adjoint: 32 codes x (8 rows x 64 columns) per block, 8 codes x 8 columns
+// a thread, two pipeline buffers.
+constexpr int kAnaOB = 32, kAnaOT = 8, kAnaTH = 8, kAnaIC = 2;
+
+}  // namespace

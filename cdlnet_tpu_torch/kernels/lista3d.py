@@ -17,7 +17,8 @@ contiguous, fp32.
 
 Each wrapper runs its CUDA kernel on CUDA tensors, or raises; it runs the
 plain PyTorch version beside it (the same function on F.conv3d over the
-phase channels) only for CPU tensors. `launches` counts kernel launches.
+phase channels) only for CPU tensors. `launches` counts kernel launches,
+those of the reverse kernels (kernels/lista3d_bwd.py) too.
 """
 
 from __future__ import annotations
@@ -179,33 +180,19 @@ def lista3d_syn_residual(z, ws, geom, mask=None, y=None):
     return out
 
 
-def lista3d_fused(yp, A, B, t, c, stride=1, mask=None, return_z=True):
-    """Fused 3D LISTA + final dictionary synthesis.
-
-    yp: (N, C, D, H, W) pre-processed clip batch (D, H, W divisible by
-    stride); A, B: (K, M, C, Pd, Ph, Pw); t: (K, 2, M, 1, 1, 1); c: scalar
-    or (N, 1, 1, 1, 1). Returns (xphat (N, C, D, H, W), z (N, M, Dc, Hc, Wc)
-    or None) — ops.lista.lista_3d + conv_transpose3d(B[0]) to fp32
-    reassociation tolerance. Inference only on CUDA: the reverse kernels are
-    not ported yet.
-    """
-    if yp.device.type == "cuda" and torch.is_grad_enabled() and any(
-        p.requires_grad for p in (A, B, t)
-    ):
-        raise NotImplementedError(
-            "lista3d_fused has no backward on CUDA yet (the reverse kernel is "
-            "still to be ported, see ROADMAP.md): run under torch.no_grad() or "
-            "torch.inference_mode()"
-        )
+def phase_operands(yp, A, B, t, c, stride, mask=None):
+    """The fused loop's operands in the phase domain: (y2, m2, wa, ws, tau,
+    geom) with y2 = space_to_depth(yp), m2 the mask's (or None), the banks
+    wa = prep_A2m_3d(A) (K, Cp, Qd, Qh, Qw, M) and ws = prep_B2m_3d(B)
+    (K, M, Qd, Qh, Qw, Cp), and tau[k, n] = t[k,0] + c[n] * t[k,1] (K, N, M).
+    Differentiable in A, B and t (gathers, flips and products)."""
     N, C, D, H, W = yp.shape
-    K, M = A.shape[0], A.shape[1]
     P = A.shape[-3:]
     s = stride
     if D % s or H % s or W % s:
         raise ValueError(f"clip {(D, H, W)} is not divisible by stride {s}")
     pads = tuple(p // 2 for p in P)
     geom = Geom(s, tuple(P), pads)
-
     wa = prep_A2m_3d(A, s, pads)
     ws = prep_B2m_3d(B, s, pads)
     y2 = pp.space_to_depth(yp, s, 3).contiguous()  # (N, Cp, Dc, Hc, Wc)
@@ -219,11 +206,46 @@ def lista3d_fused(yp, A, B, t, c, stride=1, mask=None, return_z=True):
     # tau[k] = t[k,0] + c * t[k,1] per sample: (K, N, M)
     tau = (t[None, :, 0, :, 0, 0, 0] + c_arr[:, None, None] * t[None, :, 1, :, 0, 0, 0])
     tau = tau.transpose(0, 1).contiguous()
+    return y2, m2, wa, ws, tau, geom
 
+
+def lista3d_loop(y2, m2, wa, ws, tau, geom, return_hists=False):
+    """The 2K kernel launches of the fused loop on phase-domain operands
+    (phase_operands). Returns (x2, z, hists): x2 = B_0^T z (N, Cp, Dc, Hc,
+    Wc), z the final codes, and with return_hists the fp32 histories
+    (z_hist (K, N, M, Dc, Hc, Wc) of every z_k, r_hist (K-1, N, Cp, Dc, Hc,
+    Wc) of every residual r_k) that the reverse pass reads, else None."""
+    K = wa.shape[0]
     z = lista3d_ana_threshold(-y2, None, wa[0], tau[0], geom)
+    zs, rs = [z], []
     for k in range(1, K):
         r = lista3d_syn_residual(z, ws[k], geom, mask=m2, y=y2)
         z = lista3d_ana_threshold(r, z, wa[k], tau[k], geom)
+        if return_hists:
+            zs.append(z)
+            rs.append(r)
     x2 = lista3d_syn_residual(z, ws[0], geom)
-    xphat = pp.depth_to_space(x2, s, 3, C)
+    if not return_hists:
+        return x2, z, None
+    r_hist = torch.stack(rs) if rs else y2.new_empty((0, *y2.shape))
+    return x2, z, (torch.stack(zs), r_hist)
+
+
+def lista3d_fused(yp, A, B, t, c, stride=1, mask=None, return_z=True,
+                  return_hists=False):
+    """Fused 3D LISTA + final dictionary synthesis.
+
+    yp: (N, C, D, H, W) pre-processed clip batch (D, H, W divisible by
+    stride); A, B: (K, M, C, Pd, Ph, Pw); t: (K, 2, M, 1, 1, 1); c: scalar
+    or (N, 1, 1, 1, 1). Returns (xphat (N, C, D, H, W), z (N, M, Dc, Hc, Wc)
+    or None) — ops.lista.lista_3d + conv_transpose3d(B[0]) to fp32
+    reassociation tolerance — and with return_hists a third item, the fp32
+    histories (z_hist, r_hist) of lista3d_loop. No gradient flows through
+    the kernels here: training goes through autodiff.lista3d_fused_diff.
+    """
+    y2, m2, wa, ws, tau, geom = phase_operands(yp, A, B, t, c, stride, mask)
+    x2, z, hists = lista3d_loop(y2, m2, wa, ws, tau, geom, return_hists)
+    xphat = pp.depth_to_space(x2, stride, 3, yp.shape[1])
+    if return_hists:
+        return xphat, (z if return_z else None), hists
     return xphat, (z if return_z else None)

@@ -1,0 +1,192 @@
+"""The reverse pass of the fused 3D LISTA on hand-written CUDA kernels
+(counterpart of cdlnet_tpu/kernels/lista3d_bwd.py and
+lista3d_bwd_resident.py).
+
+The forward (kernels/lista3d.py) in the stride-phase domain, with
+corr(x, w, off)[n,o,p] = sum_{i,q} w[i,q,o] x[n,i,p+q+off]:
+
+  z_0   = ST(-corr(-y2, wa_0, off_a), tau_0)
+  r_k   = m * corr(z_{k-1}, ws_k, off_s) - y2,   k = 1..K-1
+  z_k   = ST(z_{k-1} - corr(r_k, wa_k, off_a), tau_k)
+  x2    = corr(z_{K-1}, ws_0, off_s)
+
+The adjoint of corr(., w, off) in its input is corr(., w*, -(Q-1) - off)
+with w*[o,q,i] = w[i,Q-1-q,o] (adjoint_bank): the analysis's adjoint is a
+synthesis-form correlation at off_s and the synthesis's an analysis-form
+one at off_a. With dv_k = 1{z_k != 0} dz_k, the soft threshold's
+subgradient read off the stored code, the reverse pass is
+
+  init:   dz_{K-1} = ws_0*(dx2);              dws_0 = dx2 (*) z_{K-1}
+  k = K-1..1:
+          g         = m * wa_k*(dv_k)            (lista3d_syn_residual)
+          dwa_k     = -dv_k (*) r_k              (lista3d_wgrad)
+          dws_k     = -g (*) z_{k-1}             (lista3d_wgrad)
+          dz_{k-1}  = dv_k - ws_k*(g)            (lista3d_syn_adjoint)
+          dtau_{k-1} = -sum_p sign(z_{k-1}) dz_{k-1}
+  k = 0:  dwa_0 = dv_0 (*) y2
+
+where y (*) x is the weight gradient of the bank of corr(x, ., off) whose
+output's cotangent is y, dtau_{K-1} comes from the init step, and the sign
+of g goes into the alpha of its two consumers. A synthesis bank's gradient
+y (*) z at off_s is the adjoint_bank of z (*) y at off_a, so both weight
+gradients run as products with the M code channels as outputs (the
+kernel's efficient shape: its output channels are its tile's columns).
+Per training step of K iterations that is K syn_adjoint, K-1 syn_residual
+and 2K wgrad launches. The cotangents of the input, sigma and
+mask are zero by construction: training differentiates with respect to
+the parameters only (kernels/autodiff.py).
+
+Each wrapper runs its CUDA kernel (kernels/csrc/lista3d_bwd.cu) on CUDA
+tensors, or raises; it runs the plain PyTorch version beside it only for
+CPU tensors, and counts its launches in lista3d.launches.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from cdlnet_tpu_torch.kernels.lista3d import (
+    _check,
+    _correlate_plain,
+    _ptr,
+    _raise_on,
+    launches,
+    lista3d_syn_residual,
+)
+
+
+def adjoint_bank(w: torch.Tensor) -> torch.Tensor:
+    """w* of a correlation bank (..., I, Qd, Qh, Qw, O): taps flipped, I and
+    O swapped, (..., O, Qd, Qh, Qw, I), contiguous. corr(., w*, -(Q-1) -
+    off) is the adjoint of corr(., w, off); prep_B2m_3d(W) ==
+    adjoint_bank(prep_A2m_3d(W)) and the other way round."""
+    nd = w.dim()
+    lead = list(range(nd - 5))
+    return w.flip(nd - 4, nd - 3, nd - 2).permute(
+        *lead, nd - 1, nd - 4, nd - 3, nd - 2, nd - 5).contiguous()
+
+
+def lista3d_syn_adjoint_plain(g, wt, z, geom, base=None, alpha=1.0):
+    """Plain version of lista3d_syn_adjoint."""
+    dz = alpha * _correlate_plain(g, wt, geom.off_a)
+    if base is not None:
+        dz = base + dz
+    dv = torch.where(z != 0, dz, torch.zeros_like(dz))
+    dtau = -(torch.sign(z) * dz).sum(dim=(2, 3, 4))
+    return dv, dtau
+
+
+def lista3d_wgrad_plain(x, y, taps, off, alpha=1.0):
+    """Plain version of lista3d_wgrad: the conv3d of the padded x with y as
+    its filters, batch and channels swapped."""
+    pad = []
+    for q, o in zip(reversed(taps), reversed(off)):  # F.pad order: W, H, D
+        pad += [-o, q - 1 + o]
+    xp = F.pad(x, pad).transpose(0, 1)               # (I, N, ...)
+    dw = F.conv3d(xp, y.transpose(0, 1))             # (I, O, Qd, Qh, Qw)
+    return alpha * dw.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def lista3d_syn_adjoint(g, wt, z, geom, base=None, alpha=1.0):
+    """dz = [base +] alpha * corr(g, wt, off_a): the synthesis adjoint, and
+    the soft threshold's subgradient at the codes z.
+
+    g: (N, Cp, Dc, Hc, Wc) cotangent of a synthesis output; wt: (Cp, Qd,
+    Qh, Qw, M), B_k's unflipped phase bank (adjoint_bank of its synthesis
+    bank); z: (N, M, Dc, Hc, Wc) the codes; base: (N, M, Dc, Hc, Wc) or
+    None. Returns (dv = 1{z != 0} dz, dtau (N, M) = -sum sign(z) dz over
+    the code grid), the per-block sums added in a fixed order.
+    """
+    if g.device.type == "cpu":
+        return lista3d_syn_adjoint_plain(g, wt, z, geom, base=base, alpha=alpha)
+    from cdlnet_tpu_torch.kernels._build import library
+
+    lib = library()
+    N, Cp, D, H, W = g.shape
+    M = wt.shape[-1]
+    Qd, Qh, Qw = wt.shape[1:4]
+    _check("g", g, g.shape)
+    _check("wt", wt, (Cp, Qd, Qh, Qw, M))
+    _check("z", z, (N, M, D, H, W))
+    if base is not None:
+        _check("base", base, (N, M, D, H, W))
+    dv = torch.empty_like(z)
+    dtau = torch.empty((N, M), dtype=g.dtype, device=g.device)
+    work = torch.empty((lib.lista3d_syn_adjoint_parts(D, H, W), N, M),
+                       dtype=g.dtype, device=g.device)
+    err = lib.lista3d_syn_adjoint(
+        _ptr(g), _ptr(wt), _ptr(base), _ptr(z), _ptr(work), _ptr(dv), _ptr(dtau),
+        N, Cp, M, D, H, W, Qd, Qh, Qw, *geom.off_a, geom.s, *geom.P, *geom.pads,
+        float(alpha), torch.cuda.current_stream(g.device).cuda_stream,
+    )
+    _raise_on(err, "lista3d_syn_adjoint")
+    launches["lista3d_syn_adjoint"] += 1
+    return dv, dtau
+
+
+def lista3d_wgrad(x, y, taps, off, alpha=1.0):
+    """dw[i, q, o] = alpha * sum_{n,p} x[n, i, p+q+off] y[n, o, p]: the
+    gradient of the bank of corr(x, ., off) whose output's cotangent is y.
+
+    x: (N, I, Dc, Hc, Wc); y: (N, O, Dc, Hc, Wc); taps: (Qd, Qh, Qw); off:
+    per-dim tap offsets. Returns dw (I, Qd, Qh, Qw, O), the bank layout;
+    the cross-block reduction runs in a fixed order (bitwise repeatable).
+    """
+    if x.device.type == "cpu":
+        return lista3d_wgrad_plain(x, y, taps, off, alpha=alpha)
+    from cdlnet_tpu_torch.kernels._build import library
+
+    lib = library()
+    N, I, D, H, W = x.shape
+    O = y.shape[1]
+    Qd, Qh, Qw = taps
+    _check("x", x, x.shape)
+    _check("y", y, (N, O, D, H, W))
+    splits = lib.lista3d_wgrad_splits(I, Qd * Qh * Qw, O, N * D * H * W)
+    if splits <= 0:
+        raise ValueError(f"lista3d_wgrad: no split of {(I, taps, O, x.shape)}")
+    dw = torch.empty((I, Qd, Qh, Qw, O), dtype=x.dtype, device=x.device)
+    work = torch.empty((splits, dw.numel()), dtype=x.dtype, device=x.device)
+    err = lib.lista3d_wgrad(
+        _ptr(x), _ptr(y), _ptr(work), _ptr(dw),
+        N, I, O, D, H, W, Qd, Qh, Qw, *off,
+        float(alpha), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _raise_on(err, "lista3d_wgrad")
+    launches["lista3d_wgrad"] += 1
+    return dw
+
+
+def lista3d_fused_bwd(dx2, y2, m2, banks, tau, z_hist, r_hist, geom):
+    """The reverse loop of the fused 3D LISTA over its stored histories.
+
+    dx2: (N, Cp, Dc, Hc, Wc) cotangent of x2; y2, m2 (or None): the
+    forward's phase-domain input and mask; banks: (wa, ws) as from
+    lista3d.phase_operands; tau: (K, N, M) (its shape only is read: the
+    subgradients come from the codes); z_hist, r_hist: from
+    lista3d.lista3d_loop(return_hists=True). Returns (dwa, dws, dtau), the
+    gradients of wa, ws and tau.
+    """
+    wa, ws = banks
+    K = wa.shape[0]
+    taps = tuple(wa.shape[2:5])
+    wa_adj = adjoint_bank(wa)  # (K, M, Q, Cp): A_k* as a synthesis bank
+    ws_adj = adjoint_bank(ws)  # (K, Cp, Q, M): B_k* as an analysis bank
+    dwa = torch.empty_like(wa)
+    dws = torch.empty_like(ws)
+    dtau = torch.empty_like(tau)
+
+    def syn_wgrad(z, g, alpha):  # == lista3d_wgrad(z, g, taps, geom.off_s, alpha)
+        return adjoint_bank(lista3d_wgrad(g, z, taps, geom.off_a, alpha=alpha))
+
+    dv, dtau[K - 1] = lista3d_syn_adjoint(dx2, ws_adj[0], z_hist[K - 1], geom)
+    dws[0] = syn_wgrad(z_hist[K - 1], dx2, 1.0)
+    for k in range(K - 1, 0, -1):
+        dwa[k] = lista3d_wgrad(r_hist[k - 1], dv, taps, geom.off_a, alpha=-1.0)
+        g = lista3d_syn_residual(dv, wa_adj[k], geom, mask=m2)
+        dws[k] = syn_wgrad(z_hist[k - 1], g, -1.0)
+        dv, dtau[k - 1] = lista3d_syn_adjoint(g, ws_adj[k], z_hist[k - 1], geom,
+                                              base=dv, alpha=-1.0)
+    dwa[0] = lista3d_wgrad(y2, dv, taps, geom.off_a)
+    return dwa, dws, dtau

@@ -18,6 +18,7 @@ from torch import nn
 from cdlnet_tpu_torch.core.ops import uball_project
 from cdlnet_tpu_torch.core.preprocess import post_process_3d, pre_process_3d
 from cdlnet_tpu_torch.core.solvers import power_method
+from cdlnet_tpu_torch.kernels.autodiff import RETURN_Z_HINT, lista3d_fused_diff
 from cdlnet_tpu_torch.kernels.lista3d import lista3d_fused
 from cdlnet_tpu_torch.models.base import BACKENDS, register, sigma_scale
 from cdlnet_tpu_torch.ops.conv import conv3d, conv_transpose3d
@@ -83,12 +84,23 @@ class CDLNetVideo(nn.Module):
 
     def forward(self, y, sigma=None, mask=None, return_z=False):
         """Denoise clip batch y (N, C, D, H, W). Returns (xhat, z), z the
-        final codes (N, M, D/s, H/s, W/s) when return_z, else None."""
+        final codes (N, M, D/s, H/s, W/s) when return_z, else None.
+
+        On backend "pallas"/"cuda" with gradients enabled the forward is
+        lista3d_fused_diff (kernel forward with histories, the reverse
+        kernels as its backward; JAX's apply(train=True)); return_z=True
+        then raises, since the code output has no gradient."""
         yp, prm, mask = pre_process_3d(y, self.s, mask=mask)
         c = sigma_scale(sigma, self.adaptive, 5)
         if isinstance(c, torch.Tensor):
             c = c.to(yp.device, yp.dtype)
-        if self.backend in ("pallas", "cuda"):
+        if self.backend in ("pallas", "cuda") and torch.is_grad_enabled():
+            if return_z:
+                raise NotImplementedError(RETURN_Z_HINT)
+            xphat = lista3d_fused_diff(yp, self.A, self.B, self.t, c,
+                                       stride=self.s, mask=mask)
+            z = None
+        elif self.backend in ("pallas", "cuda"):
             xphat, z = lista3d_fused(yp, self.A, self.B, self.t, c,
                                      stride=self.s, mask=mask, return_z=return_z)
         else:

@@ -21,6 +21,7 @@ import torch
 from cdlnet_tpu_torch.compat.jax_params import load_jax_params
 from cdlnet_tpu_torch.models.base import build_model
 from cdlnet_tpu_torch.train.checkpoint import load_params
+from cdlnet_tpu_torch.utils import default_device
 
 _NOT_PORTED = "is not ported to cdlnet_tpu_torch yet (see ROADMAP.md)"
 
@@ -32,7 +33,7 @@ def _bucket(n: int, b: int) -> int:
 class Denoiser:
     """Serving wrapper around a model whose parameters are loaded.
 
-    >>> d = Denoiser.from_dir("examples/cdlnet-video-demo", device="cuda")
+    >>> d = Denoiser.from_dir("examples/cdlnet-video-demo")  # on the card
     >>> out = d.denoise_video(frames, sigma=25)            # (D, H, W)
     >>> out = d.denoise_video(clips, sigma=[15, 25])       # per-sample sigma
     """
@@ -46,14 +47,14 @@ class Denoiser:
 
     @classmethod
     def from_args(cls, args: dict, backend: str = "pallas", device=None, **kw):
-        """Build from a reference-schema args dict. With paths.ckpt the
-        parameters load from that .npz bundle; without it they come from
-        the model's init (power method when model.init is true), seed 0."""
+        """Build from a reference-schema args dict, on `device`: the card
+        when None (no card raises; pass device="cpu" for the CPU). With
+        paths.ckpt the parameters load from that .npz bundle; without it
+        they come from the model's init (power method when model.init is
+        true), seed 0."""
         model_args = dict(args["model"], backend=backend)
         want_init = model_args.pop("init", True)
-        model = build_model(args["type"], model_args)
-        if device is not None:
-            model.to(device)
+        model = build_model(args["type"], model_args).to(default_device(device))
         ckpt = (args.get("paths") or {}).get("ckpt")
         if ckpt is None:
             model.init(torch.Generator().manual_seed(0), init=want_init)

@@ -143,12 +143,22 @@ def test_demo_denoiser_matches_jax(tmp_path):
                              np.linspace(-np.pi, np.pi, 64), indexing="ij")
     clean = (0.5 + 0.3 * np.sin(2 * xx + 1) * np.cos(1.5 * yy) * np.cos(tt)).astype(np.float32)
     noisy = (clean + 25 / 255 * rng.standard_normal(clean.shape)).astype(np.float32)
-    ours = Denoiser.from_dir(str(dst)).denoise_video(noisy[None, None], sigma=25)
+    ours = Denoiser.from_dir(str(dst), device="cpu").denoise_video(noisy[None, None],
+                                                                   sigma=25)
     theirs = JaxDenoiser.from_dir(str(dst), backend="xla").denoise_video(
         noisy[None, None], sigma=25)
     assert ours.shape == (1, 1, 16, 64, 64)
     np.testing.assert_allclose(ours, theirs, atol=1e-4)
     assert np.mean((ours - clean) ** 2) < 0.5 * np.mean((noisy - clean) ** 2)
+
+
+def test_denoiser_defaults_to_the_card(monkeypatch):
+    """With no device the Denoiser runs on the card, and without one it
+    raises instead of taking the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Denoiser.from_dir(DEMO)
+    assert Denoiser.from_dir(DEMO, device="cpu").device.type == "cpu"
 
 
 def _tiny_denoiser(backend="pallas"):

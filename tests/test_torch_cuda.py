@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from cdlnet_tpu_torch.kernels import lista3d as L
+from cdlnet_tpu_torch.kernels import lista3d_bwd as LB
+from cdlnet_tpu_torch.kernels.autodiff import lista3d_fused_diff
 
 pytestmark = pytest.mark.cuda
 
@@ -34,15 +36,19 @@ def _setup(P, s, M, N, D, H, W, C=1, seed=0):
     B = 0.1 * f(1, M, C, *P)
     wa = L.prep_A2m_3d(A, s, pads)[0]
     ws = L.prep_B2m_3d(B, s, pads)[0]
+    wa_adj = LB.adjoint_bank(wa)  # A's flipped bank: the analysis adjoint
+    ws_adj = LB.adjoint_bank(ws)  # B's unflipped bank: the synthesis adjoint
     Cp = C * s**3
     Dc, Hc, Wc = D // s, H // s, W // s
     r = f(N, Cp, Dc, Hc, Wc)
     z = f(N, M, Dc, Hc, Wc)
+    z = torch.where(z.abs() < 0.5, torch.zeros_like(z), z)  # sparse codes
     y = f(N, Cp, Dc, Hc, Wc)
     mask = torch.from_numpy((rng.uniform(size=(N, Cp, Dc, Hc, Wc)) > 0.5).astype(np.float32))
     tau = torch.from_numpy(rng.uniform(0.0, 0.5, (N, M)).astype(np.float32))
-    return dict(wa=wa, ws=ws, r=r, z=z, y=y, mask=mask, tau=tau,
-                geom=geom)
+    return dict(wa=wa, ws=ws, wa_adj=wa_adj, ws_adj=ws_adj, r=r, z=z, y=y,
+                mask=mask, tau=tau, geom=geom, base=f(N, M, Dc, Hc, Wc),
+                taps=tuple(wa.shape[1:4]))
 
 
 SHAPES = [
@@ -108,13 +114,78 @@ def test_fused_on_cuda_matches_cpu_and_counts_launches(cuda):
     np.testing.assert_allclose(z.cpu().numpy(), z_ref.numpy(), atol=1e-4)
 
 
-def test_fused_on_cuda_refuses_grad(cuda):
-    K, M, P = 2, 4, (3, 3, 3)
-    A = torch.zeros(K, M, 1, *P, device=cuda, requires_grad=True)
-    yp = torch.zeros(1, 1, 4, 8, 8, device=cuda)
-    t = torch.zeros(K, 2, M, 1, 1, 1, device=cuda)
-    with pytest.raises(NotImplementedError):
-        L.lista3d_fused(yp, A, A.detach(), t, 0.0, stride=2)
+def test_fused_grad_on_cuda_matches_cpu_and_counts_launches(cuda):
+    """The grad-enabled kernel forward and its reverse kernels give the
+    CPU reverse loop's gradients, with 2K + K + (K-1) + 2K launches."""
+    rng = np.random.default_rng(4)
+    K, M, P, s = 3, 13, (7, 7, 5), 2
+    f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+    yp, tgt = 0.3 * f(2, 1, 8, 16, 16), f(2, 1, 8, 16, 16)
+    A, B = 0.1 * f(K, M, 1, *P), 0.1 * f(K, M, 1, *P)
+    t = 0.02 * f(K, 2, M, 1, 1, 1).abs()
+    c = torch.tensor([0.1, 0.2]).reshape(2, 1, 1, 1, 1)
+    mask = (f(*yp.shape) > 0).float()
+
+    def grads(dev):
+        prm = [v.to(dev).requires_grad_() for v in (A, B, t)]
+        x = lista3d_fused_diff(yp.to(dev), *prm, c.to(dev), stride=s, mask=mask.to(dev))
+        loss = ((x - tgt.to(dev)) ** 2).mean()
+        return [g.cpu() for g in torch.autograd.grad(loss, prm)]
+
+    want = grads("cpu")
+    L.launches.clear()
+    got = grads(cuda)
+    assert dict(L.launches) == {"lista3d_ana_threshold": K,
+                                "lista3d_syn_residual": 2 * K - 1,
+                                "lista3d_syn_adjoint": K, "lista3d_wgrad": 2 * K}
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= 1e-4
+
+
+@pytest.mark.parametrize("P,s,M,N,D,H,W,C", SHAPES)
+@pytest.mark.parametrize("with_base,alpha", [(False, 1.0), (True, -1.0), (True, 1.0)])
+def test_syn_adjoint_matches_plain(cuda, P, s, M, N, D, H, W, C, with_base, alpha):
+    d = _setup(P, s, M, N, D, H, W, C)
+    base = d["base"] if with_base else None
+    ref = LB.lista3d_syn_adjoint_plain(d["y"], d["ws_adj"], d["z"], d["geom"],
+                                       base=base, alpha=alpha)
+    got = LB.lista3d_syn_adjoint(
+        d["y"].to(cuda), d["ws_adj"].to(cuda), d["z"].to(cuda), d["geom"],
+        base=None if base is None else base.to(cuda), alpha=alpha)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert _rel(g, r) <= 1e-5
+
+
+@pytest.mark.parametrize("P,s,M,N,D,H,W,C", SHAPES)
+@pytest.mark.parametrize("form", ["dA", "dB", "dB-swapped"])
+def test_wgrad_matches_plain(cuda, P, s, M, N, D, H, W, C, form):
+    d = _setup(P, s, M, N, D, H, W, C)
+    geom = d["geom"]
+    # dA: x = r, y = dv at the analysis offsets; dB: x = z, y = g at the
+    # synthesis offsets (few output channels); dB-swapped: the form the
+    # reverse loop runs, x = g, y = z at the analysis offsets
+    x, y, off = {"dA": (d["r"], d["z"], geom.off_a),
+                 "dB": (d["z"], d["y"], geom.off_s),
+                 "dB-swapped": (d["y"], d["z"], geom.off_a)}[form]
+    ref = LB.lista3d_wgrad_plain(x, y, d["taps"], off, alpha=-1.0)
+    got = LB.lista3d_wgrad(x.to(cuda), y.to(cuda), d["taps"], off, alpha=-1.0)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert _rel(got, ref) <= 1e-5
+
+
+def test_reverse_kernels_are_deterministic(cuda):
+    d = _setup((7, 7, 5), 2, 169, 2, 16, 128, 128)
+    z, r, y = d["z"].to(cuda), d["r"].to(cuda), d["y"].to(cuda)
+    ws_adj = d["ws_adj"].to(cuda)
+    runs = [(LB.lista3d_wgrad(r, z, d["taps"], d["geom"].off_a),
+             LB.lista3d_wgrad(z, y, d["taps"], d["geom"].off_s),
+             *LB.lista3d_syn_adjoint(y, ws_adj, z, d["geom"], base=z, alpha=-1.0))
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_wrapper_rejects_non_contiguous(cuda):

@@ -13,6 +13,7 @@ from cdlnet_tpu.ops.lista import lista_3d as jax_lista_3d
 from cdlnet_tpu_torch.core.ops import ST
 from cdlnet_tpu_torch.kernels import _build
 from cdlnet_tpu_torch.kernels import lista3d as L
+from cdlnet_tpu_torch.kernels import lista3d_bwd as LB
 from cdlnet_tpu_torch.ops import polyphase as pp
 from cdlnet_tpu_torch.ops.conv import conv3d, conv_transpose3d
 
@@ -117,7 +118,7 @@ def test_cpu_calls_do_not_count_launches():
     assert sum(L.launches.values()) == 0
 
 
-@pytest.mark.parametrize("which", ["ana", "syn"])
+@pytest.mark.parametrize("which", ["ana", "syn", "syn_adjoint", "wgrad"])
 def test_non_cpu_tensor_without_library_raises(which, monkeypatch, tmp_path):
     """A tensor off the CPU never takes the plain version: with no kernel
     library to be had, the wrapper raises instead of falling back."""
@@ -132,8 +133,14 @@ def test_non_cpu_tensor_without_library_raises(which, monkeypatch, tmp_path):
             if which == "ana":
                 L.lista3d_ana_threshold(meta(1, 8, 4, 8, 8), None,
                                         meta(8, 4, 4, 3, 5), meta(1, 5), geom)
-            else:
+            elif which == "syn":
                 L.lista3d_syn_residual(meta(1, 5, 4, 8, 8), meta(5, 4, 4, 3, 8), geom)
+            elif which == "syn_adjoint":
+                LB.lista3d_syn_adjoint(meta(1, 8, 4, 8, 8), meta(8, 4, 4, 3, 5),
+                                       meta(1, 5, 4, 8, 8), geom)
+            else:
+                LB.lista3d_wgrad(meta(1, 8, 4, 8, 8), meta(1, 5, 4, 8, 8),
+                                 (4, 4, 3), geom.off_a)
     finally:
         _build.library.cache_clear()
 
