@@ -28,17 +28,9 @@ def awgn3d(x: torch.Tensor, noise_std, generator: torch.Generator | None = None)
     return x + noise * (sigma / 255.0), sigma
 
 
-def gen_bayer_mask3d(x: torch.Tensor, degenerate: bool = True) -> torch.Tensor:
+def gen_bayer_mask3d(x: torch.Tensor) -> torch.Tensor:
     """Bayer mask for (N, C, D, H, W) video batches.
 
     The reference's version (utils.py:21-27) sets every pixel of every
-    channel to 1, so 3D demosaicing is wired off; degenerate=True
-    replicates that, degenerate=False applies a per-frame RGGB pattern."""
-    if degenerate:
-        return torch.ones_like(x)
-    m = torch.zeros_like(x)
-    m[:, 0, :, 0::2, 0::2] = 1
-    m[:, 1, :, 0::2, 1::2] = 1
-    m[:, 1, :, 1::2, 0::2] = 1
-    m[:, 2, :, 1::2, 1::2] = 1
-    return m
+    channel to 1, so 3D demosaicing is wired off; this replicates that."""
+    return torch.ones_like(x)

@@ -113,20 +113,34 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _out(out, shape, like):
+    """The kernel's output: `out` after checking it, else a new tensor."""
+    if out is None:
+        return torch.empty(shape, dtype=like.dtype, device=like.device)
+    _check("out", out, shape)
+    return out
+
+
+def _into(out, result):
+    return result if out is None else out.copy_(result)
+
+
 def _raise_on(err, name):
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed (cudaError {err})")
 
 
-def lista3d_ana_threshold(r, z, wa, tau, geom):
+def lista3d_ana_threshold(r, z, wa, tau, geom, out=None):
     """z_new = ST(z - A_k r, tau): the analysis + soft threshold.
 
     r: (N, Cp, Dc, Hc, Wc) residual; z: (N, M, Dc, Hc, Wc) codes, or None
     for zeros (k = 0); wa: (Cp, Qd, Qh, Qw, M) from prep_A2m_3d; tau: (N, M);
-    geom: the Geom of the banks. Returns a new code tensor.
+    geom: the Geom of the banks; out: a contiguous (N, M, Dc, Hc, Wc) tensor
+    that is not z to write the codes into, or None for a new one. Returns
+    the new code tensor.
     """
     if r.device.type == "cpu":
-        return lista3d_ana_threshold_plain(r, z, wa, tau, geom)
+        return _into(out, lista3d_ana_threshold_plain(r, z, wa, tau, geom))
     from cdlnet_tpu_torch.kernels._build import library
 
     lib = library()
@@ -138,7 +152,7 @@ def lista3d_ana_threshold(r, z, wa, tau, geom):
     _check("tau", tau, (N, M))
     if z is not None:
         _check("z", z, (N, M, D, H, W))
-    out = torch.empty((N, M, D, H, W), dtype=r.dtype, device=r.device)
+    out = _out(out, (N, M, D, H, W), r)
     err = lib.lista3d_ana_threshold(
         _ptr(r), _ptr(wa), _ptr(z), _ptr(tau), _ptr(out),
         N, Cp, M, D, H, W, Qd, Qh, Qw, *geom.off_a, geom.s, *geom.P, *geom.pads,
@@ -149,15 +163,15 @@ def lista3d_ana_threshold(r, z, wa, tau, geom):
     return out
 
 
-def lista3d_syn_residual(z, ws, geom, mask=None, y=None):
+def lista3d_syn_residual(z, ws, geom, mask=None, y=None, out=None):
     """r = [mask *] (B_k^T z) [- y]: the synthesis (+ residual).
 
     z: (N, M, Dc, Hc, Wc); ws: (M, Qd, Qh, Qw, Cp) from prep_B2m_3d; geom:
-    the Geom of the banks; mask, y: (N, Cp, Dc, Hc, Wc) or None. Returns
-    (N, Cp, Dc, Hc, Wc).
+    the Geom of the banks; mask, y: (N, Cp, Dc, Hc, Wc) or None; out: as in
+    lista3d_ana_threshold. Returns (N, Cp, Dc, Hc, Wc).
     """
     if z.device.type == "cpu":
-        return lista3d_syn_residual_plain(z, ws, geom, mask=mask, y=y)
+        return _into(out, lista3d_syn_residual_plain(z, ws, geom, mask=mask, y=y))
     from cdlnet_tpu_torch.kernels._build import library
 
     lib = library()
@@ -169,7 +183,7 @@ def lista3d_syn_residual(z, ws, geom, mask=None, y=None):
     for name, t in (("mask", mask), ("y", y)):
         if t is not None:
             _check(name, t, (N, Cp, D, H, W))
-    out = torch.empty((N, Cp, D, H, W), dtype=z.dtype, device=z.device)
+    out = _out(out, (N, Cp, D, H, W), z)
     err = lib.lista3d_syn_residual(
         _ptr(z), _ptr(ws), _ptr(mask), _ptr(y), _ptr(out),
         N, M, Cp, D, H, W, Qd, Qh, Qw, *geom.off_s,
@@ -215,20 +229,19 @@ def lista3d_loop(y2, m2, wa, ws, tau, geom, return_hists=False):
     Wc), z the final codes, and with return_hists the fp32 histories
     (z_hist (K, N, M, Dc, Hc, Wc) of every z_k, r_hist (K-1, N, Cp, Dc, Hc,
     Wc) of every residual r_k) that the reverse pass reads, else None."""
-    K = wa.shape[0]
-    z = lista3d_ana_threshold(-y2, None, wa[0], tau[0], geom)
-    zs, rs = [z], []
+    K, M = wa.shape[0], wa.shape[-1]
+    z_hist = r_hist = None
+    if return_hists:  # the kernels write each z_k and r_k into its slice
+        N, _, D, H, W = y2.shape
+        z_hist = y2.new_empty((K, N, M, D, H, W))
+        r_hist = y2.new_empty((K - 1, *y2.shape))
+    slot = lambda hist, k: None if hist is None else hist[k]
+    z = lista3d_ana_threshold(-y2, None, wa[0], tau[0], geom, out=slot(z_hist, 0))
     for k in range(1, K):
-        r = lista3d_syn_residual(z, ws[k], geom, mask=m2, y=y2)
-        z = lista3d_ana_threshold(r, z, wa[k], tau[k], geom)
-        if return_hists:
-            zs.append(z)
-            rs.append(r)
+        r = lista3d_syn_residual(z, ws[k], geom, mask=m2, y=y2, out=slot(r_hist, k - 1))
+        z = lista3d_ana_threshold(r, z, wa[k], tau[k], geom, out=slot(z_hist, k))
     x2 = lista3d_syn_residual(z, ws[0], geom)
-    if not return_hists:
-        return x2, z, None
-    r_hist = torch.stack(rs) if rs else y2.new_empty((0, *y2.shape))
-    return x2, z, (torch.stack(zs), r_hist)
+    return x2, z, (None if z_hist is None else (z_hist, r_hist))
 
 
 def lista3d_fused(yp, A, B, t, c, stride=1, mask=None, return_z=True,

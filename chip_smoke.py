@@ -134,15 +134,17 @@ def host_ms(fn, rounds: int = 5, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def bound(bank, n_positions, tensors) -> tuple[float, str]:
-    """The least ms for one correlation call on this card: its FMAs (two
-    operations each) over the nonzero entries of the bank at every code
-    position, against every input read once and every output written once
-    (`tensors`), over the published fp32 and memory rates."""
-    ops = 2.0 * n_positions * int(torch.count_nonzero(bank))
+def bound(banks, n_positions, tensors, calls=1) -> tuple[float, str]:
+    """The least ms per call for `calls` correlation calls on this card:
+    their FMAs (two operations each) over the nonzero entries of each call's
+    bank at every code position, against every input read once and every
+    output written once (`tensors`), over the published fp32 and memory
+    rates."""
+    ops = 2.0 * n_positions * sum(int(torch.count_nonzero(b)) for b in banks)
     nbytes = sum(t.numel() * t.element_size() for t in tensors if t is not None)
     t_ops, t_bytes = ops / FP32_FLOPS, nbytes / HBM_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return (1e3 * max(t_ops, t_bytes) / calls,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def smooth_clip(rng, depth, size, n_terms=6) -> np.ndarray:
@@ -310,7 +312,7 @@ def main() -> int:
         ):
             times[name] = dict(zip(("ms", "plain_ms", "library_ms"),
                                    (cuda_ms(f, 20) for f in (run, plain, lib))))
-            times[name]["bound_ms"], times[name]["bound_by"] = bound(bank, n_pos, io)
+            times[name]["bound_ms"], times[name]["bound_by"] = bound((bank,), n_pos, io)
     serve_s = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -361,60 +363,59 @@ def main() -> int:
             compare(name, what, got, ref, err)
 
         # times at the training shape: the kernel, its plain version, the
-        # one PyTorch call of the same function, and the bound
+        # one PyTorch call of the same function, and the bound. wgrad runs
+        # as each reverse step does, dA then dB, and reports per call.
         n_pos = y2t[:, 0].numel()
         g_full = pp.depth_to_space(g, s, 3, 1)
         r_full = pp.depth_to_space(rh[k - 1], s, 3, 1)
         wg = torch.nn.grad.conv3d_weight
+
+        def pair(f, lib=False):
+            if lib:
+                return lambda: (wg(r_full, model.A[k].shape, dv, stride=s, padding=pads),
+                                wg(g_full, model.B[k].shape, zh[k - 1], stride=s,
+                                   padding=pads))
+            return lambda: (f(rh[k - 1], dv, taps, geom.off_a, alpha=-1.0),
+                            f(g, zh[k - 1], taps, geom.off_a, alpha=-1.0))
+
         train_times = {}
-        for name, what, run, plain, lib, bank, io in (
+        for name, what, run, plain, lib, banks, io in (
             ("lista3d_syn_adjoint", "",
              lambda: LB.lista3d_syn_adjoint(g, ws_adj[k], zh[k - 1], geom, base=dv, alpha=-1.0),
              lambda: LB.lista3d_syn_adjoint_plain(g, ws_adj[k], zh[k - 1], geom, base=dv,
                                                   alpha=-1.0),
              lambda: F.conv3d(g_full, model.B[k], stride=s, padding=pads),
-             ws_adj[k], (g, ws_adj[k], dv, zh[k - 1], dv, taut[0])),
-            ("lista3d_wgrad", " dA",
-             lambda: LB.lista3d_wgrad(rh[k - 1], dv, taps, geom.off_a, alpha=-1.0),
-             lambda: LB.lista3d_wgrad_plain(rh[k - 1], dv, taps, geom.off_a, alpha=-1.0),
-             lambda: wg(r_full, model.A[k].shape, dv, stride=s, padding=pads),
-             wa[k], (rh[k - 1], dv, wa[k])),
-            ("lista3d_wgrad", " dB",
-             lambda: LB.lista3d_wgrad(g, zh[k - 1], taps, geom.off_a, alpha=-1.0),
-             lambda: LB.lista3d_wgrad_plain(g, zh[k - 1], taps, geom.off_a, alpha=-1.0),
-             lambda: wg(g_full, model.B[k].shape, zh[k - 1], stride=s, padding=pads),
-             ws[k], (g, zh[k - 1], ws[k])),
+             (ws_adj[k],), (g, ws_adj[k], dv, zh[k - 1], dv, taut[0])),
+            ("lista3d_wgrad", "",  # dA = -dv (*) r, then dB = -g (*) z
+             pair(LB.lista3d_wgrad), pair(LB.lista3d_wgrad_plain), pair(None, lib=True),
+             (wa[k], ws[k]), (rh[k - 1], dv, wa[k], g, zh[k - 1], ws[k])),
             ("lista3d_ana_threshold", " train",
              lambda: L.lista3d_ana_threshold(rh[k - 1], zh[k - 1], wa[k], taut[k], geom),
              lambda: L.lista3d_ana_threshold_plain(rh[k - 1], zh[k - 1], wa[k], taut[k], geom),
              lambda: F.conv3d(r_full, model.A[k], stride=s, padding=pads),
-             wa[k], (rh[k - 1], zh[k - 1], wa[k], taut[k], zh[k])),
+             (wa[k],), (rh[k - 1], zh[k - 1], wa[k], taut[k], zh[k])),
             ("lista3d_syn_residual", " train",
              lambda: L.lista3d_syn_residual(zh[k - 1], ws[k], geom, y=y2t),
              lambda: L.lista3d_syn_residual_plain(zh[k - 1], ws[k], geom, y=y2t),
              lambda: F.conv_transpose3d(zh[k - 1], model.B[k], stride=s, padding=pads,
                                         output_padding=s - 1),
-             ws[k], (zh[k - 1], ws[k], y2t, y2t)),  # reads y, writes r (y's size)
+             (ws[k],), (zh[k - 1], ws[k], y2t, y2t)),  # reads y, writes r (y's size)
             ("lista3d_syn_residual", " A-adjoint",
              lambda: L.lista3d_syn_residual(dv, wa_adj[k], geom, mask=mask_t),
              lambda: L.lista3d_syn_residual_plain(dv, wa_adj[k], geom, mask=mask_t),
              lambda: F.conv_transpose3d(dv, model.A[k], stride=s, padding=pads,
                                         output_padding=s - 1),
-             wa_adj[k], (dv, wa_adj[k], mask_t, y2t)),
+             (wa_adj[k],), (dv, wa_adj[k], mask_t, y2t)),
         ):
+            calls = len(banks)
             tt = dict(zip(("ms", "plain_ms", "library_ms"),
-                          (cuda_ms(f, 10) for f in (run, plain, lib))))
-            tt["bound_ms"], tt["bound_by"] = bound(bank, n_pos, io)
+                          (cuda_ms(f, 10) / calls for f in (run, plain, lib))))
+            tt["bound_ms"], tt["bound_by"] = bound(banks, n_pos, io, calls)
             train_times[name + what] = tt
         del g_full, r_full
-    # the new kernels report their training-shape times; dA and dB are
-    # equally frequent, so wgrad's line is their mean
-    times["lista3d_syn_adjoint"] = train_times["lista3d_syn_adjoint"]
-    times["lista3d_wgrad"] = {
-        key: (statistics.mean([train_times["lista3d_wgrad dA"][key],
-                               train_times["lista3d_wgrad dB"][key]])
-              if key != "bound_by" else train_times["lista3d_wgrad dA"][key])
-        for key in train_times["lista3d_wgrad dA"]}
+    # the new kernels report their training-shape times
+    for name in ("lista3d_syn_adjoint", "lista3d_wgrad"):
+        times[name] = train_times[name]
     for name, tt in train_times.items():
         print(f"time [{card}]: train shape {name}: {tt['ms']:.4f} ms/call, plain "
               f"{tt['plain_ms']:.4f}, library {tt['library_ms']:.4f}, bound "

@@ -114,6 +114,26 @@ def test_fused_on_cuda_matches_cpu_and_counts_launches(cuda):
     np.testing.assert_allclose(z.cpu().numpy(), z_ref.numpy(), atol=1e-4)
 
 
+def test_fused_histories_on_cuda_match_cpu(cuda):
+    """The kernels write each z_k and r_k straight into its history slice."""
+    rng = np.random.default_rng(5)
+    K, M, P, s = 3, 13, (7, 7, 5), 2
+    f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+    yp = 0.3 * f(2, 1, 8, 16, 16)
+    A, B = 0.1 * f(K, M, 1, *P), 0.1 * f(K, M, 1, *P)
+    t = 0.02 * f(K, 2, M, 1, 1, 1).abs()
+    c = torch.tensor([0.1, 0.2]).reshape(2, 1, 1, 1, 1)
+    _, z_ref, (zh_ref, rh_ref) = L.lista3d_fused(yp, A, B, t, c, stride=s,
+                                                  return_hists=True)
+    _, z, (zh, rh) = L.lista3d_fused(*(v.to(cuda) for v in (yp, A, B, t, c)),
+                                     stride=s, return_hists=True)
+    torch.cuda.synchronize()
+    assert zh.shape == zh_ref.shape and rh.shape == rh_ref.shape
+    assert z.data_ptr() == zh[K - 1].data_ptr()
+    for got, ref in ((zh, zh_ref), (rh, rh_ref)):
+        assert _rel(got, ref) <= 1e-4
+
+
 def test_fused_grad_on_cuda_matches_cpu_and_counts_launches(cuda):
     """The grad-enabled kernel forward and its reverse kernels give the
     CPU reverse loop's gradients, with 2K + K + (K-1) + 2K launches."""

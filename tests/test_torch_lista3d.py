@@ -111,6 +111,21 @@ def test_fused_return_z_false_and_scalar_c():
     torch.testing.assert_close(x, x2, rtol=0, atol=0)
 
 
+def test_wrappers_write_into_out():
+    """out= takes a slice of a preallocated history; the result is written
+    there and returned, equal to a call without out."""
+    yp, A, B, t, c, _ = map(torch.from_numpy, _inputs((5, 5, 3)))
+    y2, _, wa, ws, tau, geom = L.phase_operands(yp, A, B, t, c, S)
+    z0 = L.lista3d_ana_threshold(-y2, None, wa[0], tau[0], geom)
+    hist = torch.zeros((2, *z0.shape))
+    got = L.lista3d_ana_threshold(-y2, None, wa[0], tau[0], geom, out=hist[1])
+    assert got.data_ptr() == hist[1].data_ptr() and torch.equal(hist[1], z0)
+    r = L.lista3d_syn_residual(z0, ws[1], geom, y=y2)
+    rh = torch.zeros((2, *y2.shape))
+    got = L.lista3d_syn_residual(z0, ws[1], geom, y=y2, out=rh[0])
+    assert got.data_ptr() == rh[0].data_ptr() and torch.equal(rh[0], r)
+
+
 def test_cpu_calls_do_not_count_launches():
     L.launches.clear()
     yp, A, B, t, c, _ = map(torch.from_numpy, _inputs((5, 5, 3)))

@@ -526,8 +526,6 @@ def test_awgn3d_range_and_scalar():
     _, s = awgn3d(x, 25, torch.Generator().manual_seed(0))
     assert s.ndim == 0 and float(s) == 25.0
     assert torch.equal(gen_bayer_mask3d(x), torch.ones_like(x))
-    rgb = gen_bayer_mask3d(torch.zeros(1, 3, 2, 4, 4), degenerate=False)
-    assert torch.equal(rgb.sum(dim=1), torch.ones(1, 2, 4, 4))
 
 
 def test_psnr_from_mse():
