@@ -1,19 +1,24 @@
 """cdlnet_tpu_torch — the PyTorch/CUDA port of cdlnet_tpu.
 
 Module paths mirror the JAX package, so each counterpart is found by its
-name. This package covers the video model, CDLNetVideo: serving
-(serve.Denoiser) and training (train.fit). The LISTA contraction and its
-reverse run on hand-written CUDA kernels for Hopper (kernels/csrc/) when
-the tensors lie on the GPU, and on the kernels' plain PyTorch versions
-when they lie on the CPU. Entry points run on the card unless they are
-given device="cpu".
+name. This package covers the video model, CDLNetVideo, in serving
+(serve.Denoiser.denoise_video) and training (train.fit), and the 2D image
+models CDLNet (JDD with a Bayer mask) and GDLNet in serving
+(Denoiser.denoise_image / denoise_image_batch, known or blind sigma). The
+LISTA contractions and the 3D reverse run on hand-written CUDA kernels for
+Hopper (kernels/csrc/) when the tensors lie on the GPU, and on the
+kernels' plain PyTorch versions when they lie on the CPU. Entry points run
+on the card unless they are given device="cpu".
 
 Layers:
-  core/     pad, pre/post-processing, ST, uball projection, power method
-  ops/      torch-semantics conv/conv-transpose, polyphase layout, LISTA loop
-  kernels/  the fused 3D LISTA and its reverse (CUDA kernels + plain
-            versions), the autograd Function over them, and their build
-  models/   registry and CDLNetVideo (nn.Module)
+  core/     pad, pre/post-processing, ST, uball projection, power method,
+            Gabor filters, the bior4.4 wavelet bank
+  ops/      torch-semantics conv/conv-transpose, polyphase layout, LISTA loops
+  kernels/  the fused 2D and 3D LISTA forward and the 3D reverse (CUDA
+            kernels + plain versions), the autograd Function over the 3D
+            pair, and their build
+  models/   registry, CDLNet, GDLNet and CDLNetVideo (nn.Module)
+  nle/      blind noise-level estimation (MAD)
   data/     noise injection and observation masks
   train/    clipped Adam, mse, npz checkpoints (both packages), fit()
   compat/   JAX params dict <-> module state

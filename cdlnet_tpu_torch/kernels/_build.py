@@ -38,6 +38,8 @@ SIGNATURES = {
     "lista3d_syn_adjoint_parts": [_I] * 3,
     "lista3d_wgrad": [_P] * 4 + [_I] * 12 + [_F, _P],
     "lista3d_wgrad_splits": [_I] * 4,
+    "lista2d_ana_threshold": [_P] * 5 + [_I] * 14 + [_P],
+    "lista2d_syn_residual": [_P] * 5 + [_I] * 9 + [_P],
 }
 
 

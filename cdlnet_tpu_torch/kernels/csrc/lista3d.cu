@@ -33,7 +33,7 @@ int lista3d_ana_threshold(const float* r, const float* wt, const float* z_old,
   a.in = r, a.wt = wt, a.out = z_out, a.z = z_old, a.tau = tau;
   a.N = N, a.I = Cp, a.O = M, a.D = D, a.H = H, a.W = W;
   a.Qd = Qd, a.Qh = Qh, a.Qw = Qw, a.od = od, a.oh = oh, a.ow = ow;
-  a.s = s, a.P[0] = Pd, a.P[1] = Ph, a.P[2] = Pw;
+  a.s = s, a.sd = s, a.P[0] = Pd, a.P[1] = Ph, a.P[2] = Pw;
   a.pad[0] = pd, a.pad[1] = ph, a.pad[2] = pw;
   return launch<kAnaOB, kAnaOT, kAnaTH, 1, kAnaIC, 1, 2, kAnalysis>(
       a, (cudaStream_t)stream);

@@ -225,7 +225,7 @@ int lista3d_syn_adjoint(const float* g, const float* wt, const float* base,
   a.alpha = alpha;
   a.N = N, a.I = Cp, a.O = M, a.D = D, a.H = H, a.W = W;
   a.Qd = Qd, a.Qh = Qh, a.Qw = Qw, a.od = od, a.oh = oh, a.ow = ow;
-  a.s = s, a.P[0] = Pd, a.P[1] = Ph, a.P[2] = Pw;
+  a.s = s, a.sd = s, a.P[0] = Pd, a.P[1] = Ph, a.P[2] = Pw;
   a.pad[0] = pd, a.pad[1] = ph, a.pad[2] = pw;
   const int err = launch<kAnaOB, kAnaOT, kAnaTH, 1, kAnaIC, 1, 2, kAdjoint>(
       a, (cudaStream_t)stream);

@@ -1,6 +1,7 @@
 // The stride-1 phase-domain 3D correlation shared by the forward kernels
-// (lista3d.cu) and the synthesis adjoint of the reverse pass
-// (lista3d_bwd.cu), fp32 on the CUDA cores, for Hopper (sm_90a):
+// (lista3d.cu), the synthesis adjoint of the reverse pass (lista3d_bwd.cu)
+// and the 2D forward kernels (lista2d.cu, as D = 1, Qd = 1), fp32 on the
+// CUDA cores, for Hopper (sm_90a):
 //
 //   out[n,o,d,h,w] = sum_{i,a,b,c} wt[i,a,b,c,o] * in[n,i,d+a+od,h+b+oh,w+c+ow]
 //
@@ -64,10 +65,13 @@ struct ConvArgs {
   int N, I, O, D, H, W;
   int Qd, Qh, Qw;
   int od, oh, ow;
-  // analysis and adjoint, s > 0: input channel i is stride phase i % s^3 of
-  // a stride-s conv with kernel P and padding pad, so its weights vanish
-  // outside a box of taps per dim, and the box is all the FMAs it needs
-  int s;
+  // analysis and adjoint, s > 0: input channel i is stride phase
+  // i % (sd * s^2) of a stride-s conv with kernel P and padding pad, the
+  // phase index ordered (c, a_d, a_h, a_w), so its weights vanish outside a
+  // box of taps per dim, and the box is all the FMAs it needs. sd is the
+  // depth stride: s for the 3D convs, 1 for the 2D ones (D = Qd = 1, P[0] =
+  // 1, pad[0] = 0: no depth phase, so the phase is i % s^2 in (c, a_h, a_w))
+  int s, sd;
   int P[3], pad[3];
 };
 
@@ -257,8 +261,8 @@ lista3d_conv(const ConvArgs a) {
       const float* wv = s_w + ci * T * OB + oc * OT;
       int qd0 = 0, qd1 = a.Qd, qh0 = 0, qh1 = a.Qh, qw0 = 0, qw1 = a.Qw;
       if (EPI != kSynthesis && a.s > 0) {  // skip the phase's zero taps
-        const int ph = (i0 + ci) % (a.s * a.s * a.s);
-        tap_box(a.s, ph / (a.s * a.s), a.P[0], a.pad[0], a.od, a.Qd, qd0, qd1);
+        const int ph = (i0 + ci) % (a.sd * a.s * a.s);
+        tap_box(a.sd, ph / (a.s * a.s), a.P[0], a.pad[0], a.od, a.Qd, qd0, qd1);
         tap_box(a.s, ph / a.s % a.s, a.P[1], a.pad[1], a.oh, a.Qh, qh0, qh1);
         tap_box(a.s, ph % a.s, a.P[2], a.pad[2], a.ow, a.Qw, qw0, qw1);
       }

@@ -18,7 +18,8 @@ contiguous, fp32.
 Each wrapper runs its CUDA kernel on CUDA tensors, or raises; it runs the
 plain PyTorch version beside it (the same function on F.conv3d over the
 phase channels) only for CPU tensors. `launches` counts kernel launches,
-those of the reverse kernels (kernels/lista3d_bwd.py) too.
+those of the reverse kernels (kernels/lista3d_bwd.py) and of the 2D pair
+(kernels/lista2d.py) too.
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ launches: collections.Counter = collections.Counter()
 @dataclass(frozen=True)
 class Geom:
     """Phase-domain geometry of the stride-s conv with kernel P = (kD, kH,
-    kW) and padding pads: per dim, taps q in [q_lo, q_hi]."""
+    kW) (3D) or (kH, kW) (2D) and padding pads: per dim, taps q in [q_lo,
+    q_hi]."""
 
     s: int
     P: tuple
@@ -47,7 +49,7 @@ class Geom:
 
     @property
     def taps(self):
-        return [pp._tap_ranges(self.P[i], self.pads[i], self.s) for i in range(3)]
+        return [pp._tap_ranges(P, p, self.s) for P, p in zip(self.P, self.pads)]
 
     @property
     def off_a(self):

@@ -3,8 +3,10 @@ cdlnet_tpu/models/base.py).
 
 Dispatch is by exact name from an args.json 'type' + 'model' (reference
 schema). The `backend` field keeps the reference schema's values: "pallas"
-and "cuda" select the hand-written kernels (kernels/lista3d.py), "xla"
-selects the plain PyTorch loop (ops/lista.py).
+and "cuda" select the hand-written kernels (kernels/lista2d.py,
+kernels/lista3d.py), "xla" selects the plain PyTorch loop (ops/lista.py).
+The port has one kernel path per model family, so the JAX package's
+routing by VMEM budget (kernels/routing.py) reduces to that choice.
 """
 
 from __future__ import annotations
@@ -24,9 +26,10 @@ def register(name):
 
 
 def build_model(model_type: str, model_args: dict):
-    """Construct a model from an args.json 'type' + 'model'. The 'init' key
-    (power-method init at construction in the reference) is stripped: the
-    model's init() takes it explicitly."""
+    """Construct a model from an args.json 'type' + 'model' ("JDD_CDLNet"
+    is CDLNet). The 'init' key (power-method init at construction in the
+    reference) is stripped: the model's init() takes it explicitly."""
+    model_type = {"JDD_CDLNet": "CDLNet"}.get(model_type, model_type)
     if model_type not in MODEL_REGISTRY:
         raise NotImplementedError(
             f"model type {model_type!r} is not ported to cdlnet_tpu_torch yet "
@@ -34,6 +37,11 @@ def build_model(model_type: str, model_args: dict):
         )
     kwargs = {k: v for k, v in model_args.items() if k != "init"}
     return MODEL_REGISTRY[model_type](**kwargs)
+
+
+def check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} not in {BACKENDS}")
 
 
 def sigma_scale(sigma, adaptive: bool, ndim: int):

@@ -20,7 +20,7 @@ from cdlnet_tpu_torch.core.preprocess import post_process_3d, pre_process_3d
 from cdlnet_tpu_torch.core.solvers import power_method
 from cdlnet_tpu_torch.kernels.autodiff import RETURN_Z_HINT, lista3d_fused_diff
 from cdlnet_tpu_torch.kernels.lista3d import lista3d_fused
-from cdlnet_tpu_torch.models.base import BACKENDS, register, sigma_scale
+from cdlnet_tpu_torch.models.base import check_backend, register, sigma_scale
 from cdlnet_tpu_torch.ops.conv import conv3d, conv_transpose3d
 from cdlnet_tpu_torch.ops.lista import lista_3d
 
@@ -35,8 +35,7 @@ class CDLNetVideo(nn.Module):
             raise NotImplementedError(
                 "CDLNetVideo residual blocks are not ported yet (see ROADMAP.md)"
             )
-        if backend not in BACKENDS:
-            raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+        check_backend(backend)
         self.K, self.M, self.s, self.C = K, M, s, C
         self.P = (P,) * 3 if isinstance(P, int) else tuple(P)
         self.t0, self.adaptive, self.depth = t0, adaptive, depth

@@ -1,22 +1,53 @@
-"""The unrolled 3D LISTA loop in plain PyTorch (counterpart of
-cdlnet_tpu/ops/lista.py::lista_3d):
+"""The unrolled LISTA loop in plain PyTorch (counterpart of
+cdlnet_tpu/ops/lista.py::lista_2d and lista_3d):
 
     z0    = ST(A0 y, tau_0)
     z_k   = ST(z - A_k (mask * B_k z - y), tau_k),   k = 1..K-1
     tau_k = t[k,0] + c * t[k,1]          (c = sigma/255 if adaptive else 0)
 
-This is the reference the hand kernels (kernels/lista3d.py) are held to.
+This is the reference the hand kernels (kernels/lista2d.py,
+kernels/lista3d.py) are held to, and the path of backend "xla".
 """
 
 from __future__ import annotations
 
 from cdlnet_tpu_torch.core.ops import ST
-from cdlnet_tpu_torch.ops.conv import conv3d, conv_transpose3d
+from cdlnet_tpu_torch.ops.conv import (
+    conv2d,
+    conv3d,
+    conv_transpose2d,
+    conv_transpose3d,
+)
 
 
 def _threshold(t_k, c):
-    """tau_k = t[k, 0:1] + c * t[k, 1:2]; broadcasts (1,M,1,1,1) with c."""
+    """tau_k = t[k, 0:1] + c * t[k, 1:2]; broadcasts (1,M,1,1[,1]) with c."""
     return t_k[0:1] + c * t_k[1:2]
+
+
+def _lista(yp, A, B, t, c, mask, analysis, synthesis):
+    z = ST(analysis(yp, A[0]), _threshold(t[0], c))
+    for k in range(1, A.shape[0]):
+        Bz = synthesis(z, B[k])
+        r = Bz - yp if mask is None else mask * Bz - yp
+        z = ST(z - analysis(r, A[k]), _threshold(t[k], c))
+    return z
+
+
+def lista_2d(yp, A, B, t, c, mask=None, stride=1):
+    """Run the K-iteration 2D LISTA loop; returns the final codes z
+    (N, M, H/s, W/s).
+
+    yp: (N, C, H, W) pre-processed input; A, B: (K, M, C, P, P); t: (K, 2,
+    M, 1, 1); c: scalar or (N, 1, 1, 1); mask: optional (N, C, H, W).
+    """
+    pad = (A.shape[-1] - 1) // 2
+    return _lista(
+        yp, A, B, t, c, mask,
+        lambda x, w: conv2d(x, w, stride=stride, padding=pad),
+        lambda z, w: conv_transpose2d(z, w, stride=stride, padding=pad,
+                                      output_padding=stride - 1),
+    )
 
 
 def lista_3d(yp, A, B, t, c, mask=None, stride=1, residual=None):
@@ -32,11 +63,9 @@ def lista_3d(yp, A, B, t, c, mask=None, stride=1, residual=None):
         )
     Pd, Ph, Pw = A.shape[-3:]
     pad = (Pd // 2, Ph // 2, Pw // 2)
-    z = ST(conv3d(yp, A[0], stride=stride, padding=pad), _threshold(t[0], c))
-    for k in range(1, A.shape[0]):
-        Bz = conv_transpose3d(z, B[k], stride=stride, padding=pad,
-                              output_padding=stride - 1)
-        r = Bz - yp if mask is None else mask * Bz - yp
-        z = ST(z - conv3d(r, A[k], stride=stride, padding=pad),
-               _threshold(t[k], c))
-    return z
+    return _lista(
+        yp, A, B, t, c, mask,
+        lambda x, w: conv3d(x, w, stride=stride, padding=pad),
+        lambda z, w: conv_transpose3d(z, w, stride=stride, padding=pad,
+                                      output_padding=stride - 1),
+    )

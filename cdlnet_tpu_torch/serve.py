@@ -1,11 +1,16 @@
-"""Inference wrapper: load once, denoise numpy clips (counterpart of
-cdlnet_tpu/serve.py, the video path).
+"""Inference wrapper: load once, denoise numpy images and clips
+(counterpart of cdlnet_tpu/serve.py).
 
-Denoiser reflect-pads each clip's H and W up to multiples of `bucket`, runs
-the model once under torch.inference_mode(), and crops back. Reflect
+Denoiser reflect-pads each input's H and W up to multiples of `bucket`,
+runs the model once under torch.inference_mode(), and crops back. Reflect
 padding gives the denoiser better context at the borders than the zero
 padding inside the convs, so bucketed outputs can differ slightly from the
-unpadded forward near edges. The depth axis is not bucketed.
+unpadded forward near edges. The depth axis of clips is not bucketed.
+
+Blind operation: sigma=None on an adaptive model estimates the noise level
+per input with the MAD estimator (nle/) on the bucket-padded batch, on the
+device, as the JAX package does: 255 * sigma_hat per image, and for clips
+the mean of the framewise estimates per clip.
 
 A failed kernel raises: there is no fallback to the plain path.
 """
@@ -18,6 +23,7 @@ import os
 import numpy as np
 import torch
 
+from cdlnet_tpu_torch import nle
 from cdlnet_tpu_torch.compat.jax_params import load_jax_params
 from cdlnet_tpu_torch.models.base import build_model
 from cdlnet_tpu_torch.train.checkpoint import load_params
@@ -33,16 +39,20 @@ def _bucket(n: int, b: int) -> int:
 class Denoiser:
     """Serving wrapper around a model whose parameters are loaded.
 
-    >>> d = Denoiser.from_dir("examples/cdlnet-video-demo")  # on the card
+    >>> d = Denoiser.from_dir("examples/cdlnet-flagship-demo")  # on the card
+    >>> out = d.denoise_image(img, sigma=25)               # (H, W) in [0,1]
+    >>> out = d.denoise_image(img)                         # blind (MAD)
+    >>> out = d.denoise_image_batch(imgs, sigmas=[15, 25])  # per-image sigma
+    >>> d = Denoiser.from_dir("examples/cdlnet-video-demo")
     >>> out = d.denoise_video(frames, sigma=25)            # (D, H, W)
-    >>> out = d.denoise_video(clips, sigma=[15, 25])       # per-sample sigma
     """
 
-    def __init__(self, model, bucket: int = 64, mesh=None):
+    def __init__(self, model, bucket: int = 64, blind: str = "MAD", mesh=None):
         if mesh is not None:
             raise NotImplementedError(f"mesh serving {_NOT_PORTED}")
         self.model = model.eval()
         self.bucket = bucket
+        self.blind = blind
         self.device = next(model.parameters()).device
 
     @classmethod
@@ -66,8 +76,8 @@ class Denoiser:
     @classmethod
     def from_dir(cls, path: str, **kw):
         """Build from a trained-model directory holding an args.json (e.g.
-        examples/cdlnet-video-demo). The checkpoint path inside args.json is
-        re-anchored to the directory when its recorded (train-time) path
+        examples/cdlnet-flagship-demo). The checkpoint path inside args.json
+        is re-anchored to the directory when its recorded (train-time) path
         does not exist, so committed model dirs serve anywhere."""
         with open(os.path.join(path, "args.json")) as f:
             args = json.load(f)
@@ -78,15 +88,24 @@ class Denoiser:
                 args["paths"]["ckpt"] = local
         return cls.from_args(args, **kw)
 
+    def _blind_sigma(self, y: torch.Tensor) -> torch.Tensor:
+        """255 * the MAD estimate per image (N,), or per clip the mean of
+        its framewise estimates."""
+        if y.ndim == 5:
+            N, C, D, H, W = y.shape
+            frames = y.transpose(1, 2).reshape(N * D, C, H, W)
+            s = nle.noise_level(frames, method=self.blind).reshape(N, D).mean(dim=1)
+        else:
+            s = nle.noise_level(y, method=self.blind).reshape(-1)
+        return 255.0 * s
+
     def _run(self, y: np.ndarray, sigma):
-        """y: (N, C, D, H, W) float32 in [0,1]; pads H/W up to buckets."""
+        """y: (N, C, [D,] H, W) float32 in [0,1]; pads H/W up to buckets."""
         spatial = y.shape[-2:]
         pads = [(_bucket(n, self.bucket) - n) for n in spatial]
         if any(pads):
             y = np.pad(y, [(0, 0)] * (y.ndim - 2) + [(0, p) for p in pads],
                        mode="reflect")
-        if sigma is None and self.model.adaptive:
-            raise NotImplementedError(f"blind sigma estimation {_NOT_PORTED}")
         if np.ndim(sigma) > 0:
             # per-sample sigmas in ONE forward
             sigma = np.asarray(sigma, np.float32).reshape(-1)
@@ -97,15 +116,51 @@ class Denoiser:
             sigma = float(sigma)
         yt = torch.from_numpy(np.ascontiguousarray(y, np.float32)).to(self.device)
         with torch.inference_mode():
+            if sigma is None and self.model.adaptive:
+                sigma = self._blind_sigma(yt)
             out = self.model(yt, sigma, return_z=False)[0]
         out = out.cpu().numpy()
         return out[..., : spatial[0], : spatial[1]]
 
+    def denoise_image(self, img: np.ndarray, sigma=None) -> np.ndarray:
+        """img: (H, W), (C, H, W) or (N, C, H, W) in [0,1]; sigma: a scalar,
+        one per image, or None (blind on adaptive models)."""
+        img = np.asarray(img, np.float32)
+        squeeze = 4 - img.ndim
+        for _ in range(squeeze):
+            img = img[None]
+        out = self._run(img, sigma)
+        for _ in range(squeeze):
+            out = out[0]
+        return out
+
+    def denoise_image_batch(self, imgs, sigmas=None) -> np.ndarray:
+        """One forward over a stack of same-shape images with per-image
+        noise levels.
+
+        imgs: (N, C, H, W) array or a sequence of same-shape (H, W) /
+        (C, H, W) images; sigmas: None (all blind), a scalar, or a length-N
+        sequence. Returns the denoised stack with the input's per-image
+        layout."""
+        if not isinstance(imgs, np.ndarray):
+            imgs = np.stack([np.asarray(im, np.float32) for im in imgs])
+        imgs = np.asarray(imgs, np.float32)
+        squeeze = 4 - imgs.ndim  # (N, H, W) stacks need a channel dim
+        for _ in range(squeeze):
+            imgs = imgs[:, None]
+        if sigmas is not None and np.ndim(sigmas) > 0 and len(sigmas) != imgs.shape[0]:
+            raise ValueError(f"{len(sigmas)} sigmas for {imgs.shape[0]} images")
+        out = self._run(imgs, sigmas)
+        for _ in range(squeeze):
+            out = out[:, 0]
+        return out
+
     def denoise_video(self, clip: np.ndarray, sigma=None, chunk_depth=None,
                       tile_hw=None) -> np.ndarray:
         """clip: (D, H, W), (C, D, H, W) or (N, C, D, H, W) in [0,1]; sigma:
-        a scalar or one per sample. Streaming long clips (chunk_depth) and
-        spatial tiling (tile_hw) are not ported yet."""
+        a scalar, one per sample, or None (blind on adaptive models).
+        Streaming long clips (chunk_depth) and spatial tiling (tile_hw) are
+        not ported yet."""
         clip = np.asarray(clip, np.float32)
         if tile_hw is not None:
             raise NotImplementedError(f"tile_hw {_NOT_PORTED}")
@@ -118,3 +173,12 @@ class Denoiser:
         for _ in range(squeeze):
             out = out[0]
         return out
+
+    def warmup(self, shapes):
+        """Build the kernels and run each bucket once, for a list of (H, W)
+        image or (D, H, W) clip shapes."""
+        for shape in shapes:
+            if len(shape) == 2:
+                self.denoise_image(np.zeros(shape, np.float32), sigma=25)
+            else:
+                self.denoise_video(np.zeros(shape, np.float32), sigma=25)

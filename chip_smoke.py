@@ -1,28 +1,40 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's video serve and training paths on one GPU.
+"""Drive the PyTorch/CUDA port's video serve, 2D image serve and video
+training paths on one GPU.
 
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from cdlnet_tpu_torch/kernels/csrc
-(one nvcc per source, in parallel), then, at the flagship model
-(CDLNetVideo K=30, M=169, P=(7,7,5), s=2, adaptive):
+(one nvcc per source, in parallel), then
 
-  serve  checks the forward kernels against their plain PyTorch versions
-         on a 16x128x128 clip, serves three clips through
-         Denoiser.denoise_video and counts the kernel launches, and
-         denoises a clip with the trained examples/cdlnet-video-demo model;
-  train  at the training shape (N=2 clips of 16x128x128, sigma in [20, 30])
-         checks the reverse kernels against their plain versions, the K=30
-         gradient through the kernels against torch autograd on backend
-         "xla" (and two backward runs for bitwise equality), and runs
-         fit() for 20 steps, counting the launches per step and reloading
-         its checkpoint;
+  serve     at the flagship video model (CDLNetVideo K=30, M=169,
+            P=(7,7,5), s=2, adaptive) checks the 3D forward kernels against
+            their plain PyTorch versions on a 16x128x128 clip, serves three
+            clips through Denoiser.denoise_video and counts the kernel
+            launches, and denoises a clip with the trained
+            examples/cdlnet-video-demo model;
+  serve 2D  at the flagship 2D model (CDLNet K=30, M=169, P=7, s=2,
+            adaptive) checks the 2D forward kernels against their plain
+            versions at 128^2 and 320x480 (and JDD's C=3, s=1 form with a
+            Bayer mask), the K=30 forward against the plain loop at 128^2,
+            512^2 and 320x480 (and the reference JDD config at 128^2),
+            serves images through Denoiser.denoise_image / _batch with the
+            trained examples/cdlnet-flagship-demo model (known and blind
+            sigma, counting the launches), and runs the jdd, gdlnet and
+            cdlnet demos on the kernels and on backend "xla";
+  train     at the video training shape (N=2 clips of 16x128x128, sigma in
+            [20, 30]) checks the reverse kernels against their plain
+            versions, the K=30 gradient through the kernels against torch
+            autograd on backend "xla" (and two backward runs for bitwise
+            equality), and runs fit() for 20 steps, counting the launches
+            per step and reloading its checkpoint;
 
 and times every kernel (CUDA events) beside its plain version, the one
 PyTorch call that computes the same function, and its bound on this card,
-and the serve clip and train step on the kernels and on backend "xla". Any
-failed phase raises and the script exits non-zero; without a CUDA device
-it exits 1 before printing any result. The last line of stdout is
+and the served clip and image and the train step on the kernels and on
+backend "xla". Any failed phase raises and the script exits non-zero;
+without a CUDA device it exits 1 before printing any result. The last line
+of stdout is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -44,14 +56,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cdlnet_tpu_torch.core.preprocess import pre_process_3d
+from cdlnet_tpu_torch.core.preprocess import pre_process, pre_process_3d
+from cdlnet_tpu_torch.data.noise import gen_bayer_mask
 from cdlnet_tpu_torch.kernels import _build
+from cdlnet_tpu_torch.kernels import lista2d as L2
 from cdlnet_tpu_torch.kernels import lista3d as L
 from cdlnet_tpu_torch.kernels import lista3d_bwd as LB
-from cdlnet_tpu_torch.models import CDLNetVideo
+from cdlnet_tpu_torch.models import CDLNet, CDLNetVideo
 from cdlnet_tpu_torch.ops import polyphase as pp
-from cdlnet_tpu_torch.ops.conv import conv_transpose3d
-from cdlnet_tpu_torch.ops.lista import lista_3d
+from cdlnet_tpu_torch.ops.conv import conv_transpose2d, conv_transpose3d
+from cdlnet_tpu_torch.ops.lista import lista_2d, lista_3d
 from cdlnet_tpu_torch.serve import Denoiser
 from cdlnet_tpu_torch.train.checkpoint import load_ckpt
 from cdlnet_tpu_torch.train.fit import fit, train_update
@@ -65,10 +79,22 @@ TRAIN_N = 2                 # clips per training batch
 TRAIN_SIGMA = (20.0, 30.0)  # per-sample sigma range of the training noise
 FIT_STEPS = 20
 SEED = 0
-DEMO = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                    "examples", "cdlnet-video-demo")
+EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples")
+DEMO = os.path.join(EXAMPLES, "cdlnet-video-demo")
+# the 2D path: the reference's flagship CDLNet-s2030 width, its trained demo,
+# and the reference JDD_CDLNet-s0120 config (KERNELMATRIX.json's 2D eval
+# rows "2d-flagship eval 128^2 / 512^2 / 320x480", "jdd eval 128^2 masked")
+FLAGSHIP_2D = dict(K=30, M=169, P=7, s=2, C=1, adaptive=True)
+JDD_2D = dict(K=42, M=64, P=7, s=1, C=3, adaptive=True)
+JDD_PARITY = dict(K=8, M=48, P=7, s=1, C=3, adaptive=True)  # examples/jdd-demo's width
+DEMO_2D = os.path.join(EXAMPLES, "cdlnet-flagship-demo")
+IMAGE = (128, 128)
+BIG_IMAGE = (321, 481)      # BSD68's size: buckets to 384x512
+BATCH_SIGMAS = [15.0, 25.0, 35.0, 25.0]
+THROUGHPUT_BATCH = 8
 CSRC = "cdlnet_tpu_torch/kernels/csrc/"
-# kernel -> (source, the TPU kernel it replaces)
+K5, K7 = "cdlnet_tpu/kernels/lista2d.py:185", "cdlnet_tpu/kernels/lista2d_tiled.py"
+# kernel -> (source, the TPU kernel(s) it replaces)
 KERNELS = {
     "lista3d_ana_threshold": (CSRC + "lista3d.cu", "cdlnet_tpu/kernels/lista3d.py:325"),
     "lista3d_syn_residual": (CSRC + "lista3d.cu", "cdlnet_tpu/kernels/lista3d.py:325"),
@@ -76,6 +102,8 @@ KERNELS = {
                             "cdlnet_tpu/kernels/lista3d_bwd_resident.py:99"),
     "lista3d_wgrad": (CSRC + "lista3d_bwd.cu",
                       "cdlnet_tpu/kernels/lista3d_bwd_resident.py:99"),
+    "lista2d_ana_threshold": (CSRC + "lista2d.cu", f"{K5}; {K7}:175"),
+    "lista2d_syn_residual": (CSRC + "lista2d.cu", f"{K5}; {K7}:140"),
 }
 # launches per train step: forward K + K, reverse K syn_adjoint, K-1
 # syn_residual (the analysis adjoint) and 2K wgrad (dA and dB)
@@ -148,8 +176,10 @@ def bound(banks, n_positions, tensors, calls=1) -> tuple[float, str]:
 
 
 def smooth_clip(rng, depth, size, n_terms=6) -> np.ndarray:
-    """A random smooth 3D field in [0, 1]: sums of separable sin/cos terms."""
-    t, y, x = np.meshgrid(*(np.linspace(-np.pi, np.pi, n) for n in (depth, size, size)),
+    """A random smooth 3D field in [0, 1]: sums of separable sin/cos terms.
+    size: the frame's side, or its (H, W)."""
+    H, W = (size, size) if np.isscalar(size) else size
+    t, y, x = np.meshgrid(*(np.linspace(-np.pi, np.pi, n) for n in (depth, H, W)),
                           indexing="ij")
     field = np.zeros_like(t)
     for _ in range(n_terms):
@@ -173,6 +203,207 @@ def compare(name, what, got, ref, err) -> None:
         print(f"parity {name} [{what}] out {i}: max|d| {d:.3e}, rel {rel:.3e}", flush=True)
         require(rel <= KERNEL_TOL, f"{name} [{what}] rel err {rel:.3e} > {KERNEL_TOL}")
         err[name] = max(err.get(name, 0.0), d)
+
+
+def noisy_images(rng, shape, sigmas, C=1):
+    """(clean, noisy) stacks (len(sigmas), C, H, W) of smooth images, each
+    channel a smooth_clip of depth 1, with AWGN at each image's sigma."""
+    clean = np.stack([np.stack([smooth_clip(rng, 1, shape)[0] for _ in range(C)])
+                      for _ in sigmas])
+    sig = np.asarray(sigmas, np.float32).reshape(-1, 1, 1, 1)
+    return clean, clean + sig / 255 * rng.standard_normal(clean.shape).astype(np.float32)
+
+
+def random_2d_model(cfg, dev):
+    """A power-method CDLNet (backend "pallas") with random thresholds > 0,
+    so the soft threshold is exercised (the init's t0 is 0)."""
+    model = CDLNet(**cfg, backend="pallas").to(dev).init(torch.Generator().manual_seed(SEED))
+    tg = torch.Generator().manual_seed(SEED + 2)
+    with torch.no_grad():
+        model.t.copy_(torch.rand(model.t.shape, generator=tg)
+                      * torch.tensor([0.02, 0.2]).reshape(1, 2, 1, 1, 1))
+    return model
+
+
+def serve_2d(dev, card, err) -> tuple[dict, dict]:
+    """The 2D image serve path: kernel parity, K-iteration forwards, the
+    flagship demo through Denoiser (launches counted), the other demos,
+    and times. Returns (launches of the flagship serve run, the kernels'
+    times at the served 128^2 image)."""
+    rng = np.random.default_rng(SEED + 10)  # the 3D phases keep their draws
+    # --- 2D-1. each 2D kernel against its plain version ---
+    t0 = time.perf_counter()
+    flag = random_2d_model(FLAGSHIP_2D, dev)
+    jdd_p = random_2d_model(JDD_PARITY, dev)
+    with torch.inference_mode():
+        for label, model, shape in (("flagship 128^2", flag, IMAGE),
+                                    ("flagship 320x480", flag, (320, 480)),
+                                    ("jdd 128^2 masked", jdd_p, IMAGE)):
+            s, C = model.s, model.C
+            _, noisy = noisy_images(rng, shape, [SIGMA], C)
+            y = torch.from_numpy(noisy).to(dev)
+            mask = gen_bayer_mask(y) if C == 3 else None
+            yp, _, mask = pre_process(y if mask is None else mask * y, s, mask=mask)
+            y2, m2, wa, ws, tau, geom = L2.phase_operands(yp, model.A, model.B, model.t,
+                                                          SIGMA / 255, s, mask)
+            if m2 is None:  # a random observation mask for the masked residual
+                m2 = (torch.rand(y2.shape, generator=torch.Generator().manual_seed(SEED))
+                      > 0.3).float().to(dev)
+            z0 = L2.lista2d_ana_threshold_plain(-y2, None, wa[0], tau[0], geom)
+            r1 = L2.lista2d_syn_residual_plain(z0, ws[1], geom, mask=m2, y=y2)
+            for name, what, run in (
+                ("lista2d_ana_threshold", "k=0 (r=-y2, z=0)",
+                 lambda f: f(-y2, None, wa[0], tau[0], geom)),
+                ("lista2d_ana_threshold", "k=1", lambda f: f(r1, z0, wa[1], tau[1], geom)),
+                ("lista2d_syn_residual", "residual B1 z - y",
+                 lambda f: f(z0, ws[1], geom, y=y2)),
+                ("lista2d_syn_residual", "masked residual",
+                 lambda f: f(z0, ws[2], geom, mask=m2, y=y2)),
+                ("lista2d_syn_residual", "final B0 z", lambda f: f(z0, ws[0], geom)),
+            ):
+                got = run(getattr(L2, name))
+                ref = run(getattr(L2, name + "_plain"))
+                torch.cuda.synchronize()
+                compare(name, f"{label} {what}", got, ref, err)
+
+        # --- 2D-2. the K-iteration forward on the kernels vs the plain loop ---
+        jdd = random_2d_model(JDD_2D, dev)
+        for label, model, shape in (("2d-flagship eval 128^2", flag, IMAGE),
+                                    ("2d-flagship eval 512^2", flag, (512, 512)),
+                                    ("2d-flagship eval 320x480", flag, (320, 480)),
+                                    ("jdd eval 128^2 masked", jdd, IMAGE)):
+            _, noisy = noisy_images(rng, shape, [SIGMA], model.C)
+            y = torch.from_numpy(noisy).to(dev)
+            mask = gen_bayer_mask(y) if model.C == 3 else None
+            yp, _, mask = pre_process(y if mask is None else mask * y, model.s, mask=mask)
+            c = SIGMA / 255
+            x_k, z_k = L2.lista2d_fused(yp, model.A, model.B, model.t, c, stride=model.s,
+                                        mask=mask, return_z=True)
+            z_p = lista_2d(yp, model.A, model.B, model.t, c, mask=mask, stride=model.s)
+            x_p = conv_transpose2d(z_p, model.B[0], stride=model.s, padding=model.pad,
+                                   output_padding=model.s - 1)
+            torch.cuda.synchronize()
+            for what, got, ref in (("x", x_k, x_p), ("z", z_k, z_p)):
+                d, rel = rel_err(got, ref)
+                print(f"parity {label} (K={model.K}) forward {what}: max|d| {d:.3e}, "
+                      f"rel {rel:.3e}", flush=True)
+                require(rel <= FORWARD_TOL, f"{label} forward {what} rel err {rel:.3e}")
+        del jdd, jdd_p, x_k, z_k, z_p, x_p
+    print(f"serve 2D: parity phases in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # --- 2D-3. the trained flagship demo through Denoiser (the serve path) ---
+    server = Denoiser.from_dir(DEMO_2D)
+    server_xla = Denoiser.from_dir(DEMO_2D, backend="xla")
+    require(server.device.type == "cuda", "Denoiser.from_dir did not default to the card")
+    K = server.model.K
+    images = [noisy_images(rng, IMAGE, [SIGMA]) for _ in range(3)]
+    images.append(noisy_images(rng, BIG_IMAGE, [SIGMA]))
+    images = [(c[0, 0], n[0, 0]) for c, n in images]
+    batch_clean, batch_noisy = noisy_images(rng, IMAGE, BATCH_SIGMAS)
+    L.launches.clear()
+    outs = [server.denoise_image(n, sigma=SIGMA) for _, n in images]
+    blind = server.denoise_image(images[0][1])
+    batch = server.denoise_image_batch(batch_noisy, sigmas=BATCH_SIGMAS)
+    launches = dict(L.launches)
+    forwards = len(images) + 2
+    print(f"serve 2D: {len(images)} flagship images + 1 blind + a batch of "
+          f"{len(BATCH_SIGMAS)}, launches {launches}", flush=True)
+    require(launches == {"lista2d_ana_threshold": forwards * K,
+                         "lista2d_syn_residual": forwards * K},
+            f"expected {K} + {K} launches per forward ({forwards} forwards), got {launches}")
+    gains = [psnr(o, c) - psnr(n, c) for o, (c, n) in zip(outs, images)]
+    gains.append(psnr(blind, images[0][0]) - psnr(images[0][1], images[0][0]))
+    gains += [psnr(o, c) - psnr(n, c) for o, c, n in zip(batch, batch_clean, batch_noisy)]
+    d_xla = max(
+        [float(np.abs(o - server_xla.denoise_image(n, sigma=SIGMA)).max())
+         for o, (_, n) in zip(outs, images)]
+        + [float(np.abs(blind - server_xla.denoise_image(images[0][1])).max()),
+           float(np.abs(batch - server_xla.denoise_image_batch(
+               batch_noisy, sigmas=BATCH_SIGMAS)).max())])
+    print(f"serve 2D: PSNR gains (dB) known sigma {[f'{g:.3f}' for g in gains[:4]]}, "
+          f"blind {gains[4]:.3f}, batch {[f'{g:.3f}' for g in gains[5:]]}; kernels vs "
+          f"backend xla max|d| {d_xla:.3e}", flush=True)
+    require(all(np.isfinite(o).all() for o in outs + [blind, batch]), "non-finite output")
+    require(outs[3].shape == BIG_IMAGE, f"misshapen output {outs[3].shape}")
+    require(min(gains) >= MIN_GAIN_DB, f"PSNR gain {min(gains):.3f} dB < {MIN_GAIN_DB}")
+    require(d_xla <= 1e-4, f"kernels vs backend xla max|d| {d_xla:.3e} > 1e-4")
+
+    # --- 2D-4. the other demos on the kernels and on backend "xla" ---
+    for demo in ("jdd-demo", "gdlnet-demo", "cdlnet-demo"):
+        path = os.path.join(EXAMPLES, demo)
+        d, d_plain = Denoiser.from_dir(path), Denoiser.from_dir(path, backend="xla")
+        if demo == "jdd-demo":  # a mosaicked colour image: the model takes the mask
+            _, noisy = noisy_images(rng, IMAGE, [10.0], C=3)
+            y = torch.from_numpy(noisy).to(dev)
+            mask = gen_bayer_mask(y)
+            with torch.inference_mode():
+                out, ref = (m.model(mask * y, 10.0, mask=mask)[0].cpu().numpy()
+                            for m in (d, d_plain))
+        else:
+            _, noisy = noisy_images(rng, IMAGE, [SIGMA])
+            out, ref = (m.denoise_image(noisy[0, 0], sigma=SIGMA) for m in (d, d_plain))
+        dd = float(np.abs(out - ref).max())
+        print(f"demo 2D {demo}: kernels vs backend xla max|d| {dd:.3e}", flush=True)
+        require(np.isfinite(out).all() and dd <= 1e-4,
+                f"{demo}: kernels vs xla max|d| {dd:.3e} (or non-finite)")
+
+    # --- 2D-5. times (CUDA events, median of 5) ---
+    times = {}
+    with torch.inference_mode():
+        for label, shape in (("128^2", IMAGE), ("512^2", (512, 512))):
+            _, noisy = noisy_images(rng, shape, [SIGMA])
+            yp, _, _ = pre_process(torch.from_numpy(noisy).to(dev), flag.s)
+            y2, _, wa, ws, tau, geom = L2.phase_operands(yp, flag.A, flag.B, flag.t,
+                                                          SIGMA / 255, flag.s)
+            z0 = L2.lista2d_ana_threshold(-y2, None, wa[0], tau[0], geom)
+            r1 = L2.lista2d_syn_residual(z0, ws[1], geom, y=y2)
+            r_full = pp.depth_to_space(r1, flag.s, 2, 1)
+            n_pos = y2[:, 0].numel()
+            tt = {}
+            for name, run, plain, lib, bank, io in (
+                ("lista2d_ana_threshold",
+                 lambda: L2.lista2d_ana_threshold(r1, z0, wa[1], tau[1], geom),
+                 lambda: L2.lista2d_ana_threshold_plain(r1, z0, wa[1], tau[1], geom),
+                 lambda: F.conv2d(r_full, flag.A[1], stride=flag.s, padding=flag.pad),
+                 wa[1], (r1, z0, wa[1], tau[1], z0)),
+                ("lista2d_syn_residual",
+                 lambda: L2.lista2d_syn_residual(z0, ws[1], geom, y=y2),
+                 lambda: L2.lista2d_syn_residual_plain(z0, ws[1], geom, y=y2),
+                 lambda: F.conv_transpose2d(z0, flag.B[1], stride=flag.s, padding=flag.pad,
+                                            output_padding=flag.s - 1),
+                 ws[1], (z0, ws[1], y2, r1)),  # reads y, writes r (y's size)
+            ):
+                tt[name] = dict(zip(("ms", "plain_ms", "library_ms"),
+                                    (cuda_ms(f, 20) for f in (run, plain, lib))))
+                tt[name]["bound_ms"], tt[name]["bound_by"] = bound((bank,), n_pos, io)
+                print(f"time [{card}]: 2D flagship {label} {name}: {tt[name]['ms']:.4f} "
+                      f"ms/call, plain {tt[name]['plain_ms']:.4f}, library "
+                      f"{tt[name]['library_ms']:.4f}, bound {tt[name]['bound_ms']:.4f} "
+                      f"({tt[name]['bound_by']}); {K} launches per image", flush=True)
+            if shape == IMAGE:
+                times = tt  # the served image size goes into the kernel table
+        xla_model = server_xla.model
+        for label, shape in (("128^2", IMAGE), ("481x321", BIG_IMAGE)):
+            _, noisy = noisy_images(rng, shape, [SIGMA])
+            # the forward at the bucket shape denoise_image runs
+            bucketed = np.pad(noisy, [(0, 0), (0, 0)] + [(0, -n % server.bucket)
+                                                         for n in shape], mode="reflect")
+            yt = torch.from_numpy(bucketed).to(dev)
+            fwd = cuda_ms(lambda: server.model(yt, SIGMA), reps=3)
+            fwd_xla = cuda_ms(lambda: xla_model(yt, SIGMA), reps=3)
+            lat = host_ms(lambda: server.denoise_image(noisy[0, 0], sigma=SIGMA))
+            lat_xla = host_ms(lambda: server_xla.denoise_image(noisy[0, 0], sigma=SIGMA))
+            print(f"time [{card}]: flagship 2D image {label} (bucket {yt.shape[2]}x"
+                  f"{yt.shape[3]}): forward {fwd:.3f} ms on the "
+                  f"kernels, {fwd_xla:.3f} ms on backend xla; Denoiser.denoise_image "
+                  f"{lat:.3f} ms (kernels), {lat_xla:.3f} ms (xla), host clock", flush=True)
+    _, batch8 = noisy_images(rng, IMAGE, [SIGMA] * THROUGHPUT_BATCH)
+    for label, srv in (("kernels", server), ("xla", server_xla)):
+        ms = host_ms(lambda: srv.denoise_image_batch(batch8, sigmas=SIGMA))
+        print(f"time [{card}]: flagship 2D denoise_image_batch of {THROUGHPUT_BATCH} at "
+              f"128^2 on the {label}: {ms:.3f} ms, {1e3 * THROUGHPUT_BATCH / ms:.1f} "
+              f"images/s", flush=True)
+    return launches, times
 
 
 def main() -> int:
@@ -324,7 +555,11 @@ def main() -> int:
           flush=True)
     del server, demo, demo_plain, r, r_full
 
-    # --- 7. reverse kernel parity at the flagship training shape ---
+    # --- 7. the 2D image serve path (serve_2d) ---
+    launches_2d, times_2d = serve_2d(dev, card, err)
+    times.update(times_2d)
+
+    # --- 8. reverse kernel parity at the flagship training shape ---
     tc = np.stack([smooth_clip(rng, *CLIP[:2])[None] for _ in range(TRAIN_N)])
     sig = rng.uniform(*TRAIN_SIGMA, (TRAIN_N, 1, 1, 1, 1)).astype(np.float32)
     tn = tc + sig / 255 * rng.standard_normal(tc.shape).astype(np.float32)
@@ -422,7 +657,7 @@ def main() -> int:
               f"{tt['bound_ms']:.4f} ({tt['bound_by']})", flush=True)
     del zh, rh, dv, g
 
-    # --- 8. the K=30 gradient through the kernels vs torch autograd ---
+    # --- 9. the K=30 gradient through the kernels vs torch autograd ---
     train_model = CDLNetVideo(**FLAGSHIP, backend="pallas").to(dev)
     train_model.load_state_dict(model.state_dict())
     with torch.no_grad():
@@ -450,7 +685,7 @@ def main() -> int:
         require(torch.equal(a, b), f"two backward runs differ in d{name}")
     del g1, g2, gp
 
-    # --- 9. fit(): the training path, FIT_STEPS steps on smooth clips ---
+    # --- 10. fit(): the training path, FIT_STEPS steps on smooth clips ---
     fit_model = CDLNetVideo(**FLAGSHIP, backend="pallas").to(dev)
     fit_model.load_state_dict(model.state_dict())  # the init: t = 0
     # the JAX package's flagship-from-scratch setting (tools/
@@ -492,7 +727,7 @@ def main() -> int:
                 "fit's checkpoint did not reload to the trained state")
     del back, back_state
 
-    # --- 10. train step times: kernels vs backend xla (host clock) ---
+    # --- 11. train step times: kernels vs backend xla (host clock) ---
     steps = {}
     for label, m in (("kernels", train_model), ("xla", plain_train)):
         st = opt.init(dict(m.named_parameters()))
@@ -505,7 +740,7 @@ def main() -> int:
           f"backend xla (peak {steps['xla peak GB']:.2f} GB)", flush=True)
 
     launches = {name: serve_launches.get(name, 0) + fit_launches.get(name, 0)
-                for name in KERNELS}
+                + launches_2d.get(name, 0) for name in KERNELS}
     for name in ("lista3d_ana_threshold", "lista3d_syn_residual"):
         tt = times[name]
         print(f"time [{card}]: serve shape {name} {tt['ms']:.4f} ms/call, plain "

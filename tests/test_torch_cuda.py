@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from cdlnet_tpu_torch.kernels import lista2d as L2
 from cdlnet_tpu_torch.kernels import lista3d as L
 from cdlnet_tpu_torch.kernels import lista3d_bwd as LB
 from cdlnet_tpu_torch.kernels.autodiff import lista3d_fused_diff
@@ -214,3 +215,95 @@ def test_wrapper_rejects_non_contiguous(cuda):
     with pytest.raises(ValueError):
         L.lista3d_ana_threshold(r, None, d["wa"].to(cuda), d["tau"].to(cuda), d["geom"])
 
+
+
+# --- the 2D forward pair (kernels/lista2d.py) ---
+
+def _setup2d(P, s, M, N, H, W, C, seed=0):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    pad = (P - 1) // 2
+    geom = L.Geom(s, (P, P), (pad, pad))
+    wa = L2.prep_A2m_2d(0.1 * f(1, M, C, P, P), s, (pad, pad))[0]
+    ws = L2.prep_B2m_2d(0.1 * f(1, M, C, P, P), s, (pad, pad))[0]
+    Cp, Hc, Wc = C * s * s, H // s, W // s
+    z = f(N, M, Hc, Wc)
+    z = torch.where(z.abs() < 0.5, torch.zeros_like(z), z)  # sparse codes
+    mask = torch.from_numpy((rng.uniform(size=(N, Cp, Hc, Wc)) > 0.5).astype(np.float32))
+    tau = torch.from_numpy(rng.uniform(0.0, 0.5, (N, M)).astype(np.float32))
+    return dict(wa=wa, ws=ws, r=f(N, Cp, Hc, Wc), z=z, y=f(N, Cp, Hc, Wc), mask=mask,
+                tau=tau, geom=geom)
+
+
+SHAPES_2D = [
+    # P, s, M, N, H, W, C — JDD's stride-1 colour form; the flagship form on
+    # a 64x96 code grid; a ragged width (Wc=75) with two images (per-image
+    # tau); stride 2 with colour (phase = channel % s^2)
+    (7, 1, 48, 1, 40, 70, 3),
+    (7, 2, 169, 1, 128, 192, 1),
+    (7, 2, 13, 2, 32, 150, 1),
+    (5, 2, 6, 2, 24, 20, 3),
+]
+
+
+@pytest.mark.parametrize("P,s,M,N,H,W,C", SHAPES_2D)
+@pytest.mark.parametrize("first", [False, True])
+def test_2d_ana_threshold_matches_plain(cuda, P, s, M, N, H, W, C, first):
+    d = _setup2d(P, s, M, N, H, W, C)
+    z = None if first else d["z"]
+    ref = L2.lista2d_ana_threshold_plain(d["r"], z, d["wa"], d["tau"], d["geom"])
+    got = L2.lista2d_ana_threshold(
+        d["r"].to(cuda), None if z is None else z.to(cuda), d["wa"].to(cuda),
+        d["tau"].to(cuda), d["geom"])
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert _rel(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("P,s,M,N,H,W,C", SHAPES_2D)
+@pytest.mark.parametrize("residual", [False, True])
+def test_2d_syn_residual_matches_plain(cuda, P, s, M, N, H, W, C, residual):
+    d = _setup2d(P, s, M, N, H, W, C)
+    mask, y = (d["mask"], d["y"]) if residual else (None, None)
+    ref = L2.lista2d_syn_residual_plain(d["z"], d["ws"], d["geom"], mask=mask, y=y)
+    got = L2.lista2d_syn_residual(
+        d["z"].to(cuda), d["ws"].to(cuda), d["geom"],
+        mask=None if mask is None else mask.to(cuda),
+        y=None if y is None else y.to(cuda))
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert _rel(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("C,s,use_mask", [(1, 2, False), (3, 1, True), (3, 2, True)])
+def test_2d_fused_on_cuda_matches_cpu_and_counts_launches(cuda, C, s, use_mask):
+    rng = np.random.default_rng(3)
+    K, M, P = 3, 13, 7
+    f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+    yp = 0.3 * f(2, C, 24, 38)
+    A, B = 0.1 * f(K, M, C, P, P), 0.1 * f(K, M, C, P, P)
+    t = 0.02 * f(K, 2, M, 1, 1).abs()
+    c = torch.tensor([0.1, 0.2]).reshape(2, 1, 1, 1)
+    mask = (f(*yp.shape) > 0).float() if use_mask else None
+    x_ref, z_ref = L2.lista2d_fused(yp, A, B, t, c, stride=s, mask=mask, return_z=True)
+    L.launches.clear()
+    x, z = L2.lista2d_fused(*(v.to(cuda) for v in (yp, A, B, t, c)), stride=s,
+                            mask=None if mask is None else mask.to(cuda), return_z=True)
+    torch.cuda.synchronize()
+    assert dict(L.launches) == {"lista2d_ana_threshold": K, "lista2d_syn_residual": K}
+    np.testing.assert_allclose(x.cpu().numpy(), x_ref.numpy(), atol=1e-4)
+    np.testing.assert_allclose(z.cpu().numpy(), z_ref.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("bad", ["non_contiguous", "float64"])
+def test_2d_wrappers_reject_what_the_kernel_does_not_take(cuda, bad):
+    d = _setup2d(7, 2, 8, 1, 16, 16, 1)
+    r, z = d["r"].to(cuda), d["z"].to(cuda)
+    if bad == "non_contiguous":
+        r, z = r.transpose(2, 3), z.transpose(2, 3)
+    else:
+        r, z = r.double(), z.double()
+    with pytest.raises(ValueError):
+        L2.lista2d_ana_threshold(r, None, d["wa"].to(cuda), d["tau"].to(cuda), d["geom"])
+    with pytest.raises(ValueError):
+        L2.lista2d_syn_residual(z, d["ws"].to(cuda), d["geom"])

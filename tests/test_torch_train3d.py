@@ -199,8 +199,10 @@ def test_fused_forward_histories_match_jax():
 # (per-iteration pair), in interpret mode at their tests' smallest shape:
 # the same 1e-4 relative gate ---
 
-@pytest.mark.parametrize("kernel", ["K2", "K4"])
-def test_reverse_matches_jax_reverse_kernel_interpret(kernel):
+@pytest.fixture(scope="module")
+def reverse_case():
+    """The interpret-mode forward (fp32 histories) both reverse kernels
+    start from, run once for the module."""
     P, s, K, M = (5, 5, 3), 2, 2, 6
     d = _inputs(P, K=K, M=M, seed=4)
     args = [jnp.asarray(d[k]) for k in ("yp", "A", "B", "t", "c")]
@@ -209,6 +211,12 @@ def test_reverse_matches_jax_reverse_kernel_interpret(kernel):
                                        z_dtype=jnp.float32, interpret=True,
                                        return_hists=True)
     dxp = 2.0 * (x - jnp.asarray(d["tgt"])) / x.size
+    return d, s, args, mask, zh, rh, dxp
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K4"])
+def test_reverse_matches_jax_reverse_kernel_interpret(kernel, reverse_case):
+    d, s, args, mask, zh, rh, dxp = reverse_case
     run = jax_k2_bwd if kernel == "K2" else jax_k4_bwd
     g_ref = run(dxp, *args[:4], args[4], mask, zh, rh, stride=s, interpret=True)
     _, *g = _port_grads(d, s, True, dx=np.asarray(dxp))
