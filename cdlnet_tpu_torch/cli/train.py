@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""Training CLI: `python -m cdlnet_tpu_torch.cli.train path/to/args.json`
+(counterpart of cdlnet_tpu/cli/train.py).
+
+Accepts the reference's args.json schema verbatim. The 2D families
+(CDLNet, JDD_CDLNet, GDLNet) train on image directories
+(data/images.get_fit_loaders) through train.fit.fit(workload="2d"), on the
+card unless main() is given device="cpu". Not ported yet (each raises
+NotImplementedError naming ROADMAP.md): DnCNN/FFDNet, 2D nets on fastMRI
+slice volumes (loader args with a PDFS key), the video and fastMRI
+loaders of CDLNetVideo, and the CSR frame-recurrent trainer.
+"""
+
+from __future__ import annotations
+
+import json
+from pprint import pprint
+
+_NOT_PORTED = "is not ported to cdlnet_tpu_torch yet (see ROADMAP.md)"
+IMAGE_FAMILIES = ("CDLNet", "GDLNet", "JDD_CDLNet")
+
+
+def make_loaders(args: dict):
+    """(loaders, workload) for an args dict: the image-directory loaders of
+    the 2D families. Other families and loader schemas raise."""
+    loaders_args = dict(args["train"]["loaders"])
+    mtype = args["type"]
+    if mtype not in IMAGE_FAMILIES:
+        raise NotImplementedError(f"training {mtype!r} from the CLI {_NOT_PORTED}")
+    if "PDFS" in loaders_args:
+        raise NotImplementedError(f"2D training on fastMRI slice volumes {_NOT_PORTED}")
+    from cdlnet_tpu_torch.data.images import get_fit_loaders
+
+    loaders_args.pop("depth", None)
+    # the JAX loader's thread-pool knob: the port assembles batches in the
+    # calling thread, so a config that sets it loads the same crops
+    loaders_args.pop("num_workers", None)
+    return get_fit_loaders(**loaders_args), "2d"
+
+
+def main(args: dict, device=None):
+    """Train from a reference-schema args dict: build the model (power-method
+    init, or the checkpoint at paths.ckpt), its loaders and optimizer, and
+    run fit(), saving args.json beside each checkpoint. Returns (opt_state,
+    history) as fit does."""
+    from cdlnet_tpu_torch.train.checkpoint import save_args
+    from cdlnet_tpu_torch.train.fit import fit, init_model
+
+    loaders, workload = make_loaders(args)
+    model, opt, opt_state, epoch0, _ = init_model(args, device=device)
+    fit_args = dict(args["train"].get("fit", {}))
+    fit_args.pop("clip_grad", None)  # consumed by init_model's optimizer
+    loss_type = fit_args.pop("loss", "mse")
+    if fit_args.pop("combmse", False):  # train3d.py:65-66 flag spelling
+        loss_type = "combmse"
+    save_dir = args["paths"]["save"]
+    return fit(
+        model, opt, opt_state, loaders,
+        save_dir=save_dir,
+        start_epoch=epoch0 + 1,
+        workload=workload,
+        loss_type=loss_type,
+        sched=args["train"].get("sched"),
+        mesh=args.get("dist", {}).get("mesh"),
+        epoch_fun=lambda ep: save_args(args, save_dir),
+        **fit_args,
+    )
+
+
+def apply_backend(choice: str, args: dict) -> dict:
+    """--backend into the model config: "auto" keeps a backend the config
+    pins and otherwise picks the kernels ("pallas"), as on an accelerator;
+    "pallas", "cuda" and "xla" override it."""
+    model_args = args.get("model", {})
+    if choice == "auto" and "backend" in model_args:
+        return args
+    return dict(args, model=dict(model_args,
+                                 backend="pallas" if choice == "auto" else choice))
+
+
+def cli():
+    """Console entry point: args.json schema + an optional --backend
+    override (the JAX CLI's flag, with "cuda" as a name for the kernels)."""
+    import argparse
+
+    p = argparse.ArgumentParser(
+        prog="cdlnet-train-torch",
+        description="Train from a reference-schema args.json on the PyTorch port.",
+    )
+    p.add_argument("arg_file", help="path/to/args.json (reference schema)")
+    p.add_argument(
+        "--backend", choices=["auto", "pallas", "cuda", "xla"], default=None,
+        help='override model.backend from the config ("auto": the config\'s, '
+        'else the hand-written kernels)',
+    )
+    a = p.parse_args()
+    with open(a.arg_file) as f:
+        args = json.load(f)
+    if a.backend is not None:
+        args = apply_backend(a.backend, args)
+    pprint(args)
+    main(args)
+
+
+if __name__ == "__main__":
+    cli()

@@ -34,7 +34,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "lista3d_ana_threshold": [_P] * 5 + [_I] * 19 + [_P],
     "lista3d_syn_residual": [_P] * 5 + [_I] * 12 + [_P],
-    "lista3d_syn_adjoint": [_P] * 7 + [_I] * 19 + [_F, _P],
+    "lista3d_syn_adjoint": [_P] * 7 + [_I] * 20 + [_F, _P],
     "lista3d_syn_adjoint_parts": [_I] * 3,
     "lista3d_wgrad": [_P] * 4 + [_I] * 12 + [_F, _P],
     "lista3d_wgrad_splits": [_I] * 4,

@@ -1,14 +1,19 @@
-"""The differentiable fused 3D LISTA (counterpart of the 3D half of
-cdlnet_tpu/kernels/autodiff.py).
+"""The differentiable fused 2D and 3D LISTA (counterpart of
+cdlnet_tpu/kernels/autodiff.py's lista2d_fused_diff / lista2d_tiled_diff
+and lista3d_fused_diff).
 
-lista3d_fused_diff runs the kernel forward with fp32 histories and the
-reverse loop of kernels/lista3d_bwd.py as its backward, through one
+lista2d_fused_diff and lista3d_fused_diff run the kernel forward with fp32
+histories and the reverse loop of kernels/lista2d_bwd.py or
+kernels/lista3d_bwd.py as its backward, through one
 torch.autograd.Function on phase-domain operands: the Function returns the
 gradients of the phase banks and of the per-sample thresholds, and torch
 autograd carries them back to A, B and t through the differentiable weight
-prep (lista3d.prep_A2m_3d / prep_B2m_3d, gathers and flips whose valid mask
-gives the structurally zero phase taps a zero gradient) and tau = t0 + c t1,
-as JAX's vjp of the prep does.
+prep (prep_A2m_* / prep_B2m_*, gathers and flips whose valid mask gives the
+structurally zero phase taps a zero gradient) and tau = t0 + c t1, as JAX's
+vjp of the prep does. GDLNet's Gabor parameters get theirs the same way,
+through get_filters(). The 2D path is one path for every crop size: the
+JAX package's routing between its whole-image and banded reverse kernels
+by VMEM budget has no counterpart.
 
 The cotangents of the input, sigma and mask are zero by construction:
 training differentiates with respect to the parameters only. For input
@@ -23,7 +28,8 @@ from __future__ import annotations
 
 import torch
 
-from cdlnet_tpu_torch.kernels.lista3d import lista3d_loop, phase_operands
+from cdlnet_tpu_torch.kernels import lista2d, lista3d
+from cdlnet_tpu_torch.kernels.lista2d_bwd import lista2d_fused_bwd
 from cdlnet_tpu_torch.kernels.lista3d_bwd import lista3d_fused_bwd
 from cdlnet_tpu_torch.ops import polyphase as pp
 
@@ -34,33 +40,52 @@ RETURN_Z_HINT = (
     "does), run under torch.no_grad(), or use backend='xla'."
 )
 
+# spatial dims -> (phase operands, forward loop, reverse loop)
+_PATHS = {
+    2: (lista2d.phase_operands, lista2d.lista2d_loop, lista2d_fused_bwd),
+    3: (lista3d.phase_operands, lista3d.lista3d_loop, lista3d_fused_bwd),
+}
 
-class _Lista3dFused(torch.autograd.Function):
+
+class _ListaFused(torch.autograd.Function):
     """x2 = the fused loop on (y2, m2, wa, ws, tau); backward: the reverse
     loop over the histories the forward stored."""
 
     @staticmethod
-    def forward(ctx, y2, m2, wa, ws, tau, geom):
-        x2, _, (z_hist, r_hist) = lista3d_loop(y2, m2, wa, ws, tau, geom,
-                                               return_hists=True)
-        ctx.geom = geom
+    def forward(ctx, y2, m2, wa, ws, tau, geom, dims):
+        _, loop, _ = _PATHS[dims]
+        x2, _, (z_hist, r_hist) = loop(y2, m2, wa, ws, tau, geom, return_hists=True)
+        ctx.geom, ctx.dims = geom, dims
         ctx.save_for_backward(y2, m2, wa, ws, tau, z_hist, r_hist)
         return x2
 
     @staticmethod
     def backward(ctx, dx2):
         y2, m2, wa, ws, tau, z_hist, r_hist = ctx.saved_tensors
-        dwa, dws, dtau = lista3d_fused_bwd(dx2.contiguous(), y2, m2, (wa, ws),
-                                           tau, z_hist, r_hist, ctx.geom)
-        return None, None, dwa, dws, dtau, None
+        _, _, reverse = _PATHS[ctx.dims]
+        dwa, dws, dtau = reverse(dx2.contiguous(), y2, m2, (wa, ws), tau,
+                                 z_hist, r_hist, ctx.geom)
+        return None, None, dwa, dws, dtau, None, None
+
+
+def _fused_diff(dims, yp, A, B, t, c, stride, mask):
+    detach = lambda v: v.detach() if isinstance(v, torch.Tensor) else v
+    operands, _, _ = _PATHS[dims]
+    y2, m2, wa, ws, tau, geom = operands(detach(yp), A, B, t, detach(c), stride,
+                                         detach(mask))
+    x2 = _ListaFused.apply(y2, m2, wa, ws, tau, geom, dims)
+    return pp.depth_to_space(x2, stride, dims, yp.shape[1])
+
+
+def lista2d_fused_diff(yp, A, B, t, c, stride=1, mask=None):
+    """Differentiable fused 2D LISTA + final synthesis. Returns xphat
+    (N, C, H, W), as lista2d.lista2d_fused; gradients reach A, B and t
+    only."""
+    return _fused_diff(2, yp, A, B, t, c, stride, mask)
 
 
 def lista3d_fused_diff(yp, A, B, t, c, stride=1, mask=None):
     """Differentiable fused 3D LISTA + final synthesis. Returns xphat
     (N, C, D, H, W), as lista3d.lista3d_fused; gradients reach A, B and t
     only."""
-    detach = lambda v: v.detach() if isinstance(v, torch.Tensor) else v
-    y2, m2, wa, ws, tau, geom = phase_operands(detach(yp), A, B, t, detach(c),
-                                               stride, detach(mask))
-    x2 = _Lista3dFused.apply(y2, m2, wa, ws, tau, geom)
-    return pp.depth_to_space(x2, stride, 3, yp.shape[1])
+    return _fused_diff(3, yp, A, B, t, c, stride, mask)

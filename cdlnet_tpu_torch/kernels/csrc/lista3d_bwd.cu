@@ -12,11 +12,15 @@
 //   lista3d_syn_adjoint: the synthesis adjoint and the soft-threshold
 //       subgradient, dz = [base +] alpha * B_k^* g (the analysis-form
 //       correlation of lista3d_conv.cuh with B's unflipped bank); writes
-//       dv = 1{z != 0} dz and dtau[n, m] = -sum sign(z) dz.
+//       dv = 1{z != 0} dz and dtau[n, m] = -sum sign(z) dz. The 2D reverse
+//       pass (kernels/lista2d_bwd.py, in place of the TPU kernels
+//       lista2d.py::_kernel_bwd and lista2d_tiled_bwd.py::_kernel_tiled_bwd)
+//       calls it at D = Qd = 1 with the 2D phase map, sd = 1.
 //   lista3d_wgrad: the weight gradient of one correlation,
 //       dw[i, q, o] = alpha * sum_{n,p} x[n, i, p + q + off] y[n, o, p],
 //       in the banks' own (I, Qd, Qh, Qw, O) layout; dA (x = r, y = dv) and
-//       dB (x = z, y = g) alike.
+//       dB (x = z, y = g) alike. It reads no phase map, so the 2D reverse
+//       pass runs it at D = Qd = 1 as it is.
 //
 // What bounds them on this card: fp32 FMAs, as in the forward. At the
 // flagship training shape (N=2, M=169, Cp=8, 8x64x64 code grid, 4x4x3
@@ -28,7 +32,10 @@
 // float4 operand loads per 32 FMAs) and one contiguous split of the
 // positions, so that ~500 blocks fill the card; each split writes its own
 // partial tile, and a second kernel sums the splits in ascending order. No
-// float atomics: two runs give bitwise-equal gradients.
+// float atomics: two runs give bitwise-equal gradients. At the flagship 2D
+// training shape (N=10 crops of 128^2, M=169, Cp=4, 4x4 phase taps) an
+// adjoint call is ~0.7 GFLOP against ~83 MB of codes, base and dv: there it
+// is bound by bytes.
 //
 // Plain C interface for ctypes: each entry returns cudaGetLastError() (or
 // the first CUDA error met) as an int; 0 means launched.
@@ -213,19 +220,20 @@ int lista3d_syn_adjoint_parts(int D, int H, int W) {
 // dz = [base +] alpha * (B_k^* g); dv = 1{z != 0} dz; dtau = -sum sign(z) dz.
 // g (N, Cp, D, H, W); wt (Cp, Qd, Qh, Qw, M) (B's unflipped phase bank);
 // base, z, dv (N, M, D, H, W), base may be NULL (zeros); work (parts, N, M);
-// dtau (N, M). s, P, pad as for lista3d_ana_threshold.
+// dtau (N, M). s, P, pad as for lista3d_ana_threshold; sd is the phase
+// map's depth stride: s for video, 1 for images (D = Qd = 1, Pd = 1).
 int lista3d_syn_adjoint(const float* g, const float* wt, const float* base,
                         const float* z, float* work, float* dv, float* dtau,
                         int N, int Cp, int M, int D, int H, int W, int Qd,
-                        int Qh, int Qw, int od, int oh, int ow, int s, int Pd,
-                        int Ph, int Pw, int pd, int ph, int pw, float alpha,
-                        void* stream) {
+                        int Qh, int Qw, int od, int oh, int ow, int s, int sd,
+                        int Pd, int Ph, int Pw, int pd, int ph, int pw,
+                        float alpha, void* stream) {
   ConvArgs a{};
   a.in = g, a.wt = wt, a.out = dv, a.z = z, a.base = base, a.part = work;
   a.alpha = alpha;
   a.N = N, a.I = Cp, a.O = M, a.D = D, a.H = H, a.W = W;
   a.Qd = Qd, a.Qh = Qh, a.Qw = Qw, a.od = od, a.oh = oh, a.ow = ow;
-  a.s = s, a.sd = s, a.P[0] = Pd, a.P[1] = Ph, a.P[2] = Pw;
+  a.s = s, a.sd = sd, a.P[0] = Pd, a.P[1] = Ph, a.P[2] = Pw;
   a.pad[0] = pd, a.pad[1] = ph, a.pad[2] = pw;
   const int err = launch<kAnaOB, kAnaOT, kAnaTH, 1, kAnaIC, 1, 2, kAdjoint>(
       a, (cudaStream_t)stream);

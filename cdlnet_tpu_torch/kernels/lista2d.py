@@ -41,8 +41,8 @@ from cdlnet_tpu_torch.kernels.lista3d import (
 )
 from cdlnet_tpu_torch.ops import polyphase as pp
 
-_NOT_PORTED = ("is not ported to cdlnet_tpu_torch yet (the CSR models and 2D "
-               "training come later, see ROADMAP.md)")
+_NOT_PORTED = ("is not ported to cdlnet_tpu_torch yet (the CSR models come "
+               "later, see ROADMAP.md)")
 
 
 def prep_A2m_2d(A: torch.Tensor, s: int, pads) -> torch.Tensor:
@@ -172,16 +172,29 @@ def phase_operands(yp, A, B, t, c, stride, mask=None):
     return y2, m2, wa, ws, tau.transpose(0, 1).contiguous(), geom
 
 
-def lista2d_loop(y2, m2, wa, ws, tau, geom):
+def lista2d_loop(y2, m2, wa, ws, tau, geom, return_hists=False):
     """The 2K kernel launches of the fused loop on phase-domain operands
-    (phase_operands). Returns (x2, z): x2 = B_0^T z (N, Cp, Hc, Wc) and z
-    the final codes (N, M, Hc, Wc)."""
-    z = lista2d_ana_threshold(-y2, None, wa[0], tau[0], geom)
-    r = torch.empty_like(y2)
-    for k in range(1, wa.shape[0]):
-        lista2d_syn_residual(z, ws[k], geom, mask=m2, y=y2, out=r)
-        lista2d_ana_threshold(r, z, wa[k], tau[k], geom, out=z)
-    return lista2d_syn_residual(z, ws[0], geom), z
+    (phase_operands). Returns (x2, z, hists): x2 = B_0^T z (N, Cp, Hc, Wc),
+    z the final codes (N, M, Hc, Wc), and with return_hists the fp32
+    histories (z_hist (K, N, M, Hc, Wc) of every z_k, r_hist (K-1, N, Cp,
+    Hc, Wc) of every residual r_k) that the reverse pass reads, else None.
+    Without histories z and r are updated in place."""
+    K, M = wa.shape[0], wa.shape[-1]
+    z_hist = r_hist = None
+    if return_hists:  # the kernels write each z_k and r_k into its slice
+        N, _, H, W = y2.shape
+        z_hist = y2.new_empty((K, N, M, H, W))
+        r_hist = y2.new_empty((K - 1, *y2.shape))
+    z = lista2d_ana_threshold(-y2, None, wa[0], tau[0], geom,
+                              out=None if z_hist is None else z_hist[0])
+    r = torch.empty_like(y2) if r_hist is None else None
+    for k in range(1, K):
+        r = lista2d_syn_residual(z, ws[k], geom, mask=m2, y=y2,
+                                 out=r if r_hist is None else r_hist[k - 1])
+        z = lista2d_ana_threshold(r, z, wa[k], tau[k], geom,
+                                  out=z if z_hist is None else z_hist[k])
+    x2 = lista2d_syn_residual(z, ws[0], geom)
+    return x2, z, (None if z_hist is None else (z_hist, r_hist))
 
 
 def lista2d_fused(yp, A, B, t, c, stride=1, mask=None, return_z=False,
@@ -193,14 +206,20 @@ def lista2d_fused(yp, A, B, t, c, stride=1, mask=None, return_z=False,
     (K, M, C, P, P); t: (K, 2, M, 1, 1); c: scalar or (N, 1, 1, 1) threshold
     scale; mask: optional (N, C, H, W) observation mask (JDD). Returns
     (xphat (N, C, H, W), z (N, M, H/s, W/s) or None) — ops.lista.lista_2d +
-    conv_transpose2d(B[0]) to fp32 reassociation tolerance. No gradient
-    flows through the kernels. The CSR prox modes (g, z_prev, g2, z_after)
-    and the histories (return_hist) of the JAX kernel raise."""
+    conv_transpose2d(B[0]) to fp32 reassociation tolerance — and with
+    return_hist a third item, the fp32 histories (z_hist (K, N, M, Hc, Wc),
+    r_hist (K-1, N, Cp, Hc, Wc)) of lista2d_loop, in the phase domain: r_k
+    has the space_to_depth layout of y2 (channel c*s^2 + a_h*s + a_w). The
+    JAX kernel's one (N, K, Mp8+Rp8, Hc*Wc) array holds the same values
+    (z_k in rows [0:M), r_k in rows [Mp8:Mp8+Cp) of its step k). No
+    gradient flows through the kernels here: training goes through
+    autodiff.lista2d_fused_diff. The CSR prox modes (g, z_prev, g2,
+    z_after) raise."""
     if any(v is not None for v in (g, z_prev, g2, z_after)):
         raise NotImplementedError(f"the CSR prox modes of lista2d_fused {_NOT_PORTED}")
-    if return_hist:
-        raise NotImplementedError(f"lista2d_fused(return_hist=True) {_NOT_PORTED}")
     y2, m2, wa, ws, tau, geom = phase_operands(yp, A, B, t, c, stride, mask)
-    x2, z = lista2d_loop(y2, m2, wa, ws, tau, geom)
+    x2, z, hists = lista2d_loop(y2, m2, wa, ws, tau, geom, return_hist)
     xphat = pp.depth_to_space(x2, stride, 2, yp.shape[1])
+    if return_hist:
+        return xphat, (z if return_z else None), hists
     return xphat, (z if return_z else None)

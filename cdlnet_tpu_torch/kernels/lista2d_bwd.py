@@ -1,0 +1,134 @@
+"""The reverse pass of the fused 2D (image) LISTA on hand-written CUDA kernels
+(counterpart of cdlnet_tpu/kernels/lista2d.py::lista2d_fused_bwd and
+lista2d_tiled_bwd.py::lista2d_tiled_fused_bwd, soft-threshold mode).
+
+The reverse loop is the 3D one (kernels/lista3d_bwd.py::fused_bwd, whose
+docstring states the algebra) on the (Hc, Wc) code grid of the 2D
+stride-phase domain (kernels/lista2d.py), with the banks' adjoints
+adjoint_bank(w, 2). dtau comes back per image, (K, N, M), and reaches t
+through the differentiable tau = t0 + c t1 of phase_operands; the port
+runs the N images of a batch as one kernel grid, so the JAX package's
+folding of same-sigma images into one tall image has no counterpart. Per
+training step of K iterations that is K syn_adjoint, K-1 syn_residual and
+2K wgrad launches, on one kernel set for every crop size (the TPU
+package's whole-image reverse kernel K6 and its banded one K8 alike).
+
+Both wrappers run the 3D kernels of kernels/csrc/lista3d_bwd.cu at
+D = Qd = 1: lista2d_syn_adjoint runs lista3d_syn_adjoint with the 2D phase
+map (sd = 1; the 3D map, sd = s, would skip nonzero taps at D = 1), and
+lista2d_wgrad runs lista3d_wgrad, which reads no phase map. Each wrapper
+runs its CUDA kernel on CUDA tensors, or raises; it runs the plain
+PyTorch version beside it only for CPU tensors, and counts its launches
+in lista3d.launches under its 2D name.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from cdlnet_tpu_torch.kernels.lista2d import _correlate_plain, lista2d_syn_residual
+from cdlnet_tpu_torch.kernels.lista3d import _check, _ptr, _raise_on, launches
+from cdlnet_tpu_torch.kernels.lista3d_bwd import fused_bwd
+
+
+def lista2d_syn_adjoint_plain(g, wt, z, geom, base=None, alpha=1.0):
+    """Plain version of lista2d_syn_adjoint."""
+    dz = alpha * _correlate_plain(g, wt, geom.off_a)
+    if base is not None:
+        dz = base + dz
+    dv = torch.where(z != 0, dz, torch.zeros_like(dz))
+    dtau = -(torch.sign(z) * dz).sum(dim=(2, 3))
+    return dv, dtau
+
+
+def lista2d_wgrad_plain(x, y, taps, off, alpha=1.0):
+    """Plain version of lista2d_wgrad: the conv2d of the padded x with y as
+    its filters, batch and channels swapped."""
+    pad = []
+    for q, o in zip(reversed(taps), reversed(off)):  # F.pad order: W, H
+        pad += [-o, q - 1 + o]
+    xp = F.pad(x, pad).transpose(0, 1)               # (I, N, H, W)
+    dw = F.conv2d(xp, y.transpose(0, 1))             # (I, O, Qh, Qw)
+    return alpha * dw.permute(0, 2, 3, 1).contiguous()
+
+
+def lista2d_syn_adjoint(g, wt, z, geom, base=None, alpha=1.0):
+    """dz = [base +] alpha * corr(g, wt, off_a): the synthesis adjoint, and
+    the soft threshold's subgradient at the codes z.
+
+    g: (N, Cp, Hc, Wc) cotangent of a synthesis output; wt: (Cp, Qh, Qw,
+    M), B_k's unflipped phase bank (adjoint_bank(ws_k, 2)); z: (N, M, Hc,
+    Wc) the codes; base: (N, M, Hc, Wc) or None. Returns (dv = 1{z != 0}
+    dz, dtau (N, M) = -sum sign(z) dz over the code grid), the per-block
+    sums added in a fixed order.
+    """
+    if g.device.type == "cpu":
+        return lista2d_syn_adjoint_plain(g, wt, z, geom, base=base, alpha=alpha)
+    from cdlnet_tpu_torch.kernels._build import library
+
+    lib = library()
+    N, Cp, H, W = g.shape
+    M = wt.shape[-1]
+    Qh, Qw = wt.shape[1:3]
+    _check("g", g, g.shape)
+    _check("wt", wt, (Cp, Qh, Qw, M))
+    _check("z", z, (N, M, H, W))
+    if base is not None:
+        _check("base", base, (N, M, H, W))
+    dv = torch.empty_like(z)
+    dtau = torch.empty((N, M), dtype=g.dtype, device=g.device)
+    work = torch.empty((lib.lista3d_syn_adjoint_parts(1, H, W), N, M),
+                       dtype=g.dtype, device=g.device)
+    err = lib.lista3d_syn_adjoint(
+        _ptr(g), _ptr(wt), _ptr(base), _ptr(z), _ptr(work), _ptr(dv), _ptr(dtau),
+        N, Cp, M, 1, H, W, 1, Qh, Qw, 0, *geom.off_a, geom.s, 1, 1, *geom.P,
+        0, *geom.pads, float(alpha), torch.cuda.current_stream(g.device).cuda_stream,
+    )
+    _raise_on(err, "lista2d_syn_adjoint")
+    launches["lista2d_syn_adjoint"] += 1
+    return dv, dtau
+
+
+def lista2d_wgrad(x, y, taps, off, alpha=1.0):
+    """dw[i, q, o] = alpha * sum_{n,p} x[n, i, p+q+off] y[n, o, p]: the
+    gradient of the bank of corr(x, ., off) whose output's cotangent is y.
+
+    x: (N, I, Hc, Wc); y: (N, O, Hc, Wc); taps: (Qh, Qw); off: the (H, W)
+    tap offsets. Returns dw (I, Qh, Qw, O), the bank layout; the
+    cross-block reduction runs in a fixed order (bitwise repeatable).
+    """
+    if x.device.type == "cpu":
+        return lista2d_wgrad_plain(x, y, taps, off, alpha=alpha)
+    from cdlnet_tpu_torch.kernels._build import library
+
+    lib = library()
+    N, I, H, W = x.shape
+    O = y.shape[1]
+    Qh, Qw = taps
+    _check("x", x, x.shape)
+    _check("y", y, (N, O, H, W))
+    splits = lib.lista3d_wgrad_splits(I, Qh * Qw, O, N * H * W)
+    if splits <= 0:
+        raise ValueError(f"lista2d_wgrad: no split of {(I, taps, O, x.shape)}")
+    dw = torch.empty((I, Qh, Qw, O), dtype=x.dtype, device=x.device)
+    work = torch.empty((splits, dw.numel()), dtype=x.dtype, device=x.device)
+    err = lib.lista3d_wgrad(
+        _ptr(x), _ptr(y), _ptr(work), _ptr(dw),
+        N, I, O, 1, H, W, 1, Qh, Qw, 0, *off,
+        float(alpha), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _raise_on(err, "lista2d_wgrad")
+    launches["lista2d_wgrad"] += 1
+    return dw
+
+
+def lista2d_fused_bwd(dx2, y2, m2, banks, tau, z_hist, r_hist, geom):
+    """The reverse loop of the fused 2D LISTA (lista3d_bwd.fused_bwd, the
+    3D algebra on the (Hc, Wc) grid) over the histories of
+    lista2d.lista2d_loop(return_hists=True): 2K lista2d_wgrad, K
+    lista2d_syn_adjoint and K-1 lista2d_syn_residual launches. dx2, y2, m2:
+    (N, Cp, Hc, Wc) (m2 may be None); banks: (wa, ws) as from
+    lista2d.phase_operands; tau: (K, N, M). Returns (dwa, dws, dtau)."""
+    return fused_bwd((lista2d_syn_adjoint, lista2d_wgrad, lista2d_syn_residual), 2,
+                     dx2, y2, m2, banks, tau, z_hist, r_hist, geom)

@@ -56,15 +56,16 @@ from cdlnet_tpu_torch.kernels.lista3d import (
 )
 
 
-def adjoint_bank(w: torch.Tensor) -> torch.Tensor:
-    """w* of a correlation bank (..., I, Qd, Qh, Qw, O): taps flipped, I and
-    O swapped, (..., O, Qd, Qh, Qw, I), contiguous. corr(., w*, -(Q-1) -
-    off) is the adjoint of corr(., w, off); prep_B2m_3d(W) ==
-    adjoint_bank(prep_A2m_3d(W)) and the other way round."""
+def adjoint_bank(w: torch.Tensor, spatial: int = 3) -> torch.Tensor:
+    """w* of a correlation bank (..., I, *Q, O) with `spatial` tap dims (3:
+    Qd, Qh, Qw; 2: Qh, Qw): taps flipped, I and O swapped, (..., O, *Q, I),
+    contiguous. corr(., w*, -(Q-1) - off) is the adjoint of corr(., w,
+    off); prep_B2m_3d(W) == adjoint_bank(prep_A2m_3d(W)), prep_B2m_2d(W)
+    == adjoint_bank(prep_A2m_2d(W), 2), and the other way round."""
     nd = w.dim()
-    lead = list(range(nd - 5))
-    return w.flip(nd - 4, nd - 3, nd - 2).permute(
-        *lead, nd - 1, nd - 4, nd - 3, nd - 2, nd - 5).contiguous()
+    i_dim = nd - spatial - 2
+    taps = list(range(i_dim + 1, nd - 1))
+    return w.flip(taps).permute(*range(i_dim), nd - 1, *taps, i_dim).contiguous()
 
 
 def lista3d_syn_adjoint_plain(g, wt, z, geom, base=None, alpha=1.0):
@@ -117,7 +118,8 @@ def lista3d_syn_adjoint(g, wt, z, geom, base=None, alpha=1.0):
                        dtype=g.dtype, device=g.device)
     err = lib.lista3d_syn_adjoint(
         _ptr(g), _ptr(wt), _ptr(base), _ptr(z), _ptr(work), _ptr(dv), _ptr(dtau),
-        N, Cp, M, D, H, W, Qd, Qh, Qw, *geom.off_a, geom.s, *geom.P, *geom.pads,
+        N, Cp, M, D, H, W, Qd, Qh, Qw, *geom.off_a, geom.s, geom.s, *geom.P,
+        *geom.pads,
         float(alpha), torch.cuda.current_stream(g.device).cuda_stream,
     )
     _raise_on(err, "lista3d_syn_adjoint")
@@ -158,35 +160,45 @@ def lista3d_wgrad(x, y, taps, off, alpha=1.0):
     return dw
 
 
-def lista3d_fused_bwd(dx2, y2, m2, banks, tau, z_hist, r_hist, geom):
-    """The reverse loop of the fused 3D LISTA over its stored histories.
+def fused_bwd(kernels, spatial, dx2, y2, m2, banks, tau, z_hist, r_hist, geom):
+    """The reverse loop of a fused LISTA over its stored histories (module
+    docstring), on the kernels (syn_adjoint, wgrad, syn_residual) of a
+    stride-phase domain with `spatial` tap dims (3: video, 2: images).
 
-    dx2: (N, Cp, Dc, Hc, Wc) cotangent of x2; y2, m2 (or None): the
-    forward's phase-domain input and mask; banks: (wa, ws) as from
-    lista3d.phase_operands; tau: (K, N, M) (its shape only is read: the
-    subgradients come from the codes); z_hist, r_hist: from
-    lista3d.lista3d_loop(return_hists=True). Returns (dwa, dws, dtau), the
-    gradients of wa, ws and tau.
+    dx2: (N, Cp, *grid) cotangent of x2; y2, m2 (or None): the forward's
+    phase-domain input and mask; banks: (wa, ws) as from phase_operands;
+    tau: (K, N, M) (its shape only is read: the subgradients come from the
+    codes); z_hist, r_hist: from the loop's return_hists=True. Returns
+    (dwa, dws, dtau), the gradients of wa, ws and tau.
     """
+    syn_adjoint, wgrad, syn_residual = kernels
     wa, ws = banks
     K = wa.shape[0]
-    taps = tuple(wa.shape[2:5])
-    wa_adj = adjoint_bank(wa)  # (K, M, Q, Cp): A_k* as a synthesis bank
-    ws_adj = adjoint_bank(ws)  # (K, Cp, Q, M): B_k* as an analysis bank
+    taps = tuple(wa.shape[2:2 + spatial])
+    wa_adj = adjoint_bank(wa, spatial)  # (K, M, Q, Cp): A_k* as a synthesis bank
+    ws_adj = adjoint_bank(ws, spatial)  # (K, Cp, Q, M): B_k* as an analysis bank
     dwa = torch.empty_like(wa)
     dws = torch.empty_like(ws)
     dtau = torch.empty_like(tau)
 
-    def syn_wgrad(z, g, alpha):  # == lista3d_wgrad(z, g, taps, geom.off_s, alpha)
-        return adjoint_bank(lista3d_wgrad(g, z, taps, geom.off_a, alpha=alpha))
+    def syn_wgrad(z, g, alpha):  # == wgrad(z, g, taps, geom.off_s, alpha)
+        return adjoint_bank(wgrad(g, z, taps, geom.off_a, alpha=alpha), spatial)
 
-    dv, dtau[K - 1] = lista3d_syn_adjoint(dx2, ws_adj[0], z_hist[K - 1], geom)
+    dv, dtau[K - 1] = syn_adjoint(dx2, ws_adj[0], z_hist[K - 1], geom)
     dws[0] = syn_wgrad(z_hist[K - 1], dx2, 1.0)
     for k in range(K - 1, 0, -1):
-        dwa[k] = lista3d_wgrad(r_hist[k - 1], dv, taps, geom.off_a, alpha=-1.0)
-        g = lista3d_syn_residual(dv, wa_adj[k], geom, mask=m2)
+        dwa[k] = wgrad(r_hist[k - 1], dv, taps, geom.off_a, alpha=-1.0)
+        g = syn_residual(dv, wa_adj[k], geom, mask=m2)
         dws[k] = syn_wgrad(z_hist[k - 1], g, -1.0)
-        dv, dtau[k - 1] = lista3d_syn_adjoint(g, ws_adj[k], z_hist[k - 1], geom,
-                                              base=dv, alpha=-1.0)
-    dwa[0] = lista3d_wgrad(y2, dv, taps, geom.off_a)
+        dv, dtau[k - 1] = syn_adjoint(g, ws_adj[k], z_hist[k - 1], geom,
+                                      base=dv, alpha=-1.0)
+    dwa[0] = wgrad(y2, dv, taps, geom.off_a)
     return dwa, dws, dtau
+
+
+def lista3d_fused_bwd(dx2, y2, m2, banks, tau, z_hist, r_hist, geom):
+    """The reverse loop of the fused 3D LISTA (fused_bwd) over the
+    histories of lista3d.lista3d_loop(return_hists=True): 2K wgrad, K
+    syn_adjoint and K-1 syn_residual launches. Returns (dwa, dws, dtau)."""
+    return fused_bwd((lista3d_syn_adjoint, lista3d_wgrad, lista3d_syn_residual), 3,
+                     dx2, y2, m2, banks, tau, z_hist, r_hist, geom)

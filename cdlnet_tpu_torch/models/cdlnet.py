@@ -21,14 +21,11 @@ from torch import nn
 from cdlnet_tpu_torch.core.ops import uball_project
 from cdlnet_tpu_torch.core.preprocess import post_process, pre_process
 from cdlnet_tpu_torch.core.solvers import power_method
+from cdlnet_tpu_torch.kernels.autodiff import RETURN_Z_HINT, lista2d_fused_diff
 from cdlnet_tpu_torch.kernels.lista2d import lista2d_fused
 from cdlnet_tpu_torch.models.base import check_backend, register, sigma_scale
 from cdlnet_tpu_torch.ops.conv import conv2d, conv_transpose2d
 from cdlnet_tpu_torch.ops.lista import lista_2d
-
-TRAIN_HINT = ("2D training on the kernels (the reverse of TPU kernel K6) is not "
-              "ported yet (see ROADMAP.md); use backend=\"xla\" or "
-              "torch.no_grad()/torch.inference_mode()")
 
 
 def lista2d_forward(model, A, B, t, y, sigma, mask, return_z):
@@ -36,15 +33,20 @@ def lista2d_forward(model, A, B, t, y, sigma, mask, return_z):
     y (N, C, H, W), the K-iteration loop with banks A, B and thresholds t on
     the kernels (backend "pallas"/"cuda") or the plain loop ("xla"), the
     final synthesis through B[0], and post-process. Returns (xhat, z or
-    None). A kernel forward with gradients enabled raises: it would give no
-    gradient."""
+    None). On the kernels with gradients enabled the forward is
+    lista2d_fused_diff (kernel forward with histories, the reverse kernels
+    as its backward; JAX's apply(train=True)); return_z=True then raises,
+    since the code output has no gradient."""
     yp, prm, mask = pre_process(y, model.s, mask=mask)
     c = sigma_scale(sigma, model.adaptive, 4)
     if isinstance(c, torch.Tensor):
         c = c.to(yp.device, yp.dtype)
-    if model.backend in ("pallas", "cuda"):
-        if torch.is_grad_enabled():
-            raise NotImplementedError(TRAIN_HINT)
+    if model.backend in ("pallas", "cuda") and torch.is_grad_enabled():
+        if return_z:
+            raise NotImplementedError(RETURN_Z_HINT)
+        xphat = lista2d_fused_diff(yp, A, B, t, c, stride=model.s, mask=mask)
+        z = None
+    elif model.backend in ("pallas", "cuda"):
         xphat, z = lista2d_fused(yp, A, B, t, c, stride=model.s, mask=mask,
                                  return_z=return_z)
     else:
@@ -68,6 +70,10 @@ def normalizing_scale(A0, B0, C, s, pad, generator, dev):
 
 @register("CDLNet")
 class CDLNet(nn.Module):
+    # parameters the forward never reads: training gives them a zero
+    # gradient (train.fit.train_update), as jax.grad does
+    unused_params = ("g",)
+
     def __init__(self, K: int = 3, M: int = 64, P: int = 7, s: int = 1,
                  C: int = 1, t0: float = 0.0, adaptive: bool = False,
                  backend: str = "xla"):

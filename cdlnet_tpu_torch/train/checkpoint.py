@@ -108,6 +108,16 @@ def save_ckpt(path: str, model, epoch: int = 0, opt_state=None, lr=None,
     os.replace(tmp, final)
 
 
+def save_args(args: dict, save_dir: str, ckpt_name: str = "net.ckpt.npz"):
+    """Re-serialize the args.json into the save dir with the ckpt path patched
+    in, sorted keys (reference train.py:249-258)."""
+    args = json.loads(json.dumps(args))  # deep copy
+    args.setdefault("paths", {})["ckpt"] = os.path.join(save_dir, ckpt_name)
+    os.makedirs(save_dir, exist_ok=True)
+    with open(os.path.join(save_dir, "args.json"), "w") as f:
+        f.write(json.dumps(args, indent=4, sort_keys=True))
+
+
 def load_ckpt(path: str, model, opt_state=None):
     """Restore an .npz bundle into `model` (strictly, in place) and, when
     given, into opt_state (in place; leaves the bundle lacks keep their

@@ -1,4 +1,4 @@
-"""The training loop of the video workload (counterpart of the
+"""The training loop of the image and video workloads (counterpart of the
 single-device, non-stateful path of cdlnet_tpu/train/fit.py).
 
 Structure (reference train.py:32-158):
@@ -16,8 +16,8 @@ Structure (reference train.py:32-158):
     the epoch counter (train.py:113-142), log to backtrack.txt; disarmed
     after max_backtracks consecutive restores without a new best.
 
-Not ported yet (each raises NotImplementedError naming ROADMAP.md): the 2d
-and mri workloads, meshes, BatchNorm (stateful) families, one-dispatch
+Not ported yet (each raises NotImplementedError naming ROADMAP.md): the mri
+workload, meshes, BatchNorm (stateful) families, one-dispatch
 device-scan epochs, MC-SURE and the combined loss, orbax checkpoints.
 """
 
@@ -29,7 +29,7 @@ import time
 
 import torch
 
-from cdlnet_tpu_torch.data.noise import awgn3d, gen_bayer_mask3d
+from cdlnet_tpu_torch.data.noise import awgn, awgn3d, gen_bayer_mask, gen_bayer_mask3d
 from cdlnet_tpu_torch.models.base import build_model
 from cdlnet_tpu_torch.train.checkpoint import load_ckpt, save_ckpt
 from cdlnet_tpu_torch.train.losses import mse_loss, psnr_from_mse
@@ -71,12 +71,18 @@ def train_update(model, opt, opt_state, obsrv, sigma, clean, mask=None,
                  project=True) -> torch.Tensor:
     """One optimizer step on a given noisy batch: forward -> mse ->
     gradients -> clipped Adam -> project(). Parameters and opt_state
-    change in place. Returns the loss (a device scalar, not synchronized)."""
+    change in place. Returns the loss (a device scalar, not synchronized).
+    The parameters the model declares unused (its unused_params, CDLNet's
+    g) get a zero gradient, as under jax.grad; any other parameter the loss
+    does not reach makes autograd raise."""
     xhat, _ = model(obsrv, sigma, mask=mask)
     loss = mse_loss(xhat, clean)
     params = dict(model.named_parameters())
-    grads = torch.autograd.grad(loss, list(params.values()))
-    opt.update(params, dict(zip(params, grads)), opt_state)
+    unused = getattr(model, "unused_params", ())
+    used = [n for n in params if n not in unused]
+    grads = dict(zip(used, torch.autograd.grad(loss, [params[n] for n in used])))
+    grads.update({n: torch.zeros_like(params[n]) for n in unused})
+    opt.update(params, {n: grads[n] for n in params}, opt_state)
     if project:
         model.project()
     return loss.detach()
@@ -89,10 +95,12 @@ def make_train_step(model, opt, *, workload="3d", noise_std=(25, 25),
       train_step(opt_state, batch, generator) -> loss
         (params and opt_state update in place)
       eval_step(batch, generator) -> loss
-    batch: a clean (N, C, D, H, W) tensor on the model's device; generator:
-    a torch.Generator there, which draws the noise (and the per-sample
-    sigma when noise_std is a range)."""
-    if workload != "3d":
+    batch: a clean (N, C, D, H, W) clip batch (workload "3d") or (N, C, H,
+    W) image batch ("2d") on the model's device; generator: a
+    torch.Generator there, which draws the noise (and the per-sample sigma
+    when noise_std is a range). demosaic observes through the RGGB Bayer
+    mask (2D) or the reference's all-ones 3D mask."""
+    if workload not in ("2d", "3d"):
         raise NotImplementedError(f"workload {workload!r} {_NOT_PORTED}")
     for name, unported in (("mcsure", mcsure), ("stateful", stateful),
                            ("mesh", mesh is not None),
@@ -101,9 +109,12 @@ def make_train_step(model, opt, *, workload="3d", noise_std=(25, 25),
             raise NotImplementedError(f"{name} training {_NOT_PORTED}")
     nstd = tuple(noise_std) if isinstance(noise_std, (list, tuple)) else noise_std
 
+    noiser = awgn if workload == "2d" else awgn3d
+    bayer = gen_bayer_mask if workload == "2d" else gen_bayer_mask3d
+
     def observe(batch, generator):
-        noisy, sigma = awgn3d(batch, nstd, generator)
-        mask = gen_bayer_mask3d(batch) if demosaic else None
+        noisy, sigma = noiser(batch, nstd, generator)
+        mask = bayer(batch) if demosaic else None
         return (noisy if mask is None else mask * noisy), sigma, mask
 
     def train_step(opt_state, batch, generator):
@@ -128,8 +139,9 @@ def fit(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1,
     """Fit model to data. Returns (opt_state, history), history a list of
     (epoch, phase, psnr); the model's parameters are trained in place.
 
-    loaders: {"train", "val", "test"} -> iterables of clean (N, C, D, H, W)
-    batches (numpy arrays or tensors), moved to the model's device. The
+    loaders: {"train", "val", "test"} -> iterables of clean batches, (N, C,
+    D, H, W) clips for workload "3d" or (N, C, H, W) images for "2d" (numpy
+    arrays or tensors), moved to the model's device. The
     semantics follow the JAX package's fit (module docstring); sched is
     dict(step_size=..., gamma=...) for StepLR."""
     if ckpt_format != "npz":

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's video serve, 2D image serve and video
-training paths on one GPU.
+"""Drive the PyTorch/CUDA port's video serve, 2D image serve, video
+training and 2D image training paths on one GPU.
 
     python3 chip_smoke.py
 
@@ -28,11 +28,23 @@ Builds the hand-written CUDA kernels from cdlnet_tpu_torch/kernels/csrc
             autograd on backend "xla" (and two backward runs for bitwise
             equality), and runs fit() for 20 steps, counting the launches
             per step and reloading its checkpoint;
+  train 2D  at the flagship 2D training shape (CDLNet K=30, M=169, P=7,
+            s=2, N=10 crops of 128^2 cut from data/synthetic.natural_image,
+            sigma in [20, 30]) checks the 2D reverse kernels against their
+            plain versions (and at JDD's C=3, s=1 masked form and a C=3,
+            s=2 form), the gradients through the kernels against backend
+            "xla" and bitwise repeatable (the flagship at 10 x 128^2 and
+            1 x 256^2, the reference JDD config with a Bayer mask, GDLNet),
+            runs fit(workload="2d") for 20 steps, counting the launches
+            per step and reloading its checkpoint, and trains the same
+            width for two epochs through the train CLI (cli.train.main on
+            image directories written by data/synthetic.py, on the card by
+            default), reloading the checkpoint and args.json it saves;
 
 and times every kernel (CUDA events) beside its plain version, the one
 PyTorch call that computes the same function, and its bound on this card,
-and the served clip and image and the train step on the kernels and on
-backend "xla". Any failed phase raises and the script exits non-zero;
+and the served clip and image and the video and image train steps on the
+kernels and on backend "xla". Any failed phase raises and the script exits non-zero;
 without a CUDA device it exits 1 before printing any result. The last line
 of stdout is
 
@@ -44,6 +56,7 @@ preceded by the card's nvidia-smi name and power limit and by a JSON line
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import statistics
@@ -58,17 +71,20 @@ import torch.nn.functional as F
 
 from cdlnet_tpu_torch.core.preprocess import pre_process, pre_process_3d
 from cdlnet_tpu_torch.data.noise import gen_bayer_mask
+from cdlnet_tpu_torch.cli import train as cli_train
+from cdlnet_tpu_torch.data.synthetic import gen_natural_image_dirs, natural_image
 from cdlnet_tpu_torch.kernels import _build
 from cdlnet_tpu_torch.kernels import lista2d as L2
+from cdlnet_tpu_torch.kernels import lista2d_bwd as LB2
 from cdlnet_tpu_torch.kernels import lista3d as L
 from cdlnet_tpu_torch.kernels import lista3d_bwd as LB
-from cdlnet_tpu_torch.models import CDLNet, CDLNetVideo
+from cdlnet_tpu_torch.models import CDLNet, CDLNetVideo, GDLNet
 from cdlnet_tpu_torch.ops import polyphase as pp
 from cdlnet_tpu_torch.ops.conv import conv_transpose2d, conv_transpose3d
 from cdlnet_tpu_torch.ops.lista import lista_2d, lista_3d
 from cdlnet_tpu_torch.serve import Denoiser
 from cdlnet_tpu_torch.train.checkpoint import load_ckpt
-from cdlnet_tpu_torch.train.fit import fit, train_update
+from cdlnet_tpu_torch.train.fit import fit, init_model, train_update
 from cdlnet_tpu_torch.train.losses import mse_loss
 from cdlnet_tpu_torch.train.optim import make_optimizer
 
@@ -92,8 +108,25 @@ IMAGE = (128, 128)
 BIG_IMAGE = (321, 481)      # BSD68's size: buckets to 384x512
 BATCH_SIGMAS = [15.0, 25.0, 35.0, 25.0]
 THROUGHPUT_BATCH = 8
+# the 2D training path: the reference's batch of 10 crops of 128^2 (and the
+# KERNELMATRIX row "2d-flagship train 256^2", the TPU's banded class),
+# GDLNet at the flagship width, and a stride-2 colour form whose phase map
+# a 3D one would get wrong
+TRAIN_2D_N = 10
+CROP = 128
+BIG_CROP = 256
+GDLNET_2D = dict(K=30, M=169, P=7, s=2, C=1, order=1, adaptive=True)
+COLOR_S2_2D = dict(K=3, M=64, P=7, s=2, C=3, adaptive=True)
+# fit(workload="2d") from the power-method init: the reference's lr and a
+# global-norm clip, as the 3D phase runs
+FIT_2D_LR, FIT_2D_CLIP = 1e-3, 0.05
+# the train CLI's run: the flagship demo's args.json (the reference's
+# CDLNet-s2030 config: 10 crops of 128^2 a batch) on 20 training images of
+# 180^2, 8 val and 4 test images, for two epochs
+CLI_TRAIN_IMAGES, CLI_TEST_IMAGES, CLI_EPOCHS = 20, 4, 2
 CSRC = "cdlnet_tpu_torch/kernels/csrc/"
 K5, K7 = "cdlnet_tpu/kernels/lista2d.py:185", "cdlnet_tpu/kernels/lista2d_tiled.py"
+K6_K8 = "cdlnet_tpu/kernels/lista2d.py:399; cdlnet_tpu/kernels/lista2d_tiled_bwd.py:110"
 # kernel -> (source, the TPU kernel(s) it replaces)
 KERNELS = {
     "lista3d_ana_threshold": (CSRC + "lista3d.cu", "cdlnet_tpu/kernels/lista3d.py:325"),
@@ -104,6 +137,10 @@ KERNELS = {
                       "cdlnet_tpu/kernels/lista3d_bwd_resident.py:99"),
     "lista2d_ana_threshold": (CSRC + "lista2d.cu", f"{K5}; {K7}:175"),
     "lista2d_syn_residual": (CSRC + "lista2d.cu", f"{K5}; {K7}:140"),
+    # the 2D reverse pair: lista3d_bwd.cu's kernels at D = Qd = 1 (the
+    # adjoint with the 2D phase map, sd = 1)
+    "lista2d_syn_adjoint": (CSRC + "lista3d_bwd.cu", K6_K8),
+    "lista2d_wgrad": (CSRC + "lista3d_bwd.cu", K6_K8),
 }
 # launches per train step: forward K + K, reverse K syn_adjoint, K-1
 # syn_residual (the analysis adjoint) and 2K wgrad (dA and dB)
@@ -214,10 +251,11 @@ def noisy_images(rng, shape, sigmas, C=1):
     return clean, clean + sig / 255 * rng.standard_normal(clean.shape).astype(np.float32)
 
 
-def random_2d_model(cfg, dev):
-    """A power-method CDLNet (backend "pallas") with random thresholds > 0,
-    so the soft threshold is exercised (the init's t0 is 0)."""
-    model = CDLNet(**cfg, backend="pallas").to(dev).init(torch.Generator().manual_seed(SEED))
+def random_2d_model(cfg, dev, cls=CDLNet):
+    """A power-method CDLNet (or GDLNet; backend "pallas") with random
+    thresholds > 0, so the soft threshold is exercised (the init's t0 is
+    0)."""
+    model = cls(**cfg, backend="pallas").to(dev).init(torch.Generator().manual_seed(SEED))
     tg = torch.Generator().manual_seed(SEED + 2)
     with torch.no_grad():
         model.t.copy_(torch.rand(model.t.shape, generator=tg)
@@ -404,6 +442,316 @@ def serve_2d(dev, card, err) -> tuple[dict, dict]:
               f"128^2 on the {label}: {ms:.3f} ms, {1e3 * THROUGHPUT_BATCH / ms:.1f} "
               f"images/s", flush=True)
     return launches, times
+
+
+def natural_crops(rng, n, size, C=1) -> np.ndarray:
+    """(n, C, size, size) random crops of data/synthetic.natural_image
+    images 52 pixels wider (the reference's 180^2 images for 128^2 crops),
+    one image per crop and channel."""
+    out = np.empty((n, C, size, size), np.float32)
+    for i in range(n):
+        for c in range(C):
+            y, x = rng.integers(0, 53, 2)
+            out[i, c] = natural_image(rng, size=size + 52)[y:y + size, x:x + size]
+    return out
+
+
+def observed(rng, clean, dev, mask=None):
+    """(noisy observation, sigma (N, 1, 1, 1)) on dev of the clean numpy
+    batch: AWGN at a sigma per image uniform in TRAIN_SIGMA, through the
+    mask (on dev) when given."""
+    sig = rng.uniform(*TRAIN_SIGMA, (clean.shape[0], 1, 1, 1)).astype(np.float32)
+    noisy = clean + sig / 255 * rng.standard_normal(clean.shape).astype(np.float32)
+    noisy, sig = (torch.from_numpy(a).to(dev) for a in (noisy, sig))
+    return (noisy if mask is None else mask * noisy), sig
+
+
+def step_launches_2d(K) -> dict:
+    """Launches of one 2D training step of K iterations: forward K + K,
+    reverse K syn_adjoint, K-1 syn_residual (the analysis adjoint) and 2K
+    wgrad (dA and dB)."""
+    return {"lista2d_ana_threshold": K, "lista2d_syn_residual": 2 * K - 1,
+            "lista2d_syn_adjoint": K, "lista2d_wgrad": 2 * K}
+
+
+def train_2d(dev, card, err) -> tuple[dict, dict]:
+    """The 2D image training path: reverse kernel parity, the gradients
+    through the kernels vs backend "xla", fit(workload="2d"), times, and
+    the train CLI. Returns (launches of the fit and CLI runs, the reverse
+    kernels' times at the flagship training shape)."""
+    rng = np.random.default_rng(SEED + 20)  # the earlier phases keep their draws
+    flag = random_2d_model(FLAGSHIP_2D, dev)
+    clean = natural_crops(rng, TRAIN_2D_N, CROP)
+    clean_t = torch.from_numpy(clean).to(dev)
+    noisy_t, sig_t = observed(rng, clean, dev)
+    K = flag.K
+
+    # --- T2-1. each reverse kernel against its plain version ---
+    t0 = time.perf_counter()
+    color_s2 = random_2d_model(COLOR_S2_2D, dev)
+    jdd = random_2d_model(JDD_2D, dev)
+    flag_ops = None
+    with torch.no_grad():
+        for label, model, n in ((f"flagship {TRAIN_2D_N}x{CROP}^2", flag, TRAIN_2D_N),
+                                (f"jdd 2x{CROP}^2 masked", jdd, 2),
+                                (f"C=3 s=2 2x{CROP}^2 masked", color_s2, 2)):
+            s, C, Km = model.s, model.C, model.K
+            if model is flag:
+                y, sig, mask = noisy_t, sig_t, None
+            else:
+                cl = natural_crops(rng, n, CROP, C)
+                mask = gen_bayer_mask(torch.from_numpy(cl)).to(dev)
+                y, sig = observed(rng, cl, dev, mask)
+            yp, _, mask = pre_process(y, s, mask=mask)
+            y2, m2, wa, ws, tau, geom = L2.phase_operands(yp, model.A, model.B, model.t,
+                                                          sig / 255, s, mask)
+            _, _, (zh, rh) = L2.lista2d_loop(y2, m2, wa, ws, tau, geom, return_hists=True)
+            wa_adj, ws_adj = LB.adjoint_bank(wa, 2), LB.adjoint_bank(ws, 2)
+            taps = tuple(wa.shape[2:4])
+            if m2 is None:  # a random observation mask for the masked adjoint
+                m2 = (torch.rand(y2.shape, generator=torch.Generator().manual_seed(SEED))
+                      > 0.3).float().to(dev)
+            dx2 = torch.randn(y2.shape, generator=torch.Generator().manual_seed(SEED)).to(dev)
+            k = Km // 2
+            dv, _ = LB2.lista2d_syn_adjoint_plain(dx2, ws_adj[0], zh[Km - 1], geom)
+            g = L2.lista2d_syn_residual_plain(dv, wa_adj[k], geom, mask=m2)
+            for name, what, mod, run in (
+                ("lista2d_syn_adjoint", "init dz = B0*(dx2)", LB2,
+                 lambda f: f(dx2, ws_adj[0], zh[Km - 1], geom)),
+                ("lista2d_syn_adjoint", f"k={k} dz = dv - Bk*(g)", LB2,
+                 lambda f: f(g, ws_adj[k], zh[k - 1], geom, base=dv, alpha=-1.0)),
+                ("lista2d_wgrad", "dA = -dv (*) r", LB2,
+                 lambda f: f(rh[k - 1], dv, taps, geom.off_a, alpha=-1.0)),
+                ("lista2d_wgrad", "dB = adjoint of -z (*) g", LB2,
+                 lambda f: f(g, zh[k - 1], taps, geom.off_a, alpha=-1.0)),
+                ("lista2d_syn_residual", "A-adjoint g = m * Ak*(dv)", L2,
+                 lambda f: f(dv, wa_adj[k], geom, mask=m2)),
+            ):
+                got = run(getattr(mod, name))
+                ref = run(getattr(mod, name + "_plain"))
+                torch.cuda.synchronize()
+                compare(name, f"{label} {what}", got, ref, err)
+            if model is flag:  # kept for the times
+                flag_ops = dict(y2=y2, wa=wa, ws=ws, tau=tau, geom=geom, zh=zh, rh=rh,
+                                wa_adj=wa_adj, ws_adj=ws_adj, taps=taps, m2=m2, dv=dv,
+                                g=g, k=k)
+            del zh, rh
+    print(f"train 2D: reverse kernel parity in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # --- T2-2. the gradients through the kernels vs torch autograd ("xla") ---
+    gdl = random_2d_model(GDLNET_2D, dev, cls=GDLNet)
+    jdd_clean = natural_crops(rng, 2, CROP, 3)
+    jdd_mask = gen_bayer_mask(torch.from_numpy(jdd_clean)).to(dev)
+    for label, model, cl, mask in (
+        (f"2d-flagship train {TRAIN_2D_N}x{CROP}^2", flag, clean, None),
+        (f"2d-flagship train 1x{BIG_CROP}^2", flag, natural_crops(rng, 1, BIG_CROP), None),
+        (f"jdd (K={jdd.K}) train 2x{CROP}^2 masked", jdd, jdd_clean, jdd_mask),
+        (f"gdlnet (K={gdl.K}) train 2x{CROP}^2", gdl, natural_crops(rng, 2, CROP), None),
+    ):
+        obs, sig = (noisy_t, sig_t) if cl is clean else observed(rng, cl, dev, mask)
+        cl = torch.from_numpy(cl).to(dev)
+        plain = copy.deepcopy(model)
+        plain.backend = "xla"
+        names = [n for n, _ in model.named_parameters()
+                 if n not in getattr(model, "unused_params", ())]
+
+        def grads(m):
+            loss = mse_loss(m(obs, sig, mask=mask)[0], cl)
+            prm = dict(m.named_parameters())
+            return torch.autograd.grad(loss, [prm[n] for n in names])
+
+        L.launches.clear()
+        g1 = grads(model)
+        torch.cuda.synchronize()
+        want = step_launches_2d(model.K)
+        require(dict(L.launches) == want,
+                f"{label}: one gradient launched {dict(L.launches)}, expected {want}")
+        g2 = grads(model)
+        gp = grads(plain)
+        torch.cuda.synchronize()
+        for name, a, b, ref in zip(names, g1, g2, gp):
+            d, rel = rel_err(a, ref)
+            print(f"parity {label} gradient d{name}: max|d| {d:.3e}, rel {rel:.3e}; two runs "
+                  f"bitwise equal: {torch.equal(a, b)}", flush=True)
+            require(rel <= GRAD_TOL, f"{label} gradient d{name} rel err {rel:.3e} > {GRAD_TOL}")
+            require(torch.equal(a, b), f"{label}: two backward runs differ in d{name}")
+        del plain, g1, g2, gp
+    del gdl, jdd, color_s2
+
+    # --- T2-3. fit(workload="2d"): FIT_STEPS steps at the flagship width ---
+    fit_model = CDLNet(**FLAGSHIP_2D, backend="pallas").to(dev).init(
+        torch.Generator().manual_seed(SEED))
+    opt = make_optimizer(FIT_2D_LR, clip_grad=FIT_2D_CLIP)
+    state = opt.init(dict(fit_model.named_parameters()))
+    loaders = {"train": [clean], "val": [clean], "test": [clean]}  # one batch a pass
+    with tempfile.TemporaryDirectory() as save_dir:
+        L.launches.clear()
+        t0 = time.perf_counter()
+        state, history = fit(fit_model, opt, state, loaders, save_dir=save_dir,
+                             epochs=FIT_STEPS, noise_std=TRAIN_SIGMA, val_freq=10,
+                             save_freq=10, backtrack_thresh=None, verbose=False,
+                             seed=SEED, workload="2d")
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = dict(L.launches)
+        evals = sum(ph != "train" for _, ph, _ in history)
+        want = {name: FIT_STEPS * n for name, n in step_launches_2d(K).items()}
+        want["lista2d_ana_threshold"] += evals * K
+        want["lista2d_syn_residual"] += evals * K
+        losses = [10 ** (-p / 10) for _, ph, p in history if ph == "train"]
+        print(f"fit 2D: {FIT_STEPS} steps of {TRAIN_2D_N}x{CROP}^2 (lr {FIT_2D_LR}, clip "
+              f"{FIT_2D_CLIP}) + {evals} evals in {fit_s:.2f} s; launches {fit_launches}; "
+              f"train losses {[f'{v:.6f}' for v in losses]}", flush=True)
+        require(fit_launches == want, f"fit 2D launched {fit_launches}, expected {want}")
+        require(len(losses) == FIT_STEPS and all(np.isfinite(losses)),
+                f"non-finite or missing 2D train losses {losses}")
+        require(np.mean(losses[-5:]) < np.mean(losses[:5]),
+                f"2D losses did not fall: first 5 {losses[:5]}, last 5 {losses[-5:]}")
+        back = CDLNet(**FLAGSHIP_2D).to(dev)
+        back_state = opt.init(dict(back.named_parameters()))
+        _, back_state, epoch, _ = load_ckpt(os.path.join(save_dir, "net.ckpt.npz"),
+                                            back, back_state)
+        require(epoch == FIT_STEPS and back_state["count"] == FIT_STEPS
+                and all(torch.equal(a, b) for a, b in
+                        zip(back.parameters(), fit_model.parameters())),
+                "fit 2D's checkpoint did not reload to the trained state")
+    del back, back_state, fit_model
+
+    # --- T2-4. times at the flagship training shape (CUDA events, median of 5):
+    # each kernel, its plain version, the one PyTorch call of the same
+    # function, and the bound; wgrad runs as each reverse step does, dA then
+    # dB, and reports per call ---
+    o = flag_ops
+    k, geom, taps, s, pad = o["k"], o["geom"], o["taps"], flag.s, flag.pad
+    zh, rh, dv, g, wa_adj, ws_adj = (o[n] for n in ("zh", "rh", "dv", "g", "wa_adj", "ws_adj"))
+    wa, ws, tau, y2, m2 = (o[n] for n in ("wa", "ws", "tau", "y2", "m2"))
+    n_pos = y2[:, 0].numel()
+    times = {}
+    with torch.no_grad():
+        g_full = pp.depth_to_space(g, s, 2, 1)
+        r_full = pp.depth_to_space(rh[k - 1], s, 2, 1)
+        wg = torch.nn.grad.conv2d_weight
+
+        def pair(f, lib=False):
+            if lib:
+                return lambda: (wg(r_full, flag.A[k].shape, dv, stride=s, padding=pad),
+                                wg(g_full, flag.B[k].shape, zh[k - 1], stride=s, padding=pad))
+            return lambda: (f(rh[k - 1], dv, taps, geom.off_a, alpha=-1.0),
+                            f(g, zh[k - 1], taps, geom.off_a, alpha=-1.0))
+
+        for name, what, run, plain, lib, banks, io in (
+            ("lista2d_syn_adjoint", "",
+             lambda: LB2.lista2d_syn_adjoint(g, ws_adj[k], zh[k - 1], geom, base=dv, alpha=-1.0),
+             lambda: LB2.lista2d_syn_adjoint_plain(g, ws_adj[k], zh[k - 1], geom, base=dv,
+                                                   alpha=-1.0),
+             lambda: F.conv2d(g_full, flag.B[k], stride=s, padding=pad),
+             (ws_adj[k],), (g, ws_adj[k], dv, zh[k - 1], dv, tau[0])),
+            ("lista2d_wgrad", "",  # dA = -dv (*) r, then dB = -g (*) z
+             pair(LB2.lista2d_wgrad), pair(LB2.lista2d_wgrad_plain), pair(None, lib=True),
+             (wa[k], ws[k]), (rh[k - 1], dv, wa[k], g, zh[k - 1], ws[k])),
+            ("lista2d_ana_threshold", " train",
+             lambda: L2.lista2d_ana_threshold(rh[k - 1], zh[k - 1], wa[k], tau[k], geom),
+             lambda: L2.lista2d_ana_threshold_plain(rh[k - 1], zh[k - 1], wa[k], tau[k], geom),
+             lambda: F.conv2d(r_full, flag.A[k], stride=s, padding=pad),
+             (wa[k],), (rh[k - 1], zh[k - 1], wa[k], tau[k], zh[k])),
+            ("lista2d_syn_residual", " train",
+             lambda: L2.lista2d_syn_residual(zh[k - 1], ws[k], geom, y=y2),
+             lambda: L2.lista2d_syn_residual_plain(zh[k - 1], ws[k], geom, y=y2),
+             lambda: F.conv_transpose2d(zh[k - 1], flag.B[k], stride=s, padding=pad,
+                                        output_padding=s - 1),
+             (ws[k],), (zh[k - 1], ws[k], y2, y2)),  # reads y, writes r (y's size)
+            ("lista2d_syn_residual", " A-adjoint",
+             lambda: L2.lista2d_syn_residual(dv, wa_adj[k], geom, mask=m2),
+             lambda: L2.lista2d_syn_residual_plain(dv, wa_adj[k], geom, mask=m2),
+             lambda: F.conv_transpose2d(dv, flag.A[k], stride=s, padding=pad,
+                                        output_padding=s - 1),
+             (wa_adj[k],), (dv, wa_adj[k], m2, y2)),
+        ):
+            calls = len(banks)
+            tt = dict(zip(("ms", "plain_ms", "library_ms"),
+                          (cuda_ms(f, 10) / calls for f in (run, plain, lib))))
+            tt["bound_ms"], tt["bound_by"] = bound(banks, n_pos, io, calls)
+            times[name + what] = tt
+            print(f"time [{card}]: 2D train shape ({TRAIN_2D_N}x{CROP}^2) {name + what}: "
+                  f"{tt['ms']:.4f} ms/call, plain {tt['plain_ms']:.4f}, library "
+                  f"{tt['library_ms']:.4f}, bound {tt['bound_ms']:.4f} ({tt['bound_by']}); "
+                  f"{step_launches_2d(K).get(name, 0)} launches of {name} per step", flush=True)
+        del g_full, r_full
+    del flag_ops, o, zh, rh, dv, g
+
+    # --- T2-5. the 2D train step: kernels vs backend "xla" (host clock) ---
+    plain_flag = copy.deepcopy(flag)
+    plain_flag.backend = "xla"
+    step_ms = {}
+    for label, m in (("kernels", flag), ("xla", plain_flag)):
+        st = opt.init(dict(m.named_parameters()))
+        torch.cuda.reset_peak_memory_stats()
+        step_ms[label] = host_ms(lambda: train_update(m, opt, st, noisy_t, sig_t, clean_t))
+        step_ms[label + " peak GB"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"time [{card}]: flagship 2D train step (N={TRAIN_2D_N}, {CROP}^2, fwd + bwd + "
+          f"Adam + project) {step_ms['kernels']:.3f} ms on the kernels "
+          f"(peak {step_ms['kernels peak GB']:.2f} GB), {step_ms['xla']:.3f} ms on "
+          f"backend xla (peak {step_ms['xla peak GB']:.2f} GB)", flush=True)
+    del flag, plain_flag
+
+    # --- T2-6. the train CLI (cli.train.main with no device: the card) on
+    # image directories, with the flagship demo's config ---
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        data = gen_natural_image_dirs(os.path.join(root, "data"), n_train=CLI_TRAIN_IMAGES,
+                                      n_test=CLI_TEST_IMAGES, seed=SEED)
+        gen_s = time.perf_counter() - t0
+        with open(os.path.join(DEMO_2D, "args.json")) as f:
+            args = json.load(f)
+        save_dir = os.path.join(root, "run")
+        args["paths"] = {"save": save_dir}  # no ckpt: the power-method init
+        args["train"]["fit"].update(epochs=CLI_EPOCHS, val_freq=1, save_freq=1,
+                                    backtrack_thresh=None, verbose=False)
+        args["train"]["loaders"].update(
+            {f"{k}_path_list": [os.path.join(data, split)]
+             for k, split in (("trn", "train"), ("val", "val"), ("tst", "test"))})
+        # the loader's host time per training batch (crops, flips, stacking)
+        loaders, _ = cli_train.make_loaders(args)
+        t0 = time.perf_counter()
+        n_batches = sum(1 for _ in loaders["train"])
+        loader_ms = 1e3 * (time.perf_counter() - t0) / n_batches
+        L.launches.clear()
+        t0 = time.perf_counter()
+        cli_state, history = cli_train.main(args)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        cli_launches = dict(L.launches)
+        n_steps = CLI_EPOCHS * len(loaders["train"])
+        evals = CLI_EPOCHS * len(loaders["val"]) + len(loaders["test"])
+        want = {name: n_steps * n for name, n in step_launches_2d(K).items()}
+        want["lista2d_ana_threshold"] += evals * K
+        want["lista2d_syn_residual"] += evals * K
+        print(f"cli 2D: {data} written in {gen_s:.2f} s; cli.train.main ran {n_steps} steps "
+              f"of {TRAIN_2D_N}x{CROP}^2 + {evals} eval images in {cli_s:.2f} s; launches "
+              f"{cli_launches}; PSNR {[(e, ph, round(p, 3)) for e, ph, p in history]}", flush=True)
+        print(f"time [{card}]: image loader {loader_ms:.3f} ms per training batch of "
+              f"{TRAIN_2D_N}x{CROP}^2 (host clock) beside the 2D train step "
+              f"{step_ms['kernels']:.3f} ms on the kernels", flush=True)
+        require(cli_launches == want, f"the train CLI launched {cli_launches}, expected {want}")
+        require([(e, ph) for e, ph, _ in history]
+                == [(1, "train"), (1, "val"), (2, "train"), (2, "val"), (2, "test")]
+                and all(np.isfinite(p) for _, _, p in history),
+                f"the train CLI's history {history}")
+        require(os.path.isfile(os.path.join(save_dir, "net.ckpt.npz"))
+                and os.path.isfile(os.path.join(save_dir, "args.json")),
+                f"the train CLI saved {sorted(os.listdir(save_dir))}")
+        with open(os.path.join(save_dir, "args.json")) as f:
+            saved = json.load(f)
+        back, _, back_state, epoch0, _ = init_model(saved)
+        require(saved["paths"]["ckpt"] == os.path.join(save_dir, "net.ckpt.npz")
+                and back.A.device.type == "cuda" and epoch0 == CLI_EPOCHS
+                and back_state["count"] == cli_state["count"] == n_steps
+                and all(torch.isfinite(p).all() for p in back.parameters()),
+                "the train CLI's checkpoint did not reload through its args.json")
+        del back, back_state, cli_state
+    launches = {name: fit_launches.get(name, 0) + cli_launches.get(name, 0)
+                for name in set(fit_launches) | set(cli_launches)}
+    return launches, {n: times[n] for n in ("lista2d_syn_adjoint", "lista2d_wgrad")}
 
 
 def main() -> int:
@@ -739,8 +1087,14 @@ def main() -> int:
           f"(peak {steps['kernels peak GB']:.2f} GB), {steps['xla']:.3f} ms on "
           f"backend xla (peak {steps['xla peak GB']:.2f} GB)", flush=True)
 
+    del train_model, plain_train, fit_model, noisy_t, clean_t
+
+    # --- 12. the 2D image training path (train_2d) ---
+    launches_t2, times_t2 = train_2d(dev, card, err)
+    times.update(times_t2)
+
     launches = {name: serve_launches.get(name, 0) + fit_launches.get(name, 0)
-                + launches_2d.get(name, 0) for name in KERNELS}
+                + launches_2d.get(name, 0) + launches_t2.get(name, 0) for name in KERNELS}
     for name in ("lista3d_ana_threshold", "lista3d_syn_residual"):
         tt = times[name]
         print(f"time [{card}]: serve shape {name} {tt['ms']:.4f} ms/call, plain "

@@ -27,6 +27,18 @@ from cdlnet_tpu_torch.nle import nle_mad, noise_level
 from cdlnet_tpu_torch.serve import Denoiser
 from cdlnet_tpu_torch.train.checkpoint import load_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch: the suite runs several test processes
+    on a few cores, where each process's thread pool would otherwise spin
+    against the others' (and the JAX files') on these small shapes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 EXAMPLES = os.path.join(ROOT, "examples")
@@ -223,21 +235,24 @@ def test_jdd_demo_with_bayer_mask_matches_jax():
 
 @pytest.mark.parametrize("cls", [CDLNet, GDLNet])
 def test_grad_enabled_kernel_forward_raises(cls):
-    """2D training on the kernels is the next slice: a grad-enabled kernel
-    forward raises instead of running without gradients; backend "xla"
-    differentiates."""
+    """A grad-enabled kernel forward that asks for the codes raises (the
+    codes have no gradient); without them it trains, with backend "xla"'s
+    output and gradients (the kernels' reverse loop, 1e-4 relative)."""
     model = cls(K=2, M=4, P=5, s=2, backend="pallas").init(
         torch.Generator().manual_seed(0), init=False)
     y = torch.rand(1, 1, 12, 12)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model(y, 25.0)
+    with pytest.raises(NotImplementedError, match="return_z"):
+        model(y, 25.0, return_z=True)
+    x_k, _ = model(y, 25.0)
+    grads_k = torch.autograd.grad(x_k.sum(), model.t)
     with torch.no_grad():
-        x_k, _ = model(y, 25.0)
+        x_nograd, _ = model(y, 25.0)
     model.backend = "xla"
     x, _ = model(y, 25.0)
-    x.sum().backward()
-    assert model.t.grad is not None
-    torch.testing.assert_close(x.detach(), x_k, rtol=1e-4, atol=1e-5)  # unnormalized banks
+    grads = torch.autograd.grad(x.sum(), model.t)
+    torch.testing.assert_close(x_k.detach(), x_nograd, rtol=0, atol=0)
+    torch.testing.assert_close(x.detach(), x_k.detach(), rtol=1e-4, atol=1e-5)  # unnormalized banks
+    assert float((grads_k[0] - grads[0]).abs().max() / grads[0].abs().max()) <= 1e-4
 
 
 def test_image_denoiser_defaults_to_the_card(monkeypatch):

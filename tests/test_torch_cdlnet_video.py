@@ -19,6 +19,18 @@ from cdlnet_tpu_torch.models import CDLNetVideo, build_model
 from cdlnet_tpu_torch.serve import Denoiser
 from cdlnet_tpu_torch.train.checkpoint import load_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch: the suite runs several test processes
+    on a few cores, where each process's thread pool would otherwise spin
+    against the others' (and the JAX files') on these small shapes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 DEMO = os.path.join(ROOT, "examples", "cdlnet-video-demo")

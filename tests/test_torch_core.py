@@ -19,6 +19,18 @@ from cdlnet_tpu_torch.core.solvers import power_method as tpower
 from cdlnet_tpu_torch.ops import conv as tconv
 from cdlnet_tpu_torch.ops import polyphase as tpp
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch: the suite runs several test processes
+    on a few cores, where each process's thread pool would otherwise spin
+    against the others' (and the JAX files') on these small shapes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL = 1e-5
 
 

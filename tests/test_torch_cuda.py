@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from cdlnet_tpu_torch.kernels import lista2d as L2
+from cdlnet_tpu_torch.kernels import lista2d_bwd as LB2
 from cdlnet_tpu_torch.kernels import lista3d as L
 from cdlnet_tpu_torch.kernels import lista3d_bwd as LB
 from cdlnet_tpu_torch.kernels.autodiff import lista3d_fused_diff
@@ -307,3 +308,173 @@ def test_2d_wrappers_reject_what_the_kernel_does_not_take(cuda, bad):
         L2.lista2d_ana_threshold(r, None, d["wa"].to(cuda), d["tau"].to(cuda), d["geom"])
     with pytest.raises(ValueError):
         L2.lista2d_syn_residual(z, d["ws"].to(cuda), d["geom"])
+
+
+# --- the 2D reverse kernels (kernels/lista2d_bwd.py) ---
+
+def _setup2d_bwd(P, s, M, N, H, W, C, seed=0):
+    d = _setup2d(P, s, M, N, H, W, C, seed)
+    rng = np.random.default_rng(seed + 1)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    Hc, Wc = H // s, W // s
+    d.update(ws_adj=LB.adjoint_bank(d["ws"], 2), wa_adj=LB.adjoint_bank(d["wa"], 2),
+             g=f(N, C * s * s, Hc, Wc), base=f(N, M, Hc, Wc), taps=tuple(d["wa"].shape[1:3]))
+    return d
+
+
+SHAPES_2D_BWD = [
+    # P, s, M, N, H, W, C — odd code grids (Hc=19, Wc=37), one and three
+    # images, strides 1 and 2, grey and colour (stride 2 with colour is the
+    # case a 3D phase map would get wrong), the flagship width
+    (7, 2, 13, 3, 38, 74, 1),
+    (7, 1, 20, 1, 19, 37, 3),
+    (5, 2, 6, 3, 38, 22, 3),
+    (7, 2, 169, 1, 128, 128, 1),
+]
+
+
+@pytest.mark.parametrize("P,s,M,N,H,W,C", SHAPES_2D_BWD)
+@pytest.mark.parametrize("with_base,alpha", [(False, 1.0), (True, -1.0)])
+def test_2d_syn_adjoint_matches_plain(cuda, P, s, M, N, H, W, C, with_base, alpha):
+    d = _setup2d_bwd(P, s, M, N, H, W, C)
+    base = d["base"] if with_base else None
+    ref = LB2.lista2d_syn_adjoint_plain(d["g"], d["ws_adj"], d["z"], d["geom"],
+                                        base=base, alpha=alpha)
+    got = LB2.lista2d_syn_adjoint(
+        d["g"].to(cuda), d["ws_adj"].to(cuda), d["z"].to(cuda), d["geom"],
+        base=None if base is None else base.to(cuda), alpha=alpha)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert _rel(g, r) <= 1e-5
+
+
+@pytest.mark.parametrize("P,s,M,N,H,W,C", SHAPES_2D_BWD)
+@pytest.mark.parametrize("form", ["dA", "dB-swapped"])
+def test_2d_wgrad_matches_plain(cuda, P, s, M, N, H, W, C, form):
+    d = _setup2d_bwd(P, s, M, N, H, W, C)
+    x, y = (d["r"], d["z"]) if form == "dA" else (d["g"], d["z"])
+    ref = LB2.lista2d_wgrad_plain(x, y, d["taps"], d["geom"].off_a, alpha=-1.0)
+    got = LB2.lista2d_wgrad(x.to(cuda), y.to(cuda), d["taps"], d["geom"].off_a, alpha=-1.0)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert _rel(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("P,s,M,N,H,W,C", SHAPES_2D_BWD[:3])
+def test_2d_analysis_adjoint_matches_plain(cuda, P, s, M, N, H, W, C):
+    d = _setup2d_bwd(P, s, M, N, H, W, C)
+    ref = L2.lista2d_syn_residual_plain(d["z"], d["wa_adj"], d["geom"], mask=d["mask"])
+    got = L2.lista2d_syn_residual(d["z"].to(cuda), d["wa_adj"].to(cuda), d["geom"],
+                                  mask=d["mask"].to(cuda))
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= 1e-5
+
+
+def test_2d_reverse_kernels_are_deterministic(cuda):
+    d = _setup2d_bwd(7, 2, 169, 10, 128, 128, 1)
+    z, r, g, base = (d[k].to(cuda) for k in ("z", "r", "g", "base"))
+    ws_adj, taps, off = d["ws_adj"].to(cuda), d["taps"], d["geom"].off_a
+    runs = [(LB2.lista2d_wgrad(r, z, taps, off), LB2.lista2d_wgrad(g, z, taps, off),
+             *LB2.lista2d_syn_adjoint(g, ws_adj, z, d["geom"], base=base, alpha=-1.0))
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def _first_adam_step_bound(g1, g2, p, lr, eps):
+    """Entrywise bound on the difference of two first steps of Adam (zero
+    moments, eps_root 0) from the same parameters p, taken with gradients
+    g1 and g2: a step moves an entry by lr * g / (|g| + eps), and
+    |f(a) - f(b)| <= 2 |a - b| / (max(|a|, |b|) + eps) for f(g) = g / (|g| +
+    eps). Where |g| >> eps that is ~2 lr times the gradients' relative
+    difference; where |g| is near eps, up to 2 lr. The slack covers fp32
+    rounding of the step and of project()."""
+    amp = 2.0 * (g1 - g2).abs() / (torch.maximum(g1.abs(), g2.abs()) + eps)
+    return lr * amp.clamp(max=2.0) + 1e-6 * (p.abs() + lr)
+
+
+def _clipped(grads, clip):
+    """The gradients as ClippedAdam clips them (global l2 norm)."""
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    return grads if norm < clip else [g * (clip / norm) for g in grads]
+
+
+@pytest.mark.parametrize("C,s,use_mask", [(1, 2, False), (3, 1, True), (3, 2, True)])
+def test_2d_train_step_on_cuda_matches_cpu_and_counts_launches(cuda, C, s, use_mask,
+                                                                record_property):
+    """One 2D training step (noise drawn once on the CPU) on the card
+    against the CPU's: the loss, dA, dB and dt (1e-4, the JAX package's gate
+    for its reverse kernels) with 2K + K + (K-1) + 2K launches under the 2D
+    names, and the parameters after train_update's clipped Adam and
+    project(), held to _first_adam_step_bound: per entry for t (project()
+    clamps it), per (k, m, c) filter in l2 for A and B (project() scales
+    each filter onto the unit ball, a 1-Lipschitz map in that norm).
+
+    The bound, not a relative tolerance on the parameters: Adam's first
+    step is ~lr * sign(g), so on entries whose gradient is near eps it turns
+    fp32 noise in g into an update difference of up to 2 lr. The recorded
+    properties (pytest --junitxml) show where the largest difference lies."""
+    from cdlnet_tpu_torch.data.noise import awgn, gen_bayer_mask
+    from cdlnet_tpu_torch.models import CDLNet
+    from cdlnet_tpu_torch.train.fit import train_update
+    from cdlnet_tpu_torch.train.optim import make_optimizer
+
+    K, lr, clip, eps = 3, 1e-3, 0.05, 1e-8
+    clean = torch.from_numpy(np.random.default_rng(6).uniform(
+        size=(3, C, 26, 34)).astype(np.float32))
+    noisy, sigma = awgn(clean, (20, 30), torch.Generator().manual_seed(0))
+    mask = gen_bayer_mask(clean) if use_mask else None
+    obs = noisy if mask is None else mask * noisy
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = CDLNet(K=K, M=13, P=7, s=s, C=C, adaptive=True, backend="pallas").init(
+            torch.Generator().manual_seed(0)).to(dev)
+        with torch.no_grad():
+            model.t.fill_(0.01)
+        batch = [x.to(dev) for x in (obs, sigma, clean)]
+        m = None if mask is None else mask.to(dev)
+        L.launches.clear()
+        xhat, _ = model(batch[0], batch[1], mask=m)
+        loss = ((xhat - batch[2]) ** 2).mean()
+        grads = torch.autograd.grad(loss, (model.A, model.B, model.t))
+        launches = dict(L.launches)
+        opt = make_optimizer(lr, clip_grad=clip)
+        state = opt.init(dict(model.named_parameters()))
+        train_update(model, opt, state, *batch, mask=m)
+        out[dev] = dict(loss=float(loss.detach()), launches=launches,
+                        grads=[g.cpu() for g in grads],
+                        params=[p.detach().cpu() for p in (model.A, model.B, model.t)])
+    cpu, gpu = out["cpu"], out["cuda"]
+    assert gpu["launches"] == {"lista2d_ana_threshold": K, "lista2d_syn_residual": 2 * K - 1,
+                               "lista2d_syn_adjoint": K, "lista2d_wgrad": 2 * K}
+    assert abs(gpu["loss"] - cpu["loss"]) <= 1e-5 * abs(cpu["loss"])
+    for name, a, b in zip("ABt", gpu["grads"], cpu["grads"]):
+        assert _rel(a, b) <= 1e-4, name
+    for name, g1, g2, p1, p2 in zip("ABt", _clipped(gpu["grads"], clip),
+                                    _clipped(cpu["grads"], clip), gpu["params"],
+                                    cpu["params"]):
+        bound = _first_adam_step_bound(g1, g2, p2, lr, eps)
+        diff = (p1 - p2).abs()
+        if name == "t":
+            ratio = float((diff / bound).max())
+        else:  # per filter over (kH, kW)
+            ratio = float((diff.square().sum((3, 4)).sqrt()
+                           / bound.square().sum((3, 4)).sqrt()).max())
+        worst = int(diff.argmax())
+        record_property(f"{name}_rel_diff", float(diff.max() / p2.abs().max()))
+        record_property(f"{name}_max_diff_over_lr", float(diff.max()) / lr)
+        record_property(f"{name}_worst_entry_abs_g_over_eps",
+                        float(torch.maximum(g1.abs(), g2.abs()).flatten()[worst]) / eps)
+        record_property(f"{name}_max_diff_over_bound", ratio)
+        assert ratio <= 1.0, name
+
+
+def test_2d_reverse_wrappers_reject_what_the_kernel_does_not_take(cuda):
+    d = _setup2d_bwd(7, 2, 8, 1, 16, 16, 1)
+    g = d["g"].to(cuda).transpose(2, 3)
+    with pytest.raises(ValueError):
+        LB2.lista2d_syn_adjoint(g, d["ws_adj"].to(cuda), d["z"].to(cuda), d["geom"])
+    with pytest.raises(ValueError):
+        LB2.lista2d_wgrad(d["r"].to(cuda).double(), d["z"].to(cuda), d["taps"],
+                          d["geom"].off_a)

@@ -19,6 +19,18 @@ from cdlnet_tpu_torch.kernels import lista3d as L
 from cdlnet_tpu_torch.ops import polyphase as pp
 from cdlnet_tpu_torch.ops.conv import conv2d, conv_transpose2d
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch: the suite runs several test processes
+    on a few cores, where each process's thread pool would otherwise spin
+    against the others' (and the JAX files') on these small shapes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 K, M = 3, 13
 
 
@@ -147,7 +159,7 @@ def test_wrappers_write_into_out():
 
 
 @pytest.mark.parametrize("kw", [dict(g=1), dict(z_prev=1), dict(z_after=1),
-                                dict(return_hist=True)])
+                                dict(g2=1, return_hist=True)])
 def test_unported_modes_raise(kw):
     yp, A, B, t, c, _ = _torch(*_inputs(5, 2, 1, 12, 8))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -17,6 +17,18 @@ from cdlnet_tpu_torch.kernels import lista3d_bwd as LB
 from cdlnet_tpu_torch.ops import polyphase as pp
 from cdlnet_tpu_torch.ops.conv import conv3d, conv_transpose3d
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch: the suite runs several test processes
+    on a few cores, where each process's thread pool would otherwise spin
+    against the others' (and the JAX files') on these small shapes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 K, M, S, SHAPE = 3, 13, 2, (2, 1, 8, 16, 16)
 
 

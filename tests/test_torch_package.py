@@ -38,5 +38,7 @@ def test_package_holds_the_slice():
                 "utils.py", "compat/jax_params.py", "serve.py",
                 "core/gabor.py", "core/wavelet.py", "kernels/lista2d.py",
                 "kernels/csrc/lista2d.cu", "models/cdlnet.py", "models/gdlnet.py",
-                "nle/__init__.py", "nle/mad.py"):
+                "nle/__init__.py", "nle/mad.py", "kernels/lista2d_bwd.py",
+                "data/loader.py", "data/images.py", "data/synthetic.py",
+                "cli/__init__.py", "cli/train.py"):
         assert (pkg / rel).is_file(), rel

@@ -39,6 +39,18 @@ from cdlnet_tpu_torch.train.fit import fit, init_model, make_train_step, train_u
 from cdlnet_tpu_torch.train.losses import mse_loss, psnr_from_mse
 from cdlnet_tpu_torch.train.optim import get_lr, make_optimizer, set_lr, steplr_value
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch: the suite runs several test processes
+    on a few cores, where each process's thread pool would otherwise spin
+    against the others' (and the JAX files') on these small shapes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 DEMO = os.path.join(ROOT, "examples", "cdlnet-video-demo")
 SHAPE = (2, 1, 8, 16, 16)
@@ -505,7 +517,7 @@ def test_fit_backtracks_on_nan(tmp_path):
     assert "backtrack" in events
 
 
-@pytest.mark.parametrize("kw", [dict(workload="2d"), dict(mcsure=True), dict(stateful=True),
+@pytest.mark.parametrize("kw", [dict(workload="mri"), dict(mcsure=True), dict(stateful=True),
                                 dict(loss_type="combmse"), dict(mesh={"data": -1})])
 def test_unported_training_options_raise(kw):
     model = CDLNetVideo(K=2, M=4, P=(3, 3, 3), s=2)
