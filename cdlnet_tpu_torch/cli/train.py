@@ -4,11 +4,12 @@
 
 Accepts the reference's args.json schema verbatim. The 2D families
 (CDLNet, JDD_CDLNet, GDLNet) train on image directories
-(data/images.get_fit_loaders) through train.fit.fit(workload="2d"), on the
-card unless main() is given device="cpu". Not ported yet (each raises
-NotImplementedError naming ROADMAP.md): DnCNN/FFDNet, 2D nets on fastMRI
-slice volumes (loader args with a PDFS key), the video and fastMRI
-loaders of CDLNetVideo, and the CSR frame-recurrent trainer.
+(data/images.get_fit_loaders) through train.fit.fit(workload="2d"), and
+CDLNetVideo on video frame directories (data/video.get_video_fit_loaders)
+through fit(workload="3d"), on the card unless main() is given
+device="cpu". Not ported yet (each raises NotImplementedError naming
+ROADMAP.md): DnCNN/FFDNet, training on fastMRI volumes (loader args with a
+PDFS key), and the CSR frame-recurrent trainer.
 """
 
 from __future__ import annotations
@@ -22,19 +23,24 @@ IMAGE_FAMILIES = ("CDLNet", "GDLNet", "JDD_CDLNet")
 
 def make_loaders(args: dict):
     """(loaders, workload) for an args dict: the image-directory loaders of
-    the 2D families. Other families and loader schemas raise."""
+    the 2D families ("2d"), the video clip loaders of CDLNetVideo ("3d").
+    Other families and the fastMRI loader schema raise."""
     loaders_args = dict(args["train"]["loaders"])
     mtype = args["type"]
-    if mtype not in IMAGE_FAMILIES:
+    if mtype not in (*IMAGE_FAMILIES, "CDLNetVideo"):
         raise NotImplementedError(f"training {mtype!r} from the CLI {_NOT_PORTED}")
     if "PDFS" in loaders_args:
-        raise NotImplementedError(f"2D training on fastMRI slice volumes {_NOT_PORTED}")
-    from cdlnet_tpu_torch.data.images import get_fit_loaders
-
-    loaders_args.pop("depth", None)
+        raise NotImplementedError(f"training on fastMRI volumes {_NOT_PORTED}")
     # the JAX loader's thread-pool knob: the port assembles batches in the
     # calling thread, so a config that sets it loads the same crops
     loaders_args.pop("num_workers", None)
+    if mtype == "CDLNetVideo":
+        from cdlnet_tpu_torch.data.video import get_video_fit_loaders
+
+        return get_video_fit_loaders(**loaders_args), "3d"
+    from cdlnet_tpu_torch.data.images import get_fit_loaders
+
+    loaders_args.pop("depth", None)
     return get_fit_loaders(**loaders_args), "2d"
 
 

@@ -1,7 +1,8 @@
-"""Synthetic image fixtures (the port's own copy of the image half of
-cdlnet_tpu/data/synthetic.py): random smooth fields from mixed sin/cos
-terms on a (-pi, pi)^3 grid, natural-statistics images, and PNG image
-directories of either for the 2D loaders and the train CLI. Fully seeded:
+"""Synthetic image and video fixtures (the port's own copy of the image
+and video parts of cdlnet_tpu/data/synthetic.py): random smooth fields
+from mixed sin/cos terms on a (-pi, pi)^3 grid, natural-statistics
+images, PNG image directories of either for the 2D loaders, and PNG frame
+directories of the fields for the video loaders and the CLIs. Fully seeded:
 a seed gives the JAX package's arrays and files. PIL is imported only
 where a file is written.
 """
@@ -29,6 +30,24 @@ def random_field_video(rng, depth=16, size=128, n_terms=6) -> np.ndarray:
         field += amp * fn1(a * X + ph[0]) * fn2(b * Y + ph[1]) * np.cos(c * T + ph[2])
     lo, hi = field.min(), field.max()
     return ((field - lo) / max(hi - lo, 1e-8)).astype(np.float32)
+
+
+def gen_synthetic_video_dirs(out_dir: str, n_videos=4, depth=16, size=128, seed=0,
+                             splits=("train", "val", "test")):
+    """Write PNG frame dirs: out_dir/{split}/video{i:03d}/frame{j:03d}.png."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for split in splits:
+        for i in range(n_videos):
+            vdir = os.path.join(out_dir, split, f"video{i:03d}")
+            os.makedirs(vdir, exist_ok=True)
+            vid = random_field_video(rng, depth=depth, size=size)
+            for j in range(depth):
+                frame = (vid[j] * 255).astype(np.uint8)
+                Image.fromarray(frame, mode="L").save(
+                    os.path.join(vdir, f"frame{j:03d}.png"))
+    return out_dir
 
 
 def natural_image(rng, size=180) -> np.ndarray:

@@ -107,3 +107,29 @@ class CDLNetVideo(nn.Module):
             xphat = conv_transpose3d(z, self.B[0], stride=self.s, padding=self.pad,
                                      output_padding=self.s - 1)
         return post_process_3d(xphat, prm), (z if return_z else None)
+
+    def apply_with_codes(self, y, sigma=None, mask=None):
+        """forward() that also returns every iteration's codes: (xhat, z,
+        codes), codes (K, N, M, D/s, H/s, W/s) with codes[-1] == z.
+
+        On backend "pallas"/"cuda" the codes are the fp32 z histories the
+        kernel loop writes for training (lista3d_loop(return_hists=True)),
+        so the 2K launches of one forward produce them; with gradients
+        enabled that raises, as forward(return_z=True) does. Backend
+        "xla" runs the plain loop."""
+        yp, prm, mask = pre_process_3d(y, self.s, mask=mask)
+        c = sigma_scale(sigma, self.adaptive, 5)
+        if isinstance(c, torch.Tensor):
+            c = c.to(yp.device, yp.dtype)
+        if self.backend in ("pallas", "cuda"):
+            if torch.is_grad_enabled():
+                raise NotImplementedError(RETURN_Z_HINT)
+            xphat, z, (codes, _) = lista3d_fused(yp, self.A, self.B, self.t, c,
+                                                 stride=self.s, mask=mask,
+                                                 return_hists=True)
+        else:
+            z, codes = lista_3d(yp, self.A, self.B, self.t, c, mask=mask, stride=self.s,
+                                return_codes=True)
+            xphat = conv_transpose3d(z, self.B[0], stride=self.s, padding=self.pad,
+                                     output_padding=self.s - 1)
+        return post_process_3d(xphat, prm), z, codes

@@ -11,6 +11,8 @@ kernels/lista3d.py) are held to, and the path of backend "xla".
 
 from __future__ import annotations
 
+import torch
+
 from cdlnet_tpu_torch.core.ops import ST
 from cdlnet_tpu_torch.ops.conv import (
     conv2d,
@@ -25,13 +27,16 @@ def _threshold(t_k, c):
     return t_k[0:1] + c * t_k[1:2]
 
 
-def _lista(yp, A, B, t, c, mask, analysis, synthesis):
+def _lista(yp, A, B, t, c, mask, analysis, synthesis, return_codes=False):
     z = ST(analysis(yp, A[0]), _threshold(t[0], c))
+    codes = [z] if return_codes else None
     for k in range(1, A.shape[0]):
         Bz = synthesis(z, B[k])
         r = Bz - yp if mask is None else mask * Bz - yp
         z = ST(z - analysis(r, A[k]), _threshold(t[k], c))
-    return z
+        if return_codes:
+            codes.append(z)
+    return (z, torch.stack(codes)) if return_codes else z
 
 
 def lista_2d(yp, A, B, t, c, mask=None, stride=1):
@@ -50,9 +55,10 @@ def lista_2d(yp, A, B, t, c, mask=None, stride=1):
     )
 
 
-def lista_3d(yp, A, B, t, c, mask=None, stride=1, residual=None):
+def lista_3d(yp, A, B, t, c, mask=None, stride=1, residual=None, return_codes=False):
     """Run the K-iteration 3D (video) LISTA loop; returns the final codes z
-    (N, M, D/s, H/s, W/s).
+    (N, M, D/s, H/s, W/s), and with return_codes (z, codes), codes the
+    (K, N, M, D/s, H/s, W/s) stack of every iteration's z_k.
 
     yp: (N, C, D, H, W); A, B: (K, M, C, Pd, Ph, Pw); t: (K, 2, M, 1, 1, 1);
     c: scalar or (N, 1, 1, 1, 1); mask: optional (N, C, D, H, W).
@@ -68,4 +74,5 @@ def lista_3d(yp, A, B, t, c, mask=None, stride=1, residual=None):
         lambda x, w: conv3d(x, w, stride=stride, padding=pad),
         lambda z, w: conv_transpose3d(z, w, stride=stride, padding=pad,
                                       output_padding=stride - 1),
+        return_codes,
     )

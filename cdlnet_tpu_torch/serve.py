@@ -6,6 +6,11 @@ runs the model once under torch.inference_mode(), and crops back. Reflect
 padding gives the denoiser better context at the borders than the zero
 padding inside the convs, so bucketed outputs can differ slightly from the
 unpadded forward near edges. The depth axis of clips is not bucketed.
+Long clips stream through fixed device memory in overlapping chunks
+(chunk_depth), and big frames split into overlapping tiles (tile_hw), by
+models/streaming.py; a streamed clip is copied to the device whole when it
+fits staging_limit(), a share of the free device memory, and otherwise
+moves chunk by chunk through pinned host buffers.
 
 Blind operation: sigma=None on an adaptive model estimates the noise level
 per input with the MAD estimator (nle/) on the bucket-padded batch, on the
@@ -19,21 +24,35 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 
 import numpy as np
 import torch
 
 from cdlnet_tpu_torch import nle
 from cdlnet_tpu_torch.compat.jax_params import load_jax_params
+from cdlnet_tpu_torch.models import streaming
 from cdlnet_tpu_torch.models.base import build_model
 from cdlnet_tpu_torch.train.checkpoint import load_params
 from cdlnet_tpu_torch.utils import default_device
 
 _NOT_PORTED = "is not ported to cdlnet_tpu_torch yet (see ROADMAP.md)"
+# share of the free device memory a streamed clip may take when staged
+# whole (input and output together); the JAX package staged up to a fixed
+# 2 GB on the TPU
+STAGING_FRACTION = 0.25
 
 
 def _bucket(n: int, b: int) -> int:
     return -(-n // b) * b
+
+
+def _sigma_arg(sigma, device):
+    """A per-sample sigma array as a tensor on the device; scalars and None
+    as they are."""
+    if sigma is None or np.ndim(sigma) == 0:
+        return None if sigma is None else float(sigma)
+    return torch.as_tensor(np.asarray(sigma, np.float32).reshape(-1), device=device)
 
 
 class Denoiser:
@@ -45,6 +64,8 @@ class Denoiser:
     >>> out = d.denoise_image_batch(imgs, sigmas=[15, 25])  # per-image sigma
     >>> d = Denoiser.from_dir("examples/cdlnet-video-demo")
     >>> out = d.denoise_video(frames, sigma=25)            # (D, H, W)
+    >>> out = d.denoise_video(long_clip, sigma=25, chunk_depth=16)  # streamed
+    >>> out = d.denoise_video(clip, sigma=25, tile_hw=256)  # 256^2 tiles
     """
 
     def __init__(self, model, bucket: int = 64, blind: str = "MAD", mesh=None):
@@ -155,21 +176,77 @@ class Denoiser:
             out = out[:, 0]
         return out
 
-    def denoise_video(self, clip: np.ndarray, sigma=None, chunk_depth=None,
-                      tile_hw=None) -> np.ndarray:
+    def _clip_sigma(self, clip: np.ndarray, sigma, chunk_depth: int):
+        """sigma as given, or on an adaptive model with sigma None the blind
+        estimate per clip (the mean of its framewise MAD estimates, as
+        _run computes it), taken over chunk_depth frames at a time so that
+        a clip larger than device memory can be estimated."""
+        if sigma is not None or not self.model.adaptive:
+            return sigma
+        N, C, D, H, W = clip.shape
+        total = torch.zeros(N, device=self.device)
+        with torch.inference_mode():
+            for t0 in range(0, D, chunk_depth):
+                part = clip[:, :, t0 : t0 + chunk_depth]
+                frames = torch.from_numpy(np.ascontiguousarray(
+                    part.transpose(0, 2, 1, 3, 4).reshape(-1, C, H, W))).to(self.device)
+                s = nle.noise_level(frames, method=self.blind).reshape(N, -1)
+                total += s.sum(dim=1)
+        return (255.0 * total / D).cpu().numpy()
+
+    def staging_limit(self) -> int:
+        """Bytes of a streamed clip that denoise_video copies to the device
+        whole: STAGING_FRACTION of the free device memory, shared by the
+        staged input and output clips (the rest is left to the chunk
+        forward's codes, ~0.62 GB per 16x480x896 chunk at M=169). No limit
+        on the CPU."""
+        if self.device.type != "cuda":
+            return sys.maxsize
+        free, _ = torch.cuda.mem_get_info(self.device)
+        return int(STAGING_FRACTION * free) // 2
+
+    def denoise_video(self, clip: np.ndarray, sigma=None, chunk_depth=None, overlap=4,
+                      tile_hw=None, overlap_hw=16) -> np.ndarray:
         """clip: (D, H, W), (C, D, H, W) or (N, C, D, H, W) in [0,1]; sigma:
         a scalar, one per sample, or None (blind on adaptive models).
-        Streaming long clips (chunk_depth) and spatial tiling (tile_hw) are
-        not ported yet."""
+
+        With chunk_depth set and a deeper clip, the clip streams in chunks
+        of chunk_depth frames overlapping by `overlap` (models/streaming.py)
+        after the bucket pad: copied to the device whole when input and
+        output fit staging_limit(), else through the pipelined host loop.
+        With tile_hw set (an int or (th, tw)) the frames also split into
+        tiles with overlap_hw pixels of context, without the bucket pad.
+        Blind sigma is estimated once per clip, over all its frames."""
         clip = np.asarray(clip, np.float32)
-        if tile_hw is not None:
-            raise NotImplementedError(f"tile_hw {_NOT_PORTED}")
-        if chunk_depth is not None and clip.shape[-3] > chunk_depth:
-            raise NotImplementedError(f"chunk_depth streaming {_NOT_PORTED}")
         squeeze = 5 - clip.ndim
         for _ in range(squeeze):
             clip = clip[None]
-        out = self._run(clip, sigma)
+        D = clip.shape[2]
+        if tile_hw is not None:
+            depth = chunk_depth or D
+            sig = self._clip_sigma(clip, sigma, depth)
+            y = torch.from_numpy(clip).to(self.device)
+            out = streaming.denoise_video_tiled(
+                self.model, y, _sigma_arg(sig, self.device), chunk_depth=depth,
+                overlap=overlap, tile_hw=tile_hw, overlap_hw=overlap_hw).cpu().numpy()
+        elif chunk_depth is not None and D > chunk_depth:
+            spatial = clip.shape[3:]
+            pads = [(_bucket(n, self.bucket) - n) for n in spatial]
+            if any(pads):
+                clip = np.pad(clip, [(0, 0)] * 3 + [(0, p) for p in pads], mode="reflect")
+            sig = self._clip_sigma(clip, sigma, chunk_depth)
+            if clip.nbytes <= self.staging_limit():
+                y = torch.from_numpy(clip).to(self.device)
+                out = streaming.denoise_long_video(
+                    self.model, y, _sigma_arg(sig, self.device), chunk_depth=chunk_depth,
+                    overlap=overlap).cpu().numpy()
+            else:
+                out = streaming.denoise_long_video_pipelined(
+                    self.model, clip, _sigma_arg(sig, self.device),
+                    chunk_depth=chunk_depth, overlap=overlap)
+            out = out[..., : spatial[0], : spatial[1]]
+        else:
+            out = self._run(clip, sigma)
         for _ in range(squeeze):
             out = out[0]
         return out

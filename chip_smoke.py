@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's video serve, 2D image serve, video
-training and 2D image training paths on one GPU.
+training, 2D image training and native-resolution video paths on one GPU.
 
     python3 chip_smoke.py
 
@@ -40,6 +40,22 @@ Builds the hand-written CUDA kernels from cdlnet_tpu_torch/kernels/csrc
             width for two epochs through the train CLI (cli.train.main on
             image directories written by data/synthetic.py, on the card by
             default), reloading the checkpoint and args.json it saves;
+  bigframe  native-resolution video at the flagship width (the shapes of
+            the TPU's banded and ring kernels K9-K12, which the same 3D
+            kernels replace): the forward kernels against their plain
+            versions at 16x480x854 (bucketed to 512x896), 16x240x432 and
+            the fastMRI config's P=(9,9,5) at 30x320x192, the K=30 forward
+            against the plain loop at the first and last; a native clip
+            through Denoiser.denoise_video (launches counted) and the
+            trained video demo at native size, known and blind sigma; a
+            48-frame native clip streamed in chunks and a native clip in
+            256^2 tiles against backend "xla", the pipelined host loop
+            against the staged one; the eval CLI (cli.analyze3d.main on
+            the card) on native clips written as PNG frames, its txt line,
+            eval row, PNGs and launches, and the passthrough codes against
+            the plain loop; the reverse kernels and the K=30 gradient at
+            1x8x256^2, one train step at 1x16x480x854, and two epochs of
+            the train CLI's video branch;
 
 and times every kernel (CUDA events) beside its plain version, the one
 PyTorch call that computes the same function, and its bound on this card,
@@ -56,9 +72,11 @@ preceded by the card's nvidia-smi name and power limit and by a JSON line
 
 from __future__ import annotations
 
+import collections
 import copy
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -69,24 +87,31 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cdlnet_tpu_torch.cli import analyze3d
+from cdlnet_tpu_torch.cli import train as cli_train
+from cdlnet_tpu_torch.cli.analyze import build_argparser
 from cdlnet_tpu_torch.core.preprocess import pre_process, pre_process_3d
 from cdlnet_tpu_torch.data.noise import gen_bayer_mask
-from cdlnet_tpu_torch.cli import train as cli_train
-from cdlnet_tpu_torch.data.synthetic import gen_natural_image_dirs, natural_image
+from cdlnet_tpu_torch.data.synthetic import (
+    gen_natural_image_dirs,
+    gen_synthetic_video_dirs,
+    natural_image,
+)
 from cdlnet_tpu_torch.kernels import _build
 from cdlnet_tpu_torch.kernels import lista2d as L2
 from cdlnet_tpu_torch.kernels import lista2d_bwd as LB2
 from cdlnet_tpu_torch.kernels import lista3d as L
 from cdlnet_tpu_torch.kernels import lista3d_bwd as LB
-from cdlnet_tpu_torch.models import CDLNet, CDLNetVideo, GDLNet
+from cdlnet_tpu_torch.models import CDLNet, CDLNetVideo, GDLNet, streaming
 from cdlnet_tpu_torch.ops import polyphase as pp
 from cdlnet_tpu_torch.ops.conv import conv_transpose2d, conv_transpose3d
 from cdlnet_tpu_torch.ops.lista import lista_2d, lista_3d
 from cdlnet_tpu_torch.serve import Denoiser
 from cdlnet_tpu_torch.train.checkpoint import load_ckpt
-from cdlnet_tpu_torch.train.fit import fit, init_model, train_update
+from cdlnet_tpu_torch.train.fit import fit, init_model, make_train_step, train_update
 from cdlnet_tpu_torch.train.losses import mse_loss
 from cdlnet_tpu_torch.train.optim import make_optimizer
+from cdlnet_tpu_torch.utils import img_save, load_video
 
 FLAGSHIP = dict(K=30, M=169, P=(7, 7, 5), s=2, C=1, adaptive=True, depth=16)
 CLIP = (16, 128, 128)
@@ -127,14 +152,27 @@ CLI_TRAIN_IMAGES, CLI_TEST_IMAGES, CLI_EPOCHS = 20, 4, 2
 CSRC = "cdlnet_tpu_torch/kernels/csrc/"
 K5, K7 = "cdlnet_tpu/kernels/lista2d.py:185", "cdlnet_tpu/kernels/lista2d_tiled.py"
 K6_K8 = "cdlnet_tpu/kernels/lista2d.py:399; cdlnet_tpu/kernels/lista2d_tiled_bwd.py:110"
+# the TPU's big-frame 3D kernels, which the 3D kernels below replace at every
+# frame size: K9 the banded forward pair, K10 its reverse, K11 the depth-ring
+# forward (its syn + ana merged per iteration), K12 the ring reverse
+K9 = "cdlnet_tpu/kernels/lista3d_tiled.py"
+K10 = "cdlnet_tpu/kernels/lista3d_tiled_bwd.py"
+K11 = ("cdlnet_tpu/kernels/lista3d_ring.py:501 _kernel_first, :458 _kernel_mid, "
+       ":516 _kernel_mid_hist, :528 _kernel_last")
+K12 = "cdlnet_tpu/kernels/lista3d_ring_bwd.py:331 _kernel_rb_init, :374 _kernel_rb_mid"
 # kernel -> (source, the TPU kernel(s) it replaces)
 KERNELS = {
-    "lista3d_ana_threshold": (CSRC + "lista3d.cu", "cdlnet_tpu/kernels/lista3d.py:325"),
-    "lista3d_syn_residual": (CSRC + "lista3d.cu", "cdlnet_tpu/kernels/lista3d.py:325"),
+    "lista3d_ana_threshold": (CSRC + "lista3d.cu", "cdlnet_tpu/kernels/lista3d.py:325; "
+                              f"{K9}:176 _kernel_ana3_band; {K11}"),
+    "lista3d_syn_residual": (CSRC + "lista3d.cu", "cdlnet_tpu/kernels/lista3d.py:325; "
+                             f"{K9}:120 _kernel_syn3_band; {K11}; as the analysis "
+                             f"adjoint {K10}:147 _kernel_ds_band; {K12}"),
     "lista3d_syn_adjoint": (CSRC + "lista3d_bwd.cu",
-                            "cdlnet_tpu/kernels/lista3d_bwd_resident.py:99"),
+                            "cdlnet_tpu/kernels/lista3d_bwd_resident.py:99; "
+                            f"{K10}:199 _kernel_dz_band; {K12}"),
     "lista3d_wgrad": (CSRC + "lista3d_bwd.cu",
-                      "cdlnet_tpu/kernels/lista3d_bwd_resident.py:99"),
+                      "cdlnet_tpu/kernels/lista3d_bwd_resident.py:99; "
+                      f"{K10}:199 _kernel_dz_band; {K12}"),
     "lista2d_ana_threshold": (CSRC + "lista2d.cu", f"{K5}; {K7}:175"),
     "lista2d_syn_residual": (CSRC + "lista2d.cu", f"{K5}; {K7}:140"),
     # the 2D reverse pair: lista3d_bwd.cu's kernels at D = Qd = 1 (the
@@ -142,6 +180,25 @@ KERNELS = {
     "lista2d_syn_adjoint": (CSRC + "lista3d_bwd.cu", K6_K8),
     "lista2d_wgrad": (CSRC + "lista3d_bwd.cu", K6_K8),
 }
+# the native-resolution path (the shapes of K9-K12): DAVIS's 480x854 test
+# clips, which cli/analyze3d.py evaluates at full resolution (Denoiser
+# buckets them to 512x896), and KERNELMATRIX.json's big-frame rows "3d eval
+# 16x240x432 ring f32", "mri eval 30x320x192 ring (9,9,5) f32" (the
+# reference's fastMRI config, tools/hw_kernel_sweep.py:197) and "3d train
+# 8x256^2 ring-bwd / banded-bwd f32h"
+NATIVE = (16, 480, 854)
+HALF_NATIVE = (16, 240, 432)
+MRI_3D = dict(K=30, M=169, P=(9, 9, 5), s=2, C=1, adaptive=True, depth=30)
+MRI_VOLUME = (30, 320, 192)
+BIG_TRAIN = (8, 256, 256)
+CHUNK, OVERLAP = 16, 4      # a 48-frame native clip streams in five chunks
+TILE, TILE_OVERLAP = 256, 16
+CLI_VIDEOS = 2              # native test clips of the eval CLI
+CLI_TRAIN_VIDEOS, CLI_VIDEO_SIZE = 8, 96  # the video train CLI's clips per split
+# matplotlib is not installed beside the card (a probe's import failed
+# there), so the eval CLI runs without --thresholds, the one analysis that
+# needs it; the CPU tests run it
+CARD_HAS_MATPLOTLIB = False
 # launches per train step: forward K + K, reverse K syn_adjoint, K-1
 # syn_residual (the analysis adjoint) and 2K wgrad (dA and dB)
 STEP_LAUNCHES = {"lista3d_ana_threshold": 30, "lista3d_syn_residual": 59,
@@ -754,6 +811,553 @@ def train_2d(dev, card, err) -> tuple[dict, dict]:
     return launches, {n: times[n] for n in ("lista2d_syn_adjoint", "lista2d_wgrad")}
 
 
+def forward_parity(A, B, t, yp, s, c, tg, err, what="") -> dict:
+    """The forward kernels against their plain versions on one clip's phase
+    operands: the analysis at k = 0 (r = -y2, z = 0) and k = 1, the residual
+    with and without a mask, the final synthesis. Returns the operands, for
+    the timings."""
+    P = tuple(int(p) for p in A.shape[-3:])
+    pads = tuple(p // 2 for p in P)
+    geom = L.Geom(s, P, pads)
+    wa = L.prep_A2m_3d(A, s, pads)
+    ws = L.prep_B2m_3d(B, s, pads)
+    y2 = pp.space_to_depth(yp, s, 3).contiguous()
+    tau = (t[:, 0, :, 0, 0, 0] + c * t[:, 1, :, 0, 0, 0])[:, None].contiguous()
+    mask2 = (torch.rand(y2.shape, generator=tg) > 0.3).float().to(y2.device)
+    z0 = L.lista3d_ana_threshold_plain(-y2, None, wa[0], tau[0], geom)
+    r1 = L.lista3d_syn_residual_plain(z0, ws[1], geom, y=y2)
+    cases = [
+        ("lista3d_ana_threshold", "k=0 (r=-y2, z=0)",
+         lambda f: f(-y2, None, wa[0], tau[0], geom)),
+        ("lista3d_ana_threshold", "k=1", lambda f: f(r1, z0, wa[1], tau[1], geom)),
+        ("lista3d_syn_residual", "residual B1 z - y", lambda f: f(z0, ws[1], geom, y=y2)),
+        ("lista3d_syn_residual", "masked residual",
+         lambda f: f(z0, ws[2], geom, mask=mask2, y=y2)),
+        ("lista3d_syn_residual", "final B0 z", lambda f: f(z0, ws[0], geom)),
+    ]
+    for name, case, run in cases:
+        got = run(getattr(L, name))
+        ref = run(getattr(L, name + "_plain"))
+        torch.cuda.synchronize()
+        compare(name, what + case, got, ref, err)
+        del got, ref
+    return dict(geom=geom, wa=wa, ws=ws, y2=y2, tau=tau, z0=z0)
+
+
+def k_forward_parity(A, B, t, yp, s, c, what, time_it=False):
+    """The K-iteration forward on the kernels (lista3d_fused) against the
+    plain loop (ops.lista.lista_3d and the final synthesis): x and z within
+    FORWARD_TOL of max|ref|. With time_it, returns the device ms of each
+    (CUDA events, median of 3)."""
+    pads = tuple(int(p) // 2 for p in A.shape[-3:])
+
+    def kernels():
+        return L.lista3d_fused(yp, A, B, t, c, stride=s)
+
+    def plain():
+        z = lista_3d(yp, A, B, t, c, stride=s)
+        return conv_transpose3d(z, B[0], stride=s, padding=pads, output_padding=s - 1), z
+
+    got, ref = kernels(), plain()
+    torch.cuda.synchronize()
+    for name, a, b in zip("xz", got, ref):
+        d, rel = rel_err(a, b)
+        print(f"parity K={A.shape[0]} forward {what} {name}: max|d| {d:.3e}, rel {rel:.3e}",
+              flush=True)
+        require(rel <= FORWARD_TOL, f"K={A.shape[0]} forward {what} {name} rel err {rel:.3e}")
+    del got, ref
+    if time_it:
+        return (cuda_ms(kernels, 1, rounds=3, warmup=1),
+                cuda_ms(plain, 1, rounds=3, warmup=1))
+    return None
+
+
+def forward_times(A_k, B_k, ops, s, reps) -> dict:
+    """Each forward kernel's ms per call (CUDA events, median of 5) at one
+    clip's phase operands (forward_parity), with iteration k's banks A_k,
+    B_k, beside its plain version, the one strided PyTorch call of the same
+    function, and its bound."""
+    geom, wa, ws, y2, z0, tau = (ops[n] for n in ("geom", "wa", "ws", "y2", "z0", "tau"))
+    pads = geom.pads
+    r = L.lista3d_syn_residual(z0, ws[1], geom, y=y2)
+    r_full = pp.depth_to_space(r, s, 3, A_k.shape[1])
+    n_pos = y2[:, 0].numel()
+    times = {}
+    for name, run, plain, lib, bank, io in (
+        ("lista3d_ana_threshold",
+         lambda: L.lista3d_ana_threshold(r, z0, wa[1], tau[1], geom),
+         lambda: L.lista3d_ana_threshold_plain(r, z0, wa[1], tau[1], geom),
+         lambda: F.conv3d(r_full, A_k, stride=s, padding=pads),
+         wa[1], (r, z0, wa[1], tau[1], z0)),
+        ("lista3d_syn_residual",
+         lambda: L.lista3d_syn_residual(z0, ws[1], geom, y=y2),
+         lambda: L.lista3d_syn_residual_plain(z0, ws[1], geom, y=y2),
+         # the code grid is already the strided conv's output grid
+         lambda: F.conv_transpose3d(z0, B_k, stride=s, padding=pads, output_padding=s - 1),
+         ws[1], (z0, ws[1], y2, r)),
+    ):
+        times[name] = dict(zip(("ms", "plain_ms", "library_ms"),
+                               (cuda_ms(f, reps) for f in (run, plain, lib))))
+        times[name]["bound_ms"], times[name]["bound_by"] = bound((bank,), n_pos, io)
+    return times
+
+
+def reverse_parity(A, B, t, noisy, sig, s, tg, err, what="") -> dict:
+    """The reverse kernels against their plain versions on one training
+    batch's fp32 histories: the synthesis adjoint of the init and of a
+    middle iteration k (with and without the negated correlation), both
+    weight gradients and the analysis adjoint (kernels/lista3d_bwd.py's
+    steps). Returns the operands, for the timings."""
+    K = A.shape[0]
+    yp, _, _ = pre_process_3d(noisy, s)
+    y2, _, wa, ws, tau, geom = L.phase_operands(yp, A, B, t, sig / 255, s)
+    x2, _, (zh, rh) = L.lista3d_loop(y2, None, wa, ws, tau, geom, return_hists=True)
+    wa_adj, ws_adj = LB.adjoint_bank(wa), LB.adjoint_bank(ws)
+    taps = tuple(wa.shape[2:5])
+    mask = (torch.rand(y2.shape, generator=tg) > 0.3).float().to(y2.device)
+    dx2 = torch.randn(x2.shape, generator=tg).to(y2.device)
+    k = K // 2
+    dv, _ = LB.lista3d_syn_adjoint_plain(dx2, ws_adj[0], zh[K - 1], geom)
+    g = L.lista3d_syn_residual_plain(dv, wa_adj[k], geom, mask=mask)
+    cases = [
+        ("lista3d_syn_adjoint", "init dz = B0*(dx2)", LB,
+         lambda f: f(dx2, ws_adj[0], zh[K - 1], geom)),
+        ("lista3d_syn_adjoint", f"k={k} dz = dv - Bk*(g)", LB,
+         lambda f: f(g, ws_adj[k], zh[k - 1], geom, base=dv, alpha=-1.0)),
+        ("lista3d_syn_adjoint", "base, alpha=+1", LB,
+         lambda f: f(g, ws_adj[k], zh[k - 1], geom, base=dv, alpha=1.0)),
+        ("lista3d_wgrad", "dA = -dv (*) r", LB,
+         lambda f: f(rh[k - 1], dv, taps, geom.off_a, alpha=-1.0)),
+        ("lista3d_wgrad", "dB = adjoint of -z (*) g", LB,
+         lambda f: f(g, zh[k - 1], taps, geom.off_a, alpha=-1.0)),
+        ("lista3d_syn_residual", "A-adjoint g = m * Ak*(dv)", L,
+         lambda f: f(dv, wa_adj[k], geom, mask=mask)),
+    ]
+    for name, case, mod, run in cases:
+        got = run(getattr(mod, name))
+        ref = run(getattr(mod, name + "_plain"))
+        torch.cuda.synchronize()
+        compare(name, what + case, got, ref, err)
+        del got, ref
+    return dict(k=k, geom=geom, taps=taps, y2=y2, wa=wa, ws=ws, tau=tau, zh=zh, rh=rh,
+                wa_adj=wa_adj, ws_adj=ws_adj, mask=mask, dv=dv, g=g)
+
+
+def reverse_times(A, B, ops, s, reps) -> dict:
+    """ms per call (CUDA events, median of 5) at one training batch's
+    operands (reverse_parity) of each reverse kernel and of the forward pair
+    as training runs them: the kernel, its plain version, the one PyTorch
+    call of the same function, and the bound. wgrad runs as each reverse
+    step does, dA then dB, and reports per call."""
+    k, geom, taps, y2, wa, ws, tau, zh, rh, wa_adj, ws_adj, mask, dv, g = (ops[n] for n in (
+        "k", "geom", "taps", "y2", "wa", "ws", "tau", "zh", "rh", "wa_adj", "ws_adj", "mask",
+        "dv", "g"))
+    pads, C = geom.pads, A.shape[2]
+    n_pos = y2[:, 0].numel()
+    g_full = pp.depth_to_space(g, s, 3, C)
+    r_full = pp.depth_to_space(rh[k - 1], s, 3, C)
+    wg = torch.nn.grad.conv3d_weight
+
+    def pair(f, lib=False):
+        if lib:
+            return lambda: (wg(r_full, A[k].shape, dv, stride=s, padding=pads),
+                            wg(g_full, B[k].shape, zh[k - 1], stride=s, padding=pads))
+        return lambda: (f(rh[k - 1], dv, taps, geom.off_a, alpha=-1.0),
+                        f(g, zh[k - 1], taps, geom.off_a, alpha=-1.0))
+
+    times = {}
+    for name, run, plain, lib, banks, io in (
+        ("lista3d_syn_adjoint",
+         lambda: LB.lista3d_syn_adjoint(g, ws_adj[k], zh[k - 1], geom, base=dv, alpha=-1.0),
+         lambda: LB.lista3d_syn_adjoint_plain(g, ws_adj[k], zh[k - 1], geom, base=dv,
+                                              alpha=-1.0),
+         lambda: F.conv3d(g_full, B[k], stride=s, padding=pads),
+         (ws_adj[k],), (g, ws_adj[k], dv, zh[k - 1], dv, tau[0])),
+        ("lista3d_wgrad",  # dA = -dv (*) r, then dB = -g (*) z
+         pair(LB.lista3d_wgrad), pair(LB.lista3d_wgrad_plain), pair(None, lib=True),
+         (wa[k], ws[k]), (rh[k - 1], dv, wa[k], g, zh[k - 1], ws[k])),
+        ("lista3d_ana_threshold train",
+         lambda: L.lista3d_ana_threshold(rh[k - 1], zh[k - 1], wa[k], tau[k], geom),
+         lambda: L.lista3d_ana_threshold_plain(rh[k - 1], zh[k - 1], wa[k], tau[k], geom),
+         lambda: F.conv3d(r_full, A[k], stride=s, padding=pads),
+         (wa[k],), (rh[k - 1], zh[k - 1], wa[k], tau[k], zh[k])),
+        ("lista3d_syn_residual train",
+         lambda: L.lista3d_syn_residual(zh[k - 1], ws[k], geom, y=y2),
+         lambda: L.lista3d_syn_residual_plain(zh[k - 1], ws[k], geom, y=y2),
+         lambda: F.conv_transpose3d(zh[k - 1], B[k], stride=s, padding=pads,
+                                    output_padding=s - 1),
+         (ws[k],), (zh[k - 1], ws[k], y2, y2)),  # reads y, writes r (y's size)
+        ("lista3d_syn_residual A-adjoint",
+         lambda: L.lista3d_syn_residual(dv, wa_adj[k], geom, mask=mask),
+         lambda: L.lista3d_syn_residual_plain(dv, wa_adj[k], geom, mask=mask),
+         lambda: F.conv_transpose3d(dv, A[k], stride=s, padding=pads, output_padding=s - 1),
+         (wa_adj[k],), (dv, wa_adj[k], mask, y2)),
+    ):
+        calls = len(banks)
+        tt = dict(zip(("ms", "plain_ms", "library_ms"),
+                      (cuda_ms(f, reps) / calls for f in (run, plain, lib))))
+        tt["bound_ms"], tt["bound_by"] = bound(banks, n_pos, io, calls)
+        times[name] = tt
+    return times
+
+
+def grads(m, noisy, sig, clean):
+    """d(mse)/d(A, B, t) of model m on one noisy batch."""
+    loss = mse_loss(m(noisy, sig)[0], clean)
+    return torch.autograd.grad(loss, (m.A, m.B, m.t))
+
+
+def step_launches_3d(K) -> dict:
+    """Launches of one video training step of K iterations: forward K + K,
+    reverse K syn_adjoint, K-1 syn_residual (the analysis adjoint) and 2K
+    wgrad (dA and dB)."""
+    return {"lista3d_ana_threshold": K, "lista3d_syn_residual": 2 * K - 1,
+            "lista3d_syn_adjoint": K, "lista3d_wgrad": 2 * K}
+
+
+def bucketed(clip) -> np.ndarray:
+    """A (D, H, W) clip reflect-padded to the Denoiser's 64-pixel buckets."""
+    pads = [(0, 0)] + [(0, -(-n // 64) * 64 - n) for n in clip.shape[1:]]
+    return np.pad(clip, pads, mode="reflect")
+
+
+def max_abs(a, b) -> float:
+    return float(np.abs(a - b).max())
+
+
+def observed_3d(rng, clean, dev):
+    """(noisy, sigma (N, 1, 1, 1, 1)) on dev of the clean numpy clip batch
+    (N, C, D, H, W): AWGN at a sigma per clip uniform in TRAIN_SIGMA."""
+    sig = rng.uniform(*TRAIN_SIGMA, (clean.shape[0], 1, 1, 1, 1)).astype(np.float32)
+    noisy = clean + sig / 255 * rng.standard_normal(clean.shape).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (noisy, sig))
+
+
+def bigframe(dev, card, err, model, t_par, tg) -> tuple[dict, dict]:
+    """The native-resolution video path: kernel parity and K=30 forwards at
+    the big-frame shapes, native clips through Denoiser.denoise_video
+    (whole, streamed, tiled), the analyze3d eval CLI, and big-frame
+    training (parity at 8x256^2, a native step, the train CLI's video
+    branch). Returns (launches of the native serve, eval CLI, native step
+    and train CLI runs, the kernels' times at the native serve shape and
+    at 8x256^2)."""
+    rng = np.random.default_rng(SEED + 50)  # the earlier phases keep their draws
+    K, s = FLAGSHIP["K"], FLAGSHIP["s"]
+    c = SIGMA / 255
+    native = CDLNetVideo(**FLAGSHIP, backend="pallas").to(dev)
+    native.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        native.t.copy_(t_par)  # thresholds > 0, so the soft threshold is exercised
+    native_plain = copy.deepcopy(native)
+    native_plain.backend = "xla"
+    mri = CDLNetVideo(**MRI_3D, backend="pallas").to(dev)
+    mri.init(torch.Generator().manual_seed(SEED + 3))
+    clean = smooth_clip(rng, NATIVE[0], NATIVE[1:])
+    noisy = clean + SIGMA / 255 * rng.standard_normal(clean.shape).astype(np.float32)
+    launches = collections.Counter()
+
+    # --- B1. each forward kernel against its plain version at the big-frame
+    # shapes, and timed there; the K=30 forward against the plain loop at the
+    # first and last ---
+    times = {}
+    with torch.inference_mode():
+        for what, m, clip, full in (
+            ("serve 16x480x854 (bucket 512x896)", native, bucketed(noisy), True),
+            ("eval 16x240x432", native, noisy[:, :HALF_NATIVE[1], :HALF_NATIVE[2]], False),
+            ("mri eval 30x320x192 (9,9,5)", mri, smooth_clip(rng, *MRI_VOLUME[:1],
+                                                             MRI_VOLUME[1:]), True),
+        ):
+            yp, _, _ = pre_process_3d(torch.from_numpy(np.ascontiguousarray(clip))[None, None]
+                                      .to(dev), s)
+            ops = forward_parity(m.A, m.B, t_par, yp, s, c, tg, err, what + " ")
+            if full:
+                k_ms, p_ms = k_forward_parity(m.A, m.B, t_par, yp, s, c, what, time_it=True)
+                n_pos = ops["y2"][:, 0].numel()
+                print(f"time [{card}]: K={K} forward {what}: {k_ms:.3f} ms on the kernels, "
+                      f"{p_ms:.3f} ms on the plain loop; {1e3 * k_ms / n_pos:.4f} us per "
+                      f"code position on the kernels", flush=True)
+            times[what] = forward_times(m.A[1], m.B[1], ops, s, reps=3)
+            del ops, yp
+    torch.cuda.empty_cache()
+
+    # --- B2. a native clip through Denoiser.denoise_video (the serve path),
+    # and the trained demo at native size, known and blind sigma ---
+    server, server_plain = Denoiser(native), Denoiser(native_plain)
+    L.launches.clear()
+    out = server.denoise_video(noisy, sigma=SIGMA)
+    torch.cuda.synchronize()
+    serve_launches = dict(L.launches)
+    launches.update(serve_launches)
+    print(f"bigframe serve: one {NATIVE} clip, launches {serve_launches}", flush=True)
+    require(serve_launches == {"lista3d_ana_threshold": K, "lista3d_syn_residual": K},
+            f"a native clip launched {serve_launches}, expected {K} of each forward kernel")
+    require(out.shape == NATIVE and np.isfinite(out).all(), "native serve output")
+    serve_ms = host_ms(lambda: server.denoise_video(noisy, sigma=SIGMA), rounds=3)
+    print(f"time [{card}]: Denoiser.denoise_video of a {NATIVE} clip at the flagship width "
+          f"{serve_ms:.3f} ms host clock ({1e3 * NATIVE[0] / serve_ms:.2f} frames/s)",
+          flush=True)
+    demo, demo_plain = Denoiser.from_dir(DEMO), Denoiser.from_dir(DEMO, backend="xla")
+    for label, sig in (("known", SIGMA), ("blind", None)):
+        got = demo.denoise_video(noisy, sigma=sig)
+        d = max_abs(got, demo_plain.denoise_video(noisy, sigma=sig))
+        p_in, p_out = psnr(noisy, clean), psnr(got, clean)
+        print(f"bigframe demo {label} sigma: PSNR noisy {p_in:.3f} dB -> denoised "
+              f"{p_out:.3f} dB (gain {p_out - p_in:.3f} dB); kernels vs xla max|d| {d:.3e}",
+              flush=True)
+        require(np.isfinite(got).all() and p_out - p_in >= MIN_GAIN_DB,
+                f"native demo {label} gain {p_out - p_in:.3f} dB < {MIN_GAIN_DB} dB")
+        require(d <= 1e-4, f"native demo {label} kernels vs xla max|d| {d:.3e} > 1e-4")
+
+    # --- B3. streaming: a 48-frame native clip in chunks (staged on the card)
+    # against backend "xla", the pipelined host loop against the staged one,
+    # and 256^2 tiles against "xla" ---
+    long_clean = np.concatenate([clean, clean[::-1], clean])  # continuous in time
+    long_noisy = long_clean + SIGMA / 255 * rng.standard_normal(
+        long_clean.shape).astype(np.float32)
+    kw = dict(sigma=SIGMA, chunk_depth=CHUNK, overlap=OVERLAP)
+    L.launches.clear()
+    t0 = time.perf_counter()
+    got = server.denoise_video(long_noisy, **kw)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    chunks = len(streaming._chunk_starts(len(long_noisy), CHUNK, OVERLAP))
+    require(dict(L.launches) == {"lista3d_ana_threshold": chunks * K,
+                                 "lista3d_syn_residual": chunks * K},
+            f"the streamed clip launched {dict(L.launches)}, expected {chunks} chunks")
+    d = max_abs(got, server_plain.denoise_video(long_noisy, **kw))
+    p_in, p_out = psnr(long_noisy, long_clean), psnr(got, long_clean)
+    print(f"bigframe stream: {long_noisy.shape} in {chunks} chunks of {CHUNK} (overlap "
+          f"{OVERLAP}) in {stream_s:.3f} s host clock; kernels vs xla max|d| {d:.3e}; PSNR "
+          f"{p_in:.3f} -> {p_out:.3f} dB", flush=True)
+    require(d <= 1e-4, f"streamed clip kernels vs xla max|d| {d:.3e} > 1e-4")
+    padded = bucketed(long_noisy)[None, None]
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        staged = streaming.denoise_long_video(native, torch.from_numpy(padded).to(dev),
+                                              SIGMA, chunk_depth=CHUNK, overlap=OVERLAP)
+        staged = staged.cpu().numpy()
+        staged_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    piped = streaming.denoise_long_video_pipelined(native, padded, SIGMA, chunk_depth=CHUNK,
+                                                   overlap=OVERLAP)
+    piped_s = time.perf_counter() - t0
+    print(f"time [{card}]: {padded.shape} clip staged {staged_s:.3f} s, pipelined host loop "
+          f"{piped_s:.3f} s (host clock); equal: {np.array_equal(piped, staged)}", flush=True)
+    require(np.array_equal(piped, staged), "the pipelined stream differs from the staged one")
+    tkw = dict(sigma=SIGMA, tile_hw=TILE, overlap_hw=TILE_OVERLAP)
+    t0 = time.perf_counter()
+    tiled = server.denoise_video(noisy, **tkw)
+    tiled_s = time.perf_counter() - t0
+    d = max_abs(tiled, server_plain.denoise_video(noisy, **tkw))
+    agree = 10 * np.log10(np.mean(out ** 2) / np.mean((tiled - out) ** 2))
+    print(f"bigframe tiled: {NATIVE} in {TILE}^2 tiles (overlap {TILE_OVERLAP}) in "
+          f"{tiled_s:.3f} s host clock; kernels vs xla max|d| {d:.3e}; {agree:.1f} dB "
+          f"agreement with the whole-frame output", flush=True)
+    require(d <= 1e-4, f"tiled clip kernels vs xla max|d| {d:.3e} > 1e-4")
+    del server, server_plain, demo, demo_plain, staged, piped, got, tiled
+    torch.cuda.empty_cache()
+
+    # --- B4. the eval CLI (cli.analyze3d.main with no device: the card) with
+    # the video demo on native 16-frame clips written as PNG frames ---
+    with open(os.path.join(DEMO, "args.json")) as f:
+        demo_args = json.load(f)
+    Kd = demo_args["model"]["K"]
+    with tempfile.TemporaryDirectory() as root:
+        test_dir = os.path.join(root, "davis")
+        vclean = [smooth_clip(rng, NATIVE[0], NATIVE[1:]) for _ in range(CLI_VIDEOS)]
+        for i, v in enumerate(vclean):
+            vdir = os.path.join(test_dir, f"video{i:03d}")
+            os.makedirs(vdir)
+            for j, frame in enumerate(v):
+                img_save(os.path.join(vdir, f"{j:05d}.png"), frame[None])
+        save_dir = os.path.join(root, "eval")
+        args = dict(demo_args, paths={"save": save_dir,
+                                      "ckpt": os.path.join(DEMO, "net.ckpt.npz")})
+        vdir0 = os.path.join(test_dir, "video000")
+        flags = ["args.json", "--test", test_dir, "--noise_level", "25", "--save",
+                 "--passthrough", vdir0, "--dictionary", "--filters"]
+        if CARD_HAS_MATPLOTLIB:
+            flags.append("--thresholds")
+        L.launches.clear()
+        t0 = time.perf_counter()
+        analyze3d.main(build_argparser().parse_args(flags), args)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        eval_launches = dict(L.launches)
+        launches.update(eval_launches)
+        # two test clips and the passthrough forward: K + K launches each
+        want = {"lista3d_ana_threshold": (CLI_VIDEOS + 1) * Kd,
+                "lista3d_syn_residual": (CLI_VIDEOS + 1) * Kd}
+        with open(os.path.join(save_dir, "test_davis_None.txt")) as f:
+            txt = f.read()
+        with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(ln) for ln in f if ln.strip()]
+        files = {os.path.relpath(os.path.join(d_, f_), save_dir)
+                 for d_, _, fs in os.walk(save_dir) for f_ in fs}
+        frames = CLI_VIDEOS * NATIVE[0]
+        expect = ({f"test_noise/noise_{n:05d}.png" for n in range(1, frames + 1)}
+                  | {f"test_output/output_{n:05d}.png" for n in range(1, frames + 1)}
+                  | {f"passthrough_video000/{p}_{n:05d}.png" for p in ("noise", "output",
+                                                                      "compare")
+                     for n in range(1, NATIVE[0] + 1)}
+                  | {f"passthrough_video000/csc{k:02d}.png" for k in range(Kd)}
+                  | {f"filters/AB{k:02d}_True.png" for k in range(Kd)}
+                  | {"passthrough_video000/psnr.txt", "filters/D_filters_True.png",
+                     "D_learned.png", "freq_response.png"}
+                  | ({"tau.png"} if CARD_HAS_MATPLOTLIB else set()))
+        print(f"bigframe eval CLI: {CLI_VIDEOS} clips of {NATIVE} in {cli_s:.2f} s; launches "
+              f"{eval_launches}; test_davis_None.txt {txt!r}; eval row "
+              f"{ {k: v for k, v in rows[-1].items() if k != 'ts'} }; {len(files)} files "
+              f"(--thresholds {'on' if CARD_HAS_MATPLOTLIB else 'off: no matplotlib'})",
+              flush=True)
+        require(eval_launches == want, f"the eval CLI launched {eval_launches}, expected {want}")
+        require(re.fullmatch(r"25, \d+\.\d{3}\n", txt) is not None
+                and float(txt.split(", ")[1]) > psnr(noisy, clean) + MIN_GAIN_DB,
+                f"the eval CLI's txt {txt!r}")
+        require(len(rows) == 1 and {k: rows[0][k] for k in
+                                    ("event", "dataset", "blind", "sigma", "clips", "frames")}
+                == dict(event="eval", dataset="davis", blind="None", sigma=25.0,
+                        clips=CLI_VIDEOS, frames=frames)
+                and abs(rows[0]["psnr"] - float(txt.split(", ")[1])) < 1e-3,
+                f"the eval CLI's metrics rows {rows}")
+        require(expect <= files, f"the eval CLI did not write {sorted(expect - files)[:5]}")
+        # the passthrough's per-iteration codes: kernels vs the plain loop
+        dm = init_model(args)[0].eval()
+        dm_plain = init_model(dict(args, model=dict(args["model"], backend="xla")))[0].eval()
+        x = torch.from_numpy(load_video(vdir0)).to(dev)
+        y = x + SIGMA / 255 * torch.randn(x.shape, generator=tg).to(dev)
+        with torch.inference_mode():
+            got, ref = dm.apply_with_codes(y, SIGMA), dm_plain.apply_with_codes(y, SIGMA)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("x", "z", "codes"), got, ref):
+            dd, rel = rel_err(a, b)
+            print(f"parity passthrough {name} kernels vs plain loop: max|d| {dd:.3e}, "
+                  f"rel {rel:.3e}", flush=True)
+            require(rel <= FORWARD_TOL, f"passthrough {name} rel err {rel:.3e}")
+        require(tuple(got[2].shape) == (Kd, 1, dm.M, NATIVE[0] // 2, NATIVE[1] // 2,
+                                        NATIVE[2] // 2), f"codes {tuple(got[2].shape)}")
+        del dm, dm_plain, x, y, got, ref
+
+    # --- B5. big-frame training: reverse kernels and the K=30 gradient at
+    # 1x8x256^2, one step at the native size, two epochs of the train CLI ---
+    clean_b = smooth_clip(rng, BIG_TRAIN[0], BIG_TRAIN[1:])[None, None]
+    clean_bt = torch.from_numpy(clean_b).to(dev)
+    noisy_bt, sig_bt = observed_3d(rng, clean_b, dev)
+    with torch.no_grad():
+        tops = reverse_parity(native.A, native.B, t_par, noisy_bt, sig_bt, s, tg, err,
+                              "1x8x256^2 ")
+        times["train 1x8x256^2"] = reverse_times(native.A, native.B, tops, s, reps=10)
+    del tops
+    L.launches.clear()
+    g1 = grads(native, noisy_bt, sig_bt, clean_bt)
+    torch.cuda.synchronize()
+    require(dict(L.launches) == step_launches_3d(K),
+            f"one 1x8x256^2 gradient launched {dict(L.launches)}")
+    g2 = grads(native, noisy_bt, sig_bt, clean_bt)
+    gp = grads(native_plain, noisy_bt, sig_bt, clean_bt)
+    torch.cuda.synchronize()
+    for name, a, b, ref in zip("ABt", g1, g2, gp):
+        dd, rel = rel_err(a, ref)
+        print(f"parity K={K} gradient d{name} (1x{BIG_TRAIN}): max|d| {dd:.3e}, rel "
+              f"{rel:.3e}; two runs bitwise equal: {torch.equal(a, b)}", flush=True)
+        require(rel <= GRAD_TOL, f"1x8x256^2 gradient d{name} rel err {rel:.3e} > {GRAD_TOL}")
+        require(torch.equal(a, b), f"two 1x8x256^2 backward runs differ in d{name}")
+    del g1, g2, gp, native_plain
+    opt = make_optimizer(2e-4, clip_grad=0.05)
+    state = opt.init(dict(native.named_parameters()))
+    step_ms = host_ms(lambda: train_update(native, opt, state, noisy_bt, sig_bt, clean_bt),
+                      rounds=3)
+    # the native step through make_train_step(workload="3d"), the step fit()
+    # runs: a clean 1x16x480x854 clip (no bucket pad in training), its noise
+    # drawn on the card
+    train_step, _ = make_train_step(native, opt, workload="3d", noise_std=TRAIN_SIGMA)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    nat_clean = torch.from_numpy(clean[None, None]).to(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    L.launches.clear()
+    loss = train_step(state, nat_clean, gen)
+    torch.cuda.synchronize()
+    step_launches = dict(L.launches)
+    launches.update(step_launches)
+    require(step_launches == step_launches_3d(K),
+            f"the native train step launched {step_launches}")
+    nat_ms = host_ms(lambda: train_step(state, nat_clean, gen), rounds=2, warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    require(bool(torch.isfinite(loss)) and all(torch.isfinite(p).all()
+                                               for p in native.parameters()),
+            "the native train step gave a non-finite loss or parameter")
+    print(f"time [{card}]: flagship train step (fwd + bwd + Adam + project) at 1x{BIG_TRAIN} "
+          f"{step_ms:.3f} ms, at 1x{NATIVE} {nat_ms:.3f} ms through make_train_step (noise "
+          f"drawn on the card; peak {peak:.2f} GB), on the kernels; launches per step "
+          f"{step_launches}", flush=True)
+    del native, nat_clean, noisy_bt, clean_bt, state
+    torch.cuda.empty_cache()
+
+    # the train CLI's video branch (cli.train.main with no device: the card)
+    # with the video demo's config from its power-method init
+    with tempfile.TemporaryDirectory() as root:
+        data = gen_synthetic_video_dirs(os.path.join(root, "data"), n_videos=CLI_TRAIN_VIDEOS,
+                                        depth=NATIVE[0], size=CLI_VIDEO_SIZE, seed=SEED)
+        save_dir = os.path.join(root, "run")
+        args = copy.deepcopy(demo_args)
+        args["paths"] = {"save": save_dir}
+        args["train"]["fit"].update(epochs=CLI_EPOCHS, val_freq=1, save_freq=1,
+                                    backtrack_thresh=None, verbose=False)
+        args["train"]["loaders"].update(
+            {f"{k}_path_list": [os.path.join(data, split)]
+             for k, split in (("trn", "train"), ("val", "val"), ("tst", "test"))})
+        loaders, workload = cli_train.make_loaders(args)
+        t0 = time.perf_counter()
+        n_batches = sum(1 for _ in loaders["train"])
+        loader_ms = 1e3 * (time.perf_counter() - t0) / n_batches
+        L.launches.clear()
+        t0 = time.perf_counter()
+        cli_state, history = cli_train.main(args)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        cli_launches = dict(L.launches)
+        launches.update(cli_launches)
+        n_steps = CLI_EPOCHS * len(loaders["train"])
+        evals = CLI_EPOCHS * len(loaders["val"]) + len(loaders["test"])
+        want = {name: n_steps * n for name, n in step_launches_3d(Kd).items()}
+        want["lista3d_ana_threshold"] += evals * Kd
+        want["lista3d_syn_residual"] += evals * Kd
+        print(f"bigframe train CLI: {workload} workload, {n_steps} steps + {evals} eval clips "
+              f"in {cli_s:.2f} s; launches {cli_launches}; PSNR "
+              f"{[(e, ph, round(p, 3)) for e, ph, p in history]}; video loader "
+              f"{loader_ms:.3f} ms per training batch (host clock)", flush=True)
+        require(workload == "3d" and cli_launches == want,
+                f"the train CLI launched {cli_launches}, expected {want}")
+        require([(e, ph) for e, ph, _ in history]
+                == [(1, "train"), (1, "val"), (2, "train"), (2, "val"), (2, "test")]
+                and all(np.isfinite(p) for _, _, p in history),
+                f"the train CLI's history {history}")
+        with open(os.path.join(save_dir, "args.json")) as f:
+            saved = json.load(f)
+        back, _, back_state, epoch0, _ = init_model(saved)
+        require(saved["paths"]["ckpt"] == os.path.join(save_dir, "net.ckpt.npz")
+                and back.A.device.type == "cuda" and epoch0 == CLI_EPOCHS
+                and back_state["count"] == cli_state["count"] == n_steps
+                and all(torch.isfinite(p).all() for p in back.parameters()),
+                "the video train CLI's checkpoint did not reload through its args.json")
+        del back, back_state, cli_state
+
+    for shape, tt_all in times.items():
+        for name, tt in tt_all.items():
+            print(f"time [{card}]: bigframe {shape} {name}: {tt['ms']:.4f} ms/call, plain "
+                  f"{tt['plain_ms']:.4f}, library {tt['library_ms']:.4f}, bound "
+                  f"{tt['bound_ms']:.4f} ({tt['bound_by']})", flush=True)
+    print(f"bigframe launches: per native clip {serve_launches}, per native step "
+          f"{step_launches}", flush=True)
+    # each kernel's times at the big-frame shapes, by kernel
+    by_kernel = {}
+    for shape, tt_all in times.items():
+        for name, tt in tt_all.items():
+            by_kernel.setdefault(name.split()[0], {})[f"{shape} {name}".strip()] = tt
+    return dict(launches), by_kernel
+
+
 def main() -> int:
     # --- 1. the device ---
     if not torch.cuda.is_available():
@@ -784,7 +1388,7 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"init: power-method flagship dictionary in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    K, M, P, s = FLAGSHIP["K"], FLAGSHIP["M"], FLAGSHIP["P"], FLAGSHIP["s"]
+    K, M, s = FLAGSHIP["K"], FLAGSHIP["M"], FLAGSHIP["s"]
     clean = smooth_clip(rng, *CLIP[:2])
     noisy = clean + SIGMA / 255 * rng.standard_normal(clean.shape).astype(np.float32)
     y = torch.from_numpy(noisy)[None, None].to(dev)
@@ -794,44 +1398,10 @@ def main() -> int:
     t_par = (torch.rand(K, 2, M, 1, 1, 1, generator=tg) * torch.tensor([0.02, 0.2])
              .reshape(1, 2, 1, 1, 1, 1)).to(dev)
     c = SIGMA / 255
-    pads = model.pad
-    geom = L.Geom(s, P, pads)
     err: dict = {}
     with torch.inference_mode():
-        wa = L.prep_A2m_3d(model.A, s, pads)
-        ws = L.prep_B2m_3d(model.B, s, pads)
-        y2 = pp.space_to_depth(yp, s, 3).contiguous()
-        tau = (t_par[:, 0, :, 0, 0, 0] + c * t_par[:, 1, :, 0, 0, 0])[:, None].contiguous()
-        mask2 = (torch.rand(y2.shape, generator=tg) > 0.3).float().to(dev)
-        z0 = L.lista3d_ana_threshold_plain(-y2, None, wa[0], tau[0], geom)
-        r1 = L.lista3d_syn_residual_plain(z0, ws[1], geom, y=y2)
-        cases = [
-            ("lista3d_ana_threshold", "k=0 (r=-y2, z=0)",
-             lambda f: f(-y2, None, wa[0], tau[0], geom)),
-            ("lista3d_ana_threshold", "k=1",
-             lambda f: f(r1, z0, wa[1], tau[1], geom)),
-            ("lista3d_syn_residual", "residual B1 z - y",
-             lambda f: f(z0, ws[1], geom, y=y2)),
-            ("lista3d_syn_residual", "masked residual",
-             lambda f: f(z0, ws[2], geom, mask=mask2, y=y2)),
-            ("lista3d_syn_residual", "final B0 z", lambda f: f(z0, ws[0], geom)),
-        ]
-        for name, what, run in cases:
-            got = run(getattr(L, name))
-            ref = run(getattr(L, name + "_plain"))
-            torch.cuda.synchronize()
-            compare(name, what, got, ref, err)
-
-        x_k, z_k = L.lista3d_fused(yp, model.A, model.B, t_par, c, stride=s)
-        z_p = lista_3d(yp, model.A, model.B, t_par, c, stride=s)
-        x_p = conv_transpose3d(z_p, model.B[0], stride=s, padding=pads,
-                               output_padding=s - 1)
-        torch.cuda.synchronize()
-        for what, got, ref in (("x", x_k, x_p), ("z", z_k, z_p)):
-            d, rel = rel_err(got, ref)
-            print(f"parity K={K} forward {what}: max|d| {d:.3e}, rel {rel:.3e}", flush=True)
-            require(rel <= FORWARD_TOL, f"K={K} forward {what} rel err {rel:.3e}")
-        del x_k, z_k, z_p, x_p
+        ops = forward_parity(model.A, model.B, t_par, yp, s, c, tg, err)
+        k_forward_parity(model.A, model.B, t_par, yp, s, c, f"{CLIP}")
 
     # --- 4. serve three flagship clips through Denoiser (the serve path) ---
     server = Denoiser(model)
@@ -868,30 +1438,10 @@ def main() -> int:
     plain_model = CDLNetVideo(**FLAGSHIP, backend="xla").to(dev)
     plain_model.load_state_dict(model.state_dict())
     yc = torch.from_numpy(clips[0])[None, None].to(dev)
-    times: dict = {}
     with torch.inference_mode():
         clip_ms = cuda_ms(lambda: model(yc, SIGMA), reps=3)
         clip_plain_ms = cuda_ms(lambda: plain_model(yc, SIGMA), reps=3)
-        r = L.lista3d_syn_residual(z0, ws[1], geom, y=y2)
-        r_full = pp.depth_to_space(r, s, 3, 1)
-        z_full = z0  # the code grid is already the strided conv's output grid
-        n_pos = y2[:, 0].numel()
-        for name, run, plain, lib, bank, io in (
-            ("lista3d_ana_threshold",
-             lambda: L.lista3d_ana_threshold(r, z0, wa[1], tau[1], geom),
-             lambda: L.lista3d_ana_threshold_plain(r, z0, wa[1], tau[1], geom),
-             lambda: F.conv3d(r_full, model.A[1], stride=s, padding=pads),
-             wa[1], (r, z0, wa[1], tau[1], z0)),
-            ("lista3d_syn_residual",
-             lambda: L.lista3d_syn_residual(z0, ws[1], geom, y=y2),
-             lambda: L.lista3d_syn_residual_plain(z0, ws[1], geom, y=y2),
-             lambda: F.conv_transpose3d(z_full, model.B[1], stride=s, padding=pads,
-                                        output_padding=s - 1),
-             ws[1], (z0, ws[1], y2, r)),
-        ):
-            times[name] = dict(zip(("ms", "plain_ms", "library_ms"),
-                                   (cuda_ms(f, 20) for f in (run, plain, lib))))
-            times[name]["bound_ms"], times[name]["bound_by"] = bound((bank,), n_pos, io)
+        times = forward_times(model.A[1], model.B[1], ops, s, reps=20)
     serve_s = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -901,7 +1451,7 @@ def main() -> int:
           f"{clip_plain_ms:.3f} ms on the plain loop (backend xla); "
           f"Denoiser.denoise_video {1e3 * statistics.median(serve_s):.3f} ms host clock",
           flush=True)
-    del server, demo, demo_plain, r, r_full
+    del server, demo, demo_plain, ops
 
     # --- 7. the 2D image serve path (serve_2d) ---
     launches_2d, times_2d = serve_2d(dev, card, err)
@@ -912,90 +1462,10 @@ def main() -> int:
     sig = rng.uniform(*TRAIN_SIGMA, (TRAIN_N, 1, 1, 1, 1)).astype(np.float32)
     tn = tc + sig / 255 * rng.standard_normal(tc.shape).astype(np.float32)
     clean_t, noisy_t, sig_t = (torch.from_numpy(a).to(dev) for a in (tc, tn, sig))
-    ypt, _, _ = pre_process_3d(noisy_t, s)
     with torch.no_grad():
-        y2t, _, wa, ws, taut, _ = L.phase_operands(ypt, model.A, model.B, t_par,
-                                                   sig_t / 255, s)
-        x2t, _, (zh, rh) = L.lista3d_loop(y2t, None, wa, ws, taut, geom,
-                                          return_hists=True)
-        wa_adj, ws_adj = LB.adjoint_bank(wa), LB.adjoint_bank(ws)
-        taps = tuple(wa.shape[2:5])
-        mask_t = (torch.rand(y2t.shape, generator=tg) > 0.3).float().to(dev)
-        dx2 = torch.randn(x2t.shape, generator=tg).to(dev)
-        k = K // 2
-        dv, _ = LB.lista3d_syn_adjoint_plain(dx2, ws_adj[0], zh[K - 1], geom)
-        g = L.lista3d_syn_residual_plain(dv, wa_adj[k], geom, mask=mask_t)
-        cases = [
-            ("lista3d_syn_adjoint", "init dz = B0*(dx2)", LB,
-             lambda f: f(dx2, ws_adj[0], zh[K - 1], geom)),
-            ("lista3d_syn_adjoint", f"k={k} dz = dv - Bk*(g)", LB,
-             lambda f: f(g, ws_adj[k], zh[k - 1], geom, base=dv, alpha=-1.0)),
-            ("lista3d_syn_adjoint", "base, alpha=+1", LB,
-             lambda f: f(g, ws_adj[k], zh[k - 1], geom, base=dv, alpha=1.0)),
-            ("lista3d_wgrad", "dA = -dv (*) r", LB,
-             lambda f: f(rh[k - 1], dv, taps, geom.off_a, alpha=-1.0)),
-            ("lista3d_wgrad", "dB = adjoint of -z (*) g", LB,
-             lambda f: f(g, zh[k - 1], taps, geom.off_a, alpha=-1.0)),
-            ("lista3d_syn_residual", "A-adjoint g = m * Ak*(dv)", L,
-             lambda f: f(dv, wa_adj[k], geom, mask=mask_t)),
-        ]
-        for name, what, mod, run in cases:
-            got = run(getattr(mod, name))
-            ref = run(getattr(mod, name + "_plain"))
-            torch.cuda.synchronize()
-            compare(name, what, got, ref, err)
-
-        # times at the training shape: the kernel, its plain version, the
-        # one PyTorch call of the same function, and the bound. wgrad runs
-        # as each reverse step does, dA then dB, and reports per call.
-        n_pos = y2t[:, 0].numel()
-        g_full = pp.depth_to_space(g, s, 3, 1)
-        r_full = pp.depth_to_space(rh[k - 1], s, 3, 1)
-        wg = torch.nn.grad.conv3d_weight
-
-        def pair(f, lib=False):
-            if lib:
-                return lambda: (wg(r_full, model.A[k].shape, dv, stride=s, padding=pads),
-                                wg(g_full, model.B[k].shape, zh[k - 1], stride=s,
-                                   padding=pads))
-            return lambda: (f(rh[k - 1], dv, taps, geom.off_a, alpha=-1.0),
-                            f(g, zh[k - 1], taps, geom.off_a, alpha=-1.0))
-
-        train_times = {}
-        for name, what, run, plain, lib, banks, io in (
-            ("lista3d_syn_adjoint", "",
-             lambda: LB.lista3d_syn_adjoint(g, ws_adj[k], zh[k - 1], geom, base=dv, alpha=-1.0),
-             lambda: LB.lista3d_syn_adjoint_plain(g, ws_adj[k], zh[k - 1], geom, base=dv,
-                                                  alpha=-1.0),
-             lambda: F.conv3d(g_full, model.B[k], stride=s, padding=pads),
-             (ws_adj[k],), (g, ws_adj[k], dv, zh[k - 1], dv, taut[0])),
-            ("lista3d_wgrad", "",  # dA = -dv (*) r, then dB = -g (*) z
-             pair(LB.lista3d_wgrad), pair(LB.lista3d_wgrad_plain), pair(None, lib=True),
-             (wa[k], ws[k]), (rh[k - 1], dv, wa[k], g, zh[k - 1], ws[k])),
-            ("lista3d_ana_threshold", " train",
-             lambda: L.lista3d_ana_threshold(rh[k - 1], zh[k - 1], wa[k], taut[k], geom),
-             lambda: L.lista3d_ana_threshold_plain(rh[k - 1], zh[k - 1], wa[k], taut[k], geom),
-             lambda: F.conv3d(r_full, model.A[k], stride=s, padding=pads),
-             (wa[k],), (rh[k - 1], zh[k - 1], wa[k], taut[k], zh[k])),
-            ("lista3d_syn_residual", " train",
-             lambda: L.lista3d_syn_residual(zh[k - 1], ws[k], geom, y=y2t),
-             lambda: L.lista3d_syn_residual_plain(zh[k - 1], ws[k], geom, y=y2t),
-             lambda: F.conv_transpose3d(zh[k - 1], model.B[k], stride=s, padding=pads,
-                                        output_padding=s - 1),
-             (ws[k],), (zh[k - 1], ws[k], y2t, y2t)),  # reads y, writes r (y's size)
-            ("lista3d_syn_residual", " A-adjoint",
-             lambda: L.lista3d_syn_residual(dv, wa_adj[k], geom, mask=mask_t),
-             lambda: L.lista3d_syn_residual_plain(dv, wa_adj[k], geom, mask=mask_t),
-             lambda: F.conv_transpose3d(dv, model.A[k], stride=s, padding=pads,
-                                        output_padding=s - 1),
-             (wa_adj[k],), (dv, wa_adj[k], mask_t, y2t)),
-        ):
-            calls = len(banks)
-            tt = dict(zip(("ms", "plain_ms", "library_ms"),
-                          (cuda_ms(f, 10) / calls for f in (run, plain, lib))))
-            tt["bound_ms"], tt["bound_by"] = bound(banks, n_pos, io, calls)
-            train_times[name + what] = tt
-        del g_full, r_full
+        tops = reverse_parity(model.A, model.B, t_par, noisy_t, sig_t, s, tg, err)
+        train_times = reverse_times(model.A, model.B, tops, s, reps=10)
+    del tops
     # the new kernels report their training-shape times
     for name in ("lista3d_syn_adjoint", "lista3d_wgrad"):
         times[name] = train_times[name]
@@ -1003,7 +1473,6 @@ def main() -> int:
         print(f"time [{card}]: train shape {name}: {tt['ms']:.4f} ms/call, plain "
               f"{tt['plain_ms']:.4f}, library {tt['library_ms']:.4f}, bound "
               f"{tt['bound_ms']:.4f} ({tt['bound_by']})", flush=True)
-    del zh, rh, dv, g
 
     # --- 9. the K=30 gradient through the kernels vs torch autograd ---
     train_model = CDLNetVideo(**FLAGSHIP, backend="pallas").to(dev)
@@ -1013,17 +1482,13 @@ def main() -> int:
     plain_train = CDLNetVideo(**FLAGSHIP, backend="xla").to(dev)
     plain_train.load_state_dict(train_model.state_dict())
 
-    def grads(m):
-        loss = mse_loss(m(noisy_t, sig_t)[0], clean_t)
-        return torch.autograd.grad(loss, (m.A, m.B, m.t))
-
     L.launches.clear()
-    g1 = grads(train_model)
+    g1 = grads(train_model, noisy_t, sig_t, clean_t)
     torch.cuda.synchronize()
     require(dict(L.launches) == STEP_LAUNCHES,
             f"one gradient launched {dict(L.launches)}, expected {STEP_LAUNCHES}")
-    g2 = grads(train_model)
-    gp = grads(plain_train)
+    g2 = grads(train_model, noisy_t, sig_t, clean_t)
+    gp = grads(plain_train, noisy_t, sig_t, clean_t)
     torch.cuda.synchronize()
     for name, a, b, ref in zip("ABt", g1, g2, gp):
         d, rel = rel_err(a, ref)
@@ -1093,8 +1558,12 @@ def main() -> int:
     launches_t2, times_t2 = train_2d(dev, card, err)
     times.update(times_t2)
 
+    # --- 13. the native-resolution video path (bigframe) ---
+    launches_bf, times_bf = bigframe(dev, card, err, model, t_par, tg)
+
     launches = {name: serve_launches.get(name, 0) + fit_launches.get(name, 0)
-                + launches_2d.get(name, 0) + launches_t2.get(name, 0) for name in KERNELS}
+                + launches_2d.get(name, 0) + launches_t2.get(name, 0)
+                + launches_bf.get(name, 0) for name in KERNELS}
     for name in ("lista3d_ana_threshold", "lista3d_syn_residual"):
         tt = times[name]
         print(f"time [{card}]: serve shape {name} {tt['ms']:.4f} ms/call, plain "
@@ -1102,7 +1571,8 @@ def main() -> int:
               f"{tt['bound_ms']:.4f} ({tt['bound_by']})", flush=True)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches[name], "max_abs_err": err[name], **times[name]}
+         "launches": launches[name], "max_abs_err": err[name], **times[name],
+         **({"bigframe": times_bf[name]} if name in times_bf else {})}
         for name, (src, tpu) in KERNELS.items()
     ]}
     print(json.dumps(report), flush=True)

@@ -202,10 +202,11 @@ def test_unported_paths_raise(call, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         if call == "blind":  # MAD is ported; the PCA estimator is not
             Denoiser(_tiny_denoiser().model, blind="PCA").denoise_video(clip)
-        elif call == "chunk_depth":
-            _tiny_denoiser().denoise_video(clip, sigma=25, chunk_depth=2)
+        elif call == "chunk_depth":  # streaming is ported; blind PCA on it is not
+            Denoiser(_tiny_denoiser().model, blind="PCA").denoise_video(
+                clip, chunk_depth=2, overlap=0)
         elif call == "tile_hw":
-            _tiny_denoiser().denoise_video(clip, sigma=25, tile_hw=8)
+            Denoiser(_tiny_denoiser().model, blind="PCA").denoise_video(clip, tile_hw=8)
         elif call == "mesh":
             Denoiser(_tiny_denoiser().model, mesh={"data": -1})
         elif call == "residual":

@@ -323,7 +323,7 @@ def test_cli_main_trains_jdd_and_gdlnet(image_dirs, tmp_path, mtype, model, load
 
 
 @pytest.mark.parametrize("mtype,loaders", [
-    ("DnCNN", {}), ("FFDNet", {}), ("CDLNetVideo", {}), ("CDLNet_CSR", {}),
+    ("DnCNN", {}), ("FFDNet", {}), ("CDLNetVideo", {"PDFS": True}), ("CDLNet_CSR", {}),
     ("CDLNet", {"PDFS": True}),
 ])
 def test_cli_unported_families_raise(image_dirs, tmp_path, mtype, loaders):

@@ -217,6 +217,104 @@ def test_wrapper_rejects_non_contiguous(cuda):
         L.lista3d_ana_threshold(r, None, d["wa"].to(cuda), d["tau"].to(cuda), d["geom"])
 
 
+# --- big frames: the shapes of the TPU's banded and ring kernels (K9-K12)
+# on the same kernels. P, s, M, N, D, H, W, C: a 427-wide code grid (the
+# 854-wide native frame: ragged 64-column tiles), the (9,9,5) taps of the
+# fastMRI config (5x5x3 phase taps) with an odd code depth of 15, and the
+# flagship taps with an odd code height
+BIG_SHAPES = [
+    ((9, 9, 5), 2, 24, 1, 30, 40, 854, 1),
+    ((7, 7, 5), 2, 40, 1, 16, 66, 854, 1),
+]
+
+
+@pytest.mark.parametrize("P,s,M,N,D,H,W,C", BIG_SHAPES)
+def test_bigframe_forward_kernels_match_plain(cuda, P, s, M, N, D, H, W, C):
+    d = _setup(P, s, M, N, D, H, W, C)
+    for z in (None, d["z"]):
+        ref = L.lista3d_ana_threshold_plain(d["r"], z, d["wa"], d["tau"], d["geom"])
+        got = L.lista3d_ana_threshold(
+            d["r"].to(cuda), None if z is None else z.to(cuda), d["wa"].to(cuda),
+            d["tau"].to(cuda), d["geom"])
+        torch.cuda.synchronize()
+        assert _rel(got, ref) <= 1e-5
+    ref = L.lista3d_syn_residual_plain(d["z"], d["ws"], d["geom"], mask=d["mask"], y=d["y"])
+    got = L.lista3d_syn_residual(d["z"].to(cuda), d["ws"].to(cuda), d["geom"],
+                                 mask=d["mask"].to(cuda), y=d["y"].to(cuda))
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("P,s,M,N,D,H,W,C", BIG_SHAPES)
+def test_bigframe_reverse_kernels_match_plain(cuda, P, s, M, N, D, H, W, C):
+    """The weight gradient sums ~130,000 code positions of random-sign
+    products per entry, in another order on each side: fp32 rounding
+    grows like sqrt(n)·eps (~2e-5 of the largest entry), so it is held to
+    1e-4; the adjoint, a sum of a few hundred terms per output, to 1e-5."""
+    d = _setup(P, s, M, N, D, H, W, C)
+    geom, taps = d["geom"], d["taps"]
+    ref = LB.lista3d_syn_adjoint_plain(d["y"], d["ws_adj"], d["z"], geom, base=d["base"],
+                                       alpha=-1.0)
+    got = LB.lista3d_syn_adjoint(d["y"].to(cuda), d["ws_adj"].to(cuda), d["z"].to(cuda),
+                                 geom, base=d["base"].to(cuda), alpha=-1.0)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert _rel(g, r) <= 1e-5
+    for x, y in ((d["r"], d["z"]), (d["y"], d["z"])):  # dA, and dB as the loop runs it
+        ref = LB.lista3d_wgrad_plain(x, y, taps, geom.off_a, alpha=-1.0)
+        got = LB.lista3d_wgrad(x.to(cuda), y.to(cuda), taps, geom.off_a, alpha=-1.0)
+        torch.cuda.synchronize()
+        assert _rel(got, ref) <= 1e-4
+
+
+def test_bigframe_grad_on_cuda_matches_cpu_and_counts_launches(cuda):
+    """K=3 forward and gradient through the kernels at a ragged big frame
+    with the (9,9,5) taps, a mask and per-sample thresholds, against the
+    CPU reverse loop. The banks have bench.py's 0.02 scale: at 0.1 the
+    405-tap banks make the iteration expansive, and the CPU's own fp32 dA
+    is 1.9e-4 off its fp64 value."""
+    rng = np.random.default_rng(6)
+    K, M, P, s = 3, 13, (9, 9, 5), 2
+    f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+    yp, tgt = 0.3 * f(2, 1, 6, 34, 854), f(2, 1, 6, 34, 854)
+    A, B = 0.02 * f(K, M, 1, *P), 0.02 * f(K, M, 1, *P)
+    t = 0.02 * f(K, 2, M, 1, 1, 1).abs()
+    c = torch.tensor([0.1, 0.2]).reshape(2, 1, 1, 1, 1)
+    mask = (f(*yp.shape) > 0).float()
+
+    def grads(dev):
+        prm = [v.to(dev).requires_grad_() for v in (A, B, t)]
+        x = lista3d_fused_diff(yp.to(dev), *prm, c.to(dev), stride=s, mask=mask.to(dev))
+        loss = ((x - tgt.to(dev)) ** 2).mean()
+        return [x.detach().cpu(), *(g.cpu() for g in torch.autograd.grad(loss, prm))]
+
+    want = grads("cpu")
+    L.launches.clear()
+    got = grads(cuda)
+    assert dict(L.launches) == {"lista3d_ana_threshold": K,
+                                "lista3d_syn_residual": 2 * K - 1,
+                                "lista3d_syn_adjoint": K, "lista3d_wgrad": 2 * K}
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= 1e-4
+
+
+
+
+def test_pipelined_stream_on_cuda_equals_the_staged_loop(cuda):
+    """denoise_long_video_pipelined's side-stream copies give the staged
+    chunk loop's output bit for bit, with one and with three chunks in
+    flight (seven chunks: every pinned slot is reused)."""
+    from cdlnet_tpu_torch.models import CDLNetVideo, streaming
+
+    model = CDLNetVideo(K=3, M=13, P=(5, 5, 3), s=2, adaptive=True, depth=8,
+                        backend="pallas").to(cuda).init(torch.Generator().manual_seed(0))
+    clip = np.random.default_rng(7).uniform(size=(1, 1, 32, 32, 48)).astype(np.float32)
+    staged = streaming.denoise_long_video(model, torch.from_numpy(clip).to(cuda), 25.0,
+                                          chunk_depth=8, overlap=2).cpu().numpy()
+    for in_flight in (1, 3):
+        piped = streaming.denoise_long_video_pipelined(model, clip, 25.0, chunk_depth=8,
+                                                       overlap=2, max_in_flight=in_flight)
+        np.testing.assert_array_equal(piped, staged)
 
 # --- the 2D forward pair (kernels/lista2d.py) ---
 

@@ -40,5 +40,6 @@ def test_package_holds_the_slice():
                 "kernels/csrc/lista2d.cu", "models/cdlnet.py", "models/gdlnet.py",
                 "nle/__init__.py", "nle/mad.py", "kernels/lista2d_bwd.py",
                 "data/loader.py", "data/images.py", "data/synthetic.py",
-                "cli/__init__.py", "cli/train.py"):
+                "cli/__init__.py", "cli/train.py", "cli/analyze.py", "cli/analyze3d.py",
+                "data/video.py", "models/streaming.py"):
         assert (pkg / rel).is_file(), rel
