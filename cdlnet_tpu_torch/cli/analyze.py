@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Analysis CLI helpers (counterpart of the shared half of
-cdlnet_tpu/cli/analyze.py): the argument parser, the --backend
-resolution and the noise-level list that the video analyzer
-(cli/analyze3d.py) uses.
+cdlnet_tpu/cli/analyze.py): the argument parser and the noise-level
+list that the video analyzer (cli/analyze3d.py) uses; --backend resolves
+through cli.train.apply_backend.
 
 The 2D analyzer itself (`python -m cdlnet_tpu.cli.analyze`: the image
 PSNR sweep, filters, dictionary, passthrough and thresholds of CDLNet,
@@ -12,8 +12,6 @@ GDLNet, DnCNN and FFDNet) is not ported yet: main() raises.
 from __future__ import annotations
 
 import argparse
-
-from cdlnet_tpu_torch.cli import train as cli_train
 
 
 def build_argparser():
@@ -35,11 +33,6 @@ def build_argparser():
                    help="'auto' keeps a backend the config pins, else the "
                         "hand-written kernels; 'xla' is the plain PyTorch loop.")
     return p
-
-
-def apply_backend(ARGS, model_args: dict) -> dict:
-    """--backend into the model config (cli.train.apply_backend)."""
-    return cli_train.apply_backend(getattr(ARGS, "backend", "auto"), model_args)
 
 
 def resolve_noise_levels(ARGS, model_args):

@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from cdlnet_tpu_torch import nle
-from cdlnet_tpu_torch.cli.analyze import apply_backend, build_argparser, resolve_noise_levels
+from cdlnet_tpu_torch.cli import train as cli_train
+from cdlnet_tpu_torch.cli.analyze import build_argparser, resolve_noise_levels
 from cdlnet_tpu_torch.data.noise import awgn3d, gen_bayer_mask3d
 from cdlnet_tpu_torch.utils import append_metric, img_save, load_video, make_grid, psnr
 
@@ -216,7 +217,7 @@ def main(ARGS, model_args, device=None):
         raise NotImplementedError(
             "the PCA noise-level estimator is not ported to cdlnet_tpu_torch yet "
             "(see ROADMAP.md); --blind MAD is")
-    model_args = apply_backend(ARGS, model_args)
+    model_args = cli_train.apply_backend(ARGS.backend, model_args)
     model = init_model(model_args, device=device)[0].eval()
 
     save_dir = ARGS.save_dir or model_args["paths"]["save"]

@@ -23,6 +23,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# chunks of denoise_long_video_pipelined queued on the card before the
+# oldest is read back: one copied in, one in the forward, one copied out
+MAX_IN_FLIGHT = 3
+
 
 def _chunk_starts(D, chunk_depth, overlap):
     """Chunk start frames: every chunk_depth - 2*overlap frames, the last
@@ -66,11 +70,10 @@ def denoise_long_video(model, y, sigma=None, mask=None, chunk_depth=16, overlap=
 
 
 @torch.inference_mode()
-def denoise_long_video_pipelined(model, clip, sigma=None, chunk_depth=16, overlap=4,
-                                 max_in_flight=3):
+def denoise_long_video_pipelined(model, clip, sigma=None, chunk_depth=16, overlap=4):
     """denoise_long_video for a host clip (N, C, D, H, W) numpy array that
     need not fit in device memory: chunk by chunk, the host-to-device copy,
-    the forward and the copy back overlap, with at most max_in_flight
+    the forward and the copy back overlap, with at most MAX_IN_FLIGHT
     chunks outstanding. Returns a numpy array; the kept frames are
     denoise_long_video's, bit for bit.
 
@@ -78,7 +81,7 @@ def denoise_long_video_pipelined(model, clip, sigma=None, chunk_depth=16, overla
     to and from the card run non_blocking on two side streams, so that the
     next chunk's copy in and the last chunk's copy out overlap this chunk's
     forward on the current stream, which waits only for its own input;
-    a chunk's output is read back only when max_in_flight later chunks
+    a chunk's output is read back only when MAX_IN_FLIGHT later chunks
     have been queued. On the CPU it is the sequential loop."""
     clip = np.asarray(clip, np.float32)
     dev = next(model.parameters()).device
@@ -96,7 +99,7 @@ def denoise_long_video_pipelined(model, clip, sigma=None, chunk_depth=16, overla
     shape = clip[:, :, :chunk_depth].shape
     # one more slot than chunks in flight: a slot is reused only after the
     # chunk that held it was read back
-    slots = max_in_flight + 1
+    slots = MAX_IN_FLIGHT + 1
     host_in = [torch.empty(shape, pin_memory=True) for _ in range(slots)]
     host_out = [torch.empty(shape, pin_memory=True) for _ in range(slots)]
     compute = torch.cuda.current_stream(dev)
@@ -124,7 +127,7 @@ def denoise_long_video_pipelined(model, clip, sigma=None, chunk_depth=16, overla
         done = torch.cuda.Event()
         done.record(d2h)
         inflight.append((t0, lo, hi, slot, done))
-        if len(inflight) > max_in_flight:
+        if len(inflight) > MAX_IN_FLIGHT:
             drain_one()
     while inflight:
         drain_one()

@@ -1037,10 +1037,11 @@ def bigframe(dev, card, err, model, t_par, tg) -> tuple[dict, dict]:
     """The native-resolution video path: kernel parity and K=30 forwards at
     the big-frame shapes, native clips through Denoiser.denoise_video
     (whole, streamed, tiled), the analyze3d eval CLI, and big-frame
-    training (parity at 8x256^2, a native step, the train CLI's video
-    branch). Returns (launches of the native serve, eval CLI, native step
-    and train CLI runs, the kernels' times at the native serve shape and
-    at 8x256^2)."""
+    training (reverse parity at 8x256^2 and at the native step's shape, a
+    native step, the train CLI's video branch). Returns (launches of the
+    native serve, eval CLI, native step and train CLI runs, the kernels'
+    times at the native serve shape, at 8x256^2 and at the native step's
+    shape)."""
     rng = np.random.default_rng(SEED + 50)  # the earlier phases keep their draws
     K, s = FLAGSHIP["K"], FLAGSHIP["s"]
     c = SIGMA / 255
@@ -1239,7 +1240,8 @@ def bigframe(dev, card, err, model, t_par, tg) -> tuple[dict, dict]:
         del dm, dm_plain, x, y, got, ref
 
     # --- B5. big-frame training: reverse kernels and the K=30 gradient at
-    # 1x8x256^2, one step at the native size, two epochs of the train CLI ---
+    # 1x8x256^2, the reverse kernels at the native size and one step there,
+    # two epochs of the train CLI ---
     clean_b = smooth_clip(rng, BIG_TRAIN[0], BIG_TRAIN[1:])[None, None]
     clean_bt = torch.from_numpy(clean_b).to(dev)
     noisy_bt, sig_bt = observed_3d(rng, clean_b, dev)
@@ -1263,6 +1265,17 @@ def bigframe(dev, card, err, model, t_par, tg) -> tuple[dict, dict]:
         require(rel <= GRAD_TOL, f"1x8x256^2 gradient d{name} rel err {rel:.3e} > {GRAD_TOL}")
         require(torch.equal(a, b), f"two 1x8x256^2 backward runs differ in d{name}")
     del g1, g2, gp, native_plain
+    # the reverse kernels at the native step's own shape (1x16x480x854, code
+    # grid 8x240x427: ragged 64-column tiles, 138 M position-channels per
+    # history), on the histories of a native forward
+    nat_noisy, nat_sig = observed_3d(rng, clean[None, None], dev)
+    nat = "1x" + "x".join(map(str, NATIVE))
+    with torch.no_grad():
+        tops = reverse_parity(native.A, native.B, t_par, nat_noisy, nat_sig, s, tg, err,
+                              nat + " ")
+        times["train " + nat] = reverse_times(native.A, native.B, tops, s, reps=2)
+    del tops, nat_noisy, nat_sig
+    torch.cuda.empty_cache()
     opt = make_optimizer(2e-4, clip_grad=0.05)
     state = opt.init(dict(native.named_parameters()))
     step_ms = host_ms(lambda: train_update(native, opt, state, noisy_bt, sig_bt, clean_bt),

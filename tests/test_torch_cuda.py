@@ -300,7 +300,7 @@ def test_bigframe_grad_on_cuda_matches_cpu_and_counts_launches(cuda):
 
 
 
-def test_pipelined_stream_on_cuda_equals_the_staged_loop(cuda):
+def test_pipelined_stream_on_cuda_equals_the_staged_loop(cuda, monkeypatch):
     """denoise_long_video_pipelined's side-stream copies give the staged
     chunk loop's output bit for bit, with one and with three chunks in
     flight (seven chunks: every pinned slot is reused)."""
@@ -312,8 +312,9 @@ def test_pipelined_stream_on_cuda_equals_the_staged_loop(cuda):
     staged = streaming.denoise_long_video(model, torch.from_numpy(clip).to(cuda), 25.0,
                                           chunk_depth=8, overlap=2).cpu().numpy()
     for in_flight in (1, 3):
+        monkeypatch.setattr(streaming, "MAX_IN_FLIGHT", in_flight)
         piped = streaming.denoise_long_video_pipelined(model, clip, 25.0, chunk_depth=8,
-                                                       overlap=2, max_in_flight=in_flight)
+                                                       overlap=2)
         np.testing.assert_array_equal(piped, staged)
 
 # --- the 2D forward pair (kernels/lista2d.py) ---

@@ -13,6 +13,7 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from cdlnet_tpu import nle as jax_nle
 from cdlnet_tpu.models import CDLNetVideo as JaxCDLNetVideo
 from cdlnet_tpu.models import streaming as jax_streaming
 from cdlnet_tpu.serve import Denoiser as JaxDenoiser
@@ -96,10 +97,9 @@ def test_pipelined_matches_jax_and_the_staged_loop():
     jm, params, model = _models(cfg, "pallas")
     clip = np.random.default_rng(0).uniform(0, 1, (1, 1, 24, 16, 16)).astype(np.float32)
     want = jax_streaming.denoise_long_video_pipelined(jm, params, clip, 25.0,
-                                                      chunk_depth=8, overlap=2,
-                                                      max_in_flight=2)
+                                                      chunk_depth=8, overlap=2)
     got = streaming.denoise_long_video_pipelined(model, clip, 25.0, chunk_depth=8,
-                                                 overlap=2, max_in_flight=2)
+                                                 overlap=2)
     staged = streaming.denoise_long_video(model, torch.from_numpy(clip), 25.0,
                                           chunk_depth=8, overlap=2)
     np.testing.assert_allclose(got, want, atol=ATOL)
@@ -170,3 +170,25 @@ def test_denoise_video_stages_or_pipelines_alike(monkeypatch):
     blind = d.denoise_video(clip, chunk_depth=8, overlap=2)
     np.testing.assert_allclose(blind, d.denoise_video(clip, sigma=whole, chunk_depth=8,
                                                       overlap=2), atol=1e-5)
+
+
+@pytest.mark.parametrize("route,shape", [("chunk_depth", (20, 40, 52)),
+                                         ("tile_hw", (20, 64, 64))])
+def test_blind_denoise_video_matches_jax_whole_clip_estimate(route, shape):
+    """Blind streamed and tiled routes run at the sigma that the JAX
+    Denoiser's whole-clip blind route estimates: the mean of the framewise
+    MAD estimates over the bucket-padded clip (the tiled route takes no
+    pad, so its clip is bucket-sized here). The JAX Denoiser's own streamed
+    and tiled routes pass sigma None to the model instead (c = 0 on an
+    adaptive model), so they are given that estimate."""
+    jm, params, model = _models(BIG)
+    clip = _clip(shape, seed=8)
+    kw = {"chunk_depth": dict(chunk_depth=8, overlap=2),
+          "tile_hw": dict(tile_hw=32, overlap_hw=8)}[route]
+    H, W = shape[1:]
+    padded = np.pad(clip, [(0, 0), (0, -H % 64), (0, -W % 64)], mode="reflect")
+    est = 255.0 * float(np.mean(np.asarray(jax_nle.noise_level(
+        jnp.asarray(padded[:, None]), method="MAD"))))
+    want = JaxDenoiser(jm, params).denoise_video(clip, sigma=est, **kw)
+    got = Denoiser(model).denoise_video(clip, **kw)
+    np.testing.assert_allclose(got, want, atol=ATOL)
