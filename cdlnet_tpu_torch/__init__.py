@@ -2,25 +2,31 @@
 
 Module paths mirror the JAX package, so each counterpart is found by its
 name. This package covers the video model, CDLNetVideo, in serving
-(serve.Denoiser.denoise_video) and training (train.fit), and the 2D image
+(serve.Denoiser.denoise_video) and training (train.fit), the 2D image
 models CDLNet (JDD with a Bayer mask) and GDLNet in serving
-(Denoiser.denoise_image / denoise_image_batch, known or blind sigma). The
-LISTA contractions and the 3D reverse run on hand-written CUDA kernels for
-Hopper (kernels/csrc/) when the tensors lie on the GPU, and on the
-kernels' plain PyTorch versions when they lie on the CPU. Entry points run
-on the card unless they are given device="cpu".
+(Denoiser.denoise_image / denoise_image_batch, known or blind sigma) and
+training, the frame-recurrent CSR models in serving (denoise_video by
+their recurrence), and the eval CLIs (cli.analyze, cli.analyze3d,
+cli.analyzemri). The LISTA contractions (with the CSR proxes) and the
+reverse run on hand-written CUDA kernels for Hopper (kernels/csrc/) when
+the tensors lie on the GPU, and on the kernels' plain PyTorch versions
+when they lie on the CPU. Entry points run on the card unless they are
+given device="cpu".
 
 Layers:
-  core/     pad, pre/post-processing, ST, uball projection, power method,
-            Gabor filters, the bior4.4 wavelet bank
+  core/     pad, pre/post-processing, ST and the CSR proxes, uball
+            projection, power method, Gabor filters, the bior4.4 wavelet bank
   ops/      torch-semantics conv/conv-transpose, polyphase layout, LISTA loops
   kernels/  the fused 2D and 3D LISTA forward and the 3D reverse (CUDA
             kernels + plain versions), the autograd Function over the 3D
             pair, and their build
-  models/   registry, CDLNet, GDLNet and CDLNetVideo (nn.Module)
+  models/   registry, CDLNet, GDLNet, CDLNetVideo, CDLNetCSR and
+            CDLNetCSRf2 (nn.Module), streaming
   nle/      blind noise-level estimation (MAD)
-  data/     noise injection and observation masks
-  train/    clipped Adam, mse, npz checkpoints (both packages), fit()
+  data/     noise injection and observation masks, image, video and
+            fastMRI loaders, synthetic fixtures
+  train/    clipped Adam, mse, ssim, npz checkpoints (both packages), fit()
+  cli/      the train CLI and the analysis CLIs
   compat/   JAX params dict <-> module state
   serve.py  Denoiser, the serving entry point
 

@@ -34,7 +34,7 @@ import torch
 
 from cdlnet_tpu_torch import nle
 from cdlnet_tpu_torch.cli import train as cli_train
-from cdlnet_tpu_torch.cli.analyze import build_argparser, resolve_noise_levels
+from cdlnet_tpu_torch.cli.analyze import PCA_HINT, build_argparser, resolve_noise_levels
 from cdlnet_tpu_torch.data.noise import awgn3d, gen_bayer_mask3d
 from cdlnet_tpu_torch.utils import append_metric, img_save, load_video, make_grid, psnr
 
@@ -214,9 +214,7 @@ def main(ARGS, model_args, device=None):
     from cdlnet_tpu_torch.train.fit import init_model
 
     if ARGS.blind == "PCA":
-        raise NotImplementedError(
-            "the PCA noise-level estimator is not ported to cdlnet_tpu_torch yet "
-            "(see ROADMAP.md); --blind MAD is")
+        raise NotImplementedError(PCA_HINT)
     model_args = cli_train.apply_backend(ARGS.backend, model_args)
     model = init_model(model_args, device=device)[0].eval()
 

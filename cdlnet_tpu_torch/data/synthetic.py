@@ -1,10 +1,10 @@
-"""Synthetic image and video fixtures (the port's own copy of the image
-and video parts of cdlnet_tpu/data/synthetic.py): random smooth fields
-from mixed sin/cos terms on a (-pi, pi)^3 grid, natural-statistics
-images, PNG image directories of either for the 2D loaders, and PNG frame
-directories of the fields for the video loaders and the CLIs. Fully seeded:
-a seed gives the JAX package's arrays and files. PIL is imported only
-where a file is written.
+"""Synthetic image, video and fastMRI fixtures (the port's own copy of
+cdlnet_tpu/data/synthetic.py): random smooth fields from mixed sin/cos
+terms on a (-pi, pi)^3 grid, natural-statistics images, PNG image
+directories of either for the 2D loaders, PNG frame directories of the
+fields for the video loaders and the CLIs, and .h5 k-space volumes of them
+for the fastMRI loader. Fully seeded: a seed gives the JAX package's arrays
+and files. PIL and h5py are imported only where a file is written.
 """
 
 from __future__ import annotations
@@ -47,6 +47,37 @@ def gen_synthetic_video_dirs(out_dir: str, n_videos=4, depth=16, size=128, seed=
                 frame = (vid[j] * 255).astype(np.uint8)
                 Image.fromarray(frame, mode="L").save(
                     os.path.join(vdir, f"frame{j:03d}.png"))
+    return out_dir
+
+
+def volume_kspace(vol: np.ndarray) -> np.ndarray:
+    """Centered orthonormal 2D FFT of each slice of a (D, H, W) volume, as
+    complex64: the k-space that data/fastmri.py's ifft2c inverts."""
+    k = np.fft.fftshift(
+        np.fft.fft2(np.fft.ifftshift(vol, axes=(-2, -1)), axes=(-2, -1), norm="ortho"),
+        axes=(-2, -1),
+    )
+    return k.astype(np.complex64)
+
+
+def gen_synthetic_mri_dirs(out_dir: str, n_volumes=2, slices=16, size=128, seed=0,
+                           splits=("train", "val", "test")):
+    """Write fastMRI-style .h5 k-space volume dirs: out_dir/{split}/vol{i:03d}.h5.
+
+    Each volume is a random_field_video slice stack through volume_kspace,
+    tagged acquisition='CORPD_FBK' so that it survives the PDFS=False
+    filter (the reference's datafastmri.py:34-46)."""
+    import h5py
+
+    rng = np.random.default_rng(seed)
+    for split in splits:
+        sdir = os.path.join(out_dir, split)
+        os.makedirs(sdir, exist_ok=True)
+        for i in range(n_volumes):
+            vol = random_field_video(rng, depth=slices, size=size)
+            with h5py.File(os.path.join(sdir, f"vol{i:03d}.h5"), "w") as hf:
+                hf.create_dataset("kspace", data=volume_kspace(vol))
+                hf.attrs["acquisition"] = "CORPD_FBK"
     return out_dir
 
 

@@ -16,6 +16,21 @@
 //       z <- ST(z_old - out, tau[n, m]); z_old == NULL reads as zeros (k=0).
 //   lista2d_syn_residual:  in = z (M channels), out = r (Cp channels),
 //       r <- [mask *] out [- y].
+//   lista2d_ana_csr, lista2d_ana_csrf2: the analysis with the CSR prox in
+//       its epilogue instead of ST (the prox modes "csr" and "csrf2" of the
+//       TPU kernels, lista2d.py:281-295 and lista2d_tiled.py:189-250):
+//       z <- prox_csr(z_old - out, zp; tau, gam) or
+//       z <- prox_csr_f2(z_old - out, zp, za; tau, gam1, gam2), with the
+//       neighbour-frame codes zp, za (N, M, H, W) read once per output. The
+//       synthesis is the ST loop's: CSR changes only the prox.
+//
+// The CSR epilogues add one (csr) or two (csrf2) code-sized reads a call.
+// At the CSR models' width on a fastMRI frame (M = 169, P = 9, s = 2;
+// 640x384 bucketed, a 320x192 code grid) one call is 1.68 GFLOP of
+// nonzero-tap FMAs (~0.025 ms at the fp32 peak), and z_old, z and each
+// neighbour code are 41.5 MB: ~0.025 ms of bytes for st, ~0.037 ms for csr
+// and ~0.050 ms for csrf2, so the CSR modes are bound by bytes. The prox
+// itself is ~30 flops a code, little beside the 81-tap correlation.
 //
 // What bounds them on this card: at the flagship 2D shape (M=169, Cp=4,
 // 4x4 phase taps) one call at a 128^2 image is ~68 MFLOP of nonzero-tap
@@ -31,6 +46,24 @@
 
 #include "lista3d_conv.cuh"
 
+namespace {
+
+// The analysis arguments shared by the three analysis entry points.
+ConvArgs ana_args(const float* r, const float* wt, const float* z_old,
+                  const float* tau, float* z_out, int N, int Cp, int M, int H,
+                  int W, int Qh, int Qw, int oh, int ow, int s, int Ph, int Pw,
+                  int ph, int pw) {
+  ConvArgs a{};
+  a.in = r, a.wt = wt, a.out = z_out, a.z = z_old, a.tau = tau;
+  a.N = N, a.I = Cp, a.O = M, a.D = 1, a.H = H, a.W = W;
+  a.Qd = 1, a.Qh = Qh, a.Qw = Qw, a.od = 0, a.oh = oh, a.ow = ow;
+  a.s = s, a.sd = 1, a.P[0] = 1, a.P[1] = Ph, a.P[2] = Pw;
+  a.pad[0] = 0, a.pad[1] = ph, a.pad[2] = pw;
+  return a;
+}
+
+}  // namespace
+
 extern "C" {
 
 // z_out = ST(z_old - A_k * r, tau): r (N, Cp, H, W); wt (Cp, Qh, Qw, M);
@@ -41,13 +74,38 @@ int lista2d_ana_threshold(const float* r, const float* wt, const float* z_old,
                           const float* tau, float* z_out, int N, int Cp, int M,
                           int H, int W, int Qh, int Qw, int oh, int ow, int s,
                           int Ph, int Pw, int ph, int pw, void* stream) {
-  ConvArgs a{};
-  a.in = r, a.wt = wt, a.out = z_out, a.z = z_old, a.tau = tau;
-  a.N = N, a.I = Cp, a.O = M, a.D = 1, a.H = H, a.W = W;
-  a.Qd = 1, a.Qh = Qh, a.Qw = Qw, a.od = 0, a.oh = oh, a.ow = ow;
-  a.s = s, a.sd = 1, a.P[0] = 1, a.P[1] = Ph, a.P[2] = Pw;
-  a.pad[0] = 0, a.pad[1] = ph, a.pad[2] = pw;
+  const ConvArgs a = ana_args(r, wt, z_old, tau, z_out, N, Cp, M, H, W, Qh,
+                              Qw, oh, ow, s, Ph, Pw, ph, pw);
   return launch<kAnaOB, kAnaOT, kAnaTH, 1, kAnaIC, 1, 2, kAnalysis>(
+      a, (cudaStream_t)stream);
+}
+
+// z_out = prox_csr(z_old - A_k * r, zp; tau, gam): as lista2d_ana_threshold,
+// with gam (N, M) and the neighbour code zp (N, M, H, W), not z_out.
+int lista2d_ana_csr(const float* r, const float* wt, const float* z_old,
+                    const float* tau, const float* gam, const float* zp,
+                    float* z_out, int N, int Cp, int M, int H, int W, int Qh,
+                    int Qw, int oh, int ow, int s, int Ph, int Pw, int ph,
+                    int pw, void* stream) {
+  ConvArgs a = ana_args(r, wt, z_old, tau, z_out, N, Cp, M, H, W, Qh, Qw, oh,
+                        ow, s, Ph, Pw, ph, pw);
+  a.gam1 = gam, a.zp = zp;
+  return launch<kAnaOB, kAnaOT, kAnaTH, 1, kAnaIC, 1, 2, kAnalysisCsr>(
+      a, (cudaStream_t)stream);
+}
+
+// z_out = prox_csr_f2(z_old - A_k * r, zp, za; tau, gam1, gam2): the
+// two-sided form, with the previous and following frames' codes zp, za.
+int lista2d_ana_csrf2(const float* r, const float* wt, const float* z_old,
+                      const float* tau, const float* gam1, const float* gam2,
+                      const float* zp, const float* za, float* z_out, int N,
+                      int Cp, int M, int H, int W, int Qh, int Qw, int oh,
+                      int ow, int s, int Ph, int Pw, int ph, int pw,
+                      void* stream) {
+  ConvArgs a = ana_args(r, wt, z_old, tau, z_out, N, Cp, M, H, W, Qh, Qw, oh,
+                        ow, s, Ph, Pw, ph, pw);
+  a.gam1 = gam1, a.gam2 = gam2, a.zp = zp, a.za = za;
+  return launch<kAnaOB, kAnaOT, kAnaTH, 1, kAnaIC, 1, 2, kAnalysisCsrF2>(
       a, (cudaStream_t)stream);
 }
 

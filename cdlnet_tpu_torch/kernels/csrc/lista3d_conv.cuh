@@ -7,9 +7,14 @@
 //
 // with zero outside the input volume (the reference Conv3d's zero padding,
 // handled by explicit bounds checks while staging the input tile), followed
-// by one of three fused epilogues:
+// by one of five fused epilogues:
 //
 //   kAnalysis:  out = ST(z - u, tau[n, o]); z == NULL reads as zeros.
+//   kAnalysisCsr, kAnalysisCsrF2: v = z - u as in kAnalysis, then the
+//               one-sided CSR prox of v toward the neighbour code zp with
+//               (tau, gam1[n, o]), or the two-sided one with zp, za and
+//               (tau, gam1, gam2): core/ops.py::prox_csr / prox_csr_f2,
+//               elementwise, the same expressions in the same order.
 //   kSynthesis: out = [mask *] u [- y].
 //   kAdjoint:   dz = [base +] alpha * u; out = 1{z != 0} * dz, and per
 //               block and output channel the sum of -sign(z) * dz into
@@ -48,7 +53,13 @@ constexpr int kTPX = 8;           // threads along a tile row
 constexpr int kTW = kPX * kTPX;   // tile width: 64 columns
 constexpr int kMaxSmem = 227 * 1024;
 
-enum Epilogue { kAnalysis = 0, kSynthesis = 1, kAdjoint = 2 };
+enum Epilogue {
+  kAnalysis = 0,
+  kSynthesis = 1,
+  kAdjoint = 2,
+  kAnalysisCsr = 3,
+  kAnalysisCsrF2 = 4
+};
 
 struct ConvArgs {
   const float* in;     // (N, I, D, H, W)
@@ -57,6 +68,10 @@ struct ConvArgs {
   const float* z;      // analysis: old codes, or NULL for zeros;
                        // adjoint: the codes whose support masks dz
   const float* tau;    // analysis: (N, O)
+  const float* zp;     // CSR analysis: the neighbour code (N, O, D, H, W)
+  const float* za;     // two-sided CSR analysis: the following frame's code
+  const float* gam1;   // CSR analysis: (N, O)
+  const float* gam2;   // two-sided CSR analysis: (N, O)
   const float* mask;   // synthesis: (N, O, D, H, W) or NULL
   const float* y;      // synthesis: (N, O, D, H, W) or NULL
   const float* base;   // adjoint: (N, O, D, H, W) or NULL for zeros
@@ -127,6 +142,33 @@ __device__ inline void tap_box(int s, int ph, int P, int p, int q0, int Q,
                                int& lo, int& hi) {
   lo = max(0, floordiv(-ph - p + s - 1, s) - q0);
   hi = min(Q, floordiv(P - 1 - ph - p, s) - q0 + 1);
+}
+
+// Three-way sign (0 at 0, as jnp.sign and torch.sign) and soft threshold.
+__device__ inline float sgn(float x) {
+  return x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
+}
+__device__ inline float soft(float x, float t) {
+  const float m = fmaxf(fabsf(x) - t, 0.f);
+  return x > 0.f ? m : (x < 0.f ? -m : 0.f);  // sign(x) * m
+}
+
+// core/ops.py::prox_csr(v, zp, tau, gam)
+__device__ inline float prox_csr(float v, float zp, float tau, float gam) {
+  const float shift = zp + tau * sgn(zp);
+  return soft(soft(v - shift, tau * gam) + shift, tau);
+}
+
+// core/ops.py::prox_csr_f2(v, zp, za, tau, g1, g2). It jumps where v
+// crosses Ca (corr flips sign), as the reference's does.
+__device__ inline float prox_csr_f2(float v, float zp, float za, float tau,
+                                    float g1, float g2) {
+  const float Ca = zp + tau * sgn(zp) + tau * g2 * sgn(zp - za);
+  const float Cb = za + tau * sgn(za) + tau * g1 * sgn(za - zp);
+  const float inner = soft(v - Ca, g1 * tau);
+  const float corr = tau * g1 * sgn(v - Ca);
+  const float midder = soft(inner - Cb + corr, g2 * tau);
+  return soft(midder + Cb - corr, tau);
 }
 
 // One tap's operands: kPX inputs (stride kTPX, conflict-free across the
@@ -314,6 +356,13 @@ lista3d_conv(const ConvArgs a) {
       const float v = (a.z ? a.z[idx] : 0.f) - u;
       const float m = fmaxf(fabsf(v) - a.tau[n * a.O + og], 0.f);
       a.out[idx] = v > 0.f ? m : (v < 0.f ? -m : 0.f);  // sign(v) * m
+    } else if (EPI == kAnalysisCsr || EPI == kAnalysisCsrF2) {
+      const float v = (a.z ? a.z[idx] : 0.f) - u;
+      const int no = n * a.O + og;
+      a.out[idx] = EPI == kAnalysisCsr
+                       ? prox_csr(v, a.zp[idx], a.tau[no], a.gam1[no])
+                       : prox_csr_f2(v, a.zp[idx], a.za[idx], a.tau[no],
+                                     a.gam1[no], a.gam2[no]);
     } else if (EPI == kAdjoint) {
       const float dz = (a.base ? a.base[idx] : 0.f) + a.alpha * u;
       const float zc = a.z[idx];

@@ -1,6 +1,6 @@
 """The fused 2D (image) LISTA forward on hand-written CUDA kernels
 (counterpart of cdlnet_tpu/kernels/lista2d.py::lista2d_fused and
-lista2d_tiled.py::lista2d_tiled, soft-threshold mode).
+lista2d_tiled.py::lista2d_tiled, in the soft-threshold and CSR prox modes).
 
 The K-iteration loop runs in the stride-phase (space-to-depth) layout:
 y2 = space_to_depth(yp) has Cp = C*s^2 channels on the (Hc, Wc) code grid,
@@ -18,6 +18,12 @@ pair (and the VMEM budgets that route between them) have one counterpart
 here. Tensors are (N, ch, Hc, Wc), contiguous, fp32. The thresholds are
 per image: tau[k, n, m] = t[k,0,m] + c[n] * t[k,1,m].
 
+The frame-recurrent CSR models replace the soft threshold by a prox that
+pulls z toward neighbour-frame codes (core/ops.py::prox_csr/prox_csr_f2):
+the analysis is then lista2d_ana_csr (one code z_prev) or lista2d_ana_csrf2
+(z_prev and z_after), with gamma banks formed like tau,
+gam[k, n, m] = g[k,0,m] + c[n] * g[k,1,m]; the synthesis is unchanged.
+
 Each wrapper runs its CUDA kernel on CUDA tensors, or raises; it runs the
 plain PyTorch version beside it (the same function on F.conv2d over the
 phase channels) only for CPU tensors. Launches count in
@@ -29,7 +35,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from cdlnet_tpu_torch.core.ops import ST
+from cdlnet_tpu_torch.core.ops import ST, csr_f2_jump, prox_csr, prox_csr_f2
 from cdlnet_tpu_torch.kernels.lista3d import (
     Geom,
     _check,
@@ -41,8 +47,11 @@ from cdlnet_tpu_torch.kernels.lista3d import (
 )
 from cdlnet_tpu_torch.ops import polyphase as pp
 
-_NOT_PORTED = ("is not ported to cdlnet_tpu_torch yet (the CSR models come "
-               "later, see ROADMAP.md)")
+# the u history and reverse kernel of the CSR prox modes (training) come
+# later
+CSR_TRAIN_HINT = ("training through the CSR prox modes (their u history and "
+                  "reverse kernel) is not ported to cdlnet_tpu_torch yet, see "
+                  "ROADMAP.md")
 
 
 def prep_A2m_2d(A: torch.Tensor, s: int, pads) -> torch.Tensor:
@@ -68,11 +77,15 @@ def _correlate_plain(x, wt, off):
     return F.conv2d(F.pad(x, pad), wt.permute(3, 0, 1, 2))
 
 
+def ana_argument_plain(r, z, wa, geom):
+    """v = z - A_k r (z None: zeros), the argument of the analysis' prox."""
+    u = _correlate_plain(r, wa, geom.off_a)
+    return -u if z is None else z - u
+
+
 def lista2d_ana_threshold_plain(r, z, wa, tau, geom):
     """Plain version of lista2d_ana_threshold."""
-    u = _correlate_plain(r, wa, geom.off_a)
-    v = -u if z is None else z - u
-    return ST(v, tau[:, :, None, None])
+    return ST(ana_argument_plain(r, z, wa, geom), tau[:, :, None, None])
 
 
 def lista2d_syn_residual_plain(z, ws, geom, mask=None, y=None):
@@ -81,6 +94,55 @@ def lista2d_syn_residual_plain(z, ws, geom, mask=None, y=None):
     if mask is not None:
         r = mask * r
     return r if y is None else r - y
+
+
+def lista2d_ana_csr_plain(r, z, wa, tau, gam, zp, geom):
+    """Plain version of lista2d_ana_csr."""
+    return prox_csr(ana_argument_plain(r, z, wa, geom), zp, tau[:, :, None, None],
+                    gam[:, :, None, None])
+
+
+def lista2d_ana_csrf2_plain(r, z, wa, tau, gam1, gam2, zp, za, geom):
+    """Plain version of lista2d_ana_csrf2."""
+    return prox_csr_f2(ana_argument_plain(r, z, wa, geom), zp, za, tau[:, :, None, None],
+                       gam1[:, :, None, None], gam2[:, :, None, None])
+
+
+def csrf2_jump_gap(v, zp, za, tau, gam2):
+    """|v - Ca| per code: how far the prox argument v (N, M, Hc, Wc) lies
+    from Ca, where prox_csr_f2 jumps by up to 2 tau gam1 (tau, gam2: (N,
+    M)). A kernel and its plain version, whose v differ by fp32
+    reassociation, can land on the two sides of the jump where it is
+    small."""
+    return (v - csr_f2_jump(zp, za, tau[:, :, None, None], gam2[:, :, None, None])).abs()
+
+
+def _analysis(entry, r, z, wa, tau, geom, out, banks=(), codes=()):
+    """Launch the analysis kernel `entry` after checking its operands: the
+    ST arguments, then the (N, M) gamma `banks` and the (N, M, Hc, Wc)
+    neighbour `codes` of a CSR mode, each a (name, tensor) pair."""
+    from cdlnet_tpu_torch.kernels._build import library
+
+    lib = library()
+    N, Cp, H, W = r.shape
+    M = wa.shape[-1]
+    Qh, Qw = wa.shape[1:3]
+    _check("r", r, r.shape)
+    _check("wa", wa, (Cp, Qh, Qw, M))
+    for name, t in (("tau", tau), *banks):
+        _check(name, t, (N, M))
+    for name, t in ((("z", z),) if z is not None else ()) + tuple(codes):
+        _check(name, t, (N, M, H, W))
+    out = _out(out, (N, M, H, W), r)
+    err = getattr(lib, entry)(
+        _ptr(r), _ptr(wa), _ptr(z), _ptr(tau), *(_ptr(t) for _, t in banks),
+        *(_ptr(t) for _, t in codes), _ptr(out),
+        N, Cp, M, H, W, Qh, Qw, *geom.off_a, geom.s, *geom.P, *geom.pads,
+        torch.cuda.current_stream(r.device).cuda_stream,
+    )
+    _raise_on(err, entry)
+    launches[entry] += 1
+    return out
 
 
 def lista2d_ana_threshold(r, z, wa, tau, geom, out=None):
@@ -93,26 +155,29 @@ def lista2d_ana_threshold(r, z, wa, tau, geom, out=None):
     """
     if r.device.type == "cpu":
         return _into(out, lista2d_ana_threshold_plain(r, z, wa, tau, geom))
-    from cdlnet_tpu_torch.kernels._build import library
+    return _analysis("lista2d_ana_threshold", r, z, wa, tau, geom, out)
 
-    lib = library()
-    N, Cp, H, W = r.shape
-    M = wa.shape[-1]
-    Qh, Qw = wa.shape[1:3]
-    _check("r", r, r.shape)
-    _check("wa", wa, (Cp, Qh, Qw, M))
-    _check("tau", tau, (N, M))
-    if z is not None:
-        _check("z", z, (N, M, H, W))
-    out = _out(out, (N, M, H, W), r)
-    err = lib.lista2d_ana_threshold(
-        _ptr(r), _ptr(wa), _ptr(z), _ptr(tau), _ptr(out),
-        N, Cp, M, H, W, Qh, Qw, *geom.off_a, geom.s, *geom.P, *geom.pads,
-        torch.cuda.current_stream(r.device).cuda_stream,
-    )
-    _raise_on(err, "lista2d_ana_threshold")
-    launches["lista2d_ana_threshold"] += 1
-    return out
+
+def lista2d_ana_csr(r, z, wa, tau, gam, zp, geom, out=None):
+    """z_new = prox_csr(z - A_k r, zp; tau, gam): the analysis + the
+    one-sided CSR prox toward the neighbour code zp (N, M, Hc, Wc, not
+    `out`), gam (N, M); the rest as in lista2d_ana_threshold."""
+    if r.device.type == "cpu":
+        return _into(out, lista2d_ana_csr_plain(r, z, wa, tau, gam, zp, geom))
+    return _analysis("lista2d_ana_csr", r, z, wa, tau, geom, out,
+                     banks=(("gam", gam),), codes=(("zp", zp),))
+
+
+def lista2d_ana_csrf2(r, z, wa, tau, gam1, gam2, zp, za, geom, out=None):
+    """z_new = prox_csr_f2(z - A_k r, zp, za; tau, gam1, gam2): the analysis
+    + the two-sided CSR prox with the previous and following frames' codes
+    zp, za (N, M, Hc, Wc); the rest as in lista2d_ana_csr."""
+    if r.device.type == "cpu":
+        return _into(out, lista2d_ana_csrf2_plain(r, z, wa, tau, gam1, gam2, zp, za,
+                                                  geom))
+    return _analysis("lista2d_ana_csrf2", r, z, wa, tau, geom, out,
+                     banks=(("gam1", gam1), ("gam2", gam2)),
+                     codes=(("zp", zp), ("za", za)))
 
 
 def lista2d_syn_residual(z, ws, geom, mask=None, y=None, out=None):
@@ -166,33 +231,58 @@ def phase_operands(yp, A, B, t, c, stride, mask=None):
         if mask is not None
         else None
     )
-    c_arr = torch.as_tensor(c, dtype=yp.dtype, device=yp.device).reshape(-1)
+    tau = threshold_bank(t, c, N, yp)
+    return y2, m2, wa, ws, tau, geom
+
+
+def threshold_bank(t, c, N, like):
+    """Per-image thresholds (K, N, M) of a (K, 2, M, 1, 1) bank: t[k,0] +
+    c[n] * t[k,1] — tau from t, and the CSR gamma banks from g, g1, g2.
+    c: a scalar or N values; `like` gives the device and dtype."""
+    c_arr = torch.as_tensor(c, dtype=like.dtype, device=like.device).reshape(-1)
     c_arr = c_arr.expand(N)
-    tau = t[None, :, 0, :, 0, 0] + c_arr[:, None, None] * t[None, :, 1, :, 0, 0]
-    return y2, m2, wa, ws, tau.transpose(0, 1).contiguous(), geom
+    bank = t[None, :, 0, :, 0, 0] + c_arr[:, None, None] * t[None, :, 1, :, 0, 0]
+    return bank.transpose(0, 1).contiguous()
 
 
-def lista2d_loop(y2, m2, wa, ws, tau, geom, return_hists=False):
+def lista2d_loop(y2, m2, wa, ws, tau, geom, return_hists=False, gams=(), codes=()):
     """The 2K kernel launches of the fused loop on phase-domain operands
     (phase_operands). Returns (x2, z, hists): x2 = B_0^T z (N, Cp, Hc, Wc),
     z the final codes (N, M, Hc, Wc), and with return_hists the fp32
     histories (z_hist (K, N, M, Hc, Wc) of every z_k, r_hist (K-1, N, Cp,
     Hc, Wc) of every residual r_k) that the reverse pass reads, else None.
-    Without histories z and r are updated in place."""
+    Without histories z and r are updated in place.
+
+    CSR prox modes: `codes` holds the neighbour codes (N, M, Hc, Wc) — one
+    (prox_csr) or two (z_prev, z_after: prox_csr_f2) — and `gams` as many
+    (K, N, M) gamma banks (threshold_bank); the analysis is then
+    lista2d_ana_csr / lista2d_ana_csrf2. They take no histories yet."""
     K, M = wa.shape[0], wa.shape[-1]
+    if len(gams) != len(codes) or len(codes) > 2:
+        raise ValueError(f"{len(codes)} neighbour codes with {len(gams)} gamma banks")
+    if codes and return_hists:
+        raise NotImplementedError(CSR_TRAIN_HINT)
+
+    def analysis(r, z, k, out):
+        if not codes:
+            return lista2d_ana_threshold(r, z, wa[k], tau[k], geom, out=out)
+        if len(codes) == 1:
+            return lista2d_ana_csr(r, z, wa[k], tau[k], gams[0][k], codes[0], geom,
+                                   out=out)
+        return lista2d_ana_csrf2(r, z, wa[k], tau[k], gams[0][k], gams[1][k], *codes,
+                                 geom, out=out)
+
     z_hist = r_hist = None
     if return_hists:  # the kernels write each z_k and r_k into its slice
         N, _, H, W = y2.shape
         z_hist = y2.new_empty((K, N, M, H, W))
         r_hist = y2.new_empty((K - 1, *y2.shape))
-    z = lista2d_ana_threshold(-y2, None, wa[0], tau[0], geom,
-                              out=None if z_hist is None else z_hist[0])
+    z = analysis(-y2, None, 0, None if z_hist is None else z_hist[0])
     r = torch.empty_like(y2) if r_hist is None else None
     for k in range(1, K):
         r = lista2d_syn_residual(z, ws[k], geom, mask=m2, y=y2,
                                  out=r if r_hist is None else r_hist[k - 1])
-        z = lista2d_ana_threshold(r, z, wa[k], tau[k], geom,
-                                  out=z if z_hist is None else z_hist[k])
+        z = analysis(r, z, k, z if z_hist is None else z_hist[k])
     x2 = lista2d_syn_residual(z, ws[0], geom)
     return x2, z, (None if z_hist is None else (z_hist, r_hist))
 
@@ -213,12 +303,29 @@ def lista2d_fused(yp, A, B, t, c, stride=1, mask=None, return_z=False,
     JAX kernel's one (N, K, Mp8+Rp8, Hc*Wc) array holds the same values
     (z_k in rows [0:M), r_k in rows [Mp8:Mp8+Cp) of its step k). No
     gradient flows through the kernels here: training goes through
-    autodiff.lista2d_fused_diff. The CSR prox modes (g, z_prev, g2,
-    z_after) raise."""
-    if any(v is not None for v in (g, z_prev, g2, z_after)):
-        raise NotImplementedError(f"the CSR prox modes of lista2d_fused {_NOT_PORTED}")
+    autodiff.lista2d_fused_diff.
+
+    CSR prox modes (the frame-recurrent models), mapped as the JAX
+    package maps them: z_prev (N, M, Hc, Wc) with the gamma bank g (K, 2, M,
+    1, 1) runs the one-sided prox_csr; z_after with g2 alone runs the same
+    prox toward z_after with g2; both codes (and g, g2) run the two-sided
+    prox_csr_f2. With return_hist they raise: the u history they need for
+    training is not ported yet."""
+    codes, banks = (), ()
+    if z_prev is not None and z_after is not None:
+        codes, banks = (z_prev, z_after), (g, g2)
+    elif z_prev is not None:
+        codes, banks = (z_prev,), (g,)
+    elif z_after is not None:  # one-sided on the following frame: gamma = g2
+        codes, banks = (z_after,), (g2,)
+    if any(b is None for b in banks):
+        raise ValueError("each neighbour code needs its gamma bank (g for z_prev, "
+                         "g2 for z_after)")
     y2, m2, wa, ws, tau, geom = phase_operands(yp, A, B, t, c, stride, mask)
-    x2, z, hists = lista2d_loop(y2, m2, wa, ws, tau, geom, return_hist)
+    gams = tuple(threshold_bank(b, c, yp.shape[0], yp) for b in banks)
+    codes = tuple(z.contiguous() for z in codes)
+    x2, z, hists = lista2d_loop(y2, m2, wa, ws, tau, geom, return_hist, gams=gams,
+                                codes=codes)
     xphat = pp.depth_to_space(x2, stride, 2, yp.shape[1])
     if return_hist:
         return xphat, (z if return_z else None), hists

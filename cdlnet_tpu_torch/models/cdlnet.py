@@ -37,10 +37,7 @@ def lista2d_forward(model, A, B, t, y, sigma, mask, return_z):
     lista2d_fused_diff (kernel forward with histories, the reverse kernels
     as its backward; JAX's apply(train=True)); return_z=True then raises,
     since the code output has no gradient."""
-    yp, prm, mask = pre_process(y, model.s, mask=mask)
-    c = sigma_scale(sigma, model.adaptive, 4)
-    if isinstance(c, torch.Tensor):
-        c = c.to(yp.device, yp.dtype)
+    yp, prm, mask, c = _prepare(model, y, sigma, mask)
     if model.backend in ("pallas", "cuda") and torch.is_grad_enabled():
         if return_z:
             raise NotImplementedError(RETURN_Z_HINT)
@@ -54,6 +51,37 @@ def lista2d_forward(model, A, B, t, y, sigma, mask, return_z):
         xphat = conv_transpose2d(z, B[0], stride=model.s, padding=model.pad,
                                  output_padding=model.s - 1)
     return post_process(xphat, prm), (z if return_z else None)
+
+
+def _prepare(model, y, sigma, mask):
+    """(yp, pre_process params, mask, c): the pre-processed input and the
+    threshold scale on its device."""
+    yp, prm, mask = pre_process(y, model.s, mask=mask)
+    c = sigma_scale(sigma, model.adaptive, 4)
+    if isinstance(c, torch.Tensor):
+        c = c.to(yp.device, yp.dtype)
+    return yp, prm, mask, c
+
+
+def lista2d_with_codes(model, A, B, t, y, sigma, mask):
+    """lista2d_forward that also returns every iteration's codes: (xhat, z,
+    codes), codes (K, N, M, H/s, W/s) with codes[-1] == z (the reference's
+    forward_generator, model/net.py:94-104). On backend "pallas"/"cuda"
+    the codes are the fp32 z histories the kernel loop writes for training
+    (lista2d_loop(return_hists=True)), from the 2K launches of one forward;
+    with gradients enabled that raises, as forward(return_z=True) does.
+    Backend "xla" runs the plain loop."""
+    yp, prm, mask, c = _prepare(model, y, sigma, mask)
+    if model.backend in ("pallas", "cuda"):
+        if torch.is_grad_enabled():
+            raise NotImplementedError(RETURN_Z_HINT)
+        xphat, z, (codes, _) = lista2d_fused(yp, A, B, t, c, stride=model.s, mask=mask,
+                                             return_z=True, return_hist=True)
+    else:
+        z, codes = lista_2d(yp, A, B, t, c, mask=mask, stride=model.s, return_codes=True)
+        xphat = conv_transpose2d(z, B[0], stride=model.s, padding=model.pad,
+                                 output_padding=model.s - 1)
+    return post_process(xphat, prm), z, codes
 
 
 def normalizing_scale(A0, B0, C, s, pad, generator, dev):
@@ -122,3 +150,8 @@ class CDLNet(nn.Module):
         return_z, else None."""
         return lista2d_forward(self, self.A, self.B, self.t, y, sigma, mask,
                                return_z)
+
+    def apply_with_codes(self, y, sigma=None, mask=None):
+        """forward() that also returns every iteration's codes: (xhat, z,
+        codes), codes (K, N, M, H/s, W/s) (lista2d_with_codes)."""
+        return lista2d_with_codes(self, self.A, self.B, self.t, y, sigma, mask)

@@ -26,7 +26,11 @@ from torch import nn
 
 from cdlnet_tpu_torch.core.gabor import gabor_kernel
 from cdlnet_tpu_torch.models.base import check_backend, register
-from cdlnet_tpu_torch.models.cdlnet import lista2d_forward, normalizing_scale
+from cdlnet_tpu_torch.models.cdlnet import (
+    lista2d_forward,
+    lista2d_with_codes,
+    normalizing_scale,
+)
 
 _NAMES = ("alpha", "a", "w0", "psi")
 
@@ -120,3 +124,10 @@ class GDLNet(nn.Module):
         synthesized from the Gabor parameters."""
         A_f, B_f = self.get_filters()
         return lista2d_forward(self, A_f, B_f, self.t, y, sigma, mask, return_z)
+
+    def apply_with_codes(self, y, sigma=None, mask=None):
+        """forward() that also returns every iteration's codes: (xhat, z,
+        codes), codes (K, N, M, H/s, W/s) (models/cdlnet.py::
+        lista2d_with_codes)."""
+        A_f, B_f = self.get_filters()
+        return lista2d_with_codes(self, A_f, B_f, self.t, y, sigma, mask)

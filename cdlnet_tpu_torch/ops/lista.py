@@ -27,24 +27,32 @@ def _threshold(t_k, c):
     return t_k[0:1] + c * t_k[1:2]
 
 
-def _lista(yp, A, B, t, c, mask, analysis, synthesis, return_codes=False):
-    z = ST(analysis(yp, A[0]), _threshold(t[0], c))
+def _st(t):
+    """The default prox of the loop: ST at tau_k."""
+    return lambda u, k, c: ST(u, _threshold(t[k], c))
+
+
+def _lista(yp, A, B, t, c, mask, analysis, synthesis, return_codes=False, prox=None):
+    prox = prox or _st(t)
+    z = prox(analysis(yp, A[0]), 0, c)
     codes = [z] if return_codes else None
     for k in range(1, A.shape[0]):
         Bz = synthesis(z, B[k])
         r = Bz - yp if mask is None else mask * Bz - yp
-        z = ST(z - analysis(r, A[k]), _threshold(t[k], c))
+        z = prox(z - analysis(r, A[k]), k, c)
         if return_codes:
             codes.append(z)
     return (z, torch.stack(codes)) if return_codes else z
 
 
-def lista_2d(yp, A, B, t, c, mask=None, stride=1):
+def lista_2d(yp, A, B, t, c, mask=None, stride=1, return_codes=False, prox=None):
     """Run the K-iteration 2D LISTA loop; returns the final codes z
-    (N, M, H/s, W/s).
+    (N, M, H/s, W/s), and with return_codes (z, codes), codes the
+    (K, N, M, H/s, W/s) stack of every iteration's z_k.
 
     yp: (N, C, H, W) pre-processed input; A, B: (K, M, C, P, P); t: (K, 2,
     M, 1, 1); c: scalar or (N, 1, 1, 1); mask: optional (N, C, H, W).
+    prox(u, k, c) replaces ST at tau_k (the CSR models' temporal proxes).
     """
     pad = (A.shape[-1] - 1) // 2
     return _lista(
@@ -52,6 +60,7 @@ def lista_2d(yp, A, B, t, c, mask=None, stride=1):
         lambda x, w: conv2d(x, w, stride=stride, padding=pad),
         lambda z, w: conv_transpose2d(z, w, stride=stride, padding=pad,
                                       output_padding=stride - 1),
+        return_codes, prox,
     )
 
 

@@ -17,6 +17,14 @@ per input with the MAD estimator (nle/) on the bucket-padded batch, on the
 device, as the JAX package does: 255 * sigma_hat per image, and for clips
 the mean of the framewise estimates per clip.
 
+The frame-recurrent CSR models (models/csr.py) denoise a clip by their
+recurrence (the model's video_denoise) with one sigma per call (blind:
+models/csr.py::blind_sigma, the mean of the framewise estimates over every
+clip of the call),
+and an image as a frame with no neighbour code. They run whole clips only:
+chunk_depth below the clip's depth and tile_hw raise, as they fail in the
+JAX package's Denoiser.
+
 A failed kernel raises: there is no fallback to the plain path.
 """
 
@@ -33,6 +41,7 @@ from cdlnet_tpu_torch import nle
 from cdlnet_tpu_torch.compat.jax_params import load_jax_params
 from cdlnet_tpu_torch.models import streaming
 from cdlnet_tpu_torch.models.base import build_model
+from cdlnet_tpu_torch.models.csr import CDLNetCSR, CDLNetCSRf2, blind_sigma
 from cdlnet_tpu_torch.train.checkpoint import load_params
 from cdlnet_tpu_torch.utils import default_device
 
@@ -66,6 +75,8 @@ class Denoiser:
     >>> out = d.denoise_video(frames, sigma=25)            # (D, H, W)
     >>> out = d.denoise_video(long_clip, sigma=25, chunk_depth=16)  # streamed
     >>> out = d.denoise_video(clip, sigma=25, tile_hw=256)  # 256^2 tiles
+    >>> d = Denoiser.from_dir("examples/csr-demo")         # frame-recurrent
+    >>> out = d.denoise_video(volume, sigma=25)            # (D, H, W)
     """
 
     def __init__(self, model, bucket: int = 64, blind: str = "MAD", mesh=None):
@@ -75,6 +86,8 @@ class Denoiser:
         self.bucket = bucket
         self.blind = blind
         self.device = next(model.parameters()).device
+        # a CSR model denoises clips by its frame recurrence
+        self._recurrent = isinstance(model, (CDLNetCSR, CDLNetCSRf2))
 
     @classmethod
     def from_args(cls, args: dict, backend: str = "pallas", device=None, **kw):
@@ -137,9 +150,16 @@ class Denoiser:
             sigma = float(sigma)
         yt = torch.from_numpy(np.ascontiguousarray(y, np.float32)).to(self.device)
         with torch.inference_mode():
+            recurrent_clip = self._recurrent and yt.ndim == 5
             if sigma is None and self.model.adaptive:
-                sigma = self._blind_sigma(yt)
-            out = self.model(yt, sigma, return_z=False)[0]
+                sigma = (blind_sigma(yt, self.blind) if recurrent_clip
+                         else self._blind_sigma(yt))
+            if not self._recurrent:
+                out = self.model(yt, sigma, return_z=False)[0]
+            elif recurrent_clip:
+                out = self.model.video_denoise(yt, sigma)[0]
+            else:  # a frame with no neighbour code
+                out = self.model(yt, sigma=sigma)[0]
         out = out.cpu().numpy()
         return out[..., : spatial[0], : spatial[1]]
 
@@ -222,6 +242,12 @@ class Denoiser:
         for _ in range(squeeze):
             clip = clip[None]
         D = clip.shape[2]
+        if self._recurrent and (tile_hw is not None
+                                      or (chunk_depth is not None and D > chunk_depth)):
+            raise TypeError(
+                f"{type(self.model).__name__} runs whole clips by its frame recurrence: "
+                "chunk_depth below the clip's depth and tile_hw stream a clip "
+                "denoiser, as in the JAX package's Denoiser, where they fail too")
         if tile_hw is not None:
             depth = chunk_depth or D
             sig = self._clip_sigma(clip, sigma, depth)

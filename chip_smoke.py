@@ -56,6 +56,16 @@ Builds the hand-written CUDA kernels from cdlnet_tpu_torch/kernels/csrc
             the plain loop; the reverse kernels and the K=30 gradient at
             1x8x256^2, one train step at 1x16x480x854, and two epochs of
             the train CLI's video branch;
+  csr       frame-recurrent CSR serving at the reference's argscsr.json
+            width (CDLNet_CSR and CDLNet_CSRf2, K=30, M=169, P=9, s=2,
+            adaptive) on fastMRI's native 640x368 frames: the CSR analysis
+            kernels (one code, two codes, the following code alone) and the
+            ST one against their plain versions at 2x128^2 and 640x368
+            (and its 640x384 bucket), the K=30 forwards against the plain
+            loop, a 16-frame native volume through Denoiser.denoise_video
+            for both models, known and blind sigma (launches counted), the
+            trained examples/csr-demo on smooth 128^2 volumes, and
+            cli.analyzemri.test on native volumes;
 
 and times every kernel (CUDA events) beside its plain version, the one
 PyTorch call that computes the same function, and its bound on this card,
@@ -87,13 +97,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cdlnet_tpu_torch.cli import analyze3d
+from cdlnet_tpu_torch.cli import analyze3d, analyzemri
 from cdlnet_tpu_torch.cli import train as cli_train
 from cdlnet_tpu_torch.cli.analyze import build_argparser
 from cdlnet_tpu_torch.core.preprocess import pre_process, pre_process_3d
 from cdlnet_tpu_torch.data.noise import gen_bayer_mask
 from cdlnet_tpu_torch.data.synthetic import (
     gen_natural_image_dirs,
+    gen_synthetic_mri_dirs,
     gen_synthetic_video_dirs,
     natural_image,
 )
@@ -102,7 +113,14 @@ from cdlnet_tpu_torch.kernels import lista2d as L2
 from cdlnet_tpu_torch.kernels import lista2d_bwd as LB2
 from cdlnet_tpu_torch.kernels import lista3d as L
 from cdlnet_tpu_torch.kernels import lista3d_bwd as LB
-from cdlnet_tpu_torch.models import CDLNet, CDLNetVideo, GDLNet, streaming
+from cdlnet_tpu_torch.models import (
+    CDLNet,
+    CDLNetCSR,
+    CDLNetCSRf2,
+    CDLNetVideo,
+    GDLNet,
+    streaming,
+)
 from cdlnet_tpu_torch.ops import polyphase as pp
 from cdlnet_tpu_torch.ops.conv import conv_transpose2d, conv_transpose3d
 from cdlnet_tpu_torch.ops.lista import lista_2d, lista_3d
@@ -179,6 +197,12 @@ KERNELS = {
     # adjoint with the 2D phase map, sd = 1)
     "lista2d_syn_adjoint": (CSRC + "lista3d_bwd.cu", K6_K8),
     "lista2d_wgrad": (CSRC + "lista3d_bwd.cu", K6_K8),
+    # the CSR prox modes of K5 and K7: the analysis with the prox in its
+    # epilogue (one neighbour code: "csr"; two: "csrf2")
+    "lista2d_ana_csr": (CSRC + "lista2d.cu", f"{K5} _kernel prox 'csr' (:273-295); "
+                        f"{K7}:175 _kernel_ana_band prox 'csr' (:189-250)"),
+    "lista2d_ana_csrf2": (CSRC + "lista2d.cu", f"{K5} _kernel prox 'csrf2' (:273-295); "
+                          f"{K7}:175 _kernel_ana_band prox 'csrf2' (:189-250)"),
 }
 # the native-resolution path (the shapes of K9-K12): DAVIS's 480x854 test
 # clips, which cli/analyze3d.py evaluates at full resolution (Denoiser
@@ -199,6 +223,24 @@ CLI_TRAIN_VIDEOS, CLI_VIDEO_SIZE = 8, 96  # the video train CLI's clips per spli
 # there), so the eval CLI runs without --thresholds, the one analysis that
 # needs it; the CPU tests run it
 CARD_HAS_MATPLOTLIB = False
+# the CSR path: the reference's argscsr.json width (tools/hw_kernel_sweep.py:
+# 25,199; tools/bench_csr_bigframe.py:23) on fastMRI's native 640x368 frames
+# (tests/test_kernels.py:1421), which Denoiser buckets to 640x384 (a 320x192
+# code grid), and at 2 x 128^2 with per-image sigma: KERNELMATRIX.json's
+# "csr ... eval" rows (n_codes 0, 1, 2)
+CSR_WIDTH = dict(K=30, M=169, P=9, s=2, C=1, adaptive=True)
+MRI_FRAME = (640, 368)
+CSR_DEPTH = 16              # frames of the served native volume
+CSR_DEMO = os.path.join(EXAMPLES, "csr-demo")
+CSR_CLI_VOLUMES = 2         # native volumes of the eval CLI's test
+# prox_csr_f2 jumps by up to 2 tau gam1 where its argument v crosses Ca, and
+# a kernel's v differs from its plain version's by fp32 reassociation: a
+# two-sided call is held at KERNEL_TOL over the codes with |v - Ca| >
+# CSR_JUMP_EPS max|v|, and what runs through the two-sided prox K times (a
+# K=30 forward, a served volume) by its relative L2 error and its PSNR gap
+CSR_JUMP_EPS = 1e-5
+CSR_L2_TOL = 1e-4
+CSR_PSNR_GAP_DB = 0.01
 # launches per train step: forward K + K, reverse K syn_adjoint, K-1
 # syn_residual (the analysis adjoint) and 2K wgrad (dA and dB)
 STEP_LAUNCHES = {"lista3d_ana_threshold": 30, "lista3d_syn_residual": 59,
@@ -1371,6 +1413,342 @@ def bigframe(dev, card, err, model, t_par, tg) -> tuple[dict, dict]:
     return dict(launches), by_kernel
 
 
+def rel_l2(got, ref) -> float:
+    """||got - ref|| / ||ref|| in float64 (numpy arrays or tensors)."""
+    got, ref = (torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a)
+                .double() for a in (got, ref))
+    return float((got - ref).norm() / ref.norm())
+
+
+def csr_f2_gate(what, got, ref, clean) -> float:
+    """Hold an output of the two-sided prox against its reference: relative
+    L2 error <= CSR_L2_TOL and PSNR gap (against the clean input) <=
+    CSR_PSNR_GAP_DB. Returns max|got - ref|."""
+    got, ref = (a.cpu().numpy() if torch.is_tensor(a) else a for a in (got, ref))
+    d, l2 = max_abs(got, ref), rel_l2(got, ref)
+    gap = abs(psnr(got, clean) - psnr(ref, clean))
+    print(f"parity {what}: rel L2 {l2:.3e}, PSNR gap {gap:.2e} dB, max|d| {d:.3e}",
+          flush=True)
+    require(l2 <= CSR_L2_TOL, f"{what}: rel L2 {l2:.3e} > {CSR_L2_TOL}")
+    require(gap <= CSR_PSNR_GAP_DB, f"{what}: PSNR gap {gap:.3e} dB > {CSR_PSNR_GAP_DB}")
+    return d
+
+
+def csr_volume_launches(two_sided, K, D) -> dict:
+    """Launches of one D-frame volume through a CSR model's recurrence, K +
+    K per frame application: CDLNet_CSR runs f0 with no code, then D + 1
+    frames with the previous code (its warm-up f1, f0 and frames 1..D-1);
+    CDLNet_CSRf2 runs f0 with no code, frames 1..D-1 with the previous
+    code, f0 with its own code as z_after, and one two-sided batch of the
+    D - 1 frames."""
+    if two_sided:
+        return {"lista2d_ana_threshold": K, "lista2d_ana_csr": D * K,
+                "lista2d_ana_csrf2": K, "lista2d_syn_residual": (D + 2) * K}
+    return {"lista2d_ana_threshold": K, "lista2d_ana_csr": (D + 1) * K,
+            "lista2d_syn_residual": (D + 2) * K}
+
+
+class VolumeLoader:
+    """An in-memory stand-in for data/fastmri.py's test loader: (1, 1, D, H,
+    W) volume batches, and the .h5 paths analyzemri.test names the dataset
+    by."""
+
+    def __init__(self, volumes, root):
+        self.volumes = volumes
+        self.dataset = type("VolumeSet", (), {})()
+        self.dataset.h5_files = [os.path.join(root, f"vol{i:03d}.h5")
+                                 for i in range(len(volumes))]
+
+    def __iter__(self):
+        return iter(v[None, None] for v in self.volumes)
+
+
+def csr_models(dev) -> dict:
+    """CDLNet_CSR and CDLNet_CSRf2 at CSR_WIDTH, each on the kernels and on
+    "xla", sharing one power-method bank (CDLNet_CSR's first-frame banks
+    set to it: the reference's default A2/B2 init is expansive), positive
+    thresholds and gamma banks in [0, 0.3] per column (the trained
+    csr-demo's gammas lie in [-0.12, 0.32])."""
+    f2 = CDLNetCSRf2(**CSR_WIDTH, backend="pallas").to(dev).init(
+        torch.Generator().manual_seed(SEED))
+    g = torch.Generator().manual_seed(SEED + 4)
+    with torch.no_grad():
+        f2.t.copy_(torch.rand(f2.t.shape, generator=g)
+                   * torch.tensor([0.02, 0.2]).reshape(1, 2, 1, 1, 1))
+        f2.g1.copy_(0.3 * torch.rand(f2.g1.shape, generator=g))
+        f2.g2.copy_(0.3 * torch.rand(f2.g2.shape, generator=g))
+        one = CDLNetCSR(**CSR_WIDTH, backend="pallas").to(dev)
+        for name, src in (("A", f2.A), ("B", f2.B), ("t", f2.t), ("A2", f2.A),
+                          ("B2", f2.B), ("t2", f2.t), ("g", f2.g1)):
+            getattr(one, name).copy_(src)
+    out = {}
+    for family, m in (("CDLNet_CSR", one), ("CDLNet_CSRf2", f2)):
+        plain = copy.deepcopy(m)
+        plain.backend = "xla"
+        out[family] = (m.eval(), plain.eval())
+    return out
+
+
+def csr(dev, card, err) -> tuple[dict, dict]:
+    """The frame-recurrent CSR serve path: the CSR analysis kernels against
+    their plain versions and timed, the K=30 forwards against the plain
+    loop, a native volume through Denoiser.denoise_video for both models,
+    the trained csr-demo, and cli.analyzemri.test. Returns (launches of the
+    served volumes, the demo and the eval CLI; the CSR kernels' times at
+    the served 640x384 frame, with the 2x128^2 ones under "2x128^2")."""
+    rng = np.random.default_rng(SEED + 60)  # the earlier phases keep their draws
+    models = csr_models(dev)
+    f2 = models["CDLNet_CSRf2"][0]
+    K, s = f2.K, f2.s
+    launches = collections.Counter()
+
+    # --- C1. each CSR analysis kernel (and the ST one) against its plain
+    # version on a frame's phase operands, the neighbour codes the kernels'
+    # K=30 forwards of the frames before and after it; timed at 2x128^2 and
+    # at the served 640x384 frame ---
+    times, codes = {}, {}
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for label, shape, sigmas in (("2x128^2", IMAGE, [20.0, 30.0]),
+                                     ("640x368", MRI_FRAME, [SIGMA]),
+                                     ("640x384 (bucket)", (640, 384), [SIGMA])):
+            N = len(sigmas)
+            clean = np.stack([smooth_clip(rng, 3, shape) for _ in sigmas])  # (N, 3, H, W)
+            sig = np.asarray(sigmas, np.float32).reshape(-1, 1, 1, 1)
+            noisy = clean + sig / 255 * rng.standard_normal(clean.shape).astype(np.float32)
+            y = torch.from_numpy(noisy).to(dev)
+            sig_t = torch.from_numpy(sig.reshape(-1)).to(dev)
+            zp = f2(y[:, 0:1], sigma=sig_t)[1]
+            za = f2(y[:, 2:3], sigma=sig_t)[1]
+            yp, _, _ = pre_process(y[:, 1:2], s)
+            c = sig_t / 255
+            y2, _, wa, ws, tau, geom = L2.phase_operands(yp, f2.A, f2.B, f2.t, c, s)
+            gam1, gam2 = (L2.threshold_bank(b, c, N, yp) for b in (f2.g1, f2.g2))
+            z0 = L2.lista2d_ana_csrf2_plain(-y2, None, wa[0], tau[0], gam1[0], gam2[0],
+                                            zp, za, geom)
+            r1 = L2.lista2d_syn_residual_plain(z0, ws[1], geom, y=y2)
+            cases = (
+                ("lista2d_ana_threshold", "st k=1", (r1, z0, wa[1], tau[1])),
+                ("lista2d_ana_csr", "z_prev k=0", (-y2, None, wa[0], tau[0], gam1[0], zp)),
+                ("lista2d_ana_csr", "z_prev k=1", (r1, z0, wa[1], tau[1], gam1[1], zp)),
+                ("lista2d_ana_csr", "z_after alone k=1", (r1, z0, wa[1], tau[1], gam2[1], za)),
+                ("lista2d_ana_csrf2", "k=0",
+                 (-y2, None, wa[0], tau[0], gam1[0], gam2[0], zp, za)),
+                ("lista2d_ana_csrf2", "k=1", (r1, z0, wa[1], tau[1], gam1[1], gam2[1], zp, za)),
+            )
+            for name, what, args in cases:
+                got = getattr(L2, name)(*args, geom)
+                ref = getattr(L2, name + "_plain")(*args, geom)
+                torch.cuda.synchronize()
+                if name != "lista2d_ana_csrf2":
+                    compare(name, f"csr {label} {what}", got, ref, err)
+                    continue
+                v = L2.ana_argument_plain(*args[:3], geom)
+                keep = L2.csrf2_jump_gap(v, zp, za, args[3], args[5]) \
+                    > CSR_JUMP_EPS * v.abs().max()
+                excl = int((~keep).sum())
+                d_all = float((got - ref).abs().max())
+                d = float(((got - ref).abs() * keep).max())
+                rel = d / float(ref.abs().max())
+                print(f"parity {name} [csr {label} {what}]: max|d| {d:.3e}, rel {rel:.3e} "
+                      f"over the codes with |v - Ca| > {CSR_JUMP_EPS} max|v|; {excl} codes "
+                      f"({excl / keep.numel():.3e}) excluded; max|d| over all {d_all:.3e}",
+                      flush=True)
+                require(rel <= KERNEL_TOL, f"{name} [{label} {what}] rel err {rel:.3e}")
+                err[name] = max(err.get(name, 0.0), d_all)
+            codes[label] = (zp, za)
+            if label == "640x368":
+                continue
+            r_full = pp.depth_to_space(r1, s, 2, 1)
+            n_pos = y2[:, 0].numel()
+            tt = {}
+            for name, args, io in (
+                ("lista2d_ana_threshold", (r1, z0, wa[1], tau[1]), (r1, z0, wa[1], tau[1], z0)),
+                ("lista2d_ana_csr", (r1, z0, wa[1], tau[1], gam1[1], zp),
+                 (r1, z0, wa[1], tau[1], gam1[1], zp, z0)),
+                ("lista2d_ana_csrf2", (r1, z0, wa[1], tau[1], gam1[1], gam2[1], zp, za),
+                 (r1, z0, wa[1], tau[1], gam1[1], gam2[1], zp, za, z0)),
+            ):
+                run, plain = (lambda f=getattr(L2, n), a=args: f(*a, geom)
+                              for n in (name, name + "_plain"))
+                tt[name] = dict(zip(("ms", "plain_ms", "library_ms"), (cuda_ms(f, 20) for f in (
+                    run, plain,
+                    lambda: F.conv2d(r_full, f2.A[1], stride=s, padding=f2.pad)))))
+                tt[name]["bound_ms"], tt[name]["bound_by"] = bound((wa[1],), n_pos, io)
+                print(f"time [{card}]: csr {label} {name}: {tt[name]['ms']:.4f} ms/call, "
+                      f"plain {tt[name]['plain_ms']:.4f}, library {tt[name]['library_ms']:.4f}, "
+                      f"bound {tt[name]['bound_ms']:.4f} ({tt[name]['bound_by']})", flush=True)
+            for name in ("lista2d_ana_csr", "lista2d_ana_csrf2"):
+                if label == "2x128^2":
+                    times.setdefault(name, {})[label] = tt[name]
+                else:
+                    times.setdefault(name, {}).update(tt[name])
+    print(f"csr: kernel parity and times in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # --- C2. the K=30 forwards on the kernels against the plain loop at a
+    # raw native frame (640x368: ragged code-grid tiles), with the previous
+    # frame's code (CDLNet_CSR) and both neighbours' (CDLNet_CSRf2) ---
+    zp, za = codes["640x368"]
+    clean = smooth_clip(rng, 1, MRI_FRAME)[None]  # (1, 1, H, W)
+    noisy = clean + SIGMA / 255 * rng.standard_normal(clean.shape).astype(np.float32)
+    y = torch.from_numpy(noisy).to(dev)
+    with torch.inference_mode():
+        for family, kw in (("CDLNet_CSR", dict(z_prev=zp)),
+                           ("CDLNet_CSRf2", dict(z_prev=zp, z_after=za))):
+            model, plain = models[family]
+            got, ref = model(y, sigma=SIGMA, **kw), plain(y, sigma=SIGMA, **kw)
+            torch.cuda.synchronize()
+            what = f"{family} K={K} forward 640x368 ({', '.join(kw)})"
+            if family == "CDLNet_CSR":
+                for name, a, b in zip("xz", got, ref):
+                    d, rel = rel_err(a, b)
+                    print(f"parity {what} {name}: max|d| {d:.3e}, rel {rel:.3e}", flush=True)
+                    require(rel <= FORWARD_TOL, f"{what} {name} rel err {rel:.3e}")
+            else:
+                csr_f2_gate(f"{what} x", got[0], ref[0], clean)
+                d = float((got[1] - ref[1]).abs().max())
+                l2 = rel_l2(got[1], ref[1])
+                print(f"parity {what} z: rel L2 {l2:.3e}, max|d| {d:.3e}", flush=True)
+                require(l2 <= CSR_L2_TOL, f"{what} z rel L2 {l2:.3e}")
+            k_ms = cuda_ms(lambda: model(y, sigma=SIGMA, **kw), 1, rounds=3, warmup=1)
+            p_ms = cuda_ms(lambda: plain(y, sigma=SIGMA, **kw), 1, rounds=3, warmup=1)
+            print(f"time [{card}]: {what}: {k_ms:.3f} ms on the kernels, {p_ms:.3f} ms on "
+                  "the plain loop", flush=True)
+    del codes, got, ref
+    torch.cuda.empty_cache()
+
+    # --- C3. a native 16-frame volume through Denoiser.denoise_video (the
+    # serve path), known and blind sigma, against backend "xla" ---
+    vol_clean = smooth_clip(rng, CSR_DEPTH, MRI_FRAME)
+    vol = vol_clean + SIGMA / 255 * rng.standard_normal(vol_clean.shape).astype(np.float32)
+    for family, (model, plain) in models.items():
+        two_sided = family == "CDLNet_CSRf2"
+        server, server_plain = Denoiser(model), Denoiser(plain)
+        L.launches.clear()
+        outs = {"known": server.denoise_video(vol, sigma=SIGMA),
+                "blind": server.denoise_video(vol)}
+        torch.cuda.synchronize()
+        got = dict(L.launches)
+        launches.update(got)
+        want = {n: 2 * v for n, v in csr_volume_launches(two_sided, K, CSR_DEPTH).items()}
+        print(f"csr serve: {family}, a {(CSR_DEPTH, *MRI_FRAME)} volume known and blind, "
+              f"launches {got}", flush=True)
+        require(got == want, f"{family}: two volumes launched {got}, expected {want}")
+        for label, out in outs.items():
+            ref = server_plain.denoise_video(vol, sigma=SIGMA if label == "known" else None)
+            require(out.shape == vol.shape and np.isfinite(out).all(), f"{family} output")
+            what = f"{family} served volume {label} sigma, kernels vs xla"
+            if two_sided:
+                csr_f2_gate(what, out, ref, vol_clean)
+            else:
+                d = max_abs(out, ref)
+                print(f"parity {what}: max|d| {d:.3e}", flush=True)
+                require(d <= FORWARD_TOL, f"{what} max|d| {d:.3e} > {FORWARD_TOL}")
+            print(f"csr serve: {family} {label} sigma: PSNR noisy {psnr(vol, vol_clean):.3f} "
+                  f"dB -> {psnr(out, vol_clean):.3f} dB", flush=True)
+        for label, sig in (("known", SIGMA), ("blind", None)):
+            ms = host_ms(lambda: server.denoise_video(vol, sigma=sig), rounds=3)
+            apps = CSR_DEPTH + 2
+            print(f"time [{card}]: {family} Denoiser.denoise_video of a {(CSR_DEPTH, *MRI_FRAME)} "
+                  f"volume, {label} sigma: {ms:.3f} ms host clock ({1e3 * CSR_DEPTH / ms:.2f} "
+                  f"frames/s; {apps} frame applications of {2 * K} launches)", flush=True)
+        del server, server_plain, outs
+    del models, f2
+    torch.cuda.empty_cache()
+
+    # --- C4. the trained csr-demo (CDLNet_CSRf2) on smooth 128^2 volumes,
+    # known and blind sigma: it must denoise, on the kernels and "xla" alike ---
+    demo, demo_plain = Denoiser.from_dir(CSR_DEMO), Denoiser.from_dir(CSR_DEMO, backend="xla")
+    require(demo.device.type == "cuda", "Denoiser.from_dir did not default to the card")
+    Kd = demo.model.K
+    d_clean = smooth_clip(rng, CSR_DEPTH, IMAGE)
+    d_noisy = d_clean + SIGMA / 255 * rng.standard_normal(d_clean.shape).astype(np.float32)
+    L.launches.clear()
+    outs = {"known": demo.denoise_video(d_noisy, sigma=SIGMA), "blind": demo.denoise_video(d_noisy)}
+    torch.cuda.synchronize()
+    got = dict(L.launches)
+    launches.update(got)
+    want = {n: 2 * v for n, v in csr_volume_launches(True, Kd, CSR_DEPTH).items()}
+    require(got == want, f"the csr demo launched {got}, expected {want}")
+    for label, out in outs.items():
+        ref = demo_plain.denoise_video(d_noisy, sigma=SIGMA if label == "known" else None)
+        csr_f2_gate(f"csr-demo {label} sigma, kernels vs xla", out, ref, d_clean)
+        p_in, p_out = psnr(d_noisy, d_clean), psnr(out, d_clean)
+        print(f"csr demo {label} sigma: PSNR noisy {p_in:.3f} dB -> denoised {p_out:.3f} dB "
+              f"(gain {p_out - p_in:.3f} dB)", flush=True)
+        require(np.isfinite(out).all() and p_out - p_in >= MIN_GAIN_DB,
+                f"csr demo {label} gain {p_out - p_in:.3f} dB < {MIN_GAIN_DB} dB")
+    del demo, demo_plain
+
+    # --- C5. the eval CLI's test (cli.analyzemri.test) with the csr-demo on
+    # native volumes held in memory; analyzemri.main too where h5py imports ---
+    with open(os.path.join(CSR_DEMO, "args.json")) as f:
+        demo_args = json.load(f)
+    depth = demo_args["train"]["loaders"]["depth"]
+    with tempfile.TemporaryDirectory() as root:
+        save_dir = os.path.join(root, "eval")
+        os.makedirs(save_dir)
+        args = dict(demo_args, paths={"save": save_dir,
+                                      "ckpt": os.path.join(CSR_DEMO, "net.ckpt.npz")})
+        # the model analyzemri.main builds: --backend auto takes the kernels
+        model = init_model(cli_train.apply_backend("auto", args))[0].eval()
+        loader = VolumeLoader([smooth_clip(rng, depth, MRI_FRAME) for _ in
+                               range(CSR_CLI_VOLUMES)], os.path.join(root, "fastmri"))
+        L.launches.clear()
+        t0 = time.perf_counter()
+        analyzemri.test(model, demo_args["type"], loader, [25], None, save_dir, True, False)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        got = dict(L.launches)
+        launches.update(got)
+        want = {n: CSR_CLI_VOLUMES * v
+                for n, v in csr_volume_launches(True, model.K, depth).items()}
+        with open(os.path.join(save_dir, "test_fastmri_None.txt")) as f:
+            txt = f.read()
+        with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(ln) for ln in f if ln.strip()]
+        files = {os.path.relpath(os.path.join(d_, f_), save_dir)
+                 for d_, _, fs in os.walk(save_dir) for f_ in fs}
+        frames = CSR_CLI_VOLUMES * depth
+        expect = {f"{sub}/{p}_{n:05d}.png" for sub, p in (("test_noise", "noise"),
+                                                           ("test_output", "output"),
+                                                           ("test_gt", "gt"))
+                  for n in range(1, frames + 1)}
+        print(f"csr eval CLI: analyzemri.test on {CSR_CLI_VOLUMES} volumes of "
+              f"{(depth, *MRI_FRAME)} in {cli_s:.2f} s; launches {got}; "
+              f"test_fastmri_None.txt {txt!r}; eval row "
+              f"{ {k: v for k, v in rows[-1].items() if k != 'ts'} }; {len(files)} files",
+              flush=True)
+        require(got == want, f"the eval CLI launched {got}, expected {want}")
+        m = re.fullmatch(r"25, PSNR: (\d+\.\d{3}), SSIM: (0\.\d{4})\n", txt)
+        require(m is not None and float(m.group(1)) > 20 * np.log10(255 / 25) + MIN_GAIN_DB,
+                f"the eval CLI's txt {txt!r}")
+        require(len(rows) == 1 and {k: rows[0][k] for k in
+                                    ("event", "dataset", "blind", "sigma", "volumes", "frames")}
+                == dict(event="eval", dataset="fastmri", blind="None", sigma=25.0,
+                        volumes=CSR_CLI_VOLUMES, frames=frames)
+                and 0.0 < rows[0]["ssim"] <= 1.0, f"the eval CLI's metrics rows {rows}")
+        require(expect <= files, f"the eval CLI did not write {sorted(expect - files)[:5]}")
+        try:
+            import h5py  # noqa: F401
+        except ImportError:
+            print("csr eval CLI: h5py is not installed beside the card, so "
+                  "analyzemri.main's .h5 loader does not run here; "
+                  "tests/test_torch_cli_analyzemri.py runs it on the CPU", flush=True)
+        else:
+            mri = gen_synthetic_mri_dirs(os.path.join(root, "mri"), n_volumes=1,
+                                         slices=depth, splits=("test",))
+            analyzemri.main(build_argparser().parse_args(
+                ["args.json", "--test", os.path.join(mri, "test"), "--noise_level", "25",
+                 "--save_dir", os.path.join(root, "main")]), args)
+            with open(os.path.join(root, "main", "test_test_None.txt")) as f:
+                line = f.read()
+            print(f"csr eval CLI: analyzemri.main on .h5 volumes: {line!r}", flush=True)
+            require(re.fullmatch(r"25, PSNR: \d+\.\d{3}, SSIM: 0\.\d{4}\n", line)
+                    is not None, f"analyzemri.main's txt {line!r}")
+    return dict(launches), times
+
+
 def main() -> int:
     # --- 1. the device ---
     if not torch.cuda.is_available():
@@ -1574,9 +1952,13 @@ def main() -> int:
     # --- 13. the native-resolution video path (bigframe) ---
     launches_bf, times_bf = bigframe(dev, card, err, model, t_par, tg)
 
+    # --- 14. the frame-recurrent CSR path (csr) ---
+    launches_csr, times_csr = csr(dev, card, err)
+    times.update(times_csr)
+
     launches = {name: serve_launches.get(name, 0) + fit_launches.get(name, 0)
                 + launches_2d.get(name, 0) + launches_t2.get(name, 0)
-                + launches_bf.get(name, 0) for name in KERNELS}
+                + launches_bf.get(name, 0) + launches_csr.get(name, 0) for name in KERNELS}
     for name in ("lista3d_ana_threshold", "lista3d_syn_residual"):
         tt = times[name]
         print(f"time [{card}]: serve shape {name} {tt['ms']:.4f} ms/call, plain "

@@ -138,7 +138,8 @@ def test_cli_end_to_end_blind_and_defaults(video_dirs, tmp_path):
         analyze3d.main(build_argparser().parse_args(
             ["args.json", "--test", test_dir, "--blind", "PCA"]), args, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        analyze_2d_main(build_argparser().parse_args(["args.json"]), args)
+        analyze_2d_main(build_argparser().parse_args(
+            ["args.json", "--test", test_dir, "--blind", "PCA"]), args, device="cpu")
 
 
 def test_passthrough_codes_match_the_plain_loop(video_dirs, tmp_path):

@@ -577,3 +577,88 @@ def test_2d_reverse_wrappers_reject_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         LB2.lista2d_wgrad(d["r"].to(cuda).double(), d["z"].to(cuda), d["taps"],
                           d["geom"].off_a)
+
+
+# --- the CSR analysis epilogues (kernels/lista2d.py: lista2d_ana_csr/_csrf2) ---
+
+SHAPES_CSR = [
+    # P, s, M, N, H, W — the CSR models' width (argscsr.json: M=169, P=9,
+    # s=2) at 2 x 128^2 (per-image tau and gamma) and at one native fastMRI
+    # frame, raw (640x368: a code grid 184 wide, a ragged 56-column tile)
+    # and bucketed (640x384)
+    (9, 2, 169, 2, 128, 128),
+    (9, 2, 169, 1, 640, 368),
+    (9, 2, 169, 1, 640, 384),
+]
+
+
+@pytest.mark.parametrize("P,s,M,N,H,W", SHAPES_CSR)
+@pytest.mark.parametrize("mode", ["csr", "csr k=0", "csrf2", "csrf2 k=0"])
+def test_2d_csr_analysis_matches_plain(cuda, P, s, M, N, H, W, mode):
+    """Each CSR epilogue against its plain version on the card. The
+    one-sided prox is continuous: max|d| / max|ref| <= 1e-5, as the ST
+    analysis. The two-sided one jumps where its argument v crosses Ca, and
+    the kernel's v differs from the plain version's by fp32 reassociation:
+    there the gate is 1e-4 over the codes with |v - Ca| > 1e-5 max|v|, and
+    the codes left out are fewer than 1e-3 of all."""
+    d = _setup2d(P, s, M, N, H, W, 1)
+    rng = np.random.default_rng(5)
+    zp = d["z"]
+    za = torch.from_numpy(rng.standard_normal(zp.shape).astype(np.float32))
+    za = torch.where(za.abs() < 0.5, torch.zeros_like(za), za)
+    gam1, gam2 = (torch.from_numpy(rng.uniform(0.0, 0.3, (N, M)).astype(np.float32))
+                  for _ in range(2))
+    r, z = (-d["y"], None) if mode.endswith("k=0") else (d["r"], 0.5 * d["z"])
+    if mode.startswith("csrf2"):
+        name, args = "lista2d_ana_csrf2", (r, z, d["wa"], d["tau"], gam1, gam2, zp, za)
+    else:
+        name, args = "lista2d_ana_csr", (r, z, d["wa"], d["tau"], gam1, zp)
+    args = tuple(None if a is None else a.to(cuda) for a in args)
+    L.launches.clear()
+    got = getattr(L2, name)(*args, d["geom"])
+    ref = getattr(L2, name + "_plain")(*args, d["geom"])
+    torch.cuda.synchronize()
+    assert dict(L.launches) == {name: 1} and got.shape == ref.shape
+    if name == "lista2d_ana_csr":
+        assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-5
+        return
+    v = L2.ana_argument_plain(*args[:3], d["geom"])
+    keep = L2.csrf2_jump_gap(v, zp.to(cuda), za.to(cuda), args[3], gam2.to(cuda)) \
+        > 1e-5 * v.abs().max()
+    assert float((~keep).float().mean()) < 1e-3
+    assert float(((got - ref).abs() * keep).max() / ref.abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("names", [("z_prev", "g"), ("z_after", "g2"),
+                                   ("z_prev", "z_after", "g", "g2")])
+def test_2d_fused_csr_on_cuda_matches_cpu_and_counts_launches(cuda, names):
+    """lista2d_fused's CSR modes on the card: K launches of the mode's
+    analysis and K of the synthesis, codes and output as on the CPU."""
+    rng = np.random.default_rng(4)
+    K, M, P, N = 3, 13, 7, 2
+    f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+    yp = 0.3 * f(N, 1, 24, 38)
+    A, B = 0.1 * f(K, M, 1, P, P), 0.1 * f(K, M, 1, P, P)
+    t = 0.02 * f(K, 2, M, 1, 1).abs()
+    c = torch.tensor([0.1, 0.2]).reshape(2, 1, 1, 1)
+    kw = {name: (f(N, M, 12, 19) if name.startswith("z") else 0.5 * f(K, 2, M, 1, 1).abs())
+          for name in names}
+    x_ref, z_ref = L2.lista2d_fused(yp, A, B, t, c, stride=2, return_z=True, **kw)
+    L.launches.clear()
+    x, z = L2.lista2d_fused(*(v.to(cuda) for v in (yp, A, B, t, c)), stride=2,
+                            return_z=True, **{k: v.to(cuda) for k, v in kw.items()})
+    torch.cuda.synchronize()
+    ana = "lista2d_ana_csrf2" if len(names) == 4 else "lista2d_ana_csr"
+    assert dict(L.launches) == {ana: K, "lista2d_syn_residual": K}
+    np.testing.assert_allclose(x.cpu().numpy(), x_ref.numpy(), atol=1e-4)
+    np.testing.assert_allclose(z.cpu().numpy(), z_ref.numpy(), atol=1e-4)
+
+
+def test_2d_csr_wrappers_reject_what_the_kernel_does_not_take(cuda):
+    d = _setup2d(7, 2, 8, 1, 16, 16, 1)
+    r, wa, tau = (d[k].to(cuda) for k in ("r", "wa", "tau"))
+    zp = d["z"].to(cuda)
+    with pytest.raises(ValueError, match="zp"):
+        L2.lista2d_ana_csr(r, None, wa, tau, tau, zp.double(), d["geom"])
+    with pytest.raises(ValueError, match="gam2"):
+        L2.lista2d_ana_csrf2(r, None, wa, tau, tau, tau[:, :4], zp, zp, d["geom"])
