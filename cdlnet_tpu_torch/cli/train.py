@@ -2,14 +2,19 @@
 """Training CLI: `python -m cdlnet_tpu_torch.cli.train path/to/args.json`
 (counterpart of cdlnet_tpu/cli/train.py).
 
-Accepts the reference's args.json schema verbatim. The 2D families
-(CDLNet, JDD_CDLNet, GDLNet) train on image directories
-(data/images.get_fit_loaders) through train.fit.fit(workload="2d"), and
-CDLNetVideo on video frame directories (data/video.get_video_fit_loaders)
-through fit(workload="3d"), on the card unless main() is given
-device="cpu". Not ported yet (each raises NotImplementedError naming
-ROADMAP.md): DnCNN/FFDNet, training on fastMRI volumes (loader args with a
-PDFS key), and the CSR frame-recurrent trainer.
+Accepts the reference's args.json schema verbatim, on the card unless
+main() is given device="cpu". Workloads, as the JAX CLI selects them:
+  - the 2D families (CDLNet, JDD_CDLNet, GDLNet): image directories
+    (data/images.get_fit_loaders), or fastMRI volumes when the loader args
+    carry the fastMRI schema (a PDFS key), their slices in the batch dim
+    (data/fastmri.volume_to_batch_loaders); train.fit.fit(workload="2d");
+  - CDLNetVideo: fastMRI volumes with a PDFS key (workload "mri"), else
+    video frame directories (data/video.get_video_fit_loaders, "3d");
+  - the CSR models (CDLNet_CSR, CDLNet_CSRf2, argscsr.json-style configs):
+    fastMRI volumes through the frame-recurrent trainer,
+    train.fit_csr.fit_csr.
+Not ported yet (each raises NotImplementedError naming ROADMAP.md):
+DnCNN/FFDNet, and CDLNetVideo's residual blocks.
 """
 
 from __future__ import annotations
@@ -19,21 +24,32 @@ from pprint import pprint
 
 _NOT_PORTED = "is not ported to cdlnet_tpu_torch yet (see ROADMAP.md)"
 IMAGE_FAMILIES = ("CDLNet", "GDLNet", "JDD_CDLNet")
+CSR_FAMILIES = ("CDLNet_CSR", "CDLNet_CSRf2")
 
 
 def make_loaders(args: dict):
     """(loaders, workload) for an args dict: the image-directory loaders of
-    the 2D families ("2d"), the video clip loaders of CDLNetVideo ("3d").
-    Other families and the fastMRI loader schema raise."""
+    the 2D families ("2d"), the video clip loaders of CDLNetVideo ("3d"),
+    and the fastMRI volume loaders when the loader args carry a PDFS key or
+    the model is a CSR one: slices in the batch dim for the 2D families
+    ("2d"), volumes otherwise ("mri"). Other families raise."""
     loaders_args = dict(args["train"]["loaders"])
     mtype = args["type"]
-    if mtype not in (*IMAGE_FAMILIES, "CDLNetVideo"):
+    if mtype not in (*IMAGE_FAMILIES, "CDLNetVideo", *CSR_FAMILIES):
         raise NotImplementedError(f"training {mtype!r} from the CLI {_NOT_PORTED}")
-    if "PDFS" in loaders_args:
-        raise NotImplementedError(f"training on fastMRI volumes {_NOT_PORTED}")
     # the JAX loader's thread-pool knob: the port assembles batches in the
     # calling thread, so a config that sets it loads the same crops
     loaders_args.pop("num_workers", None)
+    if "PDFS" in loaders_args or mtype in CSR_FAMILIES:
+        from cdlnet_tpu_torch.data.fastmri import (
+            get_fastmri_fit_loaders,
+            volume_to_batch_loaders,
+        )
+
+        loaders = get_fastmri_fit_loaders(**loaders_args)
+        if mtype in IMAGE_FAMILIES:  # traincsr.py:163-165
+            return volume_to_batch_loaders(loaders), "2d"
+        return loaders, "mri"
     if mtype == "CDLNetVideo":
         from cdlnet_tpu_torch.data.video import get_video_fit_loaders
 
@@ -47,10 +63,11 @@ def make_loaders(args: dict):
 def main(args: dict, device=None):
     """Train from a reference-schema args dict: build the model (power-method
     init, or the checkpoint at paths.ckpt), its loaders and optimizer, and
-    run fit(), saving args.json beside each checkpoint. Returns (opt_state,
-    history) as fit does."""
+    run fit() (fit_csr() for the CSR models), saving args.json beside each
+    checkpoint. Returns (opt_state, history) as fit does."""
     from cdlnet_tpu_torch.train.checkpoint import save_args
     from cdlnet_tpu_torch.train.fit import fit, init_model
+    from cdlnet_tpu_torch.train.fit_csr import fit_csr
 
     loaders, workload = make_loaders(args)
     model, opt, opt_state, epoch0, _ = init_model(args, device=device)
@@ -60,6 +77,16 @@ def main(args: dict, device=None):
     if fit_args.pop("combmse", False):  # train3d.py:65-66 flag spelling
         loss_type = "combmse"
     save_dir = args["paths"]["save"]
+    if args["type"] in CSR_FAMILIES:
+        return fit_csr(
+            model, opt, opt_state, loaders,
+            save_dir=save_dir,
+            start_epoch=epoch0 + 1,
+            sched=args["train"].get("sched"),
+            mesh=args.get("dist", {}).get("mesh"),
+            epoch_fun=lambda ep: save_args(args, save_dir),
+            **fit_args,
+        )
     return fit(
         model, opt, opt_state, loaders,
         save_dir=save_dir,

@@ -1,13 +1,15 @@
-"""fastMRI k-space volumes for evaluation (counterpart of the eval half of
+"""fastMRI k-space volumes for training and evaluation (counterpart of
 cdlnet_tpu/data/fastmri.py).
 
-Reference semantics (datafastmri.py, test mode): read .h5 single-coil
-volumes, optionally keep only acquisition == 'CORPD_FBK' (PDFS=False); per
-slice the centered orthonormal 2D inverse FFT (the fastmri package's ifft2c,
-here in numpy) and the complex magnitude min-max normalized to uint8; the
-first `depth` slices at full size stack to (1, D, H, W). The training half
-(random windows and crops) is not ported yet. h5py is imported where a file
-is read.
+Reference semantics (datafastmri.py): read .h5 single-coil volumes,
+optionally keep only acquisition == 'CORPD_FBK' (PDFS=False); per slice the
+centered orthonormal 2D inverse FFT (the fastmri package's ifft2c, here in
+numpy) and the complex magnitude min-max normalized to uint8; `depth`
+consecutive slices stack to (1, D, H, W): the first ones at full size for
+evaluation, a random window with one shared random crop for training. The
+batches come from the sequential loader (data/loader.py), so a seed gives
+the JAX loader's batches at num_workers=0. h5py is imported where a file is
+read.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import os
 
 import numpy as np
 
-from cdlnet_tpu_torch.data.loader import DataLoader
+from cdlnet_tpu_torch.data.loader import DataLoader, ThreadSafeRng
 
 
 def ifft2c(kspace: np.ndarray) -> np.ndarray:
@@ -37,9 +39,14 @@ def kspace_to_uint8_image(kspace_slice: np.ndarray) -> np.ndarray:
 
 class FastMRIDataset:
     """The .h5 volumes of root_dirs (file-name order); item i is (1, depth,
-    H, W) float32 in [0, 1]: the first `depth` slices at full size."""
+    H, W) float32 in [0, 1]. test=True: the first `depth` slices at full
+    size. test=False (training): `depth` consecutive slices from a random
+    start and one random image_size = (crop width, crop height) crop shared
+    by every slice, drawn from a child of the seeded root generator per
+    item, so a seed gives the JAX package's volumes."""
 
-    def __init__(self, root_dirs, depth=16, PDFS=True):
+    def __init__(self, root_dirs, depth=16, image_size=(128, 128), test=False, PDFS=True,
+                 seed=0):
         import h5py
 
         self.h5_files = []
@@ -58,6 +65,9 @@ class FastMRIDataset:
                 files = kept
             self.h5_files += files
         self.depth = depth
+        self.image_size = tuple(image_size)
+        self.test = test
+        self.rng = ThreadSafeRng(seed)
 
     def __len__(self):
         return len(self.h5_files)
@@ -67,15 +77,78 @@ class FastMRIDataset:
 
         with h5py.File(self.h5_files[idx], "r") as hf:
             vol = hf["kspace"][()]
-        if vol.shape[0] < self.depth:
-            raise ValueError(
-                f"{self.h5_files[idx]} has {vol.shape[0]} slices < depth {self.depth}")
-        frames = [kspace_to_uint8_image(vol[i]).astype(np.float32) / 255.0
-                  for i in range(self.depth)]
+        n = vol.shape[0]
+        if n < self.depth:
+            raise ValueError(f"{self.h5_files[idx]} has {n} slices < depth {self.depth}")
+        rng = self.rng()
+        start = 0 if self.test else int(rng.integers(0, n - self.depth + 1))
+        crop = None
+        frames = []
+        for i in range(start, start + self.depth):
+            img = kspace_to_uint8_image(vol[i])
+            if not self.test:
+                H, W = img.shape
+                cw, ch = self.image_size
+                if cw > W or ch > H:
+                    raise ValueError(f"crop {self.image_size} > image {(W, H)}")
+                if crop is None:
+                    crop = (int(rng.integers(0, W - cw + 1)), int(rng.integers(0, H - ch + 1)))
+                cx, cy = crop
+                img = img[cy:cy + ch, cx:cx + cw]
+            frames.append(img.astype(np.float32) / 255.0)
         return np.stack(frames)[None]  # (1, D, H, W)
 
 
-def get_fastmri_data_loader(dir_list, depth=16, PDFS=True):
-    """The eval loader: one (1, 1, depth, H, W) volume per batch, in file
-    order."""
-    return DataLoader(FastMRIDataset(dir_list, depth=depth, PDFS=PDFS))
+def get_fastmri_data_loader(dir_list, batch_size=1, load_color=False, crop_size=128,
+                            test=True, depth=16, PDFS=True, seed=0):
+    """(B, 1, depth, H, W) batches of FastMRIDataset: in file order at full
+    size (test=True, the eval loader), or shuffled per epoch, crop_size^2
+    crops and the last short batch dropped (test=False). load_color is
+    accepted for the schema's sake: the volumes are grayscale."""
+    ds = FastMRIDataset(dir_list, depth=depth, image_size=(crop_size, crop_size),
+                        test=test, PDFS=PDFS, seed=seed)
+    return DataLoader(ds, batch_size=batch_size, shuffle=not test, drop_last=not test,
+                      seed=seed)
+
+
+class VolumeToBatchLoader:
+    """Feeds 2D nets from slice-volume loaders: each (B, C, D, H, W) batch
+    becomes (B*D, C, H, W), the slices in the batch dim. The reference
+    (traincsr.py:163-165) permutes to (D, C, H, W, B) and squeezes B, which
+    works at B = 1 only; this takes any B, as the JAX package does."""
+
+    def __init__(self, loader):
+        self.loader = loader
+
+    def __iter__(self):
+        for b in self.loader:
+            b = np.asarray(b)
+            B, C, D, H, W = b.shape
+            yield np.ascontiguousarray(np.moveaxis(b, 2, 1)).reshape(B * D, C, H, W)
+
+    def __len__(self):
+        return len(self.loader)
+
+
+def volume_to_batch_loaders(loaders: dict) -> dict:
+    """Every split of a fastMRI fit-loader dict, for 2D-net training."""
+    return {k: VolumeToBatchLoader(v) for k, v in loaders.items()}
+
+
+def get_fastmri_fit_loaders(trn_path_list, val_path_list, tst_path_list, crop_size=128,
+                            batch_size=(10, 1, 1), load_color=False, depth=16, PDFS=True,
+                            seed=0):
+    """The train / val / test loaders of the fastMRI training schema
+    (argscsr.json's "loaders"): random windows and crops, shuffled, for
+    train; the first `depth` slices at full size for val and test.
+    batch_size: one int (train; val and test take 1) or three."""
+    if isinstance(batch_size, int):
+        batch_size = [batch_size, 1, 1]
+    return {
+        "train": get_fastmri_data_loader(trn_path_list, batch_size[0], crop_size=crop_size,
+                                         test=False, depth=depth, PDFS=PDFS, seed=seed),
+        "val": get_fastmri_data_loader(val_path_list, batch_size[1], crop_size=crop_size,
+                                       test=True, depth=depth, PDFS=PDFS),
+        "test": get_fastmri_data_loader(tst_path_list, batch_size[2], crop_size=crop_size,
+                                        test=True, depth=depth, PDFS=PDFS),
+    }

@@ -1,6 +1,6 @@
 """The differentiable fused 2D and 3D LISTA (counterpart of
-cdlnet_tpu/kernels/autodiff.py's lista2d_fused_diff / lista2d_tiled_diff
-and lista3d_fused_diff).
+cdlnet_tpu/kernels/autodiff.py's lista2d_fused_diff / lista2d_tiled_diff,
+lista3d_fused_diff and csr_fused_2d_train).
 
 lista2d_fused_diff and lista3d_fused_diff run the kernel forward with fp32
 histories and the reverse loop of kernels/lista2d_bwd.py or
@@ -19,7 +19,11 @@ The cotangents of the input, sigma and mask are zero by construction:
 training differentiates with respect to the parameters only. For input
 gradients (saliency, input optimization) use backend "xla".
 
-On CPU tensors the same Function runs the kernels' plain versions, so the
+The frame-recurrent CSR models train through csr_fused_2d_train, a
+Function of its own: it returns the code z beside x, and its gradients
+reach the carried neighbour codes and the gamma banks too (below).
+
+On CPU tensors the same Functions run the kernels' plain versions, so the
 reverse loop is the port's own on either device, never torch autograd
 through the forward.
 """
@@ -89,3 +93,66 @@ def lista3d_fused_diff(yp, A, B, t, c, stride=1, mask=None):
     (N, C, D, H, W), as lista3d.lista3d_fused; gradients reach A, B and t
     only."""
     return _fused_diff(3, yp, A, B, t, c, stride, mask)
+
+
+class _CsrFused(torch.autograd.Function):
+    """(x2, z) = the fused loop in a CSR prox mode (or the soft threshold
+    with no codes) on (y2, m2, wa, ws, tau) with the gamma banks and
+    neighbour codes; backward: the reverse loop over the z, r and u
+    histories, seeded by the cotangent of the returned z."""
+
+    @staticmethod
+    def forward(ctx, geom, y2, m2, wa, ws, tau, gam1, gam2, zp, za):
+        gams = tuple(b for b in (gam1, gam2) if b is not None)
+        codes = tuple(z for z in (zp, za) if z is not None)
+        x2, z, hists = lista2d.lista2d_loop(y2, m2, wa, ws, tau, geom, return_hists=True,
+                                            gams=gams, codes=codes)
+        z_hist, r_hist, u_hist = (*hists, None)[:3]
+        ctx.geom = geom
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(y2, m2, wa, ws, tau, z_hist, r_hist, u_hist, gam1, gam2,
+                              zp, za)
+        return x2, z
+
+    @staticmethod
+    def backward(ctx, dx2, dz):
+        y2, m2, wa, ws, tau, z_hist, r_hist, u_hist, gam1, gam2, zp, za = ctx.saved_tensors
+        gams = tuple(b for b in (gam1, gam2) if b is not None)
+        codes = tuple(z for z in (zp, za) if z is not None)
+        dx2 = torch.zeros_like(y2) if dx2 is None else dx2.contiguous()
+        outs = lista2d_fused_bwd(dx2, y2, m2, (wa, ws), tau, z_hist, r_hist, ctx.geom,
+                                 gams=gams, codes=codes, u_hist=u_hist,
+                                 dz_out=None if dz is None else dz.contiguous())
+        dwa, dws, dtau = outs[:3]
+        dgams, dcodes = outs[3:] if codes else ((), ())
+        dgam1, dgam2 = (*dgams, None, None)[:2]
+        dzp, dza = (*dcodes, None, None)[:2]
+        return None, None, None, dwa, dws, dtau, dgam1, dgam2, dzp, dza
+
+
+def csr_fused_2d_train(yp, A, B, t, c, mask=None, g=None, z_prev=None, g2=None,
+                       z_after=None, stride=1):
+    """The differentiable fused 2D LISTA of the CSR models' training
+    (cdlnet_tpu/kernels/autodiff.py::csr_fused_2d_train). Returns (xphat
+    (N, C, H, W), z (N, M, H/s, W/s)) as lista2d.lista2d_fused(...,
+    return_z=True) with the same CSR keywords.
+
+    The forward writes the z, r and (in a CSR mode) u histories; the
+    backward is lista2d_bwd.lista2d_fused_bwd with the prox's adjoint.
+    Gradients reach A, B, t, g, g2 and the carried codes z_prev, z_after,
+    and the cotangent of the returned z seeds the reverse, in every mode,
+    the soft-threshold one (no codes: a first-frame apply, whose z the next
+    apply carries) included. The z_after-only mode runs the one-sided
+    kernel with (z_after, g2) in z_prev's slots, as the JAX package does;
+    their gradients reach z_after and g2 because the Function takes those
+    tensors in those slots. The cotangents of yp, c and mask are zero by
+    construction."""
+    detach = lambda v: v.detach() if isinstance(v, torch.Tensor) else v
+    codes, banks = lista2d.csr_mode(g, z_prev, g2, z_after)
+    y2, m2, wa, ws, tau, geom = lista2d.phase_operands(detach(yp), A, B, t, detach(c),
+                                                       stride, detach(mask))
+    gams = tuple(lista2d.threshold_bank(b, detach(c), yp.shape[0], yp) for b in banks)
+    codes = tuple(z.contiguous() for z in codes)
+    x2, z = _CsrFused.apply(geom, y2, m2, wa, ws, tau, *(gams + (None,) * (2 - len(gams))),
+                            *(codes + (None,) * (2 - len(codes))))
+    return pp.depth_to_space(x2, stride, 2, yp.shape[1]), z

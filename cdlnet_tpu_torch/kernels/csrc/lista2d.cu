@@ -22,7 +22,10 @@
 //       z <- prox_csr(z_old - out, zp; tau, gam) or
 //       z <- prox_csr_f2(z_old - out, zp, za; tau, gam1, gam2), with the
 //       neighbour-frame codes zp, za (N, M, H, W) read once per output. The
-//       synthesis is the ST loop's: CSR changes only the prox.
+//       synthesis is the ST loop's: CSR changes only the prox. For training
+//       they also store the prox argument v = z_old - out to u_out (the
+//       TPU kernel's u history rows, lista2d.py:297-313, 343-348), which
+//       the CSR adjoints of lista3d_bwd.cu read; serving passes NULL.
 //
 // The CSR epilogues add one (csr) or two (csrf2) code-sized reads a call.
 // At the CSR models' width on a fastMRI frame (M = 169, P = 9, s = 2;
@@ -81,30 +84,32 @@ int lista2d_ana_threshold(const float* r, const float* wt, const float* z_old,
 }
 
 // z_out = prox_csr(z_old - A_k * r, zp; tau, gam): as lista2d_ana_threshold,
-// with gam (N, M) and the neighbour code zp (N, M, H, W), not z_out.
+// with gam (N, M) and the neighbour code zp (N, M, H, W), not z_out; u_out
+// (N, M, H, W) takes the prox argument z_old - A_k * r, or is NULL.
 int lista2d_ana_csr(const float* r, const float* wt, const float* z_old,
                     const float* tau, const float* gam, const float* zp,
-                    float* z_out, int N, int Cp, int M, int H, int W, int Qh,
-                    int Qw, int oh, int ow, int s, int Ph, int Pw, int ph,
-                    int pw, void* stream) {
+                    float* z_out, float* u_out, int N, int Cp, int M, int H,
+                    int W, int Qh, int Qw, int oh, int ow, int s, int Ph,
+                    int Pw, int ph, int pw, void* stream) {
   ConvArgs a = ana_args(r, wt, z_old, tau, z_out, N, Cp, M, H, W, Qh, Qw, oh,
                         ow, s, Ph, Pw, ph, pw);
-  a.gam1 = gam, a.zp = zp;
+  a.gam1 = gam, a.zp = zp, a.u_out = u_out;
   return launch<kAnaOB, kAnaOT, kAnaTH, 1, kAnaIC, 1, 2, kAnalysisCsr>(
       a, (cudaStream_t)stream);
 }
 
 // z_out = prox_csr_f2(z_old - A_k * r, zp, za; tau, gam1, gam2): the
-// two-sided form, with the previous and following frames' codes zp, za.
+// two-sided form, with the previous and following frames' codes zp, za;
+// u_out as in lista2d_ana_csr.
 int lista2d_ana_csrf2(const float* r, const float* wt, const float* z_old,
                       const float* tau, const float* gam1, const float* gam2,
-                      const float* zp, const float* za, float* z_out, int N,
-                      int Cp, int M, int H, int W, int Qh, int Qw, int oh,
-                      int ow, int s, int Ph, int Pw, int ph, int pw,
-                      void* stream) {
+                      const float* zp, const float* za, float* z_out,
+                      float* u_out, int N, int Cp, int M, int H, int W, int Qh,
+                      int Qw, int oh, int ow, int s, int Ph, int Pw, int ph,
+                      int pw, void* stream) {
   ConvArgs a = ana_args(r, wt, z_old, tau, z_out, N, Cp, M, H, W, Qh, Qw, oh,
                         ow, s, Ph, Pw, ph, pw);
-  a.gam1 = gam1, a.gam2 = gam2, a.zp = zp, a.za = za;
+  a.gam1 = gam1, a.gam2 = gam2, a.zp = zp, a.za = za, a.u_out = u_out;
   return launch<kAnaOB, kAnaOT, kAnaTH, 1, kAnaIC, 1, 2, kAnalysisCsrF2>(
       a, (cudaStream_t)stream);
 }

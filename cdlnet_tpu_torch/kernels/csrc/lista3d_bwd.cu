@@ -16,6 +16,21 @@
 //       pass (kernels/lista2d_bwd.py, in place of the TPU kernels
 //       lista2d.py::_kernel_bwd and lista2d_tiled_bwd.py::_kernel_tiled_bwd)
 //       calls it at D = Qd = 1 with the 2D phase map, sd = 1.
+//   lista2d_syn_adjoint_csr, lista2d_syn_adjoint_csrf2: the 2D synthesis
+//       adjoint with the CSR prox's adjoint in its epilogue instead of the
+//       soft threshold's (the prox modes "csr" / "csrf2" of the TPU kernel
+//       lista2d.py::_kernel_bwd, :537-603): from the stored prox argument
+//       v_k and code z_k, the neighbour codes zp (za) and the banks tau,
+//       gam1 (gam2) it writes dv, adds the neighbour codes' cotangents
+//       into dzp (dza) in place, and reduces dtau, dgam1 (dgam2) per
+//       (n, m) in a fixed order. The two-sided adjoint reads u, z, zp, za,
+//       base and dzp, dza and writes dv, dzp, dza: at the CSR models'
+//       training shape (M = 169, a 320x184 code grid) ~400 MB a call,
+//       ~0.12 ms of bytes at 3.35 TB/s against ~0.025 ms of FMAs, so it is
+//       bound by bytes, and the fused epilogue reads dz from registers
+//       instead of a second pass over it. Its shared-memory partials take
+//       three (N, M) sums a block: 192 KB of the 227 KB cap at P = 9 (one
+//       block an SM).
 //   lista3d_wgrad: the weight gradient of one correlation,
 //       dw[i, q, o] = alpha * sum_{n,p} x[n, i, p + q + off] y[n, o, p],
 //       in the banks' own (I, Qd, Qh, Qw, O) layout; dA (x = r, y = dv) and
@@ -207,6 +222,35 @@ inline int wgrad_chunk(int rows, int O, int P) {
   return (chunk + kBK - 1) / kBK * kBK;
 }
 
+// The adjoint's operands shared by the two CSR entry points (2D, D = 1).
+ConvArgs csr_adjoint_args(const float* g, const float* wt, const float* base,
+                          const float* z, const float* u, const float* tau,
+                          const float* zp, float* work, float* dv, float* dzp,
+                          int N, int Cp, int M, int H, int W, int Qh, int Qw,
+                          int oh, int ow, int s, int Ph, int Pw, int ph,
+                          int pw, float alpha) {
+  ConvArgs a{};
+  a.in = g, a.wt = wt, a.out = dv, a.z = z, a.uh = u, a.base = base;
+  a.tau = tau, a.zp = zp, a.dzp = dzp, a.part = work, a.alpha = alpha;
+  a.N = N, a.I = Cp, a.O = M, a.D = 1, a.H = H, a.W = W;
+  a.Qd = 1, a.Qh = Qh, a.Qw = Qw, a.od = 0, a.oh = oh, a.ow = ow;
+  a.s = s, a.sd = 1, a.P[0] = 1, a.P[1] = Ph, a.P[2] = Pw;
+  a.pad[0] = 0, a.pad[1] = ph, a.pad[2] = pw;
+  return a;
+}
+
+// The block partials of `sums` (N, M) sums in work, summed in order into
+// outs[q].
+int reduce_sums(const float* work, float* const* outs, int sums, int N, int M,
+                int parts, cudaStream_t stream) {
+  for (int q = 0; q < sums; ++q) {
+    const int err = launch_reduce(work + (size_t)q * parts * N * M, outs[q],
+                                  N * M, parts, 1.f, stream);
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -240,6 +284,58 @@ int lista3d_syn_adjoint(const float* g, const float* wt, const float* base,
   if (err != 0) return err;
   return launch_reduce(work, dtau, N * M, lista3d_syn_adjoint_parts(D, H, W),
                        1.f, (cudaStream_t)stream);
+}
+
+// dz = [base +] alpha * (B_k^* g), then the adjoint of z = prox_csr(v, zp;
+// tau, gam) at the stored v = u and z: dv (the cotangent of v), dzp += the
+// cotangent of zp, and dtau, dgam (N, M). g (N, Cp, H, W); wt (Cp, Qh, Qw,
+// M); base (may be NULL), z, u, zp, dv, dzp (N, M, H, W); work (2, parts,
+// N, M), parts = lista3d_syn_adjoint_parts(1, H, W); s, P, pad as for
+// lista2d_ana_threshold.
+int lista2d_syn_adjoint_csr(const float* g, const float* wt, const float* base,
+                            const float* z, const float* u, const float* tau,
+                            const float* gam, const float* zp, float* work,
+                            float* dv, float* dzp, float* dtau, float* dgam,
+                            int N, int Cp, int M, int H, int W, int Qh, int Qw,
+                            int oh, int ow, int s, int Ph, int Pw, int ph,
+                            int pw, float alpha, void* stream) {
+  ConvArgs a = csr_adjoint_args(g, wt, base, z, u, tau, zp, work, dv, dzp, N,
+                                Cp, M, H, W, Qh, Qw, oh, ow, s, Ph, Pw, ph, pw,
+                                alpha);
+  a.gam1 = gam;
+  const int err =
+      launch<kAnaOB, kAnaOT, kAnaTH, 1, kAnaIC, 1, 2, kAdjointCsr>(
+          a, (cudaStream_t)stream);
+  if (err != 0) return err;
+  float* outs[2] = {dtau, dgam};
+  return reduce_sums(work, outs, 2, N, M, lista3d_syn_adjoint_parts(1, H, W),
+                     (cudaStream_t)stream);
+}
+
+// The two-sided form: the adjoint of z = prox_csr_f2(v, zp, za; tau, gam1,
+// gam2); dza (N, M, H, W) += the cotangent of za; work (3, parts, N, M);
+// dgam1, dgam2 (N, M); the rest as in lista2d_syn_adjoint_csr.
+int lista2d_syn_adjoint_csrf2(const float* g, const float* wt,
+                              const float* base, const float* z,
+                              const float* u, const float* tau,
+                              const float* gam1, const float* gam2,
+                              const float* zp, const float* za, float* work,
+                              float* dv, float* dzp, float* dza, float* dtau,
+                              float* dgam1, float* dgam2, int N, int Cp, int M,
+                              int H, int W, int Qh, int Qw, int oh, int ow,
+                              int s, int Ph, int Pw, int ph, int pw,
+                              float alpha, void* stream) {
+  ConvArgs a = csr_adjoint_args(g, wt, base, z, u, tau, zp, work, dv, dzp, N,
+                                Cp, M, H, W, Qh, Qw, oh, ow, s, Ph, Pw, ph, pw,
+                                alpha);
+  a.gam1 = gam1, a.gam2 = gam2, a.za = za, a.dza = dza;
+  const int err =
+      launch<kAnaOB, kAnaOT, kAnaTH, 1, kAnaIC, 1, 2, kAdjointCsrF2>(
+          a, (cudaStream_t)stream);
+  if (err != 0) return err;
+  float* outs[3] = {dtau, dgam1, dgam2};
+  return reduce_sums(work, outs, 3, N, M, lista3d_syn_adjoint_parts(1, H, W),
+                     (cudaStream_t)stream);
 }
 
 // Splits of the code positions lista3d_wgrad runs: its work buffer holds

@@ -7,18 +7,30 @@
 //
 // with zero outside the input volume (the reference Conv3d's zero padding,
 // handled by explicit bounds checks while staging the input tile), followed
-// by one of five fused epilogues:
+// by one of seven fused epilogues:
 //
 //   kAnalysis:  out = ST(z - u, tau[n, o]); z == NULL reads as zeros.
 //   kAnalysisCsr, kAnalysisCsrF2: v = z - u as in kAnalysis, then the
 //               one-sided CSR prox of v toward the neighbour code zp with
 //               (tau, gam1[n, o]), or the two-sided one with zp, za and
 //               (tau, gam1, gam2): core/ops.py::prox_csr / prox_csr_f2,
-//               elementwise, the same expressions in the same order.
+//               elementwise, the same expressions in the same order; v is
+//               also stored to u_out when it is not NULL (the prox
+//               argument's history, which the CSR adjoints read).
 //   kSynthesis: out = [mask *] u [- y].
 //   kAdjoint:   dz = [base +] alpha * u; out = 1{z != 0} * dz, and per
 //               block and output channel the sum of -sign(z) * dz into
 //               part[block][n, o] (summed in a fixed order afterwards).
+//   kAdjointCsr, kAdjointCsrF2: dz as in kAdjoint, then the adjoint of
+//               z = prox_csr(v, zp) / prox_csr_f2(v, zp, za) at the stored
+//               prox argument v = uh and code z: out = dv, the cotangent
+//               of v; dzp (and dza) += the neighbour codes' cotangents, in
+//               place (each element is one thread's in a launch); and per
+//               block and output channel the sums of dtau, dgam1 (and
+//               dgam2) into part[q][block][n, o], q = 0, 1 (, 2). Every
+//               prox internal is recomputed from v in the order of the TPU
+//               kernel's adjoint (cdlnet_tpu/kernels/lista2d.py:537-603),
+//               with sign(0) = 0 and each mask != 0.
 //
 // What bounds it on this card: fp32 FMAs. At the flagship shape (M=169,
 // Cp=8, 8x64x64 code grid, 4x4x3 phase taps) one call is ~4.25 GFLOP per
@@ -58,8 +70,20 @@ enum Epilogue {
   kSynthesis = 1,
   kAdjoint = 2,
   kAnalysisCsr = 3,
-  kAnalysisCsrF2 = 4
+  kAnalysisCsrF2 = 4,
+  kAdjointCsr = 5,
+  kAdjointCsrF2 = 6
 };
+
+__host__ __device__ constexpr bool is_adjoint(int epi) {
+  return epi == kAdjoint || epi == kAdjointCsr || epi == kAdjointCsrF2;
+}
+
+// Per-(n, o) sums an adjoint epilogue reduces per block: dtau (kAdjoint),
+// dtau and dgam1 (kAdjointCsr), dtau, dgam1 and dgam2 (kAdjointCsrF2).
+__host__ __device__ constexpr int block_sums(int epi) {
+  return epi == kAdjointCsrF2 ? 3 : epi == kAdjointCsr ? 2 : 1;
+}
 
 struct ConvArgs {
   const float* in;     // (N, I, D, H, W)
@@ -67,15 +91,20 @@ struct ConvArgs {
   float* out;          // (N, O, D, H, W)
   const float* z;      // analysis: old codes, or NULL for zeros;
                        // adjoint: the codes whose support masks dz
+  float* u_out;        // CSR analysis: the prox argument v, or NULL
+  const float* uh;     // CSR adjoint: the stored prox argument v
+  float* dzp;          // CSR adjoint: zp's cotangent, accumulated
+  float* dza;          // two-sided CSR adjoint: za's cotangent, accumulated
   const float* tau;    // analysis: (N, O)
-  const float* zp;     // CSR analysis: the neighbour code (N, O, D, H, W)
-  const float* za;     // two-sided CSR analysis: the following frame's code
-  const float* gam1;   // CSR analysis: (N, O)
-  const float* gam2;   // two-sided CSR analysis: (N, O)
+  const float* zp;     // CSR: the neighbour code (N, O, D, H, W)
+  const float* za;     // two-sided CSR: the following frame's code
+  const float* gam1;   // CSR: (N, O)
+  const float* gam2;   // two-sided CSR: (N, O)
   const float* mask;   // synthesis: (N, O, D, H, W) or NULL
   const float* y;      // synthesis: (N, O, D, H, W) or NULL
   const float* base;   // adjoint: (N, O, D, H, W) or NULL for zeros
-  float* part;         // adjoint: (D * tiles, N, O) per-block tau partials
+  float* part;         // adjoint: (block_sums, D * tiles, N, O) per-block
+                       // partials of dtau (, dgam1, dgam2)
   float alpha;         // adjoint: scale of the correlation
   int N, I, O, D, H, W;
   int Qd, Qh, Qw;
@@ -109,11 +138,13 @@ __host__ __device__ inline int stage_floats(int Qd, int Qh, int Qw) {
 }
 
 // Shared memory (floats) of one block: NBUF pipeline buffers, reused
-// afterwards for the G groups' partial sums.
-template <int OB, int TH, int G, int IC, int NBUF>
+// afterwards for the G groups' partial sums, or an adjoint's block_sums
+// per-element terms (its G is 1).
+template <int OB, int TH, int G, int IC, int NBUF, int EPI>
 __host__ __device__ inline int smem_floats(int Qd, int Qh, int Qw) {
   const int bufs = NBUF * stage_floats<OB, TH, G, IC>(Qd, Qh, Qw);
-  const int red = G * OB * TH * kTW;
+  const int sums = G > block_sums(EPI) ? G : block_sums(EPI);
+  const int red = sums * OB * TH * kTW;
   return bufs > red ? bufs : red;
 }
 
@@ -171,6 +202,71 @@ __device__ inline float prox_csr_f2(float v, float zp, float za, float tau,
   return soft(midder + Cb - corr, tau);
 }
 
+// The adjoint of z = prox_csr(v, zp, tau, gam) at the stored v and z for the
+// cotangent dz (the TPU kernel's, cdlnet_tpu/kernels/lista2d.py:548-563):
+// dv, and the cotangents of zp, tau and gam.
+__device__ inline void prox_csr_adjoint(float dz, float z, float v, float zp,
+                                        float tau, float gam, float& dv,
+                                        float& dzp, float& dtau,
+                                        float& dgam) {
+  const float gw = z != 0.f ? dz : 0.f;
+  const float s_o = sgn(z);
+  const float s_zp = sgn(zp);
+  const float shift = zp + tau * s_zp;
+  const float inner = soft(v - shift, tau * gam);
+  const float m_i = inner != 0.f ? 1.f : 0.f;
+  const float s_i = sgn(inner);
+  dv = gw * m_i;
+  dzp = gw * (1.f - m_i);
+  dtau = -s_o * gw + s_zp * dzp - gam * s_i * dv;
+  dgam = -tau * s_i * dv;
+}
+
+// The adjoint of z = prox_csr_f2(v, zp, za, tau, g1, g2) at the stored v and
+// z (lista2d.py:564-603): dv, and the cotangents of zp, za, tau, g1, g2.
+__device__ inline void prox_csr_f2_adjoint(float dz, float z, float v,
+                                           float zp, float za, float tau,
+                                           float g1, float g2, float& dv,
+                                           float& dzp, float& dza,
+                                           float& dtau, float& dg1,
+                                           float& dg2) {
+  const float gw = z != 0.f ? dz : 0.f;
+  const float s_o = sgn(z);
+  const float s_zp = sgn(zp), s_za = sgn(za);
+  const float s_pa = sgn(zp - za);
+  const float s_ap = -s_pa;
+  const float Ca = zp + tau * s_zp + tau * g2 * s_pa;
+  const float Cb = za + tau * s_za + tau * g1 * s_ap;
+  const float uCa = v - Ca;
+  const float s_uca = sgn(uCa);
+  const float inner = soft(uCa, g1 * tau);
+  const float m_i = inner != 0.f ? 1.f : 0.f;
+  const float s_i = sgn(inner);
+  const float corr = tau * g1 * s_uca;
+  const float midder = soft(inner - Cb + corr, g2 * tau);
+  const float m_m = midder != 0.f ? 1.f : 0.f;
+  const float s_m = sgn(midder);
+  dtau = -s_o * gw;
+  const float gx = gw * m_m;  // on (inner - Cb + corr)
+  dtau += -g2 * s_m * gx;
+  dg2 = -tau * s_m * gx;
+  const float g_i = gx * m_i;  // on (v - Ca)
+  dtau += -g1 * s_i * g_i;
+  dg1 = -tau * s_i * g_i;
+  dv = g_i;
+  const float dCa = -g_i;
+  const float dcorr = gx - gw;
+  dtau += g1 * s_uca * dcorr;
+  dg1 += tau * s_uca * dcorr;
+  const float dCb = gw - gx;
+  dzp = dCa;
+  dtau += (s_zp + g2 * s_pa) * dCa;
+  dg2 += tau * s_pa * dCa;
+  dza = dCb;
+  dtau += (s_za + g1 * s_ap) * dCb;
+  dg1 += tau * s_ap * dCb;
+}
+
 // One tap's operands: kPX inputs (stride kTPX, conflict-free across the
 // warp) and OT weights (two broadcast float4 loads per 8).
 template <int OT>
@@ -202,8 +298,10 @@ lista3d_conv(const ConvArgs a) {
   static_assert(KS == 1 || (KS == 2 && EPI == kSynthesis),
                 "only the linear synthesis epilogue splits, over 2 blocks");
   static_assert(NBUF == 1 || NBUF == 2, "one or two pipeline buffers");
-  static_assert(EPI != kAdjoint || (kThreads % OB == 0 && kThreads / OB <= 32),
-                "adjoint: a power-of-two thread group per output channel");
+  static_assert(!is_adjoint(EPI) ||
+                    (G == 1 && kThreads % OB == 0 && kThreads / OB <= 32),
+                "adjoint: one group, a power-of-two thread group per output "
+                "channel");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
 
@@ -347,8 +445,12 @@ lista3d_conv(const ConvArgs a) {
     const int og = o0 + e / (kTW * TH);
     const int hh = h0 + r, ww = w0 + col;
     const bool inside = og < a.O && hh < a.H && ww < a.W;
-    // adjoint: red[e] (read only by this thread) now takes -sign(z) * dz
-    if (EPI == kAdjoint) red[e] = 0.f;
+    // adjoint: red[q * outs + e] (this thread's alone: G == 1) now takes
+    // the per-element terms of the block sums (zero outside the volume)
+    if (is_adjoint(EPI)) {
+#pragma unroll
+      for (int q = 0; q < block_sums(EPI); ++q) red[q * outs + e] = 0.f;
+    }
     if (!inside) continue;
     const size_t idx = (((size_t)n * a.O + og) * a.D + d) * plane +
                        (size_t)hh * a.W + ww;
@@ -363,11 +465,38 @@ lista3d_conv(const ConvArgs a) {
                        ? prox_csr(v, a.zp[idx], a.tau[no], a.gam1[no])
                        : prox_csr_f2(v, a.zp[idx], a.za[idx], a.tau[no],
                                      a.gam1[no], a.gam2[no]);
+      // after the loads: a store before them (u_out may alias them, for
+      // all the compiler knows) held every load back behind it, which
+      // made the served CSR analyses a third slower on the H100
+      if (a.u_out) a.u_out[idx] = v;
     } else if (EPI == kAdjoint) {
       const float dz = (a.base ? a.base[idx] : 0.f) + a.alpha * u;
       const float zc = a.z[idx];
       a.out[idx] = zc != 0.f ? dz : 0.f;
       red[e] = zc > 0.f ? -dz : (zc < 0.f ? dz : 0.f);
+    } else if (EPI == kAdjointCsr) {
+      const float dz = (a.base ? a.base[idx] : 0.f) + a.alpha * u;
+      const int no = n * a.O + og;
+      float dv, dzp, dtau, dgam;
+      prox_csr_adjoint(dz, a.z[idx], a.uh[idx], a.zp[idx], a.tau[no],
+                       a.gam1[no], dv, dzp, dtau, dgam);
+      a.out[idx] = dv;
+      a.dzp[idx] += dzp;
+      red[e] = dtau;
+      red[outs + e] = dgam;
+    } else if (EPI == kAdjointCsrF2) {
+      const float dz = (a.base ? a.base[idx] : 0.f) + a.alpha * u;
+      const int no = n * a.O + og;
+      float dv, dzp, dza, dtau, dg1, dg2;
+      prox_csr_f2_adjoint(dz, a.z[idx], a.uh[idx], a.zp[idx], a.za[idx],
+                          a.tau[no], a.gam1[no], a.gam2[no], dv, dzp, dza,
+                          dtau, dg1, dg2);
+      a.out[idx] = dv;
+      a.dzp[idx] += dzp;
+      a.dza[idx] += dza;
+      red[e] = dtau;
+      red[outs + e] = dg1;
+      red[2 * outs + e] = dg2;
     } else {
       if (a.mask) u *= a.mask[idx];
       if (a.y && ks == 0) u -= a.y[idx];
@@ -378,21 +507,24 @@ lista3d_conv(const ConvArgs a) {
     }
   }
 
-  if (EPI == kAdjoint) {
-    // per output channel: TPC threads sum its TH x kTW terms in a fixed
-    // order, then a fixed shuffle tree combines them (deterministic)
+  if (is_adjoint(EPI)) {
+    // per sum and output channel: TPC threads sum its TH x kTW terms in a
+    // fixed order, then a fixed shuffle tree combines them (deterministic)
     __syncthreads();
     constexpr int TPC = kThreads / OB;
     const int per = TH * kTW;
     const int ol = tid / TPC, j = tid % TPC;
-    float sum = 0.f;
-    for (int e = j; e < per; e += TPC) sum += red[ol * per + e];
+    const size_t blocks = (size_t)a.D * gridDim.x;
+    const size_t blk = (size_t)d * gridDim.x + blockIdx.x;
 #pragma unroll
-    for (int off = TPC / 2; off > 0; off >>= 1)
-      sum += __shfl_down_sync(0xffffffffu, sum, off, TPC);
-    if (j == 0 && o0 + ol < a.O) {
-      const size_t blk = (size_t)d * gridDim.x + blockIdx.x;
-      a.part[(blk * a.N + n) * a.O + o0 + ol] = sum;
+    for (int q = 0; q < block_sums(EPI); ++q) {
+      float sum = 0.f;
+      for (int e = j; e < per; e += TPC) sum += red[q * outs + ol * per + e];
+#pragma unroll
+      for (int off = TPC / 2; off > 0; off >>= 1)
+        sum += __shfl_down_sync(0xffffffffu, sum, off, TPC);
+      if (j == 0 && o0 + ol < a.O)
+        a.part[((q * blocks + blk) * a.N + n) * a.O + o0 + ol] = sum;
     }
   }
 }
@@ -404,7 +536,7 @@ int launch(const ConvArgs& a, cudaStream_t stream) {
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       sizeof(float) *
-      (size_t)smem_floats<OB, TH, G, IC, NBUF>(a.Qd, a.Qh, a.Qw);
+      (size_t)smem_floats<OB, TH, G, IC, NBUF, EPI>(a.Qd, a.Qh, a.Qw);
   const int tiles = ((a.W + kTW - 1) / kTW) * ((a.H + TH - 1) / TH);
   const int zdim = a.N * ((a.O + OB - 1) / OB) * KS;
   if (smem > (size_t)kMaxSmem || a.D > 65535 || zdim > 65535)

@@ -23,6 +23,10 @@ pulls z toward neighbour-frame codes (core/ops.py::prox_csr/prox_csr_f2):
 the analysis is then lista2d_ana_csr (one code z_prev) or lista2d_ana_csrf2
 (z_prev and z_after), with gamma banks formed like tau,
 gam[k, n, m] = g[k,0,m] + c[n] * g[k,1,m]; the synthesis is unchanged.
+For training, the CSR analyses also write the prox argument
+u_k = z_{k-1} - A_k r_k of every iteration (the u history): the two-sided
+prox's internals cannot be read back from its output, so the reverse
+kernels (kernels/lista2d_bwd.py) recompute them from u_k.
 
 Each wrapper runs its CUDA kernel on CUDA tensors, or raises; it runs the
 plain PyTorch version beside it (the same function on F.conv2d over the
@@ -46,13 +50,6 @@ from cdlnet_tpu_torch.kernels.lista3d import (
     launches,
 )
 from cdlnet_tpu_torch.ops import polyphase as pp
-
-# the u history and reverse kernel of the CSR prox modes (training) come
-# later
-CSR_TRAIN_HINT = ("training through the CSR prox modes (their u history and "
-                  "reverse kernel) is not ported to cdlnet_tpu_torch yet, see "
-                  "ROADMAP.md")
-
 
 def prep_A2m_2d(A: torch.Tensor, s: int, pads) -> torch.Tensor:
     """Phase-domain analysis banks in kernel layout (K, Cp, Qh, Qw, M)."""
@@ -96,16 +93,25 @@ def lista2d_syn_residual_plain(z, ws, geom, mask=None, y=None):
     return r if y is None else r - y
 
 
-def lista2d_ana_csr_plain(r, z, wa, tau, gam, zp, geom):
+def _argument_into(u_out, r, z, wa, geom):
+    """ana_argument_plain, also copied into u_out unless it is None."""
+    v = ana_argument_plain(r, z, wa, geom)
+    if u_out is not None:
+        u_out.copy_(v)
+    return v
+
+
+def lista2d_ana_csr_plain(r, z, wa, tau, gam, zp, geom, u_out=None):
     """Plain version of lista2d_ana_csr."""
-    return prox_csr(ana_argument_plain(r, z, wa, geom), zp, tau[:, :, None, None],
+    return prox_csr(_argument_into(u_out, r, z, wa, geom), zp, tau[:, :, None, None],
                     gam[:, :, None, None])
 
 
-def lista2d_ana_csrf2_plain(r, z, wa, tau, gam1, gam2, zp, za, geom):
+def lista2d_ana_csrf2_plain(r, z, wa, tau, gam1, gam2, zp, za, geom, u_out=None):
     """Plain version of lista2d_ana_csrf2."""
-    return prox_csr_f2(ana_argument_plain(r, z, wa, geom), zp, za, tau[:, :, None, None],
-                       gam1[:, :, None, None], gam2[:, :, None, None])
+    return prox_csr_f2(_argument_into(u_out, r, z, wa, geom), zp, za,
+                       tau[:, :, None, None], gam1[:, :, None, None],
+                       gam2[:, :, None, None])
 
 
 def csrf2_jump_gap(v, zp, za, tau, gam2):
@@ -117,10 +123,12 @@ def csrf2_jump_gap(v, zp, za, tau, gam2):
     return (v - csr_f2_jump(zp, za, tau[:, :, None, None], gam2[:, :, None, None])).abs()
 
 
-def _analysis(entry, r, z, wa, tau, geom, out, banks=(), codes=()):
+def _analysis(entry, r, z, wa, tau, geom, out, banks=(), codes=(), u_out=None):
     """Launch the analysis kernel `entry` after checking its operands: the
     ST arguments, then the (N, M) gamma `banks` and the (N, M, Hc, Wc)
-    neighbour `codes` of a CSR mode, each a (name, tensor) pair."""
+    neighbour `codes` of a CSR mode, each a (name, tensor) pair, and a CSR
+    mode's u_out, where its kernel stores the prox argument (None: NULL,
+    not stored)."""
     from cdlnet_tpu_torch.kernels._build import library
 
     lib = library()
@@ -134,9 +142,12 @@ def _analysis(entry, r, z, wa, tau, geom, out, banks=(), codes=()):
     for name, t in ((("z", z),) if z is not None else ()) + tuple(codes):
         _check(name, t, (N, M, H, W))
     out = _out(out, (N, M, H, W), r)
+    if u_out is not None:
+        _check("u_out", u_out, (N, M, H, W))
+    u_ptr = (_ptr(u_out),) if banks else ()  # the ST kernel takes no u_out
     err = getattr(lib, entry)(
         _ptr(r), _ptr(wa), _ptr(z), _ptr(tau), *(_ptr(t) for _, t in banks),
-        *(_ptr(t) for _, t in codes), _ptr(out),
+        *(_ptr(t) for _, t in codes), _ptr(out), *u_ptr,
         N, Cp, M, H, W, Qh, Qw, *geom.off_a, geom.s, *geom.P, *geom.pads,
         torch.cuda.current_stream(r.device).cuda_stream,
     )
@@ -158,26 +169,28 @@ def lista2d_ana_threshold(r, z, wa, tau, geom, out=None):
     return _analysis("lista2d_ana_threshold", r, z, wa, tau, geom, out)
 
 
-def lista2d_ana_csr(r, z, wa, tau, gam, zp, geom, out=None):
+def lista2d_ana_csr(r, z, wa, tau, gam, zp, geom, out=None, u_out=None):
     """z_new = prox_csr(z - A_k r, zp; tau, gam): the analysis + the
     one-sided CSR prox toward the neighbour code zp (N, M, Hc, Wc, not
-    `out`), gam (N, M); the rest as in lista2d_ana_threshold."""
+    `out`), gam (N, M); u_out: a contiguous (N, M, Hc, Wc) tensor that
+    takes the prox argument z - A_k r (the u history), or None; the rest as
+    in lista2d_ana_threshold."""
     if r.device.type == "cpu":
-        return _into(out, lista2d_ana_csr_plain(r, z, wa, tau, gam, zp, geom))
+        return _into(out, lista2d_ana_csr_plain(r, z, wa, tau, gam, zp, geom, u_out))
     return _analysis("lista2d_ana_csr", r, z, wa, tau, geom, out,
-                     banks=(("gam", gam),), codes=(("zp", zp),))
+                     banks=(("gam", gam),), codes=(("zp", zp),), u_out=u_out)
 
 
-def lista2d_ana_csrf2(r, z, wa, tau, gam1, gam2, zp, za, geom, out=None):
+def lista2d_ana_csrf2(r, z, wa, tau, gam1, gam2, zp, za, geom, out=None, u_out=None):
     """z_new = prox_csr_f2(z - A_k r, zp, za; tau, gam1, gam2): the analysis
     + the two-sided CSR prox with the previous and following frames' codes
     zp, za (N, M, Hc, Wc); the rest as in lista2d_ana_csr."""
     if r.device.type == "cpu":
         return _into(out, lista2d_ana_csrf2_plain(r, z, wa, tau, gam1, gam2, zp, za,
-                                                  geom))
+                                                  geom, u_out))
     return _analysis("lista2d_ana_csrf2", r, z, wa, tau, geom, out,
                      banks=(("gam1", gam1), ("gam2", gam2)),
-                     codes=(("zp", zp), ("za", za)))
+                     codes=(("zp", zp), ("za", za)), u_out=u_out)
 
 
 def lista2d_syn_residual(z, ws, geom, mask=None, y=None, out=None):
@@ -256,27 +269,32 @@ def lista2d_loop(y2, m2, wa, ws, tau, geom, return_hists=False, gams=(), codes=(
     CSR prox modes: `codes` holds the neighbour codes (N, M, Hc, Wc) — one
     (prox_csr) or two (z_prev, z_after: prox_csr_f2) — and `gams` as many
     (K, N, M) gamma banks (threshold_bank); the analysis is then
-    lista2d_ana_csr / lista2d_ana_csrf2. They take no histories yet."""
+    lista2d_ana_csr / lista2d_ana_csrf2. With return_hists they add a third
+    fp32 history, u_hist (K, N, M, Hc, Wc): the prox argument u_k = z_{k-1}
+    - A_k r_k of every iteration (u_0 = A_0 y2), which the CSR reverse
+    kernels recompute the prox's internals from."""
     K, M = wa.shape[0], wa.shape[-1]
     if len(gams) != len(codes) or len(codes) > 2:
         raise ValueError(f"{len(codes)} neighbour codes with {len(gams)} gamma banks")
-    if codes and return_hists:
-        raise NotImplementedError(CSR_TRAIN_HINT)
+
+    z_hist = r_hist = u_hist = None
+    if return_hists:  # the kernels write each z_k, r_k (and u_k) into its slice
+        N, _, H, W = y2.shape
+        z_hist = y2.new_empty((K, N, M, H, W))
+        r_hist = y2.new_empty((K - 1, *y2.shape))
+        if codes:
+            u_hist = y2.new_empty((K, N, M, H, W))
 
     def analysis(r, z, k, out):
         if not codes:
             return lista2d_ana_threshold(r, z, wa[k], tau[k], geom, out=out)
+        u_out = None if u_hist is None else u_hist[k]
         if len(codes) == 1:
             return lista2d_ana_csr(r, z, wa[k], tau[k], gams[0][k], codes[0], geom,
-                                   out=out)
+                                   out=out, u_out=u_out)
         return lista2d_ana_csrf2(r, z, wa[k], tau[k], gams[0][k], gams[1][k], *codes,
-                                 geom, out=out)
+                                 geom, out=out, u_out=u_out)
 
-    z_hist = r_hist = None
-    if return_hists:  # the kernels write each z_k and r_k into its slice
-        N, _, H, W = y2.shape
-        z_hist = y2.new_empty((K, N, M, H, W))
-        r_hist = y2.new_empty((K - 1, *y2.shape))
     z = analysis(-y2, None, 0, None if z_hist is None else z_hist[0])
     r = torch.empty_like(y2) if r_hist is None else None
     for k in range(1, K):
@@ -284,7 +302,28 @@ def lista2d_loop(y2, m2, wa, ws, tau, geom, return_hists=False, gams=(), codes=(
                                  out=r if r_hist is None else r_hist[k - 1])
         z = analysis(r, z, k, z if z_hist is None else z_hist[k])
     x2 = lista2d_syn_residual(z, ws[0], geom)
-    return x2, z, (None if z_hist is None else (z_hist, r_hist))
+    if z_hist is None:
+        return x2, z, None
+    return x2, z, (z_hist, r_hist) if u_hist is None else (z_hist, r_hist, u_hist)
+
+
+def csr_mode(g, z_prev, g2, z_after):
+    """(codes, banks) of lista2d_loop for the CSR keywords, as the JAX
+    package maps them: () for none (soft threshold), (z_prev,) with g,
+    (z_after,) with g2 (the one-sided prox toward the following frame, in
+    z_prev's slots), or both codes with (g, g2). Raises ValueError when a
+    code comes without its bank."""
+    codes, banks = (), ()
+    if z_prev is not None and z_after is not None:
+        codes, banks = (z_prev, z_after), (g, g2)
+    elif z_prev is not None:
+        codes, banks = (z_prev,), (g,)
+    elif z_after is not None:  # one-sided on the following frame: gamma = g2
+        codes, banks = (z_after,), (g2,)
+    if any(b is None for b in banks):
+        raise ValueError("each neighbour code needs its gamma bank (g for z_prev, "
+                         "g2 for z_after)")
+    return codes, banks
 
 
 def lista2d_fused(yp, A, B, t, c, stride=1, mask=None, return_z=False,
@@ -301,9 +340,11 @@ def lista2d_fused(yp, A, B, t, c, stride=1, mask=None, return_z=False,
     r_hist (K-1, N, Cp, Hc, Wc)) of lista2d_loop, in the phase domain: r_k
     has the space_to_depth layout of y2 (channel c*s^2 + a_h*s + a_w). The
     JAX kernel's one (N, K, Mp8+Rp8, Hc*Wc) array holds the same values
-    (z_k in rows [0:M), r_k in rows [Mp8:Mp8+Cp) of its step k). No
-    gradient flows through the kernels here: training goes through
-    autodiff.lista2d_fused_diff.
+    (z_k in rows [0:M), r_k in rows [Mp8:Mp8+Cp) of its step k; in a CSR
+    mode u_k in rows [Mp8:Mp8+M) and r_k after them). No gradient flows
+    through the kernels here: training goes through
+    autodiff.lista2d_fused_diff, and for the CSR models
+    autodiff.csr_fused_2d_train.
 
     CSR prox modes (the frame-recurrent models), mapped as the JAX
     package maps them: z_prev (N, M, Hc, Wc) with the gamma bank g (K, 2, M,

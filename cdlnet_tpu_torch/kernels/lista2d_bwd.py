@@ -1,6 +1,7 @@
 """The reverse pass of the fused 2D (image) LISTA on hand-written CUDA kernels
-(counterpart of cdlnet_tpu/kernels/lista2d.py::lista2d_fused_bwd and
-lista2d_tiled_bwd.py::lista2d_tiled_fused_bwd, soft-threshold mode).
+(counterpart of cdlnet_tpu/kernels/lista2d.py::lista2d_fused_bwd, in the
+soft-threshold and CSR prox modes, and lista2d_tiled_bwd.py::
+lista2d_tiled_fused_bwd).
 
 The reverse loop is the 3D one (kernels/lista3d_bwd.py::fused_bwd, whose
 docstring states the algebra) on the (Hc, Wc) code grid of the 2D
@@ -27,6 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from cdlnet_tpu_torch.core.ops import ST
 from cdlnet_tpu_torch.kernels.lista2d import _correlate_plain, lista2d_syn_residual
 from cdlnet_tpu_torch.kernels.lista3d import _check, _ptr, _raise_on, launches
 from cdlnet_tpu_torch.kernels.lista3d_bwd import fused_bwd
@@ -40,6 +42,97 @@ def lista2d_syn_adjoint_plain(g, wt, z, geom, base=None, alpha=1.0):
     dv = torch.where(z != 0, dz, torch.zeros_like(dz))
     dtau = -(torch.sign(z) * dz).sum(dim=(2, 3))
     return dv, dtau
+
+
+def prox_csr_adjoint_plain(dz, z, u, zp, tau, gam):
+    """The adjoint of z = prox_csr(u, zp, tau, gam) (core/ops.py) for the
+    cotangent dz, at the stored prox argument u and code z, elementwise in
+    the TPU kernel's order (lista2d.py:548-563): sign(0) = 0 and each mask
+    is `!= 0`. Returns (du, dzp, dtau, dgam) per element; tau and gam
+    broadcast against the codes."""
+    gw = torch.where(z != 0, dz, torch.zeros_like(dz))
+    s_o = torch.sign(z)
+    s_zp = torch.sign(zp)
+    shift = zp + tau * s_zp
+    inner = ST(u - shift, tau * gam)
+    m_i = (inner != 0).to(dz.dtype)
+    s_i = torch.sign(inner)
+    du = gw * m_i
+    dzp = gw * (1.0 - m_i)
+    dtau = -s_o * gw + s_zp * dzp - gam * s_i * du
+    dgam = -tau * s_i * du
+    return du, dzp, dtau, dgam
+
+
+def prox_csr_f2_adjoint_plain(dz, z, u, zp, za, tau, g1, g2):
+    """The adjoint of z = prox_csr_f2(u, zp, za, tau, g1, g2) (core/ops.py)
+    for the cotangent dz, as prox_csr_adjoint_plain (lista2d.py:564-603).
+    Returns (du, dzp, dza, dtau, dg1, dg2) per element."""
+    gw = torch.where(z != 0, dz, torch.zeros_like(dz))
+    s_o = torch.sign(z)
+    s_zp, s_za = torch.sign(zp), torch.sign(za)
+    s_pa = torch.sign(zp - za)
+    s_ap = -s_pa
+    Ca = zp + tau * s_zp + tau * g2 * s_pa
+    Cb = za + tau * s_za + tau * g1 * s_ap
+    uCa = u - Ca
+    s_uca = torch.sign(uCa)
+    inner = ST(uCa, g1 * tau)
+    m_i = (inner != 0).to(dz.dtype)
+    s_i = torch.sign(inner)
+    corr = tau * g1 * s_uca
+    midder = ST(inner - Cb + corr, g2 * tau)
+    m_m = (midder != 0).to(dz.dtype)
+    s_m = torch.sign(midder)
+    dtau = -s_o * gw
+    gx = gw * m_m                # on (inner - Cb + corr)
+    dtau = dtau + -g2 * s_m * gx
+    dg2 = -tau * s_m * gx
+    g_i = gx * m_i               # on (u - Ca)
+    dtau = dtau + -g1 * s_i * g_i
+    dg1 = -tau * s_i * g_i
+    du = g_i
+    dCa = -g_i
+    dcorr = gx - gw
+    dtau = dtau + g1 * s_uca * dcorr
+    dg1 = dg1 + tau * s_uca * dcorr
+    dCb = gw - gx
+    dtau = dtau + (s_zp + g2 * s_pa) * dCa
+    dg2 = dg2 + tau * s_pa * dCa
+    dtau = dtau + (s_za + g1 * s_ap) * dCb
+    dg1 = dg1 + tau * s_ap * dCb
+    return du, dCa, dCb, dtau, dg1, dg2
+
+
+def _synthesis_adjoint_plain(g, wt, geom, base, alpha):
+    """dz = [base +] alpha * corr(g, wt, off_a)."""
+    dz = alpha * _correlate_plain(g, wt, geom.off_a)
+    return dz if base is None else base + dz
+
+
+def _bank(b):
+    return b[:, :, None, None]
+
+
+def lista2d_syn_adjoint_csr_plain(g, wt, z, u, tau, gam, zp, dzp, geom, base=None,
+                                  alpha=1.0):
+    """Plain version of lista2d_syn_adjoint_csr (dzp updated in place)."""
+    dz = _synthesis_adjoint_plain(g, wt, geom, base, alpha)
+    du, dzp_k, dtau, dgam = prox_csr_adjoint_plain(dz, z, u, zp, _bank(tau), _bank(gam))
+    dzp += dzp_k
+    return du, dtau.sum(dim=(2, 3)), dgam.sum(dim=(2, 3))
+
+
+def lista2d_syn_adjoint_csrf2_plain(g, wt, z, u, tau, gam1, gam2, zp, za, dzp, dza,
+                                    geom, base=None, alpha=1.0):
+    """Plain version of lista2d_syn_adjoint_csrf2 (dzp, dza updated in
+    place)."""
+    dz = _synthesis_adjoint_plain(g, wt, geom, base, alpha)
+    du, dzp_k, dza_k, dtau, dg1, dg2 = prox_csr_f2_adjoint_plain(
+        dz, z, u, zp, za, _bank(tau), _bank(gam1), _bank(gam2))
+    dzp += dzp_k
+    dza += dza_k
+    return du, dtau.sum(dim=(2, 3)), dg1.sum(dim=(2, 3)), dg2.sum(dim=(2, 3))
 
 
 def lista2d_wgrad_plain(x, y, taps, off, alpha=1.0):
@@ -123,12 +216,91 @@ def lista2d_wgrad(x, y, taps, off, alpha=1.0):
     return dw
 
 
-def lista2d_fused_bwd(dx2, y2, m2, banks, tau, z_hist, r_hist, geom):
+def _csr_adjoint(entry, g, wt, z, u, tau, gams, codes, dcodes, geom, base, alpha):
+    """Launch the CSR adjoint kernel `entry` after checking its operands:
+    gams the (N, M) gamma banks, codes the neighbour codes and dcodes their
+    cotangent buffers (N, M, Hc, Wc), which the kernel adds into. Returns
+    (dv, dtau, *dgams)."""
+    from cdlnet_tpu_torch.kernels._build import library
+
+    lib = library()
+    N, Cp, H, W = g.shape
+    M = wt.shape[-1]
+    Qh, Qw = wt.shape[1:3]
+    _check("g", g, g.shape)
+    _check("wt", wt, (Cp, Qh, Qw, M))
+    named = [("z", z), ("u", u), *zip(("zp", "za"), codes), *zip(("dzp", "dza"), dcodes)]
+    if base is not None:
+        named.append(("base", base))
+    for name, t in named:
+        _check(name, t, (N, M, H, W))
+    for name, t in (("tau", tau), *zip(("gam1", "gam2"), gams)):
+        _check(name, t, (N, M))
+    dv = torch.empty_like(z)
+    sums = [torch.empty((N, M), dtype=g.dtype, device=g.device) for _ in range(1 + len(gams))]
+    work = torch.empty((len(sums), lib.lista3d_syn_adjoint_parts(1, H, W), N, M),
+                       dtype=g.dtype, device=g.device)
+    err = getattr(lib, entry)(
+        _ptr(g), _ptr(wt), _ptr(base), _ptr(z), _ptr(u), _ptr(tau),
+        *(_ptr(t) for t in gams), *(_ptr(t) for t in codes), _ptr(work), _ptr(dv),
+        *(_ptr(t) for t in dcodes), *(_ptr(t) for t in sums),
+        N, Cp, M, H, W, Qh, Qw, *geom.off_a, geom.s, *geom.P, *geom.pads,
+        float(alpha), torch.cuda.current_stream(g.device).cuda_stream,
+    )
+    _raise_on(err, entry)
+    launches[entry] += 1
+    return (dv, *sums)
+
+
+def lista2d_syn_adjoint_csr(g, wt, z, u, tau, gam, zp, dzp, geom, base=None, alpha=1.0):
+    """dz = [base +] alpha * corr(g, wt, off_a), then the adjoint of the
+    one-sided CSR prox z = prox_csr(u, zp; tau, gam) at the stored prox
+    argument u and code z (N, M, Hc, Wc).
+
+    g, wt, base, alpha as in lista2d_syn_adjoint; tau, gam: (N, M); zp: the
+    neighbour code; dzp: (N, M, Hc, Wc), which the cotangent of zp is added
+    into. Returns (dv (N, M, Hc, Wc), dtau (N, M), dgam (N, M)), the
+    per-block sums added in a fixed order.
+    """
+    if g.device.type == "cpu":
+        return lista2d_syn_adjoint_csr_plain(g, wt, z, u, tau, gam, zp, dzp, geom,
+                                             base=base, alpha=alpha)
+    return _csr_adjoint("lista2d_syn_adjoint_csr", g, wt, z, u, tau, (gam,), (zp,),
+                        (dzp,), geom, base, alpha)
+
+
+def lista2d_syn_adjoint_csrf2(g, wt, z, u, tau, gam1, gam2, zp, za, dzp, dza, geom,
+                              base=None, alpha=1.0):
+    """As lista2d_syn_adjoint_csr for the two-sided prox z =
+    prox_csr_f2(u, zp, za; tau, gam1, gam2), with the previous and
+    following frames' codes zp, za, whose cotangents are added into dzp,
+    dza. Returns (dv, dtau, dgam1, dgam2)."""
+    if g.device.type == "cpu":
+        return lista2d_syn_adjoint_csrf2_plain(g, wt, z, u, tau, gam1, gam2, zp, za,
+                                               dzp, dza, geom, base=base, alpha=alpha)
+    return _csr_adjoint("lista2d_syn_adjoint_csrf2", g, wt, z, u, tau, (gam1, gam2),
+                        (zp, za), (dzp, dza), geom, base, alpha)
+
+
+def lista2d_fused_bwd(dx2, y2, m2, banks, tau, z_hist, r_hist, geom, gams=(), codes=(),
+                      u_hist=None, dz_out=None):
     """The reverse loop of the fused 2D LISTA (lista3d_bwd.fused_bwd, the
     3D algebra on the (Hc, Wc) grid) over the histories of
     lista2d.lista2d_loop(return_hists=True): 2K lista2d_wgrad, K
     lista2d_syn_adjoint and K-1 lista2d_syn_residual launches. dx2, y2, m2:
     (N, Cp, Hc, Wc) (m2 may be None); banks: (wa, ws) as from
-    lista2d.phase_operands; tau: (K, N, M). Returns (dwa, dws, dtau)."""
-    return fused_bwd((lista2d_syn_adjoint, lista2d_wgrad, lista2d_syn_residual), 2,
-                     dx2, y2, m2, banks, tau, z_hist, r_hist, geom)
+    lista2d.phase_operands; tau: (K, N, M); dz_out: the cotangent of the
+    returned code (N, M, Hc, Wc), or None. Returns (dwa, dws, dtau).
+
+    CSR prox modes: the loop's `gams` and `codes` (one: prox_csr; two:
+    prox_csr_f2) and its u_hist; the K adjoints are then
+    lista2d_syn_adjoint_csr(f2), and the return is (dwa, dws, dtau, dgams,
+    dcodes) with the gradients of the gamma banks (K, N, M) and of the
+    neighbour codes."""
+    kernels = (lista2d_syn_adjoint, lista2d_wgrad, lista2d_syn_residual)
+    prox = None
+    if codes:
+        adjoint = lista2d_syn_adjoint_csr if len(codes) == 1 else lista2d_syn_adjoint_csrf2
+        prox = (adjoint, u_hist, gams, codes)
+    return fused_bwd(kernels, 2, dx2, y2, m2, banks, tau, z_hist, r_hist, geom,
+                     dz_out=dz_out, prox=prox)

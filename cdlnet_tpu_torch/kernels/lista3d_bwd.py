@@ -16,7 +16,7 @@ synthesis-form correlation at off_s and the synthesis's an analysis-form
 one at off_a. With dv_k = 1{z_k != 0} dz_k, the soft threshold's
 subgradient read off the stored code, the reverse pass is
 
-  init:   dz_{K-1} = ws_0*(dx2);              dws_0 = dx2 (*) z_{K-1}
+  init:   dz_{K-1} = ws_0*(dx2) [+ dz_out];   dws_0 = dx2 (*) z_{K-1}
   k = K-1..1:
           g         = m * wa_k*(dv_k)            (lista3d_syn_residual)
           dwa_k     = -dv_k (*) r_k              (lista3d_wgrad)
@@ -26,7 +26,9 @@ subgradient read off the stored code, the reverse pass is
   k = 0:  dwa_0 = dv_0 (*) y2
 
 where y (*) x is the weight gradient of the bank of corr(x, ., off) whose
-output's cotangent is y, dtau_{K-1} comes from the init step, and the sign
+output's cotangent is y, dz_out is the cotangent of the returned code (the
+frame-recurrent CSR models carry it into the next frame), dtau_{K-1}
+comes from the init step, and the sign
 of g goes into the alpha of its two consumers. A synthesis bank's gradient
 y (*) z at off_s is the adjoint_bank of z (*) y at off_a, so both weight
 gradients run as products with the M code channels as outputs (the
@@ -160,7 +162,8 @@ def lista3d_wgrad(x, y, taps, off, alpha=1.0):
     return dw
 
 
-def fused_bwd(kernels, spatial, dx2, y2, m2, banks, tau, z_hist, r_hist, geom):
+def fused_bwd(kernels, spatial, dx2, y2, m2, banks, tau, z_hist, r_hist, geom,
+              dz_out=None, prox=None):
     """The reverse loop of a fused LISTA over its stored histories (module
     docstring), on the kernels (syn_adjoint, wgrad, syn_residual) of a
     stride-phase domain with `spatial` tap dims (3: video, 2: images).
@@ -168,8 +171,19 @@ def fused_bwd(kernels, spatial, dx2, y2, m2, banks, tau, z_hist, r_hist, geom):
     dx2: (N, Cp, *grid) cotangent of x2; y2, m2 (or None): the forward's
     phase-domain input and mask; banks: (wa, ws) as from phase_operands;
     tau: (K, N, M) (its shape only is read: the subgradients come from the
-    codes); z_hist, r_hist: from the loop's return_hists=True. Returns
-    (dwa, dws, dtau), the gradients of wa, ws and tau.
+    codes); z_hist, r_hist: from the loop's return_hists=True; dz_out:
+    (N, M, *grid) cotangent of the returned code z_{K-1}, or None: it seeds
+    dz_{K-1} (the base of the first adjoint call). Returns (dwa, dws,
+    dtau), the gradients of wa, ws and tau.
+
+    prox: None for the soft threshold, else (adjoint, u_hist, gams, codes)
+    of a CSR prox mode: `adjoint` runs in syn_adjoint's place with the
+    signature of kernels/lista2d_bwd.py::lista2d_syn_adjoint_csr(f2) — at
+    iteration k it reads u_hist[k], the (K, N, M) gamma banks `gams` at k
+    and the neighbour `codes`, and adds the codes' cotangents into buffers
+    it is given. Then the return is (dwa, dws, dtau, dgams, dcodes): the
+    gradients of each gamma bank (K, N, M) and of each neighbour code,
+    summed over the K iterations.
     """
     syn_adjoint, wgrad, syn_residual = kernels
     wa, ws = banks
@@ -180,20 +194,37 @@ def fused_bwd(kernels, spatial, dx2, y2, m2, banks, tau, z_hist, r_hist, geom):
     dwa = torch.empty_like(wa)
     dws = torch.empty_like(ws)
     dtau = torch.empty_like(tau)
+    if prox is not None:
+        prox_adjoint, u_hist, gams, codes = prox
+        dgams = tuple(torch.empty_like(gm) for gm in gams)
+        dcodes = tuple(torch.zeros_like(c) for c in codes)
+
+    def adjoint(k, g, wt, base, alpha):
+        """dv_k and dtau_k from dz_k = [base +] alpha * wt*(g), through the
+        prox of iteration k."""
+        if prox is None:
+            return syn_adjoint(g, wt, z_hist[k], geom, base=base, alpha=alpha)
+        dv, dtau_k, *dg = prox_adjoint(g, wt, z_hist[k], u_hist[k], tau[k],
+                                       *(gm[k] for gm in gams), *codes, *dcodes,
+                                       geom, base=base, alpha=alpha)
+        for out, d in zip(dgams, dg):
+            out[k] = d
+        return dv, dtau_k
 
     def syn_wgrad(z, g, alpha):  # == wgrad(z, g, taps, geom.off_s, alpha)
         return adjoint_bank(wgrad(g, z, taps, geom.off_a, alpha=alpha), spatial)
 
-    dv, dtau[K - 1] = syn_adjoint(dx2, ws_adj[0], z_hist[K - 1], geom)
+    dv, dtau[K - 1] = adjoint(K - 1, dx2, ws_adj[0], dz_out, 1.0)
     dws[0] = syn_wgrad(z_hist[K - 1], dx2, 1.0)
     for k in range(K - 1, 0, -1):
         dwa[k] = wgrad(r_hist[k - 1], dv, taps, geom.off_a, alpha=-1.0)
         g = syn_residual(dv, wa_adj[k], geom, mask=m2)
         dws[k] = syn_wgrad(z_hist[k - 1], g, -1.0)
-        dv, dtau[k - 1] = syn_adjoint(g, ws_adj[k], z_hist[k - 1], geom,
-                                      base=dv, alpha=-1.0)
+        dv, dtau[k - 1] = adjoint(k - 1, g, ws_adj[k], dv, -1.0)
     dwa[0] = wgrad(y2, dv, taps, geom.off_a)
-    return dwa, dws, dtau
+    if prox is None:
+        return dwa, dws, dtau
+    return dwa, dws, dtau, dgams, dcodes
 
 
 def lista3d_fused_bwd(dx2, y2, m2, banks, tau, z_hist, r_hist, geom):

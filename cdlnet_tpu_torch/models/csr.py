@@ -15,8 +15,16 @@ On backend "pallas"/"cuda" the K-iteration loop runs on the 2D kernels
 (kernels/lista2d.py::lista2d_fused with the CSR prox in the analysis
 epilogue), on "xla" the plain PyTorch loop. One kernel set serves every
 frame size, so the JAX package's choice between its whole-frame and banded
-kernels has no counterpart. Training through the kernels is not ported yet:
-with gradients enabled the kernel backends raise.
+kernels has no counterpart. With gradients enabled the kernel backends
+train, as the JAX package's train=True does: the forward goes through
+kernels/autodiff.py::csr_fused_2d_train, which stores the z, r and u
+(prox argument) histories, and its backward runs the reverse kernels with
+the prox's adjoint (kernels/lista2d_bwd.py). Gradients reach every bank,
+threshold and gamma and the carried neighbour codes, so the frame
+recurrence (train/fit_csr.py) backpropagates across frames. The JAX
+package's VMEM gate for that path (lista2d_bwd_supported, which sends
+native frames to its XLA scan) has no counterpart: the port trains on the
+kernels at every frame size.
 
 Parameters, under the JAX package's params names:
   CDLNetCSR:   A, B, A2, B2: (K, M, C, P, P); t, t2, g: (K, 2, M, 1, 1)
@@ -38,7 +46,8 @@ from torch import nn
 from cdlnet_tpu_torch import nle
 from cdlnet_tpu_torch.core.ops import prox_csr, prox_csr_f2, uball_project
 from cdlnet_tpu_torch.core.preprocess import post_process
-from cdlnet_tpu_torch.kernels.lista2d import CSR_TRAIN_HINT, lista2d_fused
+from cdlnet_tpu_torch.kernels.autodiff import csr_fused_2d_train
+from cdlnet_tpu_torch.kernels.lista2d import lista2d_fused
 from cdlnet_tpu_torch.models.base import check_backend, register
 from cdlnet_tpu_torch.models.cdlnet import _prepare, normalizing_scale
 from cdlnet_tpu_torch.ops.conv import conv_transpose2d
@@ -88,16 +97,19 @@ class _CSRBase(nn.Module):
         and B (the final synthesis through self.B[0]) and post-process.
         prox(u, k, c) is the plain loop's prox (None: ST at t); `codes` the
         kernels' CSR keywords (lista2d_fused's g, z_prev, g2, z_after).
-        Returns (xhat, z)."""
+        On the kernels with gradients enabled it runs the training path,
+        csr_fused_2d_train. Returns (xhat, z)."""
         yp, prm, mask, c = _prepare(self, y, sigma, mask)
         if self.backend in ("pallas", "cuda"):
-            if torch.is_grad_enabled():
-                raise NotImplementedError(CSR_TRAIN_HINT)
             # the loop's B_0 is never read: the final synthesis is the
-            # primary B[0] (model/net.py:460)
+            # primary B[0] (model/net.py:460), which takes its gradient
             Bk = torch.cat([self.B[:1], B[1:]]) if B is not self.B else B
-            xphat, z = lista2d_fused(yp, A, Bk, t, c, stride=self.s, mask=mask,
-                                     return_z=True, **codes)
+            if torch.is_grad_enabled():
+                xphat, z = csr_fused_2d_train(yp, A, Bk, t, c, mask=mask,
+                                              stride=self.s, **codes)
+            else:
+                xphat, z = lista2d_fused(yp, A, Bk, t, c, stride=self.s, mask=mask,
+                                         return_z=True, **codes)
         else:
             z = lista_2d(yp, A, B, t, c, mask=mask, stride=self.s, prox=prox)
             xphat = conv_transpose2d(z, self.B[0], stride=self.s, padding=self.pad,

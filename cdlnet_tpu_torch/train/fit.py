@@ -16,9 +16,10 @@ Structure (reference train.py:32-158):
     the epoch counter (train.py:113-142), log to backtrack.txt; disarmed
     after max_backtracks consecutive restores without a new best.
 
-Not ported yet (each raises NotImplementedError naming ROADMAP.md): the mri
-workload, meshes, BatchNorm (stateful) families, one-dispatch
-device-scan epochs, MC-SURE and the combined loss, orbax checkpoints.
+The frame-recurrent CSR models train through train/fit_csr.py. Not ported
+yet (each raises NotImplementedError naming ROADMAP.md): meshes, BatchNorm
+(stateful) families, one-dispatch device-scan epochs, MC-SURE and the
+combined loss, orbax checkpoints.
 """
 
 from __future__ import annotations
@@ -95,12 +96,13 @@ def make_train_step(model, opt, *, workload="3d", noise_std=(25, 25),
       train_step(opt_state, batch, generator) -> loss
         (params and opt_state update in place)
       eval_step(batch, generator) -> loss
-    batch: a clean (N, C, D, H, W) clip batch (workload "3d") or (N, C, H,
-    W) image batch ("2d") on the model's device; generator: a
+    batch: a clean (N, C, D, H, W) clip batch (workload "3d", or "mri":
+    fastMRI volumes, the same volumetric step) or (N, C, H, W) image batch
+    ("2d") on the model's device; generator: a
     torch.Generator there, which draws the noise (and the per-sample sigma
     when noise_std is a range). demosaic observes through the RGGB Bayer
     mask (2D) or the reference's all-ones 3D mask."""
-    if workload not in ("2d", "3d"):
+    if workload not in ("2d", "3d", "mri"):
         raise NotImplementedError(f"workload {workload!r} {_NOT_PORTED}")
     for name, unported in (("mcsure", mcsure), ("stateful", stateful),
                            ("mesh", mesh is not None),
@@ -140,7 +142,7 @@ def fit(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1,
     (epoch, phase, psnr); the model's parameters are trained in place.
 
     loaders: {"train", "val", "test"} -> iterables of clean batches, (N, C,
-    D, H, W) clips for workload "3d" or (N, C, H, W) images for "2d" (numpy
+    D, H, W) clips for workload "3d" or "mri" or (N, C, H, W) images for "2d" (numpy
     arrays or tensors), moved to the model's device. The
     semantics follow the JAX package's fit (module docstring); sched is
     dict(step_size=..., gamma=...) for StepLR."""

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's video serve, 2D image serve, video
-training, 2D image training and native-resolution video paths on one GPU.
+training, 2D image training, native-resolution video and frame-recurrent
+CSR serving and training paths on one GPU.
 
     python3 chip_smoke.py
 
@@ -66,6 +67,17 @@ Builds the hand-written CUDA kernels from cdlnet_tpu_torch/kernels/csrc
             for both models, known and blind sigma (launches counted), the
             trained examples/csr-demo on smooth 128^2 volumes, and
             cli.analyzemri.test on native volumes;
+  csr_train frame-recurrent CSR training at the same width: the CSR adjoint
+            kernels (one code, the following code alone, two codes) and
+            the P=9 synthesis against their plain versions at 1x128^2 and
+            640x368 (and its 640x384 bucket), on a K=30 forward's u and z
+            histories; the K=30 gradients through the kernels against
+            backend "xla" for both models, every parameter and the carried
+            codes, bitwise repeatable; make_csr_train_step at native
+            640x368 (launches counted, remat bitwise equal to no remat,
+            step ms and peak GB on the kernels and on "xla"); and fit_csr
+            for 20 steps of CDLNet_CSRf2 on 2 x 3 x 128^2 volumes, its
+            launches per step and a checkpoint that reloads;
 
 and times every kernel (CUDA events) beside its plain version, the one
 PyTorch call that computes the same function, and its bound on this card,
@@ -127,6 +139,7 @@ from cdlnet_tpu_torch.ops.lista import lista_2d, lista_3d
 from cdlnet_tpu_torch.serve import Denoiser
 from cdlnet_tpu_torch.train.checkpoint import load_ckpt
 from cdlnet_tpu_torch.train.fit import fit, init_model, make_train_step, train_update
+from cdlnet_tpu_torch.train.fit_csr import fit_csr, make_csr_train_step
 from cdlnet_tpu_torch.train.losses import mse_loss
 from cdlnet_tpu_torch.train.optim import make_optimizer
 from cdlnet_tpu_torch.utils import img_save, load_video
@@ -203,6 +216,12 @@ KERNELS = {
                         f"{K7}:175 _kernel_ana_band prox 'csr' (:189-250)"),
     "lista2d_ana_csrf2": (CSRC + "lista2d.cu", f"{K5} _kernel prox 'csrf2' (:273-295); "
                           f"{K7}:175 _kernel_ana_band prox 'csrf2' (:189-250)"),
+    # the CSR prox modes of K6: the synthesis adjoint with the prox's adjoint
+    # in its epilogue
+    "lista2d_syn_adjoint_csr": (CSRC + "lista3d_bwd.cu", "cdlnet_tpu/kernels/lista2d.py:399 "
+                                "_kernel_bwd prox 'csr' (:548-563)"),
+    "lista2d_syn_adjoint_csrf2": (CSRC + "lista3d_bwd.cu", "cdlnet_tpu/kernels/lista2d.py:399 "
+                                  "_kernel_bwd prox 'csrf2' (:564-603)"),
 }
 # the native-resolution path (the shapes of K9-K12): DAVIS's 480x854 test
 # clips, which cli/analyze3d.py evaluates at full resolution (Denoiser
@@ -241,6 +260,8 @@ CSR_CLI_VOLUMES = 2         # native volumes of the eval CLI's test
 CSR_JUMP_EPS = 1e-5
 CSR_L2_TOL = 1e-4
 CSR_PSNR_GAP_DB = 0.01
+# fit_csr's run at the argscsr width from the power-method init
+FIT_CSR_LR = 5e-4
 # launches per train step: forward K + K, reverse K syn_adjoint, K-1
 # syn_residual (the analysis adjoint) and 2K wgrad (dA and dB)
 STEP_LAUNCHES = {"lista3d_ana_threshold": 30, "lista3d_syn_residual": 59,
@@ -1749,6 +1770,299 @@ def csr(dev, card, err) -> tuple[dict, dict]:
     return dict(launches), times
 
 
+class GradRecorder:
+    """An optimizer stand-in for make_csr_train_step: it keeps the
+    gradients a step hands it, so two runs can be compared."""
+
+    def update(self, params, grads, state):
+        state.update({n: g.clone() for n, g in grads.items()})
+
+
+def csr_step_launches(two_sided, K, remat=False) -> dict:
+    """Launches of one make_csr_train_step step (4 frame applications, each
+    a K-iteration forward of K analyses and K syntheses, and in reverse K
+    adjoints, K - 1 analysis adjoints and 2K wgrads): CDLNet_CSR runs one
+    first-frame (ST) apply and three with the previous code; CDLNet_CSRf2
+    one ST apply, two one-sided (z_prev; z_after alone) and one two-sided.
+    remat runs each forward again in the backward."""
+    fwd = 2 if remat else 1
+    if two_sided:
+        ana = {"lista2d_ana_threshold": K, "lista2d_ana_csr": 2 * K, "lista2d_ana_csrf2": K}
+        adj = {"lista2d_syn_adjoint": K, "lista2d_syn_adjoint_csr": 2 * K,
+               "lista2d_syn_adjoint_csrf2": K}
+    else:
+        ana = {"lista2d_ana_threshold": K, "lista2d_ana_csr": 3 * K}
+        adj = {"lista2d_syn_adjoint": K, "lista2d_syn_adjoint_csr": 3 * K}
+    out = {n: fwd * v for n, v in ana.items()} | adj
+    out["lista2d_syn_residual"] = 4 * (fwd * K + K - 1)
+    out["lista2d_wgrad"] = 4 * 2 * K
+    return out
+
+
+def csr_eval_launches(two_sided, K) -> dict:
+    """Launches of one make_csr_train_step eval (the 4 applies' forwards)."""
+    out = {n: v for n, v in csr_step_launches(two_sided, K).items() if "ana" in n}
+    out["lista2d_syn_residual"] = 4 * K
+    return out
+
+
+def csr_train(dev, card, err) -> tuple[dict, dict]:
+    """The frame-recurrent CSR training path at the argscsr width: the CSR
+    adjoint kernels (and the P=9 synthesis) against their plain versions
+    and timed, the K=30 gradients through the kernels against "xla" for
+    both models, make_csr_train_step at native 640x368 (remat on and off,
+    kernels and "xla"), and fit_csr for FIT_STEPS steps. Returns (launches
+    of the native steps and the fit_csr run; the adjoints' times at the
+    640x384 bucket, with the 1x128^2 ones under "1x128^2", and the P=9
+    synthesis's in a dict of their own)."""
+    rng = np.random.default_rng(SEED + 80)  # the earlier phases keep their draws
+    models = csr_models(dev)
+    f2 = models["CDLNet_CSRf2"][0]
+    K, s = f2.K, f2.s
+    launches = collections.Counter()
+
+    # --- R1. each CSR adjoint kernel against its plain version on a K=30
+    # forward's u and z histories, the neighbour codes the forwards of the
+    # frames before and after; timed at 1x128^2 and the 640x384 bucket ---
+    times, syn_p9 = {}, {}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for label, shape in (("1x128^2", IMAGE), ("640x368", MRI_FRAME),
+                             ("640x384 (bucket)", (640, 384))):
+            clean = smooth_clip(rng, 3, shape)[None]  # (1, 3, H, W)
+            y = torch.from_numpy(clean + SIGMA / 255 * rng.standard_normal(clean.shape)
+                                 .astype(np.float32)).to(dev)
+            zp = f2(y[:, 0:1], sigma=SIGMA)[1]
+            za = f2(y[:, 2:3], sigma=SIGMA)[1]
+            yp, _, _ = pre_process(y[:, 1:2], s)
+            c = SIGMA / 255
+            y2, _, wa, ws, tau, geom = L2.phase_operands(yp, f2.A, f2.B, f2.t, c, s)
+            ws_adj = LB.adjoint_bank(ws, 2)
+            gams = tuple(L2.threshold_bank(b, c, 1, yp) for b in (f2.g1, f2.g2))
+            gen = torch.Generator().manual_seed(SEED)
+            g = torch.randn(y2.shape, generator=gen).to(dev)
+            base = 1e-2 * torch.randn(zp.shape, generator=gen).to(dev)
+            k = K // 2
+            cases = []
+            for mode, codes, banks in (("csr", (zp,), gams[:1]), ("z_after alone", (za,), gams[1:]),
+                                       ("csrf2", (zp, za), gams)):
+                _, _, (zh, _, uh) = L2.lista2d_loop(y2, None, wa, ws, tau, geom,
+                                                    return_hists=True, gams=banks, codes=codes)
+                name = "lista2d_syn_adjoint_csrf2" if len(codes) == 2 else "lista2d_syn_adjoint_csr"
+                ops = (g, ws_adj[k], zh[k - 1].clone(), uh[k - 1].clone(), tau[k - 1],
+                       *(b[k - 1] for b in banks), *codes)
+                cases.append((name, mode, ops, len(codes)))
+                del zh, uh
+            for name, mode, ops, n_codes in cases:
+                bufs = [torch.zeros_like(zp) for _ in range(n_codes)]
+                pbufs = [torch.zeros_like(zp) for _ in range(n_codes)]
+                got = getattr(LB2, name)(*ops, *bufs, geom, base=base, alpha=-1.0)
+                ref = getattr(LB2, name + "_plain")(*ops, *pbufs, geom, base=base, alpha=-1.0)
+                torch.cuda.synchronize()
+                compare(name, f"csr train {label} {mode} k={k - 1} (dv, dtau, dgam"
+                        f"{', dgam2' if n_codes == 2 else ''}, dz_prev"
+                        f"{', dz_after' if n_codes == 2 else ''})",
+                        (*got, *bufs), (*ref, *pbufs), err)
+            if label == "640x368":
+                continue
+            g_full = pp.depth_to_space(g, s, 2, 1)
+            n_pos = y2[:, 0].numel()
+            tt = {}
+            for name, mode, ops, n_codes in cases:
+                if mode == "z_after alone":
+                    continue
+                bufs = [torch.zeros_like(zp) for _ in range(n_codes)]
+                run, plain = (lambda f=getattr(LB2, n), o=ops, b=bufs: f(*o, *b, geom, base=base,
+                                                                          alpha=-1.0)
+                              for n in (name, name + "_plain"))
+                tt[name] = dict(zip(("ms", "plain_ms", "library_ms"), (cuda_ms(f, 20) for f in (
+                    run, plain,
+                    lambda: F.conv2d(g_full, f2.B[k], stride=s, padding=f2.pad)))))
+                # read: ops (g, the bank, z, u, tau, the gammas, the codes),
+                # base and the code cotangents; written: dv (code-sized),
+                # the code cotangents and the (N, M) sums (tau- and
+                # gamma-sized)
+                io = (*ops, base, *bufs, *bufs, zp, ops[4], *ops[5:5 + n_codes])
+                tt[name]["bound_ms"], tt[name]["bound_by"] = bound((ws_adj[k],), n_pos, io)
+            # the ST adjoint on the same operands, for the CSR epilogue's cost
+            st_ms = cuda_ms(lambda: LB2.lista2d_syn_adjoint(g, ws_adj[k], cases[0][2][2], geom,
+                                                            base=base, alpha=-1.0), 20)
+            print(f"time [{card}]: csr train {label} lista2d_syn_adjoint (ST, the same "
+                  f"operands): {st_ms:.4f} ms/call", flush=True)
+            # the P=9 synthesis a CSR forward launches 30 times (and its
+            # reverse 29 as the analysis adjoint)
+            r = L2.lista2d_syn_residual(zp, ws[1], geom, y=y2)
+            syn = lambda: L2.lista2d_syn_residual(zp, ws[1], geom, y=y2)
+            syn_plain = lambda: L2.lista2d_syn_residual_plain(zp, ws[1], geom, y=y2)
+            p9 = syn_p9[label] = dict(zip(("ms", "plain_ms", "library_ms"), (
+                cuda_ms(f, 20) for f in (syn, syn_plain, lambda: F.conv_transpose2d(
+                    zp, f2.B[1], stride=s, padding=f2.pad, output_padding=s - 1)))))
+            p9["bound_ms"], p9["bound_by"] = bound((ws[1],), n_pos, (zp, ws[1], y2, r))
+            compare("lista2d_syn_residual", f"csr train {label} P=9", r, syn_plain(), err)
+            for name, t_ in (*tt.items(), ("lista2d_syn_residual P=9", p9)):
+                print(f"time [{card}]: csr train {label} {name}: {t_['ms']:.4f} ms/call, "
+                      f"plain {t_['plain_ms']:.4f}, library {t_['library_ms']:.4f}, "
+                      f"bound {t_['bound_ms']:.4f} ({t_['bound_by']})", flush=True)
+            for name, t_ in tt.items():
+                if label == "1x128^2":
+                    times.setdefault(name, {})[label] = t_
+                else:
+                    times.setdefault(name, {}).update(t_)
+            del cases
+    print(f"csr train: adjoint kernel parity and times in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    # --- R2. the K=30 gradient through the kernels against torch autograd
+    # on "xla", every parameter and the carried codes, bitwise repeatable:
+    # a first-frame apply and a recurrent one (both codes for CSRf2) on one
+    # 1x128^2 frame pair ---
+    clean = smooth_clip(rng, 2, IMAGE)[None]
+    y = torch.from_numpy(clean + SIGMA / 255 * rng.standard_normal(clean.shape)
+                         .astype(np.float32)).to(dev)
+    with torch.no_grad():
+        z_nb = {"z_prev": f2(y[:, 0:1], sigma=SIGMA)[1], "z_after": f2(y[:, 1:2], sigma=SIGMA)[1]}
+    for family, (model, plain) in models.items():
+        kws = ("z_prev",) if family == "CDLNet_CSR" else ("z_prev", "z_after")
+
+        def csr_grads(m):
+            codes = {n: z_nb[n].clone().requires_grad_() for n in kws}
+            x0, z0 = m(y[:, 1:2], sigma=SIGMA)
+            x1, z1 = m(y[:, 0:1], sigma=SIGMA, **codes)
+            loss = mse_loss(x0, torch.from_numpy(clean[:, 1:2]).to(dev)) \
+                + mse_loss(x1, torch.from_numpy(clean[:, 0:1]).to(dev)) + 1e-2 * (z1 ** 2).mean()
+            names = [n for n, _ in m.named_parameters()]
+            return dict(zip(names + list(kws), torch.autograd.grad(
+                loss, [p for _, p in m.named_parameters()] + list(codes.values()))))
+
+        L.launches.clear()
+        g1 = csr_grads(model)
+        torch.cuda.synchronize()
+        got = dict(L.launches)
+        want = {"lista2d_ana_threshold": K, "lista2d_syn_residual": 2 * (2 * K - 1),
+                "lista2d_syn_adjoint": K, "lista2d_wgrad": 4 * K,
+                "lista2d_ana_csrf2" if len(kws) == 2 else "lista2d_ana_csr": K,
+                "lista2d_syn_adjoint_csrf2" if len(kws) == 2 else "lista2d_syn_adjoint_csr": K}
+        require(got == want, f"{family} gradient launched {got}, expected {want}")
+        g2 = csr_grads(model)
+        gp = csr_grads(plain)
+        torch.cuda.synchronize()
+        for name, a in g1.items():
+            ref, d = gp[name], float((a - gp[name]).abs().max())
+            same = torch.equal(a, g2[name])
+            if name in kws:
+                # a code's cotangent is elementwise: where the prox argument
+                # of an iteration sits at one of its thresholds' kinks, the
+                # kernels' and cuDNN's fp32 sums can land on either side,
+                # and that element's cotangent moves by the whole local
+                # gradient; so it is held by its L2 error
+                l2 = rel_l2(a, ref)
+                far = int(((a - ref).abs() > GRAD_TOL * ref.abs().max()).sum())
+                print(f"parity {family} K={K} gradient d{name} (1x{IMAGE[0]}^2): rel L2 "
+                      f"{l2:.3e}, max|d| {d:.3e} (rel {d / float(ref.abs().max()):.3e}; {far} of "
+                      f"{a.numel()} elements off by more than {GRAD_TOL} max|ref|); two runs "
+                      f"bitwise equal: {same}", flush=True)
+                require(l2 <= GRAD_TOL, f"{family} d{name} rel L2 {l2:.3e} > {GRAD_TOL}")
+            elif family == "CDLNet_CSR":
+                rel = d / float(ref.abs().max())
+                print(f"parity {family} K={K} gradient d{name} (1x{IMAGE[0]}^2): max|d| "
+                      f"{d:.3e}, rel {rel:.3e}; two runs bitwise equal: {same}", flush=True)
+                require(rel <= GRAD_TOL, f"{family} d{name} rel err {rel:.3e} > {GRAD_TOL}")
+            else:
+                l2 = rel_l2(a, ref)
+                print(f"parity {family} K={K} gradient d{name} (1x{IMAGE[0]}^2): rel L2 "
+                      f"{l2:.3e}, max|d| {d:.3e}; two runs bitwise equal: {same}", flush=True)
+                require(l2 <= GRAD_TOL, f"{family} d{name} rel L2 {l2:.3e} > {GRAD_TOL}")
+            require(same, f"{family}: two backward runs differ in d{name}")
+        del g1, g2, gp
+
+    # --- R3. make_csr_train_step at native 640x368 (the batches of
+    # tools/bench_csr_bigframe.py: 1x1x3 frames for CSRf2, 1x1x2 for CSR):
+    # remat bitwise equal to no remat; step ms and peak GB on the kernels
+    # (remat "auto", on at this size, and off) and on "xla" (remat on) ---
+    steps = {}
+    vol = smooth_clip(rng, 3, MRI_FRAME)
+    for family, (model, plain) in models.items():
+        two_sided = family == "CDLNet_CSRf2"
+        batch = torch.from_numpy(vol[None, None, :3 if two_sided else 2]).to(dev)
+        recs = {}
+        for remat in (False, True):
+            step, _ = make_csr_train_step(model, GradRecorder(), noise_std=TRAIN_SIGMA,
+                                          remat=remat)
+            recs[remat] = {}
+            L.launches.clear()
+            loss = step(recs[remat], batch, torch.Generator(device=dev).manual_seed(SEED))
+            torch.cuda.synchronize()
+            got = dict(L.launches)
+            launches.update(got)
+            want = csr_step_launches(two_sided, K, remat)
+            print(f"csr train: {family} native step remat={remat}: loss {float(loss):.6f}, "
+                  f"launches {got}", flush=True)
+            require(got == want, f"{family} native step launched {got}, expected {want}")
+        for name, gr in recs[False].items():
+            require(torch.isfinite(gr).all() and torch.equal(gr, recs[True][name]),
+                    f"{family}: remat and no remat differ in d{name}")
+        print(f"csr train: {family} native step: remat and no remat bitwise equal in "
+              f"{len(recs[False])} gradients", flush=True)
+        del recs
+        for label, m, remat in (("kernels", model, "auto"), ("kernels remat=False", model, False),
+                                ("xla", plain, "auto")):
+            opt = make_optimizer(1e-4, clip_grad=0.05)
+            st = opt.init(dict(m.named_parameters()))
+            step, _ = make_csr_train_step(m, opt, noise_std=TRAIN_SIGMA, remat=remat)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ms = host_ms(lambda: step(st, batch, gen), rounds=3)
+            steps[(family, label)] = (ms, torch.cuda.max_memory_allocated() / 1e9)
+            print(f"time [{card}]: {family} native train step (1x1x{batch.shape[2]}x"
+                  f"{MRI_FRAME[0]}x{MRI_FRAME[1]}, fwd + bwd + Adam) on {label}: {ms:.3f} ms, "
+                  f"peak {steps[(family, label)][1]:.2f} GB", flush=True)
+            del opt, st
+        del batch
+    del models
+    torch.cuda.empty_cache()
+
+    # --- R4. fit_csr: FIT_STEPS steps of CDLNet_CSRf2 on 2 x 3 x 128^2
+    # crops of in-memory volumes (h5py is not installed beside the card),
+    # one step an epoch, with its launches and a checkpoint that reloads ---
+    fit_model = csr_models(dev)["CDLNet_CSRf2"][0]
+    vols = np.stack([smooth_clip(rng, 3, IMAGE)[None] for _ in range(2)])  # (2, 1, 3, H, W)
+    loaders = {"train": [vols], "val": [vols], "test": [vols]}
+    opt = make_optimizer(FIT_CSR_LR, clip_grad=0.05)
+    state = opt.init(dict(fit_model.named_parameters()))
+    with tempfile.TemporaryDirectory() as save_dir:
+        L.launches.clear()
+        t0 = time.perf_counter()
+        state, history = fit_csr(fit_model, opt, state, loaders, save_dir=save_dir,
+                                 epochs=FIT_STEPS, noise_std=TRAIN_SIGMA, val_freq=10,
+                                 save_freq=10, verbose=False, seed=SEED)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = dict(L.launches)
+        launches.update(fit_launches)
+        evals = sum(ph != "train" for _, ph, _ in history)
+        want = collections.Counter({n: FIT_STEPS * v for n, v in
+                                    csr_step_launches(True, K).items()})
+        want.update({n: evals * v for n, v in csr_eval_launches(True, K).items()})
+        losses = [10 ** (-p / 10) for _, ph, p in history if ph == "train"]
+        print(f"csr fit: {FIT_STEPS} steps + {evals} evals in {fit_s:.2f} s; launches "
+              f"{fit_launches}; train losses {[f'{v:.6f}' for v in losses]}", flush=True)
+        require(fit_launches == dict(want), f"fit_csr launched {fit_launches}, expected {want}")
+        require(len(losses) == FIT_STEPS and all(np.isfinite(losses)),
+                f"non-finite or missing fit_csr losses {losses}")
+        require(np.mean(losses[-5:]) < np.mean(losses[:5]),
+                f"fit_csr losses did not fall: first 5 {losses[:5]}, last 5 {losses[-5:]}")
+        back = CDLNetCSRf2(**CSR_WIDTH).to(dev)
+        back_state = opt.init(dict(back.named_parameters()))
+        _, back_state, epoch, _ = load_ckpt(os.path.join(save_dir, f"net_epoch_{FIT_STEPS}"
+                                                         ".ckpt.npz"), back, back_state)
+        require(epoch == FIT_STEPS and back_state["count"] == FIT_STEPS
+                and all(torch.equal(a, b) for a, b in
+                        zip(back.parameters(), fit_model.parameters())),
+                "fit_csr's checkpoint did not reload to the trained state")
+    return dict(launches), times, syn_p9
+
+
 def main() -> int:
     # --- 1. the device ---
     if not torch.cuda.is_available():
@@ -1956,9 +2270,14 @@ def main() -> int:
     launches_csr, times_csr = csr(dev, card, err)
     times.update(times_csr)
 
+    # --- 15. frame-recurrent CSR training (csr_train) ---
+    launches_ct, times_ct, syn_p9 = csr_train(dev, card, err)
+    times.update(times_ct)
+
     launches = {name: serve_launches.get(name, 0) + fit_launches.get(name, 0)
                 + launches_2d.get(name, 0) + launches_t2.get(name, 0)
-                + launches_bf.get(name, 0) + launches_csr.get(name, 0) for name in KERNELS}
+                + launches_bf.get(name, 0) + launches_csr.get(name, 0)
+                + launches_ct.get(name, 0) for name in KERNELS}
     for name in ("lista3d_ana_threshold", "lista3d_syn_residual"):
         tt = times[name]
         print(f"time [{card}]: serve shape {name} {tt['ms']:.4f} ms/call, plain "
@@ -1967,7 +2286,8 @@ def main() -> int:
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": err[name], **times[name],
-         **({"bigframe": times_bf[name]} if name in times_bf else {})}
+         **({"bigframe": times_bf[name]} if name in times_bf else {}),
+         **({"csr P=9": syn_p9} if name == "lista2d_syn_residual" else {})}
         for name, (src, tpu) in KERNELS.items()
     ]}
     print(json.dumps(report), flush=True)

@@ -26,7 +26,7 @@ from cdlnet_tpu_torch.compat.jax_params import export_jax_params, load_jax_param
 from cdlnet_tpu_torch.data.images import get_fit_loaders
 from cdlnet_tpu_torch.data.noise import awgn, gen_bayer_mask
 from cdlnet_tpu_torch.data.synthetic import gen_natural_image_dirs, gen_synthetic_image_dirs
-from cdlnet_tpu_torch.models import CDLNet
+from cdlnet_tpu_torch.models import CDLNet, CDLNetVideo
 from cdlnet_tpu_torch.train.checkpoint import load_ckpt
 from cdlnet_tpu_torch.train.fit import fit, make_train_step, train_update
 from cdlnet_tpu_torch.train.optim import get_lr, make_optimizer
@@ -322,21 +322,36 @@ def test_cli_main_trains_jdd_and_gdlnet(image_dirs, tmp_path, mtype, model, load
     assert (tmp_path / "net.ckpt.npz").exists()
 
 
-@pytest.mark.parametrize("mtype,loaders", [
-    ("DnCNN", {}), ("FFDNet", {}), ("CDLNetVideo", {"PDFS": True}), ("CDLNet_CSR", {}),
-    ("CDLNet", {"PDFS": True}),
+@pytest.mark.parametrize("mtype,loaders,model", [
+    pytest.param("DnCNN", {}, {}, id="DnCNN-loaders0"),
+    pytest.param("FFDNet", {}, {}, id="FFDNet-loaders1"),
+    pytest.param("CDLNetVideo", {"PDFS": True}, {"residual": True, "P": [5, 5, 3]},
+                 id="CDLNetVideo-residual"),
 ])
-def test_cli_unported_families_raise(image_dirs, tmp_path, mtype, loaders):
-    args = _cli_args(image_dirs, str(tmp_path), mtype)
+def test_cli_unported_families_raise(image_dirs, tmp_path, mtype, loaders, model):
+    """DnCNN, FFDNet and CDLNetVideo's residual blocks are still to port.
+    The fastMRI (PDFS) and CSR branches train: tests/test_torch_csr_train.py
+    runs them."""
+    args = _cli_args(image_dirs, str(tmp_path), mtype, **model)
     args["train"]["loaders"].update(loaders)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli_train.main(args, device="cpu")
 
 
 def test_unported_workload_raises():
-    model = CDLNet(K=2, M=4, P=5, s=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_train_step(model, make_optimizer(1e-3), workload="mri")
+    """workload "mri" (fastMRI volumes into CDLNetVideo; the test's name is
+    from before it was ported) is the volumetric step: the same noise and
+    loss as workload "3d" from the same generator state."""
+    model = CDLNetVideo(K=2, M=4, P=(3, 3, 3), s=1, C=1, adaptive=True)
+    model.init(torch.Generator().manual_seed(0))
+    batch = torch.from_numpy(np.random.default_rng(3).uniform(
+        size=(2, 1, 3, 8, 8)).astype(np.float32))
+    losses = {}
+    for workload in ("3d", "mri"):
+        _, eval_step = make_train_step(model, make_optimizer(1e-3), workload=workload,
+                                       noise_std=(20, 30))
+        losses[workload] = eval_step(batch, torch.Generator().manual_seed(4))
+    assert torch.equal(losses["mri"], losses["3d"]) and float(losses["mri"]) > 0
 
 
 @pytest.mark.parametrize("choice,pinned,want", [

@@ -147,13 +147,24 @@ def test_fused_csr_modes_match_jax_tiled_interpret(mode):
 
 
 def test_fused_csr_mode_needs_its_gamma_bank_and_takes_no_history():
+    """A neighbour code needs its gamma bank; with return_hist a CSR mode
+    returns the u history (the prox argument of every iteration) beside
+    the z and r histories, fp32, the last u_k giving the returned codes."""
     ops, modes = _fused_inputs(16, 16)
     args = map(torch.from_numpy, ops)
     with pytest.raises(ValueError, match="gamma bank"):
         L2.lista2d_fused(*args, stride=2, z_prev=torch.from_numpy(modes["both"]["z_prev"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        L2.lista2d_fused(*map(torch.from_numpy, ops), stride=2, return_hist=True,
-                         **_t(modes["both"]))
+    kw = _t(modes["both"])
+    _, z, (z_hist, r_hist, u_hist) = L2.lista2d_fused(
+        *map(torch.from_numpy, ops), stride=2, return_z=True, return_hist=True, **kw)
+    K, M, N = 3, 8, 2
+    assert u_hist.shape == z_hist.shape == (K, N, M, 8, 8) and u_hist.dtype == torch.float32
+    assert r_hist.shape == (K - 1, N, 4, 8, 8)
+    c = torch.from_numpy(ops[4])
+    tau, g1, g2 = (L2.threshold_bank(b, c, N, z)[-1][:, :, None, None]
+                   for b in (torch.from_numpy(ops[3]), kw["g"], kw["g2"]))
+    torch.testing.assert_close(prox_csr_f2(u_hist[-1], kw["z_prev"], kw["z_after"], tau, g1, g2),
+                               z, rtol=0, atol=0)
 
 
 @functools.cache
@@ -331,11 +342,29 @@ def test_params_round_trip_and_init(family):
 
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_grad_enabled_kernel_forward_raises(family):
-    """Training through the CSR kernels comes later: the kernel backend
-    raises under autograd, naming ROADMAP.md; "xla" has gradients."""
+    """Under autograd the kernel backend trains (the test's name is from
+    before CSR training was ported): its gradients, through the kernels'
+    plain versions and the CSR reverse loop, equal backend "xla"'s torch
+    autograd, for every parameter and the carried neighbour code."""
     _, params = _params(family)
-    y = torch.rand(1, 1, 16, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _port(family, params, "cuda")(y, sigma=25.0)
-    xhat, _ = _port(family, params, "xla")(y, sigma=25.0)
-    xhat.sum().backward()
+    rng = np.random.default_rng(6)
+    y = torch.from_numpy(rng.uniform(size=(1, 1, 16, 16)).astype(np.float32))
+    zp = torch.from_numpy(_codes(8, 7, N=1, hw=(8, 8)))
+    grads = {}
+    for backend in ("cuda", "xla"):
+        model = _port(family, params, backend)
+        code = zp.clone().requires_grad_()
+        x0, z0 = model(y, sigma=25.0)  # a first frame: no code
+        xhat, z = model(y, code, sigma=25.0)
+        loss = (x0 ** 2).mean() + (xhat ** 2).mean() + 0.1 * (z ** 2).mean()
+        names = [n for n, _ in model.named_parameters()]
+        grads[backend] = dict(zip(names + ["z_prev"], torch.autograd.grad(
+            loss, [p for _, p in model.named_parameters()] + [code], allow_unused=True)))
+    assert [n for n, g in grads["xla"].items() if g is None] == \
+        ([] if family == "CDLNet_CSR" else ["g2"])  # CSRf2's g2 needs z_after
+    for name, want in grads["xla"].items():
+        got = grads["cuda"][name]
+        if want is None:
+            assert got is None, name
+            continue
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()) + 1e-9, name

@@ -15,7 +15,8 @@ from cdlnet_tpu_torch.kernels import lista2d as L2
 from cdlnet_tpu_torch.kernels import lista2d_bwd as LB2
 from cdlnet_tpu_torch.kernels import lista3d as L
 from cdlnet_tpu_torch.kernels import lista3d_bwd as LB
-from cdlnet_tpu_torch.kernels.autodiff import lista3d_fused_diff
+from cdlnet_tpu_torch.core.ops import prox_csr, prox_csr_f2
+from cdlnet_tpu_torch.kernels.autodiff import csr_fused_2d_train, lista3d_fused_diff
 
 pytestmark = pytest.mark.cuda
 
@@ -662,3 +663,130 @@ def test_2d_csr_wrappers_reject_what_the_kernel_does_not_take(cuda):
         L2.lista2d_ana_csr(r, None, wa, tau, tau, zp.double(), d["geom"])
     with pytest.raises(ValueError, match="gam2"):
         L2.lista2d_ana_csrf2(r, None, wa, tau, tau, tau[:, :4], zp, zp, d["geom"])
+
+
+# --- the CSR adjoint epilogues (kernels/lista2d_bwd.py:
+# lista2d_syn_adjoint_csr/_csrf2) and the u history of the CSR analyses ---
+
+def _setup_csr_adjoint(P, s, M, N, H, W, mode, seed=0):
+    """The adjoint's operands: g, B's unflipped bank and a base as for
+    lista2d_syn_adjoint; a prox argument u, sparse neighbour codes (z_after
+    equal to z_prev on a quarter of the codes, where sign(zp - za) = 0),
+    tau and gamma banks, and z = the prox of u."""
+    d = _setup2d_bwd(P, s, M, N, H, W, 1, seed)
+    rng = np.random.default_rng(seed + 2)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    sparse = lambda t: torch.where(t.abs() < 0.5, torch.zeros_like(t), t)
+    shape = d["z"].shape
+    u, zp = f(*shape), sparse(f(*shape))
+    za = torch.where(torch.from_numpy(rng.uniform(size=shape) < 0.25), zp, sparse(f(*shape)))
+    gam1, gam2 = (torch.from_numpy(rng.uniform(0.0, 0.3, (N, M)).astype(np.float32))
+                  for _ in range(2))
+    bank = lambda b: b[:, :, None, None]
+    if mode == "csrf2":
+        z = prox_csr_f2(u, zp, za, bank(d["tau"]), bank(gam1), bank(gam2))
+        ops = (u, d["tau"], gam1, gam2, zp, za)
+    else:  # "csr", and "z_after alone": the one-sided kernel on (za, gam2)
+        code, gam = (zp, gam1) if mode == "csr" else (za, gam2)
+        z = prox_csr(u, code, bank(d["tau"]), bank(gam))
+        ops = (u, d["tau"], gam, code)
+    return d, z, ops
+
+
+@pytest.mark.parametrize("P,s,M,N,H,W", SHAPES_CSR)
+@pytest.mark.parametrize("mode", ["csr", "z_after alone", "csrf2"])
+@pytest.mark.parametrize("with_base,alpha", [(False, 1.0), (True, -1.0)])
+def test_2d_csr_adjoint_matches_plain(cuda, P, s, M, N, H, W, mode, with_base, alpha):
+    """Each CSR adjoint epilogue against its plain version on the card: dv,
+    dtau, the gamma banks' gradients and the neighbour codes' cotangents
+    (added into buffers that already hold a value) within 1e-4 of max|ref|.
+    The masks come from the same stored u in both, so the two-sided prox's
+    jump does not enter."""
+    d, z, ops = _setup_csr_adjoint(P, s, M, N, H, W, mode)
+    f2 = mode == "csrf2"
+    name = "lista2d_syn_adjoint_csrf2" if f2 else "lista2d_syn_adjoint_csr"
+    start = [0.5 * c for c in ops[-(2 if f2 else 1):]]  # cotangent buffers' contents
+    base = d["base"] if with_base else None
+    args = (d["g"], d["ws_adj"], z, *ops)
+    dref = [b.clone() for b in start]
+    ref = getattr(LB2, name + "_plain")(*args, *dref, d["geom"], base=base, alpha=alpha)
+    dgot = [b.to(cuda) for b in start]
+    L.launches.clear()
+    got = getattr(LB2, name)(*(a.to(cuda) for a in args), *dgot, d["geom"],
+                             base=None if base is None else base.to(cuda), alpha=alpha)
+    torch.cuda.synchronize()
+    assert dict(L.launches) == {name: 1}
+    for i, (a, b) in enumerate(zip((*got, *dgot), (*ref, *dref))):
+        assert a.shape == b.shape
+        assert float((a.cpu() - b).abs().max() / b.abs().max()) <= 1e-4, i
+
+
+@pytest.mark.parametrize("P,s,M,N,H,W", SHAPES_CSR)
+@pytest.mark.parametrize("two_sided", [False, True])
+def test_2d_csr_analysis_writes_the_u_history(cuda, P, s, M, N, H, W, two_sided):
+    """With u_out the CSR analyses store the prox argument z - A_k r (the
+    plain version's within 1e-5) and write the same codes as without it."""
+    d = _setup2d(P, s, M, N, H, W, 1)
+    rng = np.random.default_rng(6)
+    zp = d["z"]
+    za = torch.from_numpy(rng.standard_normal(zp.shape).astype(np.float32))
+    gam1, gam2 = (torch.from_numpy(rng.uniform(0.0, 0.3, (N, M)).astype(np.float32))
+                  for _ in range(2))
+    if two_sided:
+        name, args = "lista2d_ana_csrf2", (d["r"], 0.5 * zp, d["wa"], d["tau"], gam1, gam2, zp, za)
+    else:
+        name, args = "lista2d_ana_csr", (d["r"], 0.5 * zp, d["wa"], d["tau"], gam1, zp)
+    args = tuple(a.to(cuda) for a in args)
+    u = torch.empty_like(args[1])
+    z_u = getattr(L2, name)(*args, d["geom"], u_out=u)
+    z = getattr(L2, name)(*args, d["geom"])
+    v = L2.ana_argument_plain(*args[:3], d["geom"])
+    torch.cuda.synchronize()
+    assert torch.equal(z_u, z)
+    assert float((u - v).abs().max() / v.abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("names", [(), ("z_prev", "g"), ("z_after", "g2"),
+                                   ("z_prev", "z_after", "g", "g2")])
+def test_2d_csr_train_on_cuda_matches_cpu_and_counts_launches(cuda, names):
+    """csr_fused_2d_train on the card: x, z and every gradient (A, B, t, the
+    gamma banks, the neighbour codes; the returned code's cotangent seeding
+    the reverse) as on the CPU, with the designed launches: K of the mode's
+    analysis and 2K - 1 syntheses forward, K of its adjoint, K - 1
+    syntheses (the analysis adjoint) and 2K wgrads in reverse."""
+    rng = np.random.default_rng(8)
+    K, M, P, N = 3, 13, 7, 2
+    f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+    yp = 0.3 * f(N, 1, 24, 38)
+    leaves = dict(A=0.1 * f(K, M, 1, P, P), B=0.1 * f(K, M, 1, P, P),
+                  t=0.02 * f(K, 2, M, 1, 1).abs())
+    leaves.update({n: (f(N, M, 12, 19) if n.startswith("z") else 0.5 * f(K, 2, M, 1, 1).abs())
+                   for n in names})
+    c = torch.tensor([0.1, 0.2]).reshape(2, 1, 1, 1)
+    cot = (f(N, 1, 24, 38), f(N, M, 12, 19))
+    outs = {}
+    for dev in ("cpu", cuda):
+        lv = {n: v.to(dev).requires_grad_() for n, v in leaves.items()}
+        L.launches.clear()
+        x, z = csr_fused_2d_train(yp.to(dev), lv["A"], lv["B"], lv["t"], c.to(dev), stride=2,
+                                  **{n: lv[n] for n in names})
+        grads = torch.autograd.grad([x, z], list(lv.values()), [g.to(dev) for g in cot])
+        outs[str(dev)] = [a.detach().cpu() for a in (x, z, *grads)], dict(L.launches)
+    (ref, _), (got, launched) = outs["cpu"], outs[str(cuda)]
+    ana, adj = {0: ("lista2d_ana_threshold", "lista2d_syn_adjoint"),
+                2: ("lista2d_ana_csr", "lista2d_syn_adjoint_csr"),
+                4: ("lista2d_ana_csrf2", "lista2d_syn_adjoint_csrf2")}[len(names)]
+    assert launched == {ana: K, "lista2d_syn_residual": 2 * K - 1, adj: K,
+                        "lista2d_wgrad": 2 * K}
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-4, i
+
+
+def test_2d_csr_adjoint_wrappers_reject_what_the_kernel_does_not_take(cuda):
+    d, z, (u, tau, gam, code) = _setup_csr_adjoint(7, 2, 8, 1, 16, 16, "csr")
+    args = [t.to(cuda) for t in (d["g"], d["ws_adj"], z, u, tau, gam, code)]
+    with pytest.raises(ValueError, match="dzp"):
+        LB2.lista2d_syn_adjoint_csr(*args, torch.zeros_like(args[2]).double(), d["geom"])
+    with pytest.raises(ValueError, match="u"):
+        LB2.lista2d_syn_adjoint_csr(*args[:3], args[3][:, :4], *args[4:],
+                                    torch.zeros_like(args[2]), d["geom"])

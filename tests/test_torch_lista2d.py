@@ -161,15 +161,21 @@ def test_wrappers_write_into_out():
 @pytest.mark.parametrize("names", [("z_prev", "g"), ("z_after", "g2"),
                                    ("z_prev", "z_after", "g", "g2"), ("z_after", "g", "g2")])
 def test_unported_modes_raise(names):
-    """The CSR prox modes run; with histories (training) they raise: their
-    u history and reverse kernel are still to be ported."""
+    """The CSR prox modes run, and with histories (training; the test's
+    name is from before they were ported) they return the z, r and u
+    histories and the same output and codes as without."""
     yp, A, B, t, c, _ = _torch(*_inputs(5, 2, 1, 12, 8))
     kw = {name: torch.zeros(2, M, 6, 4) if name.startswith("z") else 0.5 * t
           for name in names}
     x, z = L2.lista2d_fused(yp, A, B, t, c, stride=2, return_z=True, **kw)
     assert x.shape == yp.shape and z.shape == (2, M, 6, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        L2.lista2d_fused(yp, A, B, t, c, stride=2, return_hist=True, **kw)
+    xh, zh, hists = L2.lista2d_fused(yp, A, B, t, c, stride=2, return_z=True,
+                                     return_hist=True, **kw)
+    assert torch.equal(xh, x) and torch.equal(zh, z)
+    K = A.shape[0]
+    assert [tuple(h.shape) for h in hists] == [(K, 2, M, 6, 4), (K - 1, 2, 4, 6, 4),
+                                               (K, 2, M, 6, 4)]
+    assert torch.equal(hists[0][-1], z)
 
 
 @pytest.mark.parametrize("which", ["ana", "syn"])

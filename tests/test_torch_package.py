@@ -41,5 +41,6 @@ def test_package_holds_the_slice():
                 "nle/__init__.py", "nle/mad.py", "kernels/lista2d_bwd.py",
                 "data/loader.py", "data/images.py", "data/synthetic.py",
                 "cli/__init__.py", "cli/train.py", "cli/analyze.py", "cli/analyze3d.py",
-                "data/video.py", "models/streaming.py"):
+                "data/video.py", "models/streaming.py", "models/csr.py",
+                "data/fastmri.py", "cli/analyzemri.py", "train/fit_csr.py"):
         assert (pkg / rel).is_file(), rel

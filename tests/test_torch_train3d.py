@@ -517,9 +517,12 @@ def test_fit_backtracks_on_nan(tmp_path):
     assert "backtrack" in events
 
 
-@pytest.mark.parametrize("kw", [dict(workload="mri"), dict(mcsure=True), dict(stateful=True),
-                                dict(loss_type="combmse"), dict(mesh={"data": -1})])
+@pytest.mark.parametrize("kw", [dict(workload="mri", mcsure=True), dict(mcsure=True),
+                                dict(stateful=True), dict(loss_type="combmse"),
+                                dict(mesh={"data": -1})])
 def test_unported_training_options_raise(kw):
+    """Options still to port raise, on the fastMRI workload (ported: its
+    step is tests/test_torch_cli_train.py's) as on video."""
     model = CDLNetVideo(K=2, M=4, P=(3, 3, 3), s=2)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make_train_step(model, make_optimizer(1e-3), **kw)
