@@ -99,12 +99,11 @@ class FastMRIDataset:
         return np.stack(frames)[None]  # (1, D, H, W)
 
 
-def get_fastmri_data_loader(dir_list, batch_size=1, load_color=False, crop_size=128,
-                            test=True, depth=16, PDFS=True, seed=0):
+def get_fastmri_data_loader(dir_list, batch_size=1, crop_size=128, test=True, depth=16,
+                            PDFS=True, seed=0):
     """(B, 1, depth, H, W) batches of FastMRIDataset: in file order at full
     size (test=True, the eval loader), or shuffled per epoch, crop_size^2
-    crops and the last short batch dropped (test=False). load_color is
-    accepted for the schema's sake: the volumes are grayscale."""
+    crops and the last short batch dropped (test=False)."""
     ds = FastMRIDataset(dir_list, depth=depth, image_size=(crop_size, crop_size),
                         test=test, PDFS=PDFS, seed=seed)
     return DataLoader(ds, batch_size=batch_size, shuffle=not test, drop_last=not test,
@@ -141,7 +140,8 @@ def get_fastmri_fit_loaders(trn_path_list, val_path_list, tst_path_list, crop_si
     """The train / val / test loaders of the fastMRI training schema
     (argscsr.json's "loaders"): random windows and crops, shuffled, for
     train; the first `depth` slices at full size for val and test.
-    batch_size: one int (train; val and test take 1) or three."""
+    batch_size: one int (train; val and test take 1) or three. load_color
+    is the schema's key and unused: the volumes are grayscale."""
     if isinstance(batch_size, int):
         batch_size = [batch_size, 1, 1]
     return {

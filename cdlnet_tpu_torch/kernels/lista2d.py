@@ -350,18 +350,9 @@ def lista2d_fused(yp, A, B, t, c, stride=1, mask=None, return_z=False,
     package maps them: z_prev (N, M, Hc, Wc) with the gamma bank g (K, 2, M,
     1, 1) runs the one-sided prox_csr; z_after with g2 alone runs the same
     prox toward z_after with g2; both codes (and g, g2) run the two-sided
-    prox_csr_f2. With return_hist they raise: the u history they need for
-    training is not ported yet."""
-    codes, banks = (), ()
-    if z_prev is not None and z_after is not None:
-        codes, banks = (z_prev, z_after), (g, g2)
-    elif z_prev is not None:
-        codes, banks = (z_prev,), (g,)
-    elif z_after is not None:  # one-sided on the following frame: gamma = g2
-        codes, banks = (z_after,), (g2,)
-    if any(b is None for b in banks):
-        raise ValueError("each neighbour code needs its gamma bank (g for z_prev, "
-                         "g2 for z_after)")
+    prox_csr_f2 (csr_mode). With return_hist their histories hold a third
+    one, u_hist (K, N, M, Hc, Wc), the prox argument of every iteration."""
+    codes, banks = csr_mode(g, z_prev, g2, z_after)
     y2, m2, wa, ws, tau, geom = phase_operands(yp, A, B, t, c, stride, mask)
     gams = tuple(threshold_bank(b, c, yp.shape[0], yp) for b in banks)
     codes = tuple(z.contiguous() for z in codes)

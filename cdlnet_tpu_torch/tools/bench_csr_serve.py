@@ -1,0 +1,168 @@
+#!/usr/bin/env python3
+"""Time the frame-recurrent CSR serve path of one checkout on the GPU.
+
+    python3 cdlnet_tpu_torch/tools/bench_csr_serve.py [--root DIR] [--label NAME]
+
+At the argscsr width (CDLNet_CSR and CDLNet_CSRf2, K=30, M=169, P=9, s=2,
+adaptive; chip_smoke.py's csr_models weights) it times, on the kernels:
+a 16x640x368 volume through Denoiser.denoise_video at a known sigma (host
+clock), one K=30 forward of a native 640x368 frame with its neighbour codes
+(CUDA events), and the CSR analysis kernels and the P=9 synthesis per call
+at the 640x384 bucket (CUDA events). It prints the card's nvidia-smi name
+and power limit and then one JSON line with every median and every
+round's reading.
+
+--root is the checkout whose cdlnet_tpu_torch is imported (by default the
+one that holds this script). Two commits compare by running the script
+once per checkout in turns (A B B A ...) on one card: the kernels build
+into each checkout's own build directory.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+SIGMA = 25.0
+SEED = 0
+CSR_WIDTH = dict(K=30, M=169, P=9, s=2, C=1, adaptive=True)
+FRAME, BUCKET, DEPTH = (640, 368), (640, 384), 16
+
+
+def rounds_ms(fn, rounds, reps=1, warmup=2, events=True):
+    """Per-call ms of `reps` calls of fn, for each of `rounds` rounds: CUDA
+    events, or the host clock followed by a device synchronize."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        if events:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            b.synchronize()
+            out.append(a.elapsed_time(b) / reps)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            out.append(1e3 * (time.perf_counter() - t0) / reps)
+    return out
+
+
+def smooth(rng, depth, size, n_terms=6):
+    """Smooth random frames in [0, 1] (depth, H, W), as chip_smoke.py's."""
+    import numpy as np
+
+    H, W = size
+    yy, xx = np.meshgrid(np.linspace(0, 1, H), np.linspace(0, 1, W), indexing="ij")
+    out = np.zeros((depth, H, W), np.float32)
+    for d in range(depth):
+        for _ in range(n_terms):
+            fy, fx, ph = rng.uniform(0.5, 4, 2).tolist() + [rng.uniform(0, 6.3)]
+            out[d] += np.cos(2 * np.pi * (fy * yy + fx * xx) + ph).astype(np.float32)
+    out -= out.min(axis=(1, 2), keepdims=True)
+    return out / out.max(axis=(1, 2), keepdims=True)
+
+
+def main() -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))))
+    p.add_argument("--label", default="")
+    p.add_argument("--rounds", type=int, default=5)
+    a = p.parse_args()
+    sys.path.insert(0, os.path.abspath(a.root))
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("bench_csr_serve: needs a GPU", file=sys.stderr)
+        return 1
+    from cdlnet_tpu_torch.core.preprocess import pre_process
+    from cdlnet_tpu_torch.kernels import _build
+    from cdlnet_tpu_torch.kernels import lista2d as L2
+    from cdlnet_tpu_torch.models import CDLNetCSR, CDLNetCSRf2
+    from cdlnet_tpu_torch.serve import Denoiser
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True, capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build()
+    dev = torch.device("cuda")
+    f2 = CDLNetCSRf2(**CSR_WIDTH, backend="pallas").to(dev).init(
+        torch.Generator().manual_seed(SEED))
+    g = torch.Generator().manual_seed(SEED + 4)
+    with torch.no_grad():
+        f2.t.copy_(torch.rand(f2.t.shape, generator=g)
+                   * torch.tensor([0.02, 0.2]).reshape(1, 2, 1, 1, 1))
+        f2.g1.copy_(0.3 * torch.rand(f2.g1.shape, generator=g))
+        f2.g2.copy_(0.3 * torch.rand(f2.g2.shape, generator=g))
+        one = CDLNetCSR(**CSR_WIDTH, backend="pallas").to(dev)
+        for name, src in (("A", f2.A), ("B", f2.B), ("t", f2.t), ("A2", f2.A),
+                          ("B2", f2.B), ("t2", f2.t), ("g", f2.g1)):
+            getattr(one, name).copy_(src)
+    models = {"CDLNet_CSR": one.eval(), "CDLNet_CSRf2": f2.eval()}
+    rng = np.random.default_rng(SEED)
+    res = {"label": a.label, "card": card, "rounds": {}}
+
+    def record(key, vals):
+        res["rounds"][key] = [round(v, 4) for v in vals]
+        res[key] = round(statistics.median(vals), 4)
+
+    with torch.inference_mode():
+        # one native frame and its neighbours' codes: the K=30 forwards
+        y = torch.from_numpy(smooth(rng, 3, FRAME)[None]).to(dev)
+        y = y + SIGMA / 255 * torch.randn(y.shape, generator=torch.Generator(
+            device=dev).manual_seed(SEED), device=dev)
+        zp, za = f2(y[:, 0:1], sigma=SIGMA)[1], f2(y[:, 2:3], sigma=SIGMA)[1]
+        for family, kw in (("CDLNet_CSR", dict(z_prev=zp)),
+                           ("CDLNet_CSRf2", dict(z_prev=zp, z_after=za))):
+            m = models[family]
+            record(f"{family} forward ms",
+                   rounds_ms(lambda: m(y[:, 1:2], sigma=SIGMA, **kw), 2 * a.rounds))
+        # the kernels per call at the 640x384 bucket, on iteration 1's operands
+        yb = torch.from_numpy(smooth(rng, 3, BUCKET)[None]).to(dev)
+        zp, za = f2(yb[:, 0:1], sigma=SIGMA)[1], f2(yb[:, 2:3], sigma=SIGMA)[1]
+        yp, _, _ = pre_process(yb[:, 1:2], f2.s)
+        c = torch.full((1,), SIGMA / 255, device=dev)
+        y2, _, wa, ws, tau, geom = L2.phase_operands(yp, f2.A, f2.B, f2.t, c, f2.s)
+        gam1, gam2 = (L2.threshold_bank(b, c, 1, yp) for b in (f2.g1, f2.g2))
+        z0 = L2.lista2d_ana_csrf2(-y2, None, wa[0], tau[0], gam1[0], gam2[0], zp, za, geom)
+        r1 = L2.lista2d_syn_residual(z0, ws[1], geom, y=y2)
+        for name, fn in (
+            ("lista2d_ana_csr", lambda: L2.lista2d_ana_csr(r1, z0, wa[1], tau[1], gam1[1],
+                                                           zp, geom)),
+            ("lista2d_ana_csrf2", lambda: L2.lista2d_ana_csrf2(
+                r1, z0, wa[1], tau[1], gam1[1], gam2[1], zp, za, geom)),
+            ("lista2d_syn_residual", lambda: L2.lista2d_syn_residual(z0, ws[1], geom, y=y2)),
+        ):
+            record(f"{name} ms", rounds_ms(fn, a.rounds, reps=20))
+        # a native volume through the serve path
+        vol = smooth(rng, DEPTH, FRAME)
+        vol = vol + SIGMA / 255 * rng.standard_normal(vol.shape).astype(np.float32)
+    for family, m in models.items():
+        server = Denoiser(m)
+        record(f"{family} volume ms", rounds_ms(
+            lambda: server.denoise_video(vol, sigma=SIGMA), a.rounds, warmup=1, events=False))
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

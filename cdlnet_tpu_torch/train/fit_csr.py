@@ -107,9 +107,9 @@ def make_csr_train_step(model, opt, *, noise_std, project=False, remat="auto"):
 
 
 def fit_csr(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1,
-            noise_std=25, val_freq=1, save_freq=1, backtrack_thresh=None, sched=None,
-            verbose=True, epoch_fun=None, seed=0, project=False, mcsure=False,
-            demosaic=False, mesh=None, ckpt_format="npz", **ignored):
+            noise_std=25, val_freq=1, save_freq=1, sched=None, verbose=True,
+            epoch_fun=None, seed=0, project=False, mesh=None, ckpt_format="npz",
+            **ignored):
     """Fit a frame-recurrent CSR(f2) model (reference traincsr.py:50-147).
     Returns (opt_state, history), history a list of (epoch, phase, psnr);
     the model's parameters are trained in place.
@@ -121,9 +121,8 @@ def fit_csr(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1
     0.ckpt, net_epoch_{epoch}.ckpt and net.ckpt npz bundles every
     save_freq epochs, and the StepLR sched (dict(step_size=..., gamma=...)).
     val and test draw their noise at the midpoint sigma. As in the JAX
-    package there is no backtracking (backtrack_thresh, mcsure and
-    demosaic are accepted for the schema's sake); fit's other keys land in
-    `ignored` and are named."""
+    package there is no backtracking; fit's other keys (backtrack_thresh,
+    mcsure, demosaic, ...) land in `ignored` and are named."""
     if mesh is not None:
         raise NotImplementedError(f"mesh training {_NOT_PORTED}")
     if ckpt_format != "npz":

@@ -112,7 +112,8 @@ import torch.nn.functional as F
 from cdlnet_tpu_torch.cli import analyze3d, analyzemri
 from cdlnet_tpu_torch.cli import train as cli_train
 from cdlnet_tpu_torch.cli.analyze import build_argparser
-from cdlnet_tpu_torch.core.preprocess import pre_process, pre_process_3d
+from cdlnet_tpu_torch.core.ops import csr_f2_jump, prox_csr, prox_csr_f2
+from cdlnet_tpu_torch.core.preprocess import post_process, pre_process, pre_process_3d
 from cdlnet_tpu_torch.data.noise import gen_bayer_mask
 from cdlnet_tpu_torch.data.synthetic import (
     gen_natural_image_dirs,
@@ -135,7 +136,8 @@ from cdlnet_tpu_torch.models import (
 )
 from cdlnet_tpu_torch.ops import polyphase as pp
 from cdlnet_tpu_torch.ops.conv import conv_transpose2d, conv_transpose3d
-from cdlnet_tpu_torch.ops.lista import lista_2d, lista_3d
+from cdlnet_tpu_torch.models.cdlnet import _prepare
+from cdlnet_tpu_torch.ops.lista import _threshold, lista_2d, lista_3d
 from cdlnet_tpu_torch.serve import Denoiser
 from cdlnet_tpu_torch.train.checkpoint import load_ckpt
 from cdlnet_tpu_torch.train.fit import fit, init_model, make_train_step, train_update
@@ -1778,6 +1780,99 @@ class GradRecorder:
         state.update({n: g.clone() for n, g in grads.items()})
 
 
+def csr_prox_branches(u, zp, za, tau, g1, g2):
+    """The branch of the CSR prox that an argument u falls in, elementwise:
+    the signs that the adjoint kernels read (sign(0) = 0), stacked. One-sided
+    (za None, prox_csr toward zp with g1): the inner soft threshold's sign
+    and the output's. Two-sided (prox_csr_f2): the sign of u - Ca, then of
+    the inner, middle and outer soft thresholds."""
+    soft = lambda x, th: torch.sign(x) * torch.relu(x.abs() - th)
+    sg = torch.sign
+    if za is None:
+        shift = zp + tau * sg(zp)
+        inner = soft(u - shift, tau * g1)
+        return torch.stack([sg(inner), sg(soft(inner + shift, tau))])
+    Ca = csr_f2_jump(zp, za, tau, g2)
+    Cb = za + tau * sg(za) + tau * g1 * sg(za - zp)
+    inner = soft(u - Ca, g1 * tau)
+    corr = tau * g1 * sg(u - Ca)
+    midder = soft(inner - Cb + corr, g2 * tau)
+    return torch.stack([sg(u - Ca), sg(inner), sg(midder), sg(soft(midder + Cb - corr, tau))])
+
+
+def csr_branch_flips(model, y, codes) -> tuple:
+    """Where the kernels' forward and the plain loop ("xla") put a CSR
+    prox argument in different branches: the recurrent apply of `model` on
+    frame y (N, C, H, W) at SIGMA with the neighbour `codes` (z_prev, and
+    z_after for CDLNet_CSRf2), its K prox arguments u_k read from the
+    kernels' u history and from the plain loop's prox calls. Returns
+    (flips (K, N, M, Hc, Wc) bool, u_kernels, u_plain, the thresholds
+    (tau, g1, g2) of each k as (N, M, 1, 1) tensors)."""
+    zp, za = codes["z_prev"].detach(), codes.get("z_after")
+    za = None if za is None else za.detach()
+    g1 = model.g1 if isinstance(model, CDLNetCSRf2) else model.g
+    g2 = getattr(model, "g2", None)
+    with torch.no_grad():
+        yp, _, mask, c = _prepare(model, y, SIGMA, None)
+        y2, m2, wa, ws, tau, geom = L2.phase_operands(yp, model.A, model.B, model.t, c,
+                                                       model.s, mask)
+        banks = (g1,) if za is None else (g1, g2)
+        gams = tuple(L2.threshold_bank(b, c, y.shape[0], yp) for b in banks)
+        u_kern = L2.lista2d_loop(y2, m2, wa, ws, tau, geom, return_hists=True, gams=gams,
+                                 codes=(zp,) if za is None else (zp, za))[2][2]
+        u_plain, ths = [], []
+
+        def record(u, k, c_):
+            th = [_threshold(b[k], c_) for b in (model.t, g1, g2) if b is not None]
+            u_plain.append(u)
+            ths.append(th)
+            if za is None:
+                return prox_csr(u, zp, *th)
+            return prox_csr_f2(u, zp, za, *th)
+
+        lista_2d(yp, model.A, model.B, model.t, c, mask=mask, stride=model.s, prox=record)
+        u_plain = torch.stack(u_plain)
+        flips = torch.stack([
+            (csr_prox_branches(u_kern[k], zp, za, *(ths[k] + [None])[:3])
+             != csr_prox_branches(u_plain[k], zp, za, *(ths[k] + [None])[:3])).any(0)
+            for k in range(len(ths))])
+    return flips, u_kern, u_plain, ths
+
+
+def csr_on_branches(model, y, z_prev, branches):
+    """CDLNet_CSR's recurrent apply on the plain loop (backend "xla") with
+    each iteration's prox_csr evaluated on the given branches (the signs of
+    csr_prox_branches, one pair per iteration) in place of its argument's
+    own: the same affine piece of the prox, so this is the plain loop on
+    the kernels' side of every boundary. Returns (xhat, z) as
+    model(y, z_prev, sigma=SIGMA)."""
+    yp, prm, mask, c = _prepare(model, y, SIGMA, None)
+
+    def prox(u, k, c_):
+        tau, gam = _threshold(model.t[k], c_), _threshold(model.g[k], c_)
+        a, b = branches[k]
+        shift = z_prev + tau * torch.sign(z_prev)
+        inner = a.abs() * (u - shift - a * tau * gam)
+        return b.abs() * (inner + shift - b * tau)
+
+    z = lista_2d(yp, model.A, model.B, model.t, c, mask=mask, stride=model.s, prox=prox)
+    x = conv_transpose2d(z, model.B[0], stride=model.s, padding=model.pad,
+                         output_padding=model.s - 1)
+    return post_process(x, prm), z
+
+
+def csr_kink_gap(u, zp, tau, g1) -> torch.Tensor:
+    """|u - the nearest boundary of prox_csr's branches| elementwise (the
+    inner soft threshold's at u - shift = +-tau g1; the outer's, where the
+    inner one passes u on, at inner + shift = +-tau)."""
+    shift = zp + tau * torch.sign(zp)
+    d = u - shift
+    inner = torch.sign(d) * torch.relu(d.abs() - tau * g1)
+    outer = torch.where(inner != 0, ((inner + shift).abs() - tau).abs(),
+                        torch.full_like(u, float("inf")))
+    return torch.minimum((d.abs() - tau * g1).abs(), outer)
+
+
 def csr_step_launches(two_sided, K, remat=False) -> dict:
     """Launches of one make_csr_train_step step (4 frame applications, each
     a K-iteration forward of K analyses and K syntheses, and in reverse K
@@ -1924,10 +2019,12 @@ def csr_train(dev, card, err) -> tuple[dict, dict]:
     for family, (model, plain) in models.items():
         kws = ("z_prev",) if family == "CDLNet_CSR" else ("z_prev", "z_after")
 
-        def csr_grads(m):
+        def csr_grads(m, recurrent=None):
+            """The gradients of a first-frame apply and a recurrent one
+            (`recurrent(**codes)` in place of m's own when given)."""
             codes = {n: z_nb[n].clone().requires_grad_() for n in kws}
             x0, z0 = m(y[:, 1:2], sigma=SIGMA)
-            x1, z1 = m(y[:, 0:1], sigma=SIGMA, **codes)
+            x1, z1 = (recurrent or (lambda **cd: m(y[:, 0:1], sigma=SIGMA, **cd)))(**codes)
             loss = mse_loss(x0, torch.from_numpy(clean[:, 1:2]).to(dev)) \
                 + mse_loss(x1, torch.from_numpy(clean[:, 0:1]).to(dev)) + 1e-2 * (z1 ** 2).mean()
             names = [n for n, _ in m.named_parameters()]
@@ -1938,6 +2035,9 @@ def csr_train(dev, card, err) -> tuple[dict, dict]:
         g1 = csr_grads(model)
         torch.cuda.synchronize()
         got = dict(L.launches)
+        flips, u_kern, u_plain, ths = csr_branch_flips(model, y[:, 0:1],
+                                                       {n: z_nb[n] for n in kws})
+        flipped = flips.any(0)
         want = {"lista2d_ana_threshold": K, "lista2d_syn_residual": 2 * (2 * K - 1),
                 "lista2d_syn_adjoint": K, "lista2d_wgrad": 4 * K,
                 "lista2d_ana_csrf2" if len(kws) == 2 else "lista2d_ana_csr": K,
@@ -1945,22 +2045,56 @@ def csr_train(dev, card, err) -> tuple[dict, dict]:
         require(got == want, f"{family} gradient launched {got}, expected {want}")
         g2 = csr_grads(model)
         gp = csr_grads(plain)
+        if family == "CDLNet_CSR":  # the plain loop on the kernels' branches
+            branches = [csr_prox_branches(u_kern[k], z_nb["z_prev"], None, *ths[k][:2], None)
+                        for k in range(K)]
+            gb = csr_grads(plain, lambda z_prev: csr_on_branches(plain, y[:, 0:1], z_prev,
+                                                                 branches))
         torch.cuda.synchronize()
         for name, a in g1.items():
             ref, d = gp[name], float((a - gp[name]).abs().max())
             same = torch.equal(a, g2[name])
             if name in kws:
-                # a code's cotangent is elementwise: where the prox argument
-                # of an iteration sits at one of its thresholds' kinks, the
-                # kernels' and cuDNN's fp32 sums can land on either side,
-                # and that element's cotangent moves by the whole local
-                # gradient; so it is held by its L2 error
+                # a code's cotangent is elementwise: where an iteration's
+                # prox argument u_k lies within the two programs' fp32
+                # difference of a branch boundary, the kernels and the
+                # plain loop take different branches and that code's
+                # cotangent moves by the whole local gradient (and its
+                # neighbours' by what that spreads). So the codes with such
+                # a flip (`flipped`) are counted and the worst error traced
+                # to its flip; CDLNet_CSR's codes are held elementwise at
+                # GRAD_TOL max-rel against the plain loop on the kernels'
+                # branches (csr_on_branches), and every code by its
+                # relative L2 error against the plain loop's own
                 l2 = rel_l2(a, ref)
-                far = int(((a - ref).abs() > GRAD_TOL * ref.abs().max()).sum())
+                off, scale = (a - ref).abs(), float(ref.abs().max())
+                far = off > GRAD_TOL * scale
+                rest = float(off.masked_fill(flipped, 0).max()) / scale
                 print(f"parity {family} K={K} gradient d{name} (1x{IMAGE[0]}^2): rel L2 "
-                      f"{l2:.3e}, max|d| {d:.3e} (rel {d / float(ref.abs().max()):.3e}; {far} of "
-                      f"{a.numel()} elements off by more than {GRAD_TOL} max|ref|); two runs "
-                      f"bitwise equal: {same}", flush=True)
+                      f"{l2:.3e}, max|d| {d:.3e} (rel {d / scale:.3e}); {int(flipped.sum())} of "
+                      f"{a.numel()} codes take another prox branch at some iteration on the "
+                      f"kernels than on the plain loop; {int(far.sum())} codes off by more than "
+                      f"{GRAD_TOL} max|ref|, {int((far & flipped).sum())} of them flipped; max "
+                      f"rel over the codes that no iteration flips {rest:.3e}; two runs bitwise "
+                      f"equal: {same}", flush=True)
+                if family == "CDLNet_CSR":
+                    worst = tuple(int(i) for i in np.unravel_index(int(off.argmax()), off.shape))
+                    _, m_, i_, j_ = worst
+                    for k in torch.nonzero(flips[(slice(None), *worst)]).flatten().tolist()[:3]:
+                        tau_k, g_k = (float(th[0, m_, 0, 0]) for th in ths[k][:2])
+                        uk, up = float(u_kern[(k, *worst)]), float(u_plain[(k, *worst)])
+                        gap = float(csr_kink_gap(u_kern[k][worst], z_nb["z_prev"][worst],
+                                                 tau_k, g_k))
+                        print(f"parity {family} d{name}: the worst code {worst} flips at "
+                              f"k={k}: u_k {uk:.9e} on the kernels, {up:.9e} on the plain "
+                              f"loop (|d| {abs(uk - up):.3e}); the kernels' u_k lies "
+                              f"{gap:.3e} from a branch boundary", flush=True)
+                    rel_b = float((a - gb[name]).abs().max() / gb[name].abs().max())
+                    print(f"parity {family} K={K} gradient d{name} (1x{IMAGE[0]}^2) against the "
+                          f"plain loop on the kernels' prox branches: max rel {rel_b:.3e}",
+                          flush=True)
+                    require(rel_b <= GRAD_TOL, f"{family} d{name} rel err {rel_b:.3e} > "
+                            f"{GRAD_TOL} on the kernels' branches")
                 require(l2 <= GRAD_TOL, f"{family} d{name} rel L2 {l2:.3e} > {GRAD_TOL}")
             elif family == "CDLNet_CSR":
                 rel = d / float(ref.abs().max())
@@ -1973,7 +2107,7 @@ def csr_train(dev, card, err) -> tuple[dict, dict]:
                       f"{l2:.3e}, max|d| {d:.3e}; two runs bitwise equal: {same}", flush=True)
                 require(l2 <= GRAD_TOL, f"{family} d{name} rel L2 {l2:.3e} > {GRAD_TOL}")
             require(same, f"{family}: two backward runs differ in d{name}")
-        del g1, g2, gp
+        del g1, g2, gp, flips, u_kern, u_plain, ths
 
     # --- R3. make_csr_train_step at native 640x368 (the batches of
     # tools/bench_csr_bigframe.py: 1x1x3 frames for CSRf2, 1x1x2 for CSR):

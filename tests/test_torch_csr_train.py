@@ -319,6 +319,21 @@ def test_fit_csr_runs(tmp_path):
                               zip(back.parameters(), model.parameters()))
 
 
+def test_fit_csr_names_the_fit_keys_it_ignores(tmp_path, capsys):
+    """fit's keys that the CSR trainer has no use for (an args.json's
+    backtrack_thresh, mcsure, demosaic) are taken and named, not applied."""
+    model = CDLNetCSR(K=2, M=4, P=3, s=1, backend="cuda")
+    model.init(torch.Generator().manual_seed(1))
+    opt = make_optimizer(1e-3, clip_grad=1.0)
+    state = opt.init(dict(model.named_parameters()))
+    vols = _volumes(6, (1, 1, 2, 8, 8)).numpy()
+    fit_csr(model, opt, state, {"train": [vols], "val": [], "test": [vols]},
+            save_dir=str(tmp_path), epochs=1, verbose=False, backtrack_thresh=1,
+            mcsure=False, demosaic=False)
+    assert ("fit_csr: ignoring fit args ['backtrack_thresh', 'demosaic', 'mcsure']"
+            in capsys.readouterr().out)
+
+
 # --- (5) the fastMRI training loaders ---
 
 @pytest.fixture(scope="module")
