@@ -1,7 +1,10 @@
-// The stride-1 phase-domain 3D correlation shared by the forward kernels
-// (lista3d.cu), the synthesis adjoint of the reverse pass (lista3d_bwd.cu)
-// and the 2D forward kernels (lista2d.cu, as D = 1, Qd = 1), fp32 on the
-// CUDA cores, for Hopper (sm_90a):
+// The stride-1 phase-domain 3D correlation shared by the synthesis adjoints
+// of the reverse pass (lista3d_bwd.cu: the 3D one, and at D = 1, Qd = 1
+// the 2D and CSR ones) and the 2D forward kernels with the CSR analyses
+// (lista2d.cu, as D = 1, Qd = 1), fp32 on the CUDA cores, for Hopper
+// (sm_90a). The 3D forward pair of lista3d.cu runs on the tensor cores
+// instead (lista3d_mma.cuh, which takes tap_box, soft and kMaxSmem from
+// here); this template stays until its last user moves:
 //
 //   out[n,o,d,h,w] = sum_{i,a,b,c} wt[i,a,b,c,o] * in[n,i,d+a+od,h+b+oh,w+c+ow]
 //
@@ -49,8 +52,9 @@
 // and sums the groups' partials in shared memory, and two blocks split the
 // channels again (atomicAdd into a zeroed output) with one pipeline buffer
 // each, so that two blocks share an SM: measured on the H100, more resident
-// warps was what moved both forward kernels. The same shared-memory pass
-// makes every epilogue store coalesced.
+// warps was what moved the forward kernels (the 2D pair here, and the 3D
+// pair before lista3d_mma.cuh). The same shared-memory pass makes every
+// epilogue store coalesced.
 
 #pragma once
 

@@ -80,7 +80,9 @@ Builds the hand-written CUDA kernels from cdlnet_tpu_torch/kernels/csrc
             launches per step and a checkpoint that reloads;
 
 and times every kernel (CUDA events) beside its plain version, the one
-PyTorch call that computes the same function, and its bound on this card,
+PyTorch call that computes the same function, and its bound on this card
+(for the 3D forward pair, which runs on the tensor cores in 3xTF32, at
+three TF32 products a term),
 and the served clip and image and the video and image train steps on the
 kernels and on backend "xla". Any failed phase raises and the script exits non-zero;
 without a CUDA device it exits 1 before printing any result. The last line
@@ -274,9 +276,13 @@ FORWARD_TOL = 1e-3  # the K=30 forward on the kernels vs the plain loop
 # fp32, summed in other orders through 30 forward and 30 reverse steps
 GRAD_TOL = 1e-3
 MIN_GAIN_DB = 3.0
-# published H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores, HBM3
+# published H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores, HBM3,
+# and TF32 on the tensor cores (dense), which the 3D forward pair runs as
+# three products per fp32 product (3xTF32)
 FP32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
+TF32_FLOPS = 495e12
+TC_KERNELS = ("lista3d_ana_threshold", "lista3d_syn_residual")
 
 
 def require(ok: bool, what: str) -> None:
@@ -321,15 +327,18 @@ def host_ms(fn, rounds: int = 5, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def bound(banks, n_positions, tensors, calls=1) -> tuple[float, str]:
+def bound(banks, n_positions, tensors, calls=1, tf32x3=False) -> tuple[float, str]:
     """The least ms per call for `calls` correlation calls on this card:
     their FMAs (two operations each) over the nonzero entries of each call's
     bank at every code position, against every input read once and every
     output written once (`tensors`), over the published fp32 and memory
-    rates."""
+    rates. With `tf32x3` the FMAs run as three TF32 products each on the
+    tensor cores (the 3D forward pair's fp32 contract), over the dense TF32
+    rate."""
     ops = 2.0 * n_positions * sum(int(torch.count_nonzero(b)) for b in banks)
     nbytes = sum(t.numel() * t.element_size() for t in tensors if t is not None)
-    t_ops, t_bytes = ops / FP32_FLOPS, nbytes / HBM_BYTES
+    t_ops = 3 * ops / TF32_FLOPS if tf32x3 else ops / FP32_FLOPS
+    t_bytes = nbytes / HBM_BYTES
     return (1e3 * max(t_ops, t_bytes) / calls,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -963,7 +972,8 @@ def forward_times(A_k, B_k, ops, s, reps) -> dict:
     ):
         times[name] = dict(zip(("ms", "plain_ms", "library_ms"),
                                (cuda_ms(f, reps) for f in (run, plain, lib))))
-        times[name]["bound_ms"], times[name]["bound_by"] = bound((bank,), n_pos, io)
+        times[name]["bound_ms"], times[name]["bound_by"] = bound((bank,), n_pos, io,
+                                                                 tf32x3=True)
     return times
 
 
@@ -1061,7 +1071,8 @@ def reverse_times(A, B, ops, s, reps) -> dict:
         calls = len(banks)
         tt = dict(zip(("ms", "plain_ms", "library_ms"),
                       (cuda_ms(f, reps) / calls for f in (run, plain, lib))))
-        tt["bound_ms"], tt["bound_by"] = bound(banks, n_pos, io, calls)
+        tt["bound_ms"], tt["bound_by"] = bound(banks, n_pos, io, calls,
+                                               tf32x3=name.split()[0] in TC_KERNELS)
         times[name] = tt
     return times
 
@@ -2219,6 +2230,14 @@ def main() -> int:
     spills = [ln.strip() for ln in so.with_suffix(".log").read_text().splitlines()
               if "registers" in ln or "spill" in ln]
     print(f"build: {build_s:.2f} s -> {so.name}; ptxas: {' | '.join(spills)}", flush=True)
+    # the tensor-core pair's lines by name: with their launch bounds (256
+    # threads and 2 blocks an SM; 512 threads and 1) they set its occupancy
+    entry = None
+    for ln in so.with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in ln:
+            entry = next((k for k in ("lista3d_ana_mma", "lista3d_syn_mma") if k in ln), None)
+        elif entry and ("registers" in ln or "spill" in ln):
+            print(f"ptxas {entry}: {ln.strip()}", flush=True)
 
     # --- 3. forward kernel parity at the flagship shape ---
     t0 = time.perf_counter()
@@ -2412,11 +2431,12 @@ def main() -> int:
                 + launches_2d.get(name, 0) + launches_t2.get(name, 0)
                 + launches_bf.get(name, 0) + launches_csr.get(name, 0)
                 + launches_ct.get(name, 0) for name in KERNELS}
-    for name in ("lista3d_ana_threshold", "lista3d_syn_residual"):
+    for name in TC_KERNELS:
         tt = times[name]
         print(f"time [{card}]: serve shape {name} {tt['ms']:.4f} ms/call, plain "
               f"{tt['plain_ms']:.4f}, library {tt['library_ms']:.4f}, bound "
-              f"{tt['bound_ms']:.4f} ({tt['bound_by']})", flush=True)
+              f"{tt['bound_ms']:.4f} ({tt['bound_by']}; 3xTF32 on the tensor cores)",
+              flush=True)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": err[name], **times[name],

@@ -98,6 +98,76 @@ def test_syn_residual_matches_plain(cuda, P, s, M, N, D, H, W, C, residual):
     assert _rel(got, ref) <= 1e-5
 
 
+# the flagship widths of the tensor-core pair: M=169 at the serve shape (one
+# 16x128^2 clip, an 8x64x64 code grid) and at the video train shape (N=2)
+FLAGSHIP_SHAPES = [
+    ((7, 7, 5), 2, 169, 1, 16, 128, 128, 1),
+    ((7, 7, 5), 2, 169, 2, 16, 128, 128, 1),
+]
+
+
+@pytest.mark.parametrize("P,s,M,N,D,H,W,C", FLAGSHIP_SHAPES)
+@pytest.mark.parametrize("first", [False, True])
+def test_flagship_ana_threshold_matches_plain(cuda, P, s, M, N, D, H, W, C, first):
+    """Per-sample tau (N=2), the codes written into a slice of a history."""
+    d = _setup(P, s, M, N, D, H, W, C)
+    z = None if first else d["z"]
+    ref = L.lista3d_ana_threshold_plain(d["r"], z, d["wa"], d["tau"], d["geom"])
+    hist = torch.full((3, *ref.shape), float("nan"), device=cuda)
+    got = L.lista3d_ana_threshold(
+        d["r"].to(cuda), None if z is None else z.to(cuda), d["wa"].to(cuda),
+        d["tau"].to(cuda), d["geom"], out=hist[1])
+    torch.cuda.synchronize()
+    assert got.data_ptr() == hist[1].data_ptr()
+    assert _rel(got, ref) <= 1e-5
+    assert torch.isnan(hist[0]).all() and torch.isnan(hist[2]).all()
+
+
+@pytest.mark.parametrize("P,s,M,N,D,H,W,C", FLAGSHIP_SHAPES)
+@pytest.mark.parametrize("residual", ["none", "y", "mask and y"])
+def test_flagship_syn_residual_matches_plain(cuda, P, s, M, N, D, H, W, C, residual):
+    d = _setup(P, s, M, N, D, H, W, C)
+    mask = d["mask"] if residual == "mask and y" else None
+    y = None if residual == "none" else d["y"]
+    ref = L.lista3d_syn_residual_plain(d["z"], d["ws"], d["geom"], mask=mask, y=y)
+    hist = torch.full((3, *ref.shape), float("nan"), device=cuda)
+    got = L.lista3d_syn_residual(
+        d["z"].to(cuda), d["ws"].to(cuda), d["geom"],
+        mask=None if mask is None else mask.to(cuda),
+        y=None if y is None else y.to(cuda), out=hist[2])
+    torch.cuda.synchronize()
+    assert got.data_ptr() == hist[2].data_ptr()
+    assert _rel(got, ref) <= 1e-5
+    assert torch.isnan(hist[:2]).all()
+
+
+def test_ana_threshold_in_place_matches_plain(cuda):
+    """z_out may be z_old: each code is read, then written, by one thread."""
+    d = _setup((7, 7, 5), 2, 169, 2, 8, 32, 96)
+    ref = L.lista3d_ana_threshold_plain(d["r"], d["z"], d["wa"], d["tau"], d["geom"])
+    z = d["z"].to(cuda)
+    got = L.lista3d_ana_threshold(d["r"].to(cuda), z, d["wa"].to(cuda), d["tau"].to(cuda),
+                                  d["geom"], out=z)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == z.data_ptr()
+    assert _rel(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("P,s,M,N,D,H,W,C", [FLAGSHIP_SHAPES[1], SHAPES[4]])
+def test_forward_kernels_are_deterministic(cuda, P, s, M, N, D, H, W, C):
+    d = _setup(P, s, M, N, D, H, W, C)
+    r, z, wa, ws, tau, mask, y = (d[k].to(cuda) for k in
+                                  ("r", "z", "wa", "ws", "tau", "mask", "y"))
+    runs = [(L.lista3d_ana_threshold(r, z, wa, tau, d["geom"]),
+             L.lista3d_ana_threshold(r, None, wa, tau, d["geom"]),
+             L.lista3d_syn_residual(z, ws, d["geom"], mask=mask, y=y),
+             L.lista3d_syn_residual(z, ws, d["geom"]))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 def test_fused_on_cuda_matches_cpu_and_counts_launches(cuda):
     rng = np.random.default_rng(3)
     K, M, P, s = 3, 13, (7, 7, 5), 2

@@ -42,5 +42,6 @@ def test_package_holds_the_slice():
                 "data/loader.py", "data/images.py", "data/synthetic.py",
                 "cli/__init__.py", "cli/train.py", "cli/analyze.py", "cli/analyze3d.py",
                 "data/video.py", "models/streaming.py", "models/csr.py",
-                "data/fastmri.py", "cli/analyzemri.py", "train/fit_csr.py"):
+                "data/fastmri.py", "cli/analyzemri.py", "train/fit_csr.py",
+                "kernels/csrc/lista3d_mma.cuh", "tools/bench_video_serve.py"):
         assert (pkg / rel).is_file(), rel

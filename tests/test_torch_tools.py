@@ -1,0 +1,51 @@
+"""The chip-side tools of cdlnet_tpu_torch on the CPU: their helpers, and
+that they refuse to time anything without a card."""
+
+import importlib.util
+import pathlib
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+TOOLS = pathlib.Path(__file__).resolve().parent.parent / "cdlnet_tpu_torch" / "tools"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread per test process (the suite runs six)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _tool(name):
+    spec = importlib.util.spec_from_file_location(name, TOOLS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_bench_video_serve_buckets_native_clips():
+    """The native 16x480x854 clip is timed at the Denoiser's 512x896 bucket,
+    reflect-padded, as chip_smoke.py's bigframe phase times it."""
+    tool = _tool("bench_video_serve")
+    clip = tool.smooth(np.random.default_rng(0), 2, (480, 854))
+    assert clip.shape == (2, 480, 854) and clip.min() == 0.0 and clip.max() == 1.0
+    padded = tool.bucketed(clip)
+    assert padded.shape == (2, 512, 896)
+    np.testing.assert_array_equal(padded[:, :480, :854], clip)
+    np.testing.assert_array_equal(padded[:, 480:, :854], clip[:, 478:446:-1])
+    assert tool.bucketed(clip[:, :128, :128]).shape == (2, 128, 128)
+
+
+@pytest.mark.parametrize("name", ["bench_video_serve", "bench_csr_serve"])
+def test_bench_tools_need_a_card(name, monkeypatch, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("on a card the tool would run its benchmark")
+    monkeypatch.setattr(sys, "argv", [name])
+    assert _tool(name).main() == 1
+    captured = capsys.readouterr()
+    assert "needs a GPU" in captured.err and captured.out == ""
