@@ -40,6 +40,7 @@ SIGNATURES = {
     "lista3d_wgrad_splits": [_I] * 4,
     "lista2d_ana_threshold": [_P] * 5 + [_I] * 14 + [_P],
     "lista2d_syn_residual": [_P] * 5 + [_I] * 9 + [_P],
+    "lista2d_launch_grid": [_I] * 8 + [_P],
     "lista2d_ana_csr": [_P] * 8 + [_I] * 14 + [_P],
     "lista2d_ana_csrf2": [_P] * 10 + [_I] * 14 + [_P],
     "lista2d_syn_adjoint_csr": [_P] * 13 + [_I] * 14 + [_F, _P],

@@ -1,4 +1,4 @@
-// Fused 2D LISTA steps for Hopper (sm_90a), fp32 on the CUDA cores.
+// Fused 2D LISTA steps for Hopper (sm_90a).
 //
 // Replaces the forward of the TPU kernels
 // cdlnet_tpu/kernels/lista2d.py::_kernel (the whole-K VMEM-resident 2D
@@ -7,10 +7,9 @@
 // banded pair for images too big for VMEM). On this card one pair with the
 // code tensor z in device memory between launches covers every image size,
 // so neither the TPU kernel's lane rolls nor its row bands and halos are
-// carried over. Both entry points are one stride-1 2D correlation in the
-// stride-phase (space-to-depth) domain with a fused epilogue: the 3D
-// template of lista3d_conv.cuh run with D = 1, Qd = 1 and the 2D phase map
-// (sd = 1: input channel i is phase i % s^2 in the order (c, a_h, a_w)):
+// carried over. Every entry point is one stride-1 2D correlation in the
+// stride-phase (space-to-depth) domain with a fused epilogue (input channel
+// i is phase i % s^2 in the order (c, a_h, a_w)):
 //
 //   lista2d_ana_threshold: in = r (Cp = C*s^2 channels), out = z (M),
 //       z <- ST(z_old - out, tau[n, m]); z_old == NULL reads as zeros (k=0).
@@ -27,6 +26,12 @@
 //       TPU kernel's u history rows, lista2d.py:297-313, 343-348), which
 //       the CSR adjoints of lista3d_bwd.cu read; serving passes NULL.
 //
+// The soft-threshold pair runs on the tensor cores in 3xTF32
+// (lista2d_mma.cuh says what bounds it and how its tiling fills the card
+// at a single 128^2 image); lista2d_launch_grid reports the launch it
+// makes. The CSR analyses run the fp32 CUDA-core template of
+// lista3d_conv.cuh at D = 1, Qd = 1 with the 2D phase map (sd = 1).
+//
 // The CSR epilogues add one (csr) or two (csrf2) code-sized reads a call.
 // At the CSR models' width on a fastMRI frame (M = 169, P = 9, s = 2;
 // 640x384 bucketed, a 320x192 code grid) one call is 1.68 GFLOP of
@@ -35,23 +40,15 @@
 // and ~0.050 ms for csrf2, so the CSR modes are bound by bytes. The prox
 // itself is ~30 flops a code, little beside the 81-tap correlation.
 //
-// What bounds them on this card: at the flagship 2D shape (M=169, Cp=4,
-// 4x4 phase taps) one call at a 128^2 image is ~68 MFLOP of nonzero-tap
-// FMAs (~1 us at the fp32 peak) against ~5.5 MB of codes (~1.7 us at
-// 3.35 TB/s): each call is tiny, so the 2K launches per image are bound by
-// launch latency and by how few blocks a 64x64 code grid gives, not by
-// FMAs; at 512^2 the calls are 16x larger. The design is the 3D one (its
-// header says how it keeps the FMA units fed); the synthesis takes 4 phase
-// channels per block, the 2D Cp, instead of the 3D kernel's 8.
-//
 // Plain C interface for ctypes: each entry returns cudaGetLastError() (or
 // the first CUDA error met) as an int; 0 means launched.
 
+#include "lista2d_mma.cuh"
 #include "lista3d_conv.cuh"
 
 namespace {
 
-// The analysis arguments shared by the three analysis entry points.
+// The CSR analyses' arguments.
 ConvArgs ana_args(const float* r, const float* wt, const float* z_old,
                   const float* tau, float* z_out, int N, int Cp, int M, int H,
                   int W, int Qh, int Qw, int oh, int ow, int s, int Ph, int Pw,
@@ -62,6 +59,19 @@ ConvArgs ana_args(const float* r, const float* wt, const float* z_old,
   a.Qd = 1, a.Qh = Qh, a.Qw = Qw, a.od = 0, a.oh = oh, a.ow = ow;
   a.s = s, a.sd = 1, a.P[0] = 1, a.P[1] = Ph, a.P[2] = Pw;
   a.pad[0] = 0, a.pad[1] = ph, a.pad[2] = pw;
+  return a;
+}
+
+// The tensor-core pair's arguments: in (N, I, H, W), wt (I, Qh, Qw, O),
+// out (N, O, H, W), the 3D layout at D = Qd = 1.
+tf32x3::MmaArgs mma_args(const float* in, const float* wt, float* out, int N,
+                         int I, int O, int H, int W, int Qh, int Qw, int oh,
+                         int ow) {
+  tf32x3::MmaArgs a{};
+  a.in = in, a.wt = wt, a.out = out;
+  a.N = N, a.I = I, a.O = O, a.D = 1, a.H = H, a.W = W;
+  a.Qd = 1, a.Qh = Qh, a.Qw = Qw, a.od = 0, a.oh = oh, a.ow = ow;
+  a.P[0] = 1, a.pad[0] = 0;
   return a;
 }
 
@@ -77,10 +87,10 @@ int lista2d_ana_threshold(const float* r, const float* wt, const float* z_old,
                           const float* tau, float* z_out, int N, int Cp, int M,
                           int H, int W, int Qh, int Qw, int oh, int ow, int s,
                           int Ph, int Pw, int ph, int pw, void* stream) {
-  const ConvArgs a = ana_args(r, wt, z_old, tau, z_out, N, Cp, M, H, W, Qh,
-                              Qw, oh, ow, s, Ph, Pw, ph, pw);
-  return launch<kAnaOB, kAnaOT, kAnaTH, 1, kAnaIC, 1, 2, kAnalysis>(
-      a, (cudaStream_t)stream);
+  tf32x3::MmaArgs a = mma_args(r, wt, z_out, N, Cp, M, H, W, Qh, Qw, oh, ow);
+  a.z = z_old, a.tau = tau, a.s = s;
+  a.P[1] = Ph, a.P[2] = Pw, a.pad[1] = ph, a.pad[2] = pw;
+  return mma2d::launch(false, a, (cudaStream_t)stream);
 }
 
 // z_out = prox_csr(z_old - A_k * r, zp; tau, gam): as lista2d_ana_threshold,
@@ -94,8 +104,7 @@ int lista2d_ana_csr(const float* r, const float* wt, const float* z_old,
   ConvArgs a = ana_args(r, wt, z_old, tau, z_out, N, Cp, M, H, W, Qh, Qw, oh,
                         ow, s, Ph, Pw, ph, pw);
   a.gam1 = gam, a.zp = zp, a.u_out = u_out;
-  return launch<kAnaOB, kAnaOT, kAnaTH, 1, kAnaIC, 1, 2, kAnalysisCsr>(
-      a, (cudaStream_t)stream);
+  return launch<kAnalysisCsr>(a, (cudaStream_t)stream);
 }
 
 // z_out = prox_csr_f2(z_old - A_k * r, zp, za; tau, gam1, gam2): the
@@ -110,8 +119,7 @@ int lista2d_ana_csrf2(const float* r, const float* wt, const float* z_old,
   ConvArgs a = ana_args(r, wt, z_old, tau, z_out, N, Cp, M, H, W, Qh, Qw, oh,
                         ow, s, Ph, Pw, ph, pw);
   a.gam1 = gam1, a.gam2 = gam2, a.zp = zp, a.za = za, a.u_out = u_out;
-  return launch<kAnaOB, kAnaOT, kAnaTH, 1, kAnaIC, 1, 2, kAnalysisCsrF2>(
-      a, (cudaStream_t)stream);
+  return launch<kAnalysisCsrF2>(a, (cudaStream_t)stream);
 }
 
 // r_out = [mask *] B_k^T z [- y]: z (N, M, H, W); wt (M, Qh, Qw, Cp)
@@ -120,15 +128,28 @@ int lista2d_syn_residual(const float* z, const float* wt, const float* mask,
                          const float* y, float* r_out, int N, int M, int Cp,
                          int H, int W, int Qh, int Qw, int oh, int ow,
                          void* stream) {
-  ConvArgs a{};
-  a.in = z, a.wt = wt, a.out = r_out, a.mask = mask, a.y = y;
-  a.N = N, a.I = M, a.O = Cp, a.D = 1, a.H = H, a.W = W;
-  a.Qd = 1, a.Qh = Qh, a.Qw = Qw, a.od = 0, a.oh = oh, a.ow = ow;
-  // 4 phase channels x (4 rows x 64 columns) per block; 8 groups of one warp
-  // each take every 8th code channel, summed in shared memory; two blocks
-  // split the code channels (atomicAdd into a zeroed output: with two
-  // addends the sum does not depend on their order)
-  return launch<4, 4, 4, 8, 1, 2, 1, kSynthesis>(a, (cudaStream_t)stream);
+  tf32x3::MmaArgs a = mma_args(z, wt, r_out, N, M, Cp, H, W, Qh, Qw, oh, ow);
+  a.mask = mask, a.y = y;
+  return mma2d::launch(true, a, (cudaStream_t)stream);
+}
+
+// The launch that lista2d_syn_residual (synthesis != 0) or
+// lista2d_ana_threshold makes on the current device at these sizes (I
+// input and O output channels: M and Cp, or Cp and M): out[0..2] its grid;
+// out[3] the codes a block (analysis) or the blocks a cluster, which split
+// the codes (synthesis); out[4] the code rows a block. Returns 0, or the
+// CUDA error met.
+int lista2d_launch_grid(int synthesis, int N, int I, int O, int H, int W,
+                        int Qh, int Qw, int* out) {
+  const tf32x3::MmaArgs a =
+      mma_args(nullptr, nullptr, nullptr, N, I, O, H, W, Qh, Qw, 0, 0);
+  mma2d::Launch l;
+  const int err = mma2d::query(synthesis != 0, a, l);
+  if (err != 0) return err;
+  out[0] = (int)l.grid.x, out[1] = (int)l.grid.y, out[2] = (int)l.grid.z;
+  out[3] = synthesis ? l.split : l.bn;
+  out[4] = l.rows;
+  return 0;
 }
 
 }  // extern "C"

@@ -279,8 +279,7 @@ int lista3d_syn_adjoint(const float* g, const float* wt, const float* base,
   a.Qd = Qd, a.Qh = Qh, a.Qw = Qw, a.od = od, a.oh = oh, a.ow = ow;
   a.s = s, a.sd = sd, a.P[0] = Pd, a.P[1] = Ph, a.P[2] = Pw;
   a.pad[0] = pd, a.pad[1] = ph, a.pad[2] = pw;
-  const int err = launch<kAnaOB, kAnaOT, kAnaTH, 1, kAnaIC, 1, 2, kAdjoint>(
-      a, (cudaStream_t)stream);
+  const int err = launch<kAdjoint>(a, (cudaStream_t)stream);
   if (err != 0) return err;
   return launch_reduce(work, dtau, N * M, lista3d_syn_adjoint_parts(D, H, W),
                        1.f, (cudaStream_t)stream);
@@ -303,9 +302,7 @@ int lista2d_syn_adjoint_csr(const float* g, const float* wt, const float* base,
                                 Cp, M, H, W, Qh, Qw, oh, ow, s, Ph, Pw, ph, pw,
                                 alpha);
   a.gam1 = gam;
-  const int err =
-      launch<kAnaOB, kAnaOT, kAnaTH, 1, kAnaIC, 1, 2, kAdjointCsr>(
-          a, (cudaStream_t)stream);
+  const int err = launch<kAdjointCsr>(a, (cudaStream_t)stream);
   if (err != 0) return err;
   float* outs[2] = {dtau, dgam};
   return reduce_sums(work, outs, 2, N, M, lista3d_syn_adjoint_parts(1, H, W),
@@ -329,9 +326,7 @@ int lista2d_syn_adjoint_csrf2(const float* g, const float* wt,
                                 Cp, M, H, W, Qh, Qw, oh, ow, s, Ph, Pw, ph, pw,
                                 alpha);
   a.gam1 = gam1, a.gam2 = gam2, a.za = za, a.dza = dza;
-  const int err =
-      launch<kAnaOB, kAnaOT, kAnaTH, 1, kAnaIC, 1, 2, kAdjointCsrF2>(
-          a, (cudaStream_t)stream);
+  const int err = launch<kAdjointCsrF2>(a, (cudaStream_t)stream);
   if (err != 0) return err;
   float* outs[3] = {dtau, dgam1, dgam2};
   return reduce_sums(work, outs, 3, N, M, lista3d_syn_adjoint_parts(1, H, W),

@@ -1,26 +1,24 @@
 // The stride-1 phase-domain 3D correlation shared by the synthesis adjoints
 // of the reverse pass (lista3d_bwd.cu: the 3D one, and at D = 1, Qd = 1
-// the 2D and CSR ones) and the 2D forward kernels with the CSR analyses
-// (lista2d.cu, as D = 1, Qd = 1), fp32 on the CUDA cores, for Hopper
-// (sm_90a). The 3D forward pair of lista3d.cu runs on the tensor cores
-// instead (lista3d_mma.cuh, which takes tap_box, soft and kMaxSmem from
-// here); this template stays until its last user moves:
+// the 2D and CSR ones) and the CSR analyses (lista2d.cu, at D = 1, Qd = 1),
+// fp32 on the CUDA cores, for Hopper (sm_90a). The 3D and 2D forward pairs
+// run on the tensor cores instead (lista3d_mma.cuh, lista2d_mma.cuh; their
+// shared mma_tf32.cuh takes tap_box, soft and kMaxSmem from here); this
+// template stays until its last user moves:
 //
 //   out[n,o,d,h,w] = sum_{i,a,b,c} wt[i,a,b,c,o] * in[n,i,d+a+od,h+b+oh,w+c+ow]
 //
 // with zero outside the input volume (the reference Conv3d's zero padding,
 // handled by explicit bounds checks while staging the input tile), followed
-// by one of seven fused epilogues:
+// by one of five fused epilogues:
 //
-//   kAnalysis:  out = ST(z - u, tau[n, o]); z == NULL reads as zeros.
-//   kAnalysisCsr, kAnalysisCsrF2: v = z - u as in kAnalysis, then the
-//               one-sided CSR prox of v toward the neighbour code zp with
+//   kAnalysisCsr, kAnalysisCsrF2: v = z - u (z == NULL reads as zeros),
+//               then the one-sided CSR prox of v toward the neighbour code zp with
 //               (tau, gam1[n, o]), or the two-sided one with zp, za and
 //               (tau, gam1, gam2): core/ops.py::prox_csr / prox_csr_f2,
 //               elementwise, the same expressions in the same order; v is
 //               also stored to u_out when it is not NULL (the prox
 //               argument's history, which the CSR adjoints read).
-//   kSynthesis: out = [mask *] u [- y].
 //   kAdjoint:   dz = [base +] alpha * u; out = 1{z != 0} * dz, and per
 //               block and output channel the sum of -sign(z) * dz into
 //               part[block][n, o] (summed in a fixed order afterwards).
@@ -45,16 +43,10 @@
 // cp.async (double-buffered where one block fills an SM's registers, so
 // that one stage's copies fly while the previous stage computes), and each
 // (tap) step is 8 conflict-free input loads + 2 broadcast float4 weight
-// loads for 64 FMAs. The analysis and the adjoint skip each input phase's
-// structurally zero taps (36% of the phase form's FMAs at the flagship
-// shape). The synthesis has few outputs (Cp) and a long contraction
-// (M x taps), so its block splits the input channels over G thread groups
-// and sums the groups' partials in shared memory, and two blocks split the
-// channels again (atomicAdd into a zeroed output) with one pipeline buffer
-// each, so that two blocks share an SM: measured on the H100, more resident
-// warps was what moved the forward kernels (the 2D pair here, and the 3D
-// pair before lista3d_mma.cuh). The same shared-memory pass makes every
-// epilogue store coalesced.
+// loads for 64 FMAs. Every epilogue skips each input phase's structurally
+// zero taps (36% of the phase form's FMAs at the 3D flagship shape). The
+// sums pass through shared memory, so that every epilogue store is
+// coalesced.
 
 #pragma once
 
@@ -67,11 +59,13 @@ constexpr int kThreads = 256;
 constexpr int kPX = 8;            // output columns per thread (stride kTPX)
 constexpr int kTPX = 8;           // threads along a tile row
 constexpr int kTW = kPX * kTPX;   // tile width: 64 columns
+// The tiling every epilogue runs: 32 output channels x (8 rows x 64
+// columns) per block, 8 channels x 8 columns a thread, 2 input channels a
+// stage (kAnaOB, kAnaOT, kAnaTH, kAnaIC).
+constexpr int kAnaOB = 32, kAnaOT = 8, kAnaTH = 8, kAnaIC = 2;
 constexpr int kMaxSmem = 227 * 1024;
 
 enum Epilogue {
-  kAnalysis = 0,
-  kSynthesis = 1,
   kAdjoint = 2,
   kAnalysisCsr = 3,
   kAnalysisCsrF2 = 4,
@@ -93,19 +87,17 @@ struct ConvArgs {
   const float* in;     // (N, I, D, H, W)
   const float* wt;     // (I, Qd, Qh, Qw, O)
   float* out;          // (N, O, D, H, W)
-  const float* z;      // analysis: old codes, or NULL for zeros;
+  const float* z;      // CSR analysis: old codes, or NULL for zeros;
                        // adjoint: the codes whose support masks dz
   float* u_out;        // CSR analysis: the prox argument v, or NULL
   const float* uh;     // CSR adjoint: the stored prox argument v
   float* dzp;          // CSR adjoint: zp's cotangent, accumulated
   float* dza;          // two-sided CSR adjoint: za's cotangent, accumulated
-  const float* tau;    // analysis: (N, O)
+  const float* tau;    // (N, O)
   const float* zp;     // CSR: the neighbour code (N, O, D, H, W)
   const float* za;     // two-sided CSR: the following frame's code
   const float* gam1;   // CSR: (N, O)
   const float* gam2;   // two-sided CSR: (N, O)
-  const float* mask;   // synthesis: (N, O, D, H, W) or NULL
-  const float* y;      // synthesis: (N, O, D, H, W) or NULL
   const float* base;   // adjoint: (N, O, D, H, W) or NULL for zeros
   float* part;         // adjoint: (block_sums, D * tiles, N, O) per-block
                        // partials of dtau (, dgam1, dgam2)
@@ -113,7 +105,7 @@ struct ConvArgs {
   int N, I, O, D, H, W;
   int Qd, Qh, Qw;
   int od, oh, ow;
-  // analysis and adjoint, s > 0: input channel i is stride phase
+  // s > 0: input channel i is stride phase
   // i % (sd * s^2) of a stride-s conv with kernel P and padding pad, the
   // phase index ordered (c, a_d, a_h, a_w), so its weights vanish outside a
   // box of taps per dim, and the box is all the FMAs it needs. sd is the
@@ -134,21 +126,17 @@ __host__ __device__ inline int row_pitch(int cols) {
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
 // One pipeline buffer (floats): a stage's input tile and weight slice.
-template <int OB, int TH, int G, int IC>
 __host__ __device__ inline int stage_floats(int Qd, int Qh, int Qw) {
-  const int stage = G * IC;
-  return round4(stage * Qd * (TH + Qh - 1) * row_pitch(kTW + Qw - 1)) +
-         round4(stage * Qd * Qh * Qw * OB);
+  return round4(kAnaIC * Qd * (kAnaTH + Qh - 1) * row_pitch(kTW + Qw - 1)) +
+         round4(kAnaIC * Qd * Qh * Qw * kAnaOB);
 }
 
-// Shared memory (floats) of one block: NBUF pipeline buffers, reused
-// afterwards for the G groups' partial sums, or an adjoint's block_sums
-// per-element terms (its G is 1).
-template <int OB, int TH, int G, int IC, int NBUF, int EPI>
+// Shared memory (floats) of one block: two pipeline buffers, reused
+// afterwards for the sums, or an adjoint's block_sums per-element terms.
+template <int EPI>
 __host__ __device__ inline int smem_floats(int Qd, int Qh, int Qw) {
-  const int bufs = NBUF * stage_floats<OB, TH, G, IC>(Qd, Qh, Qw);
-  const int sums = G > block_sums(EPI) ? G : block_sums(EPI);
-  const int red = sums * OB * TH * kTW;
+  const int bufs = 2 * stage_floats(Qd, Qh, Qw);
+  const int red = block_sums(EPI) * kAnaOB * kAnaTH * kTW;
   return bufs > red ? bufs : red;
 }
 
@@ -288,24 +276,17 @@ __device__ inline void load_tap(float* x, float* w, const float* xs,
   }
 }
 
-// OB output channels per block, OT per thread, TH tile rows, G input-channel
-// groups per block, IC input channels per group and stage, KS blocks that
-// split the input channels (their partial sums meet by atomicAdd in a
-// zeroed output: exact order-independence holds for KS <= 2), NBUF
-// pipeline buffers (2: the next stage's copies overlap this stage's FMAs;
-// 1: half the shared memory, so more blocks share an SM instead).
-template <int OB, int OT, int TH, int G, int IC, int KS, int NBUF, int EPI>
+// kAnaOB output channels per block, kAnaOT per thread, kAnaTH tile rows,
+// kAnaIC input channels per stage, two pipeline buffers (the next stage's
+// copies overlap this stage's FMAs).
+template <int EPI>
 __global__ void __launch_bounds__(kThreads)
 lista3d_conv(const ConvArgs a) {
-  static_assert(G * (OB / OT) * TH * kTPX == kThreads, "thread layout");
+  constexpr int OB = kAnaOB, OT = kAnaOT, TH = kAnaTH, stage = kAnaIC;
+  static_assert((OB / OT) * TH * kTPX == kThreads, "thread layout");
   static_assert(OT % 4 == 0 && OB % OT == 0, "float4 weight loads");
-  static_assert(KS == 1 || (KS == 2 && EPI == kSynthesis),
-                "only the linear synthesis epilogue splits, over 2 blocks");
-  static_assert(NBUF == 1 || NBUF == 2, "one or two pipeline buffers");
-  static_assert(!is_adjoint(EPI) ||
-                    (G == 1 && kThreads % OB == 0 && kThreads / OB <= 32),
-                "adjoint: one group, a power-of-two thread group per output "
-                "channel");
+  static_assert(kThreads % OB == 0 && kThreads / OB <= 32,
+                "a power-of-two thread group per output channel");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
 
@@ -314,22 +295,19 @@ lista3d_conv(const ConvArgs a) {
   const int cols = kTW + a.Qw - 1;
   const int pitch = row_pitch(cols);
   const int in_ch = a.Qd * rows * pitch;  // floats per staged channel
-  const int stage = G * IC;
 
   const int tiles_w = (a.W + kTW - 1) / kTW;
   const int w0 = (blockIdx.x % tiles_w) * kTW;
   const int h0 = (blockIdx.x / tiles_w) * TH;
   const int d = blockIdx.y;
   const int o_tiles = (a.O + OB - 1) / OB;
-  const int ks = blockIdx.z % KS;
-  const int n = blockIdx.z / KS / o_tiles;
-  const int o0 = (blockIdx.z / KS % o_tiles) * OB;
+  const int n = blockIdx.z / o_tiles;
+  const int o0 = (blockIdx.z % o_tiles) * OB;
 
   const int tid = threadIdx.x;
   const int tx = tid % kTPX;
   const int ty = (tid / kTPX) % TH;
-  const int oc = (tid / (kTPX * TH)) % (OB / OT);
-  const int g = tid / (kTPX * TH * (OB / OT));
+  const int oc = tid / (kTPX * TH);
 
   float acc[OT][kPX];
 #pragma unroll
@@ -339,12 +317,8 @@ lista3d_conv(const ConvArgs a) {
 
   const size_t plane = (size_t)a.H * a.W;
   const float* in_n = a.in + (size_t)n * a.I * a.D * plane;
-  const int buf_floats = stage_floats<OB, TH, G, IC>(a.Qd, a.Qh, a.Qw);
+  const int buf_floats = stage_floats(a.Qd, a.Qh, a.Qw);
   const int w_off = round4(stage * in_ch);
-  // this block's input channels [i_begin, i_end), whole stages per split
-  const int per_split = ((a.I + stage - 1) / stage + KS - 1) / KS * stage;
-  const int i_begin = ks * per_split;
-  const int i_end = min(a.I, i_begin + per_split);
 
   // Issue the asynchronous copies of input channels [i0, i0 + stage) into
   // pipeline buffer b: one warp per staged row (channel, depth tap, row),
@@ -359,8 +333,7 @@ lista3d_conv(const ConvArgs a) {
       const int ci = line / (rows * a.Qd);
       const int i = i0 + ci;
       const int dd = d + q + a.od, hh = h0 + r + a.oh;
-      const bool row_ok =
-          i < i_end && dd >= 0 && dd < a.D && hh >= 0 && hh < a.H;
+      const bool row_ok = i < a.I && dd >= 0 && dd < a.D && hh >= 0 && hh < a.H;
       const float* src =
           row_ok ? in_n + ((size_t)i * a.D + dd) * plane + (size_t)hh * a.W
                  : a.in;
@@ -375,20 +348,17 @@ lista3d_conv(const ConvArgs a) {
     for (int e = tid; e < w_elems; e += kThreads) {
       const int t = e / OB;  // ci * T + tap
       const int og = o0 + e % OB;
-      const bool ok = i0 + t / T < i_end && og < a.O;
+      const bool ok = i0 + t / T < a.I && og < a.O;
       cp_async4(s_w + e, ok ? a.wt + ((size_t)i0 * T + t) * a.O + og : a.wt,
                 ok);
     }
     cp_async_commit();
   };
 
-  // NBUF == 2: the copies of stage s+1 fly while stage s computes.
-  if (NBUF == 2 && i_begin < i_end) issue(i_begin, 0);
-  for (int i0 = i_begin, b = 0; i0 < i_end; i0 += stage, b ^= NBUF - 1) {
-    if (NBUF == 1) {
-      issue(i0, 0);
-      cp_async_wait<0>();
-    } else if (i0 + stage < i_end) {
+  // the copies of stage s+1 fly while stage s computes
+  issue(0, 0);
+  for (int i0 = 0, b = 0; i0 < a.I; i0 += stage, b ^= 1) {
+    if (i0 + stage < a.I) {
       issue(i0 + stage, b ^ 1);
       cp_async_wait<1>();
     } else {
@@ -399,12 +369,11 @@ lista3d_conv(const ConvArgs a) {
     const float* s_w = s_in + w_off;
 
 #pragma unroll
-    for (int ic = 0; ic < IC; ++ic) {
-      const int ci = g * IC + ic;
+    for (int ci = 0; ci < stage; ++ci) {
       const float* xin = s_in + ci * in_ch + ty * pitch + tx;
       const float* wv = s_w + ci * T * OB + oc * OT;
       int qd0 = 0, qd1 = a.Qd, qh0 = 0, qh1 = a.Qh, qw0 = 0, qw1 = a.Qw;
-      if (EPI != kSynthesis && a.s > 0) {  // skip the phase's zero taps
+      if (a.s > 0) {  // skip the phase's zero taps
         const int ph = (i0 + ci) % (a.sd * a.s * a.s);
         tap_box(a.sd, ph / (a.s * a.s), a.P[0], a.pad[0], a.od, a.Qd, qd0, qd1);
         tap_box(a.s, ph / a.s % a.s, a.P[1], a.pad[1], a.oh, a.Qh, qh0, qh1);
@@ -429,28 +398,25 @@ lista3d_conv(const ConvArgs a) {
     __syncthreads();  // buffer b is free for the copies issued next round
   }
 
-  // partial sums of the G groups -> shared memory (G, OB, TH, kTW)
+  // the sums -> shared memory (OB, TH, kTW)
   float* red = smem;
 #pragma unroll
   for (int j = 0; j < OT; ++j)
 #pragma unroll
     for (int p = 0; p < kPX; ++p)
-      red[((g * OB + oc * OT + j) * TH + ty) * kTW + tx + p * kTPX] =
-          acc[j][p];
+      red[((oc * OT + j) * TH + ty) * kTW + tx + p * kTPX] = acc[j][p];
   __syncthreads();
 
   const int outs = OB * TH * kTW;
   for (int e = tid; e < outs; e += kThreads) {
-    float u = 0.f;
-#pragma unroll
-    for (int gg = 0; gg < G; ++gg) u += red[gg * outs + e];
+    const float u = red[e];
     const int col = e % kTW;
     const int r = (e / kTW) % TH;
     const int og = o0 + e / (kTW * TH);
     const int hh = h0 + r, ww = w0 + col;
     const bool inside = og < a.O && hh < a.H && ww < a.W;
-    // adjoint: red[q * outs + e] (this thread's alone: G == 1) now takes
-    // the per-element terms of the block sums (zero outside the volume)
+    // adjoint: red[q * outs + e] (this thread's alone) now takes the
+    // per-element terms of the block sums (zero outside the volume)
     if (is_adjoint(EPI)) {
 #pragma unroll
       for (int q = 0; q < block_sums(EPI); ++q) red[q * outs + e] = 0.f;
@@ -458,11 +424,7 @@ lista3d_conv(const ConvArgs a) {
     if (!inside) continue;
     const size_t idx = (((size_t)n * a.O + og) * a.D + d) * plane +
                        (size_t)hh * a.W + ww;
-    if (EPI == kAnalysis) {
-      const float v = (a.z ? a.z[idx] : 0.f) - u;
-      const float m = fmaxf(fabsf(v) - a.tau[n * a.O + og], 0.f);
-      a.out[idx] = v > 0.f ? m : (v < 0.f ? -m : 0.f);  // sign(v) * m
-    } else if (EPI == kAnalysisCsr || EPI == kAnalysisCsrF2) {
+    if (EPI == kAnalysisCsr || EPI == kAnalysisCsrF2) {
       const float v = (a.z ? a.z[idx] : 0.f) - u;
       const int no = n * a.O + og;
       a.out[idx] = EPI == kAnalysisCsr
@@ -488,7 +450,7 @@ lista3d_conv(const ConvArgs a) {
       a.dzp[idx] += dzp;
       red[e] = dtau;
       red[outs + e] = dgam;
-    } else if (EPI == kAdjointCsrF2) {
+    } else {  // kAdjointCsrF2
       const float dz = (a.base ? a.base[idx] : 0.f) + a.alpha * u;
       const int no = n * a.O + og;
       float dv, dzp, dza, dtau, dg1, dg2;
@@ -501,13 +463,6 @@ lista3d_conv(const ConvArgs a) {
       red[e] = dtau;
       red[outs + e] = dg1;
       red[2 * outs + e] = dg2;
-    } else {
-      if (a.mask) u *= a.mask[idx];
-      if (a.y && ks == 0) u -= a.y[idx];
-      if (KS == 1)
-        a.out[idx] = u;
-      else
-        atomicAdd(a.out + idx, u);
     }
   }
 
@@ -533,35 +488,23 @@ lista3d_conv(const ConvArgs a) {
   }
 }
 
-template <int OB, int OT, int TH, int G, int IC, int KS, int NBUF, int EPI>
+template <int EPI>
 int launch(const ConvArgs& a, cudaStream_t stream) {
   if (a.N <= 0 || a.I <= 0 || a.O <= 0 || a.D <= 0 || a.H <= 0 || a.W <= 0 ||
       a.Qd <= 0 || a.Qh <= 0 || a.Qw <= 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem =
-      sizeof(float) *
-      (size_t)smem_floats<OB, TH, G, IC, NBUF, EPI>(a.Qd, a.Qh, a.Qw);
-  const int tiles = ((a.W + kTW - 1) / kTW) * ((a.H + TH - 1) / TH);
-  const int zdim = a.N * ((a.O + OB - 1) / OB) * KS;
+      sizeof(float) * (size_t)smem_floats<EPI>(a.Qd, a.Qh, a.Qw);
+  const int tiles = ((a.W + kTW - 1) / kTW) * ((a.H + kAnaTH - 1) / kAnaTH);
+  const int zdim = a.N * ((a.O + kAnaOB - 1) / kAnaOB);
   if (smem > (size_t)kMaxSmem || a.D > 65535 || zdim > 65535)
     return (int)cudaErrorInvalidConfiguration;
-  auto kern = lista3d_conv<OB, OT, TH, G, IC, KS, NBUF, EPI>;
-  cudaError_t err = cudaFuncSetAttribute(
+  auto kern = lista3d_conv<EPI>;
+  const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  if (KS > 1) {  // the split blocks accumulate into a zeroed output
-    err = cudaMemsetAsync(a.out, 0,
-                          sizeof(float) * a.N * a.O * a.D * (size_t)a.H * a.W,
-                          stream);
-    if (err != cudaSuccess) return (int)err;
-  }
   kern<<<dim3(tiles, a.D, zdim), kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
-
-// The analysis configuration, shared by lista3d_ana_threshold and the
-// adjoint: 32 codes x (8 rows x 64 columns) per block, 8 codes x 8 columns
-// a thread, two pipeline buffers.
-constexpr int kAnaOB = 32, kAnaOT = 8, kAnaTH = 8, kAnaIC = 2;
 
 }  // namespace

@@ -17,6 +17,9 @@
 // _kernel_ana3_band (K9) and the ring kernels of lista3d_ring.py (K11); the
 // synthesis also serves as the analysis adjoint of the reverse pass
 // (lista3d_tiled_bwd.py::_kernel_ds_band, K10; lista3d_ring_bwd.py, K12).
+// Their building blocks (the arguments, the staged tile and its row stager,
+// the bulk copies, the operand split and the product) are in mma_tf32.cuh,
+// which the 2D pair (lista2d_mma.cuh) shares.
 //
 // The fp32 contract, by 3xTF32. A TF32 product keeps 11 significant bits,
 // about three digits. Each operand x is split into hi = x truncated to 11
@@ -119,234 +122,19 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include "lista3d_conv.cuh"  // tap_box, soft, kMaxSmem
+#include "mma_tf32.cuh"
 
 namespace mma3d {
 
-constexpr int kTW = 64;  // tile columns
+using namespace tf32x3;
+using tf32x3::kTW;  // over lista3d_conv.cuh's (also 64)
+
 // analysis: 8 warps (4 along positions x 2 along codes), 2 x 64 positions,
 // 176 codes; two blocks an SM
 constexpr int kAnaThreads = 256, kAnaTH = 2, kAnaBN = 176, kAnaNT = 11;
 // synthesis: 16 warps, 2 halves of 4 x 64 positions (8 m16 tiles a warp) x
 // 8 groups of taps, 8 outputs; one block an SM
 constexpr int kSynThreads = 512, kSynTH = 4, kSynTG = 8;
-
-struct MmaArgs {
-  const float* in;    // (N, I, D, H, W)
-  const float* wt;    // (I, Qd, Qh, Qw, O)
-  float* out;         // (N, O, D, H, W)
-  const float* z;     // analysis: old codes or NULL
-  const float* tau;   // analysis: (N, O)
-  const float* mask;  // synthesis: (N, O, D, H, W) or NULL
-  const float* y;     // synthesis: (N, O, D, H, W) or NULL
-  int N, I, O, D, H, W;
-  int Qd, Qh, Qw;
-  int od, oh, ow;
-  int s;              // analysis: stride of the phase map (0: every tap)
-  int P[3], pad[3];
-};
-
-// The smallest p >= x with p % 32 == 8: a channel or weight-row stride
-// that spreads a fragment's 4 k-rows over 4 distinct groups of 8 banks.
-__host__ __device__ inline int stride8(int x) { return x + ((40 - x % 32) % 32); }
-
-// A float pointer's offset from the 16-byte grid, in floats (0..3).
-__host__ __device__ inline unsigned mis4(const void* p) {
-  return (unsigned)(reinterpret_cast<uintptr_t>(p) >> 2) & 3u;
-}
-
-// The staged input tile of 8 channels: TH + Qh - 1 rows of 64 + Qw - 1
-// columns for each of the Qd depth taps. A staged row starts on the 16-byte
-// grid and holds its columns `sh` floats in (0..3: the global offset of
-// its first column from the grid, so that a bulk copy lands aligned), hence
-// a pitch of the columns + 3, rounded to 4.
-struct Tile {
-  int rows, cols, pitch, slab;
-  __host__ __device__ Tile(const MmaArgs& a, int TH)
-      : rows(TH + a.Qh - 1), cols(kTW + a.Qw - 1),
-        pitch((kTW + a.Qw - 1 + 3 + 3) & ~3),
-        slab(stride8(a.Qd * (TH + a.Qh - 1) * ((kTW + a.Qw - 1 + 3 + 3) & ~3))) {}
-};
-
-// ---- asynchronous copies: the TMA engine's bulk copies, completed on an
-// mbarrier
-
-__device__ inline unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ inline void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
-}
-__device__ inline void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n"
-               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-__device__ inline void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.release.cta.shared::cta.b64 _, [%0];\n"
-               ::"r"(smem_addr(bar)) : "memory");
-}
-__device__ inline void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n .reg .pred p;\n WAIT_%=:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      " @!p bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
-}
-// Shared memory that the generic proxy read or wrote may next be written by
-// a bulk copy (the async proxy).
-__device__ inline void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ inline void zero(float* dst, int n) {  // dst 16-byte aligned, n % 4 == 0
-  for (int i = 0; i < n; i += 4) *reinterpret_cast<float4*>(dst + i) = make_float4(0.f, 0.f, 0.f, 0.f);
-}
-// floats src[0, n) -> dst[0, n), dst and src at the same offset from the
-// 16-byte grid, by one bulk copy counted on bar, widened to the grid on
-// both sides: up to 3 floats before src and after src + n land in dst's
-// padding, or on columns the caller zeroes once the copy has landed. With
-// `post` false (src + n lies within 3 floats of the source's end), the
-// floats past the last grid line go by plain loads instead.
-__device__ inline void bulk_copy(float* dst, const float* src, int n, uint64_t* bar) {
-  mbar_expect_tx(bar, 4 * n);
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(4 * n), "r"(smem_addr(bar)) : "memory");
-}
-__device__ inline void copy_span(float* dst, const float* src, int n, uint64_t* bar, bool post) {
-  const int k = (int)mis4(src);
-  dst -= k, src -= k, n += k;
-  const int tail = post ? 0 : n & 3;
-  n = post ? (n + 3) & ~3 : n - tail;
-  if (n > 0) bulk_copy(dst, src, n, bar);
-  for (int j = n; j < n + tail; ++j) dst[j] = src[j];
-}
-
-// 3xTF32 operand split: hi = x truncated to 11 significant bits, lo = x -
-// hi exactly (the tensor core reads lo's top 11 bits).
-__device__ inline void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
-}
-
-__device__ inline void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A fragment of one m16 tile at one tap: rows (positions) g and g + 8,
-// columns (channels) t and t + 4; p points at (channel t, position g), and
-// channel t + 4 sits 4 slabs on (4 channels apart are a multiple of 4
-// floats apart in the input, so their staged rows share offsets).
-__device__ inline void load_a(const float* p, int slab, uint32_t* hi, uint32_t* lo) {
-  split(p[0], hi[0], lo[0]);
-  split(p[8], hi[1], lo[1]);
-  split(p[4 * slab], hi[2], lo[2]);
-  split(p[4 * slab + 8], hi[3], lo[3]);
-}
-
-// Stages input channels [c0, c0 + 8) of sample n's depth-d tile (rows from
-// h0, columns from w0, with the tap halo) into s_in, zeros outside the
-// volume and past channel I: a thread a staged row, its in-volume columns
-// by copy_span, on bar.
-template <int THREADS>
-struct RowStager {
-  const MmaArgs& a;
-  const Tile& tl;
-  int n, d, h0, wbase;  // wbase: the global column of staged column 0
-  int lo, hi;           // the staged columns [lo, hi) in the volume's [0, W)
-  size_t total;         // floats of the input
-  __device__ RowStager(const MmaArgs& a_, const Tile& tl_, int n_, int d_, int h0_, int w0)
-      : a(a_), tl(tl_), n(n_), d(d_), h0(h0_), wbase(w0 + a_.ow),
-        lo(min(max(-(w0 + a_.ow), 0), tl_.cols)),
-        hi(max(min(a_.W - (w0 + a_.ow), tl_.cols), lo)),
-        total((size_t)a_.N * a_.I * a_.D * a_.H * a_.W) {}
-
-  // The offset of staged row (channel c0 + ci, depth tap q, row r) from the
-  // 16-byte grid, mod 4; a linear function of q and r, so that a lane can
-  // compute its rows' offsets from sh0 (q = r = 0) of its channel.
-  __device__ unsigned sh0(int c0, int ci) const {
-    return mis4(a.in) + (unsigned)wbase +
-           ((((unsigned)n * a.I + c0 + ci) * a.D + d + a.od) * a.H + h0 + a.oh) * a.W;
-  }
-  __device__ unsigned sh(unsigned base, int q, int r) const {
-    return (base + ((unsigned)q * a.H + r) * a.W) & 3u;
-  }
-
-  // staged row `line` of channels [c0, c0 + 8): its place in s_in, and
-  // whether it lies in the volume
-  __device__ float* row(float* s_in, int line, int c0, size_t& f) const {
-    const int per_ch = a.Qd * tl.rows;
-    const int ci = line / per_ch, q = line % per_ch / tl.rows, r = line % tl.rows;
-    const int i = c0 + ci, dd = d + q + a.od, hh = h0 + r + a.oh;
-    float* p = s_in + ci * tl.slab + (line % per_ch) * tl.pitch;
-    if (i >= a.I || dd < 0 || dd >= a.D || hh < 0 || hh >= a.H || hi == lo) return nullptr;
-    // the flat index of staged column 0 (wraps below 0 at the first row;
-    // only [lo, hi) is read)
-    f = ((((size_t)n * a.I + i) * a.D + dd) * a.H + hh) * a.W + wbase;
-    return p;
-  }
-
-  // the copies, on bar: a row out of the volume is zeroed, one in it gets
-  // zeros out of the volume and one bulk copy of its columns [lo, hi),
-  // `(mis4(a.in) + f) % 4` floats into the row, widened to the grid (onto
-  // those zeros only where rows are off the grid: fix() restores them)
-  __device__ void stage(float* s_in, int c0, uint64_t* bar) const {
-    for (int line = threadIdx.x; line < 8 * a.Qd * tl.rows; line += THREADS) {
-      size_t f;
-      float* p = row(s_in, line, c0, f);
-      if (!p) {
-        zero(s_in + (line / (a.Qd * tl.rows)) * tl.slab +
-                 (line % (a.Qd * tl.rows)) * tl.pitch, tl.pitch);
-        continue;
-      }
-      float* col0 = p + ((mis4(a.in) + (unsigned)f) & 3u);
-      for (int x = 0; x < lo; ++x) col0[x] = 0.f;
-      for (int x = hi; x < tl.cols; ++x) col0[x] = 0.f;
-      copy_span(col0 + lo, a.in + (f + lo), hi - lo, bar, f + hi + 3 <= total);
-    }
-  }
-
-  // rows on the 16-byte grid (W % 4 == 0, an aligned input): the same
-  // placement, by the lean loop the synthesis wants (its staging threads
-  // run it before their products, and every warp waits for the slowest at
-  // the next barrier): each row from the 4-aligned column below wbase, its
-  // in-volume span aligned at both ends, zeros around it as float4s
-  __device__ void stage_aligned(float* s_in, int c0, uint64_t* bar) const {
-    const int per_ch = a.Qd * tl.rows, wb4 = wbase & ~3;
-    for (int line = threadIdx.x; line < 8 * per_ch; line += THREADS) {
-      const int ci = line / per_ch, q = line % per_ch / tl.rows, r = line % tl.rows;
-      const int i = c0 + ci, dd = d + q + a.od, hh = h0 + r + a.oh;
-      float* p = s_in + ci * tl.slab + (line % per_ch) * tl.pitch;
-      const bool ok = i < a.I && dd >= 0 && dd < a.D && hh >= 0 && hh < a.H;
-      const int l = ok ? min(max(-wb4, 0), tl.pitch) : tl.pitch;
-      const int h = ok ? max(min(a.W - wb4, tl.pitch), l) : tl.pitch;
-      zero(p, l);
-      zero(p + h, tl.pitch - h);
-      if (h > l)
-        bulk_copy(p + l, a.in + ((((size_t)n * a.I + i) * a.D + dd) * a.H + hh) * a.W + wb4 + l,
-                  h - l, bar);
-    }
-  }
-
-  // rows off the 16-byte grid (a width that is not a multiple of 4, or an
-  // unaligned input), once the copies have landed and before the barrier
-  // that publishes them: zeros again on the columns out of the volume,
-  // where the widened copies wrote neighbouring floats (only a block at a
-  // volume edge has such columns)
-  __device__ void fix(float* s_in, int c0) const {
-    if (lo == 0 && hi == tl.cols) return;
-    for (int line = threadIdx.x; line < 8 * a.Qd * tl.rows; line += THREADS) {
-      size_t f;
-      float* p = row(s_in, line, c0, f);
-      if (!p) continue;
-      float* col0 = p + ((mis4(a.in) + (unsigned)f) & 3u);
-      for (int x = 0; x < lo; ++x) col0[x] = 0.f;
-      for (int x = hi; x < tl.cols; ++x) col0[x] = 0.f;
-    }
-  }
-};
 
 // ---------------------------------------------------------------- analysis
 
@@ -593,18 +381,6 @@ constexpr int kSynBM = kSynTH * kTW;
 constexpr int kSynMT = kSynBM / 16 / (kSynThreads / 32 / kSynTG);  // m16 tiles a warp
 constexpr int kSynEP = kSynBM + 4;
 
-// A channel's weights in a weight buffer: its T x O floats as one span,
-// starting at the channel's offset from the 16-byte grid (the same for
-// every stage: 8 channels are a multiple of 4 floats apart), with room for
-// the copy widened to the grid (up to 6 floats past the span). The fragment
-// reads outputs past O too, which only reach unstored columns.
-__host__ __device__ inline int syn_wstride(int T, int O) { return stride8(T * O + 8); }
-
-// one pipeline buffer: the input tile and the weight slice of 8 channels
-__host__ __device__ inline int syn_buf_floats(const Tile& tl, int T, int O) {
-  return 8 * tl.slab + 8 * syn_wstride(T, O);
-}
-
 // two pipeline buffers (reused for the warps' partials), then the tap table
 __host__ inline int syn_smem_floats(const MmaArgs& a) {
   const Tile tl(a, kSynTH);
@@ -663,7 +439,7 @@ __global__ void __launch_bounds__(kSynThreads, 1) lista3d_syn_mma(const MmaArgs 
     for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
 
   // channel c0 + ci's weights: their distance from the 16-byte grid
-  auto w_sh = [&](int c0, int ci) { return (mis4(a.wt) + (unsigned)(c0 + ci) * T * a.O) & 3u; };
+  auto w_sh = [&](int c0, int ci) { return span_sh(a, c0 + ci, T); };
   // stage c0 (input channels [c0, c0 + 8) and their 8 x T x 8 weights) into
   // pipeline buffer b, zeros past channel I, on bar[b]
   auto s_w0 = [&](int b) { return smem + b * buf + 8 * tl.slab; };
@@ -674,15 +450,7 @@ __global__ void __launch_bounds__(kSynThreads, 1) lista3d_syn_mma(const MmaArgs 
       rows.stage(s_in, c0, &bar[b]);
     else
       rows.stage_aligned(s_in, c0, &bar[b]);
-    for (int ci = tid; ci < 8; ci += kSynThreads) {
-      float* slot = s_w + ci * wstride;
-      const size_t src = (size_t)(c0 + ci) * T * a.O, len = (size_t)T * a.O;
-      if (c0 + ci >= a.I)
-        zero(slot, wstride);
-      else  // widened to the grid within the slot
-        copy_span(slot + w_sh(c0, ci), a.wt + src, (int)len, &bar[b],
-                  src + len + 3 <= (size_t)a.I * T * a.O);
-    }
+    stage_spans<kSynThreads>(s_w, a, T, wstride, c0, tid, &bar[b]);
     mbar_arrive(&bar[b]);
   };
 
@@ -796,13 +564,6 @@ int launch_kernel(Kernel kern, dim3 grid, int threads, int smem, const MmaArgs& 
   if (err != cudaSuccess) return (int)err;
   kern<<<grid, threads, smem, stream>>>(a, vec);
   return (int)cudaGetLastError();
-}
-
-// The epilogues' 16-byte accesses: rows of a multiple of 4 floats, and every
-// tensor they touch 16-byte aligned.
-inline bool vec_epilogue(const MmaArgs& a) {
-  return a.W % 4 == 0 && mis4(a.out) == 0 && (!a.z || mis4(a.z) == 0) &&
-         (!a.mask || mis4(a.mask) == 0) && (!a.y || mis4(a.y) == 0);
 }
 
 inline int smem_bytes(bool synthesis, const MmaArgs& a) {

@@ -31,10 +31,15 @@ kernels (kernels/lista2d_bwd.py) recompute them from u_k.
 Each wrapper runs its CUDA kernel on CUDA tensors, or raises; it runs the
 plain PyTorch version beside it (the same function on F.conv2d over the
 phase channels) only for CPU tensors. Launches count in
-kernels.lista3d.launches, beside the 3D kernels', under the 2D names.
+kernels.lista3d.launches, beside the 3D kernels', under the 2D names. The
+soft-threshold pair runs on the tensor cores in 3xTF32
+(csrc/lista2d_mma.cuh), and its launch splits the codes where the code grid
+is small, so that one 128^2 image fills the card: launch_grid says how.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -222,6 +227,23 @@ def lista2d_syn_residual(z, ws, geom, mask=None, y=None, out=None):
     _raise_on(err, "lista2d_syn_residual")
     launches["lista2d_syn_residual"] += 1
     return out
+
+
+def launch_grid(synthesis, N, I, O, H, W, Qh, Qw):
+    """The launch that lista2d_syn_residual (synthesis) or
+    lista2d_ana_threshold makes on the current card for a call on an
+    (N, I, H, W) input with O output channels and Qh x Qw phase taps:
+    {"grid": (x, y, z), "blocks": x * y * z, "rows": code rows a block, and
+    "split" (the blocks of a cluster, which split the codes) or "codes"
+    (the codes of a block)}."""
+    from cdlnet_tpu_torch.kernels._build import library
+
+    out = (ctypes.c_int * 5)()
+    err = library().lista2d_launch_grid(int(synthesis), N, I, O, H, W, Qh, Qw, out)
+    _raise_on(err, "lista2d_launch_grid")
+    grid = tuple(out[:3])
+    return {"grid": grid, "blocks": grid[0] * grid[1] * grid[2], "rows": out[4],
+            ("split" if synthesis else "codes"): out[3]}
 
 
 def phase_operands(yp, A, B, t, c, stride, mask=None):

@@ -81,8 +81,8 @@ Builds the hand-written CUDA kernels from cdlnet_tpu_torch/kernels/csrc
 
 and times every kernel (CUDA events) beside its plain version, the one
 PyTorch call that computes the same function, and its bound on this card
-(for the 3D forward pair, which runs on the tensor cores in 3xTF32, at
-three TF32 products a term),
+(for the 3D and 2D forward pairs, which run on the tensor cores in
+3xTF32, at three TF32 products a term),
 and the served clip and image and the video and image train steps on the
 kernels and on backend "xla". Any failed phase raises and the script exits non-zero;
 without a CUDA device it exits 1 before printing any result. The last line
@@ -277,12 +277,13 @@ FORWARD_TOL = 1e-3  # the K=30 forward on the kernels vs the plain loop
 GRAD_TOL = 1e-3
 MIN_GAIN_DB = 3.0
 # published H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores, HBM3,
-# and TF32 on the tensor cores (dense), which the 3D forward pair runs as
-# three products per fp32 product (3xTF32)
+# and TF32 on the tensor cores (dense), which the 3D and 2D forward pairs
+# (TC_KERNELS) run as three products per fp32 product (3xTF32)
 FP32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
 TF32_FLOPS = 495e12
-TC_KERNELS = ("lista3d_ana_threshold", "lista3d_syn_residual")
+TC_KERNELS = ("lista3d_ana_threshold", "lista3d_syn_residual", "lista2d_ana_threshold",
+              "lista2d_syn_residual")
 
 
 def require(ok: bool, what: str) -> None:
@@ -333,7 +334,7 @@ def bound(banks, n_positions, tensors, calls=1, tf32x3=False) -> tuple[float, st
     bank at every code position, against every input read once and every
     output written once (`tensors`), over the published fp32 and memory
     rates. With `tf32x3` the FMAs run as three TF32 products each on the
-    tensor cores (the 3D forward pair's fp32 contract), over the dense TF32
+    tensor cores (the forward pairs' fp32 contract), over the dense TF32
     rate."""
     ops = 2.0 * n_positions * sum(int(torch.count_nonzero(b)) for b in banks)
     nbytes = sum(t.numel() * t.element_size() for t in tensors if t is not None)
@@ -544,13 +545,20 @@ def serve_2d(dev, card, err) -> tuple[dict, dict]:
             ):
                 tt[name] = dict(zip(("ms", "plain_ms", "library_ms"),
                                     (cuda_ms(f, 20) for f in (run, plain, lib))))
-                tt[name]["bound_ms"], tt[name]["bound_by"] = bound((bank,), n_pos, io)
+                tt[name]["bound_ms"], tt[name]["bound_by"] = bound((bank,), n_pos, io,
+                                                                   tf32x3=True)
                 print(f"time [{card}]: 2D flagship {label} {name}: {tt[name]['ms']:.4f} "
                       f"ms/call, plain {tt[name]['plain_ms']:.4f}, library "
                       f"{tt[name]['library_ms']:.4f}, bound {tt[name]['bound_ms']:.4f} "
                       f"({tt[name]['bound_by']}); {K} launches per image", flush=True)
             if shape == IMAGE:
                 times = tt  # the served image size goes into the kernel table
+                (N, Cp, Hc, Wc), M, (Qh, Qw) = y2.shape, wa.shape[-1], wa.shape[2:4]
+                grids = {"lista2d_ana_threshold": L2.launch_grid(False, N, Cp, M, Hc, Wc, Qh, Qw),
+                         "lista2d_syn_residual": L2.launch_grid(True, N, M, Cp, Hc, Wc, Qh, Qw)}
+                for name, gr in grids.items():
+                    print(f"grid [{card}]: 2D flagship {label} {name}: {gr}", flush=True)
+                    times[name]["blocks"] = gr["blocks"]
         xla_model = server_xla.model
         for label, shape in (("128^2", IMAGE), ("481x321", BIG_IMAGE)):
             _, noisy = noisy_images(rng, shape, [SIGMA])
@@ -801,7 +809,8 @@ def train_2d(dev, card, err) -> tuple[dict, dict]:
             calls = len(banks)
             tt = dict(zip(("ms", "plain_ms", "library_ms"),
                           (cuda_ms(f, 10) / calls for f in (run, plain, lib))))
-            tt["bound_ms"], tt["bound_by"] = bound(banks, n_pos, io, calls)
+            tt["bound_ms"], tt["bound_by"] = bound(banks, n_pos, io, calls,
+                                                   tf32x3=name in TC_KERNELS)
             times[name + what] = tt
             print(f"time [{card}]: 2D train shape ({TRAIN_2D_N}x{CROP}^2) {name + what}: "
                   f"{tt['ms']:.4f} ms/call, plain {tt['plain_ms']:.4f}, library "
@@ -1608,7 +1617,8 @@ def csr(dev, card, err) -> tuple[dict, dict]:
                 tt[name] = dict(zip(("ms", "plain_ms", "library_ms"), (cuda_ms(f, 20) for f in (
                     run, plain,
                     lambda: F.conv2d(r_full, f2.A[1], stride=s, padding=f2.pad)))))
-                tt[name]["bound_ms"], tt[name]["bound_by"] = bound((wa[1],), n_pos, io)
+                tt[name]["bound_ms"], tt[name]["bound_by"] = bound(
+                    (wa[1],), n_pos, io, tf32x3=name in TC_KERNELS)
                 print(f"time [{card}]: csr {label} {name}: {tt[name]['ms']:.4f} ms/call, "
                       f"plain {tt[name]['plain_ms']:.4f}, library {tt[name]['library_ms']:.4f}, "
                       f"bound {tt[name]['bound_ms']:.4f} ({tt[name]['bound_by']})", flush=True)
@@ -2003,7 +2013,8 @@ def csr_train(dev, card, err) -> tuple[dict, dict]:
             p9 = syn_p9[label] = dict(zip(("ms", "plain_ms", "library_ms"), (
                 cuda_ms(f, 20) for f in (syn, syn_plain, lambda: F.conv_transpose2d(
                     zp, f2.B[1], stride=s, padding=f2.pad, output_padding=s - 1)))))
-            p9["bound_ms"], p9["bound_by"] = bound((ws[1],), n_pos, (zp, ws[1], y2, r))
+            p9["bound_ms"], p9["bound_by"] = bound((ws[1],), n_pos, (zp, ws[1], y2, r),
+                                                   tf32x3=True)
             compare("lista2d_syn_residual", f"csr train {label} P=9", r, syn_plain(), err)
             for name, t_ in (*tt.items(), ("lista2d_syn_residual P=9", p9)):
                 print(f"time [{card}]: csr train {label} {name}: {t_['ms']:.4f} ms/call, "
@@ -2230,12 +2241,14 @@ def main() -> int:
     spills = [ln.strip() for ln in so.with_suffix(".log").read_text().splitlines()
               if "registers" in ln or "spill" in ln]
     print(f"build: {build_s:.2f} s -> {so.name}; ptxas: {' | '.join(spills)}", flush=True)
-    # the tensor-core pair's lines by name: with their launch bounds (256
-    # threads and 2 blocks an SM; 512 threads and 1) they set its occupancy
+    # the tensor-core pairs' lines by name: with their launch bounds (3D:
+    # 256 threads and 2 blocks an SM, 512 threads and 1; 2D: 128 threads and
+    # 4, 256 threads and 2) they set their occupancy
     entry = None
+    tc_entries = ("lista3d_ana_mma", "lista3d_syn_mma", "lista2d_ana_mma", "lista2d_syn_mma")
     for ln in so.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in ln:
-            entry = next((k for k in ("lista3d_ana_mma", "lista3d_syn_mma") if k in ln), None)
+            entry = next((k for k in tc_entries if k in ln), None)
         elif entry and ("registers" in ln or "spill" in ln):
             print(f"ptxas {entry}: {ln.strip()}", flush=True)
 

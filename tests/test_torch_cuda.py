@@ -414,6 +414,12 @@ SHAPES_2D = [
     (7, 2, 169, 1, 128, 192, 1),
     (7, 2, 13, 2, 32, 150, 1),
     (5, 2, 6, 2, 24, 20, 3),
+    # where the launch splits the codes over blocks (analysis) or a cluster
+    # (synthesis): the flagship 128^2 image, the CSR models' P=9 taps on a
+    # 320x192 code grid, stride 2 with colour (Cp=12) at the flagship M
+    (7, 2, 169, 1, 128, 128, 1),
+    (9, 2, 169, 1, 640, 384, 1),
+    (7, 2, 169, 1, 128, 128, 3),
 ]
 
 
@@ -444,6 +450,72 @@ def test_2d_syn_residual_matches_plain(cuda, P, s, M, N, H, W, C, residual):
     torch.cuda.synchronize()
     assert got.shape == ref.shape
     assert _rel(got, ref) <= 1e-5
+
+
+def _off_grid(t, cuda):
+    """t on the card, 4 bytes off the 16-byte grid (a history slice of an
+    odd-sized code grid sits so)."""
+    return torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("P,s,M,N,H,W,C", [SHAPES_2D[4], SHAPES_2D[2], SHAPES_2D[0]])
+def test_2d_pair_on_operands_off_the_grid_matches_plain(cuda, P, s, M, N, H, W, C):
+    """Every operand of both kernels 4 bytes off the 16-byte grid, the
+    outputs written into history slices that sit so too, the analysis in
+    place: the staging keeps each row's offset and the epilogues go
+    scalar."""
+    d = _setup2d(P, s, M, N, H, W, C)
+    Cp, Hc, Wc = C * s * s, H // s, W // s
+    ref_z = L2.lista2d_ana_threshold_plain(d["r"], d["z"], d["wa"], d["tau"], d["geom"])
+    ref_r = L2.lista2d_syn_residual_plain(d["z"], d["ws"], d["geom"], mask=d["mask"], y=d["y"])
+    z_hist = torch.full((2 * N * M * Hc * Wc + 1,), float("nan"), device=cuda)
+    r_hist = torch.full((N * Cp * Hc * Wc + 1,), float("nan"), device=cuda)
+    z_in = z_hist[1:1 + N * M * Hc * Wc].view(N, M, Hc, Wc).copy_(d["z"])
+    r_out = r_hist[1:].view(N, Cp, Hc, Wc)
+    wa, ws, r, tau, mask, y = (_off_grid(d[k], cuda) for k in ("wa", "ws", "r", "tau", "mask",
+                                                               "y"))
+    got_r = L2.lista2d_syn_residual(z_in, ws, d["geom"], mask=mask, y=y, out=r_out)
+    torch.cuda.synchronize()
+    assert got_r.data_ptr() == r_out.data_ptr() and got_r.data_ptr() % 16 == 4
+    assert _rel(got_r, ref_r) <= 1e-5
+    got_z = L2.lista2d_ana_threshold(r, z_in, wa, tau, d["geom"], out=z_in)
+    torch.cuda.synchronize()
+    assert got_z.data_ptr() == z_in.data_ptr()
+    assert _rel(got_z, ref_z) <= 1e-5
+    assert torch.isnan(z_hist[0]) and torch.isnan(r_hist[0])
+    assert torch.isnan(z_hist[1 + N * M * Hc * Wc:]).all()
+
+
+@pytest.mark.parametrize("P,s,M,N,H,W,C", [SHAPES_2D[4], SHAPES_2D[5]])
+def test_2d_forward_kernels_are_deterministic(cuda, P, s, M, N, H, W, C):
+    """Two calls bitwise equal where the launch splits the codes: the
+    cluster's partial sums meet in rank order."""
+    d = _setup2d(P, s, M, N, H, W, C)
+    r, z, wa, ws, tau, mask, y = (d[k].to(cuda) for k in
+                                  ("r", "z", "wa", "ws", "tau", "mask", "y"))
+    runs = [(L2.lista2d_ana_threshold(r, z, wa, tau, d["geom"]),
+             L2.lista2d_ana_threshold(r, None, wa, tau, d["geom"]),
+             L2.lista2d_syn_residual(z, ws, d["geom"], mask=mask, y=y),
+             L2.lista2d_syn_residual(z, ws, d["geom"]))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_2d_pair_fills_the_card_at_one_128_image(cuda):
+    """At the flagship width on one 128^2 image (a 64x64 code grid) each
+    kernel launches at least one block per SM; at ten such images the
+    analysis keeps every code in a block and the synthesis splits its codes
+    at most in two."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    ana = L2.launch_grid(False, 1, 4, 169, 64, 64, 4, 4)
+    syn = L2.launch_grid(True, 1, 169, 4, 64, 64, 4, 4)
+    assert ana["blocks"] >= sms and syn["blocks"] >= sms
+    assert ana["codes"] * ana["grid"][1] >= 169 and syn["split"] > 1
+    assert L2.launch_grid(False, 10, 4, 169, 64, 64, 4, 4)["codes"] == 176
+    train = L2.launch_grid(True, 10, 169, 4, 64, 64, 4, 4)
+    assert train["split"] <= 4 and train["rows"] == 7
 
 
 @pytest.mark.parametrize("C,s,use_mask", [(1, 2, False), (3, 1, True), (3, 2, True)])

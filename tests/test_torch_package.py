@@ -43,5 +43,7 @@ def test_package_holds_the_slice():
                 "cli/__init__.py", "cli/train.py", "cli/analyze.py", "cli/analyze3d.py",
                 "data/video.py", "models/streaming.py", "models/csr.py",
                 "data/fastmri.py", "cli/analyzemri.py", "train/fit_csr.py",
-                "kernels/csrc/lista3d_mma.cuh", "tools/bench_video_serve.py"):
+                "kernels/csrc/lista3d_mma.cuh", "tools/bench_video_serve.py",
+                "kernels/csrc/lista2d_mma.cuh", "kernels/csrc/mma_tf32.cuh",
+                "tools/bench_image_serve.py", "tools/compare_sass.py"):
         assert (pkg / rel).is_file(), rel

@@ -41,7 +41,8 @@ def test_bench_video_serve_buckets_native_clips():
     assert tool.bucketed(clip[:, :128, :128]).shape == (2, 128, 128)
 
 
-@pytest.mark.parametrize("name", ["bench_video_serve", "bench_csr_serve"])
+@pytest.mark.parametrize("name", ["bench_video_serve", "bench_csr_serve",
+                                  "bench_image_serve"])
 def test_bench_tools_need_a_card(name, monkeypatch, capsys):
     if torch.cuda.is_available():
         pytest.skip("on a card the tool would run its benchmark")
@@ -49,3 +50,21 @@ def test_bench_tools_need_a_card(name, monkeypatch, capsys):
     assert _tool(name).main() == 1
     captured = capsys.readouterr()
     assert "needs a GPU" in captured.err and captured.out == ""
+
+
+def test_compare_sass_reads_instructions_without_addresses():
+    """The SASS comparison keeps each kernel's instructions and drops their
+    addresses and encodings, so two builds compare by what they run."""
+    text = """
+\t\tFunction : _ZN5mma3d15lista3d_ana_mmaEN6tf32x37MmaArgsEb
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;        /* 0x00000a00ff017b82 */
+                                                                 /* 0x000fe40000000800 */
+        /*0010*/                   S2R R0, SR_TID.X ;            /* 0x0000000000007919 */
+\t\tFunction : other
+        /*0000*/                   EXIT ;                        /* 0x000000000000794d */
+"""
+    got = _tool("compare_sass").parse(text)
+    assert got == {"_ZN5mma3d15lista3d_ana_mmaEN6tf32x37MmaArgsEb":
+                   ["LDC R1, c[0x0][0x28] ;", "S2R R0, SR_TID.X ;"], "other": ["EXIT ;"]}
+
