@@ -65,10 +65,11 @@
 //   outputs, read through TH + 1 A-rows: 8 warps, each an A-row's 4 m16
 //   tiles and a group of the tap pairs (TH = 3: 2 groups; TH = 7: all).
 //   It loops over its codes in stages of 8 (the k8 of a product) through a
-//   ring of 3 buffers. A stage comes by one TMA tensor copy (a 4D box of z
-//   seen as (W, H, M, N), zeros outside the image and past code M) where
-//   z's rows are 16-byte strides and z sits on the 16-byte grid, else by
-//   cp.async 16-byte copies (ragged widths, history slices off the grid).
+//   ring of 3 buffers, each filled on its own mbarrier. A stage comes by one
+//   TMA tensor copy (a 4D box of z seen as (W, H, M, N), zeros outside the
+//   image and past code M) where z's rows are 16-byte strides and z sits on
+//   the 16-byte grid, else (ragged widths, history slices off the grid) by
+//   RowStager's bulk copies, one a staged row, as the analysis stages.
 //   The reduction is long (169 x 16 = 2704) against 4 outputs, so where
 //   the grid is small the launch splits the codes over the S blocks of a
 //   thread block cluster, S a power of two up to 8 (the portable maximum),
@@ -85,6 +86,15 @@
 // (4x4, 5x5, 7x7), ragged widths, N > 1 with tau per (n, m), and tensors
 // off the 16-byte grid (history slices): each staged row keeps its own
 // offset, and the epilogues fall back to scalar accesses.
+//
+// Repeatability. Two calls at one shape are bitwise equal. The analysis's
+// sums do not depend on its split either. The synthesis's do: its rows a
+// block (which set how the tap pairs are grouped over warps) and its
+// cluster size (which stages each partial holds) follow N, H and W, so one
+// image's r, and what is computed from it, can differ in the last bits
+// between a batch of one and a batch of several (denoise_image against
+// denoise_image_batch, or training batches of other sizes), within the
+// fp32 gates.
 
 #pragma once
 
@@ -368,13 +378,14 @@ lista2d_ana_mma(const MmaArgs a, int BN, bool vec) {
 // element outside the image or past code M. The box starts at the tile's
 // first column rounded down to the 16-byte grid (a tensor copy's innermost
 // start must lie on it: a copy starting off it stops the kernel with an
-// illegal instruction), so it is up to 3 columns wider than the tile. Its box is a little wider and
-// taller than the tile, so that a channel's slab is 8 or 24 floats mod 32
-// and the fragment loads stay conflict-free: rows 2 mod 4, and an odd
-// number of 16-byte columns. Otherwise (ragged widths, tensors off the
-// grid: history slices) the stage goes by cp.async 16-byte copies at
-// RowStager's placement. Either way the weights are 8 spans of T x O floats
-// at their offset from the grid (bulk copies on the TMA path).
+// illegal instruction), so it is up to 3 columns wider than the tile. It
+// is also a little wider and taller than the tile, so that a channel's
+// slab is 8 or 24 floats mod 32 and the fragment loads stay conflict-free:
+// rows 2 mod 4, and an odd number of 16-byte columns. Otherwise (ragged
+// widths, tensors off the grid: history slices) the rows go by RowStager,
+// each keeping its offset from the grid. Either way the weights are 8 spans
+// of T x O floats at their offset from the grid, by stage_spans, and the
+// copies complete on the buffer's mbarrier.
 
 // the box: rows 2 mod 4, at least `need`; columns an odd number of 4-float
 // units, at least `need`
@@ -398,61 +409,6 @@ struct SynTile {
     buf = (wts + 8 * wstride + 31) & ~31;
   }
 };
-
-// One 4-float chunk by cp.async: floats [x, x + 4) of src into dst (both
-// on the 16-byte grid), those in [lo, hi) copied and the rest zeros (any:
-// a mapped address for the zero-filled floats).
-__device__ inline void copy_chunk(float* dst, const float* src, int x, int lo, int hi,
-                                  const float* any) {
-  if (x >= lo && x + 4 <= hi) {
-    cp_async16(dst, src + x);
-  } else {
-    for (int e = 0; e < 4; ++e) {
-      const bool in = x + e >= lo && x + e < hi;
-      cp_async4(dst + e, in ? src + (x + e) : any, in);
-    }
-  }
-}
-
-// The cp.async path: one warp a staged row, its lanes along the row's
-// 16-byte chunks (each chunk on the grid of both memories; the chunks that
-// straddle the image's edge go float by float, zeros outside it and past
-// code I), then one warp a code's weight span the same way. The caller
-// commits.
-__device__ inline void syn_stage_chunks(float* buf, const MmaArgs& a, const Tile& tl,
-                                        const SynTile& st, const RowStager<kSynThreads>& rs,
-                                        int n, int h0, int c0, int warp, int lane) {
-  constexpr int kWarps = kSynThreads / 32;
-  const float4 zeros = make_float4(0.f, 0.f, 0.f, 0.f);
-  const int per_row = (tl.cols + 6) / 4;  // floats [0, 3 + cols) of a row
-  for (int line = warp; line < 8 * tl.rows; line += kWarps) {
-    const int ci = line / tl.rows, r = line - ci * tl.rows;
-    const int i = c0 + ci, hh = h0 + r + a.oh;
-    float* row = buf + ci * tl.slab + r * tl.pitch;
-    const bool ok = i < a.I && hh >= 0 && hh < a.H && rs.hi > rs.lo;
-    // the flat index of staged column 0, and its offset from the grid
-    const size_t f = (((size_t)n * a.I + i) * a.H + hh) * a.W + rs.wbase;
-    const int x0 = -(int)((mis4(a.in) + (unsigned)f) & 3u);
-    for (int k = lane; k < per_row; k += 32) {
-      if (ok)
-        copy_chunk(row + 4 * k, a.in + f, x0 + 4 * k, rs.lo, rs.hi, a.in);
-      else
-        *reinterpret_cast<float4*>(row + 4 * k) = zeros;
-    }
-  }
-  const int T = a.Qh * a.Qw, len = T * a.O, per_span = (len + 6) / 4;
-  for (int ci = warp; ci < 8; ci += kWarps) {
-    float* slot = buf + st.wts + ci * st.wstride;
-    const int i = c0 + ci;
-    const int x0 = -(int)span_sh(a, i, T);
-    for (int k = lane; k < per_span; k += 32) {
-      if (i < a.I)
-        copy_chunk(slot + 4 * k, a.wt + (size_t)i * len, x0 + 4 * k, 0, len, a.wt);
-      else
-        *reinterpret_cast<float4*>(slot + 4 * k) = zeros;
-    }
-  }
-}
 
 // The TMA path, by one thread: the stage's box and its 8 weight spans on
 // bar, then the thread's arrival (the barrier counts one).
@@ -498,7 +454,7 @@ lista2d_syn_mma(const MmaArgs a, bool vec, __grid_constant__ const CUtensorMap t
   constexpr int TG = kSynThreads / 32 / AR;   // groups of tap pairs
   static_assert(AR * TG == kSynThreads / 32, "a warp an (A-row, group)");
   extern __shared__ __align__(128) float4 smem4[];
-  __shared__ __align__(8) uint64_t bar[kSynNB];  // the ring's buffers (TMA path)
+  __shared__ __align__(8) uint64_t bar[kSynNB];  // the ring's buffers
   float* smem = reinterpret_cast<float*>(smem4);
   cg::cluster_group cluster = cg::this_cluster();
   const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
@@ -526,10 +482,11 @@ lista2d_syn_mma(const MmaArgs a, bool vec, __grid_constant__ const CUtensorMap t
   const int g = lane / 4, t = lane % 4;
   const int ya = warp % AR, tg = warp / AR;  // the warp's A-row and group
   const RowStager<kSynThreads> rows(a, tl, n, 0, h0, w0);
-  if (kTma && tid < kSynNB) mbar_init(&bar[tid], 1);
-  if (kTma) asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  // the TMA path's copies arrive from one thread, RowStager's from all
+  if (tid < kSynNB) mbar_init(&bar[tid], kTma ? 1 : kSynThreads);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 
-  // each tap pair's offset into a code's staged tile << 2 | (cp.async
+  // each tap pair's offset into a code's staged tile << 2 | (RowStager's
   // path) its row's offset from the 16-byte grid less that of row 0, mod 4
   for (int pt = tid; pt < PT; pt += kSynThreads) {
     const int c = pt % a.Qw, r0 = 2 * (pt / a.Qw);
@@ -544,19 +501,21 @@ lista2d_syn_mma(const MmaArgs a, bool vec, __grid_constant__ const CUtensorMap t
     for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
 
   // stage j of this block (codes [8 (st0 + j), + 8) and their weights) into
-  // ring buffer j % kSynNB: by TMA on its barrier, or by cp.async and a
-  // commit group (empty past the last stage, so that the groups count
-  // stages)
+  // ring buffer j % kSynNB, on its barrier: one tensor copy, or a bulk copy
+  // a staged row and a weight span
   const uint64_t tmap_addr = reinterpret_cast<uint64_t>(&tmap);  // param space
   auto stage = [&](int j) {
+    if (j >= count) return;
     float* buf = smem + j % kSynNB * st.buf;
+    uint64_t* bj = &bar[j % kSynNB];
+    const int c0 = 8 * (st0 + j);
     if (kTma) {
-      if (j < count && tid == 0)
-        syn_stage_tma(buf, a, st, tmap_addr, n, h0, w0, 8 * (st0 + j), &bar[j % kSynNB]);
+      if (tid == 0) syn_stage_tma(buf, a, st, tmap_addr, n, h0, w0, c0, bj);
     } else {
-      if (j < count)
-        syn_stage_chunks(buf, a, tl, st, rows, n, h0, 8 * (st0 + j), warp, lane);
-      cp_async_commit();
+      fence_proxy_async();  // the buffer's last readers came first
+      rows.stage(buf, c0, bj);
+      stage_spans<kSynThreads>(buf + st.wts, a, T, st.wstride, c0, tid, bj);
+      mbar_arrive(bj);
     }
   };
 
@@ -570,10 +529,8 @@ lista2d_syn_mma(const MmaArgs a, bool vec, __grid_constant__ const CUtensorMap t
   for (int j = 0; j < kSynNB - 1; ++j) stage(j);
   for (int j = 0; j < count; ++j) {
     const int b = j % kSynNB, c0 = 8 * (st0 + j);
-    if (kTma)
-      mbar_wait(&bar[b], (j / kSynNB) & 1);
-    else
-      cp_async_wait<kSynNB - 2>();
+    mbar_wait(&bar[b], (j / kSynNB) & 1);
+    if (!kTma) rows.fix(smem + b * st.buf, c0);  // rows off the grid
     // stage j has landed for every thread, and every warp is done with
     // stage j - 1's buffer, which stage j + kSynNB - 1's copies fill
     __syncthreads();
@@ -610,7 +567,6 @@ lista2d_syn_mma(const MmaArgs a, bool vec, __grid_constant__ const CUtensorMap t
       }
     }
   }
-  if (!kTma) cp_async_wait<0>();
   __syncthreads();  // every warp is done with the ring
 
   // each warp's sums -> shared memory (warp, column, position), then the
@@ -775,6 +731,21 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
+// Raises kern's dynamic shared memory limit on the current device to smem,
+// once a size: `limit` is the caller's record (a static, one per kernel) of
+// what it set on each device, so that a call of a size met before makes no
+// cudaFuncSetAttribute call.
+inline cudaError_t raise_smem_limit(const void* kern, int smem, int (&limit)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (smem <= limit[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) limit[dev] = smem;
+  return err;
+}
+
 // The synthesis stages by TMA tensor copies where z's rows are 16-byte
 // strides and z sits on the grid.
 inline bool syn_tma(const MmaArgs& a) { return a.W % 4 == 0 && mis4(a.in) == 0; }
@@ -800,8 +771,9 @@ int launch_syn(const Launch& l, const MmaArgs& a, bool vec, cudaStream_t stream)
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
       return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute(lista2d_syn_mma<TH, kTma>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static int limit[64] = {};
+  cudaError_t err =
+      raise_smem_limit(reinterpret_cast<const void*>(lista2d_syn_mma<TH, kTma>), smem, limit);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = l.grid;
@@ -835,8 +807,9 @@ inline int launch(bool synthesis, const MmaArgs& a, cudaStream_t stream) {
   }
   const int smem = (int)sizeof(float) * ana_smem_floats(a, l.bn);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidConfiguration;
+  static int limit[64] = {};
   const cudaError_t err =
-      cudaFuncSetAttribute(lista2d_ana_mma, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      raise_smem_limit(reinterpret_cast<const void*>(lista2d_ana_mma), smem, limit);
   if (err != cudaSuccess) return (int)err;
   lista2d_ana_mma<<<l.grid, kAnaThreads, smem, stream>>>(a, l.bn, vec);
   return (int)cudaGetLastError();

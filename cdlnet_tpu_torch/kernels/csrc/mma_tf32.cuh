@@ -107,12 +107,6 @@ __device__ inline void copy_span(float* dst, const float* src, int n, uint64_t* 
   for (int j = n; j < n + tail; ++j) dst[j] = src[j];
 }
 
-// 16-byte global -> shared copy (both addresses on the 16-byte grid)
-__device__ inline void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
 // 3xTF32 operand split: hi = x truncated to 11 significant bits, lo = x -
 // hi exactly (the tensor core reads lo's top 11 bits).
 __device__ inline void split(float x, uint32_t& hi, uint32_t& lo) {

@@ -17,10 +17,17 @@ them) it times, on the kernels:
     events: over calls launched one after another from Python ("ms", as
     chip_smoke.py times them, where a small call's time is the host's), and
     over the same calls captured in a CUDA graph and replayed ("graph ms":
-    the device's time alone);
-  - one K=30 forward (CUDA events) at 128^2 and at 481x321 (bucketed to
-    512x384), with the plain cuDNN loop (backend "xla") beside it;
-  - Denoiser.denoise_image (host clock) at both sizes, and
+    the device's time alone). At one 128^2 image and at the train shape the
+    synthesis is also timed on codes 4 bytes off the 16-byte grid ("off-grid
+    z": the staging path of history slices and ragged widths), and at one
+    128^2 image each wrapper's and library call's host cost is read ("host
+    us": the host clock over calls launched back to back), and each kernel's
+    C entry's alone ("entry host us": the ctypes call with its arguments
+    made beforehand, which the wrapper's Python checks surround);
+  - one K=30 forward (CUDA events, five a round) at 128^2 and at 481x321
+    (bucketed to 512x384), with the plain cuDNN loop (backend "xla") beside
+    it, and at 128^2 the host's time to launch one ("host ms");
+  - Denoiser.denoise_image (host clock, five a round) at both sizes, and
     denoise_image_batch of 8 images at 128^2;
   - one flagship 2D train step (10 crops of 128^2, a sigma each in
     [20, 30]; forward, backward, clipped Adam, projection; host clock).
@@ -28,7 +35,9 @@ them) it times, on the kernels:
 Where the checkout reports it (kernels.lista2d.launch_grid), it also records
 each kernel's launch grid at one 128^2 image. It prints the card's
 nvidia-smi name and power limit and then one JSON line with every median
-and every round's reading. --root is the checkout whose cdlnet_tpu_torch is
+and every round's reading; the host-bound readings at 128^2 (host costs,
+the forward, denoise_image) take HOST_ROUNDS rounds and also record their
+fastest ("min"), which the host's other load can only slow. --root is the checkout whose cdlnet_tpu_torch is
 imported (by default the one that holds this script). Two commits compare
 by running the script once per checkout in turns (A B B A ...) on one card:
 the kernels build into each checkout's own build directory.
@@ -42,6 +51,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from bench_video_serve import bucketed, rounds_ms, smooth  # noqa: E402
@@ -53,6 +63,8 @@ FLAGSHIP_2D = dict(K=30, M=169, P=7, s=2, C=1, adaptive=True)
 P9 = dict(FLAGSHIP_2D, K=2, P=9)
 IMAGE, BIG_IMAGE, P9_FRAME = (128, 128), (321, 481), (640, 384)
 TRAIN_N, BATCH = 10, 8
+FWD_REPS = 5  # forwards and served images a round
+HOST_ROUNDS = 20  # rounds of a host-bound reading
 
 
 def graph_ms(fn, rounds, reps):
@@ -80,6 +92,26 @@ def graph_ms(fn, rounds, reps):
         b.record()
         b.synchronize()
         out.append(a.elapsed_time(b) / reps)
+    return out
+
+
+def host_us(fn, rounds, reps):
+    """Host us to launch one call of fn, for each of `rounds` rounds: `reps`
+    calls back to back on the host clock, the device synchronized before the
+    round and after the clock stops. The calls queue while the device works
+    (a round stays far below the launch queue's depth), so where fn does
+    not wait for the device this is its host cost alone."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out.append(1e6 * (time.perf_counter() - t0) / reps)
+        torch.cuda.synchronize()
     return out
 
 
@@ -133,9 +165,11 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     res = {"label": a.label, "card": card, "rounds": {}}
 
-    def record(key, vals):
+    def record(key, vals, low=False):
         res["rounds"][key] = [round(v, 4) for v in vals]
         res[key] = round(statistics.median(vals), 4)
+        if low:
+            res[f"{key} min"] = round(min(vals), 4)
 
     def noisy(n, size):
         clean = smooth(rng, n, size)
@@ -144,15 +178,19 @@ def main() -> int:
     def images(n, size):
         return torch.from_numpy(noisy(n, size)[:, None]).to(dev)  # (n, 1, H, W)
 
-    def timed(key, fn, reps):
+    def timed(key, fn, reps, host=False):
         record(f"{key} ms", rounds_ms(fn, a.rounds, reps))
         record(f"{key} graph ms", graph_ms(fn, a.rounds, reps))
+        if host:
+            record(f"{key} host us", host_us(fn, HOST_ROUNDS, reps), low=True)
 
-    def pair(name, m, y, reps, adjoint=False, grid=False):
+    def pair(name, m, y, reps, adjoint=False, grid=False, off_grid=False, host=False):
         """Records both kernels' ms per call on iteration 1's operands of
         the images y (N, 1, H, W), and their library calls'; with `adjoint`
         also the synthesis as the analysis adjoint (A's flipped bank, a
-        mask), with `grid` each kernel's launch grid."""
+        mask), with `grid` each kernel's launch grid, with `off_grid` the
+        synthesis on codes off the 16-byte grid, with `host` every call's
+        host us."""
         yp, _, _ = pre_process(y, s)
         y2, _, wa, ws, tau, geom = L2.phase_operands(yp, m.A, m.B, m.t, SIGMA / 255, s)
         z0 = L2.lista2d_ana_threshold(-y2, None, wa[0], tau[0], geom)
@@ -160,14 +198,38 @@ def main() -> int:
         r_full = pp.depth_to_space(r1, s, 2, 1)
         pad = m.pad
         timed(f"{name} lista2d_ana_threshold",
-              lambda: L2.lista2d_ana_threshold(r1, z0, wa[1], tau[1], geom), reps)
+              lambda: L2.lista2d_ana_threshold(r1, z0, wa[1], tau[1], geom), reps, host)
         timed(f"{name} lista2d_ana_threshold library",
-              lambda: F.conv2d(r_full, m.A[1], stride=s, padding=pad), reps)
+              lambda: F.conv2d(r_full, m.A[1], stride=s, padding=pad), reps, host)
         timed(f"{name} lista2d_syn_residual",
-              lambda: L2.lista2d_syn_residual(z0, ws[1], geom, y=y2), reps)
+              lambda: L2.lista2d_syn_residual(z0, ws[1], geom, y=y2), reps, host)
         timed(f"{name} lista2d_syn_residual library",
               lambda: F.conv_transpose2d(z0, m.B[1], stride=s, padding=pad,
-                                         output_padding=s - 1), reps)
+                                         output_padding=s - 1), reps, host)
+        if host:
+            lib = _build.library()
+            (N, Cp, H, W), M, (Qh, Qw) = y2.shape, wa.shape[-1], wa.shape[2:4]
+            out_a, out_s = torch.empty_like(z0), torch.empty_like(y2)
+            stream = torch.cuda.current_stream().cuda_stream
+            wa1, tau1, ws1 = wa[1], tau[1], ws[1]
+            entries = {
+                "lista2d_ana_threshold": (
+                    r1.data_ptr(), wa1.data_ptr(), z0.data_ptr(), tau1.data_ptr(),
+                    out_a.data_ptr(), N, Cp, M, H, W, Qh, Qw, *geom.off_a, geom.s, *geom.P,
+                    *geom.pads, stream),
+                "lista2d_syn_residual": (
+                    z0.data_ptr(), ws1.data_ptr(), None, y2.data_ptr(), out_s.data_ptr(), N, M,
+                    Cp, H, W, Qh, Qw, *geom.off_s, stream)}
+            for entry, args in entries.items():
+                fn = getattr(lib, entry)
+                if fn(*args) != 0:
+                    raise RuntimeError(f"{entry} failed to launch")
+                record(f"{name} {entry} entry host us",
+                       host_us(lambda f=fn, x=args: f(*x), HOST_ROUNDS, reps), low=True)
+        if off_grid:
+            z_off = torch.empty(z0.numel() + 1, device=dev)[1:].view(z0.shape).copy_(z0)
+            timed(f"{name} lista2d_syn_residual off-grid z",
+                  lambda: L2.lista2d_syn_residual(z_off, ws[1], geom, y=y2), reps)
         if adjoint:
             wa_adj = LB.adjoint_bank(wa, 2)
             m2 = (torch.rand(y2.shape, generator=torch.Generator().manual_seed(SEED))
@@ -181,8 +243,8 @@ def main() -> int:
                 "lista2d_syn_residual": L2.launch_grid(True, N, M, Cp, H, W, Qh, Qw)}
 
     with torch.inference_mode():
-        pair("serve", model, images(1, IMAGE), 20, grid=True)
-        pair("train", model, images(TRAIN_N, IMAGE), 20, adjoint=True)
+        pair("serve", model, images(1, IMAGE), 20, grid=True, off_grid=True, host=True)
+        pair("train", model, images(TRAIN_N, IMAGE), 20, adjoint=True, off_grid=True)
         pair("512^2", model, images(1, (512, 512)), 10)
         pair("P=9 640x384", p9, images(1, P9_FRAME), 10)
         pair("P=9 128^2", p9, images(1, IMAGE), 20)
@@ -191,13 +253,21 @@ def main() -> int:
         served = {"128^2": noisy(1, IMAGE), "481x321": noisy(1, BIG_IMAGE)}
         for name, img in served.items():
             y = torch.from_numpy(bucketed(img)[:, None]).to(dev)
-            record(f"{name} K=30 forward ms", rounds_ms(lambda: model(y, SIGMA), a.rounds))
-            record(f"{name} K=30 forward xla ms", rounds_ms(lambda: plain(y, SIGMA), a.rounds))
+            n_rounds = HOST_ROUNDS if name == "128^2" else a.rounds
+            record(f"{name} K=30 forward ms", rounds_ms(lambda: model(y, SIGMA), n_rounds,
+                                                        FWD_REPS), low=True)
+            record(f"{name} K=30 forward xla ms", rounds_ms(lambda: plain(y, SIGMA), a.rounds,
+                                                            FWD_REPS))
+            if name == "128^2":
+                record(f"{name} K=30 forward host ms",
+                       [v / 1e3 for v in host_us(lambda: model(y, SIGMA), HOST_ROUNDS,
+                                                 FWD_REPS)], low=True)
     server = Denoiser(model)
     for name, img in served.items():
         record(f"{name} denoise_image ms", rounds_ms(
-            lambda: server.denoise_image(img[0], sigma=SIGMA), a.rounds, warmup=1,
-            events=False))
+            lambda: server.denoise_image(img[0], sigma=SIGMA),
+            HOST_ROUNDS if name == "128^2" else a.rounds, FWD_REPS, warmup=1, events=False),
+            low=True)
     batch = noisy(BATCH, IMAGE)
     record(f"denoise_image_batch of {BATCH} ms", rounds_ms(
         lambda: server.denoise_image_batch(batch, sigmas=SIGMA), a.rounds, warmup=1,

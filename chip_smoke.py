@@ -558,7 +558,6 @@ def serve_2d(dev, card, err) -> tuple[dict, dict]:
                          "lista2d_syn_residual": L2.launch_grid(True, N, M, Cp, Hc, Wc, Qh, Qw)}
                 for name, gr in grids.items():
                     print(f"grid [{card}]: 2D flagship {label} {name}: {gr}", flush=True)
-                    times[name]["blocks"] = gr["blocks"]
         xla_model = server_xla.model
         for label, shape in (("128^2", IMAGE), ("481x321", BIG_IMAGE)):
             _, noisy = noisy_images(rng, shape, [SIGMA])

@@ -487,12 +487,15 @@ def test_2d_pair_on_operands_off_the_grid_matches_plain(cuda, P, s, M, N, H, W, 
 
 
 @pytest.mark.parametrize("P,s,M,N,H,W,C", [SHAPES_2D[4], SHAPES_2D[5]])
-def test_2d_forward_kernels_are_deterministic(cuda, P, s, M, N, H, W, C):
+@pytest.mark.parametrize("off_grid", [False, True])
+def test_2d_forward_kernels_are_deterministic(cuda, P, s, M, N, H, W, C, off_grid):
     """Two calls bitwise equal where the launch splits the codes: the
-    cluster's partial sums meet in rank order."""
+    cluster's partial sums meet in rank order, whether the synthesis stages
+    its codes by tensor copies or (codes off the 16-byte grid) row by
+    row."""
     d = _setup2d(P, s, M, N, H, W, C)
-    r, z, wa, ws, tau, mask, y = (d[k].to(cuda) for k in
-                                  ("r", "z", "wa", "ws", "tau", "mask", "y"))
+    r, wa, ws, tau, mask, y = (d[k].to(cuda) for k in ("r", "wa", "ws", "tau", "mask", "y"))
+    z = _off_grid(d["z"], cuda) if off_grid else d["z"].to(cuda)
     runs = [(L2.lista2d_ana_threshold(r, z, wa, tau, d["geom"]),
              L2.lista2d_ana_threshold(r, None, wa, tau, d["geom"]),
              L2.lista2d_syn_residual(z, ws, d["geom"], mask=mask, y=y),
