@@ -15,6 +15,10 @@
 //       z <- ST(z_old - out, tau[n, m]); z_old == NULL reads as zeros (k=0).
 //   lista2d_syn_residual:  in = z (M channels), out = r (Cp channels),
 //       r <- [mask *] out [- y].
+//   lista2d_syn_adjoint: the 2D reverse pass's synthesis adjoint and the
+//       soft threshold's subgradient (the TPU reverses K6, K8): the analysis
+//       of g (Cp channels) with B's unflipped bank, dz = [base +] alpha *
+//       out, dv = 1{z != 0} dz, dtau[n, m] = -sum sign(z) dz.
 //   lista2d_ana_csr, lista2d_ana_csrf2: the analysis with the CSR prox in
 //       its epilogue instead of ST (the prox modes "csr" and "csrf2" of the
 //       TPU kernels, lista2d.py:281-295 and lista2d_tiled.py:189-250):
@@ -26,11 +30,12 @@
 //       TPU kernel's u history rows, lista2d.py:297-313, 343-348), which
 //       the CSR adjoints of lista3d_bwd.cu read; serving passes NULL.
 //
-// The soft-threshold pair runs on the tensor cores in 3xTF32
-// (lista2d_mma.cuh says what bounds it and how its tiling fills the card
-// at a single 128^2 image); lista2d_launch_grid reports the launch it
-// makes. The CSR analyses run the fp32 CUDA-core template of
-// lista3d_conv.cuh at D = 1, Qd = 1 with the 2D phase map (sd = 1).
+// The soft-threshold pair and the adjoint run on the tensor cores in
+// 3xTF32 (lista2d_mma.cuh says what bounds them and how their tiling fills
+// the card at a single 128^2 image); lista2d_launch_grid reports the launch
+// they make (the adjoint's is the analysis's). The CSR analyses run the
+// fp32 CUDA-core template of lista3d_conv.cuh at D = 1, Qd = 1 with the 2D
+// phase map (sd = 1).
 //
 // The CSR epilogues add one (csr) or two (csrf2) code-sized reads a call.
 // At the CSR models' width on a fastMRI frame (M = 169, P = 9, s = 2;
@@ -131,6 +136,30 @@ int lista2d_syn_residual(const float* z, const float* wt, const float* mask,
   tf32x3::MmaArgs a = mma_args(z, wt, r_out, N, M, Cp, H, W, Qh, Qw, oh, ow);
   a.mask = mask, a.y = y;
   return mma2d::launch(true, a, (cudaStream_t)stream);
+}
+
+// Blocks whose dtau partials lista2d_syn_adjoint writes: its work buffer
+// holds parts * N * M floats (0 where it cannot launch).
+int lista2d_syn_adjoint_parts(int N, int Cp, int M, int H, int W, int Qh, int Qw) {
+  const tf32x3::MmaArgs a = mma_args(nullptr, nullptr, nullptr, N, Cp, M, H, W, Qh, Qw, 0, 0);
+  mma2d::Launch l;
+  return mma2d::query(false, a, l) == 0 ? (int)l.grid.x : 0;
+}
+
+// dz = [base +] alpha * (B_k^* g); dv = 1{z != 0} dz; dtau = -sum sign(z) dz:
+// the analysis of g with B's unflipped bank (2D phase map) and the adjoint
+// epilogue. g (N, Cp, H, W); wt (Cp, Qh, Qw, M); base (may be NULL: zeros),
+// z, dv (N, M, H, W); work (parts, N, M); dtau (N, M). s, P, pad as for
+// lista2d_ana_threshold.
+int lista2d_syn_adjoint(const float* g, const float* wt, const float* base, const float* z,
+                        float* work, float* dv, float* dtau, int N, int Cp, int M, int H,
+                        int W, int Qh, int Qw, int oh, int ow, int s, int Ph, int Pw, int ph,
+                        int pw, float alpha, void* stream) {
+  tf32x3::MmaArgs a = mma_args(g, wt, dv, N, Cp, M, H, W, Qh, Qw, oh, ow);
+  a.z = z, a.s = s;
+  a.P[1] = Ph, a.P[2] = Pw, a.pad[1] = ph, a.pad[2] = pw;
+  const tf32x3::AdjointArgs e{base, work, alpha};
+  return mma2d::launch_adjoint(a, e, dtau, (cudaStream_t)stream);
 }
 
 // The launch that lista2d_syn_residual (synthesis != 0) or

@@ -4,19 +4,26 @@
 //   out[n,o,h,w] = sum_{i,b,c} wt[i,b,c,o] * in[n,i,h+b+oh,w+c+ow]
 //
 // (zero outside the image), as an implicit GEMM on mma.sync.m16n8k8 TF32
-// products, with two fused epilogues:
+// products, with three fused epilogues:
 //
-//   lista2d_ana_mma (analysis):  out = ST(z - u, tau[n, o]); z == NULL
-//       reads as zeros, and out may be z (each output element is read and
-//       then written by one thread).
+//   lista2d_ana_mma<false> (analysis): out = ST(z - u, tau[n, o]); z ==
+//       NULL reads as zeros, and out may be z (each output element is read
+//       and then written by one thread).
+//   lista2d_ana_mma<true> (the 2D reverse pass's synthesis adjoint, with
+//       mma_tf32.cuh's AdjointArgs): dz = [base +] alpha * u, out = dv =
+//       1{z != 0} dz, and per block (a row of 64 positions) and code the
+//       dtau partial -sum sign(z) dz in order (sum_parts then sums the
+//       blocks in a fixed order). The same mainloop and code-split launch rule.
 //   lista2d_syn_mma (synthesis): out = [mask *] u [- y].
 //
-// They replace, for lista2d.cu's lista2d_ana_threshold and
-// lista2d_syn_residual, the TPU kernels cdlnet_tpu/kernels/lista2d.py::
+// They replace, for lista2d.cu's lista2d_ana_threshold, lista2d_syn_residual
+// and lista2d_syn_adjoint, the TPU kernels cdlnet_tpu/kernels/lista2d.py::
 // _kernel (K5, the whole-image forward) and the banded pair
-// lista2d_tiled.py::_kernel_syn_band / _kernel_ana_band (K7); the synthesis
-// is also the 2D reverse pass's analysis adjoint (K6, K8) and the CSR
-// models' synthesis. The fp32 contract is the 3D pair's (lista3d_mma.cuh):
+// lista2d_tiled.py::_kernel_syn_band / _kernel_ana_band (K7), and with the
+// adjoint epilogue the dz part of the 2D reverses lista2d.py::_kernel_bwd
+// (K6) and lista2d_tiled_bwd.py::_kernel_tiled_bwd (K8); the synthesis is
+// also the 2D reverse pass's analysis adjoint (K6, K8) and the CSR models'
+// synthesis. The fp32 contract is the 3D pair's (lista3d_mma.cuh):
 // each operand split into two TF32 parts, three products a term, here by
 // the round-to-nearest split of mma_tf32.cuh (split_rn: the truncating one
 // biased the sums toward zero enough to flip the CSR demo's codes across
@@ -185,8 +192,11 @@ __host__ inline int ana_smem_floats(const MmaArgs& a, int BN) {
   return main > epi ? main : epi;
 }
 
+// The analysis: kAdj false, the forward's soft threshold (e unread); kAdj
+// true, the reverse pass's synthesis adjoint (mma_tf32.cuh's AdjointArgs).
+template <bool kAdj>
 __global__ void __launch_bounds__(kAnaThreads, kAnaBlocksPerSM)
-lista2d_ana_mma(const MmaArgs a, int BN, bool vec) {
+lista2d_ana_mma(const MmaArgs a, int BN, bool vec, const AdjointArgs e) {
   extern __shared__ float4 smem4[];
   __shared__ __align__(8) uint64_t bar[2];  // the two weight buffers
   float* smem = reinterpret_cast<float*>(smem4);
@@ -324,46 +334,110 @@ lista2d_ana_mma(const MmaArgs a, int BN, bool vec) {
       }
     }
   __syncthreads();
-  // groups of 4 positions along the row (W % 4 == 0 and 16-byte aligned
-  // tensors, else 1), kB groups a thread per round: all their z_old loads
-  // before any store (out may be z_old, so the compiler cannot move a load
-  // above a store)
-  constexpr int kB = 4;
-  const int gw = vec ? 4 : 1;  // positions a group
-  const size_t plane = (size_t)a.H * a.W;
-  const int groups = n_o * (kTW / gw);
-  for (int e0 = 0; e0 < groups; e0 += kB * kAnaThreads) {
-    size_t idx[kB];
-    float4 v[kB];
-    float tau[kB];
-#pragma unroll
-    for (int k = 0; k < kB; ++k) {
-      const int e = e0 + k * kAnaThreads + tid;
-      const int on = e / (kTW / gw), p = e % (kTW / gw) * gw;
-      const int ww = w0 + p;
-      const bool ok = e < groups && ww < a.W;
-      idx[k] = ok ? ((size_t)n * a.O + o0 + on) * plane + (size_t)h0 * a.W + ww : ~(size_t)0;
-      tau[k] = ok ? a.tau[n * a.O + o0 + on] : 0.f;
-      v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (!ok) continue;
-      const float* u = e_s + on * kAnaEP + p;
-      if (vec) {
-        const float4 u4 = *reinterpret_cast<const float4*>(u);
-        if (a.z) v[k] = *reinterpret_cast<const float4*>(a.z + idx[k]);
-        v[k].x -= u4.x, v[k].y -= u4.y, v[k].z -= u4.z, v[k].w -= u4.w;
-      } else {
-        v[k].x = (a.z ? a.z[idx[k]] : 0.f) - u[0];
+  if constexpr (!kAdj) {
+    // groups of 4 positions along the row (W % 4 == 0 and 16-byte aligned
+    // tensors, else 1), kB groups a thread per round: all their z_old loads
+    // before any store (out may be z_old, so the compiler cannot move a load
+    // above a store)
+    constexpr int kB = 4;
+    const int gw = vec ? 4 : 1;  // positions a group
+    const size_t plane = (size_t)a.H * a.W;
+    const int groups = n_o * (kTW / gw);
+    for (int e0 = 0; e0 < groups; e0 += kB * kAnaThreads) {
+      size_t idx[kB];
+      float4 v[kB];
+      float tau[kB];
+  #pragma unroll
+      for (int k = 0; k < kB; ++k) {
+        const int e = e0 + k * kAnaThreads + tid;
+        const int on = e / (kTW / gw), p = e % (kTW / gw) * gw;
+        const int ww = w0 + p;
+        const bool ok = e < groups && ww < a.W;
+        idx[k] = ok ? ((size_t)n * a.O + o0 + on) * plane + (size_t)h0 * a.W + ww : ~(size_t)0;
+        tau[k] = ok ? a.tau[n * a.O + o0 + on] : 0.f;
+        v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (!ok) continue;
+        const float* u = e_s + on * kAnaEP + p;
+        if (vec) {
+          const float4 u4 = *reinterpret_cast<const float4*>(u);
+          if (a.z) v[k] = *reinterpret_cast<const float4*>(a.z + idx[k]);
+          v[k].x -= u4.x, v[k].y -= u4.y, v[k].z -= u4.z, v[k].w -= u4.w;
+        } else {
+          v[k].x = (a.z ? a.z[idx[k]] : 0.f) - u[0];
+        }
+      }
+  #pragma unroll
+      for (int k = 0; k < kB; ++k) {
+        if (idx[k] == ~(size_t)0) continue;
+        const float4 st = make_float4(soft(v[k].x, tau[k]), soft(v[k].y, tau[k]),
+                                      soft(v[k].z, tau[k]), soft(v[k].w, tau[k]));
+        if (vec)
+          *reinterpret_cast<float4*>(a.out + idx[k]) = st;
+        else
+          a.out[idx[k]] = st.x;
       }
     }
+  } else {
+    // dz = [base +] alpha * u; dv = 1{z != 0} dz; each element's dtau term
+    // -sign(z) dz into e_s in place of its u (each element is one
+    // thread's), zeros past the image's width; loads first, as above
+    constexpr int kB = 4;
+    const int gw = vec ? 4 : 1;  // positions a group
+    const size_t plane = (size_t)a.H * a.W;
+    const int groups = n_o * (kTW / gw);
+    for (int e0 = 0; e0 < groups; e0 += kB * kAnaThreads) {
+      size_t idx[kB];
+      float4 bz[kB], zz[kB];
 #pragma unroll
-    for (int k = 0; k < kB; ++k) {
-      if (idx[k] == ~(size_t)0) continue;
-      const float4 st = make_float4(soft(v[k].x, tau[k]), soft(v[k].y, tau[k]),
-                                    soft(v[k].z, tau[k]), soft(v[k].w, tau[k]));
-      if (vec)
-        *reinterpret_cast<float4*>(a.out + idx[k]) = st;
-      else
-        a.out[idx[k]] = st.x;
+      for (int k = 0; k < kB; ++k) {
+        const int el = e0 + k * kAnaThreads + tid;
+        const int on = el / (kTW / gw), p = el % (kTW / gw) * gw;
+        const int ww = w0 + p;
+        const bool ok = el < groups && ww < a.W;
+        idx[k] = ok ? ((size_t)n * a.O + o0 + on) * plane + (size_t)h0 * a.W + ww : ~(size_t)0;
+        bz[k] = zz[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (!ok) {
+          if (el < groups)
+            for (int q = 0; q < gw; ++q) e_s[on * kAnaEP + p + q] = 0.f;
+          continue;
+        }
+        if (vec) {
+          if (e.base) bz[k] = *reinterpret_cast<const float4*>(e.base + idx[k]);
+          zz[k] = *reinterpret_cast<const float4*>(a.z + idx[k]);
+        } else {
+          bz[k].x = e.base ? e.base[idx[k]] : 0.f;
+          zz[k].x = a.z[idx[k]];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kB; ++k) {
+        if (idx[k] == ~(size_t)0) continue;
+        const int el = e0 + k * kAnaThreads + tid;
+        float* u = e_s + el / (kTW / gw) * kAnaEP + el % (kTW / gw) * gw;
+        if (vec) {
+          const float4 u4 = *reinterpret_cast<const float4*>(u);
+          const float4 dz = make_float4(bz[k].x + e.alpha * u4.x, bz[k].y + e.alpha * u4.y,
+                                        bz[k].z + e.alpha * u4.z, bz[k].w + e.alpha * u4.w);
+          *reinterpret_cast<float4*>(a.out + idx[k]) =
+              make_float4(zz[k].x != 0.f ? dz.x : 0.f, zz[k].y != 0.f ? dz.y : 0.f,
+                          zz[k].z != 0.f ? dz.z : 0.f, zz[k].w != 0.f ? dz.w : 0.f);
+          *reinterpret_cast<float4*>(u) =
+              make_float4(dtau_term(zz[k].x, dz.x), dtau_term(zz[k].y, dz.y),
+                          dtau_term(zz[k].z, dz.z), dtau_term(zz[k].w, dz.w));
+        } else {
+          const float dz = bz[k].x + e.alpha * u[0];
+          a.out[idx[k]] = zz[k].x != 0.f ? dz : 0.f;
+          u[0] = dtau_term(zz[k].x, dz);
+        }
+      }
+    }
+    __syncthreads();
+    // each code's dtau partial: its terms over the block's row, in order
+    for (int on = tid; on < n_o; on += kAnaThreads) {
+      const float* r = e_s + on * kAnaEP;
+      float s = 0.f;
+      for (int p = 0; p < kTW; ++p) s += r[p];
+      e.part[((size_t)blockIdx.x * a.N + n) * a.O + o0 + on] = s;
     }
   }
 }
@@ -686,21 +760,6 @@ inline Launch launch_of(bool synthesis, const MmaArgs& a, int sms) {
   return l;
 }
 
-// The current device's SM count (cached per device).
-inline cudaError_t sm_count(int& sms) {
-  static int counts[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (counts[dev] == 0) {
-    err = cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-  }
-  sms = counts[dev];
-  return cudaSuccess;
-}
-
 inline bool valid(const MmaArgs& a) {
   return a.N > 0 && a.I > 0 && a.O > 0 && a.H > 0 && a.W > 0 && a.Qh > 0 && a.Qw > 0 &&
          a.D == 1 && a.Qd == 1;
@@ -729,21 +788,6 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
       fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
   }
   return fn;
-}
-
-// Raises kern's dynamic shared memory limit on the current device to smem,
-// once a size: `limit` is the caller's record (a static, one per kernel) of
-// what it set on each device, so that a call of a size met before makes no
-// cudaFuncSetAttribute call.
-inline cudaError_t raise_smem_limit(const void* kern, int smem, int (&limit)[64]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (smem <= limit[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) limit[dev] = smem;
-  return err;
 }
 
 // The synthesis stages by TMA tensor copies where z's rows are 16-byte
@@ -792,6 +836,30 @@ int launch_syn(const Launch& l, const MmaArgs& a, bool vec, cudaStream_t stream)
   return (int)cudaGetLastError();
 }
 
+// The synthesis adjoint: the analysis's launch with the AdjointArgs
+// epilogue, then the dtau partials (one a block of the grid's x: the code
+// blocks of a row write the same partial's other codes) summed over the
+// blocks in a fixed order into dtau (N, O).
+inline int launch_adjoint(const MmaArgs& a, const AdjointArgs& e, float* dtau,
+                          cudaStream_t stream) {
+  Launch l;
+  const int q = query(false, a, l);
+  if (q != 0) return q;
+  if (!a.z) return (int)cudaErrorInvalidValue;
+  if (l.grid.z > 65535) return (int)cudaErrorInvalidConfiguration;
+  const int smem = (int)sizeof(float) * ana_smem_floats(a, l.bn);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidConfiguration;
+  static int limit[64] = {};
+  cudaError_t err =
+      raise_smem_limit(reinterpret_cast<const void*>(lista2d_ana_mma<true>), smem, limit);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec = vec_epilogue(a) && (!e.base || mis4(e.base) == 0);
+  lista2d_ana_mma<true><<<l.grid, kAnaThreads, smem, stream>>>(a, l.bn, vec, e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_sum_parts(e.part, dtau, a.N * a.O, (int)l.grid.x, stream);
+}
+
 inline int launch(bool synthesis, const MmaArgs& a, cudaStream_t stream) {
   Launch l;
   const int q = query(synthesis, a, l);
@@ -809,9 +877,9 @@ inline int launch(bool synthesis, const MmaArgs& a, cudaStream_t stream) {
   if (smem > kMaxSmem) return (int)cudaErrorInvalidConfiguration;
   static int limit[64] = {};
   const cudaError_t err =
-      raise_smem_limit(reinterpret_cast<const void*>(lista2d_ana_mma), smem, limit);
+      raise_smem_limit(reinterpret_cast<const void*>(lista2d_ana_mma<false>), smem, limit);
   if (err != cudaSuccess) return (int)err;
-  lista2d_ana_mma<<<l.grid, kAnaThreads, smem, stream>>>(a, l.bn, vec);
+  lista2d_ana_mma<false><<<l.grid, kAnaThreads, smem, stream>>>(a, l.bn, vec, AdjointArgs{});
   return (int)cudaGetLastError();
 }
 

@@ -15,6 +15,10 @@
 //       z <- ST(z_old - out, tau[n, m]); z_old == NULL reads as zeros (k=0).
 //   lista3d_syn_residual:  in = z (M channels), out = r (Cp channels),
 //       r <- [mask *] out [- y].
+//   lista3d_syn_adjoint: the reverse pass's synthesis adjoint and the soft
+//       threshold's subgradient (the TPU reverses K2, K4, K10, K12): the
+//       analysis of g (Cp channels) with B's unflipped bank, dz = [base +]
+//       alpha * out, dv = 1{z != 0} dz, dtau[n, m] = -sum sign(z) dz.
 //
 // Plain C interface for ctypes: each entry returns cudaGetLastError() (or
 // the first CUDA error met) as an int; 0 means launched.
@@ -53,6 +57,35 @@ int lista3d_syn_residual(const float* z, const float* wt, const float* mask,
   a.N = N, a.I = M, a.O = Cp, a.D = D, a.H = H, a.W = W;
   a.Qd = Qd, a.Qh = Qh, a.Qw = Qw, a.od = od, a.oh = oh, a.ow = ow;
   return mma3d::launch(true, a, (cudaStream_t)stream);
+}
+
+// Blocks whose dtau partials lista3d_syn_adjoint writes: its work buffer
+// holds parts * N * M floats.
+int lista3d_syn_adjoint_parts(int N, int Cp, int M, int D, int H, int W, int Qd, int Qh,
+                              int Qw) {
+  mma3d::MmaArgs a{};
+  a.N = N, a.I = Cp, a.O = M, a.D = D, a.H = H, a.W = W, a.Qd = Qd, a.Qh = Qh, a.Qw = Qw;
+  return mma3d::adjoint_parts(a);
+}
+
+// dz = [base +] alpha * (B_k^* g); dv = 1{z != 0} dz; dtau = -sum sign(z) dz:
+// the analysis of g with B's unflipped bank and the adjoint epilogue. g (N,
+// Cp, D, H, W); wt (Cp, Qd, Qh, Qw, M); base (may be NULL: zeros), z, dv (N,
+// M, D, H, W); work (parts, N, M); dtau (N, M). s, P, pad as for
+// lista3d_ana_threshold.
+int lista3d_syn_adjoint(const float* g, const float* wt, const float* base, const float* z,
+                        float* work, float* dv, float* dtau, int N, int Cp, int M, int D,
+                        int H, int W, int Qd, int Qh, int Qw, int od, int oh, int ow, int s,
+                        int Pd, int Ph, int Pw, int pd, int ph, int pw, float alpha,
+                        void* stream) {
+  mma3d::MmaArgs a{};
+  a.in = g, a.wt = wt, a.out = dv, a.z = z;
+  a.N = N, a.I = Cp, a.O = M, a.D = D, a.H = H, a.W = W;
+  a.Qd = Qd, a.Qh = Qh, a.Qw = Qw, a.od = od, a.oh = oh, a.ow = ow;
+  a.s = s, a.P[0] = Pd, a.P[1] = Ph, a.P[2] = Pw;
+  a.pad[0] = pd, a.pad[1] = ph, a.pad[2] = pw;
+  const tf32x3::AdjointArgs e{base, work, alpha};
+  return mma3d::launch_adjoint(a, e, dtau, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,226 +1,89 @@
-// The reverse pass of the fused 3D LISTA for Hopper (sm_90a), fp32 on the
-// CUDA cores.
+// The weight gradient of the reverse pass (lista3d_wgrad, video and images)
+// on the tensor cores of Hopper (sm_90a), in 3xTF32, and the CSR models'
+// synthesis adjoints (lista2d_syn_adjoint_csr, _csrf2), fp32 on the CUDA
+// cores.
 //
-// Replaces the TPU kernels cdlnet_tpu/kernels/lista3d_bwd_resident.py::
-// _kernel_bwd_resident (the whole-K reverse) and its per-iteration pair
-// lista3d_bwd.py::_kernel_syn_bwd/_kernel_ana_bwd. The reverse loop runs
-// one iteration at a time from the stored code and residual histories, in
-// the stride-phase domain of the forward (kernels/lista3d_bwd.py), on three
-// kernels: the forward's lista3d_syn_residual (the analysis adjoint
-// m * A_k^T dv, with A's flipped bank), and the two entry points here:
+// Replaces, with the synthesis adjoint (lista3d_syn_adjoint in lista3d.cu,
+// lista2d_syn_adjoint in lista2d.cu: the forward analyses' mainloops with an
+// adjoint epilogue) and the analysis adjoint (the forward synthesis), the
+// TPU kernels cdlnet_tpu/kernels/lista3d_bwd_resident.py::
+// _kernel_bwd_resident (the whole-K reverse, K2), its per-iteration pair
+// lista3d_bwd.py::_kernel_syn_bwd/_kernel_ana_bwd (K4), the banded and ring
+// reverses (K10, K12) and the 2D reverses lista2d.py::_kernel_bwd (K6, with
+// its CSR prox modes) and lista2d_tiled_bwd.py::_kernel_tiled_bwd (K8). The
+// reverse loop (kernels/lista3d_bwd.py) runs one iteration at a time from
+// the stored code and residual histories in the stride-phase domain.
 //
-//   lista3d_syn_adjoint: the synthesis adjoint and the soft-threshold
-//       subgradient, dz = [base +] alpha * B_k^* g (the analysis-form
-//       correlation of lista3d_conv.cuh with B's unflipped bank); writes
-//       dv = 1{z != 0} dz and dtau[n, m] = -sum sign(z) dz. The 2D reverse
-//       pass (kernels/lista2d_bwd.py, in place of the TPU kernels
-//       lista2d.py::_kernel_bwd and lista2d_tiled_bwd.py::_kernel_tiled_bwd)
-//       calls it at D = Qd = 1 with the 2D phase map, sd = 1.
-//   lista2d_syn_adjoint_csr, lista2d_syn_adjoint_csrf2: the 2D synthesis
-//       adjoint with the CSR prox's adjoint in its epilogue instead of the
-//       soft threshold's (the prox modes "csr" / "csrf2" of the TPU kernel
-//       lista2d.py::_kernel_bwd, :537-603): from the stored prox argument
-//       v_k and code z_k, the neighbour codes zp (za) and the banks tau,
-//       gam1 (gam2) it writes dv, adds the neighbour codes' cotangents
-//       into dzp (dza) in place, and reduces dtau, dgam1 (dgam2) per
-//       (n, m) in a fixed order. The two-sided adjoint reads u, z, zp, za,
-//       base and dzp, dza and writes dv, dzp, dza: at the CSR models'
-//       training shape (M = 169, a 320x184 code grid) ~400 MB a call,
-//       ~0.12 ms of bytes at 3.35 TB/s against ~0.025 ms of FMAs, so it is
-//       bound by bytes, and the fused epilogue reads dz from registers
-//       instead of a second pass over it. Its shared-memory partials take
-//       three (N, M) sums a block: 192 KB of the 227 KB cap at P = 9 (one
-//       block an SM).
 //   lista3d_wgrad: the weight gradient of one correlation,
 //       dw[i, q, o] = alpha * sum_{n,p} x[n, i, p + q + off] y[n, o, p],
 //       in the banks' own (I, Qd, Qh, Qw, O) layout; dA (x = r, y = dv) and
-//       dB (x = z, y = g) alike. It reads no phase map, so the 2D reverse
-//       pass runs it at D = Qd = 1 as it is.
+//       dB (x = g, y = z: the swapped form, whose adjoint bank is dB) alike;
+//       at D = Qd = 1 for images. A table of phase rows (i, q) says which
+//       rows it computes: the reverse loop passes the rows that the phase
+//       map keeps (the nonzero taps of the prep's valid mask), every other
+//       row is written as zeros.
+//   lista2d_syn_adjoint_csr, lista2d_syn_adjoint_csrf2: the 2D synthesis
+//       adjoint with the CSR prox's adjoint in its epilogue (the prox modes
+//       "csr" / "csrf2" of the TPU kernel lista2d.py::_kernel_bwd,
+//       :537-603): from the stored prox argument v_k and code z_k, the
+//       neighbour codes zp (za) and the banks tau, gam1 (gam2) it writes dv,
+//       adds the neighbour codes' cotangents into dzp (dza) in place, and
+//       reduces dtau, dgam1 (dgam2) per (n, m) in a fixed order; on
+//       lista3d_conv.cuh's template. At the CSR models' training shape
+//       (M = 169, a 320x184 code grid) a call moves ~400 MB, ~0.12 ms at
+//       3.35 TB/s against ~0.025 ms of FMAs: bound by bytes.
 //
-// What bounds them on this card: fp32 FMAs, as in the forward. At the
-// flagship training shape (N=2, M=169, Cp=8, 8x64x64 code grid, 4x4x3
-// phase taps) each call is ~8.5 GFLOP in the phase form, while its
-// operands are 2-45 MB. The adjoint shares the forward analysis's design
-// and tap skipping. The weight gradient is a reduction over all 65,536
-// code positions for each of 64,896 outputs: an implicit-im2col GEMM whose
-// block owns a 128 x 64 output tile in registers (8 x 4 per thread, three
-// float4 operand loads per 32 FMAs) and one contiguous split of the
-// positions, so that ~500 blocks fill the card; each split writes its own
-// partial tile, and a second kernel sums the splits in ascending order. No
-// float atomics: two runs give bitwise-equal gradients. At the flagship 2D
-// training shape (N=10 crops of 128^2, M=169, Cp=4, 4x4 phase taps) an
-// adjoint call is ~0.7 GFLOP against ~83 MB of codes, base and dv: there it
-// is bound by bytes.
+// The weight gradient's design. At the flagship video training shape (N =
+// 2, M = 169, Cp = 8, an 8x64x64 code grid, 4x4x3 phase taps) a call is a
+// GEMM of 169 codes x 245 phase rows (of 384: the rest are structural zeros)
+// over 65,536 code positions: 5.4 GFLOP, 0.0329 ms as three TF32 products
+// at the dense 495 TFLOP/s, against 46 MB of operands (0.014 ms at 3.35
+// TB/s); at the 2D one (10 x 128^2, Cp = 4, 4x4 taps) 169 x 49 over 40,960
+// positions, where reading y (27.7 MB) bounds it. The output is small and
+// the reduction long, so the positions are split over the blocks:
+//
+// - The GEMM: M = codes (A from y, whose positions are contiguous), N = the
+//   phase rows (B from x), K = code positions, 8 a k8 step along a code
+//   row. mma.sync.m16n8k8 TF32 in 3xTF32 with the round-to-nearest split
+//   (mma_tf32.cuh's split_rn), each k8 step's three products into a fresh
+//   fragment added to the running sums in fp32: the sums run over up to
+//   ~6,000 positions a block, so the tensor core's truncating sums never
+//   chain.
+// - A block owns 192 codes (12 m16 tiles: M = 169 pads 14%, the padding
+//   rows staged as zeros) and up to 128 phase rows (16 n8 tiles) with 12
+//   warps, one block an SM: 3 along codes (4 m16 tiles each) x 4 along rows
+//   (4 n8 tiles each, the block's tiles dealt round-robin) where a block
+//   has more than 8 row tiles, else 6 x 2 (2 m16 tiles x 4 n8 tiles each).
+//   Every warp runs the same fully unrolled 4-tile product chains,
+//   interleaved, with no branch: a tile past the block's rows has zero B
+//   fragments, and the codes past 169 are zero rows, which cost the slowest
+//   warp nothing. Only the rows of the table enter the n8 tiles (245 of 384
+//   at the flagship: 31 n8 tiles, two blocks; 49 of 64 in 2D: 7 n8 tiles);
+//   a block's rows span at most 8 input channels (the table's partition,
+//   kernels/lista3d_bwd.py).
+// - A stage is one code row of 64 positions: y's 192 code rows and x's
+//   channel rows with the tap halo (8 channels x Qd x Qh rows of 64 + Qw - 1
+//   columns), each row by one bulk copy on the stage's mbarrier (RowStager,
+//   keeping each row's offset from the 16-byte grid), through two buffers,
+//   so that the next stage's copies fly while this stage's products run.
+//   Each B column reads its row at its own tap shift, as the analyses read
+//   their taps: no im2col reaches device memory. y's staged rows are 68
+//   floats apart (4 mod 32) and x's tap rows 8 mod 32, so the fragment
+//   loads are conflict-free on aligned rows.
+// - Filling the card: the launch splits the code rows (stages) into the
+//   fewest contiguous chunks whose blocks fill the SMs (one rule, from the
+//   block count and the SM count); each block writes its partial sums of
+//   its rows, and fold_rows sums the splits in ascending order (and writes
+//   the zero rows). No float atomics: two runs are bitwise equal.
 //
 // Plain C interface for ctypes: each entry returns cudaGetLastError() (or
 // the first CUDA error met) as an int; 0 means launched.
 
 #include <algorithm>
 
-#include "lista3d_conv.cuh"
+#include "mma_tf32.cuh"  // lista3d_conv.cuh too
 
 namespace {
-
-// out[r] = alpha * sum_{b < nb} part[b * rows + r], b ascending.
-__global__ void reduce_parts(const float* part, float* out, int rows, int nb,
-                             float alpha) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  float s = 0.f;
-  for (int b = 0; b < nb; ++b) s += part[(size_t)b * rows + r];
-  out[r] = alpha * s;
-}
-
-int launch_reduce(const float* part, float* out, int rows, int nb,
-                  float alpha, cudaStream_t stream) {
-  reduce_parts<<<(rows + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      part, out, rows, nb, alpha);
-  return (int)cudaGetLastError();
-}
-
-struct WgradArgs {
-  const float* x;  // (N, I, D, H, W)
-  const float* y;  // (N, O, D, H, W)
-  float* part;     // (splits, I, Qd, Qh, Qw, O)
-  int N, I, O, D, H, W;
-  int Qd, Qh, Qw;
-  int od, oh, ow;
-  int chunk;       // code positions per split, a multiple of BK
-};
-
-// Block: output rows (i, q) [m0, m0 + BM) x output channels [o0, o0 + BN)
-// over the code positions of split blockIdx.z; BK positions per step. The
-// x operand is gathered tap-shifted from x (implicit im2col, zeros outside
-// the volume), the y operand read as it is; both are staged in shared
-// memory position-major, so each step's operands are float4 loads.
-template <int BM, int BN, int TM, int TN, int BK>
-__global__ void __launch_bounds__(kThreads)
-lista3d_wgrad_part(const WgradArgs a) {
-  static_assert((BM / TM) * (BN / TN) == kThreads, "thread layout");
-  static_assert(TM % 4 == 0 && TN % 4 == 0, "float4 operand loads");
-  static_assert(kThreads % BK == 0, "each thread stages one position");
-  constexpr int XP = BM + 4, YP = BN + 4;  // pitches: rows stay 16B-aligned
-  // a thread's TM rows are TM/4 runs of 4, RG * 4 rows apart, so that a
-  // warp's float4 loads of one run are contiguous (conflict-free)
-  constexpr int RG = BM / TM;
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // (BK, XP)
-  float* ys = xs + BK * XP;                      // (BK, YP)
-  int* rinfo = reinterpret_cast<int*>(ys + BK * YP);  // (BM,)
-
-  const int tid = threadIdx.x;
-  const int T = a.Qd * a.Qh * a.Qw;
-  const int rows = a.I * T;
-  const int m0 = blockIdx.x * BM, o0 = blockIdx.y * BN;
-  const int plane = a.H * a.W, vol = a.D * plane;
-  const int P = a.N * vol;
-  const int p_begin = blockIdx.z * a.chunk;
-  const int p_end = min(P, p_begin + a.chunk);
-
-  // the tile's rows as packed (i, qd, qh, qw), -1 past the last row
-  for (int m = tid; m < BM; m += kThreads) {
-    const int row = m0 + m;
-    int info = -1;
-    if (row < rows) {
-      const int q = row % T;
-      info = (row / T) << 12 | (q / (a.Qh * a.Qw)) << 8 |
-             (q / a.Qw % a.Qh) << 4 | q % a.Qw;
-    }
-    rinfo[m] = info;
-  }
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const int kk = tid % BK;  // the position this thread stages each step
-  __syncthreads();
-
-  for (int p0 = p_begin; p0 < p_end; p0 += BK) {
-    const int p = p0 + kk;
-    const bool pok = p < p_end;
-    const int n = p / vol, d = p / plane % a.D, h = p / a.W % a.H,
-              w = p % a.W;
-    for (int m = tid / BK; m < BM; m += kThreads / BK) {
-      const int info = rinfo[m];
-      float v = 0.f;
-      if (pok && info >= 0) {
-        const int dd = d + (info >> 8 & 15) + a.od;
-        const int hh = h + (info >> 4 & 15) + a.oh;
-        const int ww = w + (info & 15) + a.ow;
-        if (dd >= 0 && dd < a.D && hh >= 0 && hh < a.H && ww >= 0 &&
-            ww < a.W)
-          v = a.x[((size_t)n * a.I + (info >> 12)) * vol +
-                  (size_t)dd * plane + hh * a.W + ww];
-      }
-      xs[kk * XP + m] = v;
-    }
-    for (int c = tid / BK; c < BN; c += kThreads / BK) {
-      const int o = o0 + c;
-      ys[kk * YP + c] =
-          pok && o < a.O
-              ? a.y[((size_t)n * a.O + o) * vol + (size_t)d * plane +
-                    h * a.W + w]
-              : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float xv[TM], yv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; i += 4) {
-        const float4 v4 =
-            *reinterpret_cast<const float4*>(xs + k * XP + i * RG + ty * 4);
-        xv[i] = v4.x, xv[i + 1] = v4.y, xv[i + 2] = v4.z, xv[i + 3] = v4.w;
-      }
-#pragma unroll
-      for (int j = 0; j < TN; j += 4) {
-        const float4 v4 =
-            *reinterpret_cast<const float4*>(ys + k * YP + tx * TN + j);
-        yv[j] = v4.x, yv[j + 1] = v4.y, yv[j + 2] = v4.z, yv[j + 3] = v4.w;
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(xv[i], yv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* out = a.part + (size_t)blockIdx.z * rows * a.O;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = m0 + i / 4 * RG * 4 + ty * 4 + i % 4;
-    if (row >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int o = o0 + tx * TN + j;
-      if (o < a.O) out[(size_t)row * a.O + o] = acc[i][j];
-    }
-  }
-}
-
-// The tile: 128 rows (i, q) x 64 output channels a block, 8 x 4 a thread;
-// 32 code positions a step. (The reverse pass calls it with O = M only: a
-// dB is computed as the adjoint bank of the same product with x and y
-// swapped, kernels/lista3d_bwd.py.)
-constexpr int kBM = 128, kBN = 64, kTM = 8, kTN = 4, kBK = 32;
-
-constexpr size_t kWgradSmem =
-    sizeof(float) * ((size_t)kBK * (kBM + 4) + kBK * (kBN + 4) + kBM);
-
-// Code positions a split takes: enough splits for ~4 blocks per SM, each
-// at least 16 steps long; a multiple of kBK.
-inline int wgrad_chunk(int rows, int O, int P) {
-  const int tiles = ((rows + kBM - 1) / kBM) * ((O + kBN - 1) / kBN);
-  int splits = (4 * 132 + tiles - 1) / tiles;
-  splits = std::max(1, std::min(splits, (P + 16 * kBK - 1) / (16 * kBK)));
-  const int chunk = (P + splits - 1) / splits;
-  return (chunk + kBK - 1) / kBK * kBK;
-}
 
 // The adjoint's operands shared by the two CSR entry points (2D, D = 1).
 ConvArgs csr_adjoint_args(const float* g, const float* wt, const float* base,
@@ -239,57 +102,331 @@ ConvArgs csr_adjoint_args(const float* g, const float* wt, const float* base,
   return a;
 }
 
-// The block partials of `sums` (N, M) sums in work, summed in order into
+// The block partials of `sums` (N, M) sums in work, summed in a fixed order into
 // outs[q].
 int reduce_sums(const float* work, float* const* outs, int sums, int N, int M,
                 int parts, cudaStream_t stream) {
   for (int q = 0; q < sums; ++q) {
-    const int err = launch_reduce(work + (size_t)q * parts * N * M, outs[q],
-                                  N * M, parts, 1.f, stream);
+    const int err =
+        tf32x3::launch_sum_parts(work + (size_t)q * parts * N * M, outs[q], N * M, parts, stream);
     if (err != 0) return err;
   }
   return 0;
 }
 
+// The CSR adjoints' blocks per (n, m): their work buffers hold sums *
+// parts * N * M floats.
+int csr_adjoint_parts(int H, int W) {
+  return ((W + kTW - 1) / kTW) * ((H + kAnaTH - 1) / kAnaTH);
+}
+
 }  // namespace
+
+namespace wgrad {
+
+using namespace tf32x3;
+using tf32x3::kTW;  // over lista3d_conv.cuh's (also 64)
+
+constexpr int kThreads = 384;      // 12 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kMT = 4, kNT = 4;    // a warp's m16 code tiles, n8 row tiles (at most)
+constexpr int kBO = 192;           // codes a block (12 m16 tiles; zero rows past O)
+// phase rows a block, at most: 4 row warps' kNT n8 tiles (kernels/
+// lista3d_bwd.py's WGRAD_BLOCK_ROWS, with WGRAD_BLOCK_CHANNELS = kXCH)
+static_assert(4 * kNT * 8 == 128, "the wrapper's row blocks");
+constexpr int kXCH = 8;            // input channels a block stages
+constexpr int kYS = 68;            // floats between staged y rows: 4 mod 32
+
+struct Args {
+  MmaArgs x;         // x (N, I, D, H, W) with the taps and offsets
+  MmaArgs y;         // y (N, O, D, H, W): O channels, one tap
+  const int* table;  // each row's slot or -1 (I * T) | the slots' rows (R) |
+                     // each row block's first slot (RB + 1)
+  float* part;       // (splits, R, O)
+  int R, chunk, stages;
+};
+
+// the staged tiles of one buffer: x's kXCH channels, then y's kBO codes
+__host__ __device__ inline int x_floats(const MmaArgs& x) { return kXCH * Tile(x, 1).slab; }
+__host__ __device__ inline int buf_floats(const MmaArgs& x) { return x_floats(x) + kBO * kYS; }
+
+// D = A * B with C = 0, the three-product chain's first (a zero register
+// for C, so that no fragment is zeroed before it)
+__device__ inline void mma_tf32_first(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+}
+
+// One stage's products of a warp: its kNT n8 row tiles (their B fragments
+// split once a k8 step; zeros for a tile past the block's rows) against its
+// MT m16 code tiles (zero rows past code O), each tile's three products
+// (lo*hi, hi*lo, hi*hi) into a fresh fragment added to its running sums in
+// fp32. The products are volatile asm, issued in the order written, so the
+// kNT tiles' chains are interleaved: no product waits on the one just
+// before it. No branch: the loads and splits of the next code tile can be
+// scheduled under this one's products.
+template <int MT>
+__device__ inline void stage_products(float (&acc)[kMT][kNT][4], const float* const (&xb)[kNT],
+                                      const bool (&xok)[kNT], const float* const (&ya)[kMT][2]) {
+#pragma unroll
+  for (int k0 = 0; k0 < kTW; k0 += 8) {
+    uint32_t bhi[kNT][2], blo[kNT][2];
+#pragma unroll
+    for (int jj = 0; jj < kNT; ++jj) {
+      split_rn(xok[jj] ? xb[jj][k0] : 0.f, bhi[jj][0], blo[jj][0]);
+      split_rn(xok[jj] ? xb[jj][k0 + 4] : 0.f, bhi[jj][1], blo[jj][1]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      uint32_t ahi[4], alo[4];
+      split_rn(ya[mt][0][k0], ahi[0], alo[0]);
+      split_rn(ya[mt][1][k0], ahi[1], alo[1]);
+      split_rn(ya[mt][0][k0 + 4], ahi[2], alo[2]);
+      split_rn(ya[mt][1][k0 + 4], ahi[3], alo[3]);
+      float part[kNT][4];
+#pragma unroll
+      for (int jj = 0; jj < kNT; ++jj) mma_tf32_first(part[jj], alo, bhi[jj]);
+#pragma unroll
+      for (int jj = 0; jj < kNT; ++jj) mma_tf32(part[jj], ahi, blo[jj]);
+#pragma unroll
+      for (int jj = 0; jj < kNT; ++jj) mma_tf32(part[jj], ahi, bhi[jj]);
+#pragma unroll
+      for (int jj = 0; jj < kNT; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][jj][e] += part[jj][e];
+    }
+  }
+}
+
+template <bool kRagged>
+__global__ void __launch_bounds__(kThreads, 1) lista3d_wgrad_mma(const Args w) {
+  extern __shared__ float4 smem4[];
+  __shared__ __align__(8) uint64_t bar[2];  // the two buffers
+  float* smem = reinterpret_cast<float*>(smem4);
+  const MmaArgs& xa = w.x;
+  const Tile tlx(xa, 1);
+  Tile tly(w.y, 1);
+  tly.slab = kYS;
+  const int xfl = x_floats(xa), buf = buf_floats(xa);
+  const int T = xa.Qd * xa.Qh * xa.Qw, O = w.y.I;
+  const int* slots = w.table + xa.I * T;
+  const int* rbs = slots + w.R;
+  const int s_b = rbs[blockIdx.x], s_e = rbs[blockIdx.x + 1];
+  const int o0 = blockIdx.y * kBO;
+  const int split = blockIdx.z;
+  const int c_lo = slots[s_b] / T;  // the block's first input channel
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  // the warps: rw along the block's n8 row tiles (dealt round-robin, kNT
+  // each) x 12 / rw along its 12 m16 code tiles (mw each): 4 x 3 (4 m16
+  // tiles a warp) for more than 8 row tiles, else 2 x 6 (2 m16 tiles a
+  // warp), so that every warp holds kNT row tiles whose product chains
+  // interleave; a row tile past the block's rows has zero B fragments
+  const int tiles = (s_e - s_b + 7) / 8;
+  const int rw = tiles > 8 ? 4 : 2, cw = kWarps / rw, mw = kBO / 16 / cw;
+  const int wc = warp % cw, wr = warp / cw;
+
+  // this lane's B columns: tile jj's phase row (its staged tap row's index
+  // in RowStager's order and the tap column), or none past the block's rows
+  int xline[kNT], xcol[kNT];
+  bool xok[kNT];
+#pragma unroll
+  for (int jj = 0; jj < kNT; ++jj) {
+    const int slot = s_b + (wr + rw * jj) * 8 + g;
+    xok[jj] = slot < s_e;
+    const int row = xok[jj] ? slots[slot] : slots[s_b];
+    const int i = row / T, q = row % T;
+    xline[jj] = (i - c_lo) * (xa.Qd * xa.Qh) + q / xa.Qw;  // (ci, qd, qh)
+    xcol[jj] = q % xa.Qw;
+  }
+  const int per_ch = xa.Qd * xa.Qh;
+
+  const int tiles_w = (xa.W + kTW - 1) / kTW;
+  const int st0 = split * w.chunk, st1 = min(w.stages, st0 + w.chunk);
+  // stage sidx: sample n, depth d, code row h, columns from w0
+  auto at = [&](int sidx, int& n, int& d, int& h, int& w0) {
+    w0 = sidx % tiles_w * kTW;
+    const int r = sidx / tiles_w;
+    h = r % xa.H, d = r / xa.H % xa.D, n = r / xa.H / xa.D;
+  };
+  auto stage = [&](int sidx, int b) {
+    int n, d, h, w0;
+    at(sidx, n, d, h, w0);
+    float* bx = smem + b * buf;
+    const RowStager<kThreads, kXCH> rx(xa, tlx, n, d, h, w0);
+    const RowStager<kThreads, kBO> ry(w.y, tly, n, d, h, w0);
+    if (kRagged) {
+      rx.stage(bx, c_lo, &bar[b]);
+      ry.stage(bx + xfl, o0, &bar[b]);
+    } else {
+      rx.stage_aligned(bx, c_lo, &bar[b]);
+      ry.stage_aligned(bx + xfl, o0, &bar[b]);
+    }
+    mbar_arrive(&bar[b]);
+  };
+
+  if (tid == 0) mbar_init(&bar[0], kThreads), mbar_init(&bar[1], kThreads);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();  // the barriers are initialized
+
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int jj = 0; jj < kNT; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][jj][e] = 0.f;
+
+  // aligned rows (W % 4 == 0, x and y on the 16-byte grid): every staged x
+  // row sits (w0 + ow) % 4 = ow % 4 floats in, every y row at 0
+  const unsigned shx0 = (unsigned)xa.ow & 3u;
+  fence_proxy_async();
+  if (st0 < st1) stage(st0, 0);
+  for (int j = 0, sidx = st0; sidx < st1; ++j, ++sidx) {
+    const int b = j & 1;
+    mbar_wait(&bar[b], (j >> 1) & 1);
+    int n, d, h, w0;
+    at(sidx, n, d, h, w0);
+    const RowStager<kThreads, kXCH> rx(xa, tlx, n, d, h, w0);
+    const RowStager<kThreads, kBO> ry(w.y, tly, n, d, h, w0);
+    const float* bx = smem + b * buf;
+    const float* by = bx + xfl;
+    if (kRagged) rx.fix(smem + b * buf, c_lo), ry.fix(smem + b * buf + xfl, o0);
+    // the stage has landed for every thread, and every warp is done with
+    // buffer b ^ 1, which the next stage's copies fill
+    __syncthreads();
+    if (sidx + 1 < st1) {
+      fence_proxy_async();
+      stage(sidx + 1, b ^ 1);
+    }
+    // this lane's B column starts, and its A rows' (codes g and g + 8 of
+    // each m16 tile) offsets from the grid
+    const float* xb[kNT];
+#pragma unroll
+    for (int jj = 0; jj < kNT; ++jj) {
+      const int ci = xline[jj] / per_ch, qq = xline[jj] % per_ch;
+      const unsigned sh = kRagged ? rx.sh(rx.sh0(c_lo, ci), qq / xa.Qh, qq % xa.Qh) : shx0;
+      xb[jj] = bx + ci * tlx.slab + qq * tlx.pitch + xcol[jj] + sh + t;
+    }
+    const float* ya[kMT][2];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int ol = min(16 * (mw * wc + mt) + 8 * hf + g, kBO - 1);  // past mw: unread
+        ya[mt][hf] = by + ol * kYS + (kRagged ? ry.sh(ry.sh0(o0, ol), 0, 0) : 0u) + t;
+      }
+    if (mw == 4)
+      stage_products<4>(acc, xb, xok, ya);
+    else
+      stage_products<2>(acc, xb, xok, ya);
+  }
+
+  // the block's partial sums: (code g or g + 8, row slot 2t or 2t + 1) of
+  // each tile, into part[split][slot][code]
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int jj = 0; jj < kNT; ++jj) {
+      if (mt >= mw) continue;
+      const int o = o0 + 16 * (mw * wc + mt) + g;
+      const int slot = s_b + (wr + rw * jj) * 8 + 2 * t;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int oe = o + (e >> 1) * 8, se = slot + (e & 1);
+        if (oe < O && se < s_e) w.part[((size_t)split * w.R + se) * O + oe] = acc[mt][jj][e];
+      }
+    }
+}
+
+// dw[row, o] = alpha * the splits' sums of the row's slot, in ascending
+// order; 0 for a row with no slot
+__global__ void fold_rows(const float* part, const int* slot_of, float* dw, int rows, int O,
+                          int R, int splits, float alpha) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (size_t)rows * O) return;
+  const int slot = slot_of[e / O], o = (int)(e % O);
+  float s = 0.f;
+  if (slot >= 0)
+    for (int b = 0; b < splits; ++b) s += part[((size_t)b * R + slot) * O + o];
+  dw[e] = alpha * s;
+}
+
+// The launch: (row blocks, code blocks, splits). The splits: the most
+// (at most the code rows of the grid) that keep every block resident at
+// once, one an SM; their code rows in contiguous chunks.
+struct Launch {
+  dim3 grid;
+  int chunk, stages;
+};
+
+inline int launch_of(int RB, int O, int N, int D, int H, int W, Launch& l) {
+  if (RB <= 0 || O <= 0 || N <= 0 || D <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  const long long stages = (long long)N * D * H * ((W + kTW - 1) / kTW);
+  const int o_blocks = (O + kBO - 1) / kBO;
+  if (stages >= (1LL << 31) || o_blocks > 65535) return (int)cudaErrorInvalidConfiguration;
+  int sms = 0;
+  const cudaError_t err = sm_count(sms);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)RB * o_blocks;
+  const long long splits = std::max(1LL, std::min(stages, sms / tiles));
+  l.stages = (int)stages;
+  l.chunk = (int)((stages + splits - 1) / splits);
+  l.grid = dim3((unsigned)RB, (unsigned)o_blocks, (unsigned)((stages + l.chunk - 1) / l.chunk));
+  return l.grid.z > 65535 ? (int)cudaErrorInvalidConfiguration : 0;
+}
+
+// The weight gradient of x and y on the table's rows: the tensor-core
+// kernel, then fold_rows.
+inline int launch(const MmaArgs& x, const MmaArgs& y, const int* table, float* work, float* dw,
+                  int R, int RB, float alpha, cudaStream_t stream) {
+  const int O = y.I;
+  if (x.I <= 0 || x.Qd <= 0 || x.Qh <= 0 || x.Qw <= 0 || R <= 0 || x.Qw > 255)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)x.N * std::max(x.I, O) * x.D * x.H * x.W >= (1LL << 31) ||
+      (long long)x.I * x.Qd * x.Qh * x.Qw * O >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  Launch l;
+  const int q = launch_of(RB, O, x.N, x.D, x.H, x.W, l);
+  if (q != 0) return q;
+  const Args w{x, y, table, work, R, l.chunk, l.stages};
+  const int smem = (int)sizeof(float) * 2 * buf_floats(x);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidConfiguration;
+  const bool ragged = x.W % 4 != 0 || mis4(x.in) != 0 || mis4(y.in) != 0;
+  const void* kern = ragged ? reinterpret_cast<const void*>(lista3d_wgrad_mma<true>)
+                            : reinterpret_cast<const void*>(lista3d_wgrad_mma<false>);
+  static int limit[2][64] = {};
+  cudaError_t err = raise_smem_limit(kern, smem, limit[ragged]);
+  if (err != cudaSuccess) return (int)err;
+  if (ragged)
+    lista3d_wgrad_mma<true><<<l.grid, kThreads, smem, stream>>>(w);
+  else
+    lista3d_wgrad_mma<false><<<l.grid, kThreads, smem, stream>>>(w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int rows = x.I * x.Qd * x.Qh * x.Qw;
+  const long long total = (long long)rows * O;
+  fold_rows<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(work, table, dw, rows, O, R,
+                                                                 (int)l.grid.z, alpha);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wgrad
 
 extern "C" {
 
-// Blocks per (n, m) whose dtau partials lista3d_syn_adjoint writes: its
-// work buffer holds parts * N * M floats.
-int lista3d_syn_adjoint_parts(int D, int H, int W) {
-  return D * ((W + kTW - 1) / kTW) * ((H + kAnaTH - 1) / kAnaTH);
-}
-
-// dz = [base +] alpha * (B_k^* g); dv = 1{z != 0} dz; dtau = -sum sign(z) dz.
-// g (N, Cp, D, H, W); wt (Cp, Qd, Qh, Qw, M) (B's unflipped phase bank);
-// base, z, dv (N, M, D, H, W), base may be NULL (zeros); work (parts, N, M);
-// dtau (N, M). s, P, pad as for lista3d_ana_threshold; sd is the phase
-// map's depth stride: s for video, 1 for images (D = Qd = 1, Pd = 1).
-int lista3d_syn_adjoint(const float* g, const float* wt, const float* base,
-                        const float* z, float* work, float* dv, float* dtau,
-                        int N, int Cp, int M, int D, int H, int W, int Qd,
-                        int Qh, int Qw, int od, int oh, int ow, int s, int sd,
-                        int Pd, int Ph, int Pw, int pd, int ph, int pw,
-                        float alpha, void* stream) {
-  ConvArgs a{};
-  a.in = g, a.wt = wt, a.out = dv, a.z = z, a.base = base, a.part = work;
-  a.alpha = alpha;
-  a.N = N, a.I = Cp, a.O = M, a.D = D, a.H = H, a.W = W;
-  a.Qd = Qd, a.Qh = Qh, a.Qw = Qw, a.od = od, a.oh = oh, a.ow = ow;
-  a.s = s, a.sd = sd, a.P[0] = Pd, a.P[1] = Ph, a.P[2] = Pw;
-  a.pad[0] = pd, a.pad[1] = ph, a.pad[2] = pw;
-  const int err = launch<kAdjoint>(a, (cudaStream_t)stream);
-  if (err != 0) return err;
-  return launch_reduce(work, dtau, N * M, lista3d_syn_adjoint_parts(D, H, W),
-                       1.f, (cudaStream_t)stream);
-}
+// Blocks per (n, m) whose partials the CSR adjoints write.
+int lista2d_syn_adjoint_csr_parts(int H, int W) { return csr_adjoint_parts(H, W); }
 
 // dz = [base +] alpha * (B_k^* g), then the adjoint of z = prox_csr(v, zp;
 // tau, gam) at the stored v = u and z: dv (the cotangent of v), dzp += the
 // cotangent of zp, and dtau, dgam (N, M). g (N, Cp, H, W); wt (Cp, Qh, Qw,
 // M); base (may be NULL), z, u, zp, dv, dzp (N, M, H, W); work (2, parts,
-// N, M), parts = lista3d_syn_adjoint_parts(1, H, W); s, P, pad as for
+// N, M), parts = lista2d_syn_adjoint_csr_parts(H, W); s, P, pad as for
 // lista2d_ana_threshold.
 int lista2d_syn_adjoint_csr(const float* g, const float* wt, const float* base,
                             const float* z, const float* u, const float* tau,
@@ -305,7 +442,7 @@ int lista2d_syn_adjoint_csr(const float* g, const float* wt, const float* base,
   const int err = launch<kAdjointCsr>(a, (cudaStream_t)stream);
   if (err != 0) return err;
   float* outs[2] = {dtau, dgam};
-  return reduce_sums(work, outs, 2, N, M, lista3d_syn_adjoint_parts(1, H, W),
+  return reduce_sums(work, outs, 2, N, M, csr_adjoint_parts(H, W),
                      (cudaStream_t)stream);
 }
 
@@ -329,47 +466,37 @@ int lista2d_syn_adjoint_csrf2(const float* g, const float* wt,
   const int err = launch<kAdjointCsrF2>(a, (cudaStream_t)stream);
   if (err != 0) return err;
   float* outs[3] = {dtau, dgam1, dgam2};
-  return reduce_sums(work, outs, 3, N, M, lista3d_syn_adjoint_parts(1, H, W),
+  return reduce_sums(work, outs, 3, N, M, csr_adjoint_parts(H, W),
                      (cudaStream_t)stream);
 }
 
-// Splits of the code positions lista3d_wgrad runs: its work buffer holds
-// splits * I * T * O floats (T = Qd * Qh * Qw taps, P = N * D * H * W).
-int lista3d_wgrad_splits(int I, int T, int O, int P) {
-  if (I <= 0 || T <= 0 || O <= 0 || P <= 0) return -1;
-  const int chunk = wgrad_chunk(I * T, O, P);
-  return (P + chunk - 1) / chunk;
+// The launch of lista3d_wgrad for RB row blocks: out[0..2] its grid (row
+// blocks, code blocks, splits); its work buffer holds splits * R * O floats.
+// Returns 0, or the CUDA error met.
+int lista3d_wgrad_grid(int RB, int O, int N, int D, int H, int W, int* out) {
+  wgrad::Launch l;
+  const int err = wgrad::launch_of(RB, O, N, D, H, W, l);
+  if (err != 0) return err;
+  out[0] = (int)l.grid.x, out[1] = (int)l.grid.y, out[2] = (int)l.grid.z;
+  return 0;
 }
 
-// dw[i, q, o] = alpha * sum_{n,p} x[n, i, p + q + off] y[n, o, p]: x (N, I,
-// D, H, W); y (N, O, D, H, W); work (splits, I * T * O); dw (I, Qd, Qh, Qw,
-// O); off = (od, oh, ow).
-int lista3d_wgrad(const float* x, const float* y, float* work, float* dw,
-                  int N, int I, int O, int D, int H, int W, int Qd, int Qh,
-                  int Qw, int od, int oh, int ow, float alpha, void* stream) {
-  const long long P = (long long)N * D * H * W;
-  if (N <= 0 || I <= 0 || O <= 0 || D <= 0 || H <= 0 || W <= 0 || Qd <= 0 ||
-      Qh <= 0 || Qw <= 0)
-    return (int)cudaErrorInvalidValue;
-  // packed row info: 4 bits a tap index; 32-bit position and element indices
-  if (Qd > 16 || Qh > 16 || Qw > 16 || I >= (1 << 19) ||
-      P * (I > O ? I : O) >= (1LL << 31))
-    return (int)cudaErrorInvalidValue;
-  const int T = Qd * Qh * Qw, rows = I * T;
-  const WgradArgs a{x,  y,  work, N,  I,  O,  D,  H, W,
-                    Qd, Qh, Qw,   od, oh, ow, wgrad_chunk(rows, O, (int)P)};
-  const int splits = ((int)P + a.chunk - 1) / a.chunk;
-  const dim3 grid((rows + kBM - 1) / kBM, (O + kBN - 1) / kBN, splits);
-  if (grid.y > 65535 || grid.z > 65535)
-    return (int)cudaErrorInvalidConfiguration;
-  auto kern = lista3d_wgrad_part<kBM, kBN, kTM, kTN, kBK>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kWgradSmem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<grid, kThreads, kWgradSmem, (cudaStream_t)stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return launch_reduce(work, dw, rows * O, splits, alpha, (cudaStream_t)stream);
+// dw[i, q, o] = alpha * sum_{n,p} x[n, i, p + q + off] y[n, o, p] on the R
+// phase rows (i, q) of `table` (device int32: each of the I * T rows' slot,
+// or -1 for a row written as zeros; the R slots' rows in ascending order;
+// the first slot of each of RB row blocks, then R: a block holds at most
+// 128 rows of at most 8 consecutive input channels). x (N, I, D, H, W); y
+// (N, O, D, H, W); work (splits, R, O); dw (I, Qd, Qh, Qw, O); off = (od,
+// oh, ow).
+int lista3d_wgrad(const float* x, const float* y, const int* table, float* work, float* dw,
+                  int N, int I, int O, int D, int H, int W, int Qd, int Qh, int Qw, int od,
+                  int oh, int ow, int R, int RB, float alpha, void* stream) {
+  tf32x3::MmaArgs xa{}, ya{};
+  xa.in = x, xa.N = N, xa.I = I, xa.D = D, xa.H = H, xa.W = W;
+  xa.Qd = Qd, xa.Qh = Qh, xa.Qw = Qw, xa.od = od, xa.oh = oh, xa.ow = ow;
+  ya.in = y, ya.N = N, ya.I = O, ya.D = D, ya.H = H, ya.W = W;
+  ya.Qd = ya.Qh = ya.Qw = 1;
+  return wgrad::launch(xa, ya, table, work, dw, R, RB, alpha, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,16 +1,17 @@
-// The stride-1 phase-domain 3D correlation shared by the synthesis adjoints
-// of the reverse pass (lista3d_bwd.cu: the 3D one, and at D = 1, Qd = 1
-// the 2D and CSR ones) and the CSR analyses (lista2d.cu, at D = 1, Qd = 1),
-// fp32 on the CUDA cores, for Hopper (sm_90a). The 3D and 2D forward pairs
-// run on the tensor cores instead (lista3d_mma.cuh, lista2d_mma.cuh; their
-// shared mma_tf32.cuh takes tap_box, soft and kMaxSmem from here); this
-// template stays until its last user moves:
+// The stride-1 phase-domain 3D correlation, fp32 on the CUDA cores, for
+// Hopper (sm_90a), shared by the CSR models' kernels at D = 1, Qd = 1 with
+// the 2D phase map (sd = 1): their analyses (lista2d.cu) and their synthesis
+// adjoints (lista3d_bwd.cu). The 3D and 2D forward pairs and the soft
+// threshold's reverse pair run on the tensor cores instead (lista3d_mma.cuh,
+// lista2d_mma.cuh, lista3d_bwd.cu's weight gradient; their shared
+// mma_tf32.cuh takes tap_box, soft and kMaxSmem from here); this template
+// stays until the CSR kernels move:
 //
 //   out[n,o,d,h,w] = sum_{i,a,b,c} wt[i,a,b,c,o] * in[n,i,d+a+od,h+b+oh,w+c+ow]
 //
 // with zero outside the input volume (the reference Conv3d's zero padding,
 // handled by explicit bounds checks while staging the input tile), followed
-// by one of five fused epilogues:
+// by one of four fused epilogues:
 //
 //   kAnalysisCsr, kAnalysisCsrF2: v = z - u (z == NULL reads as zeros),
 //               then the one-sided CSR prox of v toward the neighbour code zp with
@@ -19,34 +20,27 @@
 //               elementwise, the same expressions in the same order; v is
 //               also stored to u_out when it is not NULL (the prox
 //               argument's history, which the CSR adjoints read).
-//   kAdjoint:   dz = [base +] alpha * u; out = 1{z != 0} * dz, and per
-//               block and output channel the sum of -sign(z) * dz into
-//               part[block][n, o] (summed in a fixed order afterwards).
-//   kAdjointCsr, kAdjointCsrF2: dz as in kAdjoint, then the adjoint of
-//               z = prox_csr(v, zp) / prox_csr_f2(v, zp, za) at the stored
-//               prox argument v = uh and code z: out = dv, the cotangent
-//               of v; dzp (and dza) += the neighbour codes' cotangents, in
-//               place (each element is one thread's in a launch); and per
-//               block and output channel the sums of dtau, dgam1 (and
-//               dgam2) into part[q][block][n, o], q = 0, 1 (, 2). Every
-//               prox internal is recomputed from v in the order of the TPU
+//   kAdjointCsr, kAdjointCsrF2: dz = [base +] alpha * u, then the adjoint
+//               of z = prox_csr(v, zp) / prox_csr_f2(v, zp, za) at the
+//               stored prox argument v = uh and code z: out = dv, the
+//               cotangent of v; dzp (and dza) += the neighbour codes'
+//               cotangents, in place (each element is one thread's in a
+//               launch); and per block and output channel the sums of
+//               dtau, dgam1 (and dgam2) into part[q][block][n, o], q = 0, 1
+//               (, 2), summed in a fixed order afterwards. Every prox
+//               internal is recomputed from v in the order of the TPU
 //               kernel's adjoint (cdlnet_tpu/kernels/lista2d.py:537-603),
 //               with sign(0) = 0 and each mask != 0.
 //
-// What bounds it on this card: fp32 FMAs. At the flagship shape (M=169,
-// Cp=8, 8x64x64 code grid, 4x4x3 phase taps) one call is ~4.25 GFLOP per
-// clip in the phase form, while the code tensor is ~22 MB per clip, which
-// the 50 MB L2 mostly holds between calls. So the design keeps the FMA
-// units fed: each thread owns OT output channels x 8 output columns in
-// registers (64 accumulators), the input tile with its halo and the block's
-// weight slice are staged in shared memory per input-channel stage by
-// cp.async (double-buffered where one block fills an SM's registers, so
-// that one stage's copies fly while the previous stage computes), and each
-// (tap) step is 8 conflict-free input loads + 2 broadcast float4 weight
-// loads for 64 FMAs. Every epilogue skips each input phase's structurally
-// zero taps (36% of the phase form's FMAs at the 3D flagship shape). The
-// sums pass through shared memory, so that every epilogue store is
-// coalesced.
+// What bounds it on this card: fp32 FMAs, or the CSR epilogues' bytes. The
+// design keeps the FMA units fed: each thread owns OT output channels x 8
+// output columns in registers (64 accumulators), the input tile with its
+// halo and the block's weight slice are staged in shared memory per
+// input-channel stage by cp.async (double-buffered, so that one stage's
+// copies fly while the previous stage computes), and each (tap) step is 8
+// conflict-free input loads + 2 broadcast float4 weight loads for 64 FMAs.
+// Every epilogue skips each input phase's structurally zero taps. The sums
+// pass through shared memory, so that every epilogue store is coalesced.
 
 #pragma once
 
@@ -66,7 +60,6 @@ constexpr int kAnaOB = 32, kAnaOT = 8, kAnaTH = 8, kAnaIC = 2;
 constexpr int kMaxSmem = 227 * 1024;
 
 enum Epilogue {
-  kAdjoint = 2,
   kAnalysisCsr = 3,
   kAnalysisCsrF2 = 4,
   kAdjointCsr = 5,
@@ -74,11 +67,12 @@ enum Epilogue {
 };
 
 __host__ __device__ constexpr bool is_adjoint(int epi) {
-  return epi == kAdjoint || epi == kAdjointCsr || epi == kAdjointCsrF2;
+  return epi == kAdjointCsr || epi == kAdjointCsrF2;
 }
 
-// Per-(n, o) sums an adjoint epilogue reduces per block: dtau (kAdjoint),
-// dtau and dgam1 (kAdjointCsr), dtau, dgam1 and dgam2 (kAdjointCsrF2).
+// Per-(n, o) sums an adjoint epilogue reduces per block: dtau and dgam1
+// (kAdjointCsr), dtau, dgam1 and dgam2 (kAdjointCsrF2); 1 sizes the
+// analyses' shared memory.
 __host__ __device__ constexpr int block_sums(int epi) {
   return epi == kAdjointCsrF2 ? 3 : epi == kAdjointCsr ? 2 : 1;
 }
@@ -88,7 +82,7 @@ struct ConvArgs {
   const float* wt;     // (I, Qd, Qh, Qw, O)
   float* out;          // (N, O, D, H, W)
   const float* z;      // CSR analysis: old codes, or NULL for zeros;
-                       // adjoint: the codes whose support masks dz
+                       // CSR adjoint: the codes whose support masks dz
   float* u_out;        // CSR analysis: the prox argument v, or NULL
   const float* uh;     // CSR adjoint: the stored prox argument v
   float* dzp;          // CSR adjoint: zp's cotangent, accumulated
@@ -98,10 +92,10 @@ struct ConvArgs {
   const float* za;     // two-sided CSR: the following frame's code
   const float* gam1;   // CSR: (N, O)
   const float* gam2;   // two-sided CSR: (N, O)
-  const float* base;   // adjoint: (N, O, D, H, W) or NULL for zeros
-  float* part;         // adjoint: (block_sums, D * tiles, N, O) per-block
-                       // partials of dtau (, dgam1, dgam2)
-  float alpha;         // adjoint: scale of the correlation
+  const float* base;   // CSR adjoint: (N, O, D, H, W) or NULL for zeros
+  float* part;         // CSR adjoint: (block_sums, D * tiles, N, O)
+                       // per-block partials of dtau, dgam1 (, dgam2)
+  float alpha;         // CSR adjoint: scale of the correlation
   int N, I, O, D, H, W;
   int Qd, Qh, Qw;
   int od, oh, ow;
@@ -435,11 +429,6 @@ lista3d_conv(const ConvArgs a) {
       // all the compiler knows) held every load back behind it, which
       // made the served CSR analyses a third slower on the H100
       if (a.u_out) a.u_out[idx] = v;
-    } else if (EPI == kAdjoint) {
-      const float dz = (a.base ? a.base[idx] : 0.f) + a.alpha * u;
-      const float zc = a.z[idx];
-      a.out[idx] = zc != 0.f ? dz : 0.f;
-      red[e] = zc > 0.f ? -dz : (zc < 0.f ? dz : 0.f);
     } else if (EPI == kAdjointCsr) {
       const float dz = (a.base ? a.base[idx] : 0.f) + a.alpha * u;
       const int no = n * a.O + og;

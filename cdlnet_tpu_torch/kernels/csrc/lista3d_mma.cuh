@@ -4,19 +4,28 @@
 //   out[n,o,d,h,w] = sum_{i,a,b,c} wt[i,a,b,c,o] * in[n,i,d+a+od,h+b+oh,w+c+ow]
 //
 // (zero outside the input volume), as an implicit GEMM on
-// mma.sync.m16n8k8 TF32 products, with two fused epilogues:
+// mma.sync.m16n8k8 TF32 products, with three fused epilogues:
 //
-//   lista3d_ana_mma (analysis):  out = ST(z - u, tau[n, o]); z == NULL
-//       reads as zeros, and out may be z (each output element is read and
-//       then written by one thread).
+//   lista3d_ana_mma<false> (analysis): out = ST(z - u, tau[n, o]); z ==
+//       NULL reads as zeros, and out may be z (each output element is read
+//       and then written by one thread).
+//   lista3d_ana_mma<true> (the reverse pass's synthesis adjoint, with
+//       mma_tf32.cuh's AdjointArgs): dz = [base +] alpha * u, out = dv =
+//       1{z != 0} dz, and per block and code the dtau partial -sum sign(z)
+//       dz over the block's positions in order (sum_parts then sums the
+//       blocks in a fixed order). The same mainloop, with the round-to-nearest split.
 //   lista3d_syn_mma (synthesis): out = [mask *] u [- y].
 //
-// They replace, for lista3d.cu's two entry points, the TPU kernels
+// They replace, for lista3d.cu's entry points, the TPU kernels
 // cdlnet_tpu/kernels/lista3d.py::_kernel_resident (K1) and _kernel_syn /
 // _kernel_ana (K3), the banded pair lista3d_tiled.py::_kernel_syn3_band /
-// _kernel_ana3_band (K9) and the ring kernels of lista3d_ring.py (K11); the
-// synthesis also serves as the analysis adjoint of the reverse pass
-// (lista3d_tiled_bwd.py::_kernel_ds_band, K10; lista3d_ring_bwd.py, K12).
+// _kernel_ana3_band (K9) and the ring kernels of lista3d_ring.py (K11); in
+// the reverse pass the synthesis serves as the analysis adjoint
+// (lista3d_tiled_bwd.py::_kernel_ds_band, K10; lista3d_ring_bwd.py, K12) and
+// the analysis, with its adjoint epilogue, as the synthesis adjoint of
+// lista3d_bwd_resident.py::_kernel_bwd_resident (K2), lista3d_bwd.py::
+// _kernel_syn_bwd (K4), lista3d_tiled_bwd.py::_kernel_dz_band (K10) and
+// the ring reverse (K12).
 // Their building blocks (the arguments, the staged tile and its row stager,
 // the bulk copies, the operand split and the product) are in mma_tf32.cuh,
 // which the 2D pair (lista2d_mma.cuh) shares.
@@ -157,7 +166,7 @@ __host__ inline int ana_smem_floats(const MmaArgs& a) {
 // fragment per tile, added to its sums in fp32; w_t, w_t4 point at the
 // tap's codes nb + g of channels t and t + 4; NT n8 tiles (all 11 where the
 // warp's codes are all real)
-template <int NT>
+template <int NT, bool kRN>
 __device__ inline void ana_products(float (&acc)[2][kAnaNT][4], const uint32_t (&ahi)[2][4],
                                     const uint32_t (&alo)[2][4], const float* w_t,
                                     const float* w_t4, int nt) {
@@ -165,8 +174,8 @@ __device__ inline void ana_products(float (&acc)[2][kAnaNT][4], const uint32_t (
   for (int jj = 0; jj < (NT > 0 ? NT : kAnaNT); ++jj) {
     if (NT > 0 || jj < nt) {
       uint32_t bhi[2], blo[2];
-      split(w_t[jj * 8], bhi[0], blo[0]);
-      split(w_t4[jj * 8], bhi[1], blo[1]);
+      split2<kRN>(w_t[jj * 8], bhi[0], blo[0]);
+      split2<kRN>(w_t4[jj * 8], bhi[1], blo[1]);
       float tap[2][4] = {};
       mma_tf32(tap[0], alo[0], bhi);
       mma_tf32(tap[1], alo[1], bhi);
@@ -180,7 +189,12 @@ __device__ inline void ana_products(float (&acc)[2][kAnaNT][4], const uint32_t (
   }
 }
 
-__global__ void __launch_bounds__(kAnaThreads, 2) lista3d_ana_mma(const MmaArgs a, bool vec) {
+// The analysis: kAdj false, the forward's soft threshold (truncating split;
+// e unread); kAdj true, the reverse pass's synthesis adjoint (AdjointArgs,
+// the round-to-nearest split).
+template <bool kAdj>
+__global__ void __launch_bounds__(kAnaThreads, 2)
+lista3d_ana_mma(const MmaArgs a, bool vec, const AdjointArgs e) {
   extern __shared__ float4 smem4[];
   __shared__ __align__(8) uint64_t bar[2];  // the two weight buffers
   float* smem = reinterpret_cast<float*>(smem4);
@@ -301,14 +315,14 @@ __global__ void __launch_bounds__(kAnaThreads, 2) lista3d_ana_mma(const MmaArgs 
       for (int c = qw0; c < qw1; ++c) {
         uint32_t ahi[2][4], alo[2][4];
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) load_a(x_t + mt * 16 + c, tl.slab, ahi[mt], alo[mt]);
+        for (int mt = 0; mt < 2; ++mt) load_a<kAdj>(x_t + mt * 16 + c, tl.slab, ahi[mt], alo[mt]);
         // channel t + 4's codes share channel t's offset from the grid
         const float* w_t = wr + c * kAnaCS + w_sh(c0, t, (q * a.Qh + r) * a.Qw + c);
         const float* w_t4 = w_t + 4 * wstride;
         if (nt == kAnaNT)
-          ana_products<kAnaNT>(acc, ahi, alo, w_t, w_t4, nt);
+          ana_products<kAnaNT, kAdj>(acc, ahi, alo, w_t, w_t4, nt);
         else
-          ana_products<0>(acc, ahi, alo, w_t, w_t4, nt);
+          ana_products<0, kAdj>(acc, ahi, alo, w_t, w_t4, nt);
       }
     }
   }
@@ -329,48 +343,115 @@ __global__ void __launch_bounds__(kAnaThreads, 2) lista3d_ana_mma(const MmaArgs 
       e_s[(on + 1) * kAnaEP + p + 8] = acc[mt][jj][3];
     }
   __syncthreads();
-  // groups of 4 positions along a row (W % 4 == 0 and 16-byte aligned
-  // tensors, else 1), kB groups a thread per round: all their z_old loads
-  // before any store (out may be z_old, so the compiler cannot move a load
-  // above a store)
-  constexpr int kB = 4;
-  const bool v4 = vec;
-  const int gw = v4 ? 4 : 1;  // positions a group
-  const size_t plane = (size_t)a.H * a.W;
-  const int groups = n_o * (kAnaBM / gw);
-  for (int e0 = 0; e0 < groups; e0 += kB * kAnaThreads) {
-    size_t idx[kB];
-    float4 v[kB];
-    float tau[kB];
-#pragma unroll
-    for (int k = 0; k < kB; ++k) {
-      const int e = e0 + k * kAnaThreads + tid;
-      const int on = e / (kAnaBM / gw), p = e % (kAnaBM / gw) * gw;
-      const int hh = h0 + p / kTW, ww = w0 + p % kTW;
-      const bool ok = e < groups && hh < a.H && ww < a.W;
-      idx[k] = ok ? (((size_t)n * a.O + o0 + on) * a.D + d) * plane + (size_t)hh * a.W + ww
-                  : ~(size_t)0;
-      tau[k] = ok ? a.tau[n * a.O + o0 + on] : 0.f;
-      v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (!ok) continue;
-      const float* u = e_s + on * kAnaEP + p;
-      if (v4) {
-        const float4 u4 = *reinterpret_cast<const float4*>(u);
-        if (a.z) v[k] = *reinterpret_cast<const float4*>(a.z + idx[k]);
-        v[k].x -= u4.x, v[k].y -= u4.y, v[k].z -= u4.z, v[k].w -= u4.w;
-      } else {
-        v[k].x = (a.z ? a.z[idx[k]] : 0.f) - u[0];
+  if constexpr (!kAdj) {
+    // groups of 4 positions along a row (W % 4 == 0 and 16-byte aligned
+    // tensors, else 1), kB groups a thread per round: all their z_old loads
+    // before any store (out may be z_old, so the compiler cannot move a load
+    // above a store)
+    constexpr int kB = 4;
+    const bool v4 = vec;
+    const int gw = v4 ? 4 : 1;  // positions a group
+    const size_t plane = (size_t)a.H * a.W;
+    const int groups = n_o * (kAnaBM / gw);
+    for (int e0 = 0; e0 < groups; e0 += kB * kAnaThreads) {
+      size_t idx[kB];
+      float4 v[kB];
+      float tau[kB];
+  #pragma unroll
+      for (int k = 0; k < kB; ++k) {
+        const int e = e0 + k * kAnaThreads + tid;
+        const int on = e / (kAnaBM / gw), p = e % (kAnaBM / gw) * gw;
+        const int hh = h0 + p / kTW, ww = w0 + p % kTW;
+        const bool ok = e < groups && hh < a.H && ww < a.W;
+        idx[k] = ok ? (((size_t)n * a.O + o0 + on) * a.D + d) * plane + (size_t)hh * a.W + ww
+                    : ~(size_t)0;
+        tau[k] = ok ? a.tau[n * a.O + o0 + on] : 0.f;
+        v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (!ok) continue;
+        const float* u = e_s + on * kAnaEP + p;
+        if (v4) {
+          const float4 u4 = *reinterpret_cast<const float4*>(u);
+          if (a.z) v[k] = *reinterpret_cast<const float4*>(a.z + idx[k]);
+          v[k].x -= u4.x, v[k].y -= u4.y, v[k].z -= u4.z, v[k].w -= u4.w;
+        } else {
+          v[k].x = (a.z ? a.z[idx[k]] : 0.f) - u[0];
+        }
+      }
+  #pragma unroll
+      for (int k = 0; k < kB; ++k) {
+        if (idx[k] == ~(size_t)0) continue;
+        const float4 st = make_float4(soft(v[k].x, tau[k]), soft(v[k].y, tau[k]),
+                                      soft(v[k].z, tau[k]), soft(v[k].w, tau[k]));
+        if (v4)
+          *reinterpret_cast<float4*>(a.out + idx[k]) = st;
+        else
+          a.out[idx[k]] = st.x;
       }
     }
+  } else {
+    // dz = [base +] alpha * u; dv = 1{z != 0} dz; each element's dtau term
+    // -sign(z) dz into e_s in place of its u (each element is one
+    // thread's), zeros at positions outside the volume; loads first, as
+    // above
+    constexpr int kB = 4;
+    const int gw = vec ? 4 : 1;  // positions a group
+    const size_t plane = (size_t)a.H * a.W;
+    const int groups = n_o * (kAnaBM / gw);
+    for (int e0 = 0; e0 < groups; e0 += kB * kAnaThreads) {
+      size_t idx[kB];
+      float4 bz[kB], zz[kB];
 #pragma unroll
-    for (int k = 0; k < kB; ++k) {
-      if (idx[k] == ~(size_t)0) continue;
-      const float4 st = make_float4(soft(v[k].x, tau[k]), soft(v[k].y, tau[k]),
-                                    soft(v[k].z, tau[k]), soft(v[k].w, tau[k]));
-      if (v4)
-        *reinterpret_cast<float4*>(a.out + idx[k]) = st;
-      else
-        a.out[idx[k]] = st.x;
+      for (int k = 0; k < kB; ++k) {
+        const int el = e0 + k * kAnaThreads + tid;
+        const int on = el / (kAnaBM / gw), p = el % (kAnaBM / gw) * gw;
+        const int hh = h0 + p / kTW, ww = w0 + p % kTW;
+        const bool ok = el < groups && hh < a.H && ww < a.W;
+        idx[k] = ok ? (((size_t)n * a.O + o0 + on) * a.D + d) * plane + (size_t)hh * a.W + ww
+                    : ~(size_t)0;
+        bz[k] = zz[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (!ok) {
+          if (el < groups)
+            for (int q = 0; q < gw; ++q) e_s[on * kAnaEP + p + q] = 0.f;
+          continue;
+        }
+        if (vec) {
+          if (e.base) bz[k] = *reinterpret_cast<const float4*>(e.base + idx[k]);
+          zz[k] = *reinterpret_cast<const float4*>(a.z + idx[k]);
+        } else {
+          bz[k].x = e.base ? e.base[idx[k]] : 0.f;
+          zz[k].x = a.z[idx[k]];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kB; ++k) {
+        if (idx[k] == ~(size_t)0) continue;
+        const int el = e0 + k * kAnaThreads + tid;
+        float* u = e_s + el / (kAnaBM / gw) * kAnaEP + el % (kAnaBM / gw) * gw;
+        if (vec) {
+          const float4 u4 = *reinterpret_cast<const float4*>(u);
+          const float4 dz = make_float4(bz[k].x + e.alpha * u4.x, bz[k].y + e.alpha * u4.y,
+                                        bz[k].z + e.alpha * u4.z, bz[k].w + e.alpha * u4.w);
+          *reinterpret_cast<float4*>(a.out + idx[k]) =
+              make_float4(zz[k].x != 0.f ? dz.x : 0.f, zz[k].y != 0.f ? dz.y : 0.f,
+                          zz[k].z != 0.f ? dz.z : 0.f, zz[k].w != 0.f ? dz.w : 0.f);
+          *reinterpret_cast<float4*>(u) =
+              make_float4(dtau_term(zz[k].x, dz.x), dtau_term(zz[k].y, dz.y),
+                          dtau_term(zz[k].z, dz.z), dtau_term(zz[k].w, dz.w));
+        } else {
+          const float dz = bz[k].x + e.alpha * u[0];
+          a.out[idx[k]] = zz[k].x != 0.f ? dz : 0.f;
+          u[0] = dtau_term(zz[k].x, dz);
+        }
+      }
+    }
+    __syncthreads();
+    // each code's dtau partial: its terms over the block's positions, in order
+    const size_t blk = (size_t)d * gridDim.x + blockIdx.x;
+    for (int on = tid; on < n_o; on += kAnaThreads) {
+      const float* r = e_s + on * kAnaEP;
+      float s = 0.f;
+      for (int p = 0; p < kAnaBM; ++p) s += r[p];
+      e.part[(blk * a.N + n) * a.O + o0 + on] = s;
     }
   }
 }
@@ -556,13 +637,13 @@ __global__ void __launch_bounds__(kSynThreads, 1) lista3d_syn_mma(const MmaArgs 
 
 // ------------------------------------------------------------------ launch
 
-template <typename Kernel>
+template <typename Kernel, typename... Extra>
 int launch_kernel(Kernel kern, dim3 grid, int threads, int smem, const MmaArgs& a,
-                  bool vec, cudaStream_t stream) {
+                  bool vec, cudaStream_t stream, const Extra&... extra) {
   const cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<grid, threads, smem, stream>>>(a, vec);
+  kern<<<grid, threads, smem, stream>>>(a, vec, extra...);
   return (int)cudaGetLastError();
 }
 
@@ -570,20 +651,60 @@ inline int smem_bytes(bool synthesis, const MmaArgs& a) {
   return (int)sizeof(float) * (synthesis ? syn_smem_floats(a) : ana_smem_floats(a));
 }
 
-inline int launch(bool synthesis, const MmaArgs& a, cudaStream_t stream) {
+// The grid of a call, (position tiles, D, N x code blocks), and its shared
+// memory; or the reason it cannot launch.
+inline int grid_of(bool synthesis, const MmaArgs& a, dim3& grid, int& smem) {
   if (a.N <= 0 || a.I <= 0 || a.O <= 0 || a.D <= 0 || a.H <= 0 || a.W <= 0 ||
       a.Qd <= 0 || a.Qh <= 0 || a.Qw <= 0)
     return (int)cudaErrorInvalidValue;
-  const int smem = smem_bytes(synthesis, a);
+  smem = smem_bytes(synthesis, a);
   const int TH = synthesis ? kSynTH : kAnaTH;
   const int tiles = ((a.W + kTW - 1) / kTW) * ((a.H + TH - 1) / TH);
   const int o_blocks = synthesis ? (a.O + 7) / 8 : (a.O + kAnaBN - 1) / kAnaBN;
   const long zdim = (long)a.N * o_blocks;
   if (smem > kMaxSmem || a.D > 65535 || zdim > 65535 || a.Qw > 255)
     return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid(tiles, a.D, (unsigned)zdim);
+  grid = dim3(tiles, a.D, (unsigned)zdim);
+  return 0;
+}
+
+// The blocks whose dtau partials the adjoint writes: its grid's x * y (0
+// where it cannot launch).
+inline int adjoint_parts(const MmaArgs& a) {
+  dim3 grid;
+  int smem;
+  return grid_of(false, a, grid, smem) == 0 ? (int)(grid.x * grid.y) : 0;
+}
+
+// The synthesis adjoint: the analysis's mainloop with the AdjointArgs
+// epilogue, then the dtau partials summed over the blocks in a fixed order into
+// dtau (N, O).
+inline int launch_adjoint(const MmaArgs& a, const AdjointArgs& e, float* dtau,
+                          cudaStream_t stream) {
+  dim3 grid;
+  int smem;
+  const int q = grid_of(false, a, grid, smem);
+  if (q != 0) return q;
+  if (!a.z) return (int)cudaErrorInvalidValue;
+  static int limit[64] = {};
+  cudaError_t err =
+      raise_smem_limit(reinterpret_cast<const void*>(lista3d_ana_mma<true>), smem, limit);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec = vec_epilogue(a) && (!e.base || mis4(e.base) == 0);
+  lista3d_ana_mma<true><<<grid, kAnaThreads, smem, stream>>>(a, vec, e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_sum_parts(e.part, dtau, a.N * a.O, (int)(grid.x * grid.y), stream);
+}
+
+inline int launch(bool synthesis, const MmaArgs& a, cudaStream_t stream) {
+  dim3 grid;
+  int smem;
+  const int q = grid_of(synthesis, a, grid, smem);
+  if (q != 0) return q;
   if (!synthesis)
-    return launch_kernel(lista3d_ana_mma, grid, kAnaThreads, smem, a, vec_epilogue(a), stream);
+    return launch_kernel(lista3d_ana_mma<false>, grid, kAnaThreads, smem, a, vec_epilogue(a),
+                         stream, AdjointArgs{});
   return a.W % 4 == 0 && mis4(a.in) == 0
              ? launch_kernel(lista3d_syn_mma<false>, grid, kSynThreads, smem, a, vec_epilogue(a),
                              stream)

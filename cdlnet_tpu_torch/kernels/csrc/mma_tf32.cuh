@@ -1,9 +1,12 @@
 // The building blocks of the tensor-core kernels for Hopper (sm_90a), shared
-// by the 3D forward pair (lista3d_mma.cuh) and the 2D one (lista2d_mma.cuh):
-// their arguments, the staged input tile, the TMA engine's bulk copies on an
-// mbarrier (RowStager stages a tile's rows, each at its global offset from
-// the 16-byte grid), the 3xTF32 operand split and the mma.sync TF32 product.
-// lista3d_mma.cuh says why the kernels are built this way.
+// by the 3D pair (lista3d_mma.cuh), the 2D one (lista2d_mma.cuh) and the
+// weight gradient (lista3d_bwd.cu): their arguments, the staged input tile,
+// the TMA engine's bulk copies on an mbarrier (RowStager stages a tile's
+// rows, each at its global offset from the 16-byte grid), the 3xTF32
+// operand split and the mma.sync TF32 product; the launches' host side (the
+// SM count, the shared-memory limit); and the synthesis adjoint's epilogue
+// arguments with sum_parts, the fixed-order sum of its per-block dtau
+// partials. lista3d_mma.cuh says why the kernels are built this way.
 
 #pragma once
 
@@ -297,5 +300,85 @@ inline bool vec_epilogue(const MmaArgs& a) {
   return a.W % 4 == 0 && mis4(a.out) == 0 && (!a.z || mis4(a.z) == 0) &&
          (!a.mask || mis4(a.mask) == 0) && (!a.y || mis4(a.y) == 0);
 }
+
+// ---- the launches' host side
+
+// The current device's SM count (cached per device).
+inline cudaError_t sm_count(int& sms) {
+  static int counts[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (counts[dev] == 0) {
+    err = cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  sms = counts[dev];
+  return cudaSuccess;
+}
+
+// Raises kern's dynamic shared memory limit on the current device to smem,
+// once a size: `limit` is the caller's record (a static, one per kernel) of
+// what it set on each device, so that a call of a size met before makes no
+// cudaFuncSetAttribute call.
+inline cudaError_t raise_smem_limit(const void* kern, int smem, int (&limit)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (smem <= limit[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) limit[dev] = smem;
+  return err;
+}
+
+// ---- the synthesis adjoint of the reverse pass, as the analyses' second
+// epilogue: with u the correlation of the cotangent g (MmaArgs::in) with
+// B's unflipped bank at the codes z (MmaArgs::z),
+//   dz = [base +] alpha * u;  out = dv = 1{z != 0} dz;
+//   part[blk][n, o] = -sum of sign(z) dz over block blk's positions, in a
+//   fixed order, which sum_parts then sums over the blocks in a fixed order.
+struct AdjointArgs {
+  const float* base;  // (N, O, D, H, W) or NULL (zeros)
+  float* part;        // (blocks, N, O)
+  float alpha;
+};
+
+// -sign(z) * dz, the element's term of dtau
+__device__ inline float dtau_term(float z, float dz) {
+  return z > 0.f ? -dz : (z < 0.f ? dz : 0.f);
+}
+
+namespace {
+
+// out[r] = sum_{b < nb} part[b * rows + r] in a fixed order: a block takes
+// 32 consecutive r (coalesced loads) x 32 groups of partials, group j sums
+// b = j, j + 32, ... ascending, and the 32 group sums are added in order
+// j = 0..31. There are few r (N x codes) and many partials (the native
+// step's 6,720 blocks), so the groups spread each r's sum over 32 threads.
+__global__ void __launch_bounds__(1024) sum_parts(const float* part, float* out, int rows,
+                                                  int nb) {
+  __shared__ float group[32][33];
+  const int ri = threadIdx.x % 32, j = threadIdx.x / 32;
+  const int r = blockIdx.x * 32 + ri;
+  float s = 0.f;
+  if (r < rows)
+    for (int b = j; b < nb; b += 32) s += part[(size_t)b * rows + r];
+  group[j][ri] = s;
+  __syncthreads();
+  if (j == 0 && r < rows) {
+    float t = 0.f;
+    for (int k = 0; k < 32; ++k) t += group[k][ri];
+    out[r] = t;
+  }
+}
+
+int launch_sum_parts(const float* part, float* out, int rows, int nb, cudaStream_t stream) {
+  sum_parts<<<(rows + 31) / 32, 1024, 0, stream>>>(part, out, rows, nb);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 }  // namespace tf32x3

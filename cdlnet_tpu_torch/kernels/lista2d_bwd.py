@@ -14,13 +14,15 @@ training step of K iterations that is K syn_adjoint, K-1 syn_residual and
 2K wgrad launches, on one kernel set for every crop size (the TPU
 package's whole-image reverse kernel K6 and its banded one K8 alike).
 
-Both wrappers run the 3D kernels of kernels/csrc/lista3d_bwd.cu at
-D = Qd = 1: lista2d_syn_adjoint runs lista3d_syn_adjoint with the 2D phase
-map (sd = 1; the 3D map, sd = s, would skip nonzero taps at D = 1), and
-lista2d_wgrad runs lista3d_wgrad, which reads no phase map. Each wrapper
-runs its CUDA kernel on CUDA tensors, or raises; it runs the plain
-PyTorch version beside it only for CPU tensors, and counts its launches
-in lista3d.launches under its 2D name.
+lista2d_syn_adjoint runs the 2D analysis's tensor-core mainloop with the
+adjoint epilogue and the 2D phase map (kernels/csrc/lista2d.cu), and
+lista2d_wgrad the tensor-core weight gradient of kernels/csrc/lista3d_bwd.cu
+at D = Qd = 1 (it reads no phase map; the reverse loop passes it the phase
+rows the prep keeps, lista3d_bwd.phase_rows). The CSR adjoints stay on
+lista3d_bwd.cu's fp32 CUDA-core template. Each wrapper runs its CUDA kernel
+on CUDA tensors, or raises; it runs the plain PyTorch version beside it
+only for CPU tensors, and counts its launches in lista3d.launches under its
+2D name.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch.nn.functional as F
 from cdlnet_tpu_torch.core.ops import ST
 from cdlnet_tpu_torch.kernels.lista2d import _correlate_plain, lista2d_syn_residual
 from cdlnet_tpu_torch.kernels.lista3d import _check, _ptr, _raise_on, launches
-from cdlnet_tpu_torch.kernels.lista3d_bwd import fused_bwd
+from cdlnet_tpu_torch.kernels.lista3d_bwd import _keep_rows, fused_bwd, launch_wgrad
 
 
 def lista2d_syn_adjoint_plain(g, wt, z, geom, base=None, alpha=1.0):
@@ -135,7 +137,7 @@ def lista2d_syn_adjoint_csrf2_plain(g, wt, z, u, tau, gam1, gam2, zp, za, dzp, d
     return du, dtau.sum(dim=(2, 3)), dg1.sum(dim=(2, 3)), dg2.sum(dim=(2, 3))
 
 
-def lista2d_wgrad_plain(x, y, taps, off, alpha=1.0):
+def lista2d_wgrad_plain(x, y, taps, off, alpha=1.0, rows=None):
     """Plain version of lista2d_wgrad: the conv2d of the padded x with y as
     its filters, batch and channels swapped."""
     pad = []
@@ -143,7 +145,7 @@ def lista2d_wgrad_plain(x, y, taps, off, alpha=1.0):
         pad += [-o, q - 1 + o]
     xp = F.pad(x, pad).transpose(0, 1)               # (I, N, H, W)
     dw = F.conv2d(xp, y.transpose(0, 1))             # (I, O, Qh, Qw)
-    return alpha * dw.permute(0, 2, 3, 1).contiguous()
+    return _keep_rows(alpha * dw.permute(0, 2, 3, 1).contiguous(), rows)
 
 
 def lista2d_syn_adjoint(g, wt, z, geom, base=None, alpha=1.0):
@@ -171,49 +173,31 @@ def lista2d_syn_adjoint(g, wt, z, geom, base=None, alpha=1.0):
         _check("base", base, (N, M, H, W))
     dv = torch.empty_like(z)
     dtau = torch.empty((N, M), dtype=g.dtype, device=g.device)
-    work = torch.empty((lib.lista3d_syn_adjoint_parts(1, H, W), N, M),
-                       dtype=g.dtype, device=g.device)
-    err = lib.lista3d_syn_adjoint(
+    parts = lib.lista2d_syn_adjoint_parts(N, Cp, M, H, W, Qh, Qw)
+    work = torch.empty((max(parts, 1), N, M), dtype=g.dtype, device=g.device)
+    err = lib.lista2d_syn_adjoint(
         _ptr(g), _ptr(wt), _ptr(base), _ptr(z), _ptr(work), _ptr(dv), _ptr(dtau),
-        N, Cp, M, 1, H, W, 1, Qh, Qw, 0, *geom.off_a, geom.s, 1, 1, *geom.P,
-        0, *geom.pads, float(alpha), torch.cuda.current_stream(g.device).cuda_stream,
+        N, Cp, M, H, W, Qh, Qw, *geom.off_a, geom.s, *geom.P, *geom.pads,
+        float(alpha), torch.cuda.current_stream(g.device).cuda_stream,
     )
     _raise_on(err, "lista2d_syn_adjoint")
     launches["lista2d_syn_adjoint"] += 1
     return dv, dtau
 
 
-def lista2d_wgrad(x, y, taps, off, alpha=1.0):
+def lista2d_wgrad(x, y, taps, off, alpha=1.0, rows=None):
     """dw[i, q, o] = alpha * sum_{n,p} x[n, i, p+q+off] y[n, o, p]: the
     gradient of the bank of corr(x, ., off) whose output's cotangent is y.
 
     x: (N, I, Hc, Wc); y: (N, O, Hc, Wc); taps: (Qh, Qw); off: the (H, W)
-    tap offsets. Returns dw (I, Qh, Qw, O), the bank layout; the
-    cross-block reduction runs in a fixed order (bitwise repeatable).
+    tap offsets; rows: None (every row) or an (I, Qh, Qw) bool tensor of
+    the phase rows to compute, the others written as zeros
+    (lista3d_bwd.phase_rows). Returns dw (I, Qh, Qw, O), the bank layout;
+    the cross-block reduction runs in a fixed order (bitwise repeatable).
     """
     if x.device.type == "cpu":
-        return lista2d_wgrad_plain(x, y, taps, off, alpha=alpha)
-    from cdlnet_tpu_torch.kernels._build import library
-
-    lib = library()
-    N, I, H, W = x.shape
-    O = y.shape[1]
-    Qh, Qw = taps
-    _check("x", x, x.shape)
-    _check("y", y, (N, O, H, W))
-    splits = lib.lista3d_wgrad_splits(I, Qh * Qw, O, N * H * W)
-    if splits <= 0:
-        raise ValueError(f"lista2d_wgrad: no split of {(I, taps, O, x.shape)}")
-    dw = torch.empty((I, Qh, Qw, O), dtype=x.dtype, device=x.device)
-    work = torch.empty((splits, dw.numel()), dtype=x.dtype, device=x.device)
-    err = lib.lista3d_wgrad(
-        _ptr(x), _ptr(y), _ptr(work), _ptr(dw),
-        N, I, O, 1, H, W, 1, Qh, Qw, 0, *off,
-        float(alpha), torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _raise_on(err, "lista2d_wgrad")
-    launches["lista2d_wgrad"] += 1
-    return dw
+        return lista2d_wgrad_plain(x, y, taps, off, alpha=alpha, rows=rows)
+    return launch_wgrad("lista2d_wgrad", x, y, tuple(taps), tuple(off), alpha, rows)
 
 
 def _csr_adjoint(entry, g, wt, z, u, tau, gams, codes, dcodes, geom, base, alpha):
@@ -238,7 +222,7 @@ def _csr_adjoint(entry, g, wt, z, u, tau, gams, codes, dcodes, geom, base, alpha
         _check(name, t, (N, M))
     dv = torch.empty_like(z)
     sums = [torch.empty((N, M), dtype=g.dtype, device=g.device) for _ in range(1 + len(gams))]
-    work = torch.empty((len(sums), lib.lista3d_syn_adjoint_parts(1, H, W), N, M),
+    work = torch.empty((len(sums), lib.lista2d_syn_adjoint_csr_parts(H, W), N, M),
                        dtype=g.dtype, device=g.device)
     err = getattr(lib, entry)(
         _ptr(g), _ptr(wt), _ptr(base), _ptr(z), _ptr(u), _ptr(tau),

@@ -38,13 +38,21 @@ and 2K wgrad launches. The cotangents of the input, sigma and
 mask are zero by construction: training differentiates with respect to
 the parameters only (kernels/autodiff.py).
 
-Each wrapper runs its CUDA kernel (kernels/csrc/lista3d_bwd.cu) on CUDA
-tensors, or raises; it runs the plain PyTorch version beside it only for
-CPU tensors, and counts its launches in lista3d.launches.
+lista3d_syn_adjoint runs the 3D analysis's tensor-core mainloop with the
+adjoint epilogue (kernels/csrc/lista3d.cu), lista3d_wgrad the tensor-core
+weight gradient of kernels/csrc/lista3d_bwd.cu; the reverse loop passes the
+weight gradient the phase rows the weight prep keeps (phase_rows), so the
+structurally zero taps cost no products. Each wrapper runs its CUDA kernel
+on CUDA tensors, or raises; it runs the plain PyTorch version beside it
+only for CPU tensors, and counts its launches in lista3d.launches.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -56,6 +64,11 @@ from cdlnet_tpu_torch.kernels.lista3d import (
     launches,
     lista3d_syn_residual,
 )
+from cdlnet_tpu_torch.ops import polyphase as pp
+
+# the tensor-core weight gradient's row blocks: at most 128 phase rows (16
+# n8 tiles) of at most 8 consecutive input channels (csrc/lista3d_bwd.cu)
+WGRAD_BLOCK_ROWS, WGRAD_BLOCK_CHANNELS = 128, 8
 
 
 def adjoint_bank(w: torch.Tensor, spatial: int = 3) -> torch.Tensor:
@@ -80,7 +93,25 @@ def lista3d_syn_adjoint_plain(g, wt, z, geom, base=None, alpha=1.0):
     return dv, dtau
 
 
-def lista3d_wgrad_plain(x, y, taps, off, alpha=1.0):
+def phase_rows(geom, Cp: int, spatial: int) -> torch.Tensor:
+    """The phase rows (i, q) of a (Cp, *Q, M) phase bank that the weight
+    prep keeps: (Cp, *Q) bool, on the CPU, True where input channel i
+    (phase i % s^spatial, ordered (c, a_1, ..)) at tap q maps to a tap of
+    the kernel — the nonzero taps of ops/polyphase.py's valid mask. Every
+    other entry of dA and dB reaches A and B through a zero. The same
+    tensor for the same arguments (cached)."""
+    return _phase_rows(geom.s, tuple(geom.P), tuple(geom.pads), Cp, spatial)
+
+
+@functools.lru_cache(maxsize=None)
+def _phase_rows(s, P, pads, Cp, spatial):
+    valid = pp.phase_valid(P, pads, s, spatial)
+    Q = valid.shape[spatial:]
+    per = valid.reshape(s**spatial, *Q)
+    return torch.from_numpy(np.tile(per, (Cp // s**spatial,) + (1,) * spatial))
+
+
+def lista3d_wgrad_plain(x, y, taps, off, alpha=1.0, rows=None):
     """Plain version of lista3d_wgrad: the conv3d of the padded x with y as
     its filters, batch and channels swapped."""
     pad = []
@@ -88,7 +119,96 @@ def lista3d_wgrad_plain(x, y, taps, off, alpha=1.0):
         pad += [-o, q - 1 + o]
     xp = F.pad(x, pad).transpose(0, 1)               # (I, N, ...)
     dw = F.conv3d(xp, y.transpose(0, 1))             # (I, O, Qd, Qh, Qw)
-    return alpha * dw.permute(0, 2, 3, 4, 1).contiguous()
+    return _keep_rows(alpha * dw.permute(0, 2, 3, 4, 1).contiguous(), rows)
+
+
+def _keep_rows(dw, rows):
+    """dw (I, *Q, O) with the rows outside `rows` (I, *Q) set to zero."""
+    return dw if rows is None else dw * rows.to(dw.device, dw.dtype)[..., None]
+
+
+@functools.lru_cache(maxsize=None)
+def _all_rows(shape):
+    return torch.ones(shape, dtype=torch.bool)
+
+
+def _row_table(rows, device):
+    """The weight-gradient kernel's table of the phase rows `rows` (I, *Q)
+    bool: (table on `device`, R rows, RB row blocks) — each row's slot or
+    -1, the R rows in ascending order, and each row block's first slot
+    then R; a block takes at most WGRAD_BLOCK_ROWS rows of at most
+    WGRAD_BLOCK_CHANNELS consecutive channels, the blocks as few and as
+    even as that allows. Built once per rows tensor and device (kept on the
+    tensor)."""
+    tables = rows.__dict__.setdefault("_wgrad_tables", {})
+    key = str(device)
+    if key not in tables:
+        m = rows.reshape(rows.shape[0], -1).cpu().numpy().astype(bool)
+        T = m.shape[1]
+        slots = np.flatnonzero(m.reshape(-1))
+        R = len(slots)
+        slot_of = np.full(m.size, -1, np.int64)
+        slot_of[slots] = np.arange(R)
+        tiles = -(-R // 8)
+        blocks = max(1, -(-R // WGRAD_BLOCK_ROWS))
+        cap = 8 * -(-tiles // blocks)
+        starts = [0]
+        for j in range(1, R):
+            first = slots[starts[-1]] // T
+            if j - starts[-1] == cap or slots[j] // T - first >= WGRAD_BLOCK_CHANNELS:
+                starts.append(j)
+        table = np.concatenate([slot_of, slots, starts, [R]]).astype(np.int32)
+        tables[key] = (torch.from_numpy(table).to(device), R, len(starts))
+    return tables[key]
+
+
+def wgrad_grid(N, I, O, grid, taps, rows=None):
+    """The launch grid (row blocks, code blocks, splits) of lista3d_wgrad /
+    lista2d_wgrad for x (N, I, *grid), y (N, O, *grid) on the current CUDA
+    device."""
+    from cdlnet_tpu_torch.kernels._build import library
+
+    rows = _all_rows((I, *taps)) if rows is None else rows
+    _, _, RB = _row_table(rows, "cpu")
+    D, H, W = (1,) * (3 - len(grid)) + tuple(grid)
+    out = (ctypes.c_int * 3)()
+    _raise_on(library().lista3d_wgrad_grid(RB, O, N, D, H, W, out), "lista3d_wgrad_grid")
+    return tuple(out)
+
+
+def launch_wgrad(name, x, y, taps, off, alpha, rows):
+    """Launch csrc/lista3d_bwd.cu's weight gradient on x (N, I, *grid), y
+    (N, O, *grid) with 3 (video) or 2 (image, D = Qd = 1) grid dims, on
+    the phase rows `rows` (I, *taps) bool or all of them; counts the launch
+    under `name`. Returns dw (I, *taps, O)."""
+    from cdlnet_tpu_torch.kernels._build import library
+
+    lib = library()
+    N, I, *grid = x.shape
+    O = y.shape[1]
+    _check("x", x, x.shape)
+    _check("y", y, (N, O, *grid))
+    if rows is None:
+        rows = _all_rows((I, *taps))
+    elif tuple(rows.shape) != (I, *taps):
+        raise ValueError(f"{name}: rows {tuple(rows.shape)}, expected {(I, *taps)}")
+    table, R, RB = _row_table(rows, x.device)
+    if R == 0:
+        return torch.zeros((I, *taps, O), dtype=x.dtype, device=x.device)
+    D, H, W = (1,) * (3 - len(grid)) + tuple(grid)
+    (Qd, Qh, Qw), offs = (1,) * (3 - len(taps)) + tuple(taps), (0,) * (3 - len(off)) + tuple(off)
+    out = (ctypes.c_int * 3)()
+    _raise_on(lib.lista3d_wgrad_grid(RB, O, N, D, H, W, out), name)
+    dw = torch.empty((I, *taps, O), dtype=x.dtype, device=x.device)
+    work = torch.empty((out[2], R, O), dtype=x.dtype, device=x.device)
+    err = lib.lista3d_wgrad(
+        _ptr(x), _ptr(y), _ptr(table), _ptr(work), _ptr(dw),
+        N, I, O, D, H, W, Qd, Qh, Qw, *offs, R, RB,
+        float(alpha), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _raise_on(err, name)
+    launches[name] += 1
+    return dw
 
 
 def lista3d_syn_adjoint(g, wt, z, geom, base=None, alpha=1.0):
@@ -116,12 +236,11 @@ def lista3d_syn_adjoint(g, wt, z, geom, base=None, alpha=1.0):
         _check("base", base, (N, M, D, H, W))
     dv = torch.empty_like(z)
     dtau = torch.empty((N, M), dtype=g.dtype, device=g.device)
-    work = torch.empty((lib.lista3d_syn_adjoint_parts(D, H, W), N, M),
-                       dtype=g.dtype, device=g.device)
+    parts = lib.lista3d_syn_adjoint_parts(N, Cp, M, D, H, W, Qd, Qh, Qw)
+    work = torch.empty((max(parts, 1), N, M), dtype=g.dtype, device=g.device)
     err = lib.lista3d_syn_adjoint(
         _ptr(g), _ptr(wt), _ptr(base), _ptr(z), _ptr(work), _ptr(dv), _ptr(dtau),
-        N, Cp, M, D, H, W, Qd, Qh, Qw, *geom.off_a, geom.s, geom.s, *geom.P,
-        *geom.pads,
+        N, Cp, M, D, H, W, Qd, Qh, Qw, *geom.off_a, geom.s, *geom.P, *geom.pads,
         float(alpha), torch.cuda.current_stream(g.device).cuda_stream,
     )
     _raise_on(err, "lista3d_syn_adjoint")
@@ -129,37 +248,20 @@ def lista3d_syn_adjoint(g, wt, z, geom, base=None, alpha=1.0):
     return dv, dtau
 
 
-def lista3d_wgrad(x, y, taps, off, alpha=1.0):
+def lista3d_wgrad(x, y, taps, off, alpha=1.0, rows=None):
     """dw[i, q, o] = alpha * sum_{n,p} x[n, i, p+q+off] y[n, o, p]: the
     gradient of the bank of corr(x, ., off) whose output's cotangent is y.
 
     x: (N, I, Dc, Hc, Wc); y: (N, O, Dc, Hc, Wc); taps: (Qd, Qh, Qw); off:
-    per-dim tap offsets. Returns dw (I, Qd, Qh, Qw, O), the bank layout;
-    the cross-block reduction runs in a fixed order (bitwise repeatable).
+    per-dim tap offsets; rows: None (every row) or an (I, Qd, Qh, Qw) bool
+    tensor of the phase rows (i, q) to compute, the others written as
+    zeros (phase_rows: the rows the weight prep keeps). Returns dw (I, Qd,
+    Qh, Qw, O), the bank layout; the cross-block reduction runs in a fixed
+    order (bitwise repeatable).
     """
     if x.device.type == "cpu":
-        return lista3d_wgrad_plain(x, y, taps, off, alpha=alpha)
-    from cdlnet_tpu_torch.kernels._build import library
-
-    lib = library()
-    N, I, D, H, W = x.shape
-    O = y.shape[1]
-    Qd, Qh, Qw = taps
-    _check("x", x, x.shape)
-    _check("y", y, (N, O, D, H, W))
-    splits = lib.lista3d_wgrad_splits(I, Qd * Qh * Qw, O, N * D * H * W)
-    if splits <= 0:
-        raise ValueError(f"lista3d_wgrad: no split of {(I, taps, O, x.shape)}")
-    dw = torch.empty((I, Qd, Qh, Qw, O), dtype=x.dtype, device=x.device)
-    work = torch.empty((splits, dw.numel()), dtype=x.dtype, device=x.device)
-    err = lib.lista3d_wgrad(
-        _ptr(x), _ptr(y), _ptr(work), _ptr(dw),
-        N, I, O, D, H, W, Qd, Qh, Qw, *off,
-        float(alpha), torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _raise_on(err, "lista3d_wgrad")
-    launches["lista3d_wgrad"] += 1
-    return dw
+        return lista3d_wgrad_plain(x, y, taps, off, alpha=alpha, rows=rows)
+    return launch_wgrad("lista3d_wgrad", x, y, tuple(taps), tuple(off), alpha, rows)
 
 
 def fused_bwd(kernels, spatial, dx2, y2, m2, banks, tau, z_hist, r_hist, geom,
@@ -211,17 +313,21 @@ def fused_bwd(kernels, spatial, dx2, y2, m2, banks, tau, z_hist, r_hist, geom,
             out[k] = d
         return dv, dtau_k
 
+    # the phase rows the prep keeps, alike for dA and the swapped dB form
+    # (whose adjoint bank maps its rows' flipped taps back onto B's)
+    rows = phase_rows(geom, wa.shape[1], spatial)
+
     def syn_wgrad(z, g, alpha):  # == wgrad(z, g, taps, geom.off_s, alpha)
-        return adjoint_bank(wgrad(g, z, taps, geom.off_a, alpha=alpha), spatial)
+        return adjoint_bank(wgrad(g, z, taps, geom.off_a, alpha=alpha, rows=rows), spatial)
 
     dv, dtau[K - 1] = adjoint(K - 1, dx2, ws_adj[0], dz_out, 1.0)
     dws[0] = syn_wgrad(z_hist[K - 1], dx2, 1.0)
     for k in range(K - 1, 0, -1):
-        dwa[k] = wgrad(r_hist[k - 1], dv, taps, geom.off_a, alpha=-1.0)
+        dwa[k] = wgrad(r_hist[k - 1], dv, taps, geom.off_a, alpha=-1.0, rows=rows)
         g = syn_residual(dv, wa_adj[k], geom, mask=m2)
         dws[k] = syn_wgrad(z_hist[k - 1], g, -1.0)
         dv, dtau[k - 1] = adjoint(k - 1, g, ws_adj[k], dv, -1.0)
-    dwa[0] = wgrad(y2, dv, taps, geom.off_a)
+    dwa[0] = wgrad(y2, dv, taps, geom.off_a, rows=rows)
     if prox is None:
         return dwa, dws, dtau
     return dwa, dws, dtau, dgams, dcodes

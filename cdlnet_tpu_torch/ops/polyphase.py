@@ -61,6 +61,29 @@ def _tap_ranges(P, p, s):
     return q_lo, q_hi
 
 
+def _phase_taps(P, p, s):
+    """One dim's phase-domain taps: (q_lo, Q, dy) with dy[a, q] = s*(q + q_lo)
+    + a + p the original tap of phase a at tap q (valid inside [0, P))."""
+    lo, hi = _tap_ranges(P, p, s)
+    Q = hi - lo + 1
+    return lo, Q, s * (np.arange(Q)[None, :] + lo) + np.arange(s)[:, None] + p
+
+
+def phase_valid(P, pads, s: int, nd: int) -> np.ndarray:
+    """(s,)*nd + Q bool: whether phase (a_1..a_nd) at phase-domain tap
+    (q_1..q_nd) maps to an original tap inside the kernel P, the valid mask
+    that polyphase_weights applies to the gathered banks (False: a
+    structurally zero tap)."""
+    P, pads = _tup(P, nd), _tup(pads, nd)
+    valid = np.ones((1,) * (2 * nd), bool)
+    for i in range(nd):
+        _, Q, dy = _phase_taps(P[i], pads[i], s)
+        shape = [1] * (2 * nd)
+        shape[i], shape[nd + i] = s, Q
+        valid = valid & ((dy >= 0) & (dy < P[i])).reshape(shape)
+    return valid
+
+
 def polyphase_weights(W: torch.Tensor, s: int, pads, nd: int):
     """Decompose stacked filters W (..., C, *P) into the phase-domain banks.
 
@@ -75,20 +98,17 @@ def polyphase_weights(W: torch.Tensor, s: int, pads, nd: int):
     lead = W.shape[: -nd - 1]
 
     q_los, q_his, Qs, idx = [], [], [], []
-    valid = np.ones((1,) * (2 * nd), bool)
     for i in range(nd):
-        lo, hi = _tap_ranges(P[i], pads[i], s)
+        lo, Q, dy = _phase_taps(P[i], pads[i], s)
         q_los.append(lo)
-        q_his.append(hi)
-        Qs.append(hi - lo + 1)
-        # dy[a, qi] = s*(qi + q_lo) + a + p, valid inside [0, P); laid out
-        # on axes (phase i, tap i) of a (s,)*nd + Q broadcast grid
-        dy = s * (np.arange(Qs[i])[None, :] + lo) + np.arange(s)[:, None] + pads[i]
+        q_his.append(lo + Q - 1)
+        Qs.append(Q)
+        # dy laid out on axes (phase i, tap i) of a (s,)*nd + Q broadcast grid
         shape = [1] * (2 * nd)
-        shape[i], shape[nd + i] = s, Qs[i]
-        valid = valid & ((dy >= 0) & (dy < P[i])).reshape(shape)
+        shape[i], shape[nd + i] = s, Q
         idx.append(torch.as_tensor(np.clip(dy, 0, P[i] - 1).reshape(shape),
                                    device=W.device))
+    valid = phase_valid(P, pads, s, nd)
 
     # gather: A2[..., c, a_1..a_nd, q_1..q_nd] = W[..., c, dy_1, ..., dy_nd]
     A2 = W[(Ellipsis, *idx)] * torch.as_tensor(valid, dtype=W.dtype, device=W.device)

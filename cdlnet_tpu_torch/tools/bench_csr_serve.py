@@ -8,9 +8,11 @@ adaptive; chip_smoke.py's csr_models weights) it times, on the kernels:
 a 16x640x368 volume through Denoiser.denoise_video at a known sigma (host
 clock), one K=30 forward of a native 640x368 frame with its neighbour codes
 (CUDA events), and the CSR analysis kernels and the P=9 synthesis per call
-at the 640x384 bucket (CUDA events). It prints the card's nvidia-smi name
-and power limit and then one JSON line with every median and every
-round's reading.
+at the 640x384 bucket (CUDA events), and both models' native train step
+(make_csr_train_step on a clean 640x368 frame pair or triple, noise drawn
+on the card, remat "auto" and off; host clock). It prints the card's
+nvidia-smi name and power limit and then one JSON line with every median
+and every round's reading.
 
 --root is the checkout whose cdlnet_tpu_torch is imported (by default the
 one that holds this script). Two commits compare by running the script
@@ -96,6 +98,8 @@ def main() -> int:
     from cdlnet_tpu_torch.kernels import lista2d as L2
     from cdlnet_tpu_torch.models import CDLNetCSR, CDLNetCSRf2
     from cdlnet_tpu_torch.serve import Denoiser
+    from cdlnet_tpu_torch.train.fit_csr import make_csr_train_step
+    from cdlnet_tpu_torch.train.optim import make_optimizer
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], check=True, capture_output=True,
@@ -160,6 +164,18 @@ def main() -> int:
         server = Denoiser(m)
         record(f"{family} volume ms", rounds_ms(
             lambda: server.denoise_video(vol, sigma=SIGMA), a.rounds, warmup=1, events=False))
+    # the native train steps (chip_smoke.py's csr_train R3)
+    frames = torch.from_numpy(smooth(rng, 3, FRAME)[None, None]).to(dev)
+    for family, m in models.items():
+        batch = frames[:, :, :3 if family == "CDLNet_CSRf2" else 2]
+        for remat in ("auto", False):
+            opt = make_optimizer(1e-4, clip_grad=0.05)
+            state = opt.init(dict(m.named_parameters()))
+            step, _ = make_csr_train_step(m.train(), opt, noise_std=(20.0, 30.0), remat=remat)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            torch.cuda.empty_cache()
+            record(f"{family} native step remat={remat} ms", rounds_ms(
+                lambda: step(state, batch, gen), a.rounds, warmup=1, events=False))
     print(json.dumps(res), flush=True)
     return 0
 

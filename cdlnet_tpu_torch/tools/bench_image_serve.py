@@ -29,8 +29,19 @@ them) it times, on the kernels:
     it, and at 128^2 the host's time to launch one ("host ms");
   - Denoiser.denoise_image (host clock, five a round) at both sizes, and
     denoise_image_batch of 8 images at 128^2;
+  - the 2D reverse kernels per call on iteration 1's operands at the train
+    shape (10 x 128^2) and at the CSR models' P=9 taps on a 640x384 frame,
+    beside their library calls: lista2d_syn_adjoint as a middle iteration
+    runs it (a base, alpha -1) beside F.conv2d, and lista2d_wgrad dense and
+    with the phase-row mask the reverse loop passes ("masked", where the
+    checkout has one) beside torch.nn.grad.conv2d_weight, eager and graph;
   - one flagship 2D train step (10 crops of 128^2, a sigma each in
-    [20, 30]; forward, backward, clipped Adam, projection; host clock).
+    [20, 30]; forward, backward, clipped Adam, projection; host clock, over
+    HOST_ROUNDS rounds), with the host's time to issue it ("host ms") and
+    the device's busy time in a torch.profiler trace of one step ("device
+    ms").
+
+--reverse times only the reverse kernels and the train step.
 
 Where the checkout reports it (kernels.lista2d.launch_grid), it also records
 each kernel's launch grid at one 128^2 image. It prints the card's
@@ -54,7 +65,14 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from bench_video_serve import bucketed, rounds_ms, smooth  # noqa: E402
+from bench_video_serve import (  # noqa: E402
+    bucketed,
+    graph_ms,
+    kernel_ms,
+    rounds_ms,
+    smooth,
+    step_times,
+)
 
 SIGMA = 25.0
 SEED = 0
@@ -65,34 +83,6 @@ IMAGE, BIG_IMAGE, P9_FRAME = (128, 128), (321, 481), (640, 384)
 TRAIN_N, BATCH = 10, 8
 FWD_REPS = 5  # forwards and served images a round
 HOST_ROUNDS = 20  # rounds of a host-bound reading
-
-
-def graph_ms(fn, rounds, reps):
-    """Per-call device ms of fn, for each of `rounds` rounds: `reps` calls
-    captured in one CUDA graph and replayed between CUDA events, so that the
-    host's cost of a launch drops out."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()  # outside the capture: the kernels build, the wrappers warm up
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(rounds):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        out.append(a.elapsed_time(b) / reps)
-    return out
 
 
 def host_us(fn, rounds, reps):
@@ -121,6 +111,8 @@ def main() -> int:
         os.path.abspath(__file__)))))
     p.add_argument("--label", default="")
     p.add_argument("--rounds", type=int, default=5)
+    p.add_argument("--reverse", action="store_true",
+                   help="time only the reverse kernels and the train step")
     a = p.parse_args()
     sys.path.insert(0, os.path.abspath(a.root))
 
@@ -134,6 +126,7 @@ def main() -> int:
     from cdlnet_tpu_torch.core.preprocess import pre_process
     from cdlnet_tpu_torch.kernels import _build
     from cdlnet_tpu_torch.kernels import lista2d as L2
+    from cdlnet_tpu_torch.kernels import lista2d_bwd as LB2
     from cdlnet_tpu_torch.kernels import lista3d_bwd as LB
     from cdlnet_tpu_torch.models import CDLNet
     from cdlnet_tpu_torch.ops import polyphase as pp
@@ -242,46 +235,94 @@ def main() -> int:
                 "lista2d_ana_threshold": L2.launch_grid(False, N, Cp, M, H, W, Qh, Qw),
                 "lista2d_syn_residual": L2.launch_grid(True, N, M, Cp, H, W, Qh, Qw)}
 
-    with torch.inference_mode():
-        pair("serve", model, images(1, IMAGE), 20, grid=True, off_grid=True, host=True)
-        pair("train", model, images(TRAIN_N, IMAGE), 20, adjoint=True, off_grid=True)
-        pair("512^2", model, images(1, (512, 512)), 10)
-        pair("P=9 640x384", p9, images(1, P9_FRAME), 10)
-        pair("P=9 128^2", p9, images(1, IMAGE), 20)
-        # the K=30 forward at the bucket the Denoiser runs, on the kernels
-        # and on the cuDNN loop
-        served = {"128^2": noisy(1, IMAGE), "481x321": noisy(1, BIG_IMAGE)}
-        for name, img in served.items():
-            y = torch.from_numpy(bucketed(img)[:, None]).to(dev)
-            n_rounds = HOST_ROUNDS if name == "128^2" else a.rounds
-            record(f"{name} K=30 forward ms", rounds_ms(lambda: model(y, SIGMA), n_rounds,
-                                                        FWD_REPS), low=True)
-            record(f"{name} K=30 forward xla ms", rounds_ms(lambda: plain(y, SIGMA), a.rounds,
-                                                            FWD_REPS))
-            if name == "128^2":
-                record(f"{name} K=30 forward host ms",
-                       [v / 1e3 for v in host_us(lambda: model(y, SIGMA), HOST_ROUNDS,
-                                                 FWD_REPS)], low=True)
-    server = Denoiser(model)
-    for name, img in served.items():
-        record(f"{name} denoise_image ms", rounds_ms(
-            lambda: server.denoise_image(img[0], sigma=SIGMA),
-            HOST_ROUNDS if name == "128^2" else a.rounds, FWD_REPS, warmup=1, events=False),
-            low=True)
-    batch = noisy(BATCH, IMAGE)
-    record(f"denoise_image_batch of {BATCH} ms", rounds_ms(
-        lambda: server.denoise_image_batch(batch, sigmas=SIGMA), a.rounds, warmup=1,
-        events=False))
-    # the flagship 2D train step
+    # the flagship 2D train step, first: host-bound, it is timed before the
+    # other readings fill the process
     tc = smooth(rng, TRAIN_N, IMAGE)[:, None]
     sig = rng.uniform(20, 30, (TRAIN_N, 1, 1, 1)).astype(np.float32)
     tn = tc + sig / 255 * rng.standard_normal(tc.shape).astype(np.float32)
     clean_t, noisy_t, sig_t = (torch.from_numpy(v).to(dev) for v in (tc, tn, sig))
     opt = make_optimizer(1e-3, clip_grad=0.05)
     state = opt.init(dict(model.named_parameters()))
-    record("train step ms", rounds_ms(
-        lambda: train_update(model, opt, state, noisy_t, sig_t, clean_t), a.rounds,
-        warmup=1, events=False))
+    # host-bound: HOST_ROUNDS rounds, with the fastest
+    step_times(lambda key, vals: record(key, vals, low=True), "train step",
+               lambda: train_update(model, opt, state, noisy_t, sig_t, clean_t), HOST_ROUNDS)
+
+    def reverse(name, m, y, reps):
+        """Records the 2D reverse kernels' ms per call (eager and graph) on
+        iteration 1's operands of the images y, beside their library
+        calls."""
+        yp, _, _ = pre_process(y, s)
+        y2, _, wa, ws, tau, geom = L2.phase_operands(yp, m.A, m.B, m.t, SIGMA / 255, s)
+        z0 = L2.lista2d_ana_threshold(-y2, None, wa[0], tau[0], geom)
+        r1 = L2.lista2d_syn_residual(z0, ws[1], geom, y=y2)
+        ws_adj, taps = LB.adjoint_bank(ws[1], 2), tuple(wa.shape[2:4])
+        r_full = pp.depth_to_space(r1, s, 2, 1)
+        forms = {"": {}}
+        if hasattr(LB, "phase_rows"):
+            forms[" masked"] = {"rows": LB.phase_rows(geom, wa.shape[1], 2)}
+        calls = {
+            "lista2d_syn_adjoint": lambda: LB2.lista2d_syn_adjoint(r1, ws_adj, z0, geom,
+                                                                   base=z0, alpha=-1.0),
+            "lista2d_syn_adjoint library": lambda: F.conv2d(r_full, m.B[1], stride=s,
+                                                            padding=m.pad),
+            "lista2d_wgrad library": lambda: torch.nn.grad.conv2d_weight(
+                r_full, m.A[1].shape, z0, stride=s, padding=m.pad),
+            **{f"lista2d_wgrad{form}": (lambda kw=kw: LB2.lista2d_wgrad(
+                r1, z0, taps, geom.off_a, alpha=-1.0, **kw)) for form, kw in forms.items()},
+        }
+        for key, fn in calls.items():
+            record(f"{name} {key} ms", rounds_ms(fn, a.rounds, reps))
+            record(f"{name} {key} graph ms", graph_ms(fn, a.rounds, reps))
+        if hasattr(LB, "wgrad_grid"):
+            N, Cp, *grid = r1.shape
+            res[f"{name} grids"] = {
+                f"lista2d_wgrad{form}": LB.wgrad_grid(N, Cp, z0.shape[1], grid, taps, **kw)
+                for form, kw in forms.items()}
+            res[f"{name} grids"]["lista2d_syn_adjoint"] = L2.launch_grid(
+                False, N, Cp, z0.shape[1], *grid, *taps)
+        # each call's kernels, as a trace times them
+        res[f"{name} kernels"] = {key: {k: round(v, 4) for k, v in kernel_ms(fn).items()}
+                                  for key, fn in calls.items() if "library" not in key}
+
+    with torch.inference_mode():
+        reverse("train", model, images(TRAIN_N, IMAGE), 20)
+        reverse("P=9 640x384", p9, images(1, P9_FRAME), 10)
+
+    def serve():
+        """The forward pair, the K=30 forwards and the served images."""
+        with torch.inference_mode():
+            pair("serve", model, images(1, IMAGE), 20, grid=True, off_grid=True, host=True)
+            pair("train", model, images(TRAIN_N, IMAGE), 20, adjoint=True, off_grid=True)
+            pair("512^2", model, images(1, (512, 512)), 10)
+            pair("P=9 640x384", p9, images(1, P9_FRAME), 10)
+            pair("P=9 128^2", p9, images(1, IMAGE), 20)
+            # the K=30 forward at the bucket the Denoiser runs, on the kernels
+            # and on the cuDNN loop
+            served = {"128^2": noisy(1, IMAGE), "481x321": noisy(1, BIG_IMAGE)}
+            for name, img in served.items():
+                y = torch.from_numpy(bucketed(img)[:, None]).to(dev)
+                n_rounds = HOST_ROUNDS if name == "128^2" else a.rounds
+                record(f"{name} K=30 forward ms", rounds_ms(lambda: model(y, SIGMA), n_rounds,
+                                                            FWD_REPS), low=True)
+                record(f"{name} K=30 forward xla ms", rounds_ms(lambda: plain(y, SIGMA), a.rounds,
+                                                                FWD_REPS))
+                if name == "128^2":
+                    record(f"{name} K=30 forward host ms",
+                           [v / 1e3 for v in host_us(lambda: model(y, SIGMA), HOST_ROUNDS,
+                                                     FWD_REPS)], low=True)
+        server = Denoiser(model)
+        for name, img in served.items():
+            record(f"{name} denoise_image ms", rounds_ms(
+                lambda: server.denoise_image(img[0], sigma=SIGMA),
+                HOST_ROUNDS if name == "128^2" else a.rounds, FWD_REPS, warmup=1, events=False),
+                low=True)
+        batch = noisy(BATCH, IMAGE)
+        record(f"denoise_image_batch of {BATCH} ms", rounds_ms(
+            lambda: server.denoise_image_batch(batch, sigmas=SIGMA), a.rounds, warmup=1,
+            events=False))
+
+    if not a.reverse:
+        serve()
     print(json.dumps(res), flush=True)
     return 0
 

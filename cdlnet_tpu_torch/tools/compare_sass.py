@@ -8,7 +8,8 @@ cuobjdump, from the CUDA toolkit beside nvcc, disassembles both libraries
 (kernels/_build/cdlnet_kernels_*.so: kernels/_build.py builds them). For
 each NAME the kernels whose mangled names contain it are paired in sorted
 order, and each pair's instructions, without addresses and encodings, are
-compared. It prints one line a pair and exits 1 if any pair differs or
+compared. NAME may be OLD_NAME=NEW_NAME, for a kernel whose mangled name
+changed (a kernel that became one instantiation of a template). It prints one line a pair and exits 1 if any pair differs or
 pairs up unevenly: equal SASS runs the same instructions, so it gives
 bitwise the same outputs at the same speed. A change that only moves code
 between headers, or renames the namespace of a kernel's argument type,
@@ -52,8 +53,9 @@ def main(argv) -> int:
     old, new = disassemble(argv[0]), disassemble(argv[1])
     same = True
     for key in argv[2:]:
-        a = sorted(k for k in old if key in k)
-        b = sorted(k for k in new if key in k)
+        key_old, _, key_new = key.partition("=")
+        a = sorted(k for k in old if key_old in k)
+        b = sorted(k for k in new if (key_new or key_old) in k)
         if len(a) != len(b) or not a:
             print(f"{key}: {len(a)} kernels in the old build, {len(b)} in the new")
             same = False

@@ -25,7 +25,8 @@ Builds the hand-written CUDA kernels from cdlnet_tpu_torch/kernels/csrc
             cdlnet demos on the kernels and on backend "xla";
   train     at the video training shape (N=2 clips of 16x128x128, sigma in
             [20, 30]) checks the reverse kernels against their plain
-            versions, the K=30 gradient through the kernels against torch
+            versions (the weight gradient dense and on the phase rows the
+            reverse loop passes it), the K=30 gradient through the kernels against torch
             autograd on backend "xla" (and two backward runs for bitwise
             equality), and runs fit() for 20 steps, counting the launches
             per step and reloading its checkpoint;
@@ -55,8 +56,9 @@ Builds the hand-written CUDA kernels from cdlnet_tpu_torch/kernels/csrc
             the card) on native clips written as PNG frames, its txt line,
             eval row, PNGs and launches, and the passthrough codes against
             the plain loop; the reverse kernels and the K=30 gradient at
-            1x8x256^2, one train step at 1x16x480x854, and two epochs of
-            the train CLI's video branch;
+            1x8x256^2, the reverse kernels on a native forward's
+            histories at 1x16x480x854, one train step there, and two
+            epochs of the train CLI's video branch;
   csr       frame-recurrent CSR serving at the reference's argscsr.json
             width (CDLNet_CSR and CDLNet_CSRf2, K=30, M=169, P=9, s=2,
             adaptive) on fastMRI's native 640x368 frames: the CSR analysis
@@ -69,8 +71,9 @@ Builds the hand-written CUDA kernels from cdlnet_tpu_torch/kernels/csrc
             cli.analyzemri.test on native volumes;
   csr_train frame-recurrent CSR training at the same width: the CSR adjoint
             kernels (one code, the following code alone, two codes) and
-            the P=9 synthesis against their plain versions at 1x128^2 and
-            640x368 (and its 640x384 bucket), on a K=30 forward's u and z
+            the P=9 synthesis, the soft-threshold adjoint and the weight
+            gradient against their plain versions at 1x128^2 and 640x368
+            (and its 640x384 bucket), on a K=30 forward's u and z
             histories; the K=30 gradients through the kernels against
             backend "xla" for both models, every parameter and the carried
             codes, bitwise repeatable; make_csr_train_step at native
@@ -81,8 +84,9 @@ Builds the hand-written CUDA kernels from cdlnet_tpu_torch/kernels/csrc
 
 and times every kernel (CUDA events) beside its plain version, the one
 PyTorch call that computes the same function, and its bound on this card
-(for the 3D and 2D forward pairs, which run on the tensor cores in
-3xTF32, at three TF32 products a term),
+(for the 3D and 2D forward pairs and the reverse pair, which run on the
+tensor cores in 3xTF32, at three TF32 products a term over the taps that
+are not structurally zero), the new launch grids on "grid" lines,
 and the served clip and image and the video and image train steps on the
 kernels and on backend "xla". Any failed phase raises and the script exits non-zero;
 without a CUDA device it exits 1 before printing any result. The last line
@@ -141,6 +145,7 @@ from cdlnet_tpu_torch.ops.conv import conv_transpose2d, conv_transpose3d
 from cdlnet_tpu_torch.models.cdlnet import _prepare
 from cdlnet_tpu_torch.ops.lista import _threshold, lista_2d, lista_3d
 from cdlnet_tpu_torch.serve import Denoiser
+from cdlnet_tpu_torch.tools import compare_sass
 from cdlnet_tpu_torch.train.checkpoint import load_ckpt
 from cdlnet_tpu_torch.train.fit import fit, init_model, make_train_step, train_update
 from cdlnet_tpu_torch.train.fit_csr import fit_csr, make_csr_train_step
@@ -202,7 +207,7 @@ KERNELS = {
     "lista3d_syn_residual": (CSRC + "lista3d.cu", "cdlnet_tpu/kernels/lista3d.py:325; "
                              f"{K9}:120 _kernel_syn3_band; {K11}; as the analysis "
                              f"adjoint {K10}:147 _kernel_ds_band; {K12}"),
-    "lista3d_syn_adjoint": (CSRC + "lista3d_bwd.cu",
+    "lista3d_syn_adjoint": (CSRC + "lista3d.cu",
                             "cdlnet_tpu/kernels/lista3d_bwd_resident.py:99; "
                             f"{K10}:199 _kernel_dz_band; {K12}"),
     "lista3d_wgrad": (CSRC + "lista3d_bwd.cu",
@@ -210,9 +215,9 @@ KERNELS = {
                       f"{K10}:199 _kernel_dz_band; {K12}"),
     "lista2d_ana_threshold": (CSRC + "lista2d.cu", f"{K5}; {K7}:175"),
     "lista2d_syn_residual": (CSRC + "lista2d.cu", f"{K5}; {K7}:140"),
-    # the 2D reverse pair: lista3d_bwd.cu's kernels at D = Qd = 1 (the
-    # adjoint with the 2D phase map, sd = 1)
-    "lista2d_syn_adjoint": (CSRC + "lista3d_bwd.cu", K6_K8),
+    # the 2D reverse pair: the 2D analysis's mainloop with the adjoint
+    # epilogue, and lista3d_bwd.cu's weight gradient at D = Qd = 1
+    "lista2d_syn_adjoint": (CSRC + "lista2d.cu", K6_K8),
     "lista2d_wgrad": (CSRC + "lista3d_bwd.cu", K6_K8),
     # the CSR prox modes of K5 and K7: the analysis with the prox in its
     # epilogue (one neighbour code: "csr"; two: "csrf2")
@@ -277,13 +282,15 @@ FORWARD_TOL = 1e-3  # the K=30 forward on the kernels vs the plain loop
 GRAD_TOL = 1e-3
 MIN_GAIN_DB = 3.0
 # published H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores, HBM3,
-# and TF32 on the tensor cores (dense), which the 3D and 2D forward pairs
-# (TC_KERNELS) run as three products per fp32 product (3xTF32)
+# and TF32 on the tensor cores (dense), which the 3D and 2D forward pairs and
+# the reverse pair (TC_KERNELS) run as three products per fp32 product
+# (3xTF32)
 FP32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
 TF32_FLOPS = 495e12
 TC_KERNELS = ("lista3d_ana_threshold", "lista3d_syn_residual", "lista2d_ana_threshold",
-              "lista2d_syn_residual")
+              "lista2d_syn_residual", "lista3d_syn_adjoint", "lista3d_wgrad",
+              "lista2d_syn_adjoint", "lista2d_wgrad")
 
 
 def require(ok: bool, what: str) -> None:
@@ -653,6 +660,7 @@ def train_2d(dev, card, err) -> tuple[dict, dict]:
             k = Km // 2
             dv, _ = LB2.lista2d_syn_adjoint_plain(dx2, ws_adj[0], zh[Km - 1], geom)
             g = L2.lista2d_syn_residual_plain(dv, wa_adj[k], geom, mask=m2)
+            rows = LB.phase_rows(geom, wa.shape[1], 2)  # as the reverse loop passes them
             for name, what, mod, run in (
                 ("lista2d_syn_adjoint", "init dz = B0*(dx2)", LB2,
                  lambda f: f(dx2, ws_adj[0], zh[Km - 1], geom)),
@@ -662,6 +670,10 @@ def train_2d(dev, card, err) -> tuple[dict, dict]:
                  lambda f: f(rh[k - 1], dv, taps, geom.off_a, alpha=-1.0)),
                 ("lista2d_wgrad", "dB = adjoint of -z (*) g", LB2,
                  lambda f: f(g, zh[k - 1], taps, geom.off_a, alpha=-1.0)),
+                ("lista2d_wgrad", "dA masked", LB2,
+                 lambda f: f(rh[k - 1], dv, taps, geom.off_a, alpha=-1.0, rows=rows)),
+                ("lista2d_wgrad", "dB masked", LB2,
+                 lambda f: f(g, zh[k - 1], taps, geom.off_a, alpha=-1.0, rows=rows)),
                 ("lista2d_syn_residual", "A-adjoint g = m * Ak*(dv)", L2,
                  lambda f: f(dv, wa_adj[k], geom, mask=m2)),
             ):
@@ -672,7 +684,7 @@ def train_2d(dev, card, err) -> tuple[dict, dict]:
             if model is flag:  # kept for the times
                 flag_ops = dict(y2=y2, wa=wa, ws=ws, tau=tau, geom=geom, zh=zh, rh=rh,
                                 wa_adj=wa_adj, ws_adj=ws_adj, taps=taps, m2=m2, dv=dv,
-                                g=g, k=k)
+                                g=g, k=k, rows=rows)
             del zh, rh
     print(f"train 2D: reverse kernel parity in {time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -758,9 +770,10 @@ def train_2d(dev, card, err) -> tuple[dict, dict]:
     # --- T2-4. times at the flagship training shape (CUDA events, median of 5):
     # each kernel, its plain version, the one PyTorch call of the same
     # function, and the bound; wgrad runs as each reverse step does, dA then
-    # dB, and reports per call ---
+    # dB, masked, and reports per call ("lista2d_wgrad dense": every phase
+    # row) ---
     o = flag_ops
-    k, geom, taps, s, pad = o["k"], o["geom"], o["taps"], flag.s, flag.pad
+    k, geom, taps, s, pad, rows = o["k"], o["geom"], o["taps"], flag.s, flag.pad, o["rows"]
     zh, rh, dv, g, wa_adj, ws_adj = (o[n] for n in ("zh", "rh", "dv", "g", "wa_adj", "ws_adj"))
     wa, ws, tau, y2, m2 = (o[n] for n in ("wa", "ws", "tau", "y2", "m2"))
     n_pos = y2[:, 0].numel()
@@ -770,12 +783,13 @@ def train_2d(dev, card, err) -> tuple[dict, dict]:
         r_full = pp.depth_to_space(rh[k - 1], s, 2, 1)
         wg = torch.nn.grad.conv2d_weight
 
-        def pair(f, lib=False):
+        def pair(f, lib=False, kw=None):
             if lib:
                 return lambda: (wg(r_full, flag.A[k].shape, dv, stride=s, padding=pad),
                                 wg(g_full, flag.B[k].shape, zh[k - 1], stride=s, padding=pad))
-            return lambda: (f(rh[k - 1], dv, taps, geom.off_a, alpha=-1.0),
-                            f(g, zh[k - 1], taps, geom.off_a, alpha=-1.0))
+            kw = {"rows": rows} if kw is None else kw
+            return lambda: (f(rh[k - 1], dv, taps, geom.off_a, alpha=-1.0, **kw),
+                            f(g, zh[k - 1], taps, geom.off_a, alpha=-1.0, **kw))
 
         for name, what, run, plain, lib, banks, io in (
             ("lista2d_syn_adjoint", "",
@@ -787,6 +801,10 @@ def train_2d(dev, card, err) -> tuple[dict, dict]:
             ("lista2d_wgrad", "",  # dA = -dv (*) r, then dB = -g (*) z
              pair(LB2.lista2d_wgrad), pair(LB2.lista2d_wgrad_plain), pair(None, lib=True),
              (wa[k], ws[k]), (rh[k - 1], dv, wa[k], g, zh[k - 1], ws[k])),
+            ("lista2d_wgrad", " dense",
+             pair(LB2.lista2d_wgrad, kw={}), pair(LB2.lista2d_wgrad_plain, kw={}),
+             pair(None, lib=True), (torch.ones_like(wa[k]), torch.ones_like(ws[k])),
+             (rh[k - 1], dv, wa[k], g, zh[k - 1], ws[k])),
             ("lista2d_ana_threshold", " train",
              lambda: L2.lista2d_ana_threshold(rh[k - 1], zh[k - 1], wa[k], tau[k], geom),
              lambda: L2.lista2d_ana_threshold_plain(rh[k - 1], zh[k - 1], wa[k], tau[k], geom),
@@ -815,6 +833,12 @@ def train_2d(dev, card, err) -> tuple[dict, dict]:
                   f"{tt['ms']:.4f} ms/call, plain {tt['plain_ms']:.4f}, library "
                   f"{tt['library_ms']:.4f}, bound {tt['bound_ms']:.4f} ({tt['bound_by']}); "
                   f"{step_launches_2d(K).get(name, 0)} launches of {name} per step", flush=True)
+        N, Cp, Hc, Wc = y2.shape
+        M = wa.shape[-1]
+        print(f"grid [{card}]: 2D train shape ({TRAIN_2D_N}x{CROP}^2) lista2d_wgrad (row "
+              f"blocks, code blocks, splits) masked {LB.wgrad_grid(N, Cp, M, (Hc, Wc), taps, rows)}"
+              f", dense {LB.wgrad_grid(N, Cp, M, (Hc, Wc), taps)}; lista2d_syn_adjoint "
+              f"{L2.launch_grid(False, N, Cp, M, Hc, Wc, *taps)}", flush=True)
         del g_full, r_full
     del flag_ops, o, zh, rh, dv, g
 
@@ -1002,6 +1026,7 @@ def reverse_parity(A, B, t, noisy, sig, s, tg, err, what="") -> dict:
     k = K // 2
     dv, _ = LB.lista3d_syn_adjoint_plain(dx2, ws_adj[0], zh[K - 1], geom)
     g = L.lista3d_syn_residual_plain(dv, wa_adj[k], geom, mask=mask)
+    rows = LB.phase_rows(geom, wa.shape[1], 3)  # as the reverse loop passes them
     cases = [
         ("lista3d_syn_adjoint", "init dz = B0*(dx2)", LB,
          lambda f: f(dx2, ws_adj[0], zh[K - 1], geom)),
@@ -1013,6 +1038,10 @@ def reverse_parity(A, B, t, noisy, sig, s, tg, err, what="") -> dict:
          lambda f: f(rh[k - 1], dv, taps, geom.off_a, alpha=-1.0)),
         ("lista3d_wgrad", "dB = adjoint of -z (*) g", LB,
          lambda f: f(g, zh[k - 1], taps, geom.off_a, alpha=-1.0)),
+        ("lista3d_wgrad", "dA masked", LB,
+         lambda f: f(rh[k - 1], dv, taps, geom.off_a, alpha=-1.0, rows=rows)),
+        ("lista3d_wgrad", "dB masked", LB,
+         lambda f: f(g, zh[k - 1], taps, geom.off_a, alpha=-1.0, rows=rows)),
         ("lista3d_syn_residual", "A-adjoint g = m * Ak*(dv)", L,
          lambda f: f(dv, wa_adj[k], geom, mask=mask)),
     ]
@@ -1023,7 +1052,7 @@ def reverse_parity(A, B, t, noisy, sig, s, tg, err, what="") -> dict:
         compare(name, what + case, got, ref, err)
         del got, ref
     return dict(k=k, geom=geom, taps=taps, y2=y2, wa=wa, ws=ws, tau=tau, zh=zh, rh=rh,
-                wa_adj=wa_adj, ws_adj=ws_adj, mask=mask, dv=dv, g=g)
+                wa_adj=wa_adj, ws_adj=ws_adj, mask=mask, dv=dv, g=g, rows=rows)
 
 
 def reverse_times(A, B, ops, s, reps) -> dict:
@@ -1031,22 +1060,24 @@ def reverse_times(A, B, ops, s, reps) -> dict:
     operands (reverse_parity) of each reverse kernel and of the forward pair
     as training runs them: the kernel, its plain version, the one PyTorch
     call of the same function, and the bound. wgrad runs as each reverse
-    step does, dA then dB, and reports per call."""
-    k, geom, taps, y2, wa, ws, tau, zh, rh, wa_adj, ws_adj, mask, dv, g = (ops[n] for n in (
-        "k", "geom", "taps", "y2", "wa", "ws", "tau", "zh", "rh", "wa_adj", "ws_adj", "mask",
-        "dv", "g"))
+    step does, dA then dB, masked, and reports per call; "lista3d_wgrad
+    dense" times it on every phase row."""
+    k, geom, taps, y2, wa, ws, tau, zh, rh, wa_adj, ws_adj, mask, dv, g, rows = (
+        ops[n] for n in ("k", "geom", "taps", "y2", "wa", "ws", "tau", "zh", "rh", "wa_adj",
+                         "ws_adj", "mask", "dv", "g", "rows"))
     pads, C = geom.pads, A.shape[2]
     n_pos = y2[:, 0].numel()
     g_full = pp.depth_to_space(g, s, 3, C)
     r_full = pp.depth_to_space(rh[k - 1], s, 3, C)
     wg = torch.nn.grad.conv3d_weight
 
-    def pair(f, lib=False):
+    def pair(f, lib=False, kw=None):
         if lib:
             return lambda: (wg(r_full, A[k].shape, dv, stride=s, padding=pads),
                             wg(g_full, B[k].shape, zh[k - 1], stride=s, padding=pads))
-        return lambda: (f(rh[k - 1], dv, taps, geom.off_a, alpha=-1.0),
-                        f(g, zh[k - 1], taps, geom.off_a, alpha=-1.0))
+        kw = {"rows": rows} if kw is None else kw
+        return lambda: (f(rh[k - 1], dv, taps, geom.off_a, alpha=-1.0, **kw),
+                        f(g, zh[k - 1], taps, geom.off_a, alpha=-1.0, **kw))
 
     times = {}
     for name, run, plain, lib, banks, io in (
@@ -1059,6 +1090,10 @@ def reverse_times(A, B, ops, s, reps) -> dict:
         ("lista3d_wgrad",  # dA = -dv (*) r, then dB = -g (*) z
          pair(LB.lista3d_wgrad), pair(LB.lista3d_wgrad_plain), pair(None, lib=True),
          (wa[k], ws[k]), (rh[k - 1], dv, wa[k], g, zh[k - 1], ws[k])),
+        ("lista3d_wgrad dense",
+         pair(LB.lista3d_wgrad, kw={}), pair(LB.lista3d_wgrad_plain, kw={}),
+         pair(None, lib=True), (torch.ones_like(wa[k]), torch.ones_like(ws[k])),
+         (rh[k - 1], dv, wa[k], g, zh[k - 1], ws[k])),
         ("lista3d_ana_threshold train",
          lambda: L.lista3d_ana_threshold(rh[k - 1], zh[k - 1], wa[k], tau[k], geom),
          lambda: L.lista3d_ana_threshold_plain(rh[k - 1], zh[k - 1], wa[k], tau[k], geom),
@@ -1978,6 +2013,18 @@ def csr_train(dev, card, err) -> tuple[dict, dict]:
                         f"{', dgam2' if n_codes == 2 else ''}, dz_prev"
                         f"{', dz_after' if n_codes == 2 else ''})",
                         (*got, *bufs), (*ref, *pbufs), err)
+            # the soft-threshold adjoint and the weight gradient (masked, as
+            # the reverse loop runs it) at the same shape, on the same codes
+            rows, zk = LB.phase_rows(geom, wa.shape[1], 2), cases[0][2][2]
+            for name, what, run in (
+                ("lista2d_syn_adjoint", "ST adjoint",
+                 lambda f: f(g, ws_adj[k], zk, geom, base=base, alpha=-1.0)),
+                ("lista2d_wgrad", "dB masked",
+                 lambda f: f(g, zk, tuple(wa.shape[2:4]), geom.off_a, alpha=-1.0, rows=rows)),
+            ):
+                got, ref = run(getattr(LB2, name)), run(getattr(LB2, name + "_plain"))
+                torch.cuda.synchronize()
+                compare(name, f"csr train {label} {what}", got, ref, err)
             if label == "640x368":
                 continue
             g_full = pp.depth_to_space(g, s, 2, 1)
@@ -1999,11 +2046,25 @@ def csr_train(dev, card, err) -> tuple[dict, dict]:
                 # gamma-sized)
                 io = (*ops, base, *bufs, *bufs, zp, ops[4], *ops[5:5 + n_codes])
                 tt[name]["bound_ms"], tt[name]["bound_by"] = bound((ws_adj[k],), n_pos, io)
-            # the ST adjoint on the same operands, for the CSR epilogue's cost
-            st_ms = cuda_ms(lambda: LB2.lista2d_syn_adjoint(g, ws_adj[k], cases[0][2][2], geom,
-                                                            base=base, alpha=-1.0), 20)
-            print(f"time [{card}]: csr train {label} lista2d_syn_adjoint (ST, the same "
-                  f"operands): {st_ms:.4f} ms/call", flush=True)
+            # the soft-threshold reverse pair on the same operands (the CSR
+            # epilogue's cost; the P=9 taps' weight gradient, masked as the
+            # reverse loop runs it), with their library calls and bounds
+            zk, taps = cases[0][2][2], tuple(wa.shape[2:4])
+            for name, run, lib, banks, io in (
+                ("lista2d_syn_adjoint (ST, the same operands)",
+                 lambda: LB2.lista2d_syn_adjoint(g, ws_adj[k], zk, geom, base=base, alpha=-1.0),
+                 lambda: F.conv2d(g_full, f2.B[k], stride=s, padding=f2.pad),
+                 (ws_adj[k],), (g, ws_adj[k], base, zk, zk, tau[0])),
+                ("lista2d_wgrad (dB, masked)",
+                 lambda: LB2.lista2d_wgrad(g, zk, taps, geom.off_a, alpha=-1.0, rows=rows),
+                 lambda: torch.nn.grad.conv2d_weight(g_full, f2.B[k].shape, zk, stride=s,
+                                                     padding=f2.pad),
+                 (ws[k],), (g, zk, ws[k])),
+            ):
+                ms, lib_ms = cuda_ms(run, 20), cuda_ms(lib, 20)
+                b_ms, b_by = bound(banks, n_pos, io, tf32x3=True)
+                print(f"time [{card}]: csr train {label} {name}: {ms:.4f} ms/call, library "
+                      f"{lib_ms:.4f}, bound {b_ms:.4f} ({b_by})", flush=True)
             # the P=9 synthesis a CSR forward launches 30 times (and its
             # reverse 29 as the analysis adjoint)
             r = L2.lista2d_syn_residual(zp, ws[1], geom, y=y2)
@@ -2240,16 +2301,30 @@ def main() -> int:
     spills = [ln.strip() for ln in so.with_suffix(".log").read_text().splitlines()
               if "registers" in ln or "spill" in ln]
     print(f"build: {build_s:.2f} s -> {so.name}; ptxas: {' | '.join(spills)}", flush=True)
-    # the tensor-core pairs' lines by name: with their launch bounds (3D:
-    # 256 threads and 2 blocks an SM, 512 threads and 1; 2D: 128 threads and
-    # 4, 256 threads and 2) they set their occupancy
+    # the tensor-core kernels' lines by name: with their launch bounds (3D:
+    # the analysis and adjoint 256 threads and 2 blocks an SM, the synthesis
+    # 512 and 1; 2D: 128 and 4, 256 and 2; the weight gradient 384 and 1)
+    # they set their occupancy
     entry = None
-    tc_entries = ("lista3d_ana_mma", "lista3d_syn_mma", "lista2d_ana_mma", "lista2d_syn_mma")
+    tc_entries = {"lista3d_ana_mmaILb0": "lista3d_ana_mma",
+                  "lista3d_ana_mmaILb1": "lista3d_ana_mma (adjoint)",
+                  "lista3d_syn_mma": "lista3d_syn_mma",
+                  "lista2d_ana_mmaILb0": "lista2d_ana_mma",
+                  "lista2d_ana_mmaILb1": "lista2d_ana_mma (adjoint)",
+                  "lista2d_syn_mma": "lista2d_syn_mma", "lista3d_wgrad_mma": "lista3d_wgrad_mma"}
     for ln in so.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in ln:
-            entry = next((k for k in tc_entries if k in ln), None)
+            entry = next((v for k, v in tc_entries.items() if k in ln), None)
         elif entry and ("registers" in ln or "spill" in ln):
             print(f"ptxas {entry}: {ln.strip()}", flush=True)
+    # their products in the machine code (cuobjdump, beside nvcc): the TF32
+    # tensor-core instructions
+    for fn, ins in compare_sass.disassemble(str(so)).items():
+        label = next((v for k, v in tc_entries.items() if k in fn), None)
+        if label:
+            hmma = sum("HMMA" in i and "TF32" in i for i in ins)
+            print(f"sass {label}: {hmma} HMMA TF32 of {len(ins)} instructions ({fn})", flush=True)
+            require(hmma > 0, f"{fn} runs no TF32 tensor-core product")
 
     # --- 3. forward kernel parity at the flagship shape ---
     t0 = time.perf_counter()
@@ -2335,6 +2410,13 @@ def main() -> int:
     with torch.no_grad():
         tops = reverse_parity(model.A, model.B, t_par, noisy_t, sig_t, s, tg, err)
         train_times = reverse_times(model.A, model.B, tops, s, reps=10)
+        (N, Cp, *grid), taps = tops["y2"].shape, tops["taps"]
+        grid_line = (
+            f"grid [{card}]: train shape lista3d_wgrad (row blocks, code blocks, splits) "
+            f"masked {LB.wgrad_grid(N, Cp, M, grid, taps, tops['rows'])}, dense "
+            f"{LB.wgrad_grid(N, Cp, M, grid, taps)}; lista3d_syn_adjoint "
+            f"{_build.library().lista3d_syn_adjoint_parts(N, Cp, M, *grid, *taps)} position "
+            f"blocks x {N} samples")
     del tops
     # the new kernels report their training-shape times
     for name in ("lista3d_syn_adjoint", "lista3d_wgrad"):
@@ -2343,6 +2425,7 @@ def main() -> int:
         print(f"time [{card}]: train shape {name}: {tt['ms']:.4f} ms/call, plain "
               f"{tt['plain_ms']:.4f}, library {tt['library_ms']:.4f}, bound "
               f"{tt['bound_ms']:.4f} ({tt['bound_by']})", flush=True)
+    print(grid_line, flush=True)
 
     # --- 9. the K=30 gradient through the kernels vs torch autograd ---
     train_model = CDLNetVideo(**FLAGSHIP, backend="pallas").to(dev)
@@ -2445,7 +2528,8 @@ def main() -> int:
                 + launches_ct.get(name, 0) for name in KERNELS}
     for name in TC_KERNELS:
         tt = times[name]
-        print(f"time [{card}]: serve shape {name} {tt['ms']:.4f} ms/call, plain "
+        shape = "train shape" if "adjoint" in name or "wgrad" in name else "serve shape"
+        print(f"time [{card}]: {shape} {name} {tt['ms']:.4f} ms/call, plain "
               f"{tt['plain_ms']:.4f}, library {tt['library_ms']:.4f}, bound "
               f"{tt['bound_ms']:.4f} ({tt['bound_by']}; 3xTF32 on the tensor cores)",
               flush=True)

@@ -235,7 +235,20 @@ def test_fused_grad_on_cuda_matches_cpu_and_counts_launches(cuda):
         assert _rel(g, w) <= 1e-4
 
 
-@pytest.mark.parametrize("P,s,M,N,D,H,W,C", SHAPES)
+# the reverse kernels' further shapes: a 427-wide code grid (the native
+# 854-wide frame: ragged 64-column stages), one phase channel (Cp = 1) and
+# three (stride 1, colour), and the flagship train shape's full width and
+# long reduction (M = 169 codes, N = 2 clips of a 8x64x64 code grid: 65,536
+# positions a weight-gradient entry)
+REVERSE_SHAPES = [
+    ((7, 7, 5), 2, 24, 1, 4, 20, 854, 1),
+    ((5, 5, 3), 1, 12, 1, 6, 16, 40, 1),
+    ((5, 5, 3), 1, 10, 1, 6, 12, 36, 3),
+    ((7, 7, 5), 2, 169, 2, 16, 128, 128, 1),
+]
+
+
+@pytest.mark.parametrize("P,s,M,N,D,H,W,C", SHAPES + REVERSE_SHAPES)
 @pytest.mark.parametrize("with_base,alpha", [(False, 1.0), (True, -1.0), (True, 1.0)])
 def test_syn_adjoint_matches_plain(cuda, P, s, M, N, D, H, W, C, with_base, alpha):
     d = _setup(P, s, M, N, D, H, W, C)
@@ -251,7 +264,7 @@ def test_syn_adjoint_matches_plain(cuda, P, s, M, N, D, H, W, C, with_base, alph
         assert _rel(g, r) <= 1e-5
 
 
-@pytest.mark.parametrize("P,s,M,N,D,H,W,C", SHAPES)
+@pytest.mark.parametrize("P,s,M,N,D,H,W,C", SHAPES + REVERSE_SHAPES)
 @pytest.mark.parametrize("form", ["dA", "dB", "dB-swapped"])
 def test_wgrad_matches_plain(cuda, P, s, M, N, D, H, W, C, form):
     d = _setup(P, s, M, N, D, H, W, C)
@@ -269,12 +282,57 @@ def test_wgrad_matches_plain(cuda, P, s, M, N, D, H, W, C, form):
     assert _rel(got, ref) <= 1e-5
 
 
-def test_reverse_kernels_are_deterministic(cuda):
+@pytest.mark.parametrize("P,s,M,N,D,H,W,C", [SHAPES[0], SHAPES[4]] + REVERSE_SHAPES)
+@pytest.mark.parametrize("form", ["dA", "dB-swapped"])
+def test_wgrad_on_the_phase_rows_matches_plain(cuda, P, s, M, N, D, H, W, C, form):
+    """The form the reverse loop runs: only the phase rows the prep keeps,
+    zeros on the others."""
+    d = _setup(P, s, M, N, D, H, W, C)
+    geom = d["geom"]
+    rows = LB.phase_rows(geom, d["wa"].shape[0], 3)
+    x = d["r"] if form == "dA" else d["y"]
+    ref = LB.lista3d_wgrad_plain(x, d["z"], d["taps"], geom.off_a, alpha=-1.0, rows=rows)
+    got = LB.lista3d_wgrad(x.to(cuda), d["z"].to(cuda), d["taps"], geom.off_a, alpha=-1.0,
+                           rows=rows)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= 1e-5
+    assert not got.cpu()[~rows].any()
+
+
+@pytest.mark.parametrize("P,s,M,N,D,H,W,C", [SHAPES[1], REVERSE_SHAPES[0]])
+def test_reverse_kernels_on_operands_off_the_grid_match_plain(cuda, P, s, M, N, D, H, W, C):
+    """Every operand 4 bytes off the 16-byte grid, as history slices of an
+    odd-sized code grid sit: the staging keeps each row's offset and the
+    adjoint's epilogue goes scalar."""
+    d = _setup(P, s, M, N, D, H, W, C)
+    geom, taps = d["geom"], d["taps"]
+    y, z, r, base, ws_adj = (_off_grid(d[k], cuda) for k in ("y", "z", "r", "base", "ws_adj"))
+    assert z.data_ptr() % 16 == 4
+    ref = LB.lista3d_syn_adjoint_plain(d["y"], d["ws_adj"], d["z"], geom, base=d["base"],
+                                       alpha=-1.0)
+    got = LB.lista3d_syn_adjoint(y, ws_adj, z, geom, base=base, alpha=-1.0)
+    torch.cuda.synchronize()
+    for g, rf in zip(got, ref):
+        assert _rel(g, rf) <= 1e-5
+    rows = LB.phase_rows(geom, d["wa"].shape[0], 3)
+    for x, xc in ((d["r"], r), (d["y"], y)):
+        for kw in ({}, {"rows": rows}):
+            ref = LB.lista3d_wgrad_plain(x, d["z"], taps, geom.off_a, alpha=-1.0, **kw)
+            got = LB.lista3d_wgrad(xc, z, taps, geom.off_a, alpha=-1.0, **kw)
+            torch.cuda.synchronize()
+            assert _rel(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("off_grid", [False, True])
+def test_reverse_kernels_are_deterministic(cuda, off_grid):
     d = _setup((7, 7, 5), 2, 169, 2, 16, 128, 128)
-    z, r, y = d["z"].to(cuda), d["r"].to(cuda), d["y"].to(cuda)
+    put = (lambda t: _off_grid(t, cuda)) if off_grid else (lambda t: t.to(cuda))
+    z, r, y = put(d["z"]), put(d["r"]), put(d["y"])
     ws_adj = d["ws_adj"].to(cuda)
+    rows = LB.phase_rows(d["geom"], d["wa"].shape[0], 3)
     runs = [(LB.lista3d_wgrad(r, z, d["taps"], d["geom"].off_a),
              LB.lista3d_wgrad(z, y, d["taps"], d["geom"].off_s),
+             LB.lista3d_wgrad(y, z, d["taps"], d["geom"].off_a, rows=rows),
              *LB.lista3d_syn_adjoint(y, ws_adj, z, d["geom"], base=z, alpha=-1.0))
             for _ in range(2)]
     for a, b in zip(*runs):
@@ -578,7 +636,19 @@ SHAPES_2D_BWD = [
 ]
 
 
-@pytest.mark.parametrize("P,s,M,N,H,W,C", SHAPES_2D_BWD)
+# the 2D reverse kernels' further shapes: a 427-wide code grid, one phase
+# channel (stride 1, grey), the CSR models' P=9 taps, and the flagship
+# train shape's full width and long reduction (M = 169, 10 crops of 128^2:
+# 40,960 positions a weight-gradient entry)
+REVERSE_SHAPES_2D = [
+    (7, 2, 24, 1, 20, 854, 1),
+    (7, 1, 12, 2, 20, 44, 1),
+    (9, 2, 169, 1, 64, 96, 1),
+    (7, 2, 169, 10, 128, 128, 1),
+]
+
+
+@pytest.mark.parametrize("P,s,M,N,H,W,C", SHAPES_2D_BWD + REVERSE_SHAPES_2D)
 @pytest.mark.parametrize("with_base,alpha", [(False, 1.0), (True, -1.0)])
 def test_2d_syn_adjoint_matches_plain(cuda, P, s, M, N, H, W, C, with_base, alpha):
     d = _setup2d_bwd(P, s, M, N, H, W, C)
@@ -594,7 +664,7 @@ def test_2d_syn_adjoint_matches_plain(cuda, P, s, M, N, H, W, C, with_base, alph
         assert _rel(g, r) <= 1e-5
 
 
-@pytest.mark.parametrize("P,s,M,N,H,W,C", SHAPES_2D_BWD)
+@pytest.mark.parametrize("P,s,M,N,H,W,C", SHAPES_2D_BWD + REVERSE_SHAPES_2D)
 @pytest.mark.parametrize("form", ["dA", "dB-swapped"])
 def test_2d_wgrad_matches_plain(cuda, P, s, M, N, H, W, C, form):
     d = _setup2d_bwd(P, s, M, N, H, W, C)
@@ -616,11 +686,54 @@ def test_2d_analysis_adjoint_matches_plain(cuda, P, s, M, N, H, W, C):
     assert _rel(got, ref) <= 1e-5
 
 
-def test_2d_reverse_kernels_are_deterministic(cuda):
+@pytest.mark.parametrize("P,s,M,N,H,W,C", SHAPES_2D_BWD[:3] + REVERSE_SHAPES_2D)
+@pytest.mark.parametrize("form", ["dA", "dB-swapped"])
+def test_2d_wgrad_on_the_phase_rows_matches_plain(cuda, P, s, M, N, H, W, C, form):
+    """The form the reverse loop runs: only the phase rows the prep keeps
+    (49 of 64 at the flagship taps), zeros on the others."""
+    d = _setup2d_bwd(P, s, M, N, H, W, C)
+    geom = d["geom"]
+    rows = LB.phase_rows(geom, d["wa"].shape[0], 2)
+    x = d["r"] if form == "dA" else d["g"]
+    ref = LB2.lista2d_wgrad_plain(x, d["z"], d["taps"], geom.off_a, alpha=-1.0, rows=rows)
+    got = LB2.lista2d_wgrad(x.to(cuda), d["z"].to(cuda), d["taps"], geom.off_a, alpha=-1.0,
+                            rows=rows)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= 1e-5
+    assert not got.cpu()[~rows].any()
+
+
+@pytest.mark.parametrize("P,s,M,N,H,W,C", [SHAPES_2D_BWD[0], REVERSE_SHAPES_2D[0],
+                                          SHAPES_2D_BWD[1]])
+def test_2d_reverse_kernels_on_operands_off_the_grid_match_plain(cuda, P, s, M, N, H, W, C):
+    """Every operand 4 bytes off the 16-byte grid (history slices)."""
+    d = _setup2d_bwd(P, s, M, N, H, W, C)
+    geom, taps = d["geom"], d["taps"]
+    g, z, r, base, ws_adj = (_off_grid(d[k], cuda) for k in ("g", "z", "r", "base", "ws_adj"))
+    ref = LB2.lista2d_syn_adjoint_plain(d["g"], d["ws_adj"], d["z"], geom, base=d["base"],
+                                        alpha=-1.0)
+    got = LB2.lista2d_syn_adjoint(g, ws_adj, z, geom, base=base, alpha=-1.0)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert _rel(a, b) <= 1e-5
+    rows = LB.phase_rows(geom, d["wa"].shape[0], 2)
+    for x, xc in ((d["r"], r), (d["g"], g)):
+        for kw in ({}, {"rows": rows}):
+            ref = LB2.lista2d_wgrad_plain(x, d["z"], taps, geom.off_a, alpha=-1.0, **kw)
+            got = LB2.lista2d_wgrad(xc, z, taps, geom.off_a, alpha=-1.0, **kw)
+            torch.cuda.synchronize()
+            assert _rel(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("off_grid", [False, True])
+def test_2d_reverse_kernels_are_deterministic(cuda, off_grid):
     d = _setup2d_bwd(7, 2, 169, 10, 128, 128, 1)
-    z, r, g, base = (d[k].to(cuda) for k in ("z", "r", "g", "base"))
+    put = (lambda t: _off_grid(t, cuda)) if off_grid else (lambda t: t.to(cuda))
+    z, r, g, base = (put(d[k]) for k in ("z", "r", "g", "base"))
     ws_adj, taps, off = d["ws_adj"].to(cuda), d["taps"], d["geom"].off_a
+    rows = LB.phase_rows(d["geom"], d["wa"].shape[0], 2)
     runs = [(LB2.lista2d_wgrad(r, z, taps, off), LB2.lista2d_wgrad(g, z, taps, off),
+             LB2.lista2d_wgrad(g, z, taps, off, rows=rows),
              *LB2.lista2d_syn_adjoint(g, ws_adj, z, d["geom"], base=base, alpha=-1.0))
             for _ in range(2)]
     for a, b in zip(*runs):

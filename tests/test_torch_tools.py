@@ -68,3 +68,17 @@ def test_compare_sass_reads_instructions_without_addresses():
     assert got == {"_ZN5mma3d15lista3d_ana_mmaEN6tf32x37MmaArgsEb":
                    ["LDC R1, c[0x0][0x28] ;", "S2R R0, SR_TID.X ;"], "other": ["EXIT ;"]}
 
+
+
+def test_compare_sass_pairs_a_renamed_kernel(monkeypatch, capsys):
+    """OLD=NEW pairs a kernel whose mangled name changed (one that became a
+    template's instantiation) with its new name; an uneven pairing fails."""
+    tool = _tool("compare_sass")
+    old = {"_ZN5mma3d15lista3d_ana_mmaEN6tf32x37MmaArgsEb": ["EXIT ;"]}
+    new = {"_ZN5mma3d15lista3d_ana_mmaILb0EEEvN6tf32x37MmaArgsEbNS1_11AdjointArgsE": ["EXIT ;"],
+           "_ZN5mma3d15lista3d_ana_mmaILb1EEEvN6tf32x37MmaArgsEbNS1_11AdjointArgsE": ["RET ;"]}
+    monkeypatch.setattr(tool, "disassemble", lambda so: old if so == "old.so" else new)
+    assert tool.main(["old.so", "new.so", "lista3d_ana_mmaEN=lista3d_ana_mmaILb0E"]) == 0
+    assert "1 / 1 instructions, equal" in capsys.readouterr().out
+    assert tool.main(["old.so", "new.so", "lista3d_ana_mma"]) == 1
+    assert "1 kernels in the old build, 2 in the new" in capsys.readouterr().out
