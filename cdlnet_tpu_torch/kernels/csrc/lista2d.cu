@@ -30,44 +30,28 @@
 //       TPU kernel's u history rows, lista2d.py:297-313, 343-348), which
 //       the CSR adjoints of lista3d_bwd.cu read; serving passes NULL.
 //
-// The soft-threshold pair and the adjoint run on the tensor cores in
-// 3xTF32 (lista2d_mma.cuh says what bounds them and how their tiling fills
-// the card at a single 128^2 image); lista2d_launch_grid reports the launch
-// they make (the adjoint's is the analysis's). The CSR analyses run the
-// fp32 CUDA-core template of lista3d_conv.cuh at D = 1, Qd = 1 with the 2D
-// phase map (sd = 1).
+// Every entry runs on the tensor cores in 3xTF32 (lista2d_mma.cuh says what
+// bounds them and how their tiling fills the card at a single 128^2 image):
+// the analyses (ST, adjoint, CSR) share one mainloop and its launch, which
+// lista2d_launch_grid reports beside the synthesis's.
 //
 // The CSR epilogues add one (csr) or two (csrf2) code-sized reads a call.
 // At the CSR models' width on a fastMRI frame (M = 169, P = 9, s = 2;
 // 640x384 bucketed, a 320x192 code grid) one call is 1.68 GFLOP of
-// nonzero-tap FMAs (~0.025 ms at the fp32 peak), and z_old, z and each
-// neighbour code are 41.5 MB: ~0.025 ms of bytes for st, ~0.037 ms for csr
-// and ~0.050 ms for csrf2, so the CSR modes are bound by bytes. The prox
-// itself is ~30 flops a code, little beside the 81-tap correlation.
+// nonzero-tap FMAs (~0.010 ms as three TF32 products each at 495 TFLOP/s),
+// and z_old, z and each neighbour code are 41.5 MB: ~0.025 ms of bytes for
+// st, ~0.037 ms for csr and ~0.050 ms for csrf2, so the CSR modes are bound
+// by bytes. The prox itself is ~30 flops a code, little beside the 81-tap
+// correlation.
 //
 // Plain C interface for ctypes: each entry returns cudaGetLastError() (or
 // the first CUDA error met) as an int; 0 means launched.
 
 #include "lista2d_mma.cuh"
-#include "lista3d_conv.cuh"
 
 namespace {
 
-// The CSR analyses' arguments.
-ConvArgs ana_args(const float* r, const float* wt, const float* z_old,
-                  const float* tau, float* z_out, int N, int Cp, int M, int H,
-                  int W, int Qh, int Qw, int oh, int ow, int s, int Ph, int Pw,
-                  int ph, int pw) {
-  ConvArgs a{};
-  a.in = r, a.wt = wt, a.out = z_out, a.z = z_old, a.tau = tau;
-  a.N = N, a.I = Cp, a.O = M, a.D = 1, a.H = H, a.W = W;
-  a.Qd = 1, a.Qh = Qh, a.Qw = Qw, a.od = 0, a.oh = oh, a.ow = ow;
-  a.s = s, a.sd = 1, a.P[0] = 1, a.P[1] = Ph, a.P[2] = Pw;
-  a.pad[0] = 0, a.pad[1] = ph, a.pad[2] = pw;
-  return a;
-}
-
-// The tensor-core pair's arguments: in (N, I, H, W), wt (I, Qh, Qw, O),
+// The kernels' arguments: in (N, I, H, W), wt (I, Qh, Qw, O),
 // out (N, O, H, W), the 3D layout at D = Qd = 1.
 tf32x3::MmaArgs mma_args(const float* in, const float* wt, float* out, int N,
                          int I, int O, int H, int W, int Qh, int Qw, int oh,
@@ -77,6 +61,17 @@ tf32x3::MmaArgs mma_args(const float* in, const float* wt, float* out, int N,
   a.N = N, a.I = I, a.O = O, a.D = 1, a.H = H, a.W = W;
   a.Qd = 1, a.Qh = Qh, a.Qw = Qw, a.od = 0, a.oh = oh, a.ow = ow;
   a.P[0] = 1, a.pad[0] = 0;
+  return a;
+}
+
+// The analyses' arguments: mma_args with z_old, tau and the phase map.
+tf32x3::MmaArgs analysis_args(const float* r, const float* wt, const float* z_old,
+                              const float* tau, float* z_out, int N, int Cp, int M, int H,
+                              int W, int Qh, int Qw, int oh, int ow, int s, int Ph, int Pw,
+                              int ph, int pw) {
+  tf32x3::MmaArgs a = mma_args(r, wt, z_out, N, Cp, M, H, W, Qh, Qw, oh, ow);
+  a.z = z_old, a.tau = tau, a.s = s;
+  a.P[1] = Ph, a.P[2] = Pw, a.pad[1] = ph, a.pad[2] = pw;
   return a;
 }
 
@@ -92,24 +87,23 @@ int lista2d_ana_threshold(const float* r, const float* wt, const float* z_old,
                           const float* tau, float* z_out, int N, int Cp, int M,
                           int H, int W, int Qh, int Qw, int oh, int ow, int s,
                           int Ph, int Pw, int ph, int pw, void* stream) {
-  tf32x3::MmaArgs a = mma_args(r, wt, z_out, N, Cp, M, H, W, Qh, Qw, oh, ow);
-  a.z = z_old, a.tau = tau, a.s = s;
-  a.P[1] = Ph, a.P[2] = Pw, a.pad[1] = ph, a.pad[2] = pw;
+  const tf32x3::MmaArgs a = analysis_args(r, wt, z_old, tau, z_out, N, Cp, M, H, W, Qh, Qw,
+                                          oh, ow, s, Ph, Pw, ph, pw);
   return mma2d::launch(false, a, (cudaStream_t)stream);
 }
 
 // z_out = prox_csr(z_old - A_k * r, zp; tau, gam): as lista2d_ana_threshold,
-// with gam (N, M) and the neighbour code zp (N, M, H, W), not z_out; u_out
-// (N, M, H, W) takes the prox argument z_old - A_k * r, or is NULL.
+// with gam (N, M) and the neighbour code zp (N, M, H, W); u_out (N, M, H, W)
+// takes the prox argument z_old - A_k * r, or is NULL.
 int lista2d_ana_csr(const float* r, const float* wt, const float* z_old,
                     const float* tau, const float* gam, const float* zp,
                     float* z_out, float* u_out, int N, int Cp, int M, int H,
                     int W, int Qh, int Qw, int oh, int ow, int s, int Ph,
                     int Pw, int ph, int pw, void* stream) {
-  ConvArgs a = ana_args(r, wt, z_old, tau, z_out, N, Cp, M, H, W, Qh, Qw, oh,
-                        ow, s, Ph, Pw, ph, pw);
-  a.gam1 = gam, a.zp = zp, a.u_out = u_out;
-  return launch<kAnalysisCsr>(a, (cudaStream_t)stream);
+  const tf32x3::MmaArgs a = analysis_args(r, wt, z_old, tau, z_out, N, Cp, M, H, W, Qh, Qw,
+                                          oh, ow, s, Ph, Pw, ph, pw);
+  return mma2d::launch_csr(a, mma2d::CsrArgs{gam, nullptr, zp, nullptr, u_out}, false,
+                           (cudaStream_t)stream);
 }
 
 // z_out = prox_csr_f2(z_old - A_k * r, zp, za; tau, gam1, gam2): the
@@ -121,10 +115,10 @@ int lista2d_ana_csrf2(const float* r, const float* wt, const float* z_old,
                       float* u_out, int N, int Cp, int M, int H, int W, int Qh,
                       int Qw, int oh, int ow, int s, int Ph, int Pw, int ph,
                       int pw, void* stream) {
-  ConvArgs a = ana_args(r, wt, z_old, tau, z_out, N, Cp, M, H, W, Qh, Qw, oh,
-                        ow, s, Ph, Pw, ph, pw);
-  a.gam1 = gam1, a.gam2 = gam2, a.zp = zp, a.za = za, a.u_out = u_out;
-  return launch<kAnalysisCsrF2>(a, (cudaStream_t)stream);
+  const tf32x3::MmaArgs a = analysis_args(r, wt, z_old, tau, z_out, N, Cp, M, H, W, Qh, Qw,
+                                          oh, ow, s, Ph, Pw, ph, pw);
+  return mma2d::launch_csr(a, mma2d::CsrArgs{gam1, gam2, zp, za, u_out}, true,
+                           (cudaStream_t)stream);
 }
 
 // r_out = [mask *] B_k^T z [- y]: z (N, M, H, W); wt (M, Qh, Qw, Cp)
@@ -155,19 +149,18 @@ int lista2d_syn_adjoint(const float* g, const float* wt, const float* base, cons
                         float* work, float* dv, float* dtau, int N, int Cp, int M, int H,
                         int W, int Qh, int Qw, int oh, int ow, int s, int Ph, int Pw, int ph,
                         int pw, float alpha, void* stream) {
-  tf32x3::MmaArgs a = mma_args(g, wt, dv, N, Cp, M, H, W, Qh, Qw, oh, ow);
-  a.z = z, a.s = s;
-  a.P[1] = Ph, a.P[2] = Pw, a.pad[1] = ph, a.pad[2] = pw;
+  const tf32x3::MmaArgs a = analysis_args(g, wt, z, nullptr, dv, N, Cp, M, H, W, Qh, Qw, oh,
+                                          ow, s, Ph, Pw, ph, pw);
   const tf32x3::AdjointArgs e{base, work, alpha};
   return mma2d::launch_adjoint(a, e, dtau, (cudaStream_t)stream);
 }
 
-// The launch that lista2d_syn_residual (synthesis != 0) or
-// lista2d_ana_threshold makes on the current device at these sizes (I
-// input and O output channels: M and Cp, or Cp and M): out[0..2] its grid;
-// out[3] the codes a block (analysis) or the blocks a cluster, which split
-// the codes (synthesis); out[4] the code rows a block. Returns 0, or the
-// CUDA error met.
+// The launch that lista2d_syn_residual (synthesis != 0) or the analyses
+// (lista2d_ana_threshold, _csr, _csrf2, lista2d_syn_adjoint) make on the
+// current device at these sizes (I input and O output channels: M and Cp,
+// or Cp and M): out[0..2] its grid; out[3] the codes a block (analysis) or
+// the blocks a cluster, which split the codes (synthesis); out[4] the code
+// rows a block. Returns 0, or the CUDA error met.
 int lista2d_launch_grid(int synthesis, int N, int I, int O, int H, int W,
                         int Qh, int Qw, int* out) {
   const tf32x3::MmaArgs a =

@@ -4,33 +4,45 @@
 //   out[n,o,h,w] = sum_{i,b,c} wt[i,b,c,o] * in[n,i,h+b+oh,w+c+ow]
 //
 // (zero outside the image), as an implicit GEMM on mma.sync.m16n8k8 TF32
-// products, with three fused epilogues:
+// products, with five fused epilogues:
 //
-//   lista2d_ana_mma<false> (analysis): out = ST(z - u, tau[n, o]); z ==
+//   lista2d_ana_mma<kAnaSt> (analysis): out = ST(z - u, tau[n, o]); z ==
 //       NULL reads as zeros, and out may be z (each output element is read
 //       and then written by one thread).
-//   lista2d_ana_mma<true> (the 2D reverse pass's synthesis adjoint, with
-//       mma_tf32.cuh's AdjointArgs): dz = [base +] alpha * u, out = dv =
-//       1{z != 0} dz, and per block (a row of 64 positions) and code the
+//   lista2d_ana_mma<kAnaAdjoint> (the 2D reverse pass's synthesis adjoint,
+//       with mma_tf32.cuh's AdjointArgs): dz = [base +] alpha * u, out = dv
+//       = 1{z != 0} dz, and per block (a row of 64 positions) and code the
 //       dtau partial -sum sign(z) dz in order (sum_parts then sums the
-//       blocks in a fixed order). The same mainloop and code-split launch rule.
+//       blocks in a fixed order).
+//   lista2d_ana_mma<kAnaCsr>, <kAnaCsrF2> (the CSR models' analyses, with
+//       CsrArgs): v = z - u, out = prox_csr(v, zp; tau, gam1) or
+//       prox_csr_f2(v, zp, za; tau, gam1, gam2) (csr_prox.cuh), v to u_out
+//       where it is not NULL (the u history the CSR adjoints read). The
+//       prox is elementwise, so the CSR modes cost the ST analysis's
+//       products and one (csr) or two (csrf2) more code reads, and a code
+//       write with u_out. zp and za may even be out: as z, each element is
+//       read and then written by one thread.
 //   lista2d_syn_mma (synthesis): out = [mask *] u [- y].
 //
-// They replace, for lista2d.cu's lista2d_ana_threshold, lista2d_syn_residual
-// and lista2d_syn_adjoint, the TPU kernels cdlnet_tpu/kernels/lista2d.py::
-// _kernel (K5, the whole-image forward) and the banded pair
-// lista2d_tiled.py::_kernel_syn_band / _kernel_ana_band (K7), and with the
-// adjoint epilogue the dz part of the 2D reverses lista2d.py::_kernel_bwd
-// (K6) and lista2d_tiled_bwd.py::_kernel_tiled_bwd (K8); the synthesis is
-// also the 2D reverse pass's analysis adjoint (K6, K8) and the CSR models'
-// synthesis. The fp32 contract is the 3D pair's (lista3d_mma.cuh):
-// each operand split into two TF32 parts, three products a term, here by
-// the round-to-nearest split of mma_tf32.cuh (split_rn: the truncating one
-// biased the sums toward zero enough to flip the CSR demo's codes across
-// its prox's jumps, 2.3e-4 rel L2 against the 1e-4 gate); and each tap
-// pair's three products go into a fresh fragment added to the sums in
-// fp32. Each output is a fixed sequence of products and fixed-order sums:
-// two runs are bitwise equal.
+// The analyses share the mainloop and the code-split launch rule. They
+// replace, for lista2d.cu's lista2d_ana_threshold, lista2d_ana_csr,
+// lista2d_ana_csrf2, lista2d_syn_residual and lista2d_syn_adjoint, the TPU
+// kernels cdlnet_tpu/kernels/lista2d.py::_kernel (K5, the whole-image
+// forward, its prox modes st, csr and csrf2) and the banded pair
+// lista2d_tiled.py::_kernel_syn_band / _kernel_ana_band (K7, with the same
+// modes), and with the adjoint epilogue the dz part of the 2D reverses
+// lista2d.py::_kernel_bwd (K6) and lista2d_tiled_bwd.py::_kernel_tiled_bwd
+// (K8); the synthesis is also the 2D reverse pass's analysis adjoint (K6,
+// K8) and the CSR models' synthesis. The fp32 contract is the 3D pair's
+// (lista3d_mma.cuh): each operand split into two TF32 parts, three products
+// a term, here by the round-to-nearest split of mma_tf32.cuh (split_rn: the
+// truncating one biased the sums toward zero enough to flip the CSR demo's
+// codes across its prox's jumps, 2.3e-4 rel L2 against the 1e-4 gate); and
+// each tap pair's three products go into a fresh fragment added to the sums
+// in fp32. Each output is a fixed sequence of products and fixed-order
+// sums: two runs are bitwise equal, and the analyses' epilogues see the
+// same sums (a CSR analysis with zero neighbour codes and gamma banks writes
+// the ST analysis's codes bit for bit).
 //
 // What bounds them on this card. At the flagship 2D width (M = 169 codes,
 // Cp = 4 phases, 4x4 phase taps) a 128^2 image has a 64x64 code grid: one
@@ -113,6 +125,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "csr_prox.cuh"
 #include "mma_tf32.cuh"
 
 namespace mma2d {
@@ -192,11 +205,26 @@ __host__ inline int ana_smem_floats(const MmaArgs& a, int BN) {
   return main > epi ? main : epi;
 }
 
-// The analysis: kAdj false, the forward's soft threshold (e unread); kAdj
-// true, the reverse pass's synthesis adjoint (mma_tf32.cuh's AdjointArgs).
-template <bool kAdj>
+// The analysis's epilogues: the forward's soft threshold, the reverse pass's
+// synthesis adjoint (mma_tf32.cuh's AdjointArgs), the CSR proxes (CsrArgs).
+enum AnaEpilogue : int { kAnaSt = 0, kAnaAdjoint = 1, kAnaCsr = 2, kAnaCsrF2 = 3 };
+
+// The CSR analyses' operands: the gamma banks (N, O) (gam2: two-sided
+// only), the neighbour codes (N, O, H, W) (za: two-sided only), and u_out
+// (N, O, H, W), which takes the prox argument, or NULL.
+struct CsrArgs {
+  const float* gam1;
+  const float* gam2;
+  const float* zp;
+  const float* za;
+  float* u_out;
+};
+
+// The analysis with epilogue kEpi (an AnaEpilogue); e is read by the
+// adjoint alone, c by the CSR proxes alone.
+template <int kEpi>
 __global__ void __launch_bounds__(kAnaThreads, kAnaBlocksPerSM)
-lista2d_ana_mma(const MmaArgs a, int BN, bool vec, const AdjointArgs e) {
+lista2d_ana_mma(const MmaArgs a, int BN, bool vec, const AdjointArgs e, const CsrArgs c) {
   extern __shared__ float4 smem4[];
   __shared__ __align__(8) uint64_t bar[2];  // the two weight buffers
   float* smem = reinterpret_cast<float*>(smem4);
@@ -334,7 +362,7 @@ lista2d_ana_mma(const MmaArgs a, int BN, bool vec, const AdjointArgs e) {
       }
     }
   __syncthreads();
-  if constexpr (!kAdj) {
+  if constexpr (kEpi == kAnaSt) {
     // groups of 4 positions along the row (W % 4 == 0 and 16-byte aligned
     // tensors, else 1), kB groups a thread per round: all their z_old loads
     // before any store (out may be z_old, so the compiler cannot move a load
@@ -377,7 +405,7 @@ lista2d_ana_mma(const MmaArgs a, int BN, bool vec, const AdjointArgs e) {
           a.out[idx[k]] = st.x;
       }
     }
-  } else {
+  } else if constexpr (kEpi == kAnaAdjoint) {
     // dz = [base +] alpha * u; dv = 1{z != 0} dz; each element's dtau term
     // -sign(z) dz into e_s in place of its u (each element is one
     // thread's), zeros past the image's width; loads first, as above
@@ -438,6 +466,63 @@ lista2d_ana_mma(const MmaArgs a, int BN, bool vec, const AdjointArgs e) {
       float s = 0.f;
       for (int p = 0; p < kTW; ++p) s += r[p];
       e.part[((size_t)blockIdx.x * a.N + n) * a.O + o0 + on] = s;
+    }
+  } else {
+    // v = z_old - u, out = the prox of v, v to u_out: every load of a round
+    // before any store, as above, and u_out's store after out's (a store
+    // ahead of the loads, which it might alias for all the compiler knows,
+    // held them back: a third slower on the H100)
+    constexpr bool kF2 = kEpi == kAnaCsrF2;
+    constexpr int kB = 4;
+    const int gw = vec ? 4 : 1;  // positions a group
+    const size_t plane = (size_t)a.H * a.W;
+    const int groups = n_o * (kTW / gw);
+    for (int e0 = 0; e0 < groups; e0 += kB * kAnaThreads) {
+      size_t idx[kB];
+      float4 v[kB], zp[kB], za[kB];
+      float tau[kB], g1[kB], g2[kB];
+#pragma unroll
+      for (int k = 0; k < kB; ++k) {
+        const int el = e0 + k * kAnaThreads + tid;
+        const int on = el / (kTW / gw), p = el % (kTW / gw) * gw;
+        const int ww = w0 + p;
+        const bool ok = el < groups && ww < a.W;
+        const int no = n * a.O + o0 + on;
+        idx[k] = ok ? ((size_t)n * a.O + o0 + on) * plane + (size_t)h0 * a.W + ww : ~(size_t)0;
+        tau[k] = ok ? a.tau[no] : 0.f;
+        g1[k] = ok ? c.gam1[no] : 0.f;
+        g2[k] = ok && kF2 ? c.gam2[no] : 0.f;
+        v[k] = zp[k] = za[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (!ok) continue;
+        const float* u = e_s + on * kAnaEP + p;
+        if (vec) {
+          const float4 u4 = *reinterpret_cast<const float4*>(u);
+          if (a.z) v[k] = *reinterpret_cast<const float4*>(a.z + idx[k]);
+          v[k].x -= u4.x, v[k].y -= u4.y, v[k].z -= u4.z, v[k].w -= u4.w;
+          zp[k] = *reinterpret_cast<const float4*>(c.zp + idx[k]);
+          if (kF2) za[k] = *reinterpret_cast<const float4*>(c.za + idx[k]);
+        } else {
+          v[k].x = (a.z ? a.z[idx[k]] : 0.f) - u[0];
+          zp[k].x = c.zp[idx[k]];
+          if (kF2) za[k].x = c.za[idx[k]];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kB; ++k) {
+        if (idx[k] == ~(size_t)0) continue;
+        auto prox = [&](float x, float p, float q) {
+          return kF2 ? prox_csr_f2(x, p, q, tau[k], g1[k], g2[k]) : prox_csr(x, p, tau[k], g1[k]);
+        };
+        if (vec) {
+          *reinterpret_cast<float4*>(a.out + idx[k]) =
+              make_float4(prox(v[k].x, zp[k].x, za[k].x), prox(v[k].y, zp[k].y, za[k].y),
+                          prox(v[k].z, zp[k].z, za[k].z), prox(v[k].w, zp[k].w, za[k].w));
+          if (c.u_out) *reinterpret_cast<float4*>(c.u_out + idx[k]) = v[k];
+        } else {
+          a.out[idx[k]] = prox(v[k].x, zp[k].x, za[k].x);
+          if (c.u_out) c.u_out[idx[k]] = v[k].x;
+        }
+      }
     }
   }
 }
@@ -836,51 +921,64 @@ int launch_syn(const Launch& l, const MmaArgs& a, bool vec, cudaStream_t stream)
   return (int)cudaGetLastError();
 }
 
+// One analysis launch with epilogue kEpi by the analysis's launch rule
+// (its grid into l), the dynamic shared-memory limit raised once per size
+// and device.
+template <int kEpi>
+int launch_ana(const MmaArgs& a, bool vec, const AdjointArgs& e, const CsrArgs& c, Launch& l,
+               cudaStream_t stream) {
+  const int q = query(false, a, l);
+  if (q != 0) return q;
+  if (l.grid.z > 65535) return (int)cudaErrorInvalidConfiguration;
+  const int smem = (int)sizeof(float) * ana_smem_floats(a, l.bn);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidConfiguration;
+  static int limit[64] = {};
+  const cudaError_t err =
+      raise_smem_limit(reinterpret_cast<const void*>(lista2d_ana_mma<kEpi>), smem, limit);
+  if (err != cudaSuccess) return (int)err;
+  lista2d_ana_mma<kEpi><<<l.grid, kAnaThreads, smem, stream>>>(a, l.bn, vec, e, c);
+  return (int)cudaGetLastError();
+}
+
 // The synthesis adjoint: the analysis's launch with the AdjointArgs
 // epilogue, then the dtau partials (one a block of the grid's x: the code
 // blocks of a row write the same partial's other codes) summed over the
 // blocks in a fixed order into dtau (N, O).
 inline int launch_adjoint(const MmaArgs& a, const AdjointArgs& e, float* dtau,
                           cudaStream_t stream) {
-  Launch l;
-  const int q = query(false, a, l);
-  if (q != 0) return q;
   if (!a.z) return (int)cudaErrorInvalidValue;
-  if (l.grid.z > 65535) return (int)cudaErrorInvalidConfiguration;
-  const int smem = (int)sizeof(float) * ana_smem_floats(a, l.bn);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidConfiguration;
-  static int limit[64] = {};
-  cudaError_t err =
-      raise_smem_limit(reinterpret_cast<const void*>(lista2d_ana_mma<true>), smem, limit);
-  if (err != cudaSuccess) return (int)err;
   const bool vec = vec_epilogue(a) && (!e.base || mis4(e.base) == 0);
-  lista2d_ana_mma<true><<<l.grid, kAnaThreads, smem, stream>>>(a, l.bn, vec, e);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  Launch l;
+  const int err = launch_ana<kAnaAdjoint>(a, vec, e, CsrArgs{}, l, stream);
+  if (err != 0) return err;
   return launch_sum_parts(e.part, dtau, a.N * a.O, (int)l.grid.x, stream);
+}
+
+// The CSR analyses: the one-sided prox (f2 false: c.gam1, c.zp) or the
+// two-sided one (also c.gam2, c.za); 16-byte accesses where the codes' rows
+// are a multiple of 4 floats and every code tensor sits on the grid.
+inline int launch_csr(const MmaArgs& a, const CsrArgs& c, bool f2, cudaStream_t stream) {
+  if (!a.tau || !c.gam1 || !c.zp || (f2 && (!c.gam2 || !c.za)))
+    return (int)cudaErrorInvalidValue;
+  const bool vec = vec_epilogue(a) && mis4(c.zp) == 0 && (!f2 || mis4(c.za) == 0) &&
+                   (!c.u_out || mis4(c.u_out) == 0);
+  Launch l;
+  return f2 ? launch_ana<kAnaCsrF2>(a, vec, AdjointArgs{}, c, l, stream)
+            : launch_ana<kAnaCsr>(a, vec, AdjointArgs{}, c, l, stream);
 }
 
 inline int launch(bool synthesis, const MmaArgs& a, cudaStream_t stream) {
   Launch l;
-  const int q = query(synthesis, a, l);
+  const bool vec = vec_epilogue(a);
+  if (!synthesis) return launch_ana<kAnaSt>(a, vec, AdjointArgs{}, CsrArgs{}, l, stream);
+  const int q = query(true, a, l);
   if (q != 0) return q;
   if (l.grid.z > 65535) return (int)cudaErrorInvalidConfiguration;
-  const bool vec = vec_epilogue(a);
-  if (synthesis) {
-    if (syn_tma(a))
-      return l.rows == 7 ? launch_syn<7, true>(l, a, vec, stream)
-                         : launch_syn<3, true>(l, a, vec, stream);
-    return l.rows == 7 ? launch_syn<7, false>(l, a, vec, stream)
-                       : launch_syn<3, false>(l, a, vec, stream);
-  }
-  const int smem = (int)sizeof(float) * ana_smem_floats(a, l.bn);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidConfiguration;
-  static int limit[64] = {};
-  const cudaError_t err =
-      raise_smem_limit(reinterpret_cast<const void*>(lista2d_ana_mma<false>), smem, limit);
-  if (err != cudaSuccess) return (int)err;
-  lista2d_ana_mma<false><<<l.grid, kAnaThreads, smem, stream>>>(a, l.bn, vec, AdjointArgs{});
-  return (int)cudaGetLastError();
+  if (syn_tma(a))
+    return l.rows == 7 ? launch_syn<7, true>(l, a, vec, stream)
+                       : launch_syn<3, true>(l, a, vec, stream);
+  return l.rows == 7 ? launch_syn<7, false>(l, a, vec, stream)
+                     : launch_syn<3, false>(l, a, vec, stream);
 }
 
 }  // namespace mma2d

@@ -1,25 +1,17 @@
 // The stride-1 phase-domain 3D correlation, fp32 on the CUDA cores, for
-// Hopper (sm_90a), shared by the CSR models' kernels at D = 1, Qd = 1 with
-// the 2D phase map (sd = 1): their analyses (lista2d.cu) and their synthesis
-// adjoints (lista3d_bwd.cu). The 3D and 2D forward pairs and the soft
-// threshold's reverse pair run on the tensor cores instead (lista3d_mma.cuh,
-// lista2d_mma.cuh, lista3d_bwd.cu's weight gradient; their shared
-// mma_tf32.cuh takes tap_box, soft and kMaxSmem from here); this template
-// stays until the CSR kernels move:
+// Hopper (sm_90a), run by the CSR models' synthesis adjoints (lista3d_bwd.cu)
+// at D = 1, Qd = 1 with the 2D phase map (sd = 1). Every other kernel runs on
+// the tensor cores (lista3d_mma.cuh, lista2d_mma.cuh, lista3d_bwd.cu's
+// weight gradient; their shared mma_tf32.cuh takes tap_box and kMaxSmem from
+// here), the CSR analyses as lista2d_mma.cuh's prox epilogues; this template
+// stays until the CSR adjoints move:
 //
 //   out[n,o,d,h,w] = sum_{i,a,b,c} wt[i,a,b,c,o] * in[n,i,d+a+od,h+b+oh,w+c+ow]
 //
 // with zero outside the input volume (the reference Conv3d's zero padding,
 // handled by explicit bounds checks while staging the input tile), followed
-// by one of four fused epilogues:
+// by one of two fused epilogues (csr_prox.cuh's):
 //
-//   kAnalysisCsr, kAnalysisCsrF2: v = z - u (z == NULL reads as zeros),
-//               then the one-sided CSR prox of v toward the neighbour code zp with
-//               (tau, gam1[n, o]), or the two-sided one with zp, za and
-//               (tau, gam1, gam2): core/ops.py::prox_csr / prox_csr_f2,
-//               elementwise, the same expressions in the same order; v is
-//               also stored to u_out when it is not NULL (the prox
-//               argument's history, which the CSR adjoints read).
 //   kAdjointCsr, kAdjointCsrF2: dz = [base +] alpha * u, then the adjoint
 //               of z = prox_csr(v, zp) / prox_csr_f2(v, zp, za) at the
 //               stored prox argument v = uh and code z: out = dv, the
@@ -32,7 +24,7 @@
 //               kernel's adjoint (cdlnet_tpu/kernels/lista2d.py:537-603),
 //               with sign(0) = 0 and each mask != 0.
 //
-// What bounds it on this card: fp32 FMAs, or the CSR epilogues' bytes. The
+// What bounds it on this card: the epilogues' bytes, or fp32 FMAs. The
 // design keeps the FMA units fed: each thread owns OT output channels x 8
 // output columns in registers (64 accumulators), the input tile with its
 // halo and the block's weight slice are staged in shared memory per
@@ -47,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "csr_prox.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -59,31 +53,23 @@ constexpr int kTW = kPX * kTPX;   // tile width: 64 columns
 constexpr int kAnaOB = 32, kAnaOT = 8, kAnaTH = 8, kAnaIC = 2;
 constexpr int kMaxSmem = 227 * 1024;
 
-enum Epilogue {
-  kAnalysisCsr = 3,
-  kAnalysisCsrF2 = 4,
-  kAdjointCsr = 5,
-  kAdjointCsrF2 = 6
-};
+// (the numbers of the instantiations lista3d_conv<5>, <6>)
+enum Epilogue { kAdjointCsr = 5, kAdjointCsrF2 = 6 };
 
-__host__ __device__ constexpr bool is_adjoint(int epi) {
-  return epi == kAdjointCsr || epi == kAdjointCsrF2;
-}
-
-// Per-(n, o) sums an adjoint epilogue reduces per block: dtau and dgam1
-// (kAdjointCsr), dtau, dgam1 and dgam2 (kAdjointCsrF2); 1 sizes the
-// analyses' shared memory.
+// Per-(n, o) sums an epilogue reduces per block: dtau and dgam1
+// (kAdjointCsr), dtau, dgam1 and dgam2 (kAdjointCsrF2).
 __host__ __device__ constexpr int block_sums(int epi) {
-  return epi == kAdjointCsrF2 ? 3 : epi == kAdjointCsr ? 2 : 1;
+  return epi == kAdjointCsrF2 ? 3 : 2;
 }
 
 struct ConvArgs {
   const float* in;     // (N, I, D, H, W)
   const float* wt;     // (I, Qd, Qh, Qw, O)
   float* out;          // (N, O, D, H, W)
-  const float* z;      // CSR analysis: old codes, or NULL for zeros;
-                       // CSR adjoint: the codes whose support masks dz
-  float* u_out;        // CSR analysis: the prox argument v, or NULL
+  const float* z;      // the codes whose support masks dz
+  float* u_out;        // unread (the CSR analyses' field before they moved
+                       // to lista2d_mma.cuh): kept so that the adjoints'
+                       // parameter offsets, and their machine code, stay
   const float* uh;     // CSR adjoint: the stored prox argument v
   float* dzp;          // CSR adjoint: zp's cotangent, accumulated
   float* dza;          // two-sided CSR adjoint: za's cotangent, accumulated
@@ -126,7 +112,7 @@ __host__ __device__ inline int stage_floats(int Qd, int Qh, int Qw) {
 }
 
 // Shared memory (floats) of one block: two pipeline buffers, reused
-// afterwards for the sums, or an adjoint's block_sums per-element terms.
+// afterwards for the sums and then the block_sums per-element terms.
 template <int EPI>
 __host__ __device__ inline int smem_floats(int Qd, int Qh, int Qw) {
   const int bufs = 2 * stage_floats(Qd, Qh, Qw);
@@ -159,98 +145,6 @@ __device__ inline void tap_box(int s, int ph, int P, int p, int q0, int Q,
                                int& lo, int& hi) {
   lo = max(0, floordiv(-ph - p + s - 1, s) - q0);
   hi = min(Q, floordiv(P - 1 - ph - p, s) - q0 + 1);
-}
-
-// Three-way sign (0 at 0, as jnp.sign and torch.sign) and soft threshold.
-__device__ inline float sgn(float x) {
-  return x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
-}
-__device__ inline float soft(float x, float t) {
-  const float m = fmaxf(fabsf(x) - t, 0.f);
-  return x > 0.f ? m : (x < 0.f ? -m : 0.f);  // sign(x) * m
-}
-
-// core/ops.py::prox_csr(v, zp, tau, gam)
-__device__ inline float prox_csr(float v, float zp, float tau, float gam) {
-  const float shift = zp + tau * sgn(zp);
-  return soft(soft(v - shift, tau * gam) + shift, tau);
-}
-
-// core/ops.py::prox_csr_f2(v, zp, za, tau, g1, g2). It jumps where v
-// crosses Ca (corr flips sign), as the reference's does.
-__device__ inline float prox_csr_f2(float v, float zp, float za, float tau,
-                                    float g1, float g2) {
-  const float Ca = zp + tau * sgn(zp) + tau * g2 * sgn(zp - za);
-  const float Cb = za + tau * sgn(za) + tau * g1 * sgn(za - zp);
-  const float inner = soft(v - Ca, g1 * tau);
-  const float corr = tau * g1 * sgn(v - Ca);
-  const float midder = soft(inner - Cb + corr, g2 * tau);
-  return soft(midder + Cb - corr, tau);
-}
-
-// The adjoint of z = prox_csr(v, zp, tau, gam) at the stored v and z for the
-// cotangent dz (the TPU kernel's, cdlnet_tpu/kernels/lista2d.py:548-563):
-// dv, and the cotangents of zp, tau and gam.
-__device__ inline void prox_csr_adjoint(float dz, float z, float v, float zp,
-                                        float tau, float gam, float& dv,
-                                        float& dzp, float& dtau,
-                                        float& dgam) {
-  const float gw = z != 0.f ? dz : 0.f;
-  const float s_o = sgn(z);
-  const float s_zp = sgn(zp);
-  const float shift = zp + tau * s_zp;
-  const float inner = soft(v - shift, tau * gam);
-  const float m_i = inner != 0.f ? 1.f : 0.f;
-  const float s_i = sgn(inner);
-  dv = gw * m_i;
-  dzp = gw * (1.f - m_i);
-  dtau = -s_o * gw + s_zp * dzp - gam * s_i * dv;
-  dgam = -tau * s_i * dv;
-}
-
-// The adjoint of z = prox_csr_f2(v, zp, za, tau, g1, g2) at the stored v and
-// z (lista2d.py:564-603): dv, and the cotangents of zp, za, tau, g1, g2.
-__device__ inline void prox_csr_f2_adjoint(float dz, float z, float v,
-                                           float zp, float za, float tau,
-                                           float g1, float g2, float& dv,
-                                           float& dzp, float& dza,
-                                           float& dtau, float& dg1,
-                                           float& dg2) {
-  const float gw = z != 0.f ? dz : 0.f;
-  const float s_o = sgn(z);
-  const float s_zp = sgn(zp), s_za = sgn(za);
-  const float s_pa = sgn(zp - za);
-  const float s_ap = -s_pa;
-  const float Ca = zp + tau * s_zp + tau * g2 * s_pa;
-  const float Cb = za + tau * s_za + tau * g1 * s_ap;
-  const float uCa = v - Ca;
-  const float s_uca = sgn(uCa);
-  const float inner = soft(uCa, g1 * tau);
-  const float m_i = inner != 0.f ? 1.f : 0.f;
-  const float s_i = sgn(inner);
-  const float corr = tau * g1 * s_uca;
-  const float midder = soft(inner - Cb + corr, g2 * tau);
-  const float m_m = midder != 0.f ? 1.f : 0.f;
-  const float s_m = sgn(midder);
-  dtau = -s_o * gw;
-  const float gx = gw * m_m;  // on (inner - Cb + corr)
-  dtau += -g2 * s_m * gx;
-  dg2 = -tau * s_m * gx;
-  const float g_i = gx * m_i;  // on (v - Ca)
-  dtau += -g1 * s_i * g_i;
-  dg1 = -tau * s_i * g_i;
-  dv = g_i;
-  const float dCa = -g_i;
-  const float dcorr = gx - gw;
-  dtau += g1 * s_uca * dcorr;
-  dg1 += tau * s_uca * dcorr;
-  const float dCb = gw - gx;
-  dzp = dCa;
-  dtau += (s_zp + g2 * s_pa) * dCa;
-  dg2 += tau * s_pa * dCa;
-  dza = dCb;
-  dtau += (s_za + g1 * s_ap) * dCb;
-  dg1 += tau * s_ap * dCb;
 }
 
 // One tap's operands: kPX inputs (stride kTPX, conflict-free across the
@@ -409,27 +303,14 @@ lista3d_conv(const ConvArgs a) {
     const int og = o0 + e / (kTW * TH);
     const int hh = h0 + r, ww = w0 + col;
     const bool inside = og < a.O && hh < a.H && ww < a.W;
-    // adjoint: red[q * outs + e] (this thread's alone) now takes the
-    // per-element terms of the block sums (zero outside the volume)
-    if (is_adjoint(EPI)) {
+    // red[q * outs + e] (this thread's alone) now takes the per-element
+    // terms of the block sums (zero outside the volume)
 #pragma unroll
-      for (int q = 0; q < block_sums(EPI); ++q) red[q * outs + e] = 0.f;
-    }
+    for (int q = 0; q < block_sums(EPI); ++q) red[q * outs + e] = 0.f;
     if (!inside) continue;
     const size_t idx = (((size_t)n * a.O + og) * a.D + d) * plane +
                        (size_t)hh * a.W + ww;
-    if (EPI == kAnalysisCsr || EPI == kAnalysisCsrF2) {
-      const float v = (a.z ? a.z[idx] : 0.f) - u;
-      const int no = n * a.O + og;
-      a.out[idx] = EPI == kAnalysisCsr
-                       ? prox_csr(v, a.zp[idx], a.tau[no], a.gam1[no])
-                       : prox_csr_f2(v, a.zp[idx], a.za[idx], a.tau[no],
-                                     a.gam1[no], a.gam2[no]);
-      // after the loads: a store before them (u_out may alias them, for
-      // all the compiler knows) held every load back behind it, which
-      // made the served CSR analyses a third slower on the H100
-      if (a.u_out) a.u_out[idx] = v;
-    } else if (EPI == kAdjointCsr) {
+    if (EPI == kAdjointCsr) {
       const float dz = (a.base ? a.base[idx] : 0.f) + a.alpha * u;
       const int no = n * a.O + og;
       float dv, dzp, dtau, dgam;
@@ -455,25 +336,23 @@ lista3d_conv(const ConvArgs a) {
     }
   }
 
-  if (is_adjoint(EPI)) {
-    // per sum and output channel: TPC threads sum its TH x kTW terms in a
-    // fixed order, then a fixed shuffle tree combines them (deterministic)
-    __syncthreads();
-    constexpr int TPC = kThreads / OB;
-    const int per = TH * kTW;
-    const int ol = tid / TPC, j = tid % TPC;
-    const size_t blocks = (size_t)a.D * gridDim.x;
-    const size_t blk = (size_t)d * gridDim.x + blockIdx.x;
+  // per sum and output channel: TPC threads sum its TH x kTW terms in a
+  // fixed order, then a fixed shuffle tree combines them (deterministic)
+  __syncthreads();
+  constexpr int TPC = kThreads / OB;
+  const int per = TH * kTW;
+  const int ol = tid / TPC, j = tid % TPC;
+  const size_t blocks = (size_t)a.D * gridDim.x;
+  const size_t blk = (size_t)d * gridDim.x + blockIdx.x;
 #pragma unroll
-    for (int q = 0; q < block_sums(EPI); ++q) {
-      float sum = 0.f;
-      for (int e = j; e < per; e += TPC) sum += red[q * outs + ol * per + e];
+  for (int q = 0; q < block_sums(EPI); ++q) {
+    float sum = 0.f;
+    for (int e = j; e < per; e += TPC) sum += red[q * outs + ol * per + e];
 #pragma unroll
-      for (int off = TPC / 2; off > 0; off >>= 1)
-        sum += __shfl_down_sync(0xffffffffu, sum, off, TPC);
-      if (j == 0 && o0 + ol < a.O)
-        a.part[((q * blocks + blk) * a.N + n) * a.O + o0 + ol] = sum;
-    }
+    for (int off = TPC / 2; off > 0; off >>= 1)
+      sum += __shfl_down_sync(0xffffffffu, sum, off, TPC);
+    if (j == 0 && o0 + ol < a.O)
+      a.part[((q * blocks + blk) * a.N + n) * a.O + o0 + ol] = sum;
   }
 }
 

@@ -14,7 +14,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include "lista3d_conv.cuh"  // tap_box, soft, kMaxSmem
+#include "csr_prox.cuh"      // soft
+#include "lista3d_conv.cuh"  // tap_box, kMaxSmem
 
 namespace tf32x3 {
 

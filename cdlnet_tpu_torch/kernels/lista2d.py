@@ -31,10 +31,11 @@ kernels (kernels/lista2d_bwd.py) recompute them from u_k.
 Each wrapper runs its CUDA kernel on CUDA tensors, or raises; it runs the
 plain PyTorch version beside it (the same function on F.conv2d over the
 phase channels) only for CPU tensors. Launches count in
-kernels.lista3d.launches, beside the 3D kernels', under the 2D names. The
-soft-threshold pair runs on the tensor cores in 3xTF32
-(csrc/lista2d_mma.cuh), and its launch splits the codes where the code grid
-is small, so that one 128^2 image fills the card: launch_grid says how.
+kernels.lista3d.launches, beside the 3D kernels', under the 2D names. Every
+kernel here runs on the tensor cores in 3xTF32 (csrc/lista2d_mma.cuh; the
+CSR analyses are the ST analysis with the prox in its epilogue), and the
+launches split the codes where the code grid is small, so that one 128^2
+image fills the card: launch_grid says how.
 """
 
 from __future__ import annotations

@@ -7,12 +7,16 @@ At the argscsr width (CDLNet_CSR and CDLNet_CSRf2, K=30, M=169, P=9, s=2,
 adaptive; chip_smoke.py's csr_models weights) it times, on the kernels:
 a 16x640x368 volume through Denoiser.denoise_video at a known sigma (host
 clock), one K=30 forward of a native 640x368 frame with its neighbour codes
-(CUDA events), and the CSR analysis kernels and the P=9 synthesis per call
-at the 640x384 bucket (CUDA events), and both models' native train step
-(make_csr_train_step on a clean 640x368 frame pair or triple, noise drawn
-on the card, remat "auto" and off; host clock). It prints the card's
-nvidia-smi name and power limit and then one JSON line with every median
-and every round's reading.
+(CUDA events), the CSR analysis kernels, the ST analysis and the P=9
+synthesis per call on iteration 1's operands at the 640x384 bucket and at
+2 x 128^2 (sigmas 20 and 30), beside the one strided PyTorch call of the
+analyses' correlation (F.conv2d, cuDNN in fp32), each over calls launched
+one after another ("ms", CUDA events) and over the same calls replayed
+from a CUDA graph ("graph ms": the device's time alone), and both models'
+native train step (make_csr_train_step on a clean 640x368 frame pair or
+triple, noise drawn on the card, remat "auto" and off; host clock). It
+prints the card's nvidia-smi name and power limit and then one JSON line
+with every median and every round's reading.
 
 --root is the checkout whose cdlnet_tpu_torch is imported (by default the
 one that holds this script). Two commits compare by running the script
@@ -28,54 +32,15 @@ import os
 import statistics
 import subprocess
 import sys
-import time
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from bench_video_serve import graph_ms, rounds_ms, smooth  # noqa: E402
 
 SIGMA = 25.0
 SEED = 0
 CSR_WIDTH = dict(K=30, M=169, P=9, s=2, C=1, adaptive=True)
 FRAME, BUCKET, DEPTH = (640, 368), (640, 384), 16
-
-
-def rounds_ms(fn, rounds, reps=1, warmup=2, events=True):
-    """Per-call ms of `reps` calls of fn, for each of `rounds` rounds: CUDA
-    events, or the host clock followed by a device synchronize."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(rounds):
-        if events:
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            for _ in range(reps):
-                fn()
-            b.record()
-            b.synchronize()
-            out.append(a.elapsed_time(b) / reps)
-        else:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            out.append(1e3 * (time.perf_counter() - t0) / reps)
-    return out
-
-
-def smooth(rng, depth, size, n_terms=6):
-    """Smooth random frames in [0, 1] (depth, H, W), as chip_smoke.py's."""
-    import numpy as np
-
-    H, W = size
-    yy, xx = np.meshgrid(np.linspace(0, 1, H), np.linspace(0, 1, W), indexing="ij")
-    out = np.zeros((depth, H, W), np.float32)
-    for d in range(depth):
-        for _ in range(n_terms):
-            fy, fx, ph = rng.uniform(0.5, 4, 2).tolist() + [rng.uniform(0, 6.3)]
-            out[d] += np.cos(2 * np.pi * (fy * yy + fx * xx) + ph).astype(np.float32)
-    out -= out.min(axis=(1, 2), keepdims=True)
-    return out / out.max(axis=(1, 2), keepdims=True)
+SMALL, SMALL_SIGMAS = (128, 128), (20.0, 30.0)  # chip_smoke.py's 2 x 128^2 kernel shape
 
 
 def main() -> int:
@@ -89,6 +54,7 @@ def main() -> int:
 
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("bench_csr_serve: needs a GPU", file=sys.stderr)
@@ -97,6 +63,7 @@ def main() -> int:
     from cdlnet_tpu_torch.kernels import _build
     from cdlnet_tpu_torch.kernels import lista2d as L2
     from cdlnet_tpu_torch.models import CDLNetCSR, CDLNetCSRf2
+    from cdlnet_tpu_torch.ops import polyphase as pp
     from cdlnet_tpu_torch.serve import Denoiser
     from cdlnet_tpu_torch.train.fit_csr import make_csr_train_step
     from cdlnet_tpu_torch.train.optim import make_optimizer
@@ -140,23 +107,32 @@ def main() -> int:
             m = models[family]
             record(f"{family} forward ms",
                    rounds_ms(lambda: m(y[:, 1:2], sigma=SIGMA, **kw), 2 * a.rounds))
-        # the kernels per call at the 640x384 bucket, on iteration 1's operands
-        yb = torch.from_numpy(smooth(rng, 3, BUCKET)[None]).to(dev)
-        zp, za = f2(yb[:, 0:1], sigma=SIGMA)[1], f2(yb[:, 2:3], sigma=SIGMA)[1]
-        yp, _, _ = pre_process(yb[:, 1:2], f2.s)
-        c = torch.full((1,), SIGMA / 255, device=dev)
-        y2, _, wa, ws, tau, geom = L2.phase_operands(yp, f2.A, f2.B, f2.t, c, f2.s)
-        gam1, gam2 = (L2.threshold_bank(b, c, 1, yp) for b in (f2.g1, f2.g2))
-        z0 = L2.lista2d_ana_csrf2(-y2, None, wa[0], tau[0], gam1[0], gam2[0], zp, za, geom)
-        r1 = L2.lista2d_syn_residual(z0, ws[1], geom, y=y2)
-        for name, fn in (
-            ("lista2d_ana_csr", lambda: L2.lista2d_ana_csr(r1, z0, wa[1], tau[1], gam1[1],
-                                                           zp, geom)),
-            ("lista2d_ana_csrf2", lambda: L2.lista2d_ana_csrf2(
-                r1, z0, wa[1], tau[1], gam1[1], gam2[1], zp, za, geom)),
-            ("lista2d_syn_residual", lambda: L2.lista2d_syn_residual(z0, ws[1], geom, y=y2)),
-        ):
-            record(f"{name} ms", rounds_ms(fn, a.rounds, reps=20))
+        # the kernels per call on iteration 1's operands, at the 640x384
+        # bucket (keys without a shape) and at 2 x 128^2
+        for label, shape, sigmas in (("", BUCKET, (SIGMA,)), (" 2x128^2", SMALL, SMALL_SIGMAS)):
+            N = len(sigmas)
+            yb = torch.from_numpy(np.stack([smooth(rng, 3, shape) for _ in sigmas])).to(dev)
+            sig = torch.tensor(sigmas, device=dev)
+            zp, za = f2(yb[:, 0:1], sigma=sig)[1], f2(yb[:, 2:3], sigma=sig)[1]
+            yp, _, _ = pre_process(yb[:, 1:2], f2.s)
+            c = sig / 255
+            y2, _, wa, ws, tau, geom = L2.phase_operands(yp, f2.A, f2.B, f2.t, c, f2.s)
+            gam1, gam2 = (L2.threshold_bank(b, c, N, yp) for b in (f2.g1, f2.g2))
+            z0 = L2.lista2d_ana_csrf2(-y2, None, wa[0], tau[0], gam1[0], gam2[0], zp, za, geom)
+            r1 = L2.lista2d_syn_residual(z0, ws[1], geom, y=y2)
+            r_full = pp.depth_to_space(r1, f2.s, 2, 1)
+            for name, fn in (
+                ("lista2d_ana_csr", lambda: L2.lista2d_ana_csr(r1, z0, wa[1], tau[1], gam1[1],
+                                                               zp, geom)),
+                ("lista2d_ana_csrf2", lambda: L2.lista2d_ana_csrf2(
+                    r1, z0, wa[1], tau[1], gam1[1], gam2[1], zp, za, geom)),
+                ("lista2d_ana_threshold", lambda: L2.lista2d_ana_threshold(
+                    r1, z0, wa[1], tau[1], geom)),
+                ("F.conv2d", lambda: F.conv2d(r_full, f2.A[1], stride=f2.s, padding=f2.pad)),
+                ("lista2d_syn_residual", lambda: L2.lista2d_syn_residual(z0, ws[1], geom, y=y2)),
+            ):
+                record(f"{name}{label} ms", rounds_ms(fn, a.rounds, reps=20))
+                record(f"{name}{label} graph ms", graph_ms(fn, a.rounds, 20))
         # a native volume through the serve path
         vol = smooth(rng, DEPTH, FRAME)
         vol = vol + SIGMA / 255 * rng.standard_normal(vol.shape).astype(np.float32)

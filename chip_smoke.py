@@ -219,8 +219,8 @@ KERNELS = {
     # epilogue, and lista3d_bwd.cu's weight gradient at D = Qd = 1
     "lista2d_syn_adjoint": (CSRC + "lista2d.cu", K6_K8),
     "lista2d_wgrad": (CSRC + "lista3d_bwd.cu", K6_K8),
-    # the CSR prox modes of K5 and K7: the analysis with the prox in its
-    # epilogue (one neighbour code: "csr"; two: "csrf2")
+    # the CSR prox modes of K5 and K7: lista2d_mma.cuh's analysis with the
+    # prox in its epilogue (one neighbour code: "csr"; two: "csrf2")
     "lista2d_ana_csr": (CSRC + "lista2d.cu", f"{K5} _kernel prox 'csr' (:273-295); "
                         f"{K7}:175 _kernel_ana_band prox 'csr' (:189-250)"),
     "lista2d_ana_csrf2": (CSRC + "lista2d.cu", f"{K5} _kernel prox 'csrf2' (:273-295); "
@@ -282,15 +282,15 @@ FORWARD_TOL = 1e-3  # the K=30 forward on the kernels vs the plain loop
 GRAD_TOL = 1e-3
 MIN_GAIN_DB = 3.0
 # published H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores, HBM3,
-# and TF32 on the tensor cores (dense), which the 3D and 2D forward pairs and
-# the reverse pair (TC_KERNELS) run as three products per fp32 product
-# (3xTF32)
+# and TF32 on the tensor cores (dense), which the 3D and 2D forward pairs,
+# the reverse pair and the CSR analyses (TC_KERNELS) run as three products
+# per fp32 product (3xTF32)
 FP32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
 TF32_FLOPS = 495e12
 TC_KERNELS = ("lista3d_ana_threshold", "lista3d_syn_residual", "lista2d_ana_threshold",
               "lista2d_syn_residual", "lista3d_syn_adjoint", "lista3d_wgrad",
-              "lista2d_syn_adjoint", "lista2d_wgrad")
+              "lista2d_syn_adjoint", "lista2d_wgrad", "lista2d_ana_csr", "lista2d_ana_csrf2")
 
 
 def require(ok: bool, what: str) -> None:
@@ -2303,14 +2303,16 @@ def main() -> int:
     print(f"build: {build_s:.2f} s -> {so.name}; ptxas: {' | '.join(spills)}", flush=True)
     # the tensor-core kernels' lines by name: with their launch bounds (3D:
     # the analysis and adjoint 256 threads and 2 blocks an SM, the synthesis
-    # 512 and 1; 2D: 128 and 4, 256 and 2; the weight gradient 384 and 1)
-    # they set their occupancy
+    # 512 and 1; 2D: the analyses 128 and 4, the synthesis 256 and 2; the
+    # weight gradient 384 and 1) they set their occupancy
     entry = None
     tc_entries = {"lista3d_ana_mmaILb0": "lista3d_ana_mma",
                   "lista3d_ana_mmaILb1": "lista3d_ana_mma (adjoint)",
                   "lista3d_syn_mma": "lista3d_syn_mma",
-                  "lista2d_ana_mmaILb0": "lista2d_ana_mma",
-                  "lista2d_ana_mmaILb1": "lista2d_ana_mma (adjoint)",
+                  "lista2d_ana_mmaILi0": "lista2d_ana_mma",
+                  "lista2d_ana_mmaILi1": "lista2d_ana_mma (adjoint)",
+                  "lista2d_ana_mmaILi2": "lista2d_ana_mma (csr)",
+                  "lista2d_ana_mmaILi3": "lista2d_ana_mma (csrf2)",
                   "lista2d_syn_mma": "lista2d_syn_mma", "lista3d_wgrad_mma": "lista3d_wgrad_mma"}
     for ln in so.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in ln:

@@ -238,9 +238,8 @@ def test_grad_enabled_kernel_forward_raises(cls):
     """A grad-enabled kernel forward that asks for the codes raises (the
     codes have no gradient); without them it trains, with backend "xla"'s
     output and gradients (the kernels' reverse loop, 1e-4 relative)."""
-    model = cls(K=2, M=4, P=5, s=2, backend="pallas").init(
-        torch.Generator().manual_seed(0), init=False)
-    y = torch.rand(1, 1, 12, 12)
+    model = cls(K=2, M=4, P=5, s=2, backend="pallas").init(torch.Generator().manual_seed(0))
+    y = torch.rand(1, 1, 12, 12, generator=torch.Generator().manual_seed(1))
     with pytest.raises(NotImplementedError, match="return_z"):
         model(y, 25.0, return_z=True)
     x_k, _ = model(y, 25.0)
@@ -251,7 +250,7 @@ def test_grad_enabled_kernel_forward_raises(cls):
     x, _ = model(y, 25.0)
     grads = torch.autograd.grad(x.sum(), model.t)
     torch.testing.assert_close(x_k.detach(), x_nograd, rtol=0, atol=0)
-    torch.testing.assert_close(x.detach(), x_k.detach(), rtol=1e-4, atol=1e-5)  # unnormalized banks
+    torch.testing.assert_close(x.detach(), x_k.detach(), rtol=1e-4, atol=1e-5)
     assert float((grads_k[0] - grads[0]).abs().max() / grads[0].abs().max()) <= 1e-4
 
 

@@ -95,6 +95,38 @@ def test_prox_csr_f2_matches_jax_with_zeros_and_ties():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("first", [False, True])
+def test_csr_analyses_with_zero_neighbours_and_gammas_are_the_st_analysis(first):
+    """prox_csr(v, 0; tau, 0) and prox_csr_f2(v, 0, 0; tau, 0, 0) are
+    soft(v, tau): the CSR analyses' plain versions with zero neighbour codes
+    and gamma banks give the ST analysis's codes bit for bit (the identity
+    the kernels' shared mainloop is held to on the card), and the JAX
+    proxes' on the same v within 1e-6."""
+    rng = np.random.default_rng(3)
+    f = lambda *sh: rng.standard_normal(sh).astype(np.float32)
+    N, M, P, s, H, W = 2, 8, 7, 2, 10, 13
+    pads = ((P - 1) // 2,) * 2
+    geom = L.Geom(s, (P, P), pads)
+    wa = L2.prep_A2m_2d(torch.from_numpy(0.1 * f(1, M, 1, P, P)), s, pads)[0]
+    r = torch.from_numpy(f(N, s * s, H, W))
+    z = None if first else torch.from_numpy(f(N, M, H, W))
+    tau = torch.from_numpy(rng.uniform(0.0, 0.5, (N, M)).astype(np.float32))
+    codes, bank = torch.zeros(N, M, H, W), torch.zeros(N, M)
+    st = L2.lista2d_ana_threshold_plain(r, z, wa, tau, geom)
+    csr = L2.lista2d_ana_csr_plain(r, z, wa, tau, bank, codes, geom)
+    csrf2 = L2.lista2d_ana_csrf2_plain(r, z, wa, tau, bank, bank, codes, codes, geom)
+    assert torch.equal(csr, st) and torch.equal(csrf2, st)
+    assert int((st != 0).sum()) > st.numel() // 4  # the threshold leaves codes
+    v = jnp.asarray(L2.ana_argument_plain(r, z, wa, geom).numpy())
+    zeros, lam = jnp.zeros(v.shape), jnp.asarray(tau.numpy()[:, :, None, None])
+    nil = jnp.zeros(lam.shape)
+    np.testing.assert_allclose(csr.numpy(), np.asarray(jax_prox_csr(v, zeros, lam, nil)),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(
+        csrf2.numpy(), np.asarray(jax_prox_csr_f2(v, zeros, zeros, lam, nil, nil)),
+        rtol=0, atol=1e-6)
+
+
 def _fused_inputs(H, W, seed=0):
     """K=3, M=8, P=7, s=2, N=2 with per-image sigma 20 and 30, positive
     thresholds and gamma banks, sparse neighbour codes."""

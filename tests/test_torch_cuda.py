@@ -888,6 +888,126 @@ def test_2d_csr_analysis_matches_plain(cuda, P, s, M, N, H, W, mode):
     assert float(((got - ref).abs() * keep).max() / ref.abs().max()) <= 1e-4
 
 
+def _csr_operands(P, s, M, N, H, W, seed=0):
+    """_setup2d's operands at C = 1 (Cp = s^2), with the previous frame's
+    code zp = z, a sparse following code za and gamma banks per (n, m)."""
+    d = _setup2d(P, s, M, N, H, W, 1, seed)
+    rng = np.random.default_rng(seed + 7)
+    za = torch.from_numpy(rng.standard_normal(d["z"].shape).astype(np.float32))
+    za = torch.where(za.abs() < 0.5, torch.zeros_like(za), za)
+    gam1, gam2 = (torch.from_numpy(rng.uniform(0.0, 0.3, (N, M)).astype(np.float32))
+                  for _ in range(2))
+    return d, d["z"], za, gam1, gam2
+
+
+def _csr_close(name, got, ref, args, geom):
+    """got against ref as test_2d_csr_analysis_matches_plain holds them: the
+    one-sided prox at 1e-5, the two-sided one at 1e-4 over the codes away
+    from its jump (fewer than 1e-3 of them left out)."""
+    if name == "lista2d_ana_csr":
+        assert _rel(got, ref.cpu()) <= 1e-5
+        return
+    v = L2.ana_argument_plain(*args[:3], geom)
+    keep = L2.csrf2_jump_gap(v, args[6], args[7], args[3], args[5]) > 1e-5 * v.abs().max()
+    assert float((~keep).float().mean()) < 1e-3
+    assert float(((got - ref).abs() * keep).max() / ref.abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("P,s,M,N,H,W", SHAPES_CSR)
+@pytest.mark.parametrize("name", ["lista2d_ana_csr", "lista2d_ana_csrf2"])
+@pytest.mark.parametrize("first", [False, True])
+def test_2d_csr_analysis_with_zero_neighbours_and_gammas_is_the_st_analysis(
+        cuda, P, s, M, N, H, W, name, first):
+    """prox_csr(v, 0; tau, 0) and prox_csr_f2(v, 0, 0; tau, 0, 0) are
+    soft(v, tau), and the CSR analyses run the ST analysis's mainloop: with
+    zero neighbour codes and gamma banks their codes equal
+    lista2d_ana_threshold's bit for bit."""
+    d = _setup2d(P, s, M, N, H, W, 1)
+    r, wa, tau = (d[k].to(cuda) for k in ("r", "wa", "tau"))
+    z = None if first else d["z"].to(cuda)
+    codes, bank = torch.zeros_like(d["z"], device=cuda), torch.zeros_like(tau)
+    prox = (bank, codes) if name == "lista2d_ana_csr" else (bank, bank, codes, codes)
+    st = L2.lista2d_ana_threshold(r, z, wa, tau, d["geom"])
+    got = getattr(L2, name)(r, z, wa, tau, *prox, d["geom"])
+    torch.cuda.synchronize()
+    assert int((st != 0).sum()) > 0
+    assert torch.equal(got, st)
+
+
+@pytest.mark.parametrize("P,s,M,N,H,W", [SHAPES_CSR[0], SHAPES_CSR[1]])
+@pytest.mark.parametrize("name", ["lista2d_ana_csr", "lista2d_ana_csrf2"])
+@pytest.mark.parametrize("off_grid", [False, True])
+def test_2d_csr_analyses_are_deterministic(cuda, P, s, M, N, H, W, name, off_grid):
+    """Two calls bitwise equal, codes and u history, on aligned operands (the
+    16-byte epilogue) and off the grid (the scalar one)."""
+    d, zp, za, gam1, gam2 = _csr_operands(P, s, M, N, H, W)
+    put = (lambda t: _off_grid(t, cuda)) if off_grid else (lambda t: t.to(cuda))
+    r, wa, tau, g1, g2, z, zp, za = (put(t) for t in (d["r"], d["wa"], d["tau"], gam1, gam2,
+                                                      0.5 * d["z"], zp, za))
+    args = (r, z, wa, tau, g1, zp) if name == "lista2d_ana_csr" else \
+        (r, z, wa, tau, g1, g2, zp, za)
+    runs = []
+    for _ in range(2):
+        u = put(torch.zeros_like(d["z"]))
+        runs.append((getattr(L2, name)(*args, d["geom"], u_out=u), u))
+    torch.cuda.synchronize()
+    assert (runs[0][1].data_ptr() % 16 == 4) == off_grid
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("P,s,M,N,H,W", SHAPES_CSR[:2])
+@pytest.mark.parametrize("name", ["lista2d_ana_csr", "lista2d_ana_csrf2"])
+def test_2d_csr_analysis_on_operands_off_the_grid_matches_plain(cuda, P, s, M, N, H, W, name):
+    """z_old, zp and u_out history slices 4 bytes off the 16-byte grid (za
+    and the banks too), the codes written in place over z_old: the
+    epilogue goes scalar, and codes and u history match the plain
+    version's."""
+    d, zp, za, gam1, gam2 = _csr_operands(P, s, M, N, H, W)
+    n = d["z"].numel()
+    hist = torch.full((3 * n + 1,), float("nan"), device=cuda)  # z, zp, u slices
+    z_in, zp_in, u_out = (hist[1 + i * n:1 + (i + 1) * n].view(d["z"].shape) for i in range(3))
+    z_in.copy_(0.5 * d["z"])
+    zp_in.copy_(zp)
+    r, wa, tau, g1, g2, za = (_off_grid(t, cuda) for t in (d["r"], d["wa"], d["tau"], gam1,
+                                                           gam2, za))
+    args = (r, z_in, wa, tau, g1, zp_in) if name == "lista2d_ana_csr" else \
+        (r, z_in, wa, tau, g1, g2, zp_in, za)
+    ref_args = tuple(a.clone() for a in args)
+    ref = getattr(L2, name + "_plain")(*ref_args, d["geom"])
+    v = L2.ana_argument_plain(*ref_args[:3], d["geom"])
+    got = getattr(L2, name)(*args, d["geom"], out=z_in, u_out=u_out)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == z_in.data_ptr() and got.data_ptr() % 16 == 4
+    assert u_out.data_ptr() % 16 == 4 and zp_in.data_ptr() % 16 == 4
+    _csr_close(name, got, ref, ref_args, d["geom"])
+    assert float((u_out - v).abs().max() / v.abs().max()) <= 1e-5
+    assert torch.isnan(hist[0])
+
+
+@pytest.mark.parametrize("P,s,M,N,H,W", [
+    # several images with their own tau and gamma, at Cp = 1 (s = 1: one
+    # phase a stage of 4 channels, three quarters padding) and Cp = 4, on
+    # code grids with ragged widths
+    (9, 1, 169, 3, 40, 72),
+    (9, 2, 169, 3, 96, 150),
+])
+@pytest.mark.parametrize("name", ["lista2d_ana_csr", "lista2d_ana_csrf2"])
+@pytest.mark.parametrize("first", [False, True])
+def test_2d_csr_analysis_with_per_image_gammas_matches_plain(cuda, P, s, M, N, H, W, name,
+                                                             first):
+    d, zp, za, gam1, gam2 = _csr_operands(P, s, M, N, H, W, seed=3)
+    z = None if first else 0.5 * d["z"]
+    args = (d["r"], z, d["wa"], d["tau"], gam1, zp) if name == "lista2d_ana_csr" else \
+        (d["r"], z, d["wa"], d["tau"], gam1, gam2, zp, za)
+    args = tuple(None if a is None else a.to(cuda) for a in args)
+    got = getattr(L2, name)(*args, d["geom"])
+    ref = getattr(L2, name + "_plain")(*args, d["geom"])
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    _csr_close(name, got, ref, args, d["geom"])
+
+
 @pytest.mark.parametrize("names", [("z_prev", "g"), ("z_after", "g2"),
                                    ("z_prev", "z_after", "g", "g2")])
 def test_2d_fused_csr_on_cuda_matches_cpu_and_counts_launches(cuda, names):
