@@ -1,9 +1,9 @@
 // The CSR models' proxes and their adjoints, elementwise, for the Hopper
-// kernels (sm_90a): the analyses' epilogues (lista2d_mma.cuh) and the
-// synthesis adjoints' (lista3d_conv.cuh). The expressions and their order
-// are those of core/ops.py::prox_csr / prox_csr_f2 and of the TPU kernel's
-// prox modes (cdlnet_tpu/kernels/lista2d.py:283-295, and its adjoint at
-// :537-603), with sign(0) = 0; the soft threshold is the ST kernels' too.
+// kernels (sm_90a): the epilogues of lista2d_mma.cuh's CSR analyses and CSR
+// synthesis adjoints. The expressions and their order are those of
+// core/ops.py::prox_csr / prox_csr_f2 and of the TPU kernel's prox modes
+// (cdlnet_tpu/kernels/lista2d.py:283-295, and its adjoint at :537-603),
+// with sign(0) = 0; the soft threshold is the ST kernels' too.
 
 #pragma once
 

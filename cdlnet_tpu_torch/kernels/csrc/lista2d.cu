@@ -28,21 +28,30 @@
 //       synthesis is the ST loop's: CSR changes only the prox. For training
 //       they also store the prox argument v = z_old - out to u_out (the
 //       TPU kernel's u history rows, lista2d.py:297-313, 343-348), which
-//       the CSR adjoints of lista3d_bwd.cu read; serving passes NULL.
+//       the CSR adjoints read; serving passes NULL.
+//   lista2d_syn_adjoint_csr, lista2d_syn_adjoint_csrf2: the synthesis
+//       adjoint with the CSR prox's adjoint in its epilogue (the prox modes
+//       "csr" / "csrf2" of the TPU kernel lista2d.py::_kernel_bwd,
+//       :537-603): from the stored prox argument v_k and code z_k, the
+//       neighbour codes zp (za) and the banks tau, gam1 (gam2) they write
+//       dv, add the neighbour codes' cotangents into dzp (dza) in place, and
+//       reduce dtau, dgam1 (dgam2) per (n, m) in a fixed order.
 //
 // Every entry runs on the tensor cores in 3xTF32 (lista2d_mma.cuh says what
 // bounds them and how their tiling fills the card at a single 128^2 image):
-// the analyses (ST, adjoint, CSR) share one mainloop and its launch, which
-// lista2d_launch_grid reports beside the synthesis's.
+// the analyses (ST, CSR, and the ST and CSR adjoints) share one mainloop
+// and its launch, which lista2d_launch_grid reports beside the synthesis's.
 //
-// The CSR epilogues add one (csr) or two (csrf2) code-sized reads a call.
+// The CSR analyses add one (csr) or two (csrf2) code-sized reads a call.
 // At the CSR models' width on a fastMRI frame (M = 169, P = 9, s = 2;
 // 640x384 bucketed, a 320x192 code grid) one call is 1.68 GFLOP of
 // nonzero-tap FMAs (~0.010 ms as three TF32 products each at 495 TFLOP/s),
 // and z_old, z and each neighbour code are 41.5 MB: ~0.025 ms of bytes for
 // st, ~0.037 ms for csr and ~0.050 ms for csrf2, so the CSR modes are bound
 // by bytes. The prox itself is ~30 flops a code, little beside the 81-tap
-// correlation.
+// correlation. The CSR adjoints move 7 (csr) or 10 (csrf2) such code
+// tensors (base, z, u, the neighbour codes and their cotangents, dv):
+// ~0.087 or ~0.124 ms at 3.35 TB/s, bound by bytes too.
 //
 // Plain C interface for ctypes: each entry returns cudaGetLastError() (or
 // the first CUDA error met) as an int; 0 means launched.
@@ -155,8 +164,55 @@ int lista2d_syn_adjoint(const float* g, const float* wt, const float* base, cons
   return mma2d::launch_adjoint(a, e, dtau, (cudaStream_t)stream);
 }
 
+// Blocks per (n, m) whose partials the CSR adjoints write (the analysis's
+// grid: a block a row of 64 positions): their work buffers hold sums *
+// parts * N * M floats.
+int lista2d_syn_adjoint_csr_parts(int H, int W) {
+  return H * ((W + tf32x3::kTW - 1) / tf32x3::kTW);
+}
+
+// dz = [base +] alpha * (B_k^* g), then the adjoint of z = prox_csr(v, zp;
+// tau, gam) at the stored v = u and z: dv (the cotangent of v), dzp += the
+// cotangent of zp, and dtau, dgam (N, M). g (N, Cp, H, W); wt (Cp, Qh, Qw,
+// M); base (may be NULL), z, u, zp, dv, dzp (N, M, H, W); work (2, parts,
+// N, M), parts = lista2d_syn_adjoint_csr_parts(H, W); s, P, pad as for
+// lista2d_ana_threshold.
+int lista2d_syn_adjoint_csr(const float* g, const float* wt, const float* base, const float* z,
+                            const float* u, const float* tau, const float* gam, const float* zp,
+                            float* work, float* dv, float* dzp, float* dtau, float* dgam, int N,
+                            int Cp, int M, int H, int W, int Qh, int Qw, int oh, int ow, int s,
+                            int Ph, int Pw, int ph, int pw, float alpha, void* stream) {
+  const tf32x3::MmaArgs a = analysis_args(g, wt, z, tau, dv, N, Cp, M, H, W, Qh, Qw, oh, ow, s,
+                                          Ph, Pw, ph, pw);
+  float* sums[2] = {dtau, dgam};
+  return mma2d::launch_adjoint_csr(
+      a, tf32x3::AdjointArgs{base, work, alpha},
+      mma2d::CsrArgs{gam, nullptr, zp, nullptr, nullptr, u, dzp, nullptr}, false, sums,
+      (cudaStream_t)stream);
+}
+
+// The two-sided form: the adjoint of z = prox_csr_f2(v, zp, za; tau, gam1,
+// gam2); dza (N, M, H, W) += the cotangent of za; work (3, parts, N, M);
+// dgam1, dgam2 (N, M); the rest as in lista2d_syn_adjoint_csr.
+int lista2d_syn_adjoint_csrf2(const float* g, const float* wt, const float* base, const float* z,
+                              const float* u, const float* tau, const float* gam1,
+                              const float* gam2, const float* zp, const float* za, float* work,
+                              float* dv, float* dzp, float* dza, float* dtau, float* dgam1,
+                              float* dgam2, int N, int Cp, int M, int H, int W, int Qh, int Qw,
+                              int oh, int ow, int s, int Ph, int Pw, int ph, int pw, float alpha,
+                              void* stream) {
+  const tf32x3::MmaArgs a = analysis_args(g, wt, z, tau, dv, N, Cp, M, H, W, Qh, Qw, oh, ow, s,
+                                          Ph, Pw, ph, pw);
+  float* sums[3] = {dtau, dgam1, dgam2};
+  return mma2d::launch_adjoint_csr(
+      a, tf32x3::AdjointArgs{base, work, alpha},
+      mma2d::CsrArgs{gam1, gam2, zp, za, nullptr, u, dzp, dza}, true, sums,
+      (cudaStream_t)stream);
+}
+
 // The launch that lista2d_syn_residual (synthesis != 0) or the analyses
-// (lista2d_ana_threshold, _csr, _csrf2, lista2d_syn_adjoint) make on the
+// (lista2d_ana_threshold, _csr, _csrf2, lista2d_syn_adjoint, _csr, _csrf2)
+// make on the
 // current device at these sizes (I input and O output channels: M and Cp,
 // or Cp and M): out[0..2] its grid; out[3] the codes a block (analysis) or
 // the blocks a cluster, which split the codes (synthesis); out[4] the code

@@ -4,7 +4,7 @@
 //   out[n,o,h,w] = sum_{i,b,c} wt[i,b,c,o] * in[n,i,h+b+oh,w+c+ow]
 //
 // (zero outside the image), as an implicit GEMM on mma.sync.m16n8k8 TF32
-// products, with five fused epilogues:
+// products, with seven fused epilogues:
 //
 //   lista2d_ana_mma<kAnaSt> (analysis): out = ST(z - u, tau[n, o]); z ==
 //       NULL reads as zeros, and out may be z (each output element is read
@@ -22,16 +22,28 @@
 //       products and one (csr) or two (csrf2) more code reads, and a code
 //       write with u_out. zp and za may even be out: as z, each element is
 //       read and then written by one thread.
+//   lista2d_ana_mma<kAnaAdjointCsr>, <kAnaAdjointCsrF2> (the CSR models'
+//       synthesis adjoints, with AdjointArgs and CsrArgs): dz = [base +]
+//       alpha * u, then the adjoint of z = prox_csr(v, zp) or prox_csr_f2(v,
+//       zp, za) (csr_prox.cuh) at the stored prox argument v (CsrArgs::u)
+//       and code z: out = dv, dzp (and dza) += the neighbour codes'
+//       cotangents in place, and per block and code the partials of dtau,
+//       dgam1 (and dgam2), which sum_parts sums over the blocks. They cost
+//       the ST adjoint's products and 4 (csr) or 7 (csrf2) more code reads
+//       and writes. The prox adjoint's masks come from the stored v and z,
+//       not from the sums: the sums' rounding moves no code across a
+//       branch of the prox.
 //   lista2d_syn_mma (synthesis): out = [mask *] u [- y].
 //
 // The analyses share the mainloop and the code-split launch rule. They
 // replace, for lista2d.cu's lista2d_ana_threshold, lista2d_ana_csr,
-// lista2d_ana_csrf2, lista2d_syn_residual and lista2d_syn_adjoint, the TPU
-// kernels cdlnet_tpu/kernels/lista2d.py::_kernel (K5, the whole-image
-// forward, its prox modes st, csr and csrf2) and the banded pair
-// lista2d_tiled.py::_kernel_syn_band / _kernel_ana_band (K7, with the same
-// modes), and with the adjoint epilogue the dz part of the 2D reverses
-// lista2d.py::_kernel_bwd (K6) and lista2d_tiled_bwd.py::_kernel_tiled_bwd
+// lista2d_ana_csrf2, lista2d_syn_residual, lista2d_syn_adjoint and
+// lista2d_syn_adjoint_csr(f2), the TPU kernels cdlnet_tpu/kernels/
+// lista2d.py::_kernel (K5, the whole-image forward, its prox modes st, csr
+// and csrf2) and the banded pair lista2d_tiled.py::_kernel_syn_band /
+// _kernel_ana_band (K7, with the same modes), and with the adjoint
+// epilogues the dz part of the 2D reverses lista2d.py::_kernel_bwd (K6, its
+// prox modes st, csr and csrf2) and lista2d_tiled_bwd.py::_kernel_tiled_bwd
 // (K8); the synthesis is also the 2D reverse pass's analysis adjoint (K6,
 // K8) and the CSR models' synthesis. The fp32 contract is the 3D pair's
 // (lista3d_mma.cuh): each operand split into two TF32 parts, three products
@@ -41,8 +53,9 @@
 // each tap pair's three products go into a fresh fragment added to the sums
 // in fp32. Each output is a fixed sequence of products and fixed-order
 // sums: two runs are bitwise equal, and the analyses' epilogues see the
-// same sums (a CSR analysis with zero neighbour codes and gamma banks writes
-// the ST analysis's codes bit for bit).
+// same sums (with zero neighbour codes and gamma banks a CSR analysis writes
+// the ST analysis's codes bit for bit, and a CSR adjoint the ST adjoint's
+// dv and dtau).
 //
 // What bounds them on this card. At the flagship 2D width (M = 169 codes,
 // Cp = 4 phases, 4x4 phase taps) a 128^2 image has a 64x64 code grid: one
@@ -132,7 +145,6 @@ namespace mma2d {
 
 namespace cg = cooperative_groups;
 using namespace tf32x3;
-using tf32x3::kTW;  // over lista3d_conv.cuh's (also 64)
 
 // analysis: 4 warps (2 along positions x 2 along codes), one row of 64
 // positions, up to 176 codes; 4 input channels a stage
@@ -194,6 +206,12 @@ __device__ inline void ana_products(float (&acc)[2][kAnaNT][4], const uint32_t (
   }
 }
 
+// component q of a float4 (q a constant once the loops that index by it are
+// unrolled, so the float4 stays in registers)
+__device__ inline float& elem4(float4& v, int q) {
+  return q == 0 ? v.x : (q == 1 ? v.y : (q == 2 ? v.z : v.w));
+}
+
 // a (channel, tap)'s BN codes in a weight buffer start up to 3 floats in
 // (their global offset from the 16-byte grid): BN + 8 floats a tap
 __host__ __device__ inline int ana_wstride(int Qw, int BN) { return stride8(Qw * (BN + 8)); }
@@ -206,22 +224,37 @@ __host__ inline int ana_smem_floats(const MmaArgs& a, int BN) {
 }
 
 // The analysis's epilogues: the forward's soft threshold, the reverse pass's
-// synthesis adjoint (mma_tf32.cuh's AdjointArgs), the CSR proxes (CsrArgs).
-enum AnaEpilogue : int { kAnaSt = 0, kAnaAdjoint = 1, kAnaCsr = 2, kAnaCsrF2 = 3 };
+// synthesis adjoint (mma_tf32.cuh's AdjointArgs), the CSR proxes (CsrArgs),
+// the CSR synthesis adjoints (both).
+enum AnaEpilogue : int {
+  kAnaSt = 0,
+  kAnaAdjoint = 1,
+  kAnaCsr = 2,
+  kAnaCsrF2 = 3,
+  kAnaAdjointCsr = 4,
+  kAnaAdjointCsrF2 = 5
+};
 
-// The CSR analyses' operands: the gamma banks (N, O) (gam2: two-sided
-// only), the neighbour codes (N, O, H, W) (za: two-sided only), and u_out
-// (N, O, H, W), which takes the prox argument, or NULL.
+// The CSR epilogues' operands: the gamma banks (N, O) (gam2: two-sided
+// only) and the neighbour codes (N, O, H, W) (za: two-sided only); the
+// analyses' u_out (N, O, H, W), which takes the prox argument, or NULL; the
+// adjoints' stored prox argument u and the neighbour codes' cotangents dzp
+// (dza: two-sided only) (N, O, H, W), added into in place. The adjoints'
+// fields come last, so that the other epilogues' parameters keep their
+// offsets.
 struct CsrArgs {
   const float* gam1;
   const float* gam2;
   const float* zp;
   const float* za;
   float* u_out;
+  const float* u;
+  float* dzp;
+  float* dza;
 };
 
 // The analysis with epilogue kEpi (an AnaEpilogue); e is read by the
-// adjoint alone, c by the CSR proxes alone.
+// adjoints alone, c by the CSR epilogues alone.
 template <int kEpi>
 __global__ void __launch_bounds__(kAnaThreads, kAnaBlocksPerSM)
 lista2d_ana_mma(const MmaArgs a, int BN, bool vec, const AdjointArgs e, const CsrArgs c) {
@@ -467,7 +500,7 @@ lista2d_ana_mma(const MmaArgs a, int BN, bool vec, const AdjointArgs e, const Cs
       for (int p = 0; p < kTW; ++p) s += r[p];
       e.part[((size_t)blockIdx.x * a.N + n) * a.O + o0 + on] = s;
     }
-  } else {
+  } else if constexpr (kEpi == kAnaCsr || kEpi == kAnaCsrF2) {
     // v = z_old - u, out = the prox of v, v to u_out: every load of a round
     // before any store, as above, and u_out's store after out's (a store
     // ahead of the loads, which it might alias for all the compiler knows,
@@ -523,6 +556,136 @@ lista2d_ana_mma(const MmaArgs a, int BN, bool vec, const AdjointArgs e, const Cs
           if (c.u_out) c.u_out[idx[k]] = v[k].x;
         }
       }
+    }
+  } else {
+    // The CSR adjoints: dz = [base +] alpha * u, then the prox's adjoint at
+    // the stored v (c.u) and z: out = dv, dzp (dza) += the neighbour codes'
+    // cotangents. A thread takes groups of 4 positions (16-byte accesses
+    // where vec, else 4 scalar ones), so that 16 consecutive lanes hold a
+    // code's row: each group's dgam terms are summed in order, then over
+    // the 16 lanes by a fixed shuffle tree; the dtau terms go into e_s in
+    // place of u and are summed per row in order after the rounds, as the
+    // ST adjoint sums them (at zero neighbour codes and gamma banks a CSR
+    // adjoint gives its dv and dtau bit for bit). Every load of a round
+    // before any store, as above; each element is read, then written, by
+    // one thread.
+    constexpr bool kF2 = kEpi == kAnaAdjointCsrF2;
+    // groups a thread per round: 1, 2 and 4 ran alike on the H100, with
+    // the same registers and spills as the ST adjoint (PERF.md)
+    constexpr int kB = 2;
+    constexpr int kG = kTW / 4;    // groups a row: the lanes that hold it
+    const size_t plane = (size_t)a.H * a.W;
+    const int groups = n_o * kG;
+    const size_t sums = (size_t)gridDim.x * a.N * a.O;  // a sum's partials
+    const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int e0 = 0; e0 < groups; e0 += kB * kAnaThreads) {
+      size_t idx[kB];
+      int nw[kB];  // the group's positions in the image (0: none, or no group)
+      float4 bz[kB], zz[kB], uu[kB], pz[kB], az[kB], dp[kB], da[kB];
+      float tau[kB], g1[kB], g2[kB];
+#pragma unroll
+      for (int k = 0; k < kB; ++k) {
+        const int el = e0 + k * kAnaThreads + tid;
+        const int on = el / kG, ww = w0 + el % kG * 4;
+        const int no = n * a.O + o0 + on;
+        nw[k] = el < groups ? max(0, min(4, a.W - ww)) : 0;
+        idx[k] = ((size_t)n * a.O + o0 + on) * plane + (size_t)h0 * a.W + ww;
+        tau[k] = nw[k] ? a.tau[no] : 0.f;
+        g1[k] = nw[k] ? c.gam1[no] : 0.f;
+        g2[k] = nw[k] && kF2 ? c.gam2[no] : 0.f;
+        bz[k] = zz[k] = uu[k] = pz[k] = az[k] = dp[k] = da[k] = zero4;
+        if (!nw[k]) continue;
+        const size_t i = idx[k];
+        if (vec) {
+          if (e.base) bz[k] = *reinterpret_cast<const float4*>(e.base + i);
+          zz[k] = *reinterpret_cast<const float4*>(a.z + i);
+          uu[k] = *reinterpret_cast<const float4*>(c.u + i);
+          pz[k] = *reinterpret_cast<const float4*>(c.zp + i);
+          dp[k] = *reinterpret_cast<const float4*>(c.dzp + i);
+          if (kF2) {
+            az[k] = *reinterpret_cast<const float4*>(c.za + i);
+            da[k] = *reinterpret_cast<const float4*>(c.dza + i);
+          }
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if (q >= nw[k]) continue;
+            elem4(bz[k], q) = e.base ? e.base[i + q] : 0.f;
+            elem4(zz[k], q) = a.z[i + q];
+            elem4(uu[k], q) = c.u[i + q];
+            elem4(pz[k], q) = c.zp[i + q];
+            elem4(dp[k], q) = c.dzp[i + q];
+            if (kF2) elem4(az[k], q) = c.za[i + q], elem4(da[k], q) = c.dza[i + q];
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kB; ++k) {
+        const int el = e0 + k * kAnaThreads + tid;
+        float* us = e_s + el / kG * kAnaEP + el % kG * 4;  // the group's sums
+        float s1 = 0.f, s2 = 0.f;  // the group's dgam1, dgam2 terms in order
+        if (nw[k]) {
+          float4 u4 = *reinterpret_cast<const float4*>(us);
+          float4 dv = zero4, o1 = zero4, o2 = zero4, dt = zero4;  // dv, dzp, dza, dtau terms
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if (q >= nw[k]) continue;
+            const float dz = elem4(bz[k], q) + e.alpha * elem4(u4, q);
+            float dzp, dtau, dg1;
+            if constexpr (kF2) {
+              float dza, dg2;
+              prox_csr_f2_adjoint(dz, elem4(zz[k], q), elem4(uu[k], q), elem4(pz[k], q),
+                                  elem4(az[k], q), tau[k], g1[k], g2[k], elem4(dv, q), dzp, dza,
+                                  dtau, dg1, dg2);
+              elem4(o2, q) = elem4(da[k], q) + dza;
+              s2 += dg2;
+            } else {
+              prox_csr_adjoint(dz, elem4(zz[k], q), elem4(uu[k], q), elem4(pz[k], q), tau[k], g1[k],
+                               elem4(dv, q), dzp, dtau, dg1);
+            }
+            elem4(o1, q) = elem4(dp[k], q) + dzp;
+            elem4(dt, q) = dtau;
+            s1 += dg1;
+          }
+          *reinterpret_cast<float4*>(us) = dt;
+          const size_t i = idx[k];
+          if (vec) {
+            *reinterpret_cast<float4*>(a.out + i) = dv;
+            *reinterpret_cast<float4*>(c.dzp + i) = o1;
+            if (kF2) *reinterpret_cast<float4*>(c.dza + i) = o2;
+          } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              if (q >= nw[k]) continue;
+              a.out[i + q] = elem4(dv, q);
+              c.dzp[i + q] = elem4(o1, q);
+              if (kF2) c.dza[i + q] = elem4(o2, q);
+            }
+          }
+        } else if (el < groups) {
+          *reinterpret_cast<float4*>(us) = zero4;  // past the image's width
+        }
+        // the code's dgam sums over its 16 lanes (every lane of the warp
+        // takes part: groups is a multiple of 16)
+#pragma unroll
+        for (int off = kG / 2; off > 0; off >>= 1) {
+          s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+          if (kF2) s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+        }
+        if (el < groups && el % kG == 0) {
+          const size_t pi = ((size_t)blockIdx.x * a.N + n) * a.O + o0 + el / kG;
+          e.part[sums + pi] = s1;
+          if (kF2) e.part[2 * sums + pi] = s2;
+        }
+      }
+    }
+    __syncthreads();
+    // each code's dtau partial: its terms over the block's row, in order
+    for (int on = tid; on < n_o; on += kAnaThreads) {
+      const float* r = e_s + on * kAnaEP;
+      float s = 0.f;
+      for (int p = 0; p < kTW; ++p) s += r[p];
+      e.part[((size_t)blockIdx.x * a.N + n) * a.O + o0 + on] = s;
     }
   }
 }
@@ -952,6 +1115,30 @@ inline int launch_adjoint(const MmaArgs& a, const AdjointArgs& e, float* dtau,
   const int err = launch_ana<kAnaAdjoint>(a, vec, e, CsrArgs{}, l, stream);
   if (err != 0) return err;
   return launch_sum_parts(e.part, dtau, a.N * a.O, (int)l.grid.x, stream);
+}
+
+// The CSR synthesis adjoints: the analysis's launch with the prox adjoint's
+// epilogue (f2 false: c.gam1, c.zp, c.dzp; true: also c.gam2, c.za, c.dza),
+// then the partials of each of the 2 (3) sums, e.part + q * blocks * N * O,
+// summed over the blocks in a fixed order into sums[q]: dtau, dgam1 (and
+// dgam2). 16-byte accesses where the codes' rows are a multiple of 4 floats
+// and every code tensor sits on the grid.
+inline int launch_adjoint_csr(const MmaArgs& a, const AdjointArgs& e, const CsrArgs& c, bool f2,
+                              float* const* sums, cudaStream_t stream) {
+  if (!a.z || !a.tau || !c.gam1 || !c.zp || !c.u || !c.dzp ||
+      (f2 && (!c.gam2 || !c.za || !c.dza)))
+    return (int)cudaErrorInvalidValue;
+  const bool vec = vec_epilogue(a) && (!e.base || mis4(e.base) == 0) && mis4(c.u) == 0 &&
+                   mis4(c.zp) == 0 && mis4(c.dzp) == 0 &&
+                   (!f2 || (mis4(c.za) == 0 && mis4(c.dza) == 0));
+  Launch l;
+  int err = f2 ? launch_ana<kAnaAdjointCsrF2>(a, vec, e, c, l, stream)
+               : launch_ana<kAnaAdjointCsr>(a, vec, e, c, l, stream);
+  const size_t rows = (size_t)a.N * a.O;
+  for (int q = 0; err == 0 && q < (f2 ? 3 : 2); ++q)
+    err = launch_sum_parts(e.part + q * l.grid.x * rows, sums[q], (int)rows, (int)l.grid.x,
+                           stream);
+  return err;
 }
 
 // The CSR analyses: the one-sided prox (f2 false: c.gam1, c.zp) or the

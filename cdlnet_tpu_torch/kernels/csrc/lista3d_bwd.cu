@@ -1,18 +1,17 @@
 // The weight gradient of the reverse pass (lista3d_wgrad, video and images)
-// on the tensor cores of Hopper (sm_90a), in 3xTF32, and the CSR models'
-// synthesis adjoints (lista2d_syn_adjoint_csr, _csrf2), fp32 on the CUDA
-// cores.
+// on the tensor cores of Hopper (sm_90a), in 3xTF32.
 //
-// Replaces, with the synthesis adjoint (lista3d_syn_adjoint in lista3d.cu,
-// lista2d_syn_adjoint in lista2d.cu: the forward analyses' mainloops with an
-// adjoint epilogue) and the analysis adjoint (the forward synthesis), the
-// TPU kernels cdlnet_tpu/kernels/lista3d_bwd_resident.py::
-// _kernel_bwd_resident (the whole-K reverse, K2), its per-iteration pair
-// lista3d_bwd.py::_kernel_syn_bwd/_kernel_ana_bwd (K4), the banded and ring
-// reverses (K10, K12) and the 2D reverses lista2d.py::_kernel_bwd (K6, with
-// its CSR prox modes) and lista2d_tiled_bwd.py::_kernel_tiled_bwd (K8). The
-// reverse loop (kernels/lista3d_bwd.py) runs one iteration at a time from
-// the stored code and residual histories in the stride-phase domain.
+// Replaces, with the synthesis adjoints (lista3d_syn_adjoint in lista3d.cu;
+// lista2d_syn_adjoint and the CSR ones, lista2d_syn_adjoint_csr and _csrf2,
+// in lista2d.cu: the forward analyses' mainloops with adjoint epilogues) and
+// the analysis adjoint (the forward synthesis), the TPU kernels
+// cdlnet_tpu/kernels/lista3d_bwd_resident.py::_kernel_bwd_resident (the
+// whole-K reverse, K2), its per-iteration pair lista3d_bwd.py::
+// _kernel_syn_bwd/_kernel_ana_bwd (K4), the banded and ring reverses (K10,
+// K12) and the 2D reverses lista2d.py::_kernel_bwd (K6, with its CSR prox
+// modes) and lista2d_tiled_bwd.py::_kernel_tiled_bwd (K8). The reverse loop
+// (kernels/lista3d_bwd.py) runs one iteration at a time from the stored code
+// and residual histories in the stride-phase domain.
 //
 //   lista3d_wgrad: the weight gradient of one correlation,
 //       dw[i, q, o] = alpha * sum_{n,p} x[n, i, p + q + off] y[n, o, p],
@@ -22,16 +21,6 @@
 //       rows it computes: the reverse loop passes the rows that the phase
 //       map keeps (the nonzero taps of the prep's valid mask), every other
 //       row is written as zeros.
-//   lista2d_syn_adjoint_csr, lista2d_syn_adjoint_csrf2: the 2D synthesis
-//       adjoint with the CSR prox's adjoint in its epilogue (the prox modes
-//       "csr" / "csrf2" of the TPU kernel lista2d.py::_kernel_bwd,
-//       :537-603): from the stored prox argument v_k and code z_k, the
-//       neighbour codes zp (za) and the banks tau, gam1 (gam2) it writes dv,
-//       adds the neighbour codes' cotangents into dzp (dza) in place, and
-//       reduces dtau, dgam1 (dgam2) per (n, m) in a fixed order; on
-//       lista3d_conv.cuh's template. At the CSR models' training shape
-//       (M = 169, a 320x184 code grid) a call moves ~400 MB, ~0.12 ms at
-//       3.35 TB/s against ~0.025 ms of FMAs: bound by bytes.
 //
 // The weight gradient's design. At the flagship video training shape (N =
 // 2, M = 169, Cp = 8, an 8x64x64 code grid, 4x4x3 phase taps) a call is a
@@ -81,51 +70,11 @@
 
 #include <algorithm>
 
-#include "mma_tf32.cuh"  // lista3d_conv.cuh too
-
-namespace {
-
-// The adjoint's operands shared by the two CSR entry points (2D, D = 1).
-ConvArgs csr_adjoint_args(const float* g, const float* wt, const float* base,
-                          const float* z, const float* u, const float* tau,
-                          const float* zp, float* work, float* dv, float* dzp,
-                          int N, int Cp, int M, int H, int W, int Qh, int Qw,
-                          int oh, int ow, int s, int Ph, int Pw, int ph,
-                          int pw, float alpha) {
-  ConvArgs a{};
-  a.in = g, a.wt = wt, a.out = dv, a.z = z, a.uh = u, a.base = base;
-  a.tau = tau, a.zp = zp, a.dzp = dzp, a.part = work, a.alpha = alpha;
-  a.N = N, a.I = Cp, a.O = M, a.D = 1, a.H = H, a.W = W;
-  a.Qd = 1, a.Qh = Qh, a.Qw = Qw, a.od = 0, a.oh = oh, a.ow = ow;
-  a.s = s, a.sd = 1, a.P[0] = 1, a.P[1] = Ph, a.P[2] = Pw;
-  a.pad[0] = 0, a.pad[1] = ph, a.pad[2] = pw;
-  return a;
-}
-
-// The block partials of `sums` (N, M) sums in work, summed in a fixed order into
-// outs[q].
-int reduce_sums(const float* work, float* const* outs, int sums, int N, int M,
-                int parts, cudaStream_t stream) {
-  for (int q = 0; q < sums; ++q) {
-    const int err =
-        tf32x3::launch_sum_parts(work + (size_t)q * parts * N * M, outs[q], N * M, parts, stream);
-    if (err != 0) return err;
-  }
-  return 0;
-}
-
-// The CSR adjoints' blocks per (n, m): their work buffers hold sums *
-// parts * N * M floats.
-int csr_adjoint_parts(int H, int W) {
-  return ((W + kTW - 1) / kTW) * ((H + kAnaTH - 1) / kAnaTH);
-}
-
-}  // namespace
+#include "mma_tf32.cuh"
 
 namespace wgrad {
 
 using namespace tf32x3;
-using tf32x3::kTW;  // over lista3d_conv.cuh's (also 64)
 
 constexpr int kThreads = 384;      // 12 warps
 constexpr int kWarps = kThreads / 32;
@@ -418,57 +367,6 @@ inline int launch(const MmaArgs& x, const MmaArgs& y, const int* table, float* w
 }  // namespace wgrad
 
 extern "C" {
-
-// Blocks per (n, m) whose partials the CSR adjoints write.
-int lista2d_syn_adjoint_csr_parts(int H, int W) { return csr_adjoint_parts(H, W); }
-
-// dz = [base +] alpha * (B_k^* g), then the adjoint of z = prox_csr(v, zp;
-// tau, gam) at the stored v = u and z: dv (the cotangent of v), dzp += the
-// cotangent of zp, and dtau, dgam (N, M). g (N, Cp, H, W); wt (Cp, Qh, Qw,
-// M); base (may be NULL), z, u, zp, dv, dzp (N, M, H, W); work (2, parts,
-// N, M), parts = lista2d_syn_adjoint_csr_parts(H, W); s, P, pad as for
-// lista2d_ana_threshold.
-int lista2d_syn_adjoint_csr(const float* g, const float* wt, const float* base,
-                            const float* z, const float* u, const float* tau,
-                            const float* gam, const float* zp, float* work,
-                            float* dv, float* dzp, float* dtau, float* dgam,
-                            int N, int Cp, int M, int H, int W, int Qh, int Qw,
-                            int oh, int ow, int s, int Ph, int Pw, int ph,
-                            int pw, float alpha, void* stream) {
-  ConvArgs a = csr_adjoint_args(g, wt, base, z, u, tau, zp, work, dv, dzp, N,
-                                Cp, M, H, W, Qh, Qw, oh, ow, s, Ph, Pw, ph, pw,
-                                alpha);
-  a.gam1 = gam;
-  const int err = launch<kAdjointCsr>(a, (cudaStream_t)stream);
-  if (err != 0) return err;
-  float* outs[2] = {dtau, dgam};
-  return reduce_sums(work, outs, 2, N, M, csr_adjoint_parts(H, W),
-                     (cudaStream_t)stream);
-}
-
-// The two-sided form: the adjoint of z = prox_csr_f2(v, zp, za; tau, gam1,
-// gam2); dza (N, M, H, W) += the cotangent of za; work (3, parts, N, M);
-// dgam1, dgam2 (N, M); the rest as in lista2d_syn_adjoint_csr.
-int lista2d_syn_adjoint_csrf2(const float* g, const float* wt,
-                              const float* base, const float* z,
-                              const float* u, const float* tau,
-                              const float* gam1, const float* gam2,
-                              const float* zp, const float* za, float* work,
-                              float* dv, float* dzp, float* dza, float* dtau,
-                              float* dgam1, float* dgam2, int N, int Cp, int M,
-                              int H, int W, int Qh, int Qw, int oh, int ow,
-                              int s, int Ph, int Pw, int ph, int pw,
-                              float alpha, void* stream) {
-  ConvArgs a = csr_adjoint_args(g, wt, base, z, u, tau, zp, work, dv, dzp, N,
-                                Cp, M, H, W, Qh, Qw, oh, ow, s, Ph, Pw, ph, pw,
-                                alpha);
-  a.gam1 = gam1, a.gam2 = gam2, a.za = za, a.dza = dza;
-  const int err = launch<kAdjointCsrF2>(a, (cudaStream_t)stream);
-  if (err != 0) return err;
-  float* outs[3] = {dtau, dgam1, dgam2};
-  return reduce_sums(work, outs, 3, N, M, csr_adjoint_parts(H, W),
-                     (cudaStream_t)stream);
-}
 
 // The launch of lista3d_wgrad for RB row blocks: out[0..2] its grid (row
 // blocks, code blocks, splits); its work buffer holds splits * R * O floats.

@@ -1,5 +1,5 @@
 // The 3D forward pair on the tensor cores of Hopper (sm_90a): the
-// stride-1 phase-domain correlation of lista3d_conv.cuh,
+// stride-1 phase-domain correlation
 //
 //   out[n,o,d,h,w] = sum_{i,a,b,c} wt[i,a,b,c,o] * in[n,i,d+a+od,h+b+oh,w+c+ow]
 //
@@ -110,8 +110,8 @@
 //   (once a call at Cp = 8), the weights one tap row at a time through two
 //   buffers (one bulk copy per (channel, tap) of its codes, widened to the
 //   grid like a row). A tap is skipped where every phase of
-//   the stage has a zero weight (the tap box of lista3d_conv.cuh, united
-//   over the 8 phases). The epilogue goes through shared memory, so that
+//   the stage has a zero weight (mma_tf32.cuh's tap box, united over the
+//   8 phases). The epilogue goes through shared memory, so that
 //   z_old is read and z written in coalesced rows of 16-byte accesses (4
 //   positions a thread and access, 4 in flight before any store; scalar
 //   for a grid width that is not a multiple of 4). At the serve shape the
@@ -136,7 +136,6 @@
 namespace mma3d {
 
 using namespace tf32x3;
-using tf32x3::kTW;  // over lista3d_conv.cuh's (also 64)
 
 // analysis: 8 warps (4 along positions x 2 along codes), 2 x 64 positions,
 // 176 codes; two blocks an SM

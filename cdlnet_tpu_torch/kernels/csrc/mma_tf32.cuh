@@ -6,7 +6,8 @@
 // operand split and the mma.sync TF32 product; the launches' host side (the
 // SM count, the shared-memory limit); and the synthesis adjoint's epilogue
 // arguments with sum_parts, the fixed-order sum of its per-block dtau
-// partials. lista3d_mma.cuh says why the kernels are built this way.
+// partials; the phase map's tap box. lista3d_mma.cuh says why the kernels
+// are built this way.
 
 #pragma once
 
@@ -14,12 +15,23 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include "csr_prox.cuh"      // soft
-#include "lista3d_conv.cuh"  // tap_box, kMaxSmem
+#include "csr_prox.cuh"  // soft
 
 namespace tf32x3 {
 
 constexpr int kTW = 64;  // tile columns
+constexpr int kMaxSmem = 227 * 1024;  // dynamic shared memory a block can use
+
+__device__ inline int floordiv(int x, int y) {
+  return x >= 0 ? x / y : -((-x + y - 1) / y);
+}
+
+// Taps [lo, hi) of one dim whose phase-ph weights can be nonzero: the
+// original kernel index s * (q + q0) + ph + p must lie in [0, P).
+__device__ inline void tap_box(int s, int ph, int P, int p, int q0, int Q, int& lo, int& hi) {
+  lo = max(0, floordiv(-ph - p + s - 1, s) - q0);
+  hi = min(Q, floordiv(P - 1 - ph - p, s) - q0 + 1);
+}
 
 // The 2D kernels take D = Qd = 1, od = 0 and (P, pad)[0] = (1, 0).
 struct MmaArgs {

@@ -14,12 +14,13 @@ training step of K iterations that is K syn_adjoint, K-1 syn_residual and
 2K wgrad launches, on one kernel set for every crop size (the TPU
 package's whole-image reverse kernel K6 and its banded one K8 alike).
 
-lista2d_syn_adjoint runs the 2D analysis's tensor-core mainloop with the
-adjoint epilogue and the 2D phase map (kernels/csrc/lista2d.cu), and
-lista2d_wgrad the tensor-core weight gradient of kernels/csrc/lista3d_bwd.cu
-at D = Qd = 1 (it reads no phase map; the reverse loop passes it the phase
-rows the prep keeps, lista3d_bwd.phase_rows). The CSR adjoints stay on
-lista3d_bwd.cu's fp32 CUDA-core template. Each wrapper runs its CUDA kernel
+lista2d_syn_adjoint and the CSR adjoints lista2d_syn_adjoint_csr(f2) run
+the 2D analysis's tensor-core mainloop with an adjoint epilogue (the soft
+threshold's subgradient, or the CSR prox's adjoint) and the 2D phase map
+(kernels/csrc/lista2d.cu), and lista2d_wgrad the tensor-core weight
+gradient of kernels/csrc/lista3d_bwd.cu at D = Qd = 1 (it reads no phase
+map; the reverse loop passes it the phase rows the prep keeps,
+lista3d_bwd.phase_rows). Each wrapper runs its CUDA kernel
 on CUDA tensors, or raises; it runs the plain PyTorch version beside it
 only for CPU tensors, and counts its launches in lista3d.launches under its
 2D name.

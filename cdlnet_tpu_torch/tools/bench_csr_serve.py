@@ -10,11 +10,16 @@ clock), one K=30 forward of a native 640x368 frame with its neighbour codes
 (CUDA events), the CSR analysis kernels, the ST analysis and the P=9
 synthesis per call on iteration 1's operands at the 640x384 bucket and at
 2 x 128^2 (sigmas 20 and 30), beside the one strided PyTorch call of the
-analyses' correlation (F.conv2d, cuDNN in fp32), each over calls launched
+analyses' correlation (F.conv2d, cuDNN in fp32), and the CSR synthesis
+adjoints with the ST one on the same operands (iteration 1's codes, u
+history and neighbour codes, a seeded cotangent g and base, alpha -1 as
+the reverse loop runs them) beside the strided F.conv2d of their
+correlation (g with B_1), each over calls launched
 one after another ("ms", CUDA events) and over the same calls replayed
 from a CUDA graph ("graph ms": the device's time alone), and both models'
 native train step (make_csr_train_step on a clean 640x368 frame pair or
-triple, noise drawn on the card, remat "auto" and off; host clock). It
+triple, noise drawn on the card, remat "auto" and off; host clock, the
+host's issue time and the device's busy time in a profiler trace). It
 prints the card's nvidia-smi name and power limit and then one JSON line
 with every median and every round's reading.
 
@@ -34,7 +39,7 @@ import subprocess
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from bench_video_serve import graph_ms, rounds_ms, smooth  # noqa: E402
+from bench_video_serve import graph_ms, rounds_ms, smooth, step_times  # noqa: E402
 
 SIGMA = 25.0
 SEED = 0
@@ -62,6 +67,8 @@ def main() -> int:
     from cdlnet_tpu_torch.core.preprocess import pre_process
     from cdlnet_tpu_torch.kernels import _build
     from cdlnet_tpu_torch.kernels import lista2d as L2
+    from cdlnet_tpu_torch.kernels import lista2d_bwd as LB2
+    from cdlnet_tpu_torch.kernels.lista3d_bwd import adjoint_bank
     from cdlnet_tpu_torch.models import CDLNetCSR, CDLNetCSRf2
     from cdlnet_tpu_torch.ops import polyphase as pp
     from cdlnet_tpu_torch.serve import Denoiser
@@ -121,7 +128,29 @@ def main() -> int:
             z0 = L2.lista2d_ana_csrf2(-y2, None, wa[0], tau[0], gam1[0], gam2[0], zp, za, geom)
             r1 = L2.lista2d_syn_residual(z0, ws[1], geom, y=y2)
             r_full = pp.depth_to_space(r1, f2.s, 2, 1)
+            # the reverse pass's operands at iteration 1: its codes, u histories
+            # (one-sided and two-sided), a cotangent g of the synthesis output,
+            # a base and B_1's unflipped bank
+            u1, u1f2 = torch.empty_like(z0), torch.empty_like(z0)
+            z1 = L2.lista2d_ana_csr(r1, z0, wa[1], tau[1], gam1[1], zp, geom, u_out=u1)
+            z1f2 = L2.lista2d_ana_csrf2(r1, z0, wa[1], tau[1], gam1[1], gam2[1], zp, za, geom,
+                                        u_out=u1f2)
+            gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+            g = torch.randn(y2.shape, generator=gen, device=dev)
+            base = 1e-2 * torch.randn(z0.shape, generator=gen, device=dev)
+            g_full = pp.depth_to_space(g, f2.s, 2, 1)
+            wt = adjoint_bank(ws, 2)[1]
+            dzp, dza = torch.zeros_like(z0), torch.zeros_like(z0)
             for name, fn in (
+                ("lista2d_syn_adjoint_csr", lambda: LB2.lista2d_syn_adjoint_csr(
+                    g, wt, z1, u1, tau[1], gam1[1], zp, dzp, geom, base=base, alpha=-1.0)),
+                ("lista2d_syn_adjoint_csrf2", lambda: LB2.lista2d_syn_adjoint_csrf2(
+                    g, wt, z1f2, u1f2, tau[1], gam1[1], gam2[1], zp, za, dzp, dza, geom,
+                    base=base, alpha=-1.0)),
+                ("lista2d_syn_adjoint", lambda: LB2.lista2d_syn_adjoint(
+                    g, wt, z1, geom, base=base, alpha=-1.0)),
+                ("F.conv2d (adjoint)", lambda: F.conv2d(g_full, f2.B[1], stride=f2.s,
+                                                        padding=f2.pad)),
                 ("lista2d_ana_csr", lambda: L2.lista2d_ana_csr(r1, z0, wa[1], tau[1], gam1[1],
                                                                zp, geom)),
                 ("lista2d_ana_csrf2", lambda: L2.lista2d_ana_csrf2(
@@ -150,8 +179,8 @@ def main() -> int:
             step, _ = make_csr_train_step(m.train(), opt, noise_std=(20.0, 30.0), remat=remat)
             gen = torch.Generator(device=dev).manual_seed(SEED)
             torch.cuda.empty_cache()
-            record(f"{family} native step remat={remat} ms", rounds_ms(
-                lambda: step(state, batch, gen), a.rounds, warmup=1, events=False))
+            step_times(record, f"{family} native step remat={remat}",
+                       lambda: step(state, batch, gen), a.rounds)
     print(json.dumps(res), flush=True)
     return 0
 

@@ -146,6 +146,7 @@ from cdlnet_tpu_torch.models.cdlnet import _prepare
 from cdlnet_tpu_torch.ops.lista import _threshold, lista_2d, lista_3d
 from cdlnet_tpu_torch.serve import Denoiser
 from cdlnet_tpu_torch.tools import compare_sass
+from cdlnet_tpu_torch.tools.bench_video_serve import graph_ms
 from cdlnet_tpu_torch.train.checkpoint import load_ckpt
 from cdlnet_tpu_torch.train.fit import fit, init_model, make_train_step, train_update
 from cdlnet_tpu_torch.train.fit_csr import fit_csr, make_csr_train_step
@@ -225,11 +226,11 @@ KERNELS = {
                         f"{K7}:175 _kernel_ana_band prox 'csr' (:189-250)"),
     "lista2d_ana_csrf2": (CSRC + "lista2d.cu", f"{K5} _kernel prox 'csrf2' (:273-295); "
                           f"{K7}:175 _kernel_ana_band prox 'csrf2' (:189-250)"),
-    # the CSR prox modes of K6: the synthesis adjoint with the prox's adjoint
-    # in its epilogue
-    "lista2d_syn_adjoint_csr": (CSRC + "lista3d_bwd.cu", "cdlnet_tpu/kernels/lista2d.py:399 "
+    # the CSR prox modes of K6: lista2d_mma.cuh's analysis with the prox's
+    # adjoint in its epilogue
+    "lista2d_syn_adjoint_csr": (CSRC + "lista2d.cu", "cdlnet_tpu/kernels/lista2d.py:399 "
                                 "_kernel_bwd prox 'csr' (:548-563)"),
-    "lista2d_syn_adjoint_csrf2": (CSRC + "lista3d_bwd.cu", "cdlnet_tpu/kernels/lista2d.py:399 "
+    "lista2d_syn_adjoint_csrf2": (CSRC + "lista2d.cu", "cdlnet_tpu/kernels/lista2d.py:399 "
                                   "_kernel_bwd prox 'csrf2' (:564-603)"),
 }
 # the native-resolution path (the shapes of K9-K12): DAVIS's 480x854 test
@@ -282,15 +283,16 @@ FORWARD_TOL = 1e-3  # the K=30 forward on the kernels vs the plain loop
 GRAD_TOL = 1e-3
 MIN_GAIN_DB = 3.0
 # published H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores, HBM3,
-# and TF32 on the tensor cores (dense), which the 3D and 2D forward pairs,
-# the reverse pair and the CSR analyses (TC_KERNELS) run as three products
-# per fp32 product (3xTF32)
+# and TF32 on the tensor cores (dense), which every kernel (TC_KERNELS: the
+# 3D and 2D forward pairs, the reverse pair, the CSR analyses and adjoints)
+# runs as three products per fp32 product (3xTF32)
 FP32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
 TF32_FLOPS = 495e12
 TC_KERNELS = ("lista3d_ana_threshold", "lista3d_syn_residual", "lista2d_ana_threshold",
               "lista2d_syn_residual", "lista3d_syn_adjoint", "lista3d_wgrad",
-              "lista2d_syn_adjoint", "lista2d_wgrad", "lista2d_ana_csr", "lista2d_ana_csrf2")
+              "lista2d_syn_adjoint", "lista2d_wgrad", "lista2d_ana_csr", "lista2d_ana_csrf2",
+              "lista2d_syn_adjoint_csr", "lista2d_syn_adjoint_csrf2")
 
 
 def require(ok: bool, what: str) -> None:
@@ -2040,12 +2042,16 @@ def csr_train(dev, card, err) -> tuple[dict, dict]:
                 tt[name] = dict(zip(("ms", "plain_ms", "library_ms"), (cuda_ms(f, 20) for f in (
                     run, plain,
                     lambda: F.conv2d(g_full, f2.B[k], stride=s, padding=f2.pad)))))
+                # the same calls replayed from a CUDA graph: the device's time
+                # alone, without the host's cost of a launch
+                tt[name]["graph_ms"] = statistics.median(graph_ms(run, 5, 20))
                 # read: ops (g, the bank, z, u, tau, the gammas, the codes),
                 # base and the code cotangents; written: dv (code-sized),
                 # the code cotangents and the (N, M) sums (tau- and
                 # gamma-sized)
                 io = (*ops, base, *bufs, *bufs, zp, ops[4], *ops[5:5 + n_codes])
-                tt[name]["bound_ms"], tt[name]["bound_by"] = bound((ws_adj[k],), n_pos, io)
+                tt[name]["bound_ms"], tt[name]["bound_by"] = bound((ws_adj[k],), n_pos, io,
+                                                                   tf32x3=True)
             # the soft-threshold reverse pair on the same operands (the CSR
             # epilogue's cost; the P=9 taps' weight gradient, masked as the
             # reverse loop runs it), with their library calls and bounds
@@ -2062,9 +2068,10 @@ def csr_train(dev, card, err) -> tuple[dict, dict]:
                  (ws[k],), (g, zk, ws[k])),
             ):
                 ms, lib_ms = cuda_ms(run, 20), cuda_ms(lib, 20)
+                g_ms = statistics.median(graph_ms(run, 5, 20))
                 b_ms, b_by = bound(banks, n_pos, io, tf32x3=True)
-                print(f"time [{card}]: csr train {label} {name}: {ms:.4f} ms/call, library "
-                      f"{lib_ms:.4f}, bound {b_ms:.4f} ({b_by})", flush=True)
+                print(f"time [{card}]: csr train {label} {name}: {ms:.4f} ms/call (graph "
+                      f"{g_ms:.4f}), library {lib_ms:.4f}, bound {b_ms:.4f} ({b_by})", flush=True)
             # the P=9 synthesis a CSR forward launches 30 times (and its
             # reverse 29 as the analysis adjoint)
             r = L2.lista2d_syn_residual(zp, ws[1], geom, y=y2)
@@ -2077,7 +2084,8 @@ def csr_train(dev, card, err) -> tuple[dict, dict]:
                                                    tf32x3=True)
             compare("lista2d_syn_residual", f"csr train {label} P=9", r, syn_plain(), err)
             for name, t_ in (*tt.items(), ("lista2d_syn_residual P=9", p9)):
-                print(f"time [{card}]: csr train {label} {name}: {t_['ms']:.4f} ms/call, "
+                graph = f" (graph {t_['graph_ms']:.4f})" if "graph_ms" in t_ else ""
+                print(f"time [{card}]: csr train {label} {name}: {t_['ms']:.4f} ms/call{graph}, "
                       f"plain {t_['plain_ms']:.4f}, library {t_['library_ms']:.4f}, "
                       f"bound {t_['bound_ms']:.4f} ({t_['bound_by']})", flush=True)
             for name, t_ in tt.items():
@@ -2313,6 +2321,8 @@ def main() -> int:
                   "lista2d_ana_mmaILi1": "lista2d_ana_mma (adjoint)",
                   "lista2d_ana_mmaILi2": "lista2d_ana_mma (csr)",
                   "lista2d_ana_mmaILi3": "lista2d_ana_mma (csrf2)",
+                  "lista2d_ana_mmaILi4": "lista2d_ana_mma (csr adjoint)",
+                  "lista2d_ana_mmaILi5": "lista2d_ana_mma (csrf2 adjoint)",
                   "lista2d_syn_mma": "lista2d_syn_mma", "lista3d_wgrad_mma": "lista3d_wgrad_mma"}
     for ln in so.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in ln:

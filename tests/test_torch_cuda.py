@@ -15,7 +15,7 @@ from cdlnet_tpu_torch.kernels import lista2d as L2
 from cdlnet_tpu_torch.kernels import lista2d_bwd as LB2
 from cdlnet_tpu_torch.kernels import lista3d as L
 from cdlnet_tpu_torch.kernels import lista3d_bwd as LB
-from cdlnet_tpu_torch.core.ops import prox_csr, prox_csr_f2
+from cdlnet_tpu_torch.core.ops import ST, prox_csr, prox_csr_f2
 from cdlnet_tpu_torch.kernels.autodiff import csr_fused_2d_train, lista3d_fused_diff
 
 pytestmark = pytest.mark.cuda
@@ -1097,6 +1097,83 @@ def test_2d_csr_adjoint_matches_plain(cuda, P, s, M, N, H, W, mode, with_base, a
     for i, (a, b) in enumerate(zip((*got, *dgot), (*ref, *dref))):
         assert a.shape == b.shape
         assert float((a.cpu() - b).abs().max() / b.abs().max()) <= 1e-4, i
+
+
+def _csr_adjoint_call(cuda, name, d, z, ops, put, base):
+    """One CSR adjoint call on the card with every code tensor (z, u, the
+    neighbour codes, their cotangent buffers, base) placed by `put`; the
+    buffers start at half the codes. Returns (outputs, buffers)."""
+    codes = ops[-(2 if name.endswith("f2") else 1):]
+    bufs = [put(0.5 * c) for c in codes]
+    args = (d["g"].to(cuda), d["ws_adj"].to(cuda), put(z), put(ops[0]),
+            *(t.to(cuda) for t in ops[1:-len(codes)]), *(put(c) for c in codes))
+    got = getattr(LB2, name)(*args, *bufs, d["geom"], base=None if base is None else put(base),
+                             alpha=-1.0)
+    return got, bufs
+
+
+@pytest.mark.parametrize("P,s,M,N,H,W", SHAPES_CSR)
+@pytest.mark.parametrize("mode", ["csr", "csrf2"])
+@pytest.mark.parametrize("off_grid", [False, True])
+def test_2d_csr_adjoints_are_deterministic(cuda, P, s, M, N, H, W, mode, off_grid):
+    """Two calls bitwise equal, every output and the cotangent buffers, with
+    the code tensors (history slices) on the 16-byte grid (the 16-byte
+    epilogue) and off it (the scalar one)."""
+    d, z, ops = _setup_csr_adjoint(P, s, M, N, H, W, mode)
+    name = "lista2d_syn_adjoint_csrf2" if mode == "csrf2" else "lista2d_syn_adjoint_csr"
+    put = (lambda t: _off_grid(t, cuda)) if off_grid else (lambda t: t.to(cuda))
+    runs = [_csr_adjoint_call(cuda, name, d, z, ops, put, d["base"]) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (runs[0][1][0].data_ptr() % 16 == 4) == off_grid
+    for a, b in zip([*runs[0][0], *runs[0][1]], [*runs[1][0], *runs[1][1]]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("P,s,M,N,H,W", SHAPES_CSR)
+@pytest.mark.parametrize("mode", ["csr", "csrf2"])
+def test_2d_csr_adjoint_on_operands_off_the_grid_matches_plain(cuda, P, s, M, N, H, W, mode):
+    """u, z, base, the neighbour codes and their cotangent buffers as
+    history slices 4 bytes off the 16-byte grid: the epilogue goes scalar,
+    and every output is the plain version's within 1e-4 of max|ref|."""
+    d, z, ops = _setup_csr_adjoint(P, s, M, N, H, W, mode)
+    name = "lista2d_syn_adjoint_csrf2" if mode == "csrf2" else "lista2d_syn_adjoint_csr"
+    codes = ops[-(2 if mode == "csrf2" else 1):]
+    dref = [0.5 * c for c in codes]
+    ref = getattr(LB2, name + "_plain")(d["g"], d["ws_adj"], z, *ops, *dref, d["geom"],
+                                        base=d["base"], alpha=-1.0)
+    got, bufs = _csr_adjoint_call(cuda, name, d, z, ops, lambda t: _off_grid(t, cuda),
+                                   d["base"])
+    torch.cuda.synchronize()
+    assert all(b.data_ptr() % 16 == 4 for b in bufs)
+    for i, (a, b) in enumerate(zip((*got, *bufs), (*ref, *dref))):
+        assert a.shape == b.shape
+        assert float((a.cpu() - b).abs().max() / b.abs().max()) <= 1e-4, i
+
+
+@pytest.mark.parametrize("P,s,M,N,H,W", SHAPES_CSR)
+@pytest.mark.parametrize("mode", ["csr", "csrf2"])
+@pytest.mark.parametrize("with_base", [False, True])
+def test_2d_csr_adjoint_with_zero_neighbours_and_gammas_is_the_st_adjoint(
+        cuda, P, s, M, N, H, W, mode, with_base):
+    """With zero neighbour codes and gamma banks the prox is soft(u, tau)
+    and its adjoint the soft threshold's subgradient; the CSR adjoints run
+    the ST adjoint's mainloop and sum the dtau terms in its order, so their
+    dv and dtau equal lista2d_syn_adjoint's bit for bit."""
+    d, _, ops = _setup_csr_adjoint(P, s, M, N, H, W, mode)
+    u, tau = ops[0], ops[1]
+    z = ST(u, tau[:, :, None, None])
+    nb = 2 if mode == "csrf2" else 1
+    zero_ops = (u, tau, *[torch.zeros_like(tau)] * nb, *[torch.zeros_like(u)] * nb)
+    name = "lista2d_syn_adjoint_csrf2" if mode == "csrf2" else "lista2d_syn_adjoint_csr"
+    base = d["base"] if with_base else None
+    got, _ = _csr_adjoint_call(cuda, name, d, z, zero_ops, lambda t: t.to(cuda), base)
+    dv, dtau = LB2.lista2d_syn_adjoint(d["g"].to(cuda), d["ws_adj"].to(cuda), z.to(cuda),
+                                       d["geom"], base=None if base is None else base.to(cuda),
+                                       alpha=-1.0)
+    torch.cuda.synchronize()
+    assert int((dv != 0).sum()) > 0
+    assert torch.equal(got[0], dv)
+    assert torch.equal(got[1], dtau)
 
 
 @pytest.mark.parametrize("P,s,M,N,H,W", SHAPES_CSR)

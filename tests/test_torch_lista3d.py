@@ -2,6 +2,8 @@
 versions against a direct strided-conv LISTA step, and the fused forward
 against the JAX package's Pallas kernel (interpret mode) and XLA scan."""
 
+import re
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -182,3 +184,38 @@ def test_library_path_tracks_sources(monkeypatch, tmp_path):
     assert p1.parent == tmp_path / "build" and p1.suffix == ".so"
     (src / "a.cu").write_text("// v2\n")
     assert _build.library_path() != p1
+
+
+def _extern_c_entries():
+    """{name: [(source, parameter count), ...]} of every function defined in
+    an extern "C" block of kernels/csrc/*.cu."""
+    found = {}
+    for src in sorted(_build.SRC_DIR.glob("*.cu")):
+        text = re.sub(r"//[^\n]*", "", src.read_text())
+        for m in re.finditer(r'extern "C"\s*\{', text):
+            depth, i = 1, m.end()
+            while depth:
+                depth += {"{": 1, "}": -1}.get(text[i], 0)
+                i += 1
+            body = text[m.end():i - 1]
+            while re.search(r"\{[^{}]*\}", body):  # function bodies -> "@"
+                body = re.sub(r"\{[^{}]*\}", "@", body)
+            for f in re.finditer(r"(\w+)\s*\(([^()]*)\)\s*@", body):
+                n = len([a for a in f.group(2).split(",") if a.strip()])
+                found.setdefault(f.group(1), []).append((src.name, n))
+    return found
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_signature_matches_its_c_entry(name):
+    """Each entry the loader declares is defined once, in one extern "C"
+    block of the sources, with as many parameters as its argtypes."""
+    defs = _extern_c_entries().get(name, [])
+    assert len(defs) == 1, f"{name}: defined in {defs}"
+    assert defs[0][1] == len(_build.SIGNATURES[name]), f"{name}: {defs[0]}"
+
+
+def test_csrc_includes_exist():
+    for src in sorted(_build.SRC_DIR.glob("*.cu*")):
+        for inc in re.findall(r'#include\s+"([^"]+)"', src.read_text()):
+            assert (_build.SRC_DIR / inc).is_file(), f"{src.name} includes {inc}"

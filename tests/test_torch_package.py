@@ -31,7 +31,7 @@ def test_package_holds_the_slice():
     for rel in ("core/pad.py", "core/preprocess.py", "core/ops.py", "core/solvers.py",
                 "ops/conv.py", "ops/polyphase.py", "ops/lista.py",
                 "kernels/lista3d.py", "kernels/_build.py", "kernels/csrc/lista3d.cu",
-                "kernels/csrc/lista3d_conv.cuh", "kernels/csrc/lista3d_bwd.cu",
+                "kernels/csrc/lista3d_bwd.cu",
                 "kernels/lista3d_bwd.py", "kernels/autodiff.py",
                 "models/base.py", "models/cdlnet_video.py", "train/checkpoint.py",
                 "train/optim.py", "train/losses.py", "train/fit.py", "data/noise.py",
