@@ -13,7 +13,8 @@ args.json [flags]` (counterpart of cdlnet_tpu/cli/analyze.py), for CDLNet
                         (apply_with_codes)
   --thresholds          tau heatmap over (iteration, subband); needs matplotlib
   --filters             A/B filter grids per iteration
-  --blind MAD           blind noise-level estimation (PCA is not ported yet)
+  --blind MAD|PCA       blind noise-level estimation (nle.noise_level), per
+                        image
   --noise_level N [N..] input noise sigma(s) on [0, 255]
   --save, --save_dir, --color, --demosaic, --backend
 
@@ -38,10 +39,6 @@ from cdlnet_tpu_torch import nle
 from cdlnet_tpu_torch.cli import train as cli_train
 from cdlnet_tpu_torch.data.noise import awgn, gen_bayer_mask
 from cdlnet_tpu_torch.utils import append_metric, img_load, img_save, make_grid, psnr
-
-PCA_HINT = ("the PCA noise-level estimator is not ported to cdlnet_tpu_torch yet "
-            "(see ROADMAP.md); --blind MAD is")
-
 
 def build_argparser():
     p = argparse.ArgumentParser()
@@ -225,8 +222,6 @@ def main(ARGS, model_args, device=None):
     from cdlnet_tpu_torch.data.images import get_data_loader
     from cdlnet_tpu_torch.train.fit import init_model
 
-    if ARGS.blind == "PCA":
-        raise NotImplementedError(PCA_HINT)
     model_args = cli_train.apply_backend(ARGS.backend, model_args)
     model = init_model(model_args, device=device)[0].eval()
 

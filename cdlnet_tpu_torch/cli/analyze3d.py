@@ -15,7 +15,8 @@ the card unless main() is given device="cpu".
                     (CDLNetVideo.apply_with_codes)
   --thresholds      tau heatmap over (iteration, subband); needs matplotlib
   --filters         A/B filter grids per iteration (central slice)
-  --blind MAD       blind noise-level estimation (PCA is not ported yet)
+  --blind MAD|PCA   blind noise-level estimation: the 2D estimator
+                    framewise, averaged per clip
   --noise_level, --save, --save_dir, --color, --demosaic, --backend
 
 The files it writes have the JAX CLI's names and formats. The noise comes
@@ -34,7 +35,7 @@ import torch
 
 from cdlnet_tpu_torch import nle
 from cdlnet_tpu_torch.cli import train as cli_train
-from cdlnet_tpu_torch.cli.analyze import PCA_HINT, build_argparser, resolve_noise_levels
+from cdlnet_tpu_torch.cli.analyze import build_argparser, resolve_noise_levels
 from cdlnet_tpu_torch.data.noise import awgn3d, gen_bayer_mask3d
 from cdlnet_tpu_torch.utils import append_metric, img_save, load_video, make_grid, psnr
 
@@ -213,8 +214,6 @@ def main(ARGS, model_args, device=None):
     from cdlnet_tpu_torch.data.video import get_video_loader
     from cdlnet_tpu_torch.train.fit import init_model
 
-    if ARGS.blind == "PCA":
-        raise NotImplementedError(PCA_HINT)
     model_args = cli_train.apply_backend(ARGS.backend, model_args)
     model = init_model(model_args, device=device)[0].eval()
 

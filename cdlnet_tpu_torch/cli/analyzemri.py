@@ -17,8 +17,9 @@ an eval row to metrics.jsonl; --save also dumps the clean frames
 (test_gt/). --passthrough DIR runs one video directory: through the
 recurrence for the CSR models (psnr.txt), else as cli/analyze.py or
 cli/analyze3d.py do. --dictionary, --thresholds and --filters are the 2D
-or 3D commands by the model's dimension. --blind MAD; PCA is not ported
-yet. The noise comes from a torch.Generator seeded 0 per noise level, so
+or 3D commands by the model's dimension. --blind MAD or PCA: one sigma per
+volume, the mean of the framewise estimates (models/csr.py::blind_sigma).
+The noise comes from a torch.Generator seeded 0 per noise level, so
 the PSNRs are not the JAX CLI's digit for digit.
 """
 
@@ -153,8 +154,6 @@ def main(ARGS, model_args, device=None):
     from cdlnet_tpu_torch.data.fastmri import get_fastmri_data_loader
     from cdlnet_tpu_torch.train.fit import init_model
 
-    if ARGS.blind == "PCA":
-        raise NotImplementedError(analyze.PCA_HINT)
     model_args = cli_train.apply_backend(ARGS.backend, model_args)
     model = init_model(model_args, device=device)[0].eval()
     mtype = model_args["type"]

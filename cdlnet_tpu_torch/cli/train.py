@@ -8,13 +8,15 @@ main() is given device="cpu". Workloads, as the JAX CLI selects them:
     (data/images.get_fit_loaders), or fastMRI volumes when the loader args
     carry the fastMRI schema (a PDFS key), their slices in the batch dim
     (data/fastmri.volume_to_batch_loaders); train.fit.fit(workload="2d");
-  - CDLNetVideo: fastMRI volumes with a PDFS key (workload "mri"), else
-    video frame directories (data/video.get_video_fit_loaders, "3d");
+  - CDLNetVideo, with or without residual blocks (model.residual):
+    fastMRI volumes with a PDFS key (workload "mri"), else video frame
+    directories (data/video.get_video_fit_loaders, "3d");
   - the CSR models (CDLNet_CSR, CDLNet_CSRf2, argscsr.json-style configs):
     fastMRI volumes through the frame-recurrent trainer,
     train.fit_csr.fit_csr.
-Not ported yet (each raises NotImplementedError naming ROADMAP.md):
-DnCNN/FFDNet, and CDLNetVideo's residual blocks.
+The loader args' num_workers (default 0) assembles the training batches in
+that many threads (data/loader.py). Not ported yet (NotImplementedError
+naming ROADMAP.md): DnCNN/FFDNet.
 """
 
 from __future__ import annotations
@@ -37,9 +39,6 @@ def make_loaders(args: dict):
     mtype = args["type"]
     if mtype not in (*IMAGE_FAMILIES, "CDLNetVideo", *CSR_FAMILIES):
         raise NotImplementedError(f"training {mtype!r} from the CLI {_NOT_PORTED}")
-    # the JAX loader's thread-pool knob: the port assembles batches in the
-    # calling thread, so a config that sets it loads the same crops
-    loaders_args.pop("num_workers", None)
     if "PDFS" in loaders_args or mtype in CSR_FAMILIES:
         from cdlnet_tpu_torch.data.fastmri import (
             get_fastmri_fit_loaders,

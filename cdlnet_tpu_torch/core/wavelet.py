@@ -1,11 +1,11 @@
-"""The bior4.4 2D wavelet filter bank (counterpart of the part of
-cdlnet_tpu/core/wavelet.py that the MAD noise estimator reads).
+"""2D wavelet filter banks (counterpart of the filter-bank part of
+cdlnet_tpu/core/wavelet.py, which the MAD noise estimator reads).
 
-The 1D bank is pywt's bior4.4 (the CDF 9/7 pair, 10 taps each, zero-padded
-as pywt aligns them), inlined as constants; the 2D non-separable
-4-subband bank is built from outer products, spatially flipped so that a
-correlation with it computes a true convolution. Subband order [LL, LH,
-HL, HH].
+The 1D bior4.4 bank (the CDF 9/7 pair, 10 taps each, zero-padded as pywt
+aligns them) is inlined as constants; any other wavelet's 1D bank comes
+from pywt when it is installed. The 2D non-separable 4-subband bank is
+built from outer products, spatially flipped so that a correlation with it
+computes a true convolution. Subband order [LL, LH, HL, HH].
 """
 
 from __future__ import annotations
@@ -36,13 +36,26 @@ def _nonsep(w: np.ndarray) -> np.ndarray:
     return np.einsum("...i,...j->...ij", w1, w2)[None, :, ::-1, ::-1]
 
 
+def filter_bank_1d(wname: str):
+    """(analysis (2, L), synthesis (2, L)) float64 1D banks: bior4.4 built
+    in, any other name from pywt.Wavelet(wname).filter_bank when pywt is
+    installed (it is optional), else NotImplementedError."""
+    if wname == "bior4.4":
+        fb = _BIOR44
+    else:
+        try:
+            import pywt
+        except ImportError as e:
+            raise NotImplementedError(
+                f"wavelet {wname!r} not built in and pywt unavailable") from e
+        fb = np.asarray(pywt.Wavelet(wname).filter_bank, dtype=np.float64)
+    return fb[:2], fb[2:]
+
+
 def filter_bank_2d(wname: str = "bior4.4"):
     """(Wa, Ws): the analysis bank (4, 1, L, L) and the synthesis bank
-    (4, 1, L, L) with the flip undone, float32 numpy arrays. Only bior4.4,
-    the one wavelet the reference uses, is built in."""
-    if wname != "bior4.4":
-        raise NotImplementedError(
-            f"wavelet {wname!r}: only bior4.4 is ported (see ROADMAP.md)")
-    Wa = np.swapaxes(_nonsep(_BIOR44[:2]), 0, 1)
-    Ws = np.swapaxes(_nonsep(_BIOR44[2:]), 0, 1)[:, :, ::-1, ::-1]
+    (4, 1, L, L) with the flip undone, float32 numpy arrays."""
+    wa, ws = filter_bank_1d(wname)
+    Wa = np.swapaxes(_nonsep(wa), 0, 1)
+    Ws = np.swapaxes(_nonsep(ws), 0, 1)[:, :, ::-1, ::-1]
     return Wa.astype(np.float32), Ws.astype(np.float32)

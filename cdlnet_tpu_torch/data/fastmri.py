@@ -100,14 +100,15 @@ class FastMRIDataset:
 
 
 def get_fastmri_data_loader(dir_list, batch_size=1, crop_size=128, test=True, depth=16,
-                            PDFS=True, seed=0):
+                            PDFS=True, seed=0, num_workers=0):
     """(B, 1, depth, H, W) batches of FastMRIDataset: in file order at full
     size (test=True, the eval loader), or shuffled per epoch, crop_size^2
-    crops and the last short batch dropped (test=False)."""
+    crops and the last short batch dropped (test=False); num_workers
+    threads assemble them (data/loader.py)."""
     ds = FastMRIDataset(dir_list, depth=depth, image_size=(crop_size, crop_size),
                         test=test, PDFS=PDFS, seed=seed)
     return DataLoader(ds, batch_size=batch_size, shuffle=not test, drop_last=not test,
-                      seed=seed)
+                      seed=seed, num_workers=num_workers)
 
 
 class VolumeToBatchLoader:
@@ -136,17 +137,19 @@ def volume_to_batch_loaders(loaders: dict) -> dict:
 
 def get_fastmri_fit_loaders(trn_path_list, val_path_list, tst_path_list, crop_size=128,
                             batch_size=(10, 1, 1), load_color=False, depth=16, PDFS=True,
-                            seed=0):
+                            seed=0, num_workers=0):
     """The train / val / test loaders of the fastMRI training schema
     (argscsr.json's "loaders"): random windows and crops, shuffled, for
-    train; the first `depth` slices at full size for val and test.
+    train; the first `depth` slices at full size for val and test. The
+    train loader assembles its batches in num_workers threads.
     batch_size: one int (train; val and test take 1) or three. load_color
     is the schema's key and unused: the volumes are grayscale."""
     if isinstance(batch_size, int):
         batch_size = [batch_size, 1, 1]
     return {
         "train": get_fastmri_data_loader(trn_path_list, batch_size[0], crop_size=crop_size,
-                                         test=False, depth=depth, PDFS=PDFS, seed=seed),
+                                         test=False, depth=depth, PDFS=PDFS, seed=seed,
+                                         num_workers=num_workers),
         "val": get_fastmri_data_loader(val_path_list, batch_size[1], crop_size=crop_size,
                                        test=True, depth=depth, PDFS=PDFS),
         "test": get_fastmri_data_loader(tst_path_list, batch_size[2], crop_size=crop_size,

@@ -4,8 +4,9 @@ cdlnet_tpu/data/images.py: the same crops, flips and batches for a seed).
 Reference semantics (data.py): eager-load every image under the given dirs
 (grayscale via L-conversion unless load_color); train transform =
 RandomCrop(crop_size) + random H/V flips; test = full image; train loader
-shuffles and drops the last partial batch. Batches are numpy arrays
-(N, C, H, W) in [0, 1]; fit() moves them to the model's device. PIL is
+shuffles and drops the last partial batch, assembled in num_workers
+threads (data/loader.py). Batches are numpy arrays (N, C, H, W) in [0, 1];
+fit() moves them to the model's device. PIL is
 imported where an image is decoded, and only there.
 """
 
@@ -71,7 +72,8 @@ class ImageDataset:
         return np.ascontiguousarray(x)
 
 
-def get_data_loader(dir_list, batch_size=1, load_color=False, crop_size=None, test=True, seed=0):
+def get_data_loader(dir_list, batch_size=1, load_color=False, crop_size=None, test=True, seed=0,
+                    num_workers=0):
     ds = ImageDataset(
         dir_list,
         load_color=load_color,
@@ -79,7 +81,8 @@ def get_data_loader(dir_list, batch_size=1, load_color=False, crop_size=None, te
         augment=not test,
         seed=seed,
     )
-    return DataLoader(ds, batch_size=batch_size, shuffle=not test, drop_last=not test, seed=seed)
+    return DataLoader(ds, batch_size=batch_size, shuffle=not test, drop_last=not test, seed=seed,
+                      num_workers=num_workers)
 
 
 def get_fit_loaders(
@@ -90,6 +93,7 @@ def get_fit_loaders(
     batch_size=(10, 1, 1),
     load_color=False,
     seed=0,
+    num_workers=0,
 ):
     """Train/val/test loader dict (data.py:52-75)."""
     if isinstance(batch_size, int):
@@ -97,7 +101,7 @@ def get_fit_loaders(
     return {
         "train": get_data_loader(
             trn_path_list, batch_size[0], load_color, crop_size=crop_size, test=False,
-            seed=seed,
+            seed=seed, num_workers=num_workers,
         ),
         "val": get_data_loader(val_path_list, batch_size[1], load_color, test=True),
         "test": get_data_loader(tst_path_list, batch_size[2], load_color, test=True),

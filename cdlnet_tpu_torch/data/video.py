@@ -9,8 +9,8 @@ data3d.py:46-141):
   - otherwise: a consecutive window, reversed in time with probability
     0.5, with one shared spatial crop with probability `crop_ratio`, else
     resized to the crop size.
-Test: the first `depth` frames at full resolution. Batches are assembled
-in the calling thread (the JAX loader's thread pool has no counterpart).
+Test: the first `depth` frames at full resolution. The train loader
+assembles its batches in num_workers threads (data/loader.py).
 """
 
 from __future__ import annotations
@@ -133,20 +133,22 @@ class VideoClipDataset:
 
 
 def get_video_loader(dir_list, batch_size=1, load_color=False, crop_size=None, test=True,
-                     depth=16, crop_ratio=0.5, aug_prob=0.3, max_shift=10, seed=0):
+                     depth=16, crop_ratio=0.5, aug_prob=0.3, max_shift=10, seed=0,
+                     num_workers=0):
     size = (crop_size, crop_size) if crop_size else (128, 128)
     ds = VideoClipDataset(dir_list, load_color=load_color, depth=depth, image_size=size,
                           test=test, crop_ratio=crop_ratio, aug_prob=aug_prob,
                           max_shift=max_shift, seed=seed)
     return DataLoader(ds, batch_size=batch_size, shuffle=not test, drop_last=not test,
-                      seed=seed)
+                      seed=seed, num_workers=num_workers)
 
 
 def get_video_fit_loaders(trn_path_list=("data_gen/data16/train",),
                           val_path_list=("data_gen/data16/val",),
                           tst_path_list=("data_gen/data16/test",),
                           crop_size=128, batch_size=(10, 1, 1), load_color=False, depth=16,
-                          crop_ratio=0.5, aug_prob=0.3, max_shift=10, seed=0):
+                          crop_ratio=0.5, aug_prob=0.3, max_shift=10, seed=0,
+                          num_workers=0):
     """Train/val/test video loaders (data3d.py:189-255); val and test clips
     are the first `depth` frames of each video at full resolution."""
     if isinstance(batch_size, int):
@@ -154,7 +156,8 @@ def get_video_fit_loaders(trn_path_list=("data_gen/data16/train",),
     common = dict(load_color=load_color, depth=depth, crop_ratio=crop_ratio,
                   aug_prob=aug_prob, max_shift=max_shift, seed=seed, crop_size=crop_size)
     return {
-        "train": get_video_loader(trn_path_list, batch_size[0], test=False, **common),
+        "train": get_video_loader(trn_path_list, batch_size[0], test=False,
+                                  num_workers=num_workers, **common),
         "val": get_video_loader(val_path_list, batch_size[1], test=True, **common),
         "test": get_video_loader(tst_path_list, batch_size[2], test=True, **common),
     }

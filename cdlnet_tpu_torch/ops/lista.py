@@ -64,6 +64,14 @@ def lista_2d(yp, A, B, t, c, mask=None, stride=1, return_codes=False, prox=None)
     )
 
 
+def res_block(z, w1, w2):
+    """The per-iteration residual refinement block (model/net.py:146-151):
+    relu(conv3d(z, w1)) -> conv3d(., w2) -> relu(. + z), 3x3x3 convs with
+    padding 1."""
+    out = torch.relu(conv3d(z, w1, stride=1, padding=1))
+    return torch.relu(conv3d(out, w2, stride=1, padding=1) + z)
+
+
 def lista_3d(yp, A, B, t, c, mask=None, stride=1, residual=None, return_codes=False):
     """Run the K-iteration 3D (video) LISTA loop; returns the final codes z
     (N, M, D/s, H/s, W/s), and with return_codes (z, codes), codes the
@@ -71,17 +79,22 @@ def lista_3d(yp, A, B, t, c, mask=None, stride=1, residual=None, return_codes=Fa
 
     yp: (N, C, D, H, W); A, B: (K, M, C, Pd, Ph, Pw); t: (K, 2, M, 1, 1, 1);
     c: scalar or (N, 1, 1, 1, 1); mask: optional (N, C, D, H, W).
+    residual: optional mapping with conv1, conv2: (K, M, M, 3, 3, 3), the
+    residual blocks applied after every threshold, the first included
+    (model/net.py:200-207).
     """
-    if residual is not None:
-        raise NotImplementedError(
-            "residual-block LISTA is not ported yet (see ROADMAP.md)"
-        )
     Pd, Ph, Pw = A.shape[-3:]
     pad = (Pd // 2, Ph // 2, Pw // 2)
+    prox = None
+    if residual is not None:
+        st = _st(t)
+
+        def prox(u, k, c):
+            return res_block(st(u, k, c), residual["conv1"][k], residual["conv2"][k])
     return _lista(
         yp, A, B, t, c, mask,
         lambda x, w: conv3d(x, w, stride=stride, padding=pad),
         lambda z, w: conv_transpose3d(z, w, stride=stride, padding=pad,
                                       output_padding=stride - 1),
-        return_codes,
+        return_codes, prox,
     )

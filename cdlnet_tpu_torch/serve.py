@@ -13,9 +13,12 @@ fits staging_limit(), a share of the free device memory, and otherwise
 moves chunk by chunk through pinned host buffers.
 
 Blind operation: sigma=None on an adaptive model estimates the noise level
-per input with the MAD estimator (nle/) on the bucket-padded batch, on the
-device, as the JAX package does: 255 * sigma_hat per image, and for clips
-the mean of the framewise estimates per clip.
+per input with the Denoiser's `blind` estimator (nle.noise_level: "MAD",
+the default, or "PCA") on the bucket-padded batch, on the device, as the
+JAX package does: 255 * sigma_hat per image, and for clips the mean of the
+framewise estimates per clip. (The JAX package's PCA estimates a batch's
+first image only and fails on clips; here every image and frame gets its
+own estimate.)
 
 The frame-recurrent CSR models (models/csr.py) denoise a clip by their
 recurrence (the model's video_denoise) with one sigma per call (blind:
@@ -70,6 +73,7 @@ class Denoiser:
     >>> d = Denoiser.from_dir("examples/cdlnet-flagship-demo")  # on the card
     >>> out = d.denoise_image(img, sigma=25)               # (H, W) in [0,1]
     >>> out = d.denoise_image(img)                         # blind (MAD)
+    >>> out = Denoiser(d.model, blind="PCA").denoise_image(img)  # blind (PCA)
     >>> out = d.denoise_image_batch(imgs, sigmas=[15, 25])  # per-image sigma
     >>> d = Denoiser.from_dir("examples/cdlnet-video-demo")
     >>> out = d.denoise_video(frames, sigma=25)            # (D, H, W)
@@ -123,7 +127,7 @@ class Denoiser:
         return cls.from_args(args, **kw)
 
     def _blind_sigma(self, y: torch.Tensor) -> torch.Tensor:
-        """255 * the MAD estimate per image (N,), or per clip the mean of
+        """255 * the blind estimate per image (N,), or per clip the mean of
         its framewise estimates."""
         if y.ndim == 5:
             N, C, D, H, W = y.shape
@@ -198,7 +202,7 @@ class Denoiser:
 
     def _clip_sigma(self, clip: np.ndarray, sigma, chunk_depth: int):
         """sigma as given, or on an adaptive model with sigma None the blind
-        estimate per clip (the mean of its framewise MAD estimates, as
+        estimate per clip (the mean of its framewise estimates, as
         _run computes it), taken over chunk_depth frames at a time so that
         a clip larger than device memory can be estimated."""
         if sigma is not None or not self.model.adaptive:

@@ -31,6 +31,7 @@ import time
 import torch
 
 from cdlnet_tpu_torch.data.noise import awgn, awgn3d, gen_bayer_mask, gen_bayer_mask3d
+from cdlnet_tpu_torch.data.prefetch import device_prefetch
 from cdlnet_tpu_torch.models.base import build_model
 from cdlnet_tpu_torch.train.checkpoint import load_ckpt, save_ckpt
 from cdlnet_tpu_torch.train.losses import mse_loss, psnr_from_mse
@@ -143,7 +144,8 @@ def fit(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1,
 
     loaders: {"train", "val", "test"} -> iterables of clean batches, (N, C,
     D, H, W) clips for workload "3d" or "mri" or (N, C, H, W) images for "2d" (numpy
-    arrays or tensors), moved to the model's device. The
+    arrays or tensors), copied to the model's device ahead of the step that
+    reads them (data/prefetch.py::device_prefetch). The
     semantics follow the JAX package's fit (module docstring); sched is
     dict(step_size=..., gamma=...) for StepLR."""
     if ckpt_format != "npz":
@@ -185,8 +187,7 @@ def fit(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1,
             t_start = time.time()
             # device scalars: one host transfer per phase, not per step
             losses = []
-            for batch in loaders[phase]:
-                batch = torch.as_tensor(batch, dtype=torch.float32, device=dev)
+            for batch in device_prefetch(loaders[phase], device=dev):
                 if phase == "train":
                     losses.append(train_step(opt_state, batch, gen))
                 else:

@@ -34,6 +34,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from cdlnet_tpu_torch.data.noise import awgn
+from cdlnet_tpu_torch.data.prefetch import device_prefetch
 from cdlnet_tpu_torch.models.csr import CDLNetCSRf2
 from cdlnet_tpu_torch.train.checkpoint import save_ckpt
 from cdlnet_tpu_torch.train.losses import mse_loss, psnr_from_mse
@@ -115,8 +116,8 @@ def fit_csr(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1
     the model's parameters are trained in place.
 
     loaders: {"train", "val", "test"} -> iterables of clean (B, C, D, H, W)
-    volume batches (numpy arrays or tensors), moved to the model's device.
-    Per epoch the phases train / val (every val_freq) / test (the last
+    volume batches (numpy arrays or tensors), copied to the model's device
+    ahead of the step (data/prefetch.py::device_prefetch). Per epoch the phases train / val (every val_freq) / test (the last
     epoch), the same artifacts as fit(): {phase}.txt, metrics.jsonl rows,
     0.ckpt, net_epoch_{epoch}.ckpt and net.ckpt npz bundles every
     save_freq epochs, and the StepLR sched (dict(step_size=..., gamma=...)).
@@ -149,8 +150,7 @@ def fit_csr(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1
                 continue
             t_start = time.time()
             losses = []  # device scalars: one host transfer per phase
-            for batch in loaders[phase]:
-                batch = torch.as_tensor(batch, dtype=torch.float32, device=dev)
+            for batch in device_prefetch(loaders[phase], device=dev):
                 if phase == "train":
                     losses.append(train_step(opt_state, batch, gen))
                 else:

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's video serve, 2D image serve, video
 training, 2D image training, native-resolution video and frame-recurrent
-CSR serving and training paths on one GPU.
+CSR serving and training paths, the input pipeline, blind PCA noise
+estimation and CDLNetVideo's residual blocks on one GPU.
 
     python3 chip_smoke.py
 
@@ -54,11 +55,14 @@ Builds the hand-written CUDA kernels from cdlnet_tpu_torch/kernels/csrc
             256^2 tiles against backend "xla", the pipelined host loop
             against the staged one; the eval CLI (cli.analyze3d.main on
             the card) on native clips written as PNG frames, its txt line,
-            eval row, PNGs and launches, and the passthrough codes against
-            the plain loop; the reverse kernels and the K=30 gradient at
-            1x8x256^2, the reverse kernels on a native forward's
-            histories at 1x16x480x854, one train step there, and two
-            epochs of the train CLI's video branch;
+            eval row, PNGs and launches, again with --blind PCA, and the
+            passthrough codes against the plain loop; the reverse kernels
+            and the K=30 gradient at 1x8x256^2, the reverse kernels on a
+            native forward's histories at 1x16x480x854, one train step
+            there, and two epochs of the train CLI's video branch with its
+            batches assembled in the calling thread and by 4 loader
+            threads (the loader's host ms per batch and the CLI's ms per
+            step beside the flagship step's);
   csr       frame-recurrent CSR serving at the reference's argscsr.json
             width (CDLNet_CSR and CDLNet_CSRf2, K=30, M=169, P=9, s=2,
             adaptive) on fastMRI's native 640x368 frames: the CSR analysis
@@ -66,9 +70,10 @@ Builds the hand-written CUDA kernels from cdlnet_tpu_torch/kernels/csrc
             ST one against their plain versions at 2x128^2 and 640x368
             (and its 640x384 bucket), the K=30 forwards against the plain
             loop, a 16-frame native volume through Denoiser.denoise_video
-            for both models, known and blind sigma (launches counted), the
-            trained examples/csr-demo on smooth 128^2 volumes, and
-            cli.analyzemri.test on native volumes;
+            for both models, known and blind sigma (launches counted; the
+            CSRf2 volume blind PCA too), the trained examples/csr-demo on
+            smooth 128^2 volumes, and cli.analyzemri.test on native
+            volumes;
   csr_train frame-recurrent CSR training at the same width: the CSR adjoint
             kernels (one code, the following code alone, two codes) and
             the P=9 synthesis, the soft-threshold adjoint and the weight
@@ -81,6 +86,21 @@ Builds the hand-written CUDA kernels from cdlnet_tpu_torch/kernels/csrc
             step ms and peak GB on the kernels and on "xla"); and fit_csr
             for 20 steps of CDLNet_CSRf2 on 2 x 3 x 128^2 volumes, its
             launches per step and a checkpoint that reloads;
+  prefetch  data/prefetch.py::device_prefetch over 8 batches of the video
+            train shape with a kernel on the consumer's stream between
+            yields: every batch bitwise equal to its host batch, every
+            host-to-device copy off the consumer's stream (a torch.profiler
+            trace);
+  blind PCA the trained flagship 2D demo through denoise_image (128^2,
+            481x321) and denoise_image_batch (8 x 128^2, sigma 10 to 50)
+            with blind="PCA": sigma-hat within 15% of sigma and within 1e-3
+            of the CPU's, PSNR gains against the known sigma's; a native
+            16x480x854 clip at the flagship width, blind PCA, with the
+            estimator's share of its latency;
+  residual  CDLNetVideo with residual blocks (the plain F.conv3d loop on
+            every backend): the reference golden on the card, the flagship
+            width serving a 16x128^2 clip with no kernel launch, and one
+            train step at N=2 (loss, ms, peak memory);
 
 and times every kernel (CUDA events) beside its plain version, the one
 PyTorch call that computes the same function, and its bound on this card
@@ -115,12 +135,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cdlnet_tpu_torch import nle
 from cdlnet_tpu_torch.cli import analyze3d, analyzemri
 from cdlnet_tpu_torch.cli import train as cli_train
 from cdlnet_tpu_torch.cli.analyze import build_argparser
+from cdlnet_tpu_torch.compat.jax_params import load_jax_params
 from cdlnet_tpu_torch.core.ops import csr_f2_jump, prox_csr, prox_csr_f2
 from cdlnet_tpu_torch.core.preprocess import post_process, pre_process, pre_process_3d
 from cdlnet_tpu_torch.data.noise import gen_bayer_mask
+from cdlnet_tpu_torch.data.prefetch import device_prefetch
 from cdlnet_tpu_torch.data.synthetic import (
     gen_natural_image_dirs,
     gen_synthetic_mri_dirs,
@@ -276,6 +299,20 @@ FIT_CSR_LR = 5e-4
 # syn_residual (the analysis adjoint) and 2K wgrad (dA and dB)
 STEP_LAUNCHES = {"lista3d_ana_threshold": 30, "lista3d_syn_residual": 59,
                  "lista3d_syn_adjoint": 30, "lista3d_wgrad": 60}
+# the pipeline, blind PCA and residual phases: prefetch over 8 batches of the
+# flagship train shape; the PCA sigma-hat within 15% of the true sigma (the
+# JAX package's recovery tolerance, tests/test_nle.py), the card's within
+# 1e-3 of the CPU's (fp32 eigenvalues), and a blind PSNR gain within 0.1 dB
+# of the known sigma's; the train CLI's video branch at 0 and 4 loader
+# threads; the reference golden of residual blocks
+PREFETCH_BATCHES = 8
+PCA_BATCH_SIGMAS = [float(v) for v in np.linspace(10.0, 50.0, 8)]
+PCA_SIGMA_TOL = 0.15
+PCA_CPU_TOL = 1e-3
+PCA_GAIN_GAP_DB = 0.1
+DEMO_2D_SIGMAS = (15.0, 35.0)  # examples/cdlnet-flagship-demo's training noise_std
+CLI_WORKERS = (0, 4)
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden")
 KERNEL_TOL = 1e-4   # one kernel call vs its plain version, max|d| / max|ref|
 FORWARD_TOL = 1e-3  # the K=30 forward on the kernels vs the plain loop
 # the K=30 gradient on the kernels vs torch autograd through cuDNN: both
@@ -1154,7 +1191,7 @@ def observed_3d(rng, clean, dev):
     return tuple(torch.from_numpy(a).to(dev) for a in (noisy, sig))
 
 
-def bigframe(dev, card, err, model, t_par, tg) -> tuple[dict, dict]:
+def bigframe(dev, card, err, model, t_par, tg, flagship_step_ms) -> tuple[dict, dict]:
     """The native-resolution video path: kernel parity and K=30 forwards at
     the big-frame shapes, native clips through Denoiser.denoise_video
     (whole, streamed, tiled), the analyze3d eval CLI, and big-frame
@@ -1343,6 +1380,28 @@ def bigframe(dev, card, err, model, t_par, tg) -> tuple[dict, dict]:
                 and abs(rows[0]["psnr"] - float(txt.split(", ")[1])) < 1e-3,
                 f"the eval CLI's metrics rows {rows}")
         require(expect <= files, f"the eval CLI did not write {sorted(expect - files)[:5]}")
+        # the same clips with --blind PCA: each test forward at its clip's
+        # framewise PCA estimate, averaged
+        L.launches.clear()
+        t0 = time.perf_counter()
+        analyze3d.main(build_argparser().parse_args(
+            ["args.json", "--test", test_dir, "--noise_level", "25", "--blind", "PCA"]), args)
+        torch.cuda.synchronize()
+        pca_s = time.perf_counter() - t0
+        pca_launches = dict(L.launches)
+        launches.update(pca_launches)
+        with open(os.path.join(save_dir, "test_davis_PCA.txt")) as f:
+            pca_txt = f.read()
+        with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+            pca_row = [json.loads(ln) for ln in f if ln.strip()][-1]
+        print(f"bigframe eval CLI --blind PCA: {CLI_VIDEOS} clips of {NATIVE} in {pca_s:.2f} s; "
+              f"launches {pca_launches}; test_davis_PCA.txt {pca_txt!r}", flush=True)
+        want = {"lista3d_ana_threshold": CLI_VIDEOS * Kd, "lista3d_syn_residual": CLI_VIDEOS * Kd}
+        require(pca_launches == want, f"the --blind PCA eval launched {pca_launches}")
+        require(re.fullmatch(r"25, \d+\.\d{3}\n", pca_txt) is not None
+                and float(pca_txt.split(", ")[1]) > psnr(noisy, clean) + MIN_GAIN_DB
+                and pca_row["blind"] == "PCA" and pca_row["clips"] == CLI_VIDEOS,
+                f"the --blind PCA eval's txt {pca_txt!r} or row {pca_row}")
         # the passthrough's per-iteration codes: kernels vs the plain loop
         dm = init_model(args)[0].eval()
         dm_plain = init_model(dict(args, model=dict(args["model"], backend="xla")))[0].eval()
@@ -1429,53 +1488,70 @@ def bigframe(dev, card, err, model, t_par, tg) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
 
     # the train CLI's video branch (cli.train.main with no device: the card)
-    # with the video demo's config from its power-method init
+    # with the video demo's config from its power-method init, its batches
+    # assembled in the calling thread, then by a pool of loader threads
     with tempfile.TemporaryDirectory() as root:
         data = gen_synthetic_video_dirs(os.path.join(root, "data"), n_videos=CLI_TRAIN_VIDEOS,
                                         depth=NATIVE[0], size=CLI_VIDEO_SIZE, seed=SEED)
-        save_dir = os.path.join(root, "run")
-        args = copy.deepcopy(demo_args)
-        args["paths"] = {"save": save_dir}
-        args["train"]["fit"].update(epochs=CLI_EPOCHS, val_freq=1, save_freq=1,
-                                    backtrack_thresh=None, verbose=False)
-        args["train"]["loaders"].update(
-            {f"{k}_path_list": [os.path.join(data, split)]
-             for k, split in (("trn", "train"), ("val", "val"), ("tst", "test"))})
-        loaders, workload = cli_train.make_loaders(args)
-        t0 = time.perf_counter()
-        n_batches = sum(1 for _ in loaders["train"])
-        loader_ms = 1e3 * (time.perf_counter() - t0) / n_batches
-        L.launches.clear()
-        t0 = time.perf_counter()
-        cli_state, history = cli_train.main(args)
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
-        cli_launches = dict(L.launches)
-        launches.update(cli_launches)
-        n_steps = CLI_EPOCHS * len(loaders["train"])
-        evals = CLI_EPOCHS * len(loaders["val"]) + len(loaders["test"])
-        want = {name: n_steps * n for name, n in step_launches_3d(Kd).items()}
-        want["lista3d_ana_threshold"] += evals * Kd
-        want["lista3d_syn_residual"] += evals * Kd
-        print(f"bigframe train CLI: {workload} workload, {n_steps} steps + {evals} eval clips "
-              f"in {cli_s:.2f} s; launches {cli_launches}; PSNR "
-              f"{[(e, ph, round(p, 3)) for e, ph, p in history]}; video loader "
-              f"{loader_ms:.3f} ms per training batch (host clock)", flush=True)
-        require(workload == "3d" and cli_launches == want,
-                f"the train CLI launched {cli_launches}, expected {want}")
-        require([(e, ph) for e, ph, _ in history]
-                == [(1, "train"), (1, "val"), (2, "train"), (2, "val"), (2, "test")]
-                and all(np.isfinite(p) for _, _, p in history),
-                f"the train CLI's history {history}")
-        with open(os.path.join(save_dir, "args.json")) as f:
-            saved = json.load(f)
-        back, _, back_state, epoch0, _ = init_model(saved)
-        require(saved["paths"]["ckpt"] == os.path.join(save_dir, "net.ckpt.npz")
-                and back.A.device.type == "cuda" and epoch0 == CLI_EPOCHS
-                and back_state["count"] == cli_state["count"] == n_steps
-                and all(torch.isfinite(p).all() for p in back.parameters()),
-                "the video train CLI's checkpoint did not reload through its args.json")
-        del back, back_state, cli_state
+        pipeline, runs = {}, []
+        for workers in CLI_WORKERS:
+            save_dir = os.path.join(root, f"run{workers}")
+            args = copy.deepcopy(demo_args)
+            args["paths"] = {"save": save_dir}
+            args["train"]["fit"].update(epochs=CLI_EPOCHS, val_freq=1, save_freq=1,
+                                        backtrack_thresh=None, verbose=False)
+            args["train"]["loaders"].update(
+                {f"{k}_path_list": [os.path.join(data, split)]
+                 for k, split in (("trn", "train"), ("val", "val"), ("tst", "test"))},
+                num_workers=workers)
+            loaders, workload = cli_train.make_loaders(args)
+            t0 = time.perf_counter()
+            n_batches = sum(1 for _ in loaders["train"])
+            loader_ms = 1e3 * (time.perf_counter() - t0) / n_batches
+            L.launches.clear()
+            t0 = time.perf_counter()
+            cli_state, history = cli_train.main(args)
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            cli_launches = dict(L.launches)
+            launches.update(cli_launches)
+            runs.append(cli_launches)
+            n_steps = CLI_EPOCHS * len(loaders["train"])
+            evals = CLI_EPOCHS * len(loaders["val"]) + len(loaders["test"])
+            want = {name: n_steps * n for name, n in step_launches_3d(Kd).items()}
+            want["lista3d_ana_threshold"] += evals * Kd
+            want["lista3d_syn_residual"] += evals * Kd
+            with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+                rows = [json.loads(ln) for ln in f if ln.strip()]
+            last = [r for r in rows if r.get("event") == "phase" and r["phase"] == "train"][-1]
+            pipeline[workers] = (loader_ms, 1e3 * last["sec"] / last["steps"])
+            print(f"bigframe train CLI (num_workers={workers}): {workload} workload, {n_steps} "
+                  f"steps + {evals} eval clips in {cli_s:.2f} s; launches {cli_launches}; PSNR "
+                  f"{[(e, ph, round(p, 3)) for e, ph, p in history]}; video loader "
+                  f"{loader_ms:.3f} ms per training batch (host clock)", flush=True)
+            require(workload == "3d" and cli_launches == want,
+                    f"the train CLI launched {cli_launches}, expected {want}")
+            require([(e, ph) for e, ph, _ in history]
+                    == [(1, "train"), (1, "val"), (2, "train"), (2, "val"), (2, "test")]
+                    and all(np.isfinite(p) for _, _, p in history),
+                    f"the train CLI's history {history}")
+            with open(os.path.join(save_dir, "args.json")) as f:
+                saved = json.load(f)
+            back, _, back_state, epoch0, _ = init_model(saved)
+            require(saved["paths"]["ckpt"] == os.path.join(save_dir, "net.ckpt.npz")
+                    and back.A.device.type == "cuda" and epoch0 == CLI_EPOCHS
+                    and back_state["count"] == cli_state["count"] == n_steps
+                    and all(torch.isfinite(p).all() for p in back.parameters()),
+                    "the video train CLI's checkpoint did not reload through its args.json")
+            del back, back_state, cli_state
+        require(all(r == runs[0] for r in runs), f"the train CLI's launches differ: {runs}")
+        print(f"pipeline [{card}]: video train CLI ({CLI_TRAIN_VIDEOS} clips of "
+              f"{NATIVE[0]} PNG frames at {CLI_VIDEO_SIZE}^2, batch "
+              f"{demo_args['train']['loaders']['batch_size'][0]}): "
+              + "; ".join(f"num_workers={w}: loader {lm:.3f} ms host per training batch, CLI "
+                          f"{sm:.3f} ms per step (last epoch's train phase)"
+                          for w, (lm, sm) in pipeline.items())
+              + f"; the flagship train step {flagship_step_ms:.3f} ms", flush=True)
 
     for shape, tt_all in times.items():
         for name, tt in tt_all.items():
@@ -1732,6 +1808,26 @@ def csr(dev, card, err) -> tuple[dict, dict]:
             print(f"time [{card}]: {family} Denoiser.denoise_video of a {(CSR_DEPTH, *MRI_FRAME)} "
                   f"volume, {label} sigma: {ms:.3f} ms host clock ({1e3 * CSR_DEPTH / ms:.2f} "
                   f"frames/s; {apps} frame applications of {2 * K} launches)", flush=True)
+        if two_sided:  # blind PCA: one sigma a volume, its frames' mean estimate
+            pca = Denoiser(model, blind="PCA")
+            L.launches.clear()
+            out = pca.denoise_video(vol)
+            torch.cuda.synchronize()
+            got = dict(L.launches)
+            launches.update(got)
+            frames = torch.from_numpy(bucketed(vol)[:, None]).to(dev)
+            sig_hat = float(255.0 * nle.noise_level(frames, "PCA").mean())
+            ms = host_ms(lambda: pca.denoise_video(vol), rounds=3)
+            print(f"time [{card}]: {family} Denoiser(blind=\"PCA\").denoise_video of a "
+                  f"{(CSR_DEPTH, *MRI_FRAME)} volume: sigma {SIGMA} -> sigma-hat {sig_hat:.3f}; "
+                  f"{ms:.3f} ms host clock; PSNR {psnr(vol, vol_clean):.3f} dB -> "
+                  f"{psnr(out, vol_clean):.3f} dB; launches {got}", flush=True)
+            want = csr_volume_launches(True, K, CSR_DEPTH)
+            require(got == want, f"{family}: a blind PCA volume launched {got}, expected {want}")
+            require(out.shape == vol.shape and np.isfinite(out).all()
+                    and abs(sig_hat / SIGMA - 1) <= PCA_SIGMA_TOL,
+                    f"{family} blind PCA volume: sigma-hat {sig_hat:.3f}")
+            del pca, frames
         del server, server_plain, outs
     del models, f2
     torch.cuda.empty_cache()
@@ -2287,6 +2383,213 @@ def csr_train(dev, card, err) -> tuple[dict, dict]:
     return dict(launches), times, syn_p9
 
 
+def prefetch_phase(dev, card) -> None:
+    """P1. data/prefetch.py::device_prefetch over PREFETCH_BATCHES seeded
+    batches of the flagship train shape, a kernel running on the consumer's
+    stream between yields: each batch the consumer reads (a clone after that
+    kernel) is its host batch bit for bit, and a torch.profiler trace shows
+    every host-to-device copy on a stream other than the consumer's."""
+    rng = np.random.default_rng(SEED + 70)
+    batches = [np.stack([smooth_clip(rng, *CLIP[:2])[None] for _ in range(TRAIN_N)])
+               for _ in range(PREFETCH_BATCHES)]
+    w = torch.randn(4096, 4096, device=dev)
+    consumer = torch.cuda.current_stream(dev)
+    seen = []
+    with tempfile.TemporaryDirectory() as root:
+        trace = os.path.join(root, "prefetch.json")
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for batch in device_prefetch(batches, device=dev):
+                require(torch.cuda.current_stream(dev) == consumer, "the consumer's stream moved")
+                for _ in range(3):
+                    w = torch.tanh(w @ w * 1e-3)
+                seen.append(batch.clone())
+            torch.cuda.synchronize()
+            loop_ms = 1e3 * (time.perf_counter() - t0)
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+    equal = all(torch.equal(a.cpu(), torch.from_numpy(b)) for a, b in zip(seen, batches))
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    copy_streams = {e["args"].get("stream") for e in copies}
+    kernel_streams = {e["args"].get("stream") for e in kernels}
+    copy_us = statistics.median(e["dur"] for e in copies) if copies else float("nan")
+    print(f"prefetch: {len(seen)} batches of {(TRAIN_N, 1, *CLIP)} through device_prefetch "
+          f"in {loop_ms:.3f} ms host clock with 3 matmuls of 4096^2 between yields; bitwise "
+          f"equal to the host batches: {equal}; trace: {len(copies)} HtoD copies on streams "
+          f"{sorted(copy_streams)} (median {copy_us:.1f} us), {len(kernels)} kernels on "
+          f"streams {sorted(kernel_streams)}", flush=True)
+    require(equal and len(seen) == PREFETCH_BATCHES,
+            "a prefetched batch differs from its host batch")
+    require(len(copies) >= PREFETCH_BATCHES and kernels,
+            f"the trace holds {len(copies)} HtoD copies and {len(kernels)} kernels")
+    require(not copy_streams & kernel_streams,
+            f"HtoD copies on the consumer's stream: {sorted(copy_streams & kernel_streams)}")
+
+
+def blind_pca(dev, card, model, t_par) -> dict:
+    """P3. Blind PCA (nle/pca.py) through the serve path: the trained
+    flagship 2D demo through denoise_image at 128^2 and 481x321 and
+    denoise_image_batch (8 x 128^2, sigma 10 to 50), each sigma-hat within
+    PCA_SIGMA_TOL of the true sigma, each PSNR gain within PCA_GAIN_GAP_DB
+    of the known-sigma call's on the same image and >= MIN_GAIN_DB where
+    sigma lies in the demo's training range (at sigma 10 the demo gains
+    less than 3 dB on some smooth images at the known sigma too); the
+    card's sigma-hats against the CPU's on the same images; and a native
+    16x480x854 clip at the flagship width through denoise_video(blind
+    "PCA"): sigma-hat, ms, and the estimator's share of the latency.
+    Returns the launches of the served images and clip."""
+    rng = np.random.default_rng(SEED + 80)
+    launches = collections.Counter()
+    server = Denoiser.from_dir(DEMO_2D, blind="PCA")
+    K = server.model.K
+    cases = [("128^2", *noisy_images(rng, IMAGE, [SIGMA])),
+             ("481x321", *noisy_images(rng, BIG_IMAGE, [SIGMA])),
+             ("batch 8 x 128^2", *noisy_images(rng, IMAGE, PCA_BATCH_SIGMAS))]
+    L.launches.clear()
+    outs = [server.denoise_image(noisy[0, 0]) if len(noisy) == 1
+            else server.denoise_image_batch(noisy) for _, _, noisy in cases]
+    torch.cuda.synchronize()
+    got = dict(L.launches)
+    launches.update(got)
+    want = {"lista2d_ana_threshold": 3 * K, "lista2d_syn_residual": 3 * K}
+    require(got == want, f"three blind PCA forwards launched {got}, expected {want}")
+    for (label, clean, noisy), out in zip(cases, outs):
+        sigmas = [SIGMA] if len(noisy) == 1 else PCA_BATCH_SIGMAS
+        y = torch.from_numpy(noisy)
+        est_card = 255.0 * nle.noise_level(y.to(dev), "PCA").reshape(-1).cpu().numpy()
+        est_cpu = 255.0 * nle.noise_level(y, "PCA").reshape(-1).numpy()
+        est_f64 = 255.0 * nle.noise_level(y.double().to(dev), "PCA").reshape(-1).cpu().numpy()
+        out = out.reshape(noisy.shape)
+        known = server.denoise_image_batch(noisy, sigmas=sigmas)
+        gains = [psnr(o, c) - psnr(n, c) for o, c, n in zip(out, clean, noisy)]
+        known_gains = [psnr(o, c) - psnr(n, c) for o, c, n in zip(known, clean, noisy)]
+        rel_sig = np.abs(est_card / np.asarray(sigmas) - 1)
+        rel_cpu = float(np.max(np.abs(est_card / est_cpu - 1)))
+        rel_f64 = [float(np.max(np.abs(e / est_f64 - 1))) for e in (est_card, est_cpu)]
+        gap = max(k - g for g, k in zip(gains, known_gains))
+        trained = [g for g, sg in zip(gains, sigmas)
+                   if DEMO_2D_SIGMAS[0] <= sg <= DEMO_2D_SIGMAS[1]]
+        print(f"blind PCA {label}: sigma {[round(v, 3) for v in sigmas]} -> sigma-hat "
+              f"{[round(float(v), 3) for v in est_card]} (max rel {rel_sig.max():.4f}; card vs "
+              f"CPU rel {rel_cpu:.2e}; card and CPU vs float64 on the card {rel_f64[0]:.2e}, "
+              f"{rel_f64[1]:.2e}); PSNR gains {[round(g, 3) for g in gains]} dB, at the "
+              f"known sigma {[round(g, 3) for g in known_gains]} dB", flush=True)
+        require(np.isfinite(out).all() and out.shape == noisy.shape, f"blind PCA {label} output")
+        require(rel_sig.max() <= PCA_SIGMA_TOL,
+                f"blind PCA {label}: sigma-hat off by {rel_sig.max():.3f} > {PCA_SIGMA_TOL}")
+        require(gap <= PCA_GAIN_GAP_DB, f"blind PCA {label}: {gap:.3f} dB below the known sigma")
+        require(min(trained) >= MIN_GAIN_DB, f"blind PCA {label}: gain {min(trained):.3f} dB")
+        require(rel_cpu <= PCA_CPU_TOL, f"blind PCA {label}: card vs CPU rel {rel_cpu:.2e}")
+    for label, (_, _, noisy) in zip(("128^2", "481x321"), cases):
+        ms = host_ms(lambda: server.denoise_image(noisy[0, 0]))
+        print(f"time [{card}]: flagship 2D demo denoise_image blind PCA at {label}: "
+              f"{ms:.3f} ms host clock", flush=True)
+    del server
+
+    # a native clip at the flagship width, the whole-clip route
+    native = CDLNetVideo(**FLAGSHIP, backend="pallas").to(dev)
+    native.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        native.t.copy_(t_par)
+    clean = smooth_clip(rng, NATIVE[0], NATIVE[1:])
+    noisy = clean + SIGMA / 255 * rng.standard_normal(clean.shape).astype(np.float32)
+    server = Denoiser(native, blind="PCA")
+    L.launches.clear()
+    out = server.denoise_video(noisy)
+    torch.cuda.synchronize()
+    got = dict(L.launches)
+    launches.update(got)
+    require(got == {"lista3d_ana_threshold": FLAGSHIP["K"], "lista3d_syn_residual": FLAGSHIP["K"]},
+            f"a blind PCA native clip launched {got}")
+    require(out.shape == NATIVE and np.isfinite(out).all(), "blind PCA native clip output")
+    frames = torch.from_numpy(bucketed(noisy)[:, None]).to(dev)  # (D, 1, 512, 896)
+    sig_hat = float(255.0 * nle.noise_level(frames, "PCA").mean())
+    est_ms = host_ms(lambda: nle.noise_level(frames, "PCA"), rounds=3)
+    blind_ms = host_ms(lambda: server.denoise_video(noisy), rounds=3)
+    known_ms = host_ms(lambda: server.denoise_video(noisy, sigma=sig_hat), rounds=3)
+    print(f"time [{card}]: blind PCA native {NATIVE} clip at the flagship width: sigma "
+          f"{SIGMA} -> sigma-hat {sig_hat:.3f}; denoise_video {blind_ms:.3f} ms blind, "
+          f"{known_ms:.3f} ms at that sigma; the estimator alone {est_ms:.3f} ms on the "
+          f"{tuple(frames.shape)} bucketed frames ({100 * est_ms / blind_ms:.1f}% of the "
+          f"blind latency; blind - known {blind_ms - known_ms:.3f} ms)", flush=True)
+    require(abs(sig_hat / SIGMA - 1) <= PCA_SIGMA_TOL, f"native sigma-hat {sig_hat:.3f}")
+    del server, native, frames
+    torch.cuda.empty_cache()
+    return dict(launches)
+
+
+def residual_phase(dev, card) -> None:
+    """P4. CDLNetVideo with residual blocks, which runs on the plain
+    F.conv3d loop on every backend: the reference golden on the card, the
+    flagship width with residual=True serving a 16x128^2 clip (forward ms,
+    no kernel launch), and one train step at N=2 x 16x128^2 (finite loss,
+    step ms, peak GB)."""
+    data = np.load(os.path.join(GOLDEN, "cdlnet3d_res.npz"))
+    sd = {k[4:]: data[k] for k in data.files if k.startswith("sd::")}
+    params = {"A": np.stack([sd[f"A.{k}.weight"] for k in range(2)]),
+              "B": np.stack([sd[f"B.{k}.weight"] for k in range(2)]), "t": sd["t"],
+              "residual": {c: np.stack([sd[f"residual_blocks.{k}.{c}.weight"]
+                                        for k in range(2)]) for c in ("conv1", "conv2")}}
+    gold = load_jax_params(CDLNetVideo(K=2, M=4, P=(3, 3, 3), s=1, C=1, adaptive=True,
+                                       residual=True, backend="cuda"), params).to(dev)
+    L.launches.clear()
+    with torch.no_grad():
+        xhat, z = gold(torch.from_numpy(data["x"]).to(dev), float(data["sigma"]), return_z=True)
+    torch.cuda.synchronize()
+    pairs = [(xhat.cpu().numpy(), data["xhat"]), (z.cpu().numpy(), data["z"])]
+    dx, dz = (float(np.abs(a - b).max()) for a, b in pairs)
+    ok = all(np.allclose(a, b, rtol=1e-4, atol=5e-5) for a, b in pairs)
+    print(f"residual golden (cdlnet3d_res) on the card: max|d| xhat {dx:.3e}, z {dz:.3e}; "
+          f"launches {dict(L.launches)}", flush=True)
+    require(ok and not L.launches, "the residual golden on the card")
+
+    model = CDLNetVideo(**FLAGSHIP, residual=True, backend="pallas").to(dev)
+    model.init(torch.Generator().manual_seed(SEED + 5))
+    rng = np.random.default_rng(SEED + 90)
+    clean = smooth_clip(rng, *CLIP[:2])
+    noisy = clean + SIGMA / 255 * rng.standard_normal(clean.shape).astype(np.float32)
+    server = Denoiser(model)
+    L.launches.clear()
+    out = server.denoise_video(noisy, sigma=SIGMA)
+    yc = torch.from_numpy(noisy)[None, None].to(dev)
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: model(yc, SIGMA), reps=1, rounds=3, warmup=1)
+    serve_ms = host_ms(lambda: server.denoise_video(noisy, sigma=SIGMA), rounds=3)
+    torch.cuda.synchronize()
+    fwd_launches = dict(L.launches)
+    require(out.shape == CLIP and np.isfinite(out).all(), "residual flagship serve output")
+    require(not fwd_launches, f"residual flagship forward launched {fwd_launches}")
+
+    tc = np.stack([smooth_clip(rng, *CLIP[:2])[None] for _ in range(TRAIN_N)])
+    batch = torch.from_numpy(tc).to(dev)
+    opt = make_optimizer(2e-4, clip_grad=0.05)
+    state = opt.init(dict(model.named_parameters()))
+    train_step, _ = make_train_step(model, opt, workload="3d", noise_std=TRAIN_SIGMA)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    L.launches.clear()
+    loss = train_step(state, batch, gen)
+    torch.cuda.synchronize()
+    step_launches = dict(L.launches)
+    step_ms = host_ms(lambda: train_step(state, batch, gen), rounds=2, warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"time [{card}]: residual flagship (K=30, M=169, P=(7,7,5), s=2, residual blocks "
+          f"169->169 3^3) forward of a {CLIP} clip {fwd_ms:.3f} ms (CUDA events), "
+          f"denoise_video {serve_ms:.3f} ms host clock; train step N={TRAIN_N} {step_ms:.3f} ms "
+          f"(loss {float(loss):.6f}, peak {peak:.2f} GB); kernel launches {fwd_launches}, "
+          f"{step_launches}", flush=True)
+    require(bool(torch.isfinite(loss)) and all(torch.isfinite(p).all()
+                                               for p in model.parameters()),
+            "the residual train step gave a non-finite loss or parameter")
+    require(not step_launches, f"the residual train step launched {step_launches}")
+    del model, server, batch, state
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     # --- 1. the device ---
     if not torch.cuda.is_available():
@@ -2524,7 +2827,7 @@ def main() -> int:
     times.update(times_t2)
 
     # --- 13. the native-resolution video path (bigframe) ---
-    launches_bf, times_bf = bigframe(dev, card, err, model, t_par, tg)
+    launches_bf, times_bf = bigframe(dev, card, err, model, t_par, tg, steps["kernels"])
 
     # --- 14. the frame-recurrent CSR path (csr) ---
     launches_csr, times_csr = csr(dev, card, err)
@@ -2534,10 +2837,26 @@ def main() -> int:
     launches_ct, times_ct, syn_p9 = csr_train(dev, card, err)
     times.update(times_ct)
 
+    # --- 16. the input pipeline: device_prefetch (P1; the train CLI's loader
+    # threads, P2, ran in bigframe B5) ---
+    t0 = time.perf_counter()
+    prefetch_phase(dev, card)
+    t1 = time.perf_counter()
+
+    # --- 17. blind PCA through the serve path (P3; the eval CLI's and the
+    # CSR volume's ran in bigframe B4 and csr C3) ---
+    launches_pca = blind_pca(dev, card, model, t_par)
+    t2 = time.perf_counter()
+
+    # --- 18. residual blocks (P4) ---
+    residual_phase(dev, card)
+    print(f"phases: prefetch {t1 - t0:.2f} s, blind PCA {t2 - t1:.2f} s, residual "
+          f"{time.perf_counter() - t2:.2f} s", flush=True)
+
     launches = {name: serve_launches.get(name, 0) + fit_launches.get(name, 0)
                 + launches_2d.get(name, 0) + launches_t2.get(name, 0)
                 + launches_bf.get(name, 0) + launches_csr.get(name, 0)
-                + launches_ct.get(name, 0) for name in KERNELS}
+                + launches_ct.get(name, 0) + launches_pca.get(name, 0) for name in KERNELS}
     for name in TC_KERNELS:
         tt = times[name]
         shape = "train shape" if "adjoint" in name or "wgrad" in name else "serve shape"

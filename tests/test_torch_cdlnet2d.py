@@ -112,8 +112,8 @@ def test_nle_mad_matches_jax(shape):
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
     assert torch.equal(noise_level(torch.from_numpy(y), method=True), got)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        noise_level(torch.from_numpy(y), method="PCA")
+    # PCA (held to JAX in tests/test_torch_nle_pca.py): one estimate an image too
+    assert noise_level(torch.from_numpy(y), method="PCA").shape == want.shape
 
 
 @pytest.mark.parametrize("family", ["CDLNet", "GDLNet"])

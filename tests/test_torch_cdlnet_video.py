@@ -195,22 +195,13 @@ def test_per_sample_sigma_in_one_forward():
         d.denoise_video(clips, sigma=[10.0, 20.0, 30.0])
 
 
-@pytest.mark.parametrize("call", ["blind", "chunk_depth", "tile_hw", "mesh",
-                                  "residual", "torch_ckpt", "unknown_type"])
+@pytest.mark.parametrize("call", ["mesh", "torch_ckpt", "unknown_type"])
 def test_unported_paths_raise(call, tmp_path):
-    clip = np.zeros((4, 16, 16), np.float32)
+    """Blind PCA (whole, chunked, tiled) and residual blocks are ported:
+    tests/test_torch_nle_pca.py and tests/test_torch_residual.py."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if call == "blind":  # MAD is ported; the PCA estimator is not
-            Denoiser(_tiny_denoiser().model, blind="PCA").denoise_video(clip)
-        elif call == "chunk_depth":  # streaming is ported; blind PCA on it is not
-            Denoiser(_tiny_denoiser().model, blind="PCA").denoise_video(
-                clip, chunk_depth=2, overlap=0)
-        elif call == "tile_hw":
-            Denoiser(_tiny_denoiser().model, blind="PCA").denoise_video(clip, tile_hw=8)
-        elif call == "mesh":
+        if call == "mesh":
             Denoiser(_tiny_denoiser().model, mesh={"data": -1})
-        elif call == "residual":
-            CDLNetVideo(K=2, M=4, residual=True)
         elif call == "torch_ckpt":
             (tmp_path / "net.ckpt").write_bytes(b"")
             load_params(str(tmp_path / "net.ckpt"))

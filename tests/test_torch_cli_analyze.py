@@ -172,7 +172,7 @@ def test_cli_writes_the_jax_clis_files(image_dirs, tmp_path, monkeypatch, demo, 
 
 def test_cli_defaults_and_pca(image_dirs, tmp_path):
     """The noise level defaults to the config's; the CLI's own noise on the
-    kernels' plain versions beats the noisy input; --blind PCA raises."""
+    kernels' plain versions beats the noisy input, with --blind PCA too."""
     args = _demo_args("cdlnet-demo", str(tmp_path))
     args["train"]["fit"]["noise_std"] = 25
     test_dir = os.path.join(image_dirs, "test")
@@ -181,9 +181,11 @@ def test_cli_defaults_and_pca(image_dirs, tmp_path):
     (line,) = open(tmp_path / "test_test_None.txt").read().splitlines()
     sigma, p = line.split(", ")
     assert sigma == "25" and 25.0 < float(p) < 60.0  # the noisy input is ~20.2 dB
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        analyze.main(analyze.build_argparser().parse_args(
-            ["args.json", "--test", test_dir, "--blind", "PCA"]), args, device="cpu")
+    analyze.main(analyze.build_argparser().parse_args(
+        ["args.json", "--test", test_dir, "--blind", "PCA"]), args, device="cpu")
+    (line,) = open(tmp_path / "test_test_PCA.txt").read().splitlines()
+    sigma, p = line.split(", ")
+    assert sigma == "25" and 25.0 < float(p) < 60.0
 
 
 @pytest.mark.parametrize("jax_cls,cls", [(JaxCDLNetCSR, CDLNetCSR),

@@ -22,7 +22,6 @@ from cdlnet_tpu.data.video import get_video_fit_loaders as jax_get_video_fit_loa
 from cdlnet_tpu_torch.cli import analyze3d
 from cdlnet_tpu_torch.cli import train as cli_train
 from cdlnet_tpu_torch.cli.analyze import build_argparser
-from cdlnet_tpu_torch.cli.analyze import main as analyze_2d_main
 from cdlnet_tpu_torch.data.synthetic import gen_synthetic_video_dirs
 from cdlnet_tpu_torch.data.video import get_video_fit_loaders
 from cdlnet_tpu_torch.train.fit import init_model
@@ -123,7 +122,7 @@ def test_cli_writes_the_jax_clis_files(video_dirs, tmp_path, monkeypatch):
 def test_cli_end_to_end_blind_and_defaults(video_dirs, tmp_path):
     """The CLI with its own noise and blind MAD on the kernels' plain
     versions: finite PSNRs that beat the noisy input; the noise level
-    defaults to the config's; --blind PCA raises."""
+    defaults to the config's; so with --blind PCA."""
     test_dir = os.path.join(video_dirs, "test")
     args = _demo_args(str(tmp_path))
     args["train"]["fit"]["noise_std"] = 25
@@ -134,12 +133,12 @@ def test_cli_end_to_end_blind_and_defaults(video_dirs, tmp_path):
     assert sigma == "25" and 22.0 < float(p) < 60.0  # the noisy input is ~20.2 dB
     (row,) = _rows(str(tmp_path))
     assert row["blind"] == "MAD" and row["sigma"] == 25.0
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        analyze3d.main(build_argparser().parse_args(
-            ["args.json", "--test", test_dir, "--blind", "PCA"]), args, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        analyze_2d_main(build_argparser().parse_args(
-            ["args.json", "--test", test_dir, "--blind", "PCA"]), args, device="cpu")
+    analyze3d.main(build_argparser().parse_args(
+        ["args.json", "--test", test_dir, "--blind", "PCA"]), args, device="cpu")
+    (line,) = open(tmp_path / "test_test_PCA.txt").read().splitlines()
+    sigma, p = line.split(", ")
+    assert sigma == "25" and 22.0 < float(p) < 60.0
+    assert [r["blind"] for r in _rows(str(tmp_path))] == ["MAD", "PCA"]
 
 
 def test_passthrough_codes_match_the_plain_loop(video_dirs, tmp_path):

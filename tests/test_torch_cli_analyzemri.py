@@ -11,6 +11,7 @@ PNG names must agree; the txt byte for byte."""
 
 import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -276,9 +277,13 @@ def test_passthrough_csr_matches_jax(tmp_path, monkeypatch, case):
 
 
 def test_pca_raises(mri_dirs, tmp_path):
+    """--blind PCA (which raised before it was ported; held to JAX's
+    framewise estimate in tests/test_torch_nle_pca.py) writes its
+    "sigma, PSNR: p, SSIM: s" line."""
     args = _args("csr", tmp_path)
     args["paths"]["save"] = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        analyzemri.main(build_argparser().parse_args(
-            ["args.json", "--test", os.path.join(mri_dirs, "test"), "--blind", "PCA"]),
-            args, device="cpu")
+    analyzemri.main(build_argparser().parse_args(
+        ["args.json", "--test", os.path.join(mri_dirs, "test"), "--noise_level", "25",
+         "--blind", "PCA"]), args, device="cpu")
+    (line,) = (tmp_path / "test_test_PCA.txt").read_text().splitlines()
+    assert re.fullmatch(r"25, PSNR: \d+\.\d{3}, SSIM: \d\.\d{4}", line), line

@@ -325,13 +325,11 @@ def test_cli_main_trains_jdd_and_gdlnet(image_dirs, tmp_path, mtype, model, load
 @pytest.mark.parametrize("mtype,loaders,model", [
     pytest.param("DnCNN", {}, {}, id="DnCNN-loaders0"),
     pytest.param("FFDNet", {}, {}, id="FFDNet-loaders1"),
-    pytest.param("CDLNetVideo", {"PDFS": True}, {"residual": True, "P": [5, 5, 3]},
-                 id="CDLNetVideo-residual"),
 ])
 def test_cli_unported_families_raise(image_dirs, tmp_path, mtype, loaders, model):
-    """DnCNN, FFDNet and CDLNetVideo's residual blocks are still to port.
-    The fastMRI (PDFS) and CSR branches train: tests/test_torch_csr_train.py
-    runs them."""
+    """DnCNN and FFDNet are still to port. The fastMRI (PDFS) and CSR
+    branches train (tests/test_torch_csr_train.py), and so does CDLNetVideo
+    with residual blocks (tests/test_torch_residual.py)."""
     args = _cli_args(image_dirs, str(tmp_path), mtype, **model)
     args["train"]["loaders"].update(loaders)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -1245,3 +1245,72 @@ def test_2d_csr_adjoint_wrappers_reject_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="u"):
         LB2.lista2d_syn_adjoint_csr(*args[:3], args[3][:, :4], *args[4:],
                                     torch.zeros_like(args[2]), d["geom"])
+
+
+# --- the input pipeline, the PCA estimator and residual blocks on the card ---
+
+def test_device_prefetch_is_bitwise_under_a_concurrent_kernel(cuda):
+    """device_prefetch copies on its side stream while a kernel runs on the
+    consumer's stream between batches: every batch the consumer reads
+    (a clone enqueued after that kernel) is its host batch bit for bit."""
+    from cdlnet_tpu_torch.data.prefetch import device_prefetch
+
+    rng = np.random.default_rng(11)
+    batches = [rng.uniform(size=(2, 1, 16, 128, 128)).astype(np.float32) for _ in range(8)]
+    w = torch.randn(4096, 4096, device=cuda)
+    seen = []
+    for batch in device_prefetch(batches, device=cuda):
+        assert batch.device.type == "cuda" and batch.dtype == torch.float32
+        for _ in range(3):
+            w = torch.tanh(w @ w * 1e-3)
+        seen.append(batch.clone())
+    torch.cuda.synchronize()
+    assert len(seen) == len(batches)
+    for got, want in zip(seen, batches):
+        assert torch.equal(got.cpu(), torch.from_numpy(want))
+
+
+def test_batched_pca_on_the_card_matches_the_cpu(cuda):
+    """nle_pca of a batch of gray images and of colour images on the card
+    against the CPU: sigma and tau at rtol 1e-3, the selected-patch counts
+    within 0.5% (a patch at the threshold can fall either way)."""
+    from cdlnet_tpu_torch.nle.pca import nle_pca
+
+    rng = np.random.default_rng(12)
+    for shape in ((4, 1, 96, 80), (2, 3, 64, 64)):
+        N = shape[0]
+        clean = 0.5 + 0.2 * np.sin(np.linspace(0, 8, shape[-1]) + rng.uniform(0, 6, (N, 1, 1, 1)))
+        sig = np.linspace(10, 50, N).reshape(-1, 1, 1, 1) / 255.0
+        y = torch.from_numpy((clean + sig * rng.standard_normal(shape)).astype(np.float32))
+        want = nle_pca(y)
+        got = [v.cpu() for v in nle_pca(y.to(cuda))]
+        for a, b, rtol in zip(got, want, (1e-3, 1e-3, 5e-3)):
+            assert a.shape == b.shape == (N, shape[1])
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=rtol)
+
+
+def test_residual_golden_on_the_card(cuda):
+    """CDLNetVideo with residual blocks on the card, backend "cuda": the
+    reference golden at the JAX golden tolerance, through the plain loop
+    (no hand-kernel launch)."""
+    import os
+
+    from cdlnet_tpu_torch.compat.jax_params import load_jax_params
+    from cdlnet_tpu_torch.models import CDLNetVideo
+
+    data = np.load(os.path.join(os.path.dirname(__file__), "golden", "cdlnet3d_res.npz"))
+    sd = {k[4:]: data[k] for k in data.files if k.startswith("sd::")}
+    params = {"A": np.stack([sd[f"A.{k}.weight"] for k in range(2)]),
+              "B": np.stack([sd[f"B.{k}.weight"] for k in range(2)]), "t": sd["t"],
+              "residual": {c: np.stack([sd[f"residual_blocks.{k}.{c}.weight"]
+                                        for k in range(2)]) for c in ("conv1", "conv2")}}
+    model = load_jax_params(CDLNetVideo(K=2, M=4, P=(3, 3, 3), s=1, C=1, adaptive=True,
+                                        residual=True, backend="cuda"), params).to(cuda)
+    L.launches.clear()
+    with torch.no_grad():
+        xhat, z = model(torch.from_numpy(data["x"]).to(cuda), float(data["sigma"]),
+                        return_z=True)
+    torch.cuda.synchronize()
+    assert not L.launches
+    np.testing.assert_allclose(xhat.cpu().numpy(), data["xhat"], rtol=1e-4, atol=5e-5)
+    np.testing.assert_allclose(z.cpu().numpy(), data["z"], rtol=1e-4, atol=5e-5)
