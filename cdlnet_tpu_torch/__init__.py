@@ -6,8 +6,9 @@ name. This package covers the video model, CDLNetVideo, in serving
 models CDLNet (JDD with a Bayer mask) and GDLNet in serving
 (Denoiser.denoise_image / denoise_image_batch, known or blind sigma) and
 training, the frame-recurrent CSR models in serving (denoise_video by
-their recurrence), and the eval CLIs (cli.analyze, cli.analyze3d,
-cli.analyzemri). The LISTA contractions (with the CSR proxes) and the
+their recurrence) and training, the DnCNN and FFDNet baselines (cuDNN,
+BatchNorm training), the eval CLIs (cli.analyze, cli.analyze3d,
+cli.analyzemri), and the reference's torch .ckpt files. The LISTA contractions (with the CSR proxes) and the
 reverse run on hand-written CUDA kernels for Hopper (kernels/csrc/) when
 the tensors lie on the GPU, and on the kernels' plain PyTorch versions
 when they lie on the CPU. Entry points run on the card unless they are
@@ -20,14 +21,15 @@ Layers:
   kernels/  the fused 2D and 3D LISTA forward and the 3D reverse (CUDA
             kernels + plain versions), the autograd Function over the 3D
             pair, and their build
-  models/   registry, CDLNet, GDLNet, CDLNetVideo, CDLNetCSR and
-            CDLNetCSRf2 (nn.Module), streaming
-  nle/      blind noise-level estimation (MAD)
+  models/   registry, CDLNet, GDLNet, CDLNetVideo, CDLNetCSR,
+            CDLNetCSRf2, DnCNN and FFDNet (nn.Module), streaming
+  nle/      blind noise-level estimation (MAD, PCA)
   data/     noise injection and observation masks, image, video and
             fastMRI loaders, synthetic fixtures
-  train/    clipped Adam, mse, ssim, npz checkpoints (both packages), fit()
+  train/    clipped Adam, mse, ssim, npz checkpoints (both packages; in
+            the background with ckpt_format="orbax"), fit(), fit_csr()
   cli/      the train CLI and the analysis CLIs
-  compat/   JAX params dict <-> module state
+  compat/   JAX params dict <-> module state; torch .ckpt read and written
   serve.py  Denoiser, the serving entry point
 
 This package imports torch and numpy only; it never imports jax or

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Analysis CLI for the 2D models: `python -m cdlnet_tpu_torch.cli.analyze
 args.json [flags]` (counterpart of cdlnet_tpu/cli/analyze.py), for CDLNet
-(and JDD) and GDLNet on the card unless main() is given device="cpu".
+(and JDD), GDLNet, DnCNN and FFDNet on the card unless main() is given
+device="cpu".
 
   --test DIR            image PSNR sweep over the --noise_level values;
                         "sigma, PSNR" lines appended to
@@ -22,7 +23,10 @@ The files it writes have the JAX CLI's names and formats. The noise comes
 from a torch.Generator seeded 0 per noise level, so the PSNRs are not the
 JAX CLI's digit for digit. The video and fastMRI analyzers,
 cli/analyze3d.py and cli/analyzemri.py, share the parser and these
-commands; DnCNN and FFDNet are not ported yet (build_model raises).
+commands. DnCNN and FFDNet run in eval() mode on their checkpointed
+BatchNorm statistics; FFDNet takes the known or blind sigma into its noise
+map (the JAX CLI gives it none), DnCNN none. They have no dictionary or
+filters: those commands raise for them, as in the JAX CLI.
 """
 
 from __future__ import annotations

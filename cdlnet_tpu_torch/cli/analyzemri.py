@@ -8,6 +8,9 @@ protocol and dispatches per model type (analyzemri.py:216-247):
   CDLNet_CSR,   the model's frame recurrence (video_denoise): the warm-up
   CDLNet_CSRf2  and forward recurrence, or the two passes
   CDLNet/GDLNet each volume's slices as one frame batch
+  DnCNN/FFDNet  the same, in eval() mode on the running statistics (the
+                JAX CLI cannot run them: it passes their (params, state)
+                bundle to apply and takes the (xhat, n) pair for xhat)
   CDLNetVideo   the volumetric forward (the 3D kernels)
 
 --test DIR reads the .h5 k-space volumes of DIR (the first `depth` slices
@@ -42,7 +45,7 @@ from cdlnet_tpu_torch.train.losses import ssim
 from cdlnet_tpu_torch.utils import append_metric, load_video, psnr
 
 CSR_TYPES = ("CDLNet_CSR", "CDLNet_CSRf2")
-FRAME_TYPES = ("CDLNet", "GDLNet")
+FRAME_TYPES = ("CDLNet", "GDLNet", "DnCNN", "FFDNet")
 
 
 def _ssim_frames(x, xhat):

@@ -4,10 +4,12 @@
 
 Accepts the reference's args.json schema verbatim, on the card unless
 main() is given device="cpu". Workloads, as the JAX CLI selects them:
-  - the 2D families (CDLNet, JDD_CDLNet, GDLNet): image directories
-    (data/images.get_fit_loaders), or fastMRI volumes when the loader args
-    carry the fastMRI schema (a PDFS key), their slices in the batch dim
-    (data/fastmri.volume_to_batch_loaders); train.fit.fit(workload="2d");
+  - the 2D families (CDLNet, JDD_CDLNet, GDLNet, DnCNN, FFDNet): image
+    directories (data/images.get_fit_loaders), or fastMRI volumes when
+    the loader args carry the fastMRI schema (a PDFS key), their slices
+    in the batch dim (data/fastmri.volume_to_batch_loaders);
+    train.fit.fit(workload="2d"), which trains DnCNN's and FFDNet's
+    BatchNorm statistics too;
   - CDLNetVideo, with or without residual blocks (model.residual):
     fastMRI volumes with a PDFS key (workload "mri"), else video frame
     directories (data/video.get_video_fit_loaders, "3d");
@@ -15,8 +17,8 @@ main() is given device="cpu". Workloads, as the JAX CLI selects them:
     fastMRI volumes through the frame-recurrent trainer,
     train.fit_csr.fit_csr.
 The loader args' num_workers (default 0) assembles the training batches in
-that many threads (data/loader.py). Not ported yet (NotImplementedError
-naming ROADMAP.md): DnCNN/FFDNet.
+that many threads (data/loader.py). Any other type raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,8 +26,9 @@ from __future__ import annotations
 import json
 from pprint import pprint
 
-_NOT_PORTED = "is not ported to cdlnet_tpu_torch yet (see ROADMAP.md)"
-IMAGE_FAMILIES = ("CDLNet", "GDLNet", "JDD_CDLNet")
+from cdlnet_tpu_torch.models.base import resolve_backend
+
+IMAGE_FAMILIES = ("CDLNet", "GDLNet", "JDD_CDLNet", "DnCNN", "FFDNet")
 CSR_FAMILIES = ("CDLNet_CSR", "CDLNet_CSRf2")
 
 
@@ -38,7 +41,7 @@ def make_loaders(args: dict):
     loaders_args = dict(args["train"]["loaders"])
     mtype = args["type"]
     if mtype not in (*IMAGE_FAMILIES, "CDLNetVideo", *CSR_FAMILIES):
-        raise NotImplementedError(f"training {mtype!r} from the CLI {_NOT_PORTED}")
+        raise NotImplementedError(f"the train CLI has no workload for {mtype!r}")
     if "PDFS" in loaders_args or mtype in CSR_FAMILIES:
         from cdlnet_tpu_torch.data.fastmri import (
             get_fastmri_fit_loaders,
@@ -102,12 +105,15 @@ def main(args: dict, device=None):
 def apply_backend(choice: str, args: dict) -> dict:
     """--backend into the model config: "auto" keeps a backend the config
     pins and otherwise picks the kernels ("pallas"), as on an accelerator;
-    "pallas", "cuda" and "xla" override it."""
+    "pallas", "cuda" and "xla" override it. A family with no backend field
+    (DnCNN, FFDNet) keeps its config (models.base.resolve_backend)."""
     model_args = args.get("model", {})
     if choice == "auto" and "backend" in model_args:
         return args
-    return dict(args, model=dict(model_args,
-                                 backend="pallas" if choice == "auto" else choice))
+    backend = resolve_backend(args["type"], choice)
+    if backend is None:
+        return args
+    return dict(args, model=dict(model_args, backend=backend))
 
 
 def cli():

@@ -7,9 +7,12 @@ and "cuda" select the hand-written kernels (kernels/lista2d.py,
 kernels/lista3d.py), "xla" selects the plain PyTorch loop (ops/lista.py).
 The port has one kernel path per model family, so the JAX package's
 routing by VMEM budget (kernels/routing.py) reduces to that choice.
+DnCNN and FFDNet have no kernel path and no `backend` field.
 """
 
 from __future__ import annotations
+
+import inspect
 
 import torch
 
@@ -31,12 +34,21 @@ def build_model(model_type: str, model_args: dict):
     reference) is stripped: the model's init() takes it explicitly."""
     model_type = {"JDD_CDLNet": "CDLNet"}.get(model_type, model_type)
     if model_type not in MODEL_REGISTRY:
-        raise NotImplementedError(
-            f"model type {model_type!r} is not ported to cdlnet_tpu_torch yet "
-            "(see ROADMAP.md)"
-        )
+        raise NotImplementedError(f"unknown model type {model_type!r}")
     kwargs = {k: v for k, v in model_args.items() if k != "init"}
     return MODEL_REGISTRY[model_type](**kwargs)
+
+
+def resolve_backend(model_type: str, choice: str = "auto"):
+    """The backend a CLI or Denoiser gives a family (the rule of
+    cdlnet_tpu/models/base.py::resolve_backend): None when the family of
+    the args.json 'type' has no `backend` field (DnCNN, FFDNet), so that
+    its config stays as it is; "auto" the hand-written kernels ("pallas")
+    on any device; "pallas", "cuda" and "xla" as they are."""
+    cls = MODEL_REGISTRY.get({"JDD_CDLNet": "CDLNet"}.get(model_type, model_type))
+    if cls is None or "backend" not in inspect.signature(cls.__init__).parameters:
+        return None
+    return "pallas" if choice == "auto" else choice
 
 
 def check_backend(backend: str) -> None:

@@ -28,6 +28,11 @@ and an image as a frame with no neighbour code. They run whole clips only:
 chunk_depth below the clip's depth and tile_hw raise, as they fail in the
 JAX package's Denoiser.
 
+DnCNN and FFDNet serve in eval() mode, on their checkpointed BatchNorm
+running statistics (the JAX package's Denoiser drops them and serves on
+mean 0 and variance 1). FFDNet takes sigma into its noise-level map; blind,
+it takes the Denoiser's estimate there (JAX's passes none, a zero map).
+
 A failed kernel raises: there is no fallback to the plain path.
 """
 
@@ -43,7 +48,7 @@ import torch
 from cdlnet_tpu_torch import nle
 from cdlnet_tpu_torch.compat.jax_params import load_jax_params
 from cdlnet_tpu_torch.models import streaming
-from cdlnet_tpu_torch.models.base import build_model
+from cdlnet_tpu_torch.models.base import build_model, resolve_backend
 from cdlnet_tpu_torch.models.csr import CDLNetCSR, CDLNetCSRf2, blind_sigma
 from cdlnet_tpu_torch.train.checkpoint import load_params
 from cdlnet_tpu_torch.utils import default_device
@@ -97,17 +102,22 @@ class Denoiser:
     def from_args(cls, args: dict, backend: str = "pallas", device=None, **kw):
         """Build from a reference-schema args dict, on `device`: the card
         when None (no card raises; pass device="cpu" for the CPU). With
-        paths.ckpt the parameters load from that .npz bundle; without it
-        they come from the model's init (power method when model.init is
-        true), seed 0."""
-        model_args = dict(args["model"], backend=backend)
+        paths.ckpt the parameters (and a BatchNorm family's running
+        statistics) load from that .npz bundle or reference torch .ckpt;
+        without it they come from the model's init (power method when
+        model.init is true), seed 0. `backend` goes to the families that
+        have one (models.base.resolve_backend)."""
+        model_args = dict(args["model"])
+        backend = resolve_backend(args["type"], backend)
+        if backend is not None:
+            model_args["backend"] = backend
         want_init = model_args.pop("init", True)
         model = build_model(args["type"], model_args).to(default_device(device))
         ckpt = (args.get("paths") or {}).get("ckpt")
         if ckpt is None:
             model.init(torch.Generator().manual_seed(0), init=want_init)
         else:
-            params, _ = load_params(ckpt)
+            params, _ = load_params(ckpt, model)
             load_jax_params(model, params)
         return cls(model, **kw)
 

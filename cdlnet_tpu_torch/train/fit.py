@@ -1,5 +1,5 @@
 """The training loop of the image and video workloads (counterpart of the
-single-device, non-stateful path of cdlnet_tpu/train/fit.py).
+single-device path of cdlnet_tpu/train/fit.py).
 
 Structure (reference train.py:32-158):
   - epoch loop on the host, per-epoch phases train/val/test ('test' only on
@@ -16,10 +16,17 @@ Structure (reference train.py:32-158):
     the epoch counter (train.py:113-142), log to backtrack.txt; disarmed
     after max_backtracks consecutive restores without a new best.
 
-The frame-recurrent CSR models train through train/fit_csr.py. Not ported
-yet (each raises NotImplementedError naming ROADMAP.md): meshes, BatchNorm
-(stateful) families, one-dispatch device-scan epochs, MC-SURE and the
-combined loss, orbax checkpoints.
+BatchNorm families (DnCNN, FFDNet) are stateful: the train step runs the
+model in train() mode, which updates its running statistics, and the eval
+step in eval() mode; checkpoints and backtracking carry the statistics
+with the parameters (the JAX package's (params, state) bundle).
+ckpt_format="orbax" saves every checkpoint in the background
+(train/checkpoint.py: side-write and promote, the JAX orbax backend's job
+on .npz bundles); fit settles the pending writes before it restores one
+and when it returns or raises. The frame-recurrent CSR models train
+through train/fit_csr.py. Not ported yet (each raises NotImplementedError
+naming ROADMAP.md): meshes, one-dispatch device-scan epochs, MC-SURE and
+the combined loss.
 """
 
 from __future__ import annotations
@@ -30,10 +37,17 @@ import time
 
 import torch
 
+from cdlnet_tpu_torch.compat import torch_ckpt
+from cdlnet_tpu_torch.compat.jax_params import is_stateful, load_jax_params
 from cdlnet_tpu_torch.data.noise import awgn, awgn3d, gen_bayer_mask, gen_bayer_mask3d
 from cdlnet_tpu_torch.data.prefetch import device_prefetch
 from cdlnet_tpu_torch.models.base import build_model
-from cdlnet_tpu_torch.train.checkpoint import load_ckpt, save_ckpt
+from cdlnet_tpu_torch.train.checkpoint import (
+    is_torch_ckpt,
+    load_ckpt,
+    save_ckpt,
+    settles_checkpoints,
+)
 from cdlnet_tpu_torch.train.losses import mse_loss, psnr_from_mse
 from cdlnet_tpu_torch.train.optim import get_lr, make_optimizer, set_lr
 from cdlnet_tpu_torch.utils import append_metric, default_device
@@ -44,8 +58,12 @@ _NOT_PORTED = "is not ported to cdlnet_tpu_torch yet (see ROADMAP.md)"
 def init_model(args: dict, seed: int = 0, device=None):
     """Build model + optimizer from a reference-schema args dict (reference
     train.py:180-219), on `device` (the card when None): power-method init
-    only when no checkpoint is given; a native .npz checkpoint at
-    paths.ckpt restores params, optimizer state, epoch and lr.
+    only when no checkpoint is given. A checkpoint at paths.ckpt restores:
+      - a native .npz bundle: params (and running statistics), optimizer
+        state, epoch and lr;
+      - a reference torch .ckpt: the net state and epoch, then the Adam
+        moments and lr when it holds an opt_state_dict, else StepLR's lr
+        from its sched_state_dict (train.py:232-247).
 
     Returns (model, opt, opt_state, epoch0, lr0).
     """
@@ -61,9 +79,25 @@ def init_model(args: dict, seed: int = 0, device=None):
     opt = make_optimizer(lr, clip_grad=clip_grad)
     opt_state = opt.init(dict(model.named_parameters()))
     epoch0 = 0
-    if ckpt_path is not None and (os.path.exists(ckpt_path)
-                                  or os.path.exists(str(ckpt_path) + ".npz")):
-        _, opt_state, epoch0, lr_saved = load_ckpt(ckpt_path, model, opt_state)
+    if ckpt_path is None:
+        return model, opt, opt_state, epoch0, lr
+    if is_torch_ckpt(ckpt_path):
+        ckpt = torch_ckpt.load_torch_checkpoint(ckpt_path)
+        load_jax_params(model, torch_ckpt.import_net_state(model, ckpt["net_state_dict"]))
+        epoch0 = ckpt.get("epoch") or 0
+        if ckpt.get("opt_state_dict") is not None:
+            torch_ckpt.import_opt_state(model, ckpt["opt_state_dict"], opt_state)
+            lr = get_lr(opt_state)
+        else:
+            sched_st = torch_ckpt.import_sched_state(ckpt.get("sched_state_dict"))
+            if sched_st is not None:
+                lr = torch_ckpt.sched_lr(sched_st)
+                set_lr(opt_state, lr)
+    else:
+        try:
+            _, opt_state, epoch0, lr_saved = load_ckpt(ckpt_path, model, opt_state)
+        except FileNotFoundError:  # no bundle at the path yet: a fresh run
+            lr_saved = None
         if lr_saved is not None:
             set_lr(opt_state, lr_saved)
     return model, opt, opt_state, epoch0, lr
@@ -92,7 +126,7 @@ def train_update(model, opt, opt_state, obsrv, sigma, clean, mask=None,
 
 def make_train_step(model, opt, *, workload="3d", noise_std=(25, 25),
                     demosaic=False, mcsure=False, loss_type="mse", project=True,
-                    stateful=False, mesh=None):
+                    stateful=None, mesh=None):
     """Build the per-batch steps on the model's device:
       train_step(opt_state, batch, generator) -> loss
         (params and opt_state update in place)
@@ -102,11 +136,19 @@ def make_train_step(model, opt, *, workload="3d", noise_std=(25, 25),
     ("2d") on the model's device; generator: a
     torch.Generator there, which draws the noise (and the per-sample sigma
     when noise_std is a range). demosaic observes through the RGGB Bayer
-    mask (2D) or the reference's all-ones 3D mask."""
+    mask (2D) or the reference's all-ones 3D mask. stateful (None: the
+    model's, compat.jax_params.is_stateful) runs train_step in train()
+    mode, which updates a BatchNorm family's running statistics, and
+    eval_step in eval() mode, on them (the JAX package's
+    make_train_step(stateful=True))."""
     if workload not in ("2d", "3d", "mri"):
         raise NotImplementedError(f"workload {workload!r} {_NOT_PORTED}")
-    for name, unported in (("mcsure", mcsure), ("stateful", stateful),
-                           ("mesh", mesh is not None),
+    if stateful is None:
+        stateful = is_stateful(model)
+    elif stateful != is_stateful(model):
+        raise ValueError(f"stateful={stateful} for {type(model).__name__}, which "
+                         f"{'has' if is_stateful(model) else 'has no'} running statistics")
+    for name, unported in (("mcsure", mcsure), ("mesh", mesh is not None),
                            (f"loss_type={loss_type!r}", loss_type != "mse")):
         if unported:
             raise NotImplementedError(f"{name} training {_NOT_PORTED}")
@@ -122,18 +164,23 @@ def make_train_step(model, opt, *, workload="3d", noise_std=(25, 25),
 
     def train_step(opt_state, batch, generator):
         obsrv, sigma, mask = observe(batch, generator)
+        if stateful:
+            model.train()
         return train_update(model, opt, opt_state, obsrv, sigma, batch,
                             mask=mask, project=project)
 
     @torch.no_grad()
     def eval_step(batch, generator):
         obsrv, sigma, mask = observe(batch, generator)
+        if stateful:
+            model.eval()
         xhat, _ = model(obsrv, sigma, mask=mask)
         return mse_loss(xhat, batch)
 
     return train_step, eval_step
 
 
+@settles_checkpoints
 def fit(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1,
         noise_std=25, val_freq=1, save_freq=1, backtrack_thresh=1,
         demosaic=False, mcsure=False, loss_type="mse", workload="3d",
@@ -147,9 +194,12 @@ def fit(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1,
     arrays or tensors), copied to the model's device ahead of the step that
     reads them (data/prefetch.py::device_prefetch). The
     semantics follow the JAX package's fit (module docstring); sched is
-    dict(step_size=..., gamma=...) for StepLR."""
-    if ckpt_format != "npz":
-        raise NotImplementedError(f"ckpt_format={ckpt_format!r} {_NOT_PORTED}")
+    dict(step_size=..., gamma=...) for StepLR. ckpt_format "npz" writes
+    each checkpoint before the loop goes on, "orbax" in the background;
+    both leave .npz bundles."""
+    if ckpt_format not in ("npz", "orbax"):
+        raise ValueError(f"ckpt_format {ckpt_format!r} not in ('npz', 'orbax')")
+    background = ckpt_format == "orbax"
     if device_scan:
         raise NotImplementedError(f"device_scan {_NOT_PORTED}")
     os.makedirs(save_dir, exist_ok=True)
@@ -165,7 +215,7 @@ def fit(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1,
         demosaic=demosaic, project=project, mesh=mesh)
 
     ckpt0 = os.path.join(save_dir, "0.ckpt")
-    save_ckpt(ckpt0, model, 0, opt_state, get_lr(opt_state))
+    save_ckpt(ckpt0, model, 0, opt_state, get_lr(opt_state), background=background)
     # bests start at -inf so divergence is only declared relative to an
     # actually recorded best (the reference's 0 livelocks on negative PSNR)
     top_psnr = {"train": -math.inf, "val": -math.inf, "test": -math.inf}
@@ -258,7 +308,7 @@ def fit(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1,
 
         if epoch % save_freq == 0:
             save_ckpt(os.path.join(save_dir, "net.ckpt"), model, epoch, opt_state,
-                      get_lr(opt_state))
+                      get_lr(opt_state), background=background)
             if epoch_fun is not None:
                 epoch_fun(epoch)
 

@@ -36,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from cdlnet_tpu_torch.data.noise import awgn
 from cdlnet_tpu_torch.data.prefetch import device_prefetch
 from cdlnet_tpu_torch.models.csr import CDLNetCSRf2
-from cdlnet_tpu_torch.train.checkpoint import save_ckpt
+from cdlnet_tpu_torch.train.checkpoint import save_ckpt, settles_checkpoints
 from cdlnet_tpu_torch.train.losses import mse_loss, psnr_from_mse
 from cdlnet_tpu_torch.train.optim import get_lr, set_lr
 from cdlnet_tpu_torch.utils import append_metric
@@ -107,6 +107,7 @@ def make_csr_train_step(model, opt, *, noise_std, project=False, remat="auto"):
     return train_step, eval_step
 
 
+@settles_checkpoints
 def fit_csr(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1,
             noise_std=25, val_freq=1, save_freq=1, sched=None, verbose=True,
             epoch_fun=None, seed=0, project=False, mesh=None, ckpt_format="npz",
@@ -123,11 +124,13 @@ def fit_csr(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1
     save_freq epochs, and the StepLR sched (dict(step_size=..., gamma=...)).
     val and test draw their noise at the midpoint sigma. As in the JAX
     package there is no backtracking; fit's other keys (backtrack_thresh,
-    mcsure, demosaic, ...) land in `ignored` and are named."""
+    mcsure, demosaic, ...) land in `ignored` and are named. ckpt_format
+    "orbax" saves in the background, as fit does."""
     if mesh is not None:
         raise NotImplementedError(f"mesh training {_NOT_PORTED}")
-    if ckpt_format != "npz":
-        raise NotImplementedError(f"ckpt_format={ckpt_format!r} {_NOT_PORTED}")
+    if ckpt_format not in ("npz", "orbax"):
+        raise ValueError(f"ckpt_format {ckpt_format!r} not in ('npz', 'orbax')")
+    background = ckpt_format == "orbax"
     if ignored:  # fit's keys the CSR path has no use for: name them
         print(f"fit_csr: ignoring fit args {sorted(ignored)}")
     os.makedirs(save_dir, exist_ok=True)
@@ -139,7 +142,8 @@ def fit_csr(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1
                                        noise_std=(noise_std[0] + noise_std[1]) / 2.0,
                                        project=project)
 
-    save_ckpt(os.path.join(save_dir, "0.ckpt"), model, 0, opt_state, get_lr(opt_state))
+    save_ckpt(os.path.join(save_dir, "0.ckpt"), model, 0, opt_state, get_lr(opt_state),
+              background=background)
     history = []
     gen = torch.Generator(device=dev).manual_seed(seed)
     for epoch in range(start_epoch, start_epoch + epochs):
@@ -171,7 +175,7 @@ def fit_csr(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1
         if epoch % save_freq == 0:
             for name in (f"net_epoch_{epoch}.ckpt", "net.ckpt"):
                 save_ckpt(os.path.join(save_dir, name), model, epoch, opt_state,
-                          get_lr(opt_state))
+                          get_lr(opt_state), background=background)
             if epoch_fun is not None:
                 epoch_fun(epoch)
     return opt_state, history

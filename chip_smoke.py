@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's video serve, 2D image serve, video
 training, 2D image training, native-resolution video and frame-recurrent
 CSR serving and training paths, the input pipeline, blind PCA noise
-estimation and CDLNetVideo's residual blocks on one GPU.
+estimation, CDLNetVideo's residual blocks, the DnCNN/FFDNet baselines and
+reference torch .ckpt checkpoints on one GPU.
 
     python3 chip_smoke.py
 
@@ -101,6 +102,22 @@ Builds the hand-written CUDA kernels from cdlnet_tpu_torch/kernels/csrc
             every backend): the reference golden on the card, the flagship
             width serving a 16x128^2 clip with no kernel launch, and one
             train step at N=2 (loss, ms, peak memory);
+  baselines DnCNN (DnCNN-S: K=17, M=64, P=3) and FFDNet (C=1, K=15, M=64,
+            P=3) on cuDNN, with BatchNorm: 20 fit() steps on 128 crops of
+            40^2 / 50^2 (losses falling, running statistics moving, a
+            checkpoint that reloads them bitwise), the eval forward and one
+            training step (float64 and fp32) on the card against the CPU,
+            Denoiser on a
+            481x321 image and a batch of 8 x 128^2 (latency, images/s), two
+            epochs of the train CLI for DnCNN and cli.analyze on its
+            checkpoint;
+  ckpt      reference torch .ckpt files on the kernels: the video, 2D
+            flagship and CSR demos exported by save_torch_checkpoint and
+            served from the .ckpt through Denoiser.from_args, bitwise the
+            .npz route with the same launches; the flagship video model
+            resumed for 5 fit() steps from a .ckpt with Adam state, bitwise
+            the losses of an .npz resume; fit(ckpt_format="orbax"), whose
+            background-saved .npz reloads equal;
 
 and times every kernel (CUDA events) beside its plain version, the one
 PyTorch call that computes the same function, and its bound on this card
@@ -136,10 +153,11 @@ import torch
 import torch.nn.functional as F
 
 from cdlnet_tpu_torch import nle
-from cdlnet_tpu_torch.cli import analyze3d, analyzemri
+from cdlnet_tpu_torch.cli import analyze, analyze3d, analyzemri
 from cdlnet_tpu_torch.cli import train as cli_train
 from cdlnet_tpu_torch.cli.analyze import build_argparser
 from cdlnet_tpu_torch.compat.jax_params import load_jax_params
+from cdlnet_tpu_torch.compat.torch_ckpt import save_torch_checkpoint
 from cdlnet_tpu_torch.core.ops import csr_f2_jump, prox_csr, prox_csr_f2
 from cdlnet_tpu_torch.core.preprocess import post_process, pre_process, pre_process_3d
 from cdlnet_tpu_torch.data.noise import gen_bayer_mask
@@ -160,6 +178,8 @@ from cdlnet_tpu_torch.models import (
     CDLNetCSR,
     CDLNetCSRf2,
     CDLNetVideo,
+    DnCNN,
+    FFDNet,
     GDLNet,
     streaming,
 )
@@ -170,11 +190,11 @@ from cdlnet_tpu_torch.ops.lista import _threshold, lista_2d, lista_3d
 from cdlnet_tpu_torch.serve import Denoiser
 from cdlnet_tpu_torch.tools import compare_sass
 from cdlnet_tpu_torch.tools.bench_video_serve import graph_ms
-from cdlnet_tpu_torch.train.checkpoint import load_ckpt
+from cdlnet_tpu_torch.train.checkpoint import load_ckpt, save_ckpt
 from cdlnet_tpu_torch.train.fit import fit, init_model, make_train_step, train_update
 from cdlnet_tpu_torch.train.fit_csr import fit_csr, make_csr_train_step
 from cdlnet_tpu_torch.train.losses import mse_loss
-from cdlnet_tpu_torch.train.optim import make_optimizer
+from cdlnet_tpu_torch.train.optim import get_lr, make_optimizer
 from cdlnet_tpu_torch.utils import img_save, load_video
 
 FLAGSHIP = dict(K=30, M=169, P=(7, 7, 5), s=2, C=1, adaptive=True, depth=16)
@@ -313,6 +333,22 @@ PCA_GAIN_GAP_DB = 0.1
 DEMO_2D_SIGMAS = (15.0, 35.0)  # examples/cdlnet-flagship-demo's training noise_std
 CLI_WORKERS = (0, 4)
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden")
+# the baselines on cuDNN: DnCNN-S (cdlnet_tpu/models/dncnn.py:52-59) and
+# FFDNet's published grayscale width, trained on 128 crops a batch of 40^2
+# and 50^2 (their papers' patch sizes) at sigma 25 with Adam at 1e-3; the
+# card against the CPU on the same weights and inputs
+DNCNN_WIDTH = dict(K=17, M=64, P=3)
+FFDNET_WIDTH = dict(C=1, K=15, M=64, P=3)
+BASE_CROPS = {"DnCNN": 40, "FFDNet": 50}
+BASE_BATCH = 128
+BASE_PARITY_N = 16          # crops of the card-vs-CPU training step
+BASE_FWD_TOL = 1e-4         # forward and running statistics, max|d| / max|ref|
+# loss and gradients of one step, max|d| / max|ref|, in float64 on both
+# devices: in fp32 the backward through 13-15 BatchNorm layers alone moves
+# the gradients up to ~1e-3 from float64 on the card and on the CPU alike
+# (PERF.md, Findings), so fp32 holds the loss and statistics
+BASE_STEP_TOL = 1e-3
+RESUME_STEPS = 5            # fit() steps of the flagship resumed from a .ckpt
 KERNEL_TOL = 1e-4   # one kernel call vs its plain version, max|d| / max|ref|
 FORWARD_TOL = 1e-3  # the K=30 forward on the kernels vs the plain loop
 # the K=30 gradient on the kernels vs torch autograd through cuDNN: both
@@ -2590,6 +2626,318 @@ def residual_phase(dev, card) -> None:
     torch.cuda.empty_cache()
 
 
+def baseline_step(model, noisy, sig, clean):
+    """(loss, gradients) of one train-mode forward and backward; the
+    model's running statistics move as in a training step."""
+    model.train()
+    loss = mse_loss(model(noisy, sig)[0], clean)
+    return loss.detach(), torch.autograd.grad(loss, list(model.parameters()))
+
+
+def baselines_phase(dev, card) -> None:
+    """B. DnCNN (DnCNN-S width) and FFDNet (published grayscale width) on
+    cuDNN, which have no hand kernel: B1 20 fit() steps on 128 crops of
+    data/synthetic.natural_image (40^2 / 50^2) with finite, falling losses,
+    moving running statistics and a checkpoint that reloads them bitwise;
+    B2 the eval forward on the card against the CPU on the same weights,
+    and one training step (loss, gradients, statistics) in float64 and in
+    fp32, each device's fp32 gradients also against float64; B3 Denoiser on a
+    481x321 image and a batch of 8 x 128^2 (latency, images/s); B4 two
+    epochs of the train CLI for DnCNN and cli.analyze on its checkpoint."""
+    rng = np.random.default_rng(SEED + 100)
+    for name, cls, cfg in (("DnCNN", DnCNN, DNCNN_WIDTH), ("FFDNet", FFDNet, FFDNET_WIDTH)):
+        crop = BASE_CROPS[name]
+        clean = natural_crops(rng, BASE_BATCH, crop)
+        model = cls(**cfg).to(dev).init(torch.Generator().manual_seed(SEED))
+        opt = make_optimizer(1e-3)
+        state = opt.init(dict(model.named_parameters()))
+        loaders = {"train": [clean], "val": [clean[:8]], "test": [clean[:8]]}
+        with tempfile.TemporaryDirectory() as save_dir:
+            t0 = time.perf_counter()
+            state, history = fit(model, opt, state, loaders, save_dir=save_dir,
+                                 epochs=FIT_STEPS, noise_std=SIGMA, val_freq=10, save_freq=10,
+                                 backtrack_thresh=None, verbose=False, seed=SEED,
+                                 workload="2d")
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            losses = [10 ** (-p / 10) for _, ph, p in history if ph == "train"]
+            print(f"baselines {name}: fit {FIT_STEPS} steps of {BASE_BATCH}x{crop}^2 in "
+                  f"{fit_s:.2f} s; train losses {[f'{v:.6f}' for v in losses]}", flush=True)
+            require(len(losses) == FIT_STEPS and all(np.isfinite(losses)),
+                    f"{name}: non-finite or missing train losses {losses}")
+            require(np.mean(losses[-5:]) < np.mean(losses[:5]),
+                    f"{name}: losses did not fall: {losses[:5]} .. {losses[-5:]}")
+            require(not torch.equal(model.bn_mean, torch.zeros_like(model.bn_mean))
+                    and not torch.equal(model.bn_var, torch.ones_like(model.bn_var)),
+                    f"{name}: fit did not move the running statistics")
+            back = cls(**cfg).to(dev)
+            _, _, epoch, _ = load_ckpt(os.path.join(save_dir, "net.ckpt.npz"), back)
+            require(epoch == FIT_STEPS and all(
+                torch.equal(a, b) for a, b in zip(back.state_dict().values(),
+                                                  model.state_dict().values())),
+                f"{name}: fit's checkpoint did not reload its params and statistics")
+        batch = torch.from_numpy(clean).to(dev)
+        step, _ = make_train_step(model, opt, workload="2d", noise_std=SIGMA)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = host_ms(lambda: step(state, batch, gen), rounds=5)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+
+        # B2. the card against the CPU on the same weights: eval forward and
+        # one training step
+        cpu = cls(**cfg)
+        cpu.load_state_dict(model.state_dict())
+        model.eval(), cpu.eval()
+        big_clean, big_noisy = noisy_images(rng, BIG_IMAGE, [SIGMA])
+        with torch.no_grad():
+            got = model(torch.from_numpy(big_noisy).to(dev), SIGMA)[0]
+            ref = cpu(torch.from_numpy(big_noisy), SIGMA)[0]
+        d_fwd, rel_fwd = rel_err(got.cpu(), ref)
+        noisy = (clean[:BASE_PARITY_N] + SIGMA / 255 * rng.standard_normal(
+            (BASE_PARITY_N, 1, crop, crop)).astype(np.float32))
+        pair = [torch.from_numpy(a) for a in (noisy, clean[:BASE_PARITY_N])]
+
+        def one_step(device, dtype):
+            m = cls(**cfg).to(device, dtype)
+            m.load_state_dict(model.state_dict())
+            loss, grads = baseline_step(m, pair[0].to(device, dtype), SIGMA,
+                                        pair[1].to(device, dtype))
+            return (loss.double().cpu(), [g.double().cpu() for g in grads],
+                    [m.bn_mean.double().cpu(), m.bn_var.double().cpu()])
+
+        steps = {(d, dt): one_step(d, dt) for d in (dev, "cpu")
+                 for dt in (torch.float64, torch.float32)}
+
+        def step_errs(a, b):
+            (la, ga, sa), (lb, gb, sb) = steps[a], steps[b]
+            return (float((la - lb).abs() / lb.abs()), max(rel_err(x, y)[1] for x, y in
+                                                            zip(ga, gb)),
+                    max(rel_err(x, y)[1] for x, y in zip(sa, sb)))
+
+        f64 = step_errs((dev, torch.float64), ("cpu", torch.float64))
+        f32 = step_errs((dev, torch.float32), ("cpu", torch.float32))
+        card_exact = step_errs((dev, torch.float32), ("cpu", torch.float64))[1]
+        cpu_exact = step_errs(("cpu", torch.float32), ("cpu", torch.float64))[1]
+        print(f"baselines {name}: card vs CPU forward at {BIG_IMAGE} max|d| {d_fwd:.3e} "
+              f"rel {rel_fwd:.3e}; one step of {BASE_PARITY_N}x{crop}^2 in float64: loss rel "
+              f"{f64[0]:.3e}, gradients rel {f64[1]:.3e}, running statistics rel "
+              f"{f64[2]:.3e}; in fp32: loss {f32[0]:.3e}, gradients {f32[1]:.3e}, statistics "
+              f"{f32[2]:.3e}, fp32 gradients against float64 on the card {card_exact:.3e}, "
+              f"on the CPU {cpu_exact:.3e}", flush=True)
+        require(rel_fwd <= BASE_FWD_TOL, f"{name} forward card vs CPU rel {rel_fwd:.3e}")
+        require(f64[0] <= BASE_STEP_TOL and f64[1] <= BASE_STEP_TOL and f64[2] <= BASE_FWD_TOL,
+                f"{name} float64 step card vs CPU: loss, gradients, statistics {f64}")
+        require(f32[0] <= BASE_STEP_TOL and f32[2] <= BASE_FWD_TOL,
+                f"{name} fp32 step card vs CPU: loss {f32[0]:.3e}, statistics {f32[2]:.3e}")
+        del cpu, steps
+
+        # B3. serving through Denoiser: a 481x321 image and a batch of 8 x 128^2
+        server = Denoiser(model)
+        b_clean, b_noisy = noisy_images(rng, IMAGE, [SIGMA] * THROUGHPUT_BATCH)
+        out = server.denoise_image(big_noisy[0, 0], sigma=SIGMA)
+        outs = server.denoise_image_batch(b_noisy, sigmas=[SIGMA] * THROUGHPUT_BATCH)
+        blind = server.denoise_image(big_noisy[0, 0])
+        require(out.shape == BIG_IMAGE and np.isfinite(out).all() and np.isfinite(blind).all()
+                and outs.shape == b_noisy.shape and np.isfinite(outs).all(),
+                f"{name}: misshapen or non-finite Denoiser output")
+        lat = host_ms(lambda: server.denoise_image(big_noisy[0, 0], sigma=SIGMA))
+        b_ms = host_ms(lambda: server.denoise_image_batch(
+            b_noisy, sigmas=[SIGMA] * THROUGHPUT_BATCH))
+        yb = torch.from_numpy(np.pad(big_noisy, [(0, 0), (0, 0), (0, 63), (0, 31)],
+                                     mode="reflect")).to(dev)
+        with torch.inference_mode():
+            fwd_ms = cuda_ms(lambda: model(yb, SIGMA), reps=3)
+        gain = psnr(out, big_clean[0, 0]) - psnr(big_noisy[0, 0], big_clean[0, 0])
+        print(f"time [{card}]: {name} ({cfg}) train step {BASE_BATCH}x{crop}^2 "
+              f"{step_ms:.3f} ms (peak {peak:.2f} GB); 481x321 image {lat:.3f} ms through "
+              f"denoise_image (forward {fwd_ms:.3f} ms at 384x512, CUDA events), batch of "
+              f"{THROUGHPUT_BATCH} x 128^2 {b_ms:.3f} ms = "
+              f"{1e3 * THROUGHPUT_BATCH / b_ms:.1f} images/s; after {FIT_STEPS} steps its "
+              f"gain at sigma 25 {gain:.3f} dB", flush=True)
+        del server, model, state, batch, opt
+        torch.cuda.empty_cache()
+
+    # B4. two epochs of the train CLI (DnCNN on image directories, on the
+    # card by default), then the eval CLI on the checkpoint it saved
+    with tempfile.TemporaryDirectory() as root:
+        data = gen_natural_image_dirs(os.path.join(root, "data"), n_train=CLI_TRAIN_IMAGES,
+                                      n_test=CLI_TEST_IMAGES, seed=SEED)
+        save_dir = os.path.join(root, "run")
+        args = {"type": "DnCNN", "model": dict(DNCNN_WIDTH), "paths": {"save": save_dir},
+                "train": {"opt": {"lr": 1e-3},
+                          "fit": {"epochs": CLI_EPOCHS, "noise_std": SIGMA, "val_freq": 1,
+                                  "save_freq": 1, "backtrack_thresh": None,
+                                  "verbose": False, "clip_grad": None},
+                          "loaders": {"crop_size": BASE_CROPS["DnCNN"],
+                                      "batch_size": [TRAIN_2D_N, 1, 1], **{
+                                          f"{k}_path_list": [os.path.join(data, split)]
+                                          for k, split in (("trn", "train"), ("val", "val"),
+                                                           ("tst", "test"))}}}}
+        t0 = time.perf_counter()
+        cli_state, history = cli_train.main(args)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        require([(e, ph) for e, ph, _ in history]
+                == [(1, "train"), (1, "val"), (2, "train"), (2, "val"), (2, "test")]
+                and all(np.isfinite(p) for _, _, p in history),
+                f"the DnCNN train CLI's history {history}")
+        with open(os.path.join(save_dir, "args.json")) as f:
+            saved = json.load(f)
+        t0 = time.perf_counter()
+        analyze.main(build_argparser().parse_args(
+            ["args.json", "--test", os.path.join(data, "test"), "--noise_level", "25"]), saved)
+        eval_s = time.perf_counter() - t0
+        with open(os.path.join(save_dir, "test_test_None.txt")) as f:
+            line = f.read()
+        sigma, p = line.strip().split(", ")
+        print(f"baselines: DnCNN train CLI {cli_s:.2f} s for {CLI_EPOCHS} epochs "
+              f"(PSNR {[(e, ph, round(v, 3)) for e, ph, v in history]}), cli.analyze "
+              f"{eval_s:.2f} s on {CLI_TEST_IMAGES} test images: {line.strip()!r}", flush=True)
+        require(sigma == "25" and np.isfinite(float(p)) and cli_state["count"] > 0,
+                f"cli.analyze on the DnCNN checkpoint wrote {line!r}")
+
+
+def ckpt_phase(dev, card) -> dict:
+    """K. Reference torch .ckpt files on the kernels: K1 the video, 2D
+    flagship and CSR demos exported by save_torch_checkpoint and served
+    through Denoiser.from_args from the .ckpt, bitwise the .npz route with
+    the same launches and a PSNR gain >= 3 dB; K2 the flagship video model
+    resumed for 5 fit() steps from a .ckpt holding Adam state, bitwise the
+    losses and weights of a resume from an .npz bundle of the same state;
+    K3 fit(ckpt_format="orbax") for two epochs, whose promoted .npz reloads
+    equal. Returns the kernel launches."""
+    rng = np.random.default_rng(SEED + 110)
+    launches = collections.Counter()
+    with tempfile.TemporaryDirectory() as root:
+        for demo in (DEMO, DEMO_2D, CSR_DEMO):
+            npz = Denoiser.from_dir(demo)
+            path = os.path.join(root, os.path.basename(demo) + ".ckpt")
+            t0 = time.perf_counter()
+            save_torch_checkpoint(path, npz.model, epoch=1)
+            save_ms = 1e3 * (time.perf_counter() - t0)
+            with open(os.path.join(demo, "args.json")) as f:
+                args = json.load(f)
+            args["paths"] = {"ckpt": path}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck = Denoiser.from_args(args)
+            torch.cuda.synchronize()
+            load_ms = 1e3 * (time.perf_counter() - t0)
+            if demo == DEMO_2D:
+                clean, noisy = (a[0, 0] for a in noisy_images(rng, IMAGE, [SIGMA]))
+                serve = {label: (lambda d=d: d.denoise_image(noisy, sigma=SIGMA))
+                         for label, d in (("npz", npz), ("ckpt", ck))}
+            else:
+                clean = smooth_clip(rng, CSR_DEPTH if demo == CSR_DEMO else CLIP[0], IMAGE)
+                noisy = clean + SIGMA / 255 * rng.standard_normal(clean.shape).astype(np.float32)
+                serve = {label: (lambda d=d: d.denoise_video(noisy, sigma=SIGMA))
+                         for label, d in (("npz", npz), ("ckpt", ck))}
+            outs, counts = {}, {}
+            for label, fn in serve.items():
+                L.launches.clear()
+                outs[label] = fn()
+                torch.cuda.synchronize()
+                counts[label] = dict(L.launches)
+                launches.update(counts[label])
+            gain = psnr(outs["ckpt"], clean) - psnr(noisy, clean)
+            same_w = all(torch.equal(a, b) for a, b in zip(npz.model.state_dict().values(),
+                                                           ck.model.state_dict().values()))
+            print(f"ckpt {os.path.basename(demo)}: save_torch_checkpoint {save_ms:.1f} ms, "
+                  f"Denoiser.from_args on the .ckpt {load_ms:.1f} ms; weights equal {same_w}, "
+                  f"output bitwise the .npz route's {np.array_equal(outs['npz'], outs['ckpt'])}"
+                  f"; launches {counts['ckpt']}; gain {gain:.3f} dB", flush=True)
+            require(same_w and np.array_equal(outs["npz"], outs["ckpt"]),
+                    f"{demo}: the .ckpt route differs from the .npz route")
+            require(counts["ckpt"] == counts["npz"] and sum(counts["ckpt"].values()) > 0,
+                    f"{demo}: launches {counts}")
+            require(gain >= MIN_GAIN_DB, f"{demo} from .ckpt: gain {gain:.3f} dB")
+            del npz, ck
+
+        # K2. the flagship video model, two steps in, resumed from a .ckpt and
+        # from an .npz bundle of the same state
+        model = CDLNetVideo(**FLAGSHIP, backend="pallas").to(dev)
+        model.init(torch.Generator().manual_seed(SEED))
+        opt = make_optimizer(2e-4, clip_grad=0.05)
+        state = opt.init(dict(model.named_parameters()))
+        tc = np.stack([smooth_clip(rng, *CLIP[:2])[None] for _ in range(TRAIN_N)])
+        step, _ = make_train_step(model, opt, workload="3d", noise_std=TRAIN_SIGMA)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for _ in range(2):
+            step(state, torch.from_numpy(tc).to(dev), gen)
+        paths = {"npz": os.path.join(root, "flagship.ckpt.npz"),
+                 "ckpt": os.path.join(root, "flagship.ckpt")}
+        t0 = time.perf_counter()
+        save_ckpt(paths["npz"], model, 2, state, get_lr(state))
+        save_npz_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        save_torch_checkpoint(paths["ckpt"], model, epoch=2, opt_state=state)
+        save_ckpt_ms = 1e3 * (time.perf_counter() - t0)
+        runs, load_ms, counts = {}, {}, {}
+        loaders = {"train": [tc], "val": [tc], "test": [tc]}
+        for label, path in paths.items():
+            args = {"type": "CDLNetVideo", "model": dict(FLAGSHIP, backend="pallas"),
+                    "paths": {"ckpt": path},
+                    "train": {"opt": {"lr": 1e-3}, "fit": {"clip_grad": 0.05}}}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m, o, st, epoch0, _ = init_model(args)
+            torch.cuda.synchronize()
+            load_ms[label] = 1e3 * (time.perf_counter() - t0)
+            require(epoch0 == 2 and st["count"] == 2 and get_lr(st) == get_lr(state)
+                    and all(torch.equal(st["mu"][k], state["mu"][k]) for k in state["mu"]),
+                    f"init_model on the {label} did not restore the Adam state")
+            L.launches.clear()
+            with tempfile.TemporaryDirectory() as save_dir:
+                st, hist = fit(m, o, st, loaders, save_dir=save_dir, epochs=RESUME_STEPS,
+                               start_epoch=epoch0 + 1, noise_std=TRAIN_SIGMA, val_freq=100,
+                               save_freq=100, backtrack_thresh=None, verbose=False, seed=SEED)
+            torch.cuda.synchronize()
+            counts[label] = dict(L.launches)
+            launches.update(counts[label])
+            runs[label] = ([p for _, ph, p in hist if ph == "train"], m)
+        same_w = all(torch.equal(a, b) for a, b in zip(runs["npz"][1].parameters(),
+                                                       runs["ckpt"][1].parameters()))
+        print(f"ckpt flagship resume: save .npz {save_npz_ms:.1f} ms, .ckpt {save_ckpt_ms:.1f}"
+              f" ms; init_model from .npz {load_ms['npz']:.1f} ms, from .ckpt "
+              f"{load_ms['ckpt']:.1f} ms (host clock, {card}); {RESUME_STEPS} steps' PSNRs "
+              f"{runs['ckpt'][0]} bitwise the .npz resume's {runs['npz'][0] == runs['ckpt'][0]}"
+              f", weights {same_w}; launches {counts['ckpt']}", flush=True)
+        require(len(runs["ckpt"][0]) == RESUME_STEPS and runs["npz"][0] == runs["ckpt"][0]
+                and same_w and counts["npz"] == counts["ckpt"],
+                "the .ckpt resume differs from the .npz resume")
+
+        # K3. fit(ckpt_format="orbax"): background saves, promoted .npz
+        m = runs["ckpt"][1]
+        st = opt.init(dict(m.named_parameters()))
+        save_dir = os.path.join(root, "orbax")
+        L.launches.clear()
+        t0 = time.perf_counter()
+        st, hist = fit(m, opt, st, loaders, save_dir=save_dir, epochs=2, noise_std=TRAIN_SIGMA,
+                       backtrack_thresh=None, verbose=False, seed=SEED, ckpt_format="orbax")
+        fit_s = time.perf_counter() - t0
+        launches.update(L.launches)
+        files = sorted(os.listdir(save_dir))
+        back = CDLNetVideo(**FLAGSHIP).to(dev)
+        back_state = opt.init(dict(back.named_parameters()))
+        _, back_state, epoch, _ = load_ckpt(os.path.join(save_dir, "net.ckpt.npz"), back,
+                                            back_state)
+        t0 = time.perf_counter()
+        save_ckpt(os.path.join(root, "bg"), m, 2, st, get_lr(st), background=True)
+        bg_ms = 1e3 * (time.perf_counter() - t0)
+        load_ckpt(os.path.join(root, "bg"), back)
+        print(f"ckpt orbax: fit 2 epochs in {fit_s:.2f} s left {files}; a background save "
+              f"returns in {bg_ms:.1f} ms (the synchronous one {save_npz_ms:.1f} ms)",
+              flush=True)
+        require("net.ckpt.npz" in files and not [f for f in files if f.endswith(".new")]
+                and epoch == 2 and back_state["count"] == st["count"] == 2
+                and all(torch.equal(a, b) for a, b in zip(back.parameters(), m.parameters())),
+                f"fit(ckpt_format='orbax') left {files}, epoch {epoch}")
+        del model, runs, m, back
+    torch.cuda.empty_cache()
+    return dict(launches)
+
+
 def main() -> int:
     # --- 1. the device ---
     if not torch.cuda.is_available():
@@ -2850,13 +3198,23 @@ def main() -> int:
 
     # --- 18. residual blocks (P4) ---
     residual_phase(dev, card)
+    t3 = time.perf_counter()
+
+    # --- 19. DnCNN and FFDNet (baselines) ---
+    baselines_phase(dev, card)
+    t4 = time.perf_counter()
+
+    # --- 20. reference torch .ckpt files on the kernels (ckpt) ---
+    launches_ck = ckpt_phase(dev, card)
     print(f"phases: prefetch {t1 - t0:.2f} s, blind PCA {t2 - t1:.2f} s, residual "
-          f"{time.perf_counter() - t2:.2f} s", flush=True)
+          f"{t3 - t2:.2f} s, baselines {t4 - t3:.2f} s, ckpt "
+          f"{time.perf_counter() - t4:.2f} s", flush=True)
 
     launches = {name: serve_launches.get(name, 0) + fit_launches.get(name, 0)
                 + launches_2d.get(name, 0) + launches_t2.get(name, 0)
                 + launches_bf.get(name, 0) + launches_csr.get(name, 0)
-                + launches_ct.get(name, 0) + launches_pca.get(name, 0) for name in KERNELS}
+                + launches_ct.get(name, 0) + launches_pca.get(name, 0)
+                + launches_ck.get(name, 0) for name in KERNELS}
     for name in TC_KERNELS:
         tt = times[name]
         shape = "train shape" if "adjoint" in name or "wgrad" in name else "serve shape"

@@ -197,13 +197,26 @@ def test_per_sample_sigma_in_one_forward():
 
 @pytest.mark.parametrize("call", ["mesh", "torch_ckpt", "unknown_type"])
 def test_unported_paths_raise(call, tmp_path):
-    """Blind PCA (whole, chunked, tiled) and residual blocks are ported:
-    tests/test_torch_nle_pca.py and tests/test_torch_residual.py."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if call == "mesh":
+    """Mesh serving is still to port. Torch .ckpt files and DnCNN are
+    ported (tests/test_torch_ckpt.py, tests/test_torch_dncnn.py; the cases
+    keep their names): a .ckpt's net state needs the model config to map
+    onto params, and an unknown type raises. Blind PCA (whole, chunked,
+    tiled) and residual blocks are ported: tests/test_torch_nle_pca.py and
+    tests/test_torch_residual.py."""
+    if call == "mesh":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             Denoiser(_tiny_denoiser().model, mesh={"data": -1})
-        elif call == "torch_ckpt":
-            (tmp_path / "net.ckpt").write_bytes(b"")
+    elif call == "torch_ckpt":
+        from cdlnet_tpu_torch.compat.torch_ckpt import save_torch_checkpoint
+
+        model = _tiny_denoiser().model
+        save_torch_checkpoint(str(tmp_path / "net.ckpt"), model, epoch=3)
+        with pytest.raises(ValueError, match="model config"):
             load_params(str(tmp_path / "net.ckpt"))
-        else:
-            build_model("DnCNN", {"K": 2})
+        params, meta = load_params(str(tmp_path / "net.ckpt"), model)
+        assert meta["epoch"] == 3
+        np.testing.assert_array_equal(params["A"], model.A.detach().numpy())
+    else:
+        with pytest.raises(NotImplementedError, match="unknown model type"):
+            build_model("DnCNN3D", {"K": 2})
+        assert type(build_model("DnCNN", {"K": 3})).__name__ == "DnCNN"

@@ -522,8 +522,14 @@ def test_fit_backtracks_on_nan(tmp_path):
                                 dict(mesh={"data": -1})])
 def test_unported_training_options_raise(kw):
     """Options still to port raise, on the fastMRI workload (ported: its
-    step is tests/test_torch_cli_train.py's) as on video."""
+    step is tests/test_torch_cli_train.py's) as on video. stateful=True is
+    ported (tests/test_torch_dncnn.py): on a model with no running
+    statistics it raises a ValueError that says so."""
     model = CDLNetVideo(K=2, M=4, P=(3, 3, 3), s=2)
+    if kw.get("stateful"):
+        with pytest.raises(ValueError, match="running statistics"):
+            make_train_step(model, make_optimizer(1e-3), **kw)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make_train_step(model, make_optimizer(1e-3), **kw)
 
