@@ -4,7 +4,7 @@ single-device path of cdlnet_tpu/train/fit.py).
 Structure (reference train.py:32-158):
   - epoch loop on the host, per-epoch phases train/val/test ('test' only on
     the final epoch, 'val' every val_freq);
-  - the per-batch step: noise injection -> forward -> mse -> backward
+  - the per-batch step: noise injection -> forward -> loss -> backward
     (on backend "pallas"/"cuda" the hand-written reverse kernels) ->
     clipped Adam -> constraint projection; noise comes from a seeded
     torch.Generator on the model's device;
@@ -24,9 +24,11 @@ ckpt_format="orbax" saves every checkpoint in the background
 (train/checkpoint.py: side-write and promote, the JAX orbax backend's job
 on .npz bundles); fit settles the pending writes before it restores one
 and when it returns or raises. The frame-recurrent CSR models train
-through train/fit_csr.py. Not ported yet (each raises NotImplementedError
-naming ROADMAP.md): meshes, one-dispatch device-scan epochs, MC-SURE and
-the combined loss.
+through train/fit_csr.py. The losses: mse (the default), the combined
+VGG16 loss (loss_type="combmse", for the volumetric workloads) and MC-SURE
+(mcsure=True: unsupervised, from the noisy batch alone). Not ported yet
+(each raises NotImplementedError naming ROADMAP.md): meshes and
+one-dispatch device-scan epochs.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import os
 import time
 
 import torch
+from torch.func import functional_call
 
 from cdlnet_tpu_torch.compat import torch_ckpt
 from cdlnet_tpu_torch.compat.jax_params import is_stateful, load_jax_params
@@ -48,7 +51,7 @@ from cdlnet_tpu_torch.train.checkpoint import (
     save_ckpt,
     settles_checkpoints,
 )
-from cdlnet_tpu_torch.train.losses import mse_loss, psnr_from_mse
+from cdlnet_tpu_torch.train.losses import combined_loss, mcsure_loss, mse_loss, psnr_from_mse
 from cdlnet_tpu_torch.train.optim import get_lr, make_optimizer, set_lr
 from cdlnet_tpu_torch.utils import append_metric, default_device
 
@@ -104,20 +107,41 @@ def init_model(args: dict, seed: int = 0, device=None):
 
 
 def train_update(model, opt, opt_state, obsrv, sigma, clean, mask=None,
-                 project=True) -> torch.Tensor:
-    """One optimizer step on a given noisy batch: forward -> mse ->
+                 project=True, loss_fn=None) -> torch.Tensor:
+    """One optimizer step on a given noisy batch: forward -> loss ->
     gradients -> clipped Adam -> project(). Parameters and opt_state
     change in place. Returns the loss (a device scalar, not synchronized).
+
+    loss_fn(apply) -> the loss, where apply(y) is the model's xhat for y at
+    sigma (and mask); None is the mse of apply(obsrv) against clean. On a
+    BatchNorm family every apply starts from the pre-update running
+    statistics, on copies of them, and the first apply's updated copies
+    become the model's statistics: the JAX package's functional state, in
+    which MC-SURE's perturbed pass discards its own.
+
     The parameters the model declares unused (its unused_params, CDLNet's
     g) get a zero gradient, as under jax.grad; any other parameter the loss
     does not reach makes autograd raise."""
-    xhat, _ = model(obsrv, sigma, mask=mask)
-    loss = mse_loss(xhat, clean)
+    stats = dict(model.named_buffers())
+    passes = []
+
+    def apply(y):
+        if not stats:
+            return model(y, sigma, mask=mask)[0]
+        copies = {n: b.clone() for n, b in stats.items()}
+        passes.append(copies)
+        return functional_call(model, copies, (y, sigma), {"mask": mask})[0]
+
+    loss = mse_loss(apply(obsrv), clean) if loss_fn is None else loss_fn(apply)
     params = dict(model.named_parameters())
     unused = getattr(model, "unused_params", ())
     used = [n for n in params if n not in unused]
     grads = dict(zip(used, torch.autograd.grad(loss, [params[n] for n in used])))
     grads.update({n: torch.zeros_like(params[n]) for n in unused})
+    if passes:
+        with torch.no_grad():
+            for n, b in stats.items():
+                b.copy_(passes[0][n])
     opt.update(params, {n: grads[n] for n in params}, opt_state)
     if project:
         model.project()
@@ -148,10 +172,13 @@ def make_train_step(model, opt, *, workload="3d", noise_std=(25, 25),
     elif stateful != is_stateful(model):
         raise ValueError(f"stateful={stateful} for {type(model).__name__}, which "
                          f"{'has' if is_stateful(model) else 'has no'} running statistics")
-    for name, unported in (("mcsure", mcsure), ("mesh", mesh is not None),
-                           (f"loss_type={loss_type!r}", loss_type != "mse")):
-        if unported:
-            raise NotImplementedError(f"{name} training {_NOT_PORTED}")
+    if mesh is not None:
+        raise NotImplementedError(f"mesh training {_NOT_PORTED}")
+    if loss_type not in ("mse", "combmse"):
+        raise ValueError(f"loss_type {loss_type!r} not in ('mse', 'combmse')")
+    if loss_type == "combmse" and workload == "2d" and not mcsure:
+        raise ValueError("the combined loss takes (N, C, D, H, W) batches: "
+                         'workload "3d" or "mri", not "2d"')
     nstd = tuple(noise_std) if isinstance(noise_std, (list, tuple)) else noise_std
 
     noiser = awgn if workload == "2d" else awgn3d
@@ -166,8 +193,13 @@ def make_train_step(model, opt, *, workload="3d", noise_std=(25, 25),
         obsrv, sigma, mask = observe(batch, generator)
         if stateful:
             model.train()
+        loss_fn = None
+        if mcsure:  # its probe b: the generator's next draw after the noise
+            loss_fn = lambda apply: mcsure_loss(apply, obsrv, sigma, generator=generator)
+        elif loss_type == "combmse":
+            loss_fn = lambda apply: combined_loss(apply(obsrv), batch)
         return train_update(model, opt, opt_state, obsrv, sigma, batch,
-                            mask=mask, project=project)
+                            mask=mask, project=project, loss_fn=loss_fn)
 
     @torch.no_grad()
     def eval_step(batch, generator):

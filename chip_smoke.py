@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's video serve, 2D image serve, video
 training, 2D image training, native-resolution video and frame-recurrent
 CSR serving and training paths, the input pipeline, blind PCA noise
-estimation, CDLNetVideo's residual blocks, the DnCNN/FFDNet baselines and
-reference torch .ckpt checkpoints on one GPU.
+estimation, CDLNetVideo's residual blocks, the DnCNN/FFDNet baselines,
+reference torch .ckpt checkpoints, the HTTP server and the MC-SURE and
+combined losses on one GPU.
 
     python3 chip_smoke.py
 
@@ -118,6 +119,26 @@ Builds the hand-written CUDA kernels from cdlnet_tpu_torch/kernels/csrc
             resumed for 5 fit() steps from a .ckpt with Adam state, bitwise
             the losses of an .npz resume; fit(ckpt_format="orbax"), whose
             background-saved .npz reloads equal;
+  server    the HTTP front end (server.py) serving the trained flagship 2D
+            demo and the video demo on the card: 32 concurrent 128^2
+            requests at mixed sigma from 8 client threads, each within 1e-4
+            of denoise_image, one K + K forward per coalesced batch
+            (requests/s, p50/p99, the /metrics batch sizes; again at
+            max_batch 1), a blind request, 400s for bad bodies, a 481x321
+            image and a clip against the Denoiser calls (the clip bitwise),
+            coalesced batches and handler-thread calls disjoint on the
+            card's timeline, and `python -m cdlnet_tpu_torch.server` in
+            processes of its own (max_batch 8 and 1: one image, then the
+            same traffic);
+  losses    MC-SURE at the flagship 2D (10 x 128^2) and video (2 x 16x128^2)
+            training shapes: loss and gradients on the kernels and on
+            backend "xla" against "xla" in float64, two backward runs
+            bitwise equal, twice an mse step's launches, step ms and peak
+            GB beside the mse step's; 20 fit(mcsure=True) steps of the 2D
+            flagship (falling losses, a held-out PSNR gain); a combmse
+            video step with seeded VGG16 weights at a temporary path and
+            without them (warned once), its loss on the card against the
+            CPU's, step ms and peak GB;
 
 and times every kernel (CUDA events) beside its plain version, the one
 PyTorch call that computes the same function, and its bound on this card
@@ -138,15 +159,22 @@ preceded by the card's nvidia-smi name and power limit and by a JSON line
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import copy
+import io
 import json
 import os
+import queue
 import re
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
+import warnings
 
 import numpy as np
 import torch
@@ -188,12 +216,14 @@ from cdlnet_tpu_torch.ops.conv import conv_transpose2d, conv_transpose3d
 from cdlnet_tpu_torch.models.cdlnet import _prepare
 from cdlnet_tpu_torch.ops.lista import _threshold, lista_2d, lista_3d
 from cdlnet_tpu_torch.serve import Denoiser
+from cdlnet_tpu_torch.server import DenoiseServer
 from cdlnet_tpu_torch.tools import compare_sass
 from cdlnet_tpu_torch.tools.bench_video_serve import graph_ms
 from cdlnet_tpu_torch.train.checkpoint import load_ckpt, save_ckpt
 from cdlnet_tpu_torch.train.fit import fit, init_model, make_train_step, train_update
 from cdlnet_tpu_torch.train.fit_csr import fit_csr, make_csr_train_step
-from cdlnet_tpu_torch.train.losses import mse_loss
+from cdlnet_tpu_torch.train import losses as losses_mod
+from cdlnet_tpu_torch.train.losses import mcsure_loss, mse_loss
 from cdlnet_tpu_torch.train.optim import get_lr, make_optimizer
 from cdlnet_tpu_torch.utils import img_save, load_video
 
@@ -349,6 +379,24 @@ BASE_FWD_TOL = 1e-4         # forward and running statistics, max|d| / max|ref|
 # (PERF.md, Findings), so fp32 holds the loss and statistics
 BASE_STEP_TOL = 1e-3
 RESUME_STEPS = 5            # fit() steps of the flagship resumed from a .ckpt
+# the HTTP front end: 32 single 128^2 requests from 8 client threads, and the
+# entry point as a user starts it; the combined loss's VGG16 convs through
+# relu3_3 (torchvision's features index, out and in channels), seeded
+# He-normal weights in place of the pretrained ones, which are not fetched
+SERVER_REQUESTS, SERVER_THREADS = 32, 8
+# MC-SURE's gradient backpropagates the probe's random signs at every
+# position (scaled by 1/h = 1e3): summed over the positions they cancel, and
+# in fp32 the plain cuDNN loop lands 1.2e-3 to 8.4e-3, the kernels 8.2e-4 to
+# 1.9e-2 (2-3x cuDNN's error, as on the mse gradient) from the float64
+# gradient (PERF.md, Findings), where a pass run on the other's
+# histories or a lost reverse loop is off by O(1); the passes' separate
+# histories are held bitwise (the passes in either order)
+MCSURE_GRAD_TOL = 5e-2
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SERVE_CMD = [sys.executable, "-m", "cdlnet_tpu_torch.server", DEMO_2D, "--port", "0",
+             "--warmup", "128x128"]
+VGG16_CONVS = [(0, 64, 3), (2, 64, 64), (5, 128, 64), (7, 128, 128), (10, 256, 128),
+               (12, 256, 256), (14, 256, 256)]
 KERNEL_TOL = 1e-4   # one kernel call vs its plain version, max|d| / max|ref|
 FORWARD_TOL = 1e-3  # the K=30 forward on the kernels vs the plain loop
 # the K=30 gradient on the kernels vs torch autograd through cuDNN: both
@@ -2938,6 +2986,488 @@ def ckpt_phase(dev, card) -> dict:
     return dict(launches)
 
 
+class SpanDenoiser:
+    """One server's Denoiser for images (the flagship 2D demo) and clips (the
+    video demo), with a CUDA event recorded on the calling thread's current
+    stream before and after each call: the calls' spans on the device's
+    timeline."""
+
+    def __init__(self, image, video):
+        self.image, self.video = image, video
+        self.model, self.device = image.model, image.device
+        self.blind, self.bucket = image.blind, image.bucket
+        self.spans = []  # (call, thread, stream, start event, end event)
+
+    def _span(self, call, fn):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        self.spans.append((call, threading.current_thread().name,
+                           torch.cuda.current_stream().cuda_stream, a, b))
+        return out
+
+    def denoise_image_batch(self, imgs, sigmas=None):
+        return self._span("image batch", lambda: self.image.denoise_image_batch(imgs, sigmas))
+
+    def denoise_image(self, img, sigma=None):
+        return self._span("image", lambda: self.image.denoise_image(img, sigma=sigma))
+
+    def denoise_video(self, clip, sigma=None, **kw):
+        return self._span("video", lambda: self.video.denoise_video(clip, sigma=sigma, **kw))
+
+
+def http_post(port, path, arr, **query):
+    """A .npy POST to the server on 127.0.0.1:port: (status, the .npy
+    answer or the error's JSON)."""
+    buf = io.BytesIO()
+    np.save(buf, np.asarray(arr, np.float32))
+    q = "&".join(f"{k}={v}" for k, v in query.items())
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}" + (f"?{q}" if q else ""),
+                                 data=buf.getvalue(), method="POST",
+                                 headers={"Content-Type": "application/x-npy"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, np.load(io.BytesIO(r.read()), allow_pickle=False)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_get(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+        return json.loads(r.read())
+
+
+def traffic(port, requests, threads):
+    """POST (path, array, query) requests from `threads` client threads at
+    once: (answers, per-request host ms, wall s)."""
+    def one(req):
+        path, arr, query = req
+        t0 = time.perf_counter()
+        status, out = http_post(port, path, arr, **query)
+        require(status == 200, f"{path} {query}: {status} {out}")
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(threads) as ex:
+        done = list(ex.map(one, requests))
+    return [o for o, _ in done], [ms for _, ms in done], time.perf_counter() - t0
+
+
+def batch_delta(before, after) -> dict:
+    """The coalesced batch sizes /metrics counted between two snapshots."""
+    return {int(k): v - before.get(k, 0) for k, v in after.items() if v > before.get(k, 0)}
+
+
+def read_listening(proc, timeout_s):
+    """The port of a server subprocess's "listening on http://host:port"
+    line, read from its stdout within timeout_s."""
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True).start()
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        try:
+            ln = lines.get(timeout=1.0)
+        except queue.Empty:
+            require(proc.poll() is None, f"the server exited with {proc.returncode}")
+            continue
+        m = re.search(r"listening on http://[\d.]+:(\d+)", ln)
+        if m:
+            return int(m.group(1))
+    raise RuntimeError(f"chip_smoke: no listening line from the server in {timeout_s} s")
+
+
+def server_phase(dev, card) -> dict:
+    """S. The HTTP front end (cdlnet_tpu_torch/server.py) on the card: S1 the
+    trained flagship 2D demo behind DenoiseServer on 127.0.0.1, 32
+    concurrent 128^2 requests at mixed sigma from 8 client threads, each
+    within 1e-4 of denoise_image on the same image, their launches one
+    K + K forward per coalesced batch, requests/s, p50/p99 and the /metrics
+    batch sizes, then the same at max_batch 1; a blind request; a 400 for a
+    bad body; a 481x321 image and a video-demo clip through the server
+    against the same calls on the Denoisers (the clip bitwise), the gap
+    being the HTTP and .npy cost; coalesced image batches (the coalescer's
+    thread) and clips and image stacks (handler threads) on one device lock,
+    their spans on the card's timeline disjoint. S2 `python -m
+    cdlnet_tpu_torch.server` in a subprocess: its listening line, one
+    image, stopped. Returns the kernel launches."""
+    rng = np.random.default_rng(SEED + 120)
+    launches = collections.Counter()
+    image_d, video_d = Denoiser.from_dir(DEMO_2D), Denoiser.from_dir(DEMO)
+    require(image_d.device.type == "cuda", "Denoiser.from_dir did not default to the card")
+    K2, K3 = image_d.model.K, video_d.model.K
+    sigmas = [float(s) for s in rng.uniform(*DEMO_2D_SIGMAS, SERVER_REQUESTS)]
+    clean, noisy = noisy_images(rng, IMAGE, sigmas)
+    imgs = [noisy[i, 0] for i in range(SERVER_REQUESTS)]
+    singles = [image_d.denoise_image(im, sigma=s) for im, s in zip(imgs, sigmas)]
+    clip_clean = smooth_clip(rng, *CLIP[:2])
+    clip = clip_clean + SIGMA / 255 * rng.standard_normal(clip_clean.shape).astype(np.float32)
+    _, big = noisy_images(rng, BIG_IMAGE, [SIGMA])
+    big = big[0, 0]
+    figures = {}
+    span_d = SpanDenoiser(image_d, video_d)
+    for max_batch in (8, 1):
+        srv = DenoiseServer(span_d, host="127.0.0.1", port=0, max_batch=max_batch).start()
+        try:
+            port = srv.port
+            reqs = [("/v1/denoise_image", im, {"sigma": s}) for im, s in zip(imgs, sigmas)]
+            traffic(port, reqs[:SERVER_THREADS], SERVER_THREADS)  # warm the batch shapes
+            before = http_get(port, "/metrics")["coalesced_batch_sizes"]
+            L.launches.clear()
+            outs, lat, wall = traffic(port, reqs, SERVER_THREADS)
+            torch.cuda.synchronize()
+            counts = dict(L.launches)
+            launches.update(counts)
+            hist = batch_delta(before, http_get(port, "/metrics")["coalesced_batch_sizes"])
+            d_max = max(float(np.abs(o - ref).max()) for o, ref in zip(outs, singles))
+            forwards = sum(hist.values()) if max_batch > 1 else SERVER_REQUESTS
+            figures[max_batch] = (SERVER_REQUESTS / wall, np.percentile(lat, 50),
+                                  np.percentile(lat, 99), hist)
+            print(f"server [{card}]: {SERVER_REQUESTS} concurrent {IMAGE[0]}x{IMAGE[1]} "
+                  f"requests at sigma {min(sigmas):.1f}..{max(sigmas):.1f} from "
+                  f"{SERVER_THREADS} threads, max_batch {max_batch}: "
+                  f"{SERVER_REQUESTS / wall:.1f} requests/s, p50 {figures[max_batch][1]:.3f} "
+                  f"ms, p99 {figures[max_batch][2]:.3f} ms (host clock); coalesced batch "
+                  f"sizes {hist}; launches {counts}; max|d| vs denoise_image {d_max:.3e}",
+                  flush=True)
+            require(d_max <= 1e-4, f"served images differ from denoise_image by {d_max:.3e}")
+            want = {"lista2d_ana_threshold": K2 * forwards, "lista2d_syn_residual": K2 * forwards}
+            require(counts == want, f"max_batch {max_batch}: launches {counts}, expected {want}")
+            require(max_batch > 1 or not hist, f"max_batch 1 coalesced {hist}")
+            if max_batch == 1:
+                continue
+
+            # the blind request (sigma estimated per image) and a bad body
+            status, blind = http_post(port, "/v1/denoise_image", imgs[0])
+            d_blind = float(np.abs(blind - image_d.denoise_image(imgs[0])).max())
+            gain = psnr(blind, clean[0, 0]) - psnr(imgs[0], clean[0, 0])
+            status_bad, err = http_post(port, "/v1/denoise_image", np.zeros((2, 2, 2, 2, 2)))
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/denoise_image",
+                                         data=b"junk", method="POST")
+            try:
+                urllib.request.urlopen(req, timeout=60)
+                status_junk = 200
+            except urllib.error.HTTPError as e:
+                status_junk = e.code
+            print(f"server: blind request max|d| vs denoise_image {d_blind:.3e}, gain "
+                  f"{gain:.3f} dB; a 5-D image {status_bad} ({err['error']}), a body that is "
+                  f"not .npy {status_junk}", flush=True)
+            require(status == 200 and d_blind <= 1e-4 and gain >= MIN_GAIN_DB,
+                    f"blind request: {status}, max|d| {d_blind:.3e}, gain {gain:.3f} dB")
+            require(status_bad == status_junk == 400, f"bad bodies: {status_bad}, {status_junk}")
+
+            # one 481x321 image and one clip: through the server and direct
+            L.launches.clear()
+            status, out_clip = http_post(port, "/v1/denoise_video", clip, sigma=SIGMA)
+            torch.cuda.synchronize()
+            counts = dict(L.launches)
+            launches.update(counts)
+            direct = video_d.denoise_video(clip, sigma=SIGMA)
+            require(status == 200 and np.array_equal(out_clip, direct),
+                    f"the served clip is not denoise_video's: {status}")
+            require(counts == {"lista3d_ana_threshold": K3, "lista3d_syn_residual": K3},
+                    f"the served clip launched {counts}")
+            status, out_big = http_post(port, "/v1/denoise_image", big, sigma=SIGMA)
+            d_big = float(np.abs(out_big - image_d.denoise_image(big, sigma=SIGMA)).max())
+            require(status == 200 and d_big <= 1e-4, f"481x321: {status}, max|d| {d_big:.3e}")
+            gap = {}
+            for label, via, fn in (
+                (f"{BIG_IMAGE[1]}x{BIG_IMAGE[0]} image",
+                 lambda: http_post(port, "/v1/denoise_image", big, sigma=SIGMA),
+                 lambda: image_d.denoise_image(big, sigma=SIGMA)),
+                (f"video-demo clip {CLIP}",
+                 lambda: http_post(port, "/v1/denoise_video", clip, sigma=SIGMA),
+                 lambda: video_d.denoise_video(clip, sigma=SIGMA)),
+            ):
+                gap[label] = (host_ms(via), host_ms(fn))
+                print(f"time [{card}]: {label} through the server {gap[label][0]:.3f} ms, "
+                      f"the Denoiser call {gap[label][1]:.3f} ms (host clock, median of 5): "
+                      f"HTTP and .npy {gap[label][0] - gap[label][1]:.3f} ms", flush=True)
+
+            # coalesced batches (the coalescer's thread) beside clips and image
+            # stacks (handler threads), all on one device lock
+            span_d.spans.clear()
+            mixed = []
+            for i in range(3 * SERVER_THREADS):
+                if i % 4 == 0:
+                    mixed.append(("/v1/denoise_video", clip, {"sigma": SIGMA}))
+                elif i % 4 == 1:
+                    mixed.append(("/v1/denoise_image", noisy[:2], {"sigma": SIGMA}))
+                else:
+                    mixed.append(("/v1/denoise_image", imgs[i], {"sigma": sigmas[i]}))
+            traffic(port, mixed, SERVER_THREADS)
+            torch.cuda.synchronize()
+            ref = span_d.spans[0][3]
+            spans = sorted((ref.elapsed_time(a), ref.elapsed_time(b), call, thread, stream)
+                           for call, thread, stream, a, b in span_d.spans)
+            overlaps = sum(s[0] < p[1] for p, s in zip(spans, spans[1:]))
+            threads = {s[3] for s in spans}
+            print(f"server: {len(spans)} device calls of {sorted({s[2] for s in spans})} from "
+                  f"{len(threads)} threads (the coalescer's: "
+                  f"{sum('_loop' in t for t in threads)}) on streams "
+                  f"{sorted({s[4] for s in spans})}; overlapping spans on the card's "
+                  f"timeline: {overlaps}", flush=True)
+            require(len(threads) > 1 and {s[2] for s in spans}
+                    >= {"image batch", "image", "video"} and overlaps == 0,
+                    f"device spans: {len(spans)} calls, {overlaps} overlapping")
+        finally:
+            srv.stop()
+    (rps8, p50_8, p99_8, hist8), (rps1, p50_1, p99_1, _) = figures[8], figures[1]
+    print(f"server [{card}]: max_batch 8 vs 1: {rps8:.1f} vs {rps1:.1f} requests/s, p50 "
+          f"{p50_8:.3f} vs {p50_1:.3f} ms, p99 {p99_8:.3f} vs {p99_1:.3f} ms; batch sizes "
+          f"{hist8}", flush=True)
+
+    # S2. the entry point as users start it, in processes of its own (the
+    # default max_batch 8, and 1): one image each, then the same traffic,
+    # whose clients no longer share the server's interpreter lock
+    t0 = time.perf_counter()
+    cmds = {8: SERVE_CMD, 1: SERVE_CMD + ["--max-batch", "1"]}
+    with tempfile.TemporaryFile("w+") as errf:
+        procs = {mb: subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=errf,
+                                      text=True) for mb, cmd in cmds.items()}
+        try:
+            ports = {mb: read_listening(proc, 300) for mb, proc in procs.items()}
+            up_s = time.perf_counter() - t0
+            for mb, port in ports.items():
+                status, out = http_post(port, "/v1/denoise_image", imgs[0], sigma=sigmas[0])
+                d_sub = float(np.abs(out - singles[0]).max()) if status == 200 else float("inf")
+                require(status == 200 and d_sub <= 1e-4,
+                        f"the server process (max_batch {mb}): {status}, {d_sub:.3e}")
+                reqs = [("/v1/denoise_image", im, {"sigma": s}) for im, s in zip(imgs, sigmas)]
+                traffic(port, reqs[:SERVER_THREADS], SERVER_THREADS)
+                before = http_get(port, "/metrics")["coalesced_batch_sizes"]
+                outs, lat, wall = traffic(port, reqs, SERVER_THREADS)
+                hist = batch_delta(before, http_get(port, "/metrics")["coalesced_batch_sizes"])
+                d_max = max(float(np.abs(o - ref).max()) for o, ref in zip(outs, singles))
+                print(f"server [{card}]: {' '.join(cmds[mb][1:])} (its own process, up in "
+                      f"{up_s:.2f} s): one image max|d| {d_sub:.3e}; {SERVER_REQUESTS} "
+                      f"concurrent requests from {SERVER_THREADS} threads "
+                      f"{SERVER_REQUESTS / wall:.1f} requests/s, p50 "
+                      f"{np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms "
+                      f"(host clock); coalesced batch sizes {hist}; max|d| vs denoise_image "
+                      f"{d_max:.3e}", flush=True)
+                require(d_max <= 1e-4, f"the server process: max|d| {d_max:.3e}")
+        except BaseException:
+            for proc in procs.values():
+                proc.kill()
+                proc.wait(timeout=30)
+            errf.seek(0)
+            print(errf.read()[-4000:], file=sys.stderr)
+            raise
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.terminate()
+                    proc.wait(timeout=30)
+    print(f"server: the server processes stopped (exit {[p.returncode for p in procs.values()]})",
+          flush=True)
+    del image_d, video_d, span_d
+    torch.cuda.empty_cache()
+    return dict(launches)
+
+
+def grad_and_launches(model, names, loss_fn):
+    """(loss, gradients of `names`, launches) of loss_fn(model)."""
+    L.launches.clear()
+    loss = loss_fn(model)
+    prm = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, [prm[n] for n in names])
+    torch.cuda.synchronize()
+    return loss.detach(), grads, dict(L.launches)
+
+
+def losses_phase(dev, card, t_par) -> dict:
+    """L. MC-SURE and the combined loss on the kernels: L1 the flagship 2D
+    (10 x 128^2) and video (2 x 16x128^2) MC-SURE loss and gradients on the
+    kernels and on backend "xla" against "xla" in float64, two backward runs bitwise
+    equal and equal to the passes run in the other order, with twice an mse
+    step's launches: the loss within GRAD_TOL of the float64 plain loop's,
+    each gradient within MCSURE_GRAD_TOL of it; L2 20 fit(mcsure=True) steps
+    of the 2D flagship with finite, falling losses and a PSNR gain on
+    held-out noise; L3 a combmse video step with seeded VGG16 weights at a
+    temporary path and without them (warned, finite), the loss on the card
+    against the CPU's on the same output; step ms and peak GB of each step
+    beside the mse step's. Returns the kernel launches."""
+    rng = np.random.default_rng(SEED + 130)
+    launches = collections.Counter()
+    flag2 = random_2d_model(FLAGSHIP_2D, dev)
+    flag3 = CDLNetVideo(**FLAGSHIP, backend="pallas").to(dev).init(
+        torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        flag3.t.copy_(t_par)
+    clean2 = natural_crops(rng, TRAIN_2D_N, CROP)
+    clean3 = np.stack([smooth_clip(rng, *CLIP[:2])[None] for _ in range(TRAIN_N)])
+    opt = make_optimizer(FIT_2D_LR, clip_grad=FIT_2D_CLIP)
+    for label, model, clean, mse_launches in (
+        (f"2D flagship {TRAIN_2D_N}x{CROP}^2", flag2, clean2, step_launches_2d(flag2.K)),
+        (f"video flagship {TRAIN_N}x{CLIP}", flag3, clean3, STEP_LAUNCHES),
+    ):
+        obs, sig = (observed if clean.ndim == 4 else observed_3d)(rng, clean, dev)
+        clean_t = torch.from_numpy(clean).to(dev)
+        b = torch.randn(obs.shape, generator=torch.Generator().manual_seed(SEED)).to(dev)
+        plain = copy.deepcopy(model)
+        plain.backend = "xla"
+        names = [n for n, _ in model.named_parameters()
+                 if n not in getattr(model, "unused_params", ())]
+        plain64 = copy.deepcopy(plain).double()
+
+        def sure(m, dtype=torch.float32):
+            o, sg, bb = obs.to(dtype), sig.to(dtype), b.to(dtype)
+            return mcsure_loss(lambda v: m(v, sg)[0], o, sg, b=bb)
+
+        def sure_swapped(m, h=1e-3):  # mcsure_loss's sums, the perturbed pass first
+            xb = m(obs + h * b, sig)[0]
+            x = m(obs, sig)[0]
+            return torch.mean((obs - x) ** 2) + 2.0 * torch.mean((sig / 255.0) ** 2 * b
+                                                                 * (xb - x)) / h
+
+        loss1, g1, counts = grad_and_launches(model, names, sure)
+        loss2, g2, _ = grad_and_launches(model, names, sure)
+        _, gs, _ = grad_and_launches(model, names, sure_swapped)
+        lossp, gp, _ = grad_and_launches(plain, names, sure)
+        loss64, g64, _ = grad_and_launches(plain64, names, lambda m: sure(m, torch.float64))
+        launches.update(counts)
+        want = {k: 2 * v for k, v in mse_launches.items()}
+        rel_loss = rel_err(loss1.double(), loss64)[1]
+        print(f"losses: {label} MC-SURE loss {float(loss1):.6f} (xla {float(lossp):.6f}, "
+              f"float64 {float(loss64):.6f}; kernels vs float64 rel {rel_loss:.3e}); launches "
+              f"{counts}", flush=True)
+        require(counts == want, f"{label} MC-SURE: launches {counts}, expected {want}")
+        require(rel_loss <= GRAD_TOL and torch.equal(loss1, loss2),
+                f"{label} MC-SURE loss rel err {rel_loss:.3e}")
+        for name, a, a2, a_s, ref, ref64 in zip(names, g1, g2, gs, gp, g64):
+            rel_k, rel_x = rel_err(a.double(), ref64)[1], rel_err(ref.double(), ref64)[1]
+            print(f"parity {label} MC-SURE gradient d{name} vs float64: kernels rel {rel_k:.3e}"
+                  f", xla (fp32) rel {rel_x:.3e}, kernels vs xla rel {rel_err(a, ref)[1]:.3e}; "
+                  f"two runs bitwise equal: {torch.equal(a, a2)}, the passes swapped: "
+                  f"{torch.equal(a, a_s)}", flush=True)
+            require(rel_k <= MCSURE_GRAD_TOL,
+                    f"{label} MC-SURE d{name} rel err {rel_k:.3e} > {MCSURE_GRAD_TOL}")
+            require(torch.equal(a, a2) and torch.equal(a, a_s),
+                    f"{label} MC-SURE: two backward runs, or the passes swapped, differ in "
+                    f"d{name}")
+        del plain, plain64, g1, g2, gs, gp, g64
+        # the step on the kernels: mse and MC-SURE (host clock, peak memory)
+        st = opt.init(dict(model.named_parameters()))
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        times = {}
+        for loss_label, kw in (("mse", {}), ("MC-SURE", {"mcsure": True})):
+            step, _ = make_train_step(model, opt, workload="2d" if clean.ndim == 4 else "3d",
+                                      noise_std=TRAIN_SIGMA, **kw)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            times[loss_label] = (host_ms(lambda: step(st, clean_t, gen)),
+                                 torch.cuda.max_memory_allocated() / 1e9)
+        print(f"time [{card}]: {label} train step, mse {times['mse'][0]:.3f} ms (peak "
+              f"{times['mse'][1]:.2f} GB), MC-SURE {times['MC-SURE'][0]:.3f} ms (peak "
+              f"{times['MC-SURE'][1]:.2f} GB)", flush=True)
+    del flag3
+
+    # L2. fit(mcsure=True) on the 2D flagship from the power-method init
+    fit_model = CDLNet(**FLAGSHIP_2D, backend="pallas").to(dev).init(
+        torch.Generator().manual_seed(SEED))
+    held_clean = natural_crops(rng, TRAIN_2D_N, CROP)
+    held_noisy, held_sig = observed(rng, held_clean, dev)
+
+    def held_out_gain():
+        with torch.no_grad():
+            out = fit_model(held_noisy, held_sig)[0].cpu().numpy()
+        noisy = held_noisy.cpu().numpy()
+        return psnr(out, held_clean) - psnr(noisy, held_clean)
+
+    gain0 = held_out_gain()
+    state = opt.init(dict(fit_model.named_parameters()))
+    loaders = {"train": [clean2], "val": [clean2], "test": [clean2]}
+    with tempfile.TemporaryDirectory() as save_dir:
+        L.launches.clear()
+        t0 = time.perf_counter()
+        state, history = fit(fit_model, opt, state, loaders, save_dir=save_dir,
+                             epochs=FIT_STEPS, noise_std=TRAIN_SIGMA, val_freq=10,
+                             save_freq=10, backtrack_thresh=None, verbose=False, seed=SEED,
+                             workload="2d", mcsure=True)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    counts = dict(L.launches)
+    launches.update(counts)
+    evals = sum(ph != "train" for _, ph, _ in history)
+    K = fit_model.K
+    want = {k: 2 * FIT_STEPS * v for k, v in step_launches_2d(K).items()}
+    want["lista2d_ana_threshold"] += evals * K
+    want["lista2d_syn_residual"] += evals * K
+    sure_losses = [10 ** (-p / 10) for _, ph, p in history if ph == "train"]
+    gain = held_out_gain()
+    print(f"losses: fit(mcsure=True) {FIT_STEPS} steps of {TRAIN_2D_N}x{CROP}^2 + {evals} "
+          f"evals in {fit_s:.2f} s; MC-SURE losses {[f'{v:.6f}' for v in sure_losses]}; "
+          f"held-out gain {gain0:.3f} -> {gain:.3f} dB; launches {counts}", flush=True)
+    require(counts == want, f"fit(mcsure=True) launched {counts}, expected {want}")
+    require(len(sure_losses) == FIT_STEPS and all(np.isfinite(sure_losses)),
+            f"non-finite or missing MC-SURE losses {sure_losses}")
+    require(np.mean(sure_losses[-5:]) < np.mean(sure_losses[:5]),
+            f"MC-SURE losses did not fall: {sure_losses[:5]} .. {sure_losses[-5:]}")
+    require(gain > max(gain0, 0.0), f"held-out gain {gain0:.3f} -> {gain:.3f} dB")
+    del fit_model
+
+    # L3. a combmse video step, with seeded VGG16 weights and without them
+    model = CDLNetVideo(**FLAGSHIP, backend="pallas").to(dev).init(
+        torch.Generator().manual_seed(SEED))
+    clean_t = torch.from_numpy(clean3).to(dev)
+    saved_paths = list(losses_mod._VGG_WEIGHT_PATHS)
+    with tempfile.TemporaryDirectory() as root:
+        g = torch.Generator().manual_seed(SEED)
+        sd = {}
+        for i, co, ci in VGG16_CONVS:
+            fan_in = 9 * ci
+            sd[f"features.{i}.weight"] = torch.randn(co, ci, 3, 3, generator=g) * (2 / fan_in) ** 0.5
+            sd[f"features.{i}.bias"] = torch.zeros(co)
+        path = os.path.join(root, "vgg16-397923af.pth")
+        torch.save(sd, path)
+        try:
+            for weights, paths in (("seeded VGG16", [path]),
+                                   ("no VGG16", [os.path.join(root, "none.pth")])):
+                losses_mod._VGG_WEIGHT_PATHS[:] = paths
+                losses_mod._load_vgg16_weights.cache_clear()
+                losses_mod._warned_no_vgg = False
+                st = opt.init(dict(model.named_parameters()))
+                step, _ = make_train_step(model, opt, workload="3d", noise_std=TRAIN_SIGMA,
+                                          loss_type="combmse")
+                gen = torch.Generator(device=dev).manual_seed(SEED)
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    L.launches.clear()
+                    loss = float(step(st, clean_t, gen))
+                    torch.cuda.synchronize()
+                    counts = dict(L.launches)
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    step_ms = host_ms(lambda: step(st, clean_t, gen))
+                    peak = torch.cuda.max_memory_allocated() / 1e9
+                launches.update(counts)
+                warned = sum("VGG16 pretrained weights not found" in str(w.message)
+                             for w in caught)
+                # the loss on the card against the CPU's on one output
+                with torch.no_grad():
+                    out = model(clean_t + 0.05 * torch.randn_like(clean_t), SIGMA)[0]
+                    on_card = losses_mod.combined_loss(out, clean_t)
+                    on_cpu = losses_mod.combined_loss(out.cpu(), clean_t.cpu())
+                _, rel = rel_err(on_card.cpu(), on_cpu)
+                print(f"losses: combmse video step ({weights}): loss {loss:.6f}, "
+                      f"{warned} warning(s); launches {counts}; the loss on the card vs the "
+                      f"CPU rel {rel:.3e}", flush=True)
+                print(f"time [{card}]: combmse video train step ({weights}, {TRAIN_N}x{CLIP}) "
+                      f"{step_ms:.3f} ms (peak {peak:.2f} GB)", flush=True)
+                require(np.isfinite(loss) and counts == STEP_LAUNCHES,
+                        f"combmse ({weights}): loss {loss}, launches {counts}")
+                require(warned == (1 if weights == "no VGG16" else 0),
+                        f"combmse ({weights}): {warned} warnings")
+                require(rel <= KERNEL_TOL, f"combmse ({weights}) card vs CPU rel {rel:.3e}")
+        finally:
+            losses_mod._VGG_WEIGHT_PATHS[:] = saved_paths
+            losses_mod._load_vgg16_weights.cache_clear()
+    del model
+    torch.cuda.empty_cache()
+    return dict(launches)
+
+
 def main() -> int:
     # --- 1. the device ---
     if not torch.cuda.is_available():
@@ -3206,15 +3736,24 @@ def main() -> int:
 
     # --- 20. reference torch .ckpt files on the kernels (ckpt) ---
     launches_ck = ckpt_phase(dev, card)
+    t5 = time.perf_counter()
+
+    # --- 21. the HTTP front end (server) ---
+    launches_srv = server_phase(dev, card)
+    t6 = time.perf_counter()
+
+    # --- 22. MC-SURE and the combined loss (losses) ---
+    launches_loss = losses_phase(dev, card, t_par)
     print(f"phases: prefetch {t1 - t0:.2f} s, blind PCA {t2 - t1:.2f} s, residual "
-          f"{t3 - t2:.2f} s, baselines {t4 - t3:.2f} s, ckpt "
-          f"{time.perf_counter() - t4:.2f} s", flush=True)
+          f"{t3 - t2:.2f} s, baselines {t4 - t3:.2f} s, ckpt {t5 - t4:.2f} s, server "
+          f"{t6 - t5:.2f} s, losses {time.perf_counter() - t6:.2f} s", flush=True)
 
     launches = {name: serve_launches.get(name, 0) + fit_launches.get(name, 0)
                 + launches_2d.get(name, 0) + launches_t2.get(name, 0)
                 + launches_bf.get(name, 0) + launches_csr.get(name, 0)
                 + launches_ct.get(name, 0) + launches_pca.get(name, 0)
-                + launches_ck.get(name, 0) for name in KERNELS}
+                + launches_ck.get(name, 0) + launches_srv.get(name, 0)
+                + launches_loss.get(name, 0) for name in KERNELS}
     for name in TC_KERNELS:
         tt = times[name]
         shape = "train shape" if "adjoint" in name or "wgrad" in name else "serve shape"

@@ -47,5 +47,5 @@ def test_package_holds_the_slice():
                 "kernels/csrc/lista2d_mma.cuh", "kernels/csrc/mma_tf32.cuh",
                 "tools/bench_image_serve.py", "tools/compare_sass.py",
                 "nle/pca.py", "data/prefetch.py", "models/dncnn.py",
-                "compat/torch_ckpt.py"):
+                "compat/torch_ckpt.py", "server.py"):
         assert (pkg / rel).is_file(), rel

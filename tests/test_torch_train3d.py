@@ -521,17 +521,27 @@ def test_fit_backtracks_on_nan(tmp_path):
                                 dict(stateful=True), dict(loss_type="combmse"),
                                 dict(mesh={"data": -1})])
 def test_unported_training_options_raise(kw):
-    """Options still to port raise, on the fastMRI workload (ported: its
-    step is tests/test_torch_cli_train.py's) as on video. stateful=True is
-    ported (tests/test_torch_dncnn.py): on a model with no running
-    statistics it raises a ValueError that says so."""
+    """Options still to port (meshes) raise, on the fastMRI workload as on
+    video. stateful=True is ported (tests/test_torch_dncnn.py): on a model
+    with no running statistics it raises a ValueError that says so.
+    MC-SURE and the combined loss are ported (tests/test_torch_losses.py):
+    their steps run, with a finite loss."""
     model = CDLNetVideo(K=2, M=4, P=(3, 3, 3), s=2)
     if kw.get("stateful"):
         with pytest.raises(ValueError, match="running statistics"):
             make_train_step(model, make_optimizer(1e-3), **kw)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_train_step(model, make_optimizer(1e-3), **kw)
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            make_train_step(model, make_optimizer(1e-3), **kw)
+        return
+    model.init(torch.Generator().manual_seed(0))
+    opt = make_optimizer(1e-3)
+    step, _ = make_train_step(model, opt, **kw)
+    clean = torch.rand((1, 1, 4, 16, 16), generator=torch.Generator().manual_seed(1))
+    loss = step(opt.init(dict(model.named_parameters())), clean,
+                torch.Generator().manual_seed(2))
+    assert torch.isfinite(loss)
 
 
 def test_fit_device_scan_raises(tmp_path):
