@@ -38,10 +38,36 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
 
 
+def batch_norm_global(h, running_mean, running_var, weight, bias, group):
+    """F.batch_norm in training mode with the moments of the whole batch
+    that the ranks of `group` share (data parallelism: the JAX package's
+    GSPMD computes them over the global batch): the per-channel sums and
+    centred squares are all-reduced, their cotangents too. The running
+    statistics update in place, alike on every rank. Every rank holds as
+    many rows (fit requires the batch to divide over the data axis), so
+    the count needs no collective."""
+    from cdlnet_tpu_torch.dist.comm import group_size, reduce
+
+    dims = (0, 2, 3)
+    count = (h.numel() // h.shape[1]) * group_size(group)
+    mean = reduce(h.sum(dims), group, bwd_sum=True) / count
+    xc = h - mean[None, :, None, None]
+    var = reduce((xc * xc).sum(dims), group, bwd_sum=True) / count
+    with torch.no_grad():
+        running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)
+        running_var.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * var * (count / (count - 1)))
+    scale = weight / torch.sqrt(var + BN_EPS)
+    return xc * scale[None, :, None, None] + bias[None, :, None, None]
+
+
 @register("DnCNN")
 class DnCNN(nn.Module):
     # forward() ignores sigma: the eval CLIs pass none, as in the JAX package
     adaptive = False
+    # the ProcessGroup whose ranks share a data-parallel batch: train()
+    # mode's BatchNorm then takes the moments of the whole batch
+    # (batch_norm_global); None on one rank
+    bn_group = None
 
     def __init__(self, Co: int = 1, Ci: int = 1, K: int = 17, M: int = 64, P: int = 3):
         super().__init__()
@@ -94,9 +120,13 @@ class DnCNN(nn.Module):
             h = F.conv2d(h, self.w_mid[i], padding=self.pad)
             # the per-layer rows of the stacked buffers: batch_norm's
             # in-place update of the running stats lands in bn_mean/bn_var
-            h = F.batch_norm(h, self.bn_mean[i], self.bn_var[i], self.bn_scale[i],
-                             self.bn_bias[i], training=self.training,
-                             momentum=BN_MOMENTUM, eps=BN_EPS)
+            if self.training and self.bn_group is not None:
+                h = batch_norm_global(h, self.bn_mean[i], self.bn_var[i], self.bn_scale[i],
+                                      self.bn_bias[i], self.bn_group)
+            else:
+                h = F.batch_norm(h, self.bn_mean[i], self.bn_var[i], self.bn_scale[i],
+                                 self.bn_bias[i], training=self.training,
+                                 momentum=BN_MOMENTUM, eps=BN_EPS)
             h = F.relu(h)
         return F.conv2d(h, self.w_out, self.b_out, padding=self.pad)
 

@@ -34,6 +34,17 @@ mean 0 and variance 1). FFDNet takes sigma into its noise-level map; blind,
 it takes the Denoiser's estimate there (JAX's passes none, a zero map).
 
 A failed kernel raises: there is no fallback to the plain path.
+
+Mesh serving (Denoiser(mesh=...), a dist.mesh.Mesh or its dict spec):
+every rank calls a method with the same input and gets the whole output.
+A "data" axis splits image batches and CSR video batches over the ranks; a
+"depth" axis splits the frames of CDLNetVideo clips, on the kernels
+through dist/halo_fused.py (residual blocks and backend "xla": the plain
+halo route, dist/halo.py). Batches and clip depths that do not divide,
+streamed and tiled clips run unsharded on every rank. Unlike the JAX
+package's Denoiser, which demotes its plain path to "xla" under a mesh
+because GSPMD cannot partition a Mosaic kernel, the port keeps the
+kernels on every route.
 """
 
 from __future__ import annotations
@@ -53,7 +64,6 @@ from cdlnet_tpu_torch.models.csr import CDLNetCSR, CDLNetCSRf2, blind_sigma
 from cdlnet_tpu_torch.train.checkpoint import load_params
 from cdlnet_tpu_torch.utils import default_device
 
-_NOT_PORTED = "is not ported to cdlnet_tpu_torch yet (see ROADMAP.md)"
 # share of the free device memory a streamed clip may take when staged
 # whole (input and output together); the JAX package staged up to a fixed
 # 2 GB on the TPU
@@ -89,14 +99,19 @@ class Denoiser:
     """
 
     def __init__(self, model, bucket: int = 64, blind: str = "MAD", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(f"mesh serving {_NOT_PORTED}")
         self.model = model.eval()
         self.bucket = bucket
         self.blind = blind
         self.device = next(model.parameters()).device
         # a CSR model denoises clips by its frame recurrence
         self._recurrent = isinstance(model, (CDLNetCSR, CDLNetCSRf2))
+        self.mesh = None
+        if mesh is not None:
+            from cdlnet_tpu_torch.dist.mesh import as_mesh
+            from cdlnet_tpu_torch.dist.sharding import replicate_sharding
+
+            self.mesh = as_mesh(mesh)
+            replicate_sharding(model)
 
     @classmethod
     def from_args(cls, args: dict, backend: str = "pallas", device=None, **kw):
@@ -168,7 +183,9 @@ class Denoiser:
             if sigma is None and self.model.adaptive:
                 sigma = (blind_sigma(yt, self.blind) if recurrent_clip
                          else self._blind_sigma(yt))
-            if not self._recurrent:
+            if self.mesh is not None:
+                out = self._mesh_forward(yt, sigma)
+            elif not self._recurrent:
                 out = self.model(yt, sigma, return_z=False)[0]
             elif recurrent_clip:
                 out = self.model.video_denoise(yt, sigma)[0]
@@ -176,6 +193,42 @@ class Denoiser:
                 out = self.model(yt, sigma=sigma)[0]
         out = out.cpu().numpy()
         return out[..., : spatial[0], : spatial[1]]
+
+    def _forward(self, y, sigma):
+        """The model's output for y on this rank alone."""
+        if not self._recurrent:
+            return self.model(y, sigma, return_z=False)[0]
+        if y.ndim == 5:
+            return self.model.video_denoise(y, sigma)[0]
+        return self.model(y, sigma=sigma)[0]
+
+    def _mesh_forward(self, y, sigma):
+        """The forward over the mesh (module docstring), whole on every
+        rank."""
+        from cdlnet_tpu_torch.dist.halo_fused import depth_sharded_forward
+        from cdlnet_tpu_torch.dist.sharding import shard_map_forward
+
+        mesh, N = self.mesh, y.shape[0]
+        ndata, ndepth = mesh.size("data"), mesh.size("depth")
+        spec = None
+        if isinstance(sigma, torch.Tensor) and sigma.ndim == 1:
+            # one sigma a sample, split with the batch: the recurrence takes
+            # it as (N,), the other families as (N, 1, ...)
+            sigma = sigma.to(y.device)
+            if self._recurrent:
+                spec = "shard"
+            else:
+                sigma = sigma.reshape(-1, *([1] * (y.ndim - 1)))
+        batch_axis = "data" if "data" in mesh.shape and N % ndata == 0 else None
+        s = getattr(self.model, "s", 1)
+        if (ndepth > 1 and y.ndim == 5 and not self._recurrent and hasattr(self.model, "pad")
+                and y.shape[2] % (ndepth * s) == 0):
+            return depth_sharded_forward(self.model, y, sigma, mesh=mesh, batch_axis=batch_axis)
+        if batch_axis is None:
+            return self._forward(y, sigma)
+        smf = shard_map_forward(mesh, lambda p, yl, sl, ml: self._forward(yl, sl),
+                                sigma_spec=spec)
+        return smf({}, y, sigma)
 
     def denoise_image(self, img: np.ndarray, sigma=None) -> np.ndarray:
         """img: (H, W), (C, H, W) or (N, C, H, W) in [0,1]; sigma: a scalar,

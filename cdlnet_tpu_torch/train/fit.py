@@ -26,9 +26,16 @@ on .npz bundles); fit settles the pending writes before it restores one
 and when it returns or raises. The frame-recurrent CSR models train
 through train/fit_csr.py. The losses: mse (the default), the combined
 VGG16 loss (loss_type="combmse", for the volumetric workloads) and MC-SURE
-(mcsure=True: unsupervised, from the noisy batch alone). Not ported yet
-(each raises NotImplementedError naming ROADMAP.md): meshes and
-one-dispatch device-scan epochs.
+(mcsure=True: unsupervised, from the noisy batch alone).
+
+mesh ({"data": ...} and, for the video workloads, "depth"; a dist.mesh.Mesh
+or its dict spec) trains on several ranks, one process each
+(dist/init.py): every rank loads the same global batch and draws the same
+noise, its forward takes its rows (and frames) of it and gathers the
+output, so every rank computes the same global loss and takes the same
+backtracking branch; the gradients are all-reduced (dist/). Not ported
+(raises NotImplementedError naming ROADMAP.md): one-dispatch device-scan
+epochs.
 """
 
 from __future__ import annotations
@@ -107,13 +114,14 @@ def init_model(args: dict, seed: int = 0, device=None):
 
 
 def train_update(model, opt, opt_state, obsrv, sigma, clean, mask=None,
-                 project=True, loss_fn=None) -> torch.Tensor:
+                 project=True, loss_fn=None, forward=None) -> torch.Tensor:
     """One optimizer step on a given noisy batch: forward -> loss ->
     gradients -> clipped Adam -> project(). Parameters and opt_state
     change in place. Returns the loss (a device scalar, not synchronized).
 
-    loss_fn(apply) -> the loss, where apply(y) is the model's xhat for y at
-    sigma (and mask); None is the mse of apply(obsrv) against clean. On a
+    loss_fn(apply) -> the loss, where apply(y, sigma=sigma, mask=mask) is
+    the model's xhat for y (at this call's sigma and mask unless given);
+    None is the mse of apply(obsrv) against clean. On a
     BatchNorm family every apply starts from the pre-update running
     statistics, on copies of them, and the first apply's updated copies
     become the model's statistics: the JAX package's functional state, in
@@ -121,15 +129,23 @@ def train_update(model, opt, opt_state, obsrv, sigma, clean, mask=None,
 
     The parameters the model declares unused (its unused_params, CDLNet's
     g) get a zero gradient, as under jax.grad; any other parameter the loss
-    does not reach makes autograd raise."""
+    does not reach makes autograd raise.
+
+    forward(y, sigma, mask, buffers) -> xhat replaces the model's call
+    (the mesh forward of make_train_step), buffers the statistics' copies
+    or None."""
     stats = dict(model.named_buffers())
     passes = []
 
-    def apply(y):
-        if not stats:
+    def apply(y, sigma=sigma, mask=mask):
+        copies = None
+        if stats:
+            copies = {n: b.clone() for n, b in stats.items()}
+            passes.append(copies)
+        if forward is not None:
+            return forward(y, sigma, mask, copies)
+        if copies is None:
             return model(y, sigma, mask=mask)[0]
-        copies = {n: b.clone() for n, b in stats.items()}
-        passes.append(copies)
         return functional_call(model, copies, (y, sigma), {"mask": mask})[0]
 
     loss = mse_loss(apply(obsrv), clean) if loss_fn is None else loss_fn(apply)
@@ -164,7 +180,8 @@ def make_train_step(model, opt, *, workload="3d", noise_std=(25, 25),
     model's, compat.jax_params.is_stateful) runs train_step in train()
     mode, which updates a BatchNorm family's running statistics, and
     eval_step in eval() mode, on them (the JAX package's
-    make_train_step(stateful=True))."""
+    make_train_step(stateful=True)). mesh: a dist.mesh.Mesh or dict spec
+    (mesh_forward); None runs on this process alone."""
     if workload not in ("2d", "3d", "mri"):
         raise NotImplementedError(f"workload {workload!r} {_NOT_PORTED}")
     if stateful is None:
@@ -172,8 +189,7 @@ def make_train_step(model, opt, *, workload="3d", noise_std=(25, 25),
     elif stateful != is_stateful(model):
         raise ValueError(f"stateful={stateful} for {type(model).__name__}, which "
                          f"{'has' if is_stateful(model) else 'has no'} running statistics")
-    if mesh is not None:
-        raise NotImplementedError(f"mesh training {_NOT_PORTED}")
+    forward = None if mesh is None else mesh_forward(model, mesh, workload, stateful)
     if loss_type not in ("mse", "combmse"):
         raise ValueError(f"loss_type {loss_type!r} not in ('mse', 'combmse')")
     if loss_type == "combmse" and workload == "2d" and not mcsure:
@@ -199,17 +215,68 @@ def make_train_step(model, opt, *, workload="3d", noise_std=(25, 25),
         elif loss_type == "combmse":
             loss_fn = lambda apply: combined_loss(apply(obsrv), batch)
         return train_update(model, opt, opt_state, obsrv, sigma, batch,
-                            mask=mask, project=project, loss_fn=loss_fn)
+                            mask=mask, project=project, loss_fn=loss_fn, forward=forward)
 
     @torch.no_grad()
     def eval_step(batch, generator):
         obsrv, sigma, mask = observe(batch, generator)
         if stateful:
             model.eval()
+        if forward is not None:
+            return mse_loss(forward(obsrv, sigma, mask, None), batch)
         xhat, _ = model(obsrv, sigma, mask=mask)
         return mse_loss(xhat, batch)
 
     return train_step, eval_step
+
+
+def mesh_forward(model, mesh, workload="3d", stateful=False, axis="data"):
+    """The forward of make_train_step under a mesh: forward(y, sigma, mask,
+    buffers) -> xhat for the whole batch y, alike on every rank; buffers
+    are a stateful family's statistics copies (or None).
+
+    A "depth" axis (video workloads, not stateful) shards the frames of
+    a pre-processed clip: on the kernels through dist/halo_fused.py where
+    its gate holds (training: the depth-sharded autograd Function), else
+    on the plain halo route (dist/halo.py: residual blocks, backend "xla");
+    masked input and a clip depth that does not divide run unsharded. The
+    "data" axis (or `axis`) shards the rows
+    (dist/sharding.py::shard_map_forward; BatchNorm takes the moments of
+    the whole batch) where they divide, and the batch runs unsharded on
+    every rank where they do not."""
+    from cdlnet_tpu_torch.dist.halo_fused import depth_sharded_forward
+    from cdlnet_tpu_torch.dist.mesh import as_mesh
+    from cdlnet_tpu_torch.dist.sharding import shard_map_forward
+
+    mesh = as_mesh(mesh)
+    ndata, ndepth = mesh.size(axis), mesh.size("depth")
+    depth = ndepth > 1 and not stateful and workload in ("3d", "mri")
+
+    def call(p, y, sigma, mask, buffers, group=None):
+        """The model on y; group: the ranks sharing the batch, whose
+        BatchNorm moments are taken together."""
+        if stateful:
+            model.bn_group = group
+        try:
+            return functional_call(model, {**p, **(buffers or {})}, (y, sigma),
+                                   {"mask": mask})[0]
+        finally:
+            if stateful:
+                model.bn_group = None
+
+    def forward(y, sigma, mask, buffers=None):
+        params = dict(model.named_parameters())
+        batch_axis = axis if axis in mesh.shape and y.shape[0] % ndata == 0 else None
+        if depth and mask is None and y.shape[2] % (ndepth * model.s) == 0:
+            return depth_sharded_forward(model, y, sigma, mesh=mesh, batch_axis=batch_axis)
+        if batch_axis is None:
+            return call(params, y, sigma, mask, buffers)
+        group = mesh.group(axis)
+        smf = shard_map_forward(mesh, lambda p, yl, sl, ml: call(p, yl, sl, ml, buffers, group),
+                                axis)
+        return smf(params, y, sigma, mask)
+
+    return forward
 
 
 @settles_checkpoints
@@ -228,7 +295,17 @@ def fit(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1,
     semantics follow the JAX package's fit (module docstring); sched is
     dict(step_size=..., gamma=...) for StepLR. ckpt_format "npz" writes
     each checkpoint before the loop goes on, "orbax" in the background;
-    both leave .npz bundles."""
+    both leave .npz bundles.
+
+    mesh: data-parallel training over the ranks (one process each, every
+    rank calling fit with the same arguments): rank 0's parameters are
+    broadcast, every train batch's rows split over the mesh's "data" axis
+    (the batch size must divide by it), the gradients are all-reduced, and
+    every rank logs the same global loss and keeps its own identical
+    checkpoints in its save_dir. A "depth" axis also shards the frames of
+    video clips (workload "3d" or "mri"; the clip depth must divide by it;
+    mesh_forward). The JAX package's reference is single-device
+    (train.py:15-16)."""
     if ckpt_format not in ("npz", "orbax"):
         raise ValueError(f"ckpt_format {ckpt_format!r} not in ('npz', 'orbax')")
     background = ckpt_format == "orbax"
@@ -236,6 +313,26 @@ def fit(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1,
         raise NotImplementedError(f"device_scan {_NOT_PORTED}")
     os.makedirs(save_dir, exist_ok=True)
     dev = next(model.parameters()).device
+    check_batch = None
+    if mesh is not None:
+        from cdlnet_tpu_torch.dist.mesh import as_mesh
+        from cdlnet_tpu_torch.dist.sharding import replicate_sharding
+
+        mesh = as_mesh(mesh)
+        ndata, ndepth = mesh.size("data"), mesh.size("depth")
+        if ndepth > 1 and workload not in ("3d", "mri"):
+            raise ValueError('mesh axis "depth" requires a 3D workload (CDLNetVideo)')
+        replicate_sharding(model)
+
+        def check_batch(b):
+            if b.shape[0] % ndata:
+                raise ValueError(
+                    f"batch size {b.shape[0]} not divisible by data-parallel "
+                    f"axis size {ndata} — adjust train.loaders.batch_size")
+            if ndepth > 1 and b.ndim == 5 and b.shape[2] % ndepth:
+                raise ValueError(
+                    f"clip depth {b.shape[2]} not divisible by depth axis "
+                    f"size {ndepth} — adjust train.loaders.depth")
     if not isinstance(noise_std, (list, tuple)):
         noise_std = (noise_std, noise_std)
     train_step, _ = make_train_step(
@@ -271,6 +368,8 @@ def fit(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1,
             losses = []
             for batch in device_prefetch(loaders[phase], device=dev):
                 if phase == "train":
+                    if check_batch is not None:
+                        check_batch(batch)
                     losses.append(train_step(opt_state, batch, gen))
                 else:
                     losses.append(eval_step(batch, gen))

@@ -31,6 +31,7 @@ import os
 import time
 
 import torch
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from cdlnet_tpu_torch.data.noise import awgn
@@ -41,14 +42,13 @@ from cdlnet_tpu_torch.train.losses import mse_loss, psnr_from_mse
 from cdlnet_tpu_torch.train.optim import get_lr, set_lr
 from cdlnet_tpu_torch.utils import append_metric
 
-_NOT_PORTED = "is not ported to cdlnet_tpu_torch yet (see ROADMAP.md)"
 # remat="auto" recomputes the applies past this many pixels a frame: the
 # JAX package's threshold, between the half-native 320x184 frame and the
 # native 640x368 one (cdlnet_tpu/train/fit_csr.py:37-57)
 REMAT_PIXELS = 100_000
 
 
-def make_csr_train_step(model, opt, *, noise_std, project=False, remat="auto"):
+def make_csr_train_step(model, opt, *, noise_std, project=False, remat="auto", mesh=None):
     """Build the CSR steps on the model's device (2-frame alternating
     recurrence for CDLNet_CSR, 3-frame bidirectional for CDLNet_CSRf2):
       train_step(opt_state, batch, generator) -> loss
@@ -58,19 +58,39 @@ def make_csr_train_step(model, opt, *, noise_std, project=False, remat="auto"):
     two or three frames are read); generator: a torch.Generator there,
     which draws each frame's noise (and its per-sample sigma when
     noise_std is a range). remat: True, False, or "auto" (on past
-    REMAT_PIXELS pixels a frame)."""
+    REMAT_PIXELS pixels a frame). mesh: a dist.mesh.Mesh or dict spec
+    whose "data" axis splits every apply's rows (volumes) over the ranks
+    where they divide (dist/sharding.py::shard_map_forward: the carried
+    codes are gathered and split again, so every rank computes the same
+    loss; the gradients are all-reduced)."""
     nstd = tuple(noise_std) if isinstance(noise_std, (list, tuple)) else noise_std
     is_f2 = isinstance(model, CDLNetCSRf2)
+    ndata = 1
+    if mesh is not None:
+        from cdlnet_tpu_torch.dist.mesh import as_mesh
+        from cdlnet_tpu_torch.dist.sharding import shard_map_forward
+
+        mesh = as_mesh(mesh)
+        ndata = mesh.size("data")
 
     def loss_fn(batch, generator):
         use_remat = (remat if remat != "auto"
                      else batch.shape[-2] * batch.shape[-1] > REMAT_PIXELS)
 
-        def apply(*args):
-            if use_remat and torch.is_grad_enabled():
-                return checkpoint(model, *args, use_reentrant=False,
-                                  preserve_rng_state=False)
-            return model(*args)
+        remat_on = use_remat and torch.is_grad_enabled()
+
+        def run(fn, *args):
+            if remat_on:
+                return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+            return fn(*args)
+
+        def apply(*args):  # (y, *codes, sigma)
+            if mesh is not None and args[0].shape[0] % ndata == 0:
+                smf = shard_map_forward(mesh, lambda p, y, sig, _, *codes: run(
+                    lambda *a: functional_call(model, p, a), y, *codes, sig))
+                return smf(dict(model.named_parameters()), args[0], args[-1], None,
+                           *args[1:-1])
+            return run(model, *args)
 
         prev, curr = batch[:, :, 0], batch[:, :, 1]
         prev_hat, s1 = awgn(prev, nstd, generator)
@@ -125,9 +145,9 @@ def fit_csr(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1
     val and test draw their noise at the midpoint sigma. As in the JAX
     package there is no backtracking; fit's other keys (backtrack_thresh,
     mcsure, demosaic, ...) land in `ignored` and are named. ckpt_format
-    "orbax" saves in the background, as fit does."""
-    if mesh is not None:
-        raise NotImplementedError(f"mesh training {_NOT_PORTED}")
+    "orbax" saves in the background, as fit does. mesh: data parallelism
+    as in fit (make_csr_train_step; a train batch's size must divide by
+    the "data" axis)."""
     if ckpt_format not in ("npz", "orbax"):
         raise ValueError(f"ckpt_format {ckpt_format!r} not in ('npz', 'orbax')")
     background = ckpt_format == "orbax"
@@ -135,12 +155,21 @@ def fit_csr(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1
         print(f"fit_csr: ignoring fit args {sorted(ignored)}")
     os.makedirs(save_dir, exist_ok=True)
     dev = next(model.parameters()).device
+    ndata = 1
+    if mesh is not None:
+        from cdlnet_tpu_torch.dist.mesh import as_mesh
+        from cdlnet_tpu_torch.dist.sharding import replicate_sharding
+
+        mesh = as_mesh(mesh)
+        ndata = mesh.size("data")
+        replicate_sharding(model)
     if not isinstance(noise_std, (list, tuple)):
         noise_std = (noise_std, noise_std)
-    train_step, _ = make_csr_train_step(model, opt, noise_std=noise_std, project=project)
+    train_step, _ = make_csr_train_step(model, opt, noise_std=noise_std, project=project,
+                                        mesh=mesh)
     _, eval_step = make_csr_train_step(model, opt,
                                        noise_std=(noise_std[0] + noise_std[1]) / 2.0,
-                                       project=project)
+                                       project=project, mesh=mesh)
 
     save_ckpt(os.path.join(save_dir, "0.ckpt"), model, 0, opt_state, get_lr(opt_state),
               background=background)
@@ -156,6 +185,9 @@ def fit_csr(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1
             losses = []  # device scalars: one host transfer per phase
             for batch in device_prefetch(loaders[phase], device=dev):
                 if phase == "train":
+                    if batch.shape[0] % ndata:
+                        raise ValueError(f"batch size {batch.shape[0]} not divisible "
+                                         f"by data axis {ndata}")
                     losses.append(train_step(opt_state, batch, gen))
                 else:
                     losses.append(eval_step(batch, gen))

@@ -220,7 +220,7 @@ from cdlnet_tpu_torch.server import DenoiseServer
 from cdlnet_tpu_torch.tools import compare_sass
 from cdlnet_tpu_torch.tools.bench_video_serve import graph_ms
 from cdlnet_tpu_torch.train.checkpoint import load_ckpt, save_ckpt
-from cdlnet_tpu_torch.train.fit import fit, init_model, make_train_step, train_update
+from cdlnet_tpu_torch.train.fit import fit, init_model, make_train_step, mesh_forward, train_update
 from cdlnet_tpu_torch.train.fit_csr import fit_csr, make_csr_train_step
 from cdlnet_tpu_torch.train import losses as losses_mod
 from cdlnet_tpu_torch.train.losses import mcsure_loss, mse_loss
@@ -3468,6 +3468,431 @@ def losses_phase(dev, card, t_par) -> dict:
     return dict(launches)
 
 
+# --- the distributed layer (dist): D1 on NCCL at world size 1, D2 on two
+# processes sharing the card over gloo ---
+
+DIST_FIT_STEPS = 5          # fit() steps of D1 and of D2's data-parallel fit
+DIST_FWD_TOL = 1e-4         # depth-sharded forward vs the unsharded kernels, max|d| / max|ref|
+DIST_GRAD_TOL = 1e-3        # depth-sharded gradients vs the unsharded ones
+# the depth-sharded dy vs the plain loop in float64, max|d| / max|ref|, set
+# between two readings on the H100: the sound ones reach 1.683e-3 (a code
+# near its threshold takes the other branch in one fp32 program or
+# another), a dy lacking its last analysis adjoint reads 9.039e-3 and one
+# summing a single g 7.697e-1 (PERF.md, Findings, PR 16)
+DIST_DY_TOL = 4e-3
+# data-parallel fit vs fit on one process: the first step's train loss. Adam
+# moves an element by ~lr sign(g) a step, so elements whose gradient sits
+# near 0 differ by O(lr) between two fp32 programs, and the later losses
+# drift: the parameters are printed, their gradient gated against float64
+# at GRAD_TOL
+DIST_FIT_TOL = 1e-4
+DIST_SERVE_TOL = 1e-4       # mesh serving vs the meshless Denoiser, max|d|
+DIST_SERVE_BATCH = 8
+DIST_NATIVE = NATIVE        # the native clip of D2-2 (16x480x854)
+
+
+def _plain_grads_dy(model, ypc, sig, x0, dtype=torch.float32):
+    """dy of mean((xp - x0)^2) through the plain loop (cuDNN, TF32 off) in
+    `dtype`."""
+    A, B, t = (p.detach().to(dtype) for p in (model.A, model.B, model.t))
+    yy = ypc.detach().to(dtype).requires_grad_(True)
+    z = lista_3d(yy, A, B, t, sig.to(dtype) / 255, stride=model.s)
+    xp = conv_transpose3d(z, B[0], stride=model.s, padding=model.pad,
+                          output_padding=model.s - 1)
+    return torch.autograd.grad(torch.mean((xp - x0.to(dtype)) ** 2), [yy])[0]
+
+
+def dist_worker(out: str) -> int:
+    """One of D2's two ranks, both on cuda:0 over gloo (the card's machine
+    has one H100; NCCL refuses two ranks on one card). Saves its results to
+    out/rank{r}.pt for the main process to gate and print."""
+    import torch.distributed as tdist
+
+    from cdlnet_tpu_torch.dist import (
+        initialize_distributed,
+        make_mesh,
+        replicate_sharding,
+        sharded_fused_3d_train_forward,
+        sharded_lista_3d_fused_forward,
+    )
+    from cdlnet_tpu_torch.dist.halo_fused import code_halo
+    from cdlnet_tpu_torch.dist.init import shutdown_distributed
+    from cdlnet_tpu_torch.dist.mesh import Mesh
+    from cdlnet_tpu_torch.kernels.autodiff import lista3d_fused_diff
+
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed(backend="gloo", device="cuda")
+    rank = tdist.get_rank()
+    _build.library()  # the main process built it from this checkout
+    res = {"rank": rank}
+    depth = make_mesh({"depth": 2})
+    model = CDLNetVideo(**FLAGSHIP, backend="pallas").to(dev)
+    model.init(torch.Generator().manual_seed(SEED))
+    K, M, s = FLAGSHIP["K"], FLAGSHIP["M"], FLAGSHIP["s"]
+    tg = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():
+        model.t.copy_((torch.rand(K, 2, M, 1, 1, 1, generator=tg)
+                       * torch.tensor([0.02, 0.2]).reshape(1, 2, 1, 1, 1, 1)).to(dev))
+    replicate_sharding(model)
+    rng = np.random.default_rng(SEED + 60)
+    hz = code_halo(model)
+
+    def halo_mb(N, shape):
+        """MB a rank sends a halo refresh of the codes: the Dzl kept code
+        frames the other rank's window takes (of 2 hz halo frames, the
+        rest past the clip) — as much comes back."""
+        D, H, W = shape
+        Dzl = D // s // 2
+        return min(Dzl, 2 * hz) * N * M * (H // s) * (W // s) * 4 / 1e6
+
+    # D2-1, D2-2: the depth-sharded forward against the unsharded kernels
+    for key, shape in (("fwd", CLIP), ("native", DIST_NATIVE)):
+        clean = smooth_clip(rng, shape[0], shape[1:])
+        noisy = clean + SIGMA / 255 * rng.standard_normal(clean.shape).astype(np.float32)
+        ypc, _, _ = pre_process_3d(torch.from_numpy(noisy)[None, None].to(dev), s)
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            ref, _ = L.lista3d_fused(ypc, model.A, model.B, model.t, SIGMA / 255, stride=s)
+            torch.cuda.synchronize()
+            ref_ms = 1e3 * (time.perf_counter() - t0)
+            L.launches.clear()
+            t0 = time.perf_counter()
+            got, _ = sharded_lista_3d_fused_forward(model, ypc, SIGMA, mesh=depth)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            launches = dict(L.launches)
+            if key == "fwd":
+                ms = host_ms(lambda: sharded_lista_3d_fused_forward(model, ypc, SIGMA,
+                                                                    mesh=depth), rounds=3)
+                ref_ms = host_ms(lambda: L.lista3d_fused(ypc, model.A, model.B, model.t,
+                                                         SIGMA / 255, stride=s), rounds=3)
+        d, rel = rel_err(got, ref)
+        res[key] = dict(shape=shape, max_abs=d, rel=rel, bitwise=bool(torch.equal(got, ref)),
+                        launches=launches, ms=ms, unsharded_ms=ref_ms,
+                        halo_mb=halo_mb(1, shape))
+        del ref, got, ypc
+
+    # D2-3: the depth-sharded train step against the unsharded kernel
+    # gradients (dA, dB, dt) and the plain loop's dy
+    tc = np.stack([smooth_clip(rng, *CLIP[:2])[None] for _ in range(TRAIN_N)])
+    sig = rng.uniform(*TRAIN_SIGMA, (TRAIN_N, 1, 1, 1, 1)).astype(np.float32)
+    tn = tc + sig / 255 * rng.standard_normal(tc.shape).astype(np.float32)
+    clean_t, noisy_t, sig_t = (torch.from_numpy(a).to(dev) for a in (tc, tn, sig))
+    ypc, prm, _ = pre_process_3d(noisy_t, s)
+    x0 = clean_t - prm[0]
+
+    def sharded_grads():
+        yy = ypc.clone().requires_grad_(True)
+        xp = sharded_fused_3d_train_forward(model, yy, sig_t, mesh=depth)
+        return torch.autograd.grad(torch.mean((xp - x0) ** 2), [model.A, model.B, model.t, yy])
+
+    L.launches.clear()
+    g1 = sharded_grads()
+    torch.cuda.synchronize()
+    step_launches = dict(L.launches)
+    g2 = sharded_grads()
+    ref = torch.autograd.grad(torch.mean((lista3d_fused_diff(ypc, model.A, model.B, model.t,
+                                                             sig_t / 255, stride=s) - x0) ** 2),
+                              [model.A, model.B, model.t])
+    # dy: the unsharded kernel route has none, so it is gated against the
+    # plain loop in float64 (DIST_DY_TOL) and against the same reverse on
+    # one rank over the whole clip (the trivial mesh: one window, zeros past
+    # the clip), which checks the windowing
+    yy = ypc.clone().requires_grad_(True)
+    xp = sharded_fused_3d_train_forward(model, yy, sig_t, mesh=Mesh({"depth": 1}))
+    dy_one = torch.autograd.grad(torch.mean((xp - x0) ** 2), [yy])[0]
+    dy64 = _plain_grads_dy(model, ypc, sig_t, x0, torch.float64)
+    dy32 = _plain_grads_dy(model, ypc, sig_t, x0)
+    res["grads"] = dict(rel=[rel_err(a, b)[1] for a, b in zip(g1, (*ref, dy_one))],
+                        f64_rel=[rel_err(d.double(), dy64)[1] for d in (g1[3], dy_one, dy32)],
+                        bitwise=all(torch.equal(a, b) for a, b in zip(g1, g2)),
+                        launches=step_launches, ms=host_ms(sharded_grads, rounds=3),
+                        halo_mb=halo_mb(TRAIN_N, CLIP))
+    del g1, g2, ref, dy_one, dy64, dy32, xp, yy
+
+    # D2-4: fit on {"data": 2}, 5 + 5 of the 10 x 128^2 flagship 2D batch
+    crops = natural_crops(np.random.default_rng(SEED + 61), TRAIN_2D_N, CROP)
+    loaders = {"train": [crops], "val": [crops], "test": [crops]}
+    dmodel = CDLNet(**FLAGSHIP_2D, backend="pallas").to(dev)
+    dmodel.init(torch.Generator().manual_seed(SEED))
+    # the power method's cuDNN convolutions can round differently in two
+    # processes: rank 0's weights on both
+    replicate_sharding(dmodel)
+    init_state = copy.deepcopy(dmodel.state_dict())
+    # the data-parallel gradient (5 + 5 rows, all-reduced) and one
+    # process's on the same noisy batch, each against the plain loop in
+    # float64: the 3xTF32 dA sums cancel, and its rounding follows the
+    # rows a rank holds
+    noisy2d, sig2d = observed(np.random.default_rng(SEED + 63), crops, dev)
+    clean2d = torch.from_numpy(crops).to(dev)
+    prm = dict(dmodel.named_parameters())
+    names = ("A", "B", "t")
+    fwd = mesh_forward(dmodel, make_mesh({"data": 2}), "2d")
+    g_mesh = torch.autograd.grad(mse_loss(fwd(noisy2d, sig2d, None, None), clean2d),
+                                 [prm[n] for n in names])
+    g_one = torch.autograd.grad(mse_loss(dmodel(noisy2d, sig2d)[0], clean2d),
+                                [prm[n] for n in names])
+    m64 = copy.deepcopy(dmodel).double()
+    m64.backend = "xla"
+    p64 = dict(m64.named_parameters())
+    g64 = torch.autograd.grad(mse_loss(m64(noisy2d.double(), sig2d.double())[0],
+                                       clean2d.double()), [p64[n] for n in names])
+    res["dp_grad"] = {n: (rel_err(a.double(), c)[1], rel_err(b.double(), c)[1],
+                          rel_err(a, b)[1])
+                      for n, a, b, c in zip(names, g_mesh, g_one, g64)}
+    del g_mesh, g_one, g64, m64, noisy2d
+    fits = {}
+    for name, mesh in (("mesh", {"data": 2}), ("ref", None)):
+        if name == "ref" and rank != 0:
+            continue  # the one-process reference runs on rank 0 alone
+        dmodel.load_state_dict(init_state)
+        opt = make_optimizer(FIT_2D_LR, clip_grad=FIT_2D_CLIP)
+        with tempfile.TemporaryDirectory() as save_dir:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, hist = fit(dmodel, opt, opt.init(dict(dmodel.named_parameters())), loaders,
+                          save_dir=save_dir, epochs=DIST_FIT_STEPS, noise_std=TRAIN_SIGMA,
+                          val_freq=100, save_freq=100, backtrack_thresh=None, verbose=False,
+                          workload="2d", seed=SEED, mesh=mesh)
+            torch.cuda.synchronize()
+            fits[name] = dict(ms=1e3 * (time.perf_counter() - t0) / DIST_FIT_STEPS,
+                              psnr=[p for _, ph, p in hist if ph == "train"],
+                              params={k: v.detach().cpu().clone()
+                                      for k, v in dmodel.named_parameters()})
+    res["fit"] = fits
+
+    # D2-5: mesh serving, images on {"data": 2} and the video demo on {"depth": 2}
+    imgs = np.stack([natural_image(np.random.default_rng(SEED + 62 + i), size=IMAGE[0])
+                     for i in range(DIST_SERVE_BATCH)])
+    imgs = np.clip(imgs + SIGMA / 255 * np.random.default_rng(SEED + 70)
+                   .standard_normal(imgs.shape), 0, 1).astype(np.float32)
+    dmodel.load_state_dict(init_state)
+    res["serve_data"] = (Denoiser(dmodel, mesh={"data": 2}).denoise_image_batch(imgs, 25.0),
+                         Denoiser(dmodel).denoise_image_batch(imgs, 25.0))
+    clip = smooth_clip(np.random.default_rng(SEED + 71), *CLIP[:2])
+    clip = clip + SIGMA / 255 * np.random.default_rng(SEED + 72).standard_normal(clip.shape) \
+        .astype(np.float32)
+    demo_mesh = Denoiser.from_dir(DEMO, mesh={"depth": 2})
+    L.launches.clear()
+    out_mesh = demo_mesh.denoise_video(clip, sigma=SIGMA)
+    res["serve_depth"] = (out_mesh, Denoiser.from_dir(DEMO).denoise_video(clip, sigma=SIGMA),
+                          dict(L.launches))
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    shutdown_distributed()
+    return 0
+
+
+def dist_phase(dev, card) -> dict:
+    """D1: initialize_distributed on NCCL at world size 1, fit(mesh={"data":
+    1}) against fit without a mesh and Denoiser(mesh={"data": 1}) against the
+    meshless one, bitwise, and DnCNN-S's fit(mesh={"data": 1}) (BatchNorm
+    moments all-reduced on NCCL) against its meshless fit. D2: two
+    processes sharing the card over gloo (dist_worker), the depth-sharded
+    forward and train step against the unsharded kernels (dy against the
+    plain loop in float64), the data-parallel fit against one process's,
+    mesh serving, and the launcher (python -m cdlnet_tpu_torch.dist.launch)
+    on the train CLI. Returns D1's launches (the main path's run)."""
+    import torch.distributed as tdist
+
+    from cdlnet_tpu_torch.dist import initialize_distributed, make_mesh
+    from cdlnet_tpu_torch.dist.init import shutdown_distributed
+    from cdlnet_tpu_torch.dist.launch import free_port, launch_local
+
+    # --- D1: NCCL at world size 1 ---
+    t0 = time.perf_counter()
+    require(initialize_distributed(f"localhost:{free_port()}", 1, 0, device="cuda"),
+            "initialize_distributed did not initialize a process group")
+    require(tdist.get_backend() == "nccl", f"backend {tdist.get_backend()}, not nccl")
+    mesh = make_mesh({"data": 1})
+    crops = natural_crops(np.random.default_rng(SEED + 50), TRAIN_2D_N, CROP)
+    loaders = {"train": [crops], "val": [crops], "test": [crops]}
+    model = CDLNet(**FLAGSHIP_2D, backend="pallas").to(dev)
+    model.init(torch.Generator().manual_seed(SEED))
+    init_state = copy.deepcopy(model.state_dict())
+    params, losses = {}, {}
+    L.launches.clear()
+    for name, m in (("mesh", mesh), ("ref", None)):
+        model.load_state_dict(init_state)
+        opt = make_optimizer(FIT_2D_LR, clip_grad=FIT_2D_CLIP)
+        with tempfile.TemporaryDirectory() as save_dir:
+            _, hist = fit(model, opt, opt.init(dict(model.named_parameters())), loaders,
+                          save_dir=save_dir, epochs=DIST_FIT_STEPS, noise_std=TRAIN_SIGMA,
+                          val_freq=100, save_freq=100, backtrack_thresh=None, verbose=False,
+                          workload="2d", seed=SEED, mesh=m)
+        params[name] = {k: v.detach().clone() for k, v in model.named_parameters()}
+        losses[name] = [p for _, ph, p in hist if ph == "train"]
+    same = all(torch.equal(params["mesh"][k], params["ref"][k]) for k in params["ref"])
+    print(f"dist D1 [{card}]: NCCL at world size 1, fit(mesh={{'data': 1}}) "
+          f"{DIST_FIT_STEPS} steps at the flagship 2D width ({TRAIN_2D_N}x{CROP}^2): train PSNR "
+          f"{[round(p, 3) for p in losses['mesh']]}, parameters bitwise equal to fit "
+          f"without a mesh: {same}", flush=True)
+    require(same, "fit(mesh={'data': 1}) on NCCL differs from fit without a mesh")
+    # DnCNN-S under the data mesh: BatchNorm takes the moments through the
+    # NCCL group (models/dncnn.py::batch_norm_global, two all-reduced sums),
+    # another fp32 sum order than cuDNN's batch norm of the meshless fit, so
+    # not bitwise: the first train loss (same parameters) is gated
+    crops = natural_crops(np.random.default_rng(SEED + 53), BASE_BATCH, BASE_CROPS["DnCNN"])
+    bn_loaders = {"train": [crops], "val": [crops[:8]], "test": [crops[:8]]}
+    bn_init = DnCNN(**DNCNN_WIDTH).init(torch.Generator().manual_seed(SEED)).state_dict()
+    bn_losses = {}
+    for name, m in (("mesh", mesh), ("ref", None)):
+        bn = DnCNN(**DNCNN_WIDTH).to(dev)
+        bn.load_state_dict(bn_init)
+        opt = make_optimizer(1e-3)
+        with tempfile.TemporaryDirectory() as save_dir:
+            _, hist = fit(bn, opt, opt.init(dict(bn.named_parameters())), bn_loaders,
+                          save_dir=save_dir, epochs=DIST_FIT_STEPS, noise_std=SIGMA,
+                          val_freq=100, save_freq=100, backtrack_thresh=None, verbose=False,
+                          workload="2d", seed=SEED, mesh=m)
+        bn_losses[name] = [10 ** (-p / 10) for _, ph, p in hist if ph == "train"]
+    bn_rel = abs(bn_losses["mesh"][0] - bn_losses["ref"][0]) / bn_losses["ref"][0]
+    print(f"dist D1 [{card}]: NCCL at world size 1, DnCNN-S fit(mesh={{'data': 1}}) "
+          f"{DIST_FIT_STEPS} steps of {BASE_BATCH}x{BASE_CROPS['DnCNN']}^2 (BatchNorm moments "
+          f"all-reduced): train losses {[f'{v:.6f}' for v in bn_losses['mesh']]} vs without a "
+          f"mesh {[f'{v:.6f}' for v in bn_losses['ref']]}, first rel {bn_rel:.3e}", flush=True)
+    require(len(bn_losses["mesh"]) == DIST_FIT_STEPS and all(np.isfinite(bn_losses["mesh"])),
+            f"DnCNN fit(mesh={{'data': 1}}) train losses {bn_losses['mesh']}")
+    require(bn_rel <= DIST_FIT_TOL,
+            f"DnCNN fit(mesh={{'data': 1}}) first train loss rel {bn_rel:.3e} > {DIST_FIT_TOL}")
+    del bn
+    demo = Denoiser.from_dir(DEMO_2D)
+    demo_mesh = Denoiser.from_dir(DEMO_2D, mesh={"data": 1})
+    img = np.clip(natural_image(np.random.default_rng(SEED + 51), size=IMAGE[0])
+                  + SIGMA / 255 * np.random.default_rng(SEED + 52).standard_normal(IMAGE), 0, 1
+                  ).astype(np.float32)
+    a, b = demo_mesh.denoise_image(img, sigma=SIGMA), demo.denoise_image(img, sigma=SIGMA)
+    print(f"dist D1 [{card}]: Denoiser(mesh={{'data': 1}}) on the flagship demo image, "
+          f"bitwise equal to the meshless call: {np.array_equal(a, b)}", flush=True)
+    require(np.array_equal(a, b), "Denoiser(mesh={'data': 1}) differs from the meshless call")
+    d1_launches = dict(L.launches)
+    del demo, demo_mesh, model
+    shutdown_distributed()
+    t1 = time.perf_counter()
+
+    # --- D2: two processes on the one card over gloo ---
+    torch.cuda.empty_cache()
+    label = "two processes on one card over gloo through the host (not NCCL, not two cards)"
+    with tempfile.TemporaryDirectory() as out:
+        rcs, outs = launch_local([sys.executable, os.path.abspath(__file__), "--dist-worker",
+                                  out], 2, timeout=900)
+        for r, o in enumerate(outs):
+            tail = "\n".join(o.strip().splitlines()[-12:])
+            print(f"dist D2 rank {r} (rc {rcs[r]}): {tail}", flush=True)
+        require(rcs == [0, 0], f"the D2 ranks exited {rcs}")
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+                 for r in (0, 1)]
+    t2 = time.perf_counter()
+    K = FLAGSHIP["K"]
+    for key, what in (("fwd", "flagship clip"), ("native", "native clip")):
+        for r in ranks:
+            f = r[key]
+            print(f"dist D2 [{card}] rank {r['rank']}: depth-sharded {what} "
+                  f"{f['shape']} over {{'depth': 2}} vs the unsharded kernels: max|d| "
+                  f"{f['max_abs']:.3e}, rel {f['rel']:.3e}, bitwise {f['bitwise']}; launches "
+                  f"{f['launches']}; {f['ms']:.3f} ms a forward ({label}), unsharded "
+                  f"{f['unsharded_ms']:.3f} ms; halo {f['halo_mb']:.3f} MB sent and as much "
+                  f"received per iteration", flush=True)
+            require(f["rel"] <= DIST_FWD_TOL,
+                    f"depth-sharded {what} rel {f['rel']:.3e} > {DIST_FWD_TOL}")
+            require(f["launches"] == {"lista3d_ana_threshold": K, "lista3d_syn_residual": K},
+                    f"depth-sharded {what} launched {f['launches']}")
+    for r in ranks:
+        g = r["grads"]
+        print(f"dist D2 [{card}] rank {r['rank']}: depth-sharded train step "
+              f"(N={TRAIN_N}, {CLIP}) gradients vs the unsharded kernels (dy vs the same "
+              f"reverse on one rank): rel dA {g['rel'][0]:.3e}, dB {g['rel'][1]:.3e}, dt "
+              f"{g['rel'][2]:.3e}, dy {g['rel'][3]:.3e}; dy vs the plain loop in float64: "
+              f"sharded {g['f64_rel'][0]:.3e}, one rank {g['f64_rel'][1]:.3e}, the plain "
+              f"loop in fp32 {g['f64_rel'][2]:.3e}; two runs bitwise {g['bitwise']}; launches per rank "
+              f"{g['launches']}; {g['ms']:.3f} ms a forward + backward ({label}); halo "
+              f"{g['halo_mb']:.3f} MB of codes per exchange", flush=True)
+        require(max(g["rel"]) <= DIST_GRAD_TOL,
+                f"depth-sharded gradients rel {max(g['rel']):.3e} > {DIST_GRAD_TOL}")
+        require(g["f64_rel"][0] <= DIST_DY_TOL,
+                f"depth-sharded dy vs float64 rel {g['f64_rel'][0]:.3e} > {DIST_DY_TOL}")
+        require(g["bitwise"], "two depth-sharded backward runs differ")
+        require(g["launches"] == {"lista3d_ana_threshold": K, "lista3d_syn_residual": 2 * K,
+                                  "lista3d_syn_adjoint": K, "lista3d_wgrad": 2 * K},
+                f"depth-sharded train step launched {g['launches']}")
+    for r in ranks:
+        print(f"dist D2 [{card}] rank {r['rank']}: the data-parallel gradient on "
+              f"{{'data': 2}} (5 + 5 of {TRAIN_2D_N}x{CROP}^2) vs the plain loop in float64, "
+              f"one process's vs float64, and the two against each other: rel "
+              + ", ".join(f"d{k} {a:.3e} / {b:.3e} / {c:.3e}"
+                          for k, (a, b, c) in r["dp_grad"].items()), flush=True)
+    fm0, fm1, fref = ranks[0]["fit"]["mesh"], ranks[1]["fit"]["mesh"], ranks[0]["fit"]["ref"]
+    rank_eq = all(torch.equal(fm0["params"][k], fm1["params"][k]) for k in fm0["params"])
+    rels = {}
+    for k, ref in fref["params"].items():
+        d = (fm0["params"][k] - ref).abs()
+        top = float(ref.abs().max())
+        rels[k] = (float(d.max()) / top if top > 0 else float(d.max()),
+                   float((d > DIST_FIT_TOL * top).float().mean()))
+    print(f"dist D2 [{card}]: fit(mesh={{'data': 2}}) {DIST_FIT_STEPS} steps of 5 + 5 of the "
+          f"{TRAIN_2D_N}x{CROP}^2 flagship 2D batch vs fit on one process: parameters rel (and "
+          f"share of elements past {DIST_FIT_TOL}) "
+          + ", ".join(f"{k} {a:.3e} ({b:.2e})" for k, (a, b) in rels.items())
+          + f"; ranks bitwise equal {rank_eq}; train PSNR {[round(p, 4) for p in fm0['psnr']]}"
+          f" vs {[round(p, 4) for p in fref['psnr']]}; {fm0['ms']:.3f} / {fm1['ms']:.3f} ms a "
+          f"step ({label}) vs {fref['ms']:.3f} on one process", flush=True)
+    for r in ranks:
+        require(max(a for a, _, _ in r["dp_grad"].values()) <= GRAD_TOL,
+                f"data-parallel gradient vs float64 {r['dp_grad']} > {GRAD_TOL}")
+    # the first step's loss comes from the same parameters on both sides
+    first = [10 ** (-f["psnr"][0] / 10) for f in (fm0, fref)]
+    loss_rel = abs(first[0] - first[1]) / first[1]
+    require(loss_rel <= DIST_FIT_TOL,
+            f"data-parallel fit's first train loss rel {loss_rel:.3e} > {DIST_FIT_TOL}")
+    require(rank_eq, "the data-parallel ranks' parameters differ")
+    for r in ranks:
+        a, b = r["serve_data"]
+        c, d, launches = r["serve_depth"]
+        e1, e2 = float(np.abs(a - b).max()), float(np.abs(c - d).max())
+        print(f"dist D2 [{card}] rank {r['rank']}: Denoiser(mesh={{'data': 2}}) on "
+              f"{DIST_SERVE_BATCH}x{IMAGE[0]}^2 vs meshless max|d| {e1:.3e}; "
+              f"Denoiser(mesh={{'depth': 2}}) on the video demo clip vs meshless max|d| "
+              f"{e2:.3e}, launches {launches}", flush=True)
+        require(e1 <= DIST_SERVE_TOL and e2 <= DIST_SERVE_TOL,
+                f"mesh serving max|d| {e1:.3e}, {e2:.3e} > {DIST_SERVE_TOL}")
+    t3 = time.perf_counter()
+
+    # --- D2-6: the launcher: two ranks of the train CLI ---
+    with tempfile.TemporaryDirectory() as root:
+        data = gen_natural_image_dirs(os.path.join(root, "data"), n_train=CLI_TRAIN_IMAGES,
+                                      n_test=CLI_TEST_IMAGES, seed=SEED)
+        with open(os.path.join(DEMO_2D, "args.json")) as f:
+            args = json.load(f)
+        args["paths"] = {"save": os.path.join(root, "run{rank}")}
+        args["dist"] = {"mesh": {"data": -1}}
+        args["train"]["fit"].update(epochs=1, val_freq=1, save_freq=1, backtrack_thresh=None,
+                                    verbose=False)
+        args["train"]["loaders"].update(
+            {f"{k}_path_list": [os.path.join(data, split)]
+             for k, split in (("trn", "train"), ("val", "val"), ("tst", "test"))})
+        arg_file = os.path.join(root, "args.json")
+        with open(arg_file, "w") as f:
+            json.dump(args, f)
+        t4 = time.perf_counter()
+        rcs, outs = launch_local([sys.executable, "-m", "cdlnet_tpu_torch.dist.launch",
+                                  arg_file, "--backend", "gloo"], 2, timeout=600)
+        launch_s = time.perf_counter() - t4
+        require(rcs == [0, 0], "the launcher's ranks failed:\n" + "\n".join(outs))
+        ck = [np.load(os.path.join(root, f"run{r}", "net.ckpt.npz")) for r in (0, 1)]
+        equal = sorted(ck[0].files) == sorted(ck[1].files) and all(
+            np.array_equal(ck[0][k], ck[1][k]) for k in ck[0].files)
+        psnr = [open(os.path.join(root, f"run{r}", "train.txt")).read().strip() for r in (0, 1)]
+        print(f"dist D2 [{card}]: python -m cdlnet_tpu_torch.dist.launch args.json --backend "
+              f"gloo, two ranks, one epoch of the train CLI (the flagship demo's config, "
+              f"{CLI_TRAIN_IMAGES} images, mesh {{'data': -1}}) in {launch_s:.2f} s: train.txt "
+              f"{psnr}, checkpoints equal {equal}", flush=True)
+        require(equal and psnr[0] == psnr[1], "the launcher's ranks saved different checkpoints")
+    print(f"phases: dist D1 {t1 - t0:.2f} s, D2 ranks {t2 - t1:.2f} s, launcher "
+          f"{time.perf_counter() - t3:.2f} s", flush=True)
+    return d1_launches
+
+
 def main() -> int:
     # --- 1. the device ---
     if not torch.cuda.is_available():
@@ -3744,16 +4169,21 @@ def main() -> int:
 
     # --- 22. MC-SURE and the combined loss (losses) ---
     launches_loss = losses_phase(dev, card, t_par)
+    t7 = time.perf_counter()
+
+    # --- 23. the distributed layer (dist) ---
+    launches_dist = dist_phase(dev, card)
     print(f"phases: prefetch {t1 - t0:.2f} s, blind PCA {t2 - t1:.2f} s, residual "
           f"{t3 - t2:.2f} s, baselines {t4 - t3:.2f} s, ckpt {t5 - t4:.2f} s, server "
-          f"{t6 - t5:.2f} s, losses {time.perf_counter() - t6:.2f} s", flush=True)
+          f"{t6 - t5:.2f} s, losses {t7 - t6:.2f} s, dist {time.perf_counter() - t7:.2f} s",
+          flush=True)
 
     launches = {name: serve_launches.get(name, 0) + fit_launches.get(name, 0)
                 + launches_2d.get(name, 0) + launches_t2.get(name, 0)
                 + launches_bf.get(name, 0) + launches_csr.get(name, 0)
                 + launches_ct.get(name, 0) + launches_pca.get(name, 0)
                 + launches_ck.get(name, 0) + launches_srv.get(name, 0)
-                + launches_loss.get(name, 0) for name in KERNELS}
+                + launches_loss.get(name, 0) + launches_dist.get(name, 0) for name in KERNELS}
     for name in TC_KERNELS:
         tt = times[name]
         shape = "train shape" if "adjoint" in name or "wgrad" in name else "serve shape"
@@ -3776,4 +4206,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "--dist-worker":
+        sys.exit(dist_worker(sys.argv[2]))
     sys.exit(main())

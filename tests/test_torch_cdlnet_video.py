@@ -197,15 +197,20 @@ def test_per_sample_sigma_in_one_forward():
 
 @pytest.mark.parametrize("call", ["mesh", "torch_ckpt", "unknown_type"])
 def test_unported_paths_raise(call, tmp_path):
-    """Mesh serving is still to port. Torch .ckpt files and DnCNN are
-    ported (tests/test_torch_ckpt.py, tests/test_torch_dncnn.py; the cases
-    keep their names): a .ckpt's net state needs the model config to map
-    onto params, and an unknown type raises. Blind PCA (whole, chunked,
-    tiled) and residual blocks are ported: tests/test_torch_nle_pca.py and
+    """Mesh serving, torch .ckpt files and DnCNN are ported
+    (tests/test_torch_dist*.py, tests/test_torch_ckpt.py,
+    tests/test_torch_dncnn.py; the cases keep their names): on one process
+    Denoiser(mesh=) serves on the trivial mesh, equal to the meshless
+    call; a .ckpt's net state needs the model config to map onto params,
+    and an unknown type raises. Blind PCA (whole, chunked, tiled) and
+    residual blocks are ported: tests/test_torch_nle_pca.py and
     tests/test_torch_residual.py."""
     if call == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Denoiser(_tiny_denoiser().model, mesh={"data": -1})
+        d = _tiny_denoiser()
+        clip = np.random.default_rng(0).uniform(size=(8, 32, 32)).astype(np.float32)
+        np.testing.assert_array_equal(
+            Denoiser(d.model, bucket=16, mesh={"data": -1}).denoise_video(clip, sigma=25),
+            d.denoise_video(clip, sigma=25))
     elif call == "torch_ckpt":
         from cdlnet_tpu_torch.compat.torch_ckpt import save_torch_checkpoint
 

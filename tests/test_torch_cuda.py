@@ -1314,3 +1314,72 @@ def test_residual_golden_on_the_card(cuda):
     assert not L.launches
     np.testing.assert_allclose(xhat.cpu().numpy(), data["xhat"], rtol=1e-4, atol=5e-5)
     np.testing.assert_allclose(z.cpu().numpy(), data["z"], rtol=1e-4, atol=5e-5)
+
+
+def _depth_sharded_rank(out):
+    """One of two ranks sharing the card over gloo: the depth-sharded kernel
+    forward of a small CDLNetVideo against the unsharded kernels, and its
+    per-rank launches. Run by the test below as `python
+    tests/test_torch_cuda.py depth <outdir>`."""
+    import os
+
+    import torch.distributed as dist
+
+    from cdlnet_tpu_torch.core.preprocess import pre_process_3d
+    from cdlnet_tpu_torch.dist import (
+        initialize_distributed,
+        make_mesh,
+        sharded_lista_3d_fused_forward,
+    )
+    from cdlnet_tpu_torch.dist.init import shutdown_distributed
+    from cdlnet_tpu_torch.models import CDLNetVideo
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed(backend="gloo", device="cuda")
+    dev = torch.device("cuda")
+    model = CDLNetVideo(K=4, M=13, P=(7, 7, 5), s=2, adaptive=True, backend="cuda").to(dev)
+    model.init(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.t.copy_(torch.rand(model.t.shape, generator=torch.Generator().manual_seed(1))
+                      .to(dev) * 0.05)
+    y = torch.rand(2, 1, 16, 32, 48, generator=torch.Generator().manual_seed(2)).to(dev)
+    ypc, _, _ = pre_process_3d(y, 2)
+    with torch.no_grad():
+        ref, zr = L.lista3d_fused(ypc, model.A, model.B, model.t, 25.0 / 255, stride=2)
+        L.launches.clear()
+        got, zg = sharded_lista_3d_fused_forward(model, ypc, 25.0, mesh=make_mesh({"depth": 2}),
+                                                 return_z=True)
+        torch.cuda.synchronize()
+    torch.save({"rel": float((got - ref).abs().max() / ref.abs().max()),
+                "rel_z": float((zg - zr).abs().max() / zr.abs().max()),
+                "launches": dict(L.launches)},
+               os.path.join(out, f"rank{dist.get_rank()}.pt"))
+    shutdown_distributed()
+
+
+def test_two_rank_gloo_depth_sharded_forward_on_the_card(cuda, tmp_path):
+    """Two processes share the card over gloo (the halos staged through the
+    host): the depth-sharded kernel forward (dist/halo_fused.py) against
+    the unsharded kernel forward, 2K launches a rank."""
+    import os
+    import sys
+
+    from cdlnet_tpu_torch.dist.launch import launch_local
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    rcs, outs = launch_local([sys.executable, os.path.abspath(__file__), "depth", str(tmp_path)],
+                             2, env=env, timeout=600)
+    assert rcs == [0, 0], "\n".join(outs)
+    for r in (0, 1):
+        res = torch.load(os.path.join(str(tmp_path), f"rank{r}.pt"))
+        assert res["rel"] <= 1e-4 and res["rel_z"] <= 1e-4, res
+        assert res["launches"] == {"lista3d_ana_threshold": 4, "lista3d_syn_residual": 4}
+
+
+if __name__ == "__main__":
+    import sys
+
+    if sys.argv[1] == "depth":
+        _depth_sharded_rank(sys.argv[2])

@@ -289,10 +289,16 @@ def test_mcsure_step_keeps_the_unperturbed_statistics(monkeypatch):
 
 
 def test_unported_and_invalid_step_options_raise():
+    """Invalid losses and device_scan (not ported) raise; a mesh, ported
+    (tests/test_torch_dist.py), builds a step that runs on one process's
+    trivial mesh."""
     model = CDLNet(K=2, M=4, P=3)
     opt = make_optimizer(1e-3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_train_step(model, opt, workload="2d", mesh={"data": -1})
+    step, _ = make_train_step(model, opt, workload="2d", mesh={"data": -1})
+    loss = step(opt.init(dict(model.named_parameters())),
+                torch.rand((2, 1, 16, 16), generator=torch.Generator().manual_seed(0)),
+                torch.Generator().manual_seed(1))
+    assert torch.isfinite(loss)
     with pytest.raises(ValueError, match="combined loss"):
         make_train_step(model, opt, workload="2d", loss_type="combmse")
     with pytest.raises(ValueError, match="loss_type"):

@@ -521,18 +521,14 @@ def test_fit_backtracks_on_nan(tmp_path):
                                 dict(stateful=True), dict(loss_type="combmse"),
                                 dict(mesh={"data": -1})])
 def test_unported_training_options_raise(kw):
-    """Options still to port (meshes) raise, on the fastMRI workload as on
-    video. stateful=True is ported (tests/test_torch_dncnn.py): on a model
-    with no running statistics it raises a ValueError that says so.
-    MC-SURE and the combined loss are ported (tests/test_torch_losses.py):
-    their steps run, with a finite loss."""
+    """stateful=True is ported (tests/test_torch_dncnn.py): on a model with
+    no running statistics it raises a ValueError that says so. MC-SURE and
+    the combined loss are ported (tests/test_torch_losses.py), and so are
+    meshes (tests/test_torch_dist*.py; on one process a mesh is the
+    trivial one-rank mesh): their steps run, with a finite loss."""
     model = CDLNetVideo(K=2, M=4, P=(3, 3, 3), s=2)
     if kw.get("stateful"):
         with pytest.raises(ValueError, match="running statistics"):
-            make_train_step(model, make_optimizer(1e-3), **kw)
-        return
-    if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             make_train_step(model, make_optimizer(1e-3), **kw)
         return
     model.init(torch.Generator().manual_seed(0))
