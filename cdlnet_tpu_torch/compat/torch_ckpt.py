@@ -36,6 +36,7 @@ from cdlnet_tpu_torch.models import (
     DnCNN,
     GDLNet,
 )
+from cdlnet_tpu_torch.train.optim import set_count, set_hyperparam
 
 _GABOR = ("alpha", "a", "w0", "psi")
 
@@ -270,14 +271,14 @@ def import_opt_state(model, opt_sd: dict, opt_state: dict) -> dict:
                 dst = _leaf(opt_state[mom], addr)
                 dst.copy_(torch.as_tensor(np.asarray(st[key])).reshape(dst.shape))
             step = max(step, int(np.asarray(st["step"])))
-    opt_state["count"] = step
+    set_count(opt_state, step)
     group = opt_sd["param_groups"][0]
-    hp = opt_state["hyperparams"]
-    hp["learning_rate"] = float(group["lr"])
+    set_hyperparam(opt_state, "learning_rate", float(group["lr"]))
     if "betas" in group:
-        hp["b1"], hp["b2"] = (float(b) for b in group["betas"])
+        for k, b in zip(("b1", "b2"), group["betas"]):
+            set_hyperparam(opt_state, k, float(b))
     if "eps" in group:
-        hp["eps"] = float(group["eps"])
+        set_hyperparam(opt_state, "eps", float(group["eps"]))
     return opt_state
 
 

@@ -19,8 +19,10 @@ def _awgn(x: torch.Tensor, noise_std, generator):
         u = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), generator=generator,
                        device=x.device, dtype=x.dtype)
         sigma = lo + (hi - lo) * u
-    else:
-        sigma = torch.as_tensor(noise_std, dtype=x.dtype, device=x.device)
+    elif isinstance(noise_std, torch.Tensor):
+        sigma = noise_std.to(x.device, x.dtype)
+    else:  # filled on the device: no host copy in a captured step
+        sigma = torch.full((), float(noise_std), dtype=x.dtype, device=x.device)
     noise = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
     return x + noise * (sigma / 255.0), sigma
 

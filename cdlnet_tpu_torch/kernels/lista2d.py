@@ -54,6 +54,7 @@ from cdlnet_tpu_torch.kernels.lista3d import (
     _ptr,
     _raise_on,
     launches,
+    per_sample,
 )
 from cdlnet_tpu_torch.ops import polyphase as pp
 
@@ -275,8 +276,7 @@ def threshold_bank(t, c, N, like):
     """Per-image thresholds (K, N, M) of a (K, 2, M, 1, 1) bank: t[k,0] +
     c[n] * t[k,1] — tau from t, and the CSR gamma banks from g, g1, g2.
     c: a scalar or N values; `like` gives the device and dtype."""
-    c_arr = torch.as_tensor(c, dtype=like.dtype, device=like.device).reshape(-1)
-    c_arr = c_arr.expand(N)
+    c_arr = per_sample(c, N, like)
     bank = t[None, :, 0, :, 0, 0] + c_arr[:, None, None] * t[None, :, 1, :, 0, 0]
     return bank.transpose(0, 1).contiguous()
 

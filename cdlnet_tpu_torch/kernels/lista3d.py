@@ -127,6 +127,11 @@ def _into(out, result):
     return result if out is None else out.copy_(result)
 
 
+# cudaErrorInvalidConfiguration: what a C entry returns, before launching,
+# for a call whose stage exceeds a block's shared memory
+INVALID_CONFIGURATION = 9
+
+
 def _raise_on(err, name):
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed (cudaError {err})")
@@ -174,6 +179,15 @@ def lista3d_syn_residual(z, ws, geom, mask=None, y=None, out=None):
     """
     if z.device.type == "cpu":
         return _into(out, lista3d_syn_residual_plain(z, ws, geom, mask=mask, y=y))
+    return _syn_residual(z, ws, geom.off_s, mask, y, out)
+
+
+def _syn_residual(z, ws, off, mask, y, out):
+    """lista3d_syn_residual's launch at tap offsets `off`. A bank whose
+    stage does not fit a block's shared memory (the kernel returns
+    cudaErrorInvalidConfiguration: the stride-1 3D banks, P = (7, 7, 5)'s
+    245 taps) runs as two launches over halves of its depth taps (each split
+    again if need be), summed, with the mask and y applied after."""
     from cdlnet_tpu_torch.kernels._build import library
 
     lib = library()
@@ -188,12 +202,33 @@ def lista3d_syn_residual(z, ws, geom, mask=None, y=None, out=None):
     out = _out(out, (N, Cp, D, H, W), z)
     err = lib.lista3d_syn_residual(
         _ptr(z), _ptr(ws), _ptr(mask), _ptr(y), _ptr(out),
-        N, M, Cp, D, H, W, Qd, Qh, Qw, *geom.off_s,
+        N, M, Cp, D, H, W, Qd, Qh, Qw, *off,
         torch.cuda.current_stream(z.device).cuda_stream,
     )
+    if err == INVALID_CONFIGURATION and Qd > 1:
+        h = (Qd + 1) // 2
+        lo = _syn_residual(z, ws[:, :h].contiguous(), off, None, None, None)
+        hi = _syn_residual(z, ws[:, h:].contiguous(), (off[0] + h, *off[1:]), None, None, None)
+        r = lo.add_(hi)
+        if mask is not None:
+            r.mul_(mask)
+        if y is not None:
+            r.sub_(y)
+        return out.copy_(r)
     _raise_on(err, "lista3d_syn_residual")
     launches["lista3d_syn_residual"] += 1
     return out
+
+
+def per_sample(c, N, like) -> torch.Tensor:
+    """c (a number, or one value per sample) as N values on `like`'s device
+    and dtype; a number is filled on the device, not copied from the host,
+    so a captured CUDA graph can hold the call."""
+    if isinstance(c, (int, float)):
+        c_arr = torch.full((1,), float(c), dtype=like.dtype, device=like.device)
+    else:
+        c_arr = torch.as_tensor(c, dtype=like.dtype, device=like.device).reshape(-1)
+    return c_arr.expand(N)
 
 
 def phase_operands(yp, A, B, t, c, stride, mask=None):
@@ -217,8 +252,7 @@ def phase_operands(yp, A, B, t, c, stride, mask=None):
         if mask is not None
         else None
     )
-    c_arr = torch.as_tensor(c, dtype=yp.dtype, device=yp.device).reshape(-1)
-    c_arr = c_arr.expand(N)
+    c_arr = per_sample(c, N, yp)
     # tau[k] = t[k,0] + c * t[k,1] per sample: (K, N, M)
     tau = (t[None, :, 0, :, 0, 0, 0] + c_arr[:, None, None] * t[None, :, 1, :, 0, 0, 0])
     tau = tau.transpose(0, 1).contiguous()

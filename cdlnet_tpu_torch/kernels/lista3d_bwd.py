@@ -57,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from cdlnet_tpu_torch.kernels.lista3d import (
+    INVALID_CONFIGURATION,
     _check,
     _correlate_plain,
     _ptr,
@@ -206,9 +207,27 @@ def launch_wgrad(name, x, y, taps, off, alpha, rows):
         N, I, O, D, H, W, Qd, Qh, Qw, *offs, R, RB,
         float(alpha), torch.cuda.current_stream(x.device).cuda_stream,
     )
+    if err == INVALID_CONFIGURATION and Qd > 1:
+        # x's stage over every depth tap exceeds a block's shared memory (the
+        # stride-1 3D banks): each half of the depth taps is one call (each
+        # split again if need be), on its slice of the rows
+        h = (Qd + 1) // 2
+        return torch.cat([
+            launch_wgrad(name, x, y, (q1 - q0, Qh, Qw), (offs[0] + q0, *offs[1:]), alpha,
+                         _depth_rows(rows, q0, q1))
+            for q0, q1 in ((0, h), (h, Qd))], dim=1)
     _raise_on(err, name)
     launches[name] += 1
     return dw
+
+
+def _depth_rows(rows, q0, q1):
+    """rows[:, q0:q1] (I, Qd, Qh, Qw), the same tensor for the same slice
+    (kept on rows, so that its row table is built once)."""
+    cuts = rows.__dict__.setdefault("_depth_rows", {})
+    if (q0, q1) not in cuts:
+        cuts[(q0, q1)] = rows[:, q0:q1].contiguous()
+    return cuts[(q0, q1)]
 
 
 def lista3d_syn_adjoint(g, wt, z, geom, base=None, alpha=1.0):

@@ -17,6 +17,8 @@ phase-domain offset, so
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -84,19 +86,17 @@ def phase_valid(P, pads, s: int, nd: int) -> np.ndarray:
     return valid
 
 
-def polyphase_weights(W: torch.Tensor, s: int, pads, nd: int):
-    """Decompose stacked filters W (..., C, *P) into the phase-domain banks.
+@functools.lru_cache(maxsize=None)
+def _gather_operands(P, pads, s: int, nd: int, device, dtype):
+    """polyphase_weights' index tensors and valid mask for one geometry,
+    on `device`: (q_los, q_his, Qs, idx, valid). Built once, so the banks'
+    gather copies nothing from the host per call (a CUDA graph that
+    captured a training step reads these tensors at every replay)."""
+    with torch.inference_mode(False):  # cached for autograd's use too
+        return _build_gather_operands(P, pads, s, nd, device, dtype)
 
-    Returns (A2, B2t, conv_pads_analysis, conv_pads_synthesis):
-      A2:  (..., C*s^nd, *Q) analysis bank — conv1(y2, A2) == conv_s(y, W)
-      B2t: A2 with its taps flipped — conv1(z, B2t) (in/out swapped) is the
-           phase-domain convT_s(z, W)
-    """
-    P = W.shape[-nd:]
-    pads = _tup(pads, nd)
-    C = W.shape[-nd - 1]
-    lead = W.shape[: -nd - 1]
 
+def _build_gather_operands(P, pads, s, nd, device, dtype):
     q_los, q_his, Qs, idx = [], [], [], []
     for i in range(nd):
         lo, Q, dy = _phase_taps(P[i], pads[i], s)
@@ -106,12 +106,26 @@ def polyphase_weights(W: torch.Tensor, s: int, pads, nd: int):
         # dy laid out on axes (phase i, tap i) of a (s,)*nd + Q broadcast grid
         shape = [1] * (2 * nd)
         shape[i], shape[nd + i] = s, Q
-        idx.append(torch.as_tensor(np.clip(dy, 0, P[i] - 1).reshape(shape),
-                                   device=W.device))
-    valid = phase_valid(P, pads, s, nd)
+        idx.append(torch.as_tensor(np.clip(dy, 0, P[i] - 1).reshape(shape), device=device))
+    valid = torch.as_tensor(phase_valid(P, pads, s, nd), dtype=dtype, device=device)
+    return q_los, q_his, Qs, tuple(idx), valid
+
+
+def polyphase_weights(W: torch.Tensor, s: int, pads, nd: int):
+    """Decompose stacked filters W (..., C, *P) into the phase-domain banks.
+
+    Returns (A2, B2t, conv_pads_analysis, conv_pads_synthesis):
+      A2:  (..., C*s^nd, *Q) analysis bank — conv1(y2, A2) == conv_s(y, W)
+      B2t: A2 with its taps flipped — conv1(z, B2t) (in/out swapped) is the
+           phase-domain convT_s(z, W)
+    """
+    P = tuple(W.shape[-nd:])
+    C = W.shape[-nd - 1]
+    lead = W.shape[: -nd - 1]
+    q_los, q_his, Qs, idx, valid = _gather_operands(P, _tup(pads, nd), s, nd, W.device, W.dtype)
 
     # gather: A2[..., c, a_1..a_nd, q_1..q_nd] = W[..., c, dy_1, ..., dy_nd]
-    A2 = W[(Ellipsis, *idx)] * torch.as_tensor(valid, dtype=W.dtype, device=W.device)
+    A2 = W[(Ellipsis, *idx)] * valid
     A2 = A2.reshape(*lead, C * s**nd, *Qs)
     B2t = torch.flip(A2, dims=tuple(range(-nd, 0)))
 

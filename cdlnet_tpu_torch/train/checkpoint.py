@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from cdlnet_tpu_torch.compat.jax_params import is_stateful, load_jax_params
+from cdlnet_tpu_torch.train.optim import set_count, set_hyperparam
 
 _KEY = re.compile(r"\['([^']*)'\]")
 _BUNDLE = re.compile(r"^\[([01])\]")
@@ -183,11 +184,16 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", copy=True).numpy()
 
 
+def _number(v):
+    """A host number for a 0-d tensor (optim's device scalars) or a number."""
+    return v.item() if isinstance(v, torch.Tensor) else v
+
+
 def _opt_leaves(opt_state: dict) -> dict:
     """optax's npz keys -> numpy leaves of an optim.ClippedAdam state: the
     inject_hyperparams state (count, hyperparams) around the Adam state."""
     pre = f"o::[{opt_state['index']}]"
-    count = np.asarray(opt_state["count"], np.int32)
+    count = np.asarray(_number(opt_state["count"]), np.int32)
     out = {f"{pre}.count": count, f"{pre}.inner_state[0].count": count}
     for k, v in opt_state["hyperparams"].items():
         out[f"{pre}.hyperparams['{k}']"] = np.asarray(v, np.float32)
@@ -268,11 +274,11 @@ def load_ckpt(path: str, model, opt_state=None):
     if opt_state is not None:
         pre = f"o::[{opt_state['index']}]"
         if f"{pre}.count" in data:
-            opt_state["count"] = int(data[f"{pre}.count"])
+            set_count(opt_state, int(data[f"{pre}.count"]))
         for k in opt_state["hyperparams"]:
             key = f"{pre}.hyperparams['{k}']"
             if key in data:
-                opt_state["hyperparams"][k] = float(data[key])
+                set_hyperparam(opt_state, k, float(data[key]))
         for mom in ("mu", "nu"):
             for name, t in opt_state[mom].items():
                 key = f"{pre}.inner_state[0].{mom}{_keystr(name)}"

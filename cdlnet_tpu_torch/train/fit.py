@@ -33,9 +33,13 @@ or its dict spec) trains on several ranks, one process each
 (dist/init.py): every rank loads the same global batch and draws the same
 noise, its forward takes its rows (and frames) of it and gathers the
 output, so every rank computes the same global loss and takes the same
-backtracking branch; the gradients are all-reduced (dist/). Not ported
-(raises NotImplementedError naming ROADMAP.md): one-dispatch device-scan
-epochs.
+backtracking branch; the gradients are all-reduced (dist/).
+
+device_scan (train/device_data.py) stages a qualifying train loader's
+corpus on the device and runs each training epoch there: batches drawn
+and assembled on the device, one step captured into a CUDA graph and
+replayed on the card (eagerly under a mesh and on the CPU), the host
+synchronized once an epoch.
 """
 
 from __future__ import annotations
@@ -63,6 +67,9 @@ from cdlnet_tpu_torch.train.optim import get_lr, make_optimizer, set_lr
 from cdlnet_tpu_torch.utils import append_metric, default_device
 
 _NOT_PORTED = "is not ported to cdlnet_tpu_torch yet (see ROADMAP.md)"
+_NOT_STAGEABLE = ("device_scan=True but the train loader is not stageable "
+                  "(needs a 2D image / 3D clip train loader with "
+                  "crop+augment+shuffle+drop_last)")
 
 
 def init_model(args: dict, seed: int = 0, device=None):
@@ -284,7 +291,7 @@ def fit(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1,
         noise_std=25, val_freq=1, save_freq=1, backtrack_thresh=1,
         demosaic=False, mcsure=False, loss_type="mse", workload="3d",
         sched=None, verbose=True, epoch_fun=None, seed=0, project=True,
-        ckpt_format="npz", mesh=None, max_backtracks=10, device_scan=False):
+        ckpt_format="npz", mesh=None, max_backtracks=10, device_scan="auto"):
     """Fit model to data. Returns (opt_state, history), history a list of
     (epoch, phase, psnr); the model's parameters are trained in place.
 
@@ -305,14 +312,31 @@ def fit(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1,
     checkpoints in its save_dir. A "depth" axis also shards the frames of
     video clips (workload "3d" or "mri"; the clip depth must divide by it;
     mesh_forward). The JAX package's reference is single-device
-    (train.py:15-16)."""
+    (train.py:15-16).
+
+    device_scan ("auto", True or False; $CDLNET_DEVICE_SCAN=0 turns it
+    off): when train/device_data.py::corpus_from_loader stages the train
+    loader (a 2D image or 3D clip DataLoader with crop, augment, shuffle
+    and drop_last), every training epoch draws its batches on the device
+    and runs as train/device_data.py::EpochRunner: replays of one captured
+    step on the card, the same steps eagerly under a mesh (every rank
+    stages the whole corpus and draws the same batches) and on the CPU.
+    "auto" keeps the host loop for a loader that does not qualify, True
+    raises ValueError. The batches' random stream is not the host
+    loader's; the epoch's bookkeeping (PSNR, logs, StepLR, backtracking,
+    checkpoints) is the host loop's."""
     if ckpt_format not in ("npz", "orbax"):
         raise ValueError(f"ckpt_format {ckpt_format!r} not in ('npz', 'orbax')")
     background = ckpt_format == "orbax"
-    if device_scan:
-        raise NotImplementedError(f"device_scan {_NOT_PORTED}")
-    os.makedirs(save_dir, exist_ok=True)
     dev = next(model.parameters()).device
+    corpus = None
+    if device_scan and os.environ.get("CDLNET_DEVICE_SCAN", "1") != "0":
+        from cdlnet_tpu_torch.train.device_data import corpus_from_loader
+
+        corpus = corpus_from_loader(loaders.get("train"), workload, device=dev)
+        if corpus is None and device_scan is True:
+            raise ValueError(_NOT_STAGEABLE)
+    os.makedirs(save_dir, exist_ok=True)
     check_batch = None
     if mesh is not None:
         from cdlnet_tpu_torch.dist.mesh import as_mesh
@@ -343,6 +367,18 @@ def fit(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1,
         model, opt, workload=workload, noise_std=(noise_std[0] + noise_std[1]) / 2.0,
         demosaic=demosaic, project=project, mesh=mesh)
 
+    epoch_runner = None
+    if corpus is not None:
+        from cdlnet_tpu_torch.train.device_data import make_epoch_runner
+
+        step = train_step
+        if check_batch is not None:  # a mesh: eager steps, each batch checked
+            def step(opt_state, batch, generator):
+                check_batch(batch)
+                return train_step(opt_state, batch, generator)
+        epoch_runner = make_epoch_runner(corpus, step, model,
+                                         graph=None if mesh is None else False)
+
     ckpt0 = os.path.join(save_dir, "0.ckpt")
     save_ckpt(ckpt0, model, 0, opt_state, get_lr(opt_state), background=background)
     # bests start at -inf so divergence is only declared relative to an
@@ -366,14 +402,17 @@ def fit(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1,
             t_start = time.time()
             # device scalars: one host transfer per phase, not per step
             losses = []
-            for batch in device_prefetch(loaders[phase], device=dev):
-                if phase == "train":
-                    if check_batch is not None:
-                        check_batch(batch)
-                    losses.append(train_step(opt_state, batch, gen))
-                else:
-                    losses.append(eval_step(batch, gen))
-            vals = torch.stack(losses).cpu().tolist() if losses else []
+            if phase == "train" and epoch_runner is not None:
+                losses.append(epoch_runner(opt_state, gen))
+            else:
+                for batch in device_prefetch(loaders[phase], device=dev):
+                    if phase == "train":
+                        if check_batch is not None:
+                            check_batch(batch)
+                        losses.append(train_step(opt_state, batch, gen))
+                    else:
+                        losses.append(eval_step(batch, gen))
+            vals = torch.cat([v.reshape(-1) for v in losses]).cpu().tolist() if losses else []
             last_loss = vals[-1] if vals else 0.0
             psnr = sum(psnr_from_mse(v) for v in vals) / max(len(vals), 1)
             if verbose:

@@ -9,6 +9,14 @@ As in inject_hyperparams, each hyperparameter takes part in the update as
 a float32 number (1 - b2 is 1 - float32(0.999), not 0.001).
 train/checkpoint.py writes it under optax's own npz keys, so optimizer
 state crosses between the packages.
+
+The step count is a 0-d int32 tensor on the parameters' device, and the
+update reads the hyperparameters from 0-d float32 copies there
+("hyperparams_dev", made from "hyperparams", which keep the host's
+numbers): it computes the bias corrections and the step size on the
+device, so a CUDA graph that captured an update replays the later steps
+too. set_lr and the checkpoint loaders write the host number and its
+device copy in place (set_hyperparam, set_count) and rebind neither.
 """
 
 from __future__ import annotations
@@ -32,10 +40,10 @@ class ClippedAdam:
         self.lr, self.clip_grad, self.betas, self.eps = lr, clip_grad, betas, eps
 
     def init(self, params: dict) -> dict:
-        """Fresh state for a dict of named parameters."""
+        """Fresh state for a dict of named parameters, on their device."""
         zeros = lambda: {k: torch.zeros_like(p, memory_format=torch.contiguous_format)
                          for k, p in params.items()}
-        return {
+        state = {
             # position of the Adam state in optax's chain (after the clip)
             "index": 0 if self.clip_grad is None else 1,
             "count": 0,
@@ -45,6 +53,7 @@ class ClippedAdam:
             "mu": zeros(),
             "nu": zeros(),
         }
+        return place_scalars(state, next(iter(params.values())).device)
 
     @torch.no_grad()
     def update(self, params: dict, grads: dict, state: dict) -> dict:
@@ -55,15 +64,16 @@ class ClippedAdam:
             norm = torch.sqrt(sum(torch.sum(x * x) for x in g))
             keep = norm < self.clip_grad
             g = [torch.where(keep, x, (x / norm) * self.clip_grad) for x in g]
-        hp = {k: torch.tensor(v, dtype=torch.float32)
-              for k, v in state["hyperparams"].items()}
-        state["count"] += 1
-        # float32 arithmetic on the scalars, then exact Python floats
-        b1, b2, eps, eps_root = (float(hp[k]) for k in ("b1", "b2", "eps", "eps_root"))
-        c1, c2 = float(1 - hp["b1"]), float(1 - hp["b2"])
-        bc1 = float(1 - hp["b1"] ** state["count"])
-        bc2 = float(1 - hp["b2"] ** state["count"])
-        step = -float(hp["learning_rate"])
+        place_scalars(state, params[names[0]].device)
+        hp = state["hyperparams_dev"]
+        state["count"].add_(1)
+        # float32 arithmetic on 0-d tensors of the device, as optax's
+        b1, b2, eps, eps_root = (hp[k] for k in ("b1", "b2", "eps", "eps_root"))
+        c1, c2 = 1 - b1, 1 - b2
+        t = state["count"].to(torch.float32)
+        bc1 = 1 - b1**t
+        bc2 = 1 - b2**t
+        step = -hp["learning_rate"]
         for k, x in zip(names, g):
             mu = state["mu"][k]
             nu = state["nu"][k]
@@ -79,13 +89,50 @@ def make_optimizer(lr: float, clip_grad=None, betas=(0.9, 0.999), eps=1e-8):
     return ClippedAdam(lr, clip_grad=clip_grad, betas=betas, eps=eps)
 
 
+def place_scalars(state: dict, device) -> dict:
+    """Make the count a 0-d int32 tensor on `device` if it is a number, and
+    bring state["hyperparams_dev"], 0-d float32 tensors there, to the
+    values of state["hyperparams"] (made where missing, filled in place
+    where they differ). Returns state."""
+    if not isinstance(state["count"], torch.Tensor):
+        state["count"] = torch.tensor(int(state["count"]), dtype=torch.int32, device=device)
+    dev = state.setdefault("hyperparams_dev", {})
+    held = state.setdefault("hyperparams_held", {})
+    for k, v in state["hyperparams"].items():
+        if k not in dev:
+            dev[k] = torch.tensor(float(v), dtype=torch.float32, device=device)
+        elif held.get(k) != v:
+            with torch.no_grad():
+                dev[k].fill_(float(v))
+        held[k] = v
+    return state
+
+
+def set_hyperparam(state: dict, key: str, value: float) -> None:
+    """state["hyperparams"][key] = value, and its device copy filled in
+    place now (a captured CUDA graph reads that tensor)."""
+    state["hyperparams"][key] = value
+    dev = state.get("hyperparams_dev")
+    if dev:
+        place_scalars(state, next(iter(dev.values())).device)
+
+
+def set_count(state: dict, count: int) -> None:
+    """The step count, written into the count tensor when there is one."""
+    if isinstance(state["count"], torch.Tensor):
+        with torch.no_grad():
+            state["count"].fill_(int(count))
+    else:
+        state["count"] = int(count)
+
+
 def get_lr(opt_state: dict) -> float:
     return float(opt_state["hyperparams"]["learning_rate"])
 
 
 def set_lr(opt_state: dict, lr: float) -> dict:
     """Replace the learning rate in opt_state (in place). Returns it."""
-    opt_state["hyperparams"]["learning_rate"] = float(lr)
+    set_hyperparam(opt_state, "learning_rate", float(lr))
     return opt_state
 
 

@@ -3,8 +3,9 @@
 training, 2D image training, native-resolution video and frame-recurrent
 CSR serving and training paths, the input pipeline, blind PCA noise
 estimation, CDLNetVideo's residual blocks, the DnCNN/FFDNet baselines,
-reference torch .ckpt checkpoints, the HTTP server and the MC-SURE and
-combined losses on one GPU.
+reference torch .ckpt checkpoints, the HTTP server, the MC-SURE and
+combined losses, the distributed layer, one-dispatch training epochs and
+the kernel matrix on one GPU.
 
     python3 chip_smoke.py
 
@@ -139,6 +140,22 @@ Builds the hand-written CUDA kernels from cdlnet_tpu_torch/kernels/csrc
             video step with seeded VGG16 weights at a temporary path and
             without them (warned once), its loss on the card against the
             CPU's, step ms and peak GB;
+  dist      the distributed layer: NCCL at world size 1 (D1) and two
+            processes sharing the card over gloo (D2);
+  scan      one-dispatch training epochs (train/device_data.py): the
+            flagship 2D width on a staged corpus of 432 synthetic 481x321
+            images (half portrait) at batch 10 and crop 128 (a fixed draw
+            against numpy slices; an epoch of the eager runner against one
+            of the captured step's CUDA-graph replays, bitwise; a replayed
+            epoch's trace, with no launch through the kernels' wrappers;
+            the host loop at the same config; fit(device_scan=True) for two
+            epochs and under D1 bitwise; the train CLI's default route),
+            the flagship video width at N=2 x 16x128^2 from 8 staged
+            48-frame 480x854 videos (crops and resized samples against
+            numpy, the runners bitwise) and DnCNN-S with its statistics;
+  sweep     the kernel matrix (tools/kernel_sweep.py): the 25 reference
+            geometries of KERNELMATRIX.json through the kernels against
+            backend "xla", each row within its bound;
 
 and times every kernel (CUDA events) beside its plain version, the one
 PyTorch call that computes the same function, and its bound on this card
@@ -160,6 +177,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import copy
 import io
 import json
@@ -188,6 +206,8 @@ from cdlnet_tpu_torch.compat.jax_params import load_jax_params
 from cdlnet_tpu_torch.compat.torch_ckpt import save_torch_checkpoint
 from cdlnet_tpu_torch.core.ops import csr_f2_jump, prox_csr, prox_csr_f2
 from cdlnet_tpu_torch.core.preprocess import post_process, pre_process, pre_process_3d
+from cdlnet_tpu_torch.data.images import ImageDataset
+from cdlnet_tpu_torch.data.loader import DataLoader, ThreadSafeRng
 from cdlnet_tpu_torch.data.noise import gen_bayer_mask
 from cdlnet_tpu_torch.data.prefetch import device_prefetch
 from cdlnet_tpu_torch.data.synthetic import (
@@ -217,9 +237,15 @@ from cdlnet_tpu_torch.models.cdlnet import _prepare
 from cdlnet_tpu_torch.ops.lista import _threshold, lista_2d, lista_3d
 from cdlnet_tpu_torch.serve import Denoiser
 from cdlnet_tpu_torch.server import DenoiseServer
-from cdlnet_tpu_torch.tools import compare_sass
+from cdlnet_tpu_torch.tools import compare_sass, kernel_sweep
 from cdlnet_tpu_torch.tools.bench_video_serve import graph_ms
 from cdlnet_tpu_torch.train.checkpoint import load_ckpt, save_ckpt
+from cdlnet_tpu_torch.train.device_data import (
+    WARMUP_STEPS,
+    DeviceClipCorpus,
+    corpus_from_loader,
+    make_epoch_runner,
+)
 from cdlnet_tpu_torch.train.fit import fit, init_model, make_train_step, mesh_forward, train_update
 from cdlnet_tpu_torch.train.fit_csr import fit_csr, make_csr_train_step
 from cdlnet_tpu_torch.train import losses as losses_mod
@@ -1003,7 +1029,8 @@ def train_2d(dev, card, err) -> tuple[dict, dict]:
         loader_ms = 1e3 * (time.perf_counter() - t0) / n_batches
         L.launches.clear()
         t0 = time.perf_counter()
-        cli_state, history = cli_train.main(args)
+        with host_loop():  # the loader's batches (the scan phase runs the CLI's default)
+            cli_state, history = cli_train.main(args)
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
         cli_launches = dict(L.launches)
@@ -1594,7 +1621,8 @@ def bigframe(dev, card, err, model, t_par, tg, flagship_step_ms) -> tuple[dict, 
             loader_ms = 1e3 * (time.perf_counter() - t0) / n_batches
             L.launches.clear()
             t0 = time.perf_counter()
-            cli_state, history = cli_train.main(args)
+            with host_loop():  # the loader pipeline under measurement
+                cli_state, history = cli_train.main(args)
             torch.cuda.synchronize()
             cli_s = time.perf_counter() - t0
             cli_launches = dict(L.launches)
@@ -2076,21 +2104,33 @@ def csr_branch_flips(model, y, codes) -> tuple:
     return flips, u_kern, u_plain, ths
 
 
-def csr_on_branches(model, y, z_prev, branches):
-    """CDLNet_CSR's recurrent apply on the plain loop (backend "xla") with
-    each iteration's prox_csr evaluated on the given branches (the signs of
-    csr_prox_branches, one pair per iteration) in place of its argument's
-    own: the same affine piece of the prox, so this is the plain loop on
-    the kernels' side of every boundary. Returns (xhat, z) as
-    model(y, z_prev, sigma=SIGMA)."""
+def csr_on_branches(model, y, codes, branches):
+    """The recurrent apply of CDLNet_CSR or CDLNet_CSRf2 on the plain loop
+    (backend "xla") with each iteration's prox evaluated on the given
+    branches (the signs of csr_prox_branches, one stack per iteration) in
+    place of its argument's own: the same affine piece of prox_csr (codes
+    z_prev) or prox_csr_f2 (z_prev and z_after), so this is the plain loop
+    on the kernels' side of every boundary. Returns (xhat, z) as
+    model(y, sigma=SIGMA, **codes)."""
+    zp, za = codes["z_prev"], codes.get("z_after")
+    g1 = model.g1 if isinstance(model, CDLNetCSRf2) else model.g
     yp, prm, mask, c = _prepare(model, y, SIGMA, None)
 
     def prox(u, k, c_):
-        tau, gam = _threshold(model.t[k], c_), _threshold(model.g[k], c_)
-        a, b = branches[k]
-        shift = z_prev + tau * torch.sign(z_prev)
-        inner = a.abs() * (u - shift - a * tau * gam)
-        return b.abs() * (inner + shift - b * tau)
+        tau, gam = _threshold(model.t[k], c_), _threshold(g1[k], c_)
+        if za is None:
+            a, b = branches[k]
+            shift = zp + tau * torch.sign(zp)
+            inner = a.abs() * (u - shift - a * tau * gam)
+            return b.abs() * (inner + shift - b * tau)
+        gam2 = _threshold(model.g2[k], c_)
+        a, b, m, o = branches[k]
+        Ca = csr_f2_jump(zp, za, tau, gam2)
+        Cb = za + tau * torch.sign(za) + tau * gam * torch.sign(za - zp)
+        inner = b.abs() * (u - Ca - b * gam * tau)
+        corr = tau * gam * a
+        midder = m.abs() * (inner - Cb + corr - m * gam2 * tau)
+        return o.abs() * (midder + Cb - corr - o * tau)
 
     z = lista_2d(yp, model.A, model.B, model.t, c, mask=mask, stride=model.s, prox=prox)
     x = conv_transpose2d(z, model.B[0], stride=model.s, padding=model.pad,
@@ -2315,11 +2355,17 @@ def csr_train(dev, card, err) -> tuple[dict, dict]:
         require(got == want, f"{family} gradient launched {got}, expected {want}")
         g2 = csr_grads(model)
         gp = csr_grads(plain)
-        if family == "CDLNet_CSR":  # the plain loop on the kernels' branches
-            branches = [csr_prox_branches(u_kern[k], z_nb["z_prev"], None, *ths[k][:2], None)
-                        for k in range(K)]
-            gb = csr_grads(plain, lambda z_prev: csr_on_branches(plain, y[:, 0:1], z_prev,
-                                                                 branches))
+        # the plain loop on the kernels' branches, which the kernels' prox
+        # arguments pick: they must be the plain loop's own up to fp32
+        za = z_nb["z_after"] if len(kws) == 2 else None
+        u_rel = float((u_kern - u_plain).abs().max() / u_plain.abs().max())
+        print(f"parity {family} K={K} prox arguments u_k (1x{IMAGE[0]}^2), kernels vs the "
+              f"plain loop: max|d| / max|ref| {u_rel:.3e}", flush=True)
+        require(u_rel <= FORWARD_TOL, f"{family} prox arguments rel err {u_rel:.3e} > "
+                f"{FORWARD_TOL}")
+        branches = [csr_prox_branches(u_kern[k], z_nb["z_prev"], za, *(ths[k] + [None])[:3])
+                    for k in range(K)]
+        gb = csr_grads(plain, lambda **cd: csr_on_branches(plain, y[:, 0:1], cd, branches))
         torch.cuda.synchronize()
         for name, a in g1.items():
             ref, d = gp[name], float((a - gp[name]).abs().max())
@@ -2330,17 +2376,20 @@ def csr_train(dev, card, err) -> tuple[dict, dict]:
                 # difference of a branch boundary, the kernels and the
                 # plain loop take different branches and that code's
                 # cotangent moves by the whole local gradient (and its
-                # neighbours' by what that spreads). So the codes with such
-                # a flip (`flipped`) are counted and the worst error traced
-                # to its flip; CDLNet_CSR's codes are held elementwise at
-                # GRAD_TOL max-rel against the plain loop on the kernels'
-                # branches (csr_on_branches), and every code by its
-                # relative L2 error against the plain loop's own
+                # neighbours' by what that spreads). cuDNN's reverse
+                # algorithms do not sum in a fixed order, so the plain loop
+                # also flips against itself from run to run, and its codes'
+                # gradient moves with it (PERF.md, Findings). So the codes
+                # with a flip (`flipped`) are counted against the plain
+                # loop's own branches, and every code is held at GRAD_TOL,
+                # elementwise (max rel) and in relative L2, against the
+                # plain loop on the kernels' branches (csr_on_branches)
                 l2 = rel_l2(a, ref)
                 off, scale = (a - ref).abs(), float(ref.abs().max())
                 far = off > GRAD_TOL * scale
                 rest = float(off.masked_fill(flipped, 0).max()) / scale
-                print(f"parity {family} K={K} gradient d{name} (1x{IMAGE[0]}^2): rel L2 "
+                print(f"parity {family} K={K} gradient d{name} (1x{IMAGE[0]}^2) against the "
+                      f"plain loop's own branches: rel L2 "
                       f"{l2:.3e}, max|d| {d:.3e} (rel {d / scale:.3e}); {int(flipped.sum())} of "
                       f"{a.numel()} codes take another prox branch at some iteration on the "
                       f"kernels than on the plain loop; {int(far.sum())} codes off by more than "
@@ -2359,13 +2408,15 @@ def csr_train(dev, card, err) -> tuple[dict, dict]:
                               f"k={k}: u_k {uk:.9e} on the kernels, {up:.9e} on the plain "
                               f"loop (|d| {abs(uk - up):.3e}); the kernels' u_k lies "
                               f"{gap:.3e} from a branch boundary", flush=True)
-                    rel_b = float((a - gb[name]).abs().max() / gb[name].abs().max())
-                    print(f"parity {family} K={K} gradient d{name} (1x{IMAGE[0]}^2) against the "
-                          f"plain loop on the kernels' prox branches: max rel {rel_b:.3e}",
-                          flush=True)
-                    require(rel_b <= GRAD_TOL, f"{family} d{name} rel err {rel_b:.3e} > "
-                            f"{GRAD_TOL} on the kernels' branches")
-                require(l2 <= GRAD_TOL, f"{family} d{name} rel L2 {l2:.3e} > {GRAD_TOL}")
+                rel_b = float((a - gb[name]).abs().max() / gb[name].abs().max())
+                l2_b = rel_l2(a, gb[name])
+                print(f"parity {family} K={K} gradient d{name} (1x{IMAGE[0]}^2) against the "
+                      f"plain loop on the kernels' prox branches: max rel {rel_b:.3e}, rel L2 "
+                      f"{l2_b:.3e}", flush=True)
+                require(rel_b <= GRAD_TOL, f"{family} d{name} rel err {rel_b:.3e} > "
+                        f"{GRAD_TOL} on the kernels' branches")
+                require(l2_b <= GRAD_TOL, f"{family} d{name} rel L2 {l2_b:.3e} > {GRAD_TOL} "
+                        f"on the kernels' branches")
             elif family == "CDLNet_CSR":
                 rel = d / float(ref.abs().max())
                 print(f"parity {family} K={K} gradient d{name} (1x{IMAGE[0]}^2): max|d| "
@@ -2377,7 +2428,7 @@ def csr_train(dev, card, err) -> tuple[dict, dict]:
                       f"{l2:.3e}, max|d| {d:.3e}; two runs bitwise equal: {same}", flush=True)
                 require(l2 <= GRAD_TOL, f"{family} d{name} rel L2 {l2:.3e} > {GRAD_TOL}")
             require(same, f"{family}: two backward runs differ in d{name}")
-        del g1, g2, gp, flips, u_kern, u_plain, ths
+        del g1, g2, gp, gb, branches, flips, u_kern, u_plain, ths
 
     # --- R3. make_csr_train_step at native 640x368 (the batches of
     # tools/bench_csr_bigframe.py: 1x1x3 frames for CSRf2, 1x1x2 for CSR):
@@ -3893,6 +3944,456 @@ def dist_phase(dev, card) -> dict:
     return d1_launches
 
 
+# --- scan: one-dispatch training epochs (train/device_data.py) ---
+
+SCAN_IMAGES = 432           # a CBSD432-sized corpus, every second image portrait
+SCAN_IMAGE = (321, 481)     # BSD's landscape (H, W)
+SCAN_BASES = 24             # natural_image fields the 432 images are cut from
+SCAN_EPOCHS = 2
+SCAN_VIDEOS = 8             # staged videos of 48 native 480x854 frames
+SCAN_VIDEO_FRAMES = 48
+SCAN_CLIP = dict(depth=16, crop=(CROP, CROP), batch=TRAIN_N, crop_ratio=0.5, aug_prob=0.3,
+                 max_shift=10)  # VideoClipDataset's train protocol at the video train shape
+SCAN_RESIZE_TOL = 1e-5      # a resized clip frame vs F.interpolate on the CPU, max|d|
+
+
+@contextlib.contextmanager
+def host_loop():
+    """fit's train phase on its host loop (CDLNET_DEVICE_SCAN=0): the
+    phases that measure the loader and the host-issued steps keep them."""
+    old = os.environ.get("CDLNET_DEVICE_SCAN")
+    os.environ["CDLNET_DEVICE_SCAN"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("CDLNET_DEVICE_SCAN")
+        else:
+            os.environ["CDLNET_DEVICE_SCAN"] = old
+
+
+def scan_images(rng) -> list:
+    """SCAN_IMAGES (1, 321, 481) float32 images in [0, 1], every second one
+    portrait (1, 481, 321): windows of SCAN_BASES natural_image fields,
+    mirrored at random."""
+    bases = [natural_image(rng, size=SCAN_IMAGE[1]) for _ in range(SCAN_BASES)]
+    out = []
+    for i in range(SCAN_IMAGES):
+        b = bases[i % SCAN_BASES]
+        y = int(rng.integers(0, b.shape[0] - SCAN_IMAGE[0] + 1))
+        im = b[y:y + SCAN_IMAGE[0]]
+        if rng.random() < 0.5:
+            im = im[:, ::-1]
+        out.append(np.ascontiguousarray(im.T if i % 2 else im)[None])
+    return out
+
+
+def image_loader(images, crop, batch) -> DataLoader:
+    """The train loader get_fit_loaders builds (crop, flips, shuffle,
+    drop_last) over images held in memory."""
+    ds = ImageDataset.__new__(ImageDataset)
+    ds.image_paths = [str(i) for i in range(len(images))]
+    ds.images, ds.root_dirs, ds.crop_size, ds.augment = images, [], crop, True
+    ds.rng = ThreadSafeRng(SEED)
+    return DataLoader(ds, batch_size=batch, shuffle=True, drop_last=True, seed=SEED)
+
+
+def scan_videos(dev) -> list:
+    """SCAN_VIDEOS (1, 48, 480, 854) float32 smooth random videos in [0, 1]
+    (sums of separable sines in t, y and x, drawn on the card)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 70)
+    D, (H, W) = SCAN_VIDEO_FRAMES, NATIVE[1:]
+    axes = [torch.linspace(-np.pi, np.pi, n, device=dev) for n in (D, H, W)]
+    out = []
+    for _ in range(SCAN_VIDEOS):
+        field = torch.zeros((D, H, W), device=dev)
+        for _ in range(6):
+            f = 0.5 + 2.5 * torch.rand(3, generator=g, device=dev)
+            ph = 2 * np.pi * torch.rand(3, generator=g, device=dev)
+            field += (torch.sin(f[0] * axes[0] + ph[0])[:, None, None]
+                      * torch.cos(f[1] * axes[1] + ph[1])[None, :, None]
+                      * torch.cos(f[2] * axes[2] + ph[2])[None, None, :])
+        field = (field - field.min()) / (field.max() - field.min())
+        out.append(field[None].cpu().numpy())
+    return out
+
+
+def numpy_image_batch(images, idx, oh, ow, fh, fv, c) -> np.ndarray:
+    """The image corpus's batch for a draw, from numpy slices of the images
+    as given: the crop of the landscape-staged image, transposed back,
+    flipped along W then H."""
+    out = []
+    for i, y, x, h, v in zip(idx, oh, ow, fh, fv):
+        im = images[i]
+        portrait = im.shape[1] > im.shape[2]
+        st = im.transpose(0, 2, 1) if portrait else im
+        crop = st[:, y:y + c, x:x + c]
+        crop = crop.transpose(0, 2, 1) if portrait else crop
+        crop = crop[:, :, ::-1] if h else crop
+        out.append(crop[:, ::-1, :] if v else crop)
+    return np.stack(out)
+
+
+def numpy_clip_batch(videos, idx, draws, depth, crop):
+    """The clip corpus's batch for a draw from numpy slices of the videos
+    (VideoClipDataset's rules: the wrapping random walk, the consecutive
+    window, the shared crop), with each resized sample's whole frames
+    beside it: (batch, {sample: (D, C, H, W) frames to resize})."""
+    walk, start_w, x0, y0, steps, start_c, rev, do_crop, cx, cy = draws
+    cw, ch = crop
+    out, whole = [], {}
+    for b, v in enumerate(idx):
+        vid = videos[v]
+        n, H, W = vid.shape[1:]
+        xs = np.clip(x0[b] + np.cumsum(steps[b, 0]), 0, W - cw)
+        ys = np.clip(y0[b] + np.cumsum(steps[b, 1]), 0, H - ch)
+        frames = []
+        for t in range(depth):
+            if walk[b]:
+                f, oy, ox = (start_w[b] + t) % n, ys[t], xs[t]
+            else:
+                f = start_c[b] + (depth - 1 - t if rev[b] else t)
+                oy, ox = (cy[b], cx[b]) if do_crop[b] else (0, 0)
+            frames.append(vid[:, f, oy:oy + ch, ox:ox + cw])
+            if not (walk[b] or do_crop[b]):
+                whole.setdefault(b, []).append(vid[:, f])
+        out.append(np.stack(frames, axis=1))
+    return np.stack(out), {b: np.stack(fr) for b, fr in whole.items()}
+
+
+def runner_pair(name, model, init_state, opt, corpus, step_kw, card, total) -> dict:
+    """One epoch of the eager runner, then one of the captured graph's
+    replays, from the same weights and generator seed: the losses,
+    parameters, statistics and Adam state held bitwise. Returns the graph
+    runner and its opt_state with the times and launches."""
+    runs = {}
+    dev = next(model.parameters()).device
+    for mode in ("eager", "graph"):
+        model.load_state_dict(init_state)
+        st = opt.init(dict(model.named_parameters()))
+        step, _ = make_train_step(model, opt, **step_kw)
+        runner = make_epoch_runner(corpus, step, model, graph=mode == "graph")
+        if mode == "eager":  # an epoch first, as the capture warms up, then anew
+            runner(st, torch.Generator(device=dev).manual_seed(SEED + 1))
+            torch.cuda.synchronize()
+            model.load_state_dict(init_state)
+            st = opt.init(dict(model.named_parameters()))
+            runner = make_epoch_runner(corpus, step, model, graph=False)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        L.launches.clear()
+        capture_launches = {}
+        if mode == "graph":
+            runner.capture(st, g)
+            capture_launches = dict(L.launches)
+            total.update(L.launches)
+            L.launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = runner(st, g).cpu()
+        ms = 1e3 * (time.perf_counter() - t0) / runner.steps
+        total.update(L.launches)
+        runs[mode] = dict(
+            losses=losses, ms=ms, launches=dict(L.launches), capture=capture_launches,
+            state={k: v.detach().clone() for k, v in model.state_dict().items()},
+            adam=[st["count"].clone(), *(t.clone() for m in ("mu", "nu") for t in st[m].values())],
+            runner=runner, opt_state=st, generator=g)
+    e, gr = runs["eager"], runs["graph"]
+    same = (torch.equal(e["losses"], gr["losses"])
+            and all(torch.equal(e["state"][k], gr["state"][k]) for k in e["state"])
+            and all(torch.equal(a, b) for a, b in zip(e["adam"], gr["adam"])))
+    print(f"scan {name} [{card}]: {gr['runner'].steps} steps an epoch, capture "
+          f"{gr['runner'].capture_ms:.1f} ms ({gr['runner'].warmup} warm-up steps + the "
+          f"captured one: launches {gr['capture']}); epoch host ms per step: graph replays "
+          f"{gr['ms']:.3f} (wrapper launches {gr['launches']}), eager runner {e['ms']:.3f}; "
+          f"losses {[f'{v:.6f}' for v in gr['losses'].tolist()[:4]]}...; replayed epoch "
+          f"bitwise the eager runner's (losses, parameters, statistics, Adam): {same}",
+          flush=True)
+    require(same, f"scan {name}: the replayed epoch differs from the eager runner's")
+    require(not gr["launches"], f"scan {name}: replays launched through the wrappers "
+            f"{gr['launches']}")
+    require(bool(torch.isfinite(gr["losses"]).all()), f"scan {name}: non-finite losses")
+    gr["eager_ms"] = e["ms"]
+    return gr
+
+
+def replay_trace(name, run, card) -> dict:
+    """A second epoch of the graph runner's replays in a torch.profiler
+    trace: kernel launches issued by the host (the registered generator's
+    two fills a replay, nothing through the wrappers), graph launches,
+    device busy ms against the host's issue ms per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    runner, st, g = run["runner"], run["opt_state"], run["generator"]
+    runner.begin(g)
+    torch.cuda.synchronize()
+    L.launches.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runner.steps):
+            runner.advance(st, g)
+        issue = 1e3 * (time.perf_counter() - t0) / runner.steps
+        torch.cuda.synchronize()
+    host = {"launch": 0, "graph": 0}
+    for ev in prof.key_averages():
+        if "LaunchKernel" in ev.key:
+            host["launch"] += ev.count
+        elif "GraphLaunch" in ev.key:
+            host["graph"] += ev.count
+    device = collections.Counter(ev.name for ev in prof.events()
+                                 if ev.device_type == DeviceType.CUDA)
+    busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA) / 1e3 / runner.steps
+    print(f"scan {name} [{card}]: replayed epoch in a profiler trace: {host['graph']} graph "
+          f"launches, {host['launch']} kernel launches from the host, wrapper launches "
+          f"{dict(L.launches)}; {sum(device.values())} device events, the commonest "
+          f"{device.most_common(6)}; device busy {busy:.3f} ms per step against host issue "
+          f"{issue:.3f} ms per step", flush=True)
+    # a replay of a graph that registered a generator first fills the
+    # generator's seed and offset (two small kernels from the host); nothing
+    # else may launch outside the graphs
+    require(host["launch"] <= 2 * runner.steps and not L.launches
+            and host["graph"] == runner.steps,
+            f"scan {name}: the replays' trace holds {host} and wrapper launches "
+            f"{dict(L.launches)}")
+    require(busy > 0, f"scan {name}: the trace shows no device time")
+    return {"busy": busy, "issue": issue}
+
+
+def scan_phase(dev, card) -> dict:
+    """scan: one-dispatch training epochs. S1 the flagship 2D width on a
+    staged corpus of 432 synthetic 481x321 images (half portrait) at batch
+    10 and crop 128: a fixed draw's batch against numpy slices; one epoch of
+    the eager runner against one of the captured step's replays, bitwise;
+    a replayed epoch's trace; the host loop (the loader and device_prefetch)
+    at the same config; fit(device_scan=True) for two epochs, and under D1
+    (NCCL at world size 1) fit(mesh={"data": 1}, device_scan=True) against
+    it bitwise; the train CLI's default route. S2 the flagship video width
+    at N=2 x 16x128^2 from 8 staged 48-frame 480x854 videos: a draw with
+    crops and resized samples against numpy, the runners bitwise. S3
+    DnCNN-S with its statistics, one epoch of 128 crops of 40^2. Returns
+    the launches (captures and eager steps; replays launch none)."""
+    from cdlnet_tpu_torch.dist import initialize_distributed, make_mesh
+    from cdlnet_tpu_torch.dist.init import shutdown_distributed
+    from cdlnet_tpu_torch.dist.launch import free_port
+
+    total = collections.Counter()
+    rng = np.random.default_rng(SEED + 60)
+    torch.cuda.reset_peak_memory_stats()
+
+    # --- S1: the flagship 2D width ---
+    images = scan_images(rng)
+    loader = image_loader(images, CROP, TRAIN_2D_N)
+    t0 = time.perf_counter()
+    corpus = corpus_from_loader(loader, "2d", device=dev)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    require(corpus is not None and corpus.steps_per_epoch == SCAN_IMAGES // TRAIN_2D_N,
+            "the 2D train loader did not stage")
+    g = torch.Generator(device=dev).manual_seed(SEED + 61)
+    idx = corpus.epoch_perm(g)[:TRAIN_2D_N]
+    draw = corpus.draw(idx, g)
+    got = corpus.assemble(idx, *draw).cpu().numpy()
+    want = numpy_image_batch(images, *(t.cpu().numpy() for t in (idx, *draw)), CROP)
+    portrait = sum(images[i].shape[1] > images[i].shape[2] for i in idx.tolist())
+    print(f"scan S1 [{card}]: staged {SCAN_IMAGES} images ({portrait} of the draw's "
+          f"{TRAIN_2D_N} portrait) in {stage_s:.2f} s, "
+          f"{corpus.staged_bytes / 1e6:.1f} MB; a fixed draw's batch bitwise numpy slices "
+          f"of the images: {np.array_equal(got, want)}", flush=True)
+    require(np.array_equal(got, want), "the assembled 2D batch differs from numpy slices")
+    model = CDLNet(**FLAGSHIP_2D, backend="pallas").to(dev)
+    model.init(torch.Generator().manual_seed(SEED))
+    init_state = copy.deepcopy(model.state_dict())
+    opt = make_optimizer(FIT_2D_LR, clip_grad=FIT_2D_CLIP)
+    kw2d = dict(workload="2d", noise_std=TRAIN_SIGMA)
+    run = runner_pair("S1 2D", model, init_state, opt, corpus, kw2d, card, total)
+    want = {n: v * (run["runner"].warmup + 1)
+            for n, v in step_launches_2d(FLAGSHIP_2D["K"]).items()}
+    require(run["capture"] == want, f"scan S1: capture launched {run['capture']}, "
+            f"expected {want}")
+    trace = replay_trace("S1 2D", run, card)
+    # the host loop at the same config: the loader's crops on the host,
+    # device_prefetch, the same train step
+    model.load_state_dict(init_state)
+    st = opt.init(dict(model.named_parameters()))
+    step, _ = make_train_step(model, opt, **kw2d)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    L.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    for batch in device_prefetch(loader, device=dev):
+        step(st, batch, g)
+        n += 1
+    torch.cuda.synchronize()
+    loop_ms = 1e3 * (time.perf_counter() - t0) / n
+    total.update(L.launches)
+    print(f"time [{card}]: scan S1 flagship 2D ({TRAIN_2D_N}x{CROP}^2), host ms per step: "
+          f"replayed epoch {run['ms']:.3f}, eager runner (device-assembled batches) "
+          f"{run['eager_ms']:.3f}, host loop (loader "
+          f"+ device_prefetch) {loop_ms:.3f}; device busy {trace['busy']:.3f} ms per step",
+          flush=True)
+    del run, st
+    # fit(device_scan=True): two epochs, then the same under D1
+    val = [np.stack([im[:, :CROP, :CROP] for im in images[:4]])]
+    fits = {}
+    require(initialize_distributed(f"localhost:{free_port()}", 1, 0, device="cuda"),
+            "initialize_distributed did not initialize a process group")
+    try:
+        for name, mesh in (("meshless", None), ("D1", make_mesh({"data": 1}))):
+            model.load_state_dict(init_state)
+            st = opt.init(dict(model.named_parameters()))
+            L.launches.clear()
+            with tempfile.TemporaryDirectory() as save_dir:
+                t0 = time.perf_counter()
+                _, hist = fit(model, opt, st, {"train": loader, "val": val, "test": val},
+                              save_dir=save_dir, epochs=SCAN_EPOCHS, noise_std=TRAIN_SIGMA,
+                              val_freq=1, save_freq=1, backtrack_thresh=None, verbose=False,
+                              workload="2d", seed=SEED, mesh=mesh, device_scan=True)
+                fit_s = time.perf_counter() - t0
+                with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+                    rows = [json.loads(ln) for ln in f if ln.strip()]
+            total.update(L.launches)
+            fits[name] = {k: v.detach().clone() for k, v in model.named_parameters()}
+            train = [p for _, ph, p in hist if ph == "train"]
+            steps = [r["steps"] for r in rows if r.get("phase") == "train"]
+            print(f"scan S1 [{card}]: fit(device_scan=True{', mesh=' + name if mesh else ''}) "
+                  f"{SCAN_EPOCHS} epochs in {fit_s:.2f} s: train PSNR "
+                  f"{[round(p, 3) for p in train]}, steps {steps}, launches "
+                  f"{dict(L.launches)}", flush=True)
+            require(all(np.isfinite(p) for _, _, p in hist) and train[-1] > train[0]
+                    and steps == [corpus.steps_per_epoch] * SCAN_EPOCHS,
+                    f"scan S1 fit {name}: PSNR {train}, steps {steps}")
+            norms = torch.linalg.vector_norm(model.A.detach(), dim=(3, 4))
+            require(bool((norms <= 1 + 1e-4).all()) and bool((model.t >= 0).all()),
+                    "scan S1: the projection does not hold after fit")
+    finally:
+        shutdown_distributed()
+    same = all(torch.equal(fits["D1"][k], fits["meshless"][k]) for k in fits["meshless"])
+    print(f"scan S1 [{card}]: fit(mesh={{'data': 1}}, device_scan=True) on NCCL (eager "
+          f"steps) bitwise the meshless fit (replays): {same}", flush=True)
+    require(same, "scan S1: the D1 fit differs from the meshless one")
+    # the train CLI inherits device_scan="auto": the flagship demo's config
+    with tempfile.TemporaryDirectory() as root:
+        data = gen_natural_image_dirs(os.path.join(root, "data"), n_train=CLI_TRAIN_IMAGES,
+                                      n_test=CLI_TEST_IMAGES, seed=SEED)
+        with open(os.path.join(DEMO_2D, "args.json")) as f:
+            args = json.load(f)
+        args["paths"] = {"save": os.path.join(root, "run")}
+        args["train"]["fit"].update(epochs=CLI_EPOCHS, val_freq=1, save_freq=1,
+                                    backtrack_thresh=None, verbose=False)
+        args["train"]["loaders"].update(
+            {f"{k}_path_list": [os.path.join(data, split)]
+             for k, split in (("trn", "train"), ("val", "val"), ("tst", "test"))})
+        loaders, _ = cli_train.make_loaders(args)
+        L.launches.clear()
+        cli_state, history = cli_train.main(args)
+        total.update(L.launches)
+        K = FLAGSHIP_2D["K"]
+        evals = CLI_EPOCHS * len(loaders["val"]) + len(loaders["test"])
+        want = {n: (WARMUP_STEPS + 1) * v for n, v in step_launches_2d(K).items()}
+        want["lista2d_ana_threshold"] += evals * K
+        want["lista2d_syn_residual"] += evals * K
+        n_steps = CLI_EPOCHS * len(loaders["train"])
+        print(f"scan S1 [{card}]: cli.train.main (device_scan 'auto') {n_steps} replayed "
+              f"steps + {evals} eval images: launches {dict(L.launches)}, PSNR "
+              f"{[(e, ph, round(p, 3)) for e, ph, p in history]}", flush=True)
+        require(dict(L.launches) == want and int(cli_state["count"]) == n_steps
+                and all(np.isfinite(p) for _, _, p in history),
+                f"the train CLI's scan route launched {dict(L.launches)}, expected {want}")
+    del model, corpus, loader
+
+    # --- S2: the flagship video width ---
+    t0 = time.perf_counter()
+    videos = scan_videos(dev)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vcorpus = DeviceClipCorpus(videos, device=dev, **SCAN_CLIP)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    seen = {"crop": 0, "resize": 0, "walk": 0}
+    worst = 0.0
+    g = torch.Generator(device=dev).manual_seed(SEED + 62)
+    for _ in range(64):
+        idx = vcorpus.epoch_perm(g)[:TRAIN_N]
+        draws = vcorpus.draw(idx, g)
+        got = vcorpus.assemble(idx, *draws).cpu()
+        host = [t.cpu().numpy() for t in draws]
+        want, whole = numpy_clip_batch(videos, idx.tolist(), host, SCAN_CLIP["depth"],
+                                       SCAN_CLIP["crop"])
+        for b in range(TRAIN_N):
+            if b in whole:
+                ref = F.interpolate(torch.from_numpy(whole[b]), size=(CROP, CROP),
+                                    mode="bilinear", align_corners=False, antialias=True)
+                d = float((got[b].permute(1, 0, 2, 3) - ref).abs().max())
+                worst = max(worst, d)
+                require(d <= SCAN_RESIZE_TOL, f"scan S2: a resized sample is {d:.3e} off")
+                seen["resize"] += 1
+            else:
+                require(torch.equal(got[b], torch.from_numpy(want[b])),
+                        "scan S2: a cropped clip differs from numpy slices")
+                seen["walk" if host[0][b] else "crop"] += 1
+        if min(seen.values()) >= 2:
+            break
+    print(f"scan S2 [{card}]: {SCAN_VIDEOS} videos of {SCAN_VIDEO_FRAMES}x{NATIVE[1]}x"
+          f"{NATIVE[2]} made in {gen_s:.2f} s, staged in {stage_s:.2f} s, "
+          f"{vcorpus.staged_bytes / 1e6:.1f} MB; drawn samples {seen}: walks and crops bitwise "
+          f"numpy slices, resized frames within {worst:.3e} of F.interpolate on the CPU",
+          flush=True)
+    require(min(seen.values()) >= 1, f"scan S2: the draws missed a branch: {seen}")
+    vmodel = CDLNetVideo(**FLAGSHIP, backend="pallas").to(dev)
+    vmodel.init(torch.Generator().manual_seed(SEED))
+    vinit = copy.deepcopy(vmodel.state_dict())
+    vopt = make_optimizer(2e-4, clip_grad=0.05)
+    run = runner_pair("S2 video", vmodel, vinit, vopt, vcorpus,
+                      dict(workload="3d", noise_std=TRAIN_SIGMA), card, total)
+    want = {n: v * (run["runner"].warmup + 1) for n, v in STEP_LAUNCHES.items()}
+    require(run["capture"] == want, f"scan S2: capture launched {run['capture']}, "
+            f"expected {want}")
+    vtrace = replay_trace("S2 video", run, card)
+    print(f"time [{card}]: scan S2 flagship video ({TRAIN_N}x16x{CROP}^2), host ms per step: "
+          f"replayed epoch {run['ms']:.3f}; device busy {vtrace['busy']:.3f} ms per step",
+          flush=True)
+    del run, vmodel, vcorpus, videos
+    torch.cuda.empty_cache()
+
+    # --- S3: DnCNN-S and its statistics ---
+    crop = BASE_CROPS["DnCNN"]
+    dcorpus = corpus_from_loader(image_loader(images, crop, BASE_BATCH), "2d", device=dev)
+    bn = DnCNN(**DNCNN_WIDTH).to(dev)
+    bn.init(torch.Generator().manual_seed(SEED))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # cuDNN's reverse algorithms, run to run
+    try:
+        run = runner_pair("S3 DnCNN-S", bn, copy.deepcopy(bn.state_dict()),
+                          make_optimizer(1e-3), dcorpus,
+                          dict(workload="2d", noise_std=SIGMA), card, total)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    moved = float((bn.bn_var - 1).abs().max())
+    print(f"scan S3 [{card}]: DnCNN-S {BASE_BATCH}x{crop}^2, {run['runner'].steps} steps, "
+          f"running variance moved by up to {moved:.4f}; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"over the scan phase", flush=True)
+    require(moved > 0, "scan S3: the running statistics did not move")
+    return dict(total)
+
+
+def sweep_phase(dev, card) -> dict:
+    """sweep: the kernel matrix (cdlnet_tpu_torch/tools/kernel_sweep.py),
+    the 25 reference-geometry cases of tools/hw_kernel_sweep.py through
+    the kernels against backend "xla", each row within its bound. Returns
+    the launches."""
+    L.launches.clear()
+    rows = kernel_sweep.run_sweep("cuda", log=lambda s: print(f"sweep [{card}]: {s}",
+                                                              flush=True))
+    launches = dict(L.launches)
+    failed = [r["case"] for r in rows if not r["ok"]]
+    print(f"sweep [{card}]: {len(rows)} cases, {len(rows) - len(failed)} within their bounds "
+          f"in {sum(r['sec'] for r in rows):.1f} s; launches {launches}", flush=True)
+    require(len(rows) == 25 and not failed, f"sweep: failed cases {failed}")
+    return launches
+
+
 def main() -> int:
     # --- 1. the device ---
     if not torch.cuda.is_available():
@@ -4173,17 +4674,26 @@ def main() -> int:
 
     # --- 23. the distributed layer (dist) ---
     launches_dist = dist_phase(dev, card)
+    t8 = time.perf_counter()
+
+    # --- 24. one-dispatch training epochs (scan) ---
+    launches_scan = scan_phase(dev, card)
+    t9 = time.perf_counter()
+
+    # --- 25. the kernel matrix (sweep) ---
+    launches_sweep = sweep_phase(dev, card)
     print(f"phases: prefetch {t1 - t0:.2f} s, blind PCA {t2 - t1:.2f} s, residual "
           f"{t3 - t2:.2f} s, baselines {t4 - t3:.2f} s, ckpt {t5 - t4:.2f} s, server "
-          f"{t6 - t5:.2f} s, losses {t7 - t6:.2f} s, dist {time.perf_counter() - t7:.2f} s",
-          flush=True)
+          f"{t6 - t5:.2f} s, losses {t7 - t6:.2f} s, dist {t8 - t7:.2f} s, scan "
+          f"{t9 - t8:.2f} s, sweep {time.perf_counter() - t9:.2f} s", flush=True)
 
     launches = {name: serve_launches.get(name, 0) + fit_launches.get(name, 0)
                 + launches_2d.get(name, 0) + launches_t2.get(name, 0)
                 + launches_bf.get(name, 0) + launches_csr.get(name, 0)
                 + launches_ct.get(name, 0) + launches_pca.get(name, 0)
                 + launches_ck.get(name, 0) + launches_srv.get(name, 0)
-                + launches_loss.get(name, 0) + launches_dist.get(name, 0) for name in KERNELS}
+                + launches_loss.get(name, 0) + launches_dist.get(name, 0)
+                + launches_scan.get(name, 0) + launches_sweep.get(name, 0) for name in KERNELS}
     for name in TC_KERNELS:
         tt = times[name]
         shape = "train shape" if "adjoint" in name or "wgrad" in name else "serve shape"

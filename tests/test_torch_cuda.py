@@ -1383,3 +1383,139 @@ if __name__ == "__main__":
 
     if sys.argv[1] == "depth":
         _depth_sharded_rank(sys.argv[2])
+
+
+# the stride-1 3D banks at P = (7, 7, 5) (args3dt.json's config): 245 taps,
+# whose synthesis and weight-gradient stages exceed a block's shared memory,
+# so each runs as launches over halves of its depth taps
+STRIDE1_SHAPES = [
+    ((7, 7, 5), 1, 16, 1, 8, 12, 40, 1),
+    ((7, 7, 5), 1, 64, 2, 6, 16, 64, 1),
+]
+
+
+@pytest.mark.parametrize("P,s,M,N,D,H,W,C", STRIDE1_SHAPES)
+@pytest.mark.parametrize("residual", ["none", "mask and y"])
+def test_stride1_synthesis_over_depth_tap_halves_matches_plain(cuda, P, s, M, N, D, H, W, C,
+                                                               residual):
+    d = _setup(P, s, M, N, D, H, W, C)
+    mask, y = (d["mask"], d["y"]) if residual != "none" else (None, None)
+    ref = L.lista3d_syn_residual_plain(d["z"], d["ws"], d["geom"], mask=mask, y=y)
+    hist = torch.full((2, *ref.shape), float("nan"), device=cuda)
+    L.launches.clear()
+    got = L.lista3d_syn_residual(
+        d["z"].to(cuda), d["ws"].to(cuda), d["geom"],
+        mask=None if mask is None else mask.to(cuda),
+        y=None if y is None else y.to(cuda), out=hist[1])
+    torch.cuda.synchronize()
+    assert got.data_ptr() == hist[1].data_ptr() and torch.isnan(hist[0]).all()
+    assert dict(L.launches) == {"lista3d_syn_residual": 2}
+    assert _rel(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("P,s,M,N,D,H,W,C", STRIDE1_SHAPES)
+@pytest.mark.parametrize("form", ["dA", "dB-swapped"])
+@pytest.mark.parametrize("on_rows", [False, True])
+def test_stride1_wgrad_over_depth_tap_halves_matches_plain(cuda, P, s, M, N, D, H, W, C, form,
+                                                           on_rows):
+    d = _setup(P, s, M, N, D, H, W, C)
+    geom = d["geom"]
+    rows = LB.phase_rows(geom, d["wa"].shape[0], 3) if on_rows else None
+    x = d["r"] if form == "dA" else d["y"]
+    ref = LB.lista3d_wgrad_plain(x, d["z"], d["taps"], geom.off_a, alpha=-1.0, rows=rows)
+    L.launches.clear()
+    got = LB.lista3d_wgrad(x.to(cuda), d["z"].to(cuda), d["taps"], geom.off_a, alpha=-1.0,
+                           rows=rows)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert L.launches["lista3d_wgrad"] >= 2
+    assert _rel(got, ref) <= 1e-5
+
+
+def test_stride1_grad_on_cuda_matches_cpu(cuda):
+    """args3dt's banks (s = 1, P = (7, 7, 5)) through the kernel forward and
+    reverse: the CPU reverse loop's gradients."""
+    rng = np.random.default_rng(8)
+    K, M, P, s = 2, 8, (7, 7, 5), 1
+    f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+    yp, tgt = 0.3 * f(1, 1, 6, 16, 20), f(1, 1, 6, 16, 20)
+    A, B = 0.05 * f(K, M, 1, *P), 0.05 * f(K, M, 1, *P)
+    t = 0.02 * f(K, 2, M, 1, 1, 1).abs()
+
+    def grads(dev):
+        prm = [v.to(dev).requires_grad_() for v in (A, B, t)]
+        x = lista3d_fused_diff(yp.to(dev), *prm, 0.1, stride=s)
+        loss = ((x - tgt.to(dev)) ** 2).mean()
+        return [g.cpu() for g in torch.autograd.grad(loss, prm)]
+
+    for g, w in zip(grads(cuda), grads("cpu")):
+        assert _rel(g, w) <= 1e-4
+
+
+def test_epoch_runner_graph_replays_equal_the_eager_runner(cuda):
+    """train/device_data.py on the card: a 2D CDLNet on the kernels, one
+    epoch of the eager runner and one of the captured step's replays from
+    the same state and seed, then a second epoch each after set_lr: losses,
+    parameters and Adam state bitwise, and no launch through the wrappers
+    during the replays."""
+    from cdlnet_tpu_torch.models import CDLNet
+    from cdlnet_tpu_torch.train.device_data import DeviceImageCorpus, make_epoch_runner
+    from cdlnet_tpu_torch.train.fit import make_train_step
+    from cdlnet_tpu_torch.train.optim import make_optimizer, set_lr
+
+    rng = np.random.default_rng(3)
+    images = [rng.uniform(0, 1, (1, 40, 52) if i % 2 else (1, 52, 40)).astype(np.float32)
+              for i in range(9)]
+    corpus = DeviceImageCorpus(images, 32, 3, device=cuda)
+    model = CDLNet(K=3, M=12, P=5, s=2, adaptive=True, backend="pallas").to(cuda)
+    model.init(torch.Generator().manual_seed(0))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    opt = make_optimizer(1e-3, clip_grad=0.05)
+    out = {}
+    for graph in (False, True):
+        model.load_state_dict(init)
+        st = opt.init(dict(model.named_parameters()))
+        step, _ = make_train_step(model, opt, workload="2d", noise_std=(20, 30))
+        runner = make_epoch_runner(corpus, step, model, graph=graph)
+        g = torch.Generator(device=cuda).manual_seed(5)
+        losses = [runner(st, g)]
+        set_lr(st, 5e-4)
+        L.launches.clear()
+        losses.append(runner(st, g))
+        if graph:
+            assert not L.launches and runner.capture_ms > 0
+        out[graph] = (torch.cat(losses).cpu(), [p.detach().clone() for p in model.parameters()],
+                      [st["count"].clone(), *(t.clone() for t in st["mu"].values())])
+    (la, pa, sa), (lb, pb, sb) = out[False], out[True]
+    assert torch.isfinite(la).all() and torch.equal(la, lb)
+    assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+    assert all(torch.equal(a, b) for a, b in zip(sa, sb)) and int(sb[0]) == 6
+
+
+def test_clipped_adam_on_device_state_matches_its_cpu_trajectory(cuda):
+    """The optimizer's count and hyperparameters live on the parameters'
+    device: five clipped steps (an lr change after the second) on the card
+    track the same steps on the CPU."""
+    from cdlnet_tpu_torch.train.optim import get_lr, make_optimizer, set_lr
+
+    rng = np.random.default_rng(2)
+    shapes = {"A": (3, 4, 1, 5, 5), "t": (3, 2, 4, 1, 1)}
+    p0 = {k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+             for _ in range(5)]
+    runs = {}
+    for dev in ("cpu", cuda):
+        opt = make_optimizer(1e-2, clip_grad=0.5)
+        params = {k: torch.from_numpy(v.copy()).to(dev) for k, v in p0.items()}
+        st = opt.init(params)
+        assert st["count"].device.type == torch.device(dev).type
+        for i, g in enumerate(grads):
+            opt.update(params, {k: torch.from_numpy(v).to(dev) for k, v in g.items()}, st)
+            if i == 1:
+                set_lr(st, 3e-3)
+        assert int(st["count"]) == 5 and get_lr(st) == 3e-3
+        runs[str(dev)] = (params, st)
+    (pc, sc), (pg, sg) = runs["cpu"], runs[str(cuda)]
+    for k in shapes:
+        for a, b in ((pg[k], pc[k]), (sg["mu"][k], sc["mu"][k]), (sg["nu"][k], sc["nu"][k])):
+            assert _rel(a, b) <= 1e-6

@@ -146,6 +146,24 @@ def leg_dp(out):
                   noise_std=25, val_freq=4, verbose=False, workload="2d",
                   mesh={"data": -1})
     res["fit_train_psnr"] = [p for _, ph, p in hist if ph == "train"]
+    # fit(device_scan=True) on a stageable loader: every rank stages the
+    # whole corpus, draws the same batches and takes its rows of each
+    from cdlnet_tpu_torch.data.images import ImageDataset
+    from cdlnet_tpu_torch.data.loader import DataLoader, ThreadSafeRng
+
+    ds = ImageDataset.__new__(ImageDataset)
+    ds.image_paths, ds.root_dirs, ds.crop_size, ds.augment = [str(i) for i in range(8)], [], 24, True
+    ds.images, ds.rng = list(_images(8, 32, 9)), ThreadSafeRng(0)
+    m = cdlnet(backend="pallas", M=6)
+    o = make_optimizer(1e-3, clip_grad=0.05)
+    _, hist = fit(m, o, o.init(dict(m.named_parameters())),
+                  {"train": DataLoader(ds, batch_size=4, shuffle=True, drop_last=True),
+                   "val": [imgs[:1]], "test": [imgs[:1]]},
+                  save_dir=os.path.join(out, f"scan{dist.get_rank()}"), epochs=4,
+                  noise_std=(20, 30), val_freq=4, verbose=False, workload="2d",
+                  mesh={"data": -1}, device_scan=True)
+    res["scan_fit"] = ([p for _, ph, p in hist if ph == "train"],
+                       {k: v.detach().clone() for k, v in m.named_parameters()})
     for key, loaders_, spec in (("indivisible", {"train": [imgs[:3]], "val": [], "test": []},
                                  {"data": -1}),
                                 ("depth_2d", loaders, {"depth": 2})):
@@ -437,6 +455,17 @@ def test_fit_with_mesh_runs_and_improves(dp):
     psnr = ranks[0]["fit_train_psnr"]
     assert len(psnr) == 4 and psnr[-1] > psnr[0], psnr
     assert ranks[1]["fit_train_psnr"] == psnr
+
+
+def test_fit_device_scan_on_two_ranks(dp):
+    """device_scan under a two-rank data mesh: the eager runner's steps on
+    the staged corpus; both ranks log the same PSNR and end bitwise equal,
+    and training improves."""
+    ranks, _ = dp
+    psnr, params = ranks[0]["scan_fit"]
+    assert len(psnr) == 4 and psnr[-1] > psnr[0], psnr
+    assert ranks[1]["scan_fit"][0] == psnr
+    assert all(torch.equal(params[k], ranks[1]["scan_fit"][1][k]) for k in params)
 
 
 def test_fit_with_mesh_rejects_indivisible_batch(dp):

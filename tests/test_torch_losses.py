@@ -289,7 +289,8 @@ def test_mcsure_step_keeps_the_unperturbed_statistics(monkeypatch):
 
 
 def test_unported_and_invalid_step_options_raise():
-    """Invalid losses and device_scan (not ported) raise; a mesh, ported
+    """Invalid losses, and device_scan=True on a train loader that cannot
+    be staged, raise; a mesh, ported
     (tests/test_torch_dist.py), builds a step that runs on one process's
     trivial mesh."""
     model = CDLNet(K=2, M=4, P=3)
@@ -303,7 +304,7 @@ def test_unported_and_invalid_step_options_raise():
         make_train_step(model, opt, workload="2d", loss_type="combmse")
     with pytest.raises(ValueError, match="loss_type"):
         make_train_step(model, opt, workload="2d", loss_type="l1")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="device_scan"):
         fit(model, opt, opt.init(dict(model.named_parameters())), {}, save_dir="unused",
             device_scan=True)
 

@@ -49,5 +49,6 @@ def test_package_holds_the_slice():
                 "nle/pca.py", "data/prefetch.py", "models/dncnn.py",
                 "compat/torch_ckpt.py", "server.py", "dist/__init__.py", "dist/init.py",
                 "dist/mesh.py", "dist/comm.py", "dist/sharding.py", "dist/halo.py",
-                "dist/halo_fused.py", "dist/launch.py"):
+                "dist/halo_fused.py", "dist/launch.py", "train/device_data.py",
+                "tools/kernel_sweep.py"):
         assert (pkg / rel).is_file(), rel
