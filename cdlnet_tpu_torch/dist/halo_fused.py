@@ -23,8 +23,10 @@ are refreshed (their halos exchanged anew) every iteration, so the
 discarded region's errors never propagate.
 
 Training (sharded_fused_3d_train_forward): a torch.autograd.Function
-whose forward stores kept-frame fp32 histories only (a rank holds 1/n of
-the single-card histories) and whose backward re-exchanges them to rebuild
+whose forward stores kept-frame histories only (a rank holds 1/n of the
+single-card histories), at kernels/lista3d.py::hist_dtype (bf16 by
+default, rounded from the fp32 carry, as the JAX package's halo_fused
+stores them), and whose backward re-exchanges them (in their dtype) to rebuild
 the halos, then runs the port's reverse kernels on the windows: the
 synthesis adjoint (lista3d_syn_adjoint), the weight gradient
 (lista3d_wgrad) and the synthesis as the analysis adjoint
@@ -59,6 +61,7 @@ from cdlnet_tpu_torch.dist.halo import batch_rows
 from cdlnet_tpu_torch.dist.mesh import as_mesh
 from cdlnet_tpu_torch.kernels.lista3d import (
     Geom,
+    hist_dtype,
     lista3d_ana_threshold,
     lista3d_syn_residual,
     phase_operands,
@@ -133,16 +136,18 @@ class _Windows:
 def _forward(win, y2k, wa, ws, tau, geom, hists=False):
     """The 2K launches of the fused loop on this rank's window, the halos
     refreshed before every synthesis. Returns (x2, z) on the kept frames
-    and, with hists, the kept fp32 histories (z_hist (K, N, M, Dzl, Hc,
-    Wc), r_hist (K-1, N, Cp, Dzl, Hc, Wc))."""
+    and, with hists, the kept histories at hist_dtype() (z_hist (K, N, M,
+    Dzl, Hc, Wc), r_hist (K-1, N, Cp, Dzl, Hc, Wc)), copied (and in bf16
+    rounded) from the fp32 carries."""
     K = wa.shape[0]
     y2e = win.ext(y2k)
     z = lista3d_ana_threshold(-y2e, None, wa[0], tau[0], geom)
     z_hist = r_hist = None
     if hists:
         N, _, Dzl, Hc, Wc = y2k.shape
-        z_hist = y2k.new_empty((K, N, wa.shape[-1], Dzl, Hc, Wc))
-        r_hist = y2k.new_empty((K - 1, *y2k.shape))
+        dtype = hist_dtype()
+        z_hist = y2k.new_empty((K, N, wa.shape[-1], Dzl, Hc, Wc), dtype=dtype)
+        r_hist = y2k.new_empty((K - 1, *y2k.shape), dtype=dtype)
         z_hist[0].copy_(z.narrow(2, win.lo, win.Dzl))
     for k in range(1, K):
         win.refresh(z)

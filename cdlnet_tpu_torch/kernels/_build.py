@@ -32,17 +32,17 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # entry point -> argtypes (pointers, then ints and floats, then the stream)
 SIGNATURES = {
-    "lista3d_ana_threshold": [_P] * 5 + [_I] * 19 + [_P],
-    "lista3d_syn_residual": [_P] * 5 + [_I] * 12 + [_P],
-    "lista3d_syn_adjoint": [_P] * 7 + [_I] * 19 + [_F, _P],
+    "lista3d_ana_threshold": [_P] * 6 + [_I] * 19 + [_P],
+    "lista3d_syn_residual": [_P] * 6 + [_I] * 12 + [_P],
+    "lista3d_syn_adjoint": [_P] * 7 + [_I] * 20 + [_F, _P],
     "lista3d_syn_adjoint_parts": [_I] * 9,
-    "lista3d_wgrad": [_P] * 5 + [_I] * 14 + [_F, _P],
+    "lista3d_wgrad": [_P] * 5 + [_I] * 15 + [_F, _P],
     "lista3d_wgrad_grid": [_I] * 6 + [_P],
-    "lista2d_syn_adjoint": [_P] * 7 + [_I] * 14 + [_F, _P],
+    "lista2d_syn_adjoint": [_P] * 7 + [_I] * 15 + [_F, _P],
     "lista2d_syn_adjoint_parts": [_I] * 7,
     "lista2d_syn_adjoint_csr_parts": [_I] * 2,
-    "lista2d_ana_threshold": [_P] * 5 + [_I] * 14 + [_P],
-    "lista2d_syn_residual": [_P] * 5 + [_I] * 9 + [_P],
+    "lista2d_ana_threshold": [_P] * 6 + [_I] * 14 + [_P],
+    "lista2d_syn_residual": [_P] * 6 + [_I] * 9 + [_P],
     "lista2d_launch_grid": [_I] * 8 + [_P],
     "lista2d_ana_csr": [_P] * 8 + [_I] * 14 + [_P],
     "lista2d_ana_csrf2": [_P] * 10 + [_I] * 14 + [_P],

@@ -2,8 +2,10 @@
 cdlnet_tpu/kernels/autodiff.py's lista2d_fused_diff / lista2d_tiled_diff,
 lista3d_fused_diff and csr_fused_2d_train).
 
-lista2d_fused_diff and lista3d_fused_diff run the kernel forward with fp32
-histories and the reverse loop of kernels/lista2d_bwd.py or
+lista2d_fused_diff and lista3d_fused_diff run the kernel forward with its
+histories at hist_dtype() (bf16 unless CDLNET_HIST_DTYPE=f32, read at
+every forward: the JAX package's default; hist3d_dtype is its 3D alias
+there and here) and the reverse loop of kernels/lista2d_bwd.py or
 kernels/lista3d_bwd.py as its backward, through one
 torch.autograd.Function on phase-domain operands: the Function returns the
 gradients of the phase banks and of the per-sample thresholds, and torch
@@ -21,7 +23,8 @@ gradients (saliency, input optimization) use backend "xla".
 
 The frame-recurrent CSR models train through csr_fused_2d_train, a
 Function of its own: it returns the code z beside x, and its gradients
-reach the carried neighbour codes and the gamma banks too (below).
+reach the carried neighbour codes and the gamma banks too (below). Its
+histories stay fp32 whatever hist_dtype() says.
 
 On CPU tensors the same Functions run the kernels' plain versions, so the
 reverse loop is the port's own on either device, never torch autograd
@@ -34,8 +37,13 @@ import torch
 
 from cdlnet_tpu_torch.kernels import lista2d, lista3d
 from cdlnet_tpu_torch.kernels.lista2d_bwd import lista2d_fused_bwd
+from cdlnet_tpu_torch.kernels.lista3d import hist_dtype
 from cdlnet_tpu_torch.kernels.lista3d_bwd import lista3d_fused_bwd
 from cdlnet_tpu_torch.ops import polyphase as pp
+
+# the 3D training histories' dtype (cdlnet_tpu/kernels/autodiff.py::
+# hist3d_dtype): the same setting as the 2D one
+hist3d_dtype = hist_dtype
 
 RETURN_Z_HINT = (
     "backend 'pallas'/'cuda' forward with return_z=True under autograd runs "
@@ -53,7 +61,8 @@ _PATHS = {
 
 class _ListaFused(torch.autograd.Function):
     """x2 = the fused loop on (y2, m2, wa, ws, tau); backward: the reverse
-    loop over the histories the forward stored."""
+    loop over the histories the forward stored, in the dtype they were
+    stored in (hist_dtype() at the forward)."""
 
     @staticmethod
     def forward(ctx, y2, m2, wa, ws, tau, geom, dims):
@@ -105,8 +114,10 @@ class _CsrFused(torch.autograd.Function):
     def forward(ctx, geom, y2, m2, wa, ws, tau, gam1, gam2, zp, za):
         gams = tuple(b for b in (gam1, gam2) if b is not None)
         codes = tuple(z for z in (zp, za) if z is not None)
+        # fp32 histories in every mode, the first frame's soft threshold too:
+        # the CSR models' training keeps them (hist_dtype does not reach it)
         x2, z, hists = lista2d.lista2d_loop(y2, m2, wa, ws, tau, geom, return_hists=True,
-                                            gams=gams, codes=codes)
+                                            gams=gams, codes=codes, hists_dtype=torch.float32)
         z_hist, r_hist, u_hist = (*hists, None)[:3]
         ctx.geom = geom
         ctx.set_materialize_grads(False)

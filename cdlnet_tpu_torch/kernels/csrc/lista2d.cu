@@ -37,6 +37,12 @@
 //       dv, add the neighbour codes' cotangents into dzp (dza) in place, and
 //       reduce dtau, dgam1 (dgam2) per (n, m) in a fixed order.
 //
+// The soft-threshold training histories in bf16 (kernels/lista3d.py::
+// hist_dtype; the TPU kernel K5's bf16 `hist` rows): lista2d_ana_threshold
+// and lista2d_syn_residual also store their output rounded to nearest even
+// into `hist`, and lista2d_syn_adjoint reads bf16 codes (z_bf16). The CSR
+// entries keep fp32 histories.
+//
 // Every entry runs on the tensor cores in 3xTF32 (lista2d_mma.cuh says what
 // bounds them and how their tiling fills the card at a single 128^2 image):
 // the analyses (ST, CSR, and the ST and CSR adjoints) share one mainloop
@@ -90,15 +96,16 @@ extern "C" {
 
 // z_out = ST(z_old - A_k * r, tau): r (N, Cp, H, W); wt (Cp, Qh, Qw, M);
 // z_old/z_out (N, M, H, W), z_old may be NULL (zeros) or equal to z_out;
-// tau (N, M). s, P, pad: the stride, kernel and padding of the strided
-// conv the phase form rewrites (s = 0 runs every tap).
+// tau (N, M); hist: NULL, or a bf16 (N, M, H, W) that takes z_out rounded
+// to nearest even. s, P, pad: the stride, kernel and padding of the
+// strided conv the phase form rewrites (s = 0 runs every tap).
 int lista2d_ana_threshold(const float* r, const float* wt, const float* z_old,
-                          const float* tau, float* z_out, int N, int Cp, int M,
+                          const float* tau, float* z_out, void* hist, int N, int Cp, int M,
                           int H, int W, int Qh, int Qw, int oh, int ow, int s,
                           int Ph, int Pw, int ph, int pw, void* stream) {
   const tf32x3::MmaArgs a = analysis_args(r, wt, z_old, tau, z_out, N, Cp, M, H, W, Qh, Qw,
                                           oh, ow, s, Ph, Pw, ph, pw);
-  return mma2d::launch(false, a, (cudaStream_t)stream);
+  return mma2d::launch(false, a, static_cast<__nv_bfloat16*>(hist), (cudaStream_t)stream);
 }
 
 // z_out = prox_csr(z_old - A_k * r, zp; tau, gam): as lista2d_ana_threshold,
@@ -131,14 +138,15 @@ int lista2d_ana_csrf2(const float* r, const float* wt, const float* z_old,
 }
 
 // r_out = [mask *] B_k^T z [- y]: z (N, M, H, W); wt (M, Qh, Qw, Cp)
-// (flipped taps); mask, y (N, Cp, H, W), either may be NULL.
+// (flipped taps); mask, y (N, Cp, H, W), either may be NULL; hist: NULL, or
+// a bf16 (N, Cp, H, W) that takes r_out rounded to nearest even.
 int lista2d_syn_residual(const float* z, const float* wt, const float* mask,
-                         const float* y, float* r_out, int N, int M, int Cp,
+                         const float* y, float* r_out, void* hist, int N, int M, int Cp,
                          int H, int W, int Qh, int Qw, int oh, int ow,
                          void* stream) {
   tf32x3::MmaArgs a = mma_args(z, wt, r_out, N, M, Cp, H, W, Qh, Qw, oh, ow);
   a.mask = mask, a.y = y;
-  return mma2d::launch(true, a, (cudaStream_t)stream);
+  return mma2d::launch(true, a, static_cast<__nv_bfloat16*>(hist), (cudaStream_t)stream);
 }
 
 // Blocks whose dtau partials lista2d_syn_adjoint writes: its work buffer
@@ -152,16 +160,16 @@ int lista2d_syn_adjoint_parts(int N, int Cp, int M, int H, int W, int Qh, int Qw
 // dz = [base +] alpha * (B_k^* g); dv = 1{z != 0} dz; dtau = -sum sign(z) dz:
 // the analysis of g with B's unflipped bank (2D phase map) and the adjoint
 // epilogue. g (N, Cp, H, W); wt (Cp, Qh, Qw, M); base (may be NULL: zeros),
-// z, dv (N, M, H, W); work (parts, N, M); dtau (N, M). s, P, pad as for
-// lista2d_ana_threshold.
-int lista2d_syn_adjoint(const float* g, const float* wt, const float* base, const float* z,
+// z, dv (N, M, H, W), z in bf16 where z_bf16 != 0; work (parts, N, M); dtau
+// (N, M). s, P, pad as for lista2d_ana_threshold.
+int lista2d_syn_adjoint(const float* g, const float* wt, const float* base, const void* z,
                         float* work, float* dv, float* dtau, int N, int Cp, int M, int H,
                         int W, int Qh, int Qw, int oh, int ow, int s, int Ph, int Pw, int ph,
-                        int pw, float alpha, void* stream) {
-  const tf32x3::MmaArgs a = analysis_args(g, wt, z, nullptr, dv, N, Cp, M, H, W, Qh, Qw, oh,
-                                          ow, s, Ph, Pw, ph, pw);
+                        int pw, int z_bf16, float alpha, void* stream) {
+  const tf32x3::MmaArgs a = analysis_args(g, wt, static_cast<const float*>(z), nullptr, dv, N,
+                                          Cp, M, H, W, Qh, Qw, oh, ow, s, Ph, Pw, ph, pw);
   const tf32x3::AdjointArgs e{base, work, alpha};
-  return mma2d::launch_adjoint(a, e, dtau, (cudaStream_t)stream);
+  return mma2d::launch_adjoint(a, e, dtau, z_bf16 != 0, (cudaStream_t)stream);
 }
 
 // Blocks per (n, m) whose partials the CSR adjoints write (the analysis's

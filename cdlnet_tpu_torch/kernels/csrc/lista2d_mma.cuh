@@ -35,6 +35,11 @@
 //       branch of the prox.
 //   lista2d_syn_mma (synthesis): out = [mask *] u [- y].
 //
+// The bf16 training histories (kBf16; lista3d_mma.cuh says how): the ST
+// analysis and the synthesis also store their output's bf16 copy into
+// `hist`, the ST adjoint reads bf16 codes z; the other epilogues take no
+// bf16 operand (the CSR histories stay fp32).
+//
 // The analyses share the mainloop and the code-split launch rule. They
 // replace, for lista2d.cu's lista2d_ana_threshold, lista2d_ana_csr,
 // lista2d_ana_csrf2, lista2d_syn_residual, lista2d_syn_adjoint and
@@ -254,10 +259,13 @@ struct CsrArgs {
 };
 
 // The analysis with epilogue kEpi (an AnaEpilogue); e is read by the
-// adjoints alone, c by the CSR epilogues alone.
-template <int kEpi>
+// adjoints alone, c by the CSR epilogues alone; kBf16 (kAnaSt: the codes'
+// bf16 copy into hist; kAnaAdjoint: bf16 codes a.z).
+template <int kEpi, bool kBf16 = false>
 __global__ void __launch_bounds__(kAnaThreads, kAnaBlocksPerSM)
-lista2d_ana_mma(const MmaArgs a, int BN, bool vec, const AdjointArgs e, const CsrArgs c) {
+lista2d_ana_mma(const MmaArgs a, int BN, bool vec, const AdjointArgs e, const CsrArgs c,
+                __nv_bfloat16* hist) {
+  static_assert(!kBf16 || kEpi == kAnaSt || kEpi == kAnaAdjoint, "bf16: the ST epilogues");
   extern __shared__ float4 smem4[];
   __shared__ __align__(8) uint64_t bar[2];  // the two weight buffers
   float* smem = reinterpret_cast<float*>(smem4);
@@ -432,10 +440,13 @@ lista2d_ana_mma(const MmaArgs a, int BN, bool vec, const AdjointArgs e, const Cs
         if (idx[k] == ~(size_t)0) continue;
         const float4 st = make_float4(soft(v[k].x, tau[k]), soft(v[k].y, tau[k]),
                                       soft(v[k].z, tau[k]), soft(v[k].w, tau[k]));
-        if (vec)
+        if (vec) {
           *reinterpret_cast<float4*>(a.out + idx[k]) = st;
-        else
+          if constexpr (kBf16) store_bf16x4(hist + idx[k], st);
+        } else {
           a.out[idx[k]] = st.x;
+          if constexpr (kBf16) hist[idx[k]] = __float2bfloat16_rn(st.x);
+        }
       }
     }
   } else if constexpr (kEpi == kAnaAdjoint) {
@@ -462,12 +473,19 @@ lista2d_ana_mma(const MmaArgs a, int BN, bool vec, const AdjointArgs e, const Cs
             for (int q = 0; q < gw; ++q) e_s[on * kAnaEP + p + q] = 0.f;
           continue;
         }
+        const __nv_bfloat16* zb = reinterpret_cast<const __nv_bfloat16*>(a.z);
         if (vec) {
           if (e.base) bz[k] = *reinterpret_cast<const float4*>(e.base + idx[k]);
-          zz[k] = *reinterpret_cast<const float4*>(a.z + idx[k]);
+          if constexpr (kBf16)
+            zz[k] = load_bf16x4(zb + idx[k]);
+          else
+            zz[k] = *reinterpret_cast<const float4*>(a.z + idx[k]);
         } else {
           bz[k].x = e.base ? e.base[idx[k]] : 0.f;
-          zz[k].x = a.z[idx[k]];
+          if constexpr (kBf16)
+            zz[k].x = __bfloat162float(zb[idx[k]]);
+          else
+            zz[k].x = a.z[idx[k]];
         }
       }
 #pragma unroll
@@ -769,9 +787,11 @@ __host__ inline int syn_smem_floats(const MmaArgs& a, bool tma) {
 // A-row ya + r0, column n = j * 4 + o is output o of tap r0 + j, which
 // belongs to output row ya - j. So a block reads TH + 1 A-rows for TH
 // output rows, and each A fragment feeds two taps' products.
-template <int TH, bool kTma>
+// kBf16: the output's bf16 copy into hist too.
+template <int TH, bool kTma, bool kBf16 = false>
 __global__ void __launch_bounds__(kSynThreads, kSynBlocksPerSM)
-lista2d_syn_mma(const MmaArgs a, bool vec, __grid_constant__ const CUtensorMap tmap) {
+lista2d_syn_mma(const MmaArgs a, bool vec, __grid_constant__ const CUtensorMap tmap,
+                __nv_bfloat16* hist) {
   constexpr int AR = TH + 1;                  // A-rows
   constexpr int TG = kSynThreads / 32 / AR;   // groups of tap pairs
   static_assert(AR * TG == kSynThreads / 32, "a warp an (A-row, group)");
@@ -944,12 +964,14 @@ lista2d_syn_mma(const MmaArgs a, bool vec, __grid_constant__ const CUtensorMap t
         u.x -= y4.x, u.y -= y4.y, u.z -= y4.z, u.w -= y4.w;
       }
       *reinterpret_cast<float4*>(a.out + idx) = u;
+      if constexpr (kBf16) store_bf16x4(hist + idx, u);
     } else {
       float u = cluster.map_shared_rank(blk, 0)[off];
       for (int k = 1; k < S; ++k) u += cluster.map_shared_rank(blk, k)[off];
       if (a.mask) u *= a.mask[idx];
       if (a.y) u -= a.y[idx];
       a.out[idx] = u;
+      if constexpr (kBf16) hist[idx] = __float2bfloat16_rn(u);
     }
   }
   cluster.sync();  // no block leaves while another reads its sums
@@ -1042,8 +1064,9 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 // strides and z sits on the grid.
 inline bool syn_tma(const MmaArgs& a) { return a.W % 4 == 0 && mis4(a.in) == 0; }
 
-template <int TH, bool kTma>
-int launch_syn(const Launch& l, const MmaArgs& a, bool vec, cudaStream_t stream) {
+template <int TH, bool kTma, bool kBf16>
+int launch_syn(const Launch& l, const MmaArgs& a, bool vec, __nv_bfloat16* hist,
+               cudaStream_t stream) {
   const int smem = (int)sizeof(float) * syn_smem_floats<TH>(a, kTma);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidConfiguration;
   CUtensorMap tmap;
@@ -1064,8 +1087,8 @@ int launch_syn(const Launch& l, const MmaArgs& a, bool vec, cudaStream_t stream)
       return (int)cudaErrorInvalidValue;
   }
   static int limit[64] = {};
-  cudaError_t err =
-      raise_smem_limit(reinterpret_cast<const void*>(lista2d_syn_mma<TH, kTma>), smem, limit);
+  cudaError_t err = raise_smem_limit(
+      reinterpret_cast<const void*>(lista2d_syn_mma<TH, kTma, kBf16>), smem, limit);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = l.grid;
@@ -1079,17 +1102,17 @@ int launch_syn(const Launch& l, const MmaArgs& a, bool vec, cudaStream_t stream)
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, lista2d_syn_mma<TH, kTma>, a, vec, tmap);
+  err = cudaLaunchKernelEx(&cfg, lista2d_syn_mma<TH, kTma, kBf16>, a, vec, tmap, hist);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// One analysis launch with epilogue kEpi by the analysis's launch rule
-// (its grid into l), the dynamic shared-memory limit raised once per size
-// and device.
-template <int kEpi>
+// One analysis launch with epilogue kEpi (and kBf16, with hist) by the
+// analysis's launch rule (its grid into l), the dynamic shared-memory limit
+// raised once per size and device.
+template <int kEpi, bool kBf16 = false>
 int launch_ana(const MmaArgs& a, bool vec, const AdjointArgs& e, const CsrArgs& c, Launch& l,
-               cudaStream_t stream) {
+               cudaStream_t stream, __nv_bfloat16* hist = nullptr) {
   const int q = query(false, a, l);
   if (q != 0) return q;
   if (l.grid.z > 65535) return (int)cudaErrorInvalidConfiguration;
@@ -1097,22 +1120,24 @@ int launch_ana(const MmaArgs& a, bool vec, const AdjointArgs& e, const CsrArgs& 
   if (smem > kMaxSmem) return (int)cudaErrorInvalidConfiguration;
   static int limit[64] = {};
   const cudaError_t err =
-      raise_smem_limit(reinterpret_cast<const void*>(lista2d_ana_mma<kEpi>), smem, limit);
+      raise_smem_limit(reinterpret_cast<const void*>(lista2d_ana_mma<kEpi, kBf16>), smem, limit);
   if (err != cudaSuccess) return (int)err;
-  lista2d_ana_mma<kEpi><<<l.grid, kAnaThreads, smem, stream>>>(a, l.bn, vec, e, c);
+  lista2d_ana_mma<kEpi, kBf16><<<l.grid, kAnaThreads, smem, stream>>>(a, l.bn, vec, e, c, hist);
   return (int)cudaGetLastError();
 }
 
 // The synthesis adjoint: the analysis's launch with the AdjointArgs
-// epilogue, then the dtau partials (one a block of the grid's x: the code
-// blocks of a row write the same partial's other codes) summed over the
-// blocks in a fixed order into dtau (N, O).
-inline int launch_adjoint(const MmaArgs& a, const AdjointArgs& e, float* dtau,
+// epilogue (z_bf16: on bf16 codes a.z), then the dtau partials (one a block
+// of the grid's x: the code blocks of a row write the same partial's other
+// codes) summed over the blocks in a fixed order into dtau (N, O).
+inline int launch_adjoint(const MmaArgs& a, const AdjointArgs& e, float* dtau, bool z_bf16,
                           cudaStream_t stream) {
   if (!a.z) return (int)cudaErrorInvalidValue;
-  const bool vec = vec_epilogue(a) && (!e.base || mis4(e.base) == 0);
+  const bool vec =
+      (z_bf16 ? vec_epilogue_bf16(a, a.z) : vec_epilogue(a)) && (!e.base || mis4(e.base) == 0);
   Launch l;
-  const int err = launch_ana<kAnaAdjoint>(a, vec, e, CsrArgs{}, l, stream);
+  const int err = z_bf16 ? launch_ana<kAnaAdjoint, true>(a, vec, e, CsrArgs{}, l, stream)
+                         : launch_ana<kAnaAdjoint>(a, vec, e, CsrArgs{}, l, stream);
   if (err != 0) return err;
   return launch_sum_parts(e.part, dtau, a.N * a.O, (int)l.grid.x, stream);
 }
@@ -1154,18 +1179,27 @@ inline int launch_csr(const MmaArgs& a, const CsrArgs& c, bool f2, cudaStream_t 
             : launch_ana<kAnaCsr>(a, vec, AdjointArgs{}, c, l, stream);
 }
 
-inline int launch(bool synthesis, const MmaArgs& a, cudaStream_t stream) {
+// The forward pair; hist: NULL, or the bf16 history slice (N, O, H, W)
+// that takes the output's rounded copy.
+template <bool kBf16>
+int launch_pair(bool synthesis, const MmaArgs& a, __nv_bfloat16* hist, cudaStream_t stream) {
   Launch l;
-  const bool vec = vec_epilogue(a);
-  if (!synthesis) return launch_ana<kAnaSt>(a, vec, AdjointArgs{}, CsrArgs{}, l, stream);
+  const bool vec = kBf16 ? vec_epilogue_bf16(a, hist) : vec_epilogue(a);
+  if (!synthesis)
+    return launch_ana<kAnaSt, kBf16>(a, vec, AdjointArgs{}, CsrArgs{}, l, stream, hist);
   const int q = query(true, a, l);
   if (q != 0) return q;
   if (l.grid.z > 65535) return (int)cudaErrorInvalidConfiguration;
   if (syn_tma(a))
-    return l.rows == 7 ? launch_syn<7, true>(l, a, vec, stream)
-                       : launch_syn<3, true>(l, a, vec, stream);
-  return l.rows == 7 ? launch_syn<7, false>(l, a, vec, stream)
-                     : launch_syn<3, false>(l, a, vec, stream);
+    return l.rows == 7 ? launch_syn<7, true, kBf16>(l, a, vec, hist, stream)
+                       : launch_syn<3, true, kBf16>(l, a, vec, hist, stream);
+  return l.rows == 7 ? launch_syn<7, false, kBf16>(l, a, vec, hist, stream)
+                     : launch_syn<3, false, kBf16>(l, a, vec, hist, stream);
+}
+
+inline int launch(bool synthesis, const MmaArgs& a, __nv_bfloat16* hist, cudaStream_t stream) {
+  return hist ? launch_pair<true>(synthesis, a, hist, stream)
+              : launch_pair<false>(synthesis, a, nullptr, stream);
 }
 
 }  // namespace mma2d

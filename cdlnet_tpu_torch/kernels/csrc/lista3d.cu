@@ -20,6 +20,12 @@
 //       analysis of g (Cp channels) with B's unflipped bank, dz = [base +]
 //       alpha * out, dv = 1{z != 0} dz, dtau[n, m] = -sum sign(z) dz.
 //
+// The training histories in bf16 (the JAX package's default, its
+// hist_dtype; kernels/lista3d.py::hist_dtype here): the forward pair's
+// `hist` also takes its output rounded to nearest even as bf16 (the TPU
+// kernels' bf16 history stores, K1's and the ring's), with the fp32 output
+// still the iteration's carry; the adjoint reads bf16 codes z (z_bf16).
+//
 // Plain C interface for ctypes: each entry returns cudaGetLastError() (or
 // the first CUDA error met) as an int; 0 means launched.
 
@@ -29,11 +35,12 @@ extern "C" {
 
 // z_out = ST(z_old - A_k * r, tau): r (N, Cp, D, H, W); wt (Cp, Qd, Qh, Qw,
 // M); z_old/z_out (N, M, D, H, W), z_old may be NULL (zeros) or equal to
-// z_out (each output reads only its own z element); tau (N, M). s, P, pad:
-// the stride, kernel and padding of the strided conv the phase form
+// z_out (each output reads only its own z element); tau (N, M); hist: NULL,
+// or a bf16 (N, M, D, H, W) that takes z_out rounded to nearest even. s, P,
+// pad: the stride, kernel and padding of the strided conv the phase form
 // rewrites (s = 0 runs every tap).
 int lista3d_ana_threshold(const float* r, const float* wt, const float* z_old,
-                          const float* tau, float* z_out, int N, int Cp, int M,
+                          const float* tau, float* z_out, void* hist, int N, int Cp, int M,
                           int D, int H, int W, int Qd, int Qh, int Qw, int od,
                           int oh, int ow, int s, int Pd, int Ph, int Pw,
                           int pd, int ph, int pw, void* stream) {
@@ -43,20 +50,21 @@ int lista3d_ana_threshold(const float* r, const float* wt, const float* z_old,
   a.Qd = Qd, a.Qh = Qh, a.Qw = Qw, a.od = od, a.oh = oh, a.ow = ow;
   a.s = s, a.P[0] = Pd, a.P[1] = Ph, a.P[2] = Pw;
   a.pad[0] = pd, a.pad[1] = ph, a.pad[2] = pw;
-  return mma3d::launch(false, a, (cudaStream_t)stream);
+  return mma3d::launch(false, a, static_cast<__nv_bfloat16*>(hist), (cudaStream_t)stream);
 }
 
 // r_out = [mask *] B_k^T z [- y]: z (N, M, D, H, W); wt (M, Qd, Qh, Qw, Cp)
-// (flipped taps); mask, y (N, Cp, D, H, W), either may be NULL.
+// (flipped taps); mask, y (N, Cp, D, H, W), either may be NULL; hist: NULL,
+// or a bf16 (N, Cp, D, H, W) that takes r_out rounded to nearest even.
 int lista3d_syn_residual(const float* z, const float* wt, const float* mask,
-                         const float* y, float* r_out, int N, int M, int Cp,
+                         const float* y, float* r_out, void* hist, int N, int M, int Cp,
                          int D, int H, int W, int Qd, int Qh, int Qw, int od,
                          int oh, int ow, void* stream) {
   mma3d::MmaArgs a{};
   a.in = z, a.wt = wt, a.out = r_out, a.mask = mask, a.y = y;
   a.N = N, a.I = M, a.O = Cp, a.D = D, a.H = H, a.W = W;
   a.Qd = Qd, a.Qh = Qh, a.Qw = Qw, a.od = od, a.oh = oh, a.ow = ow;
-  return mma3d::launch(true, a, (cudaStream_t)stream);
+  return mma3d::launch(true, a, static_cast<__nv_bfloat16*>(hist), (cudaStream_t)stream);
 }
 
 // Blocks whose dtau partials lista3d_syn_adjoint writes: its work buffer
@@ -71,21 +79,21 @@ int lista3d_syn_adjoint_parts(int N, int Cp, int M, int D, int H, int W, int Qd,
 // dz = [base +] alpha * (B_k^* g); dv = 1{z != 0} dz; dtau = -sum sign(z) dz:
 // the analysis of g with B's unflipped bank and the adjoint epilogue. g (N,
 // Cp, D, H, W); wt (Cp, Qd, Qh, Qw, M); base (may be NULL: zeros), z, dv (N,
-// M, D, H, W); work (parts, N, M); dtau (N, M). s, P, pad as for
-// lista3d_ana_threshold.
-int lista3d_syn_adjoint(const float* g, const float* wt, const float* base, const float* z,
+// M, D, H, W), z in bf16 where z_bf16 != 0; work (parts, N, M); dtau (N, M).
+// s, P, pad as for lista3d_ana_threshold.
+int lista3d_syn_adjoint(const float* g, const float* wt, const float* base, const void* z,
                         float* work, float* dv, float* dtau, int N, int Cp, int M, int D,
                         int H, int W, int Qd, int Qh, int Qw, int od, int oh, int ow, int s,
-                        int Pd, int Ph, int Pw, int pd, int ph, int pw, float alpha,
+                        int Pd, int Ph, int Pw, int pd, int ph, int pw, int z_bf16, float alpha,
                         void* stream) {
   mma3d::MmaArgs a{};
-  a.in = g, a.wt = wt, a.out = dv, a.z = z;
+  a.in = g, a.wt = wt, a.out = dv, a.z = static_cast<const float*>(z);
   a.N = N, a.I = Cp, a.O = M, a.D = D, a.H = H, a.W = W;
   a.Qd = Qd, a.Qh = Qh, a.Qw = Qw, a.od = od, a.oh = oh, a.ow = ow;
   a.s = s, a.P[0] = Pd, a.P[1] = Ph, a.P[2] = Pw;
   a.pad[0] = pd, a.pad[1] = ph, a.pad[2] = pw;
   const tf32x3::AdjointArgs e{base, work, alpha};
-  return mma3d::launch_adjoint(a, e, dtau, (cudaStream_t)stream);
+  return mma3d::launch_adjoint(a, e, dtau, z_bf16 != 0, (cudaStream_t)stream);
 }
 
 }  // extern "C"

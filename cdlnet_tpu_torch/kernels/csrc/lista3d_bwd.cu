@@ -64,11 +64,22 @@
 //   block count and the SM count); each block writes its partial sums of
 //   its rows, and fold_rows sums the splits in ascending order (and writes
 //   the zero rows). No float atomics: two runs are bitwise equal.
+// - bf16 training histories (kernels/lista3d.py::hist_dtype; kHist): dA's
+//   x (the residual r_{k-1}) or dB's y (the codes z_{k-1}) may be a bf16
+//   history. Its rows stage by the same bulk copies, as bf16 (RowStager on
+//   bf16 elements: the 16-byte grid is 8 of them, so the aligned path asks
+//   for W % 8 == 0 and an aligned history, and every other width stages
+//   each row at its own offset), and each fragment load converts its value
+//   to fp32, exactly. A bf16 value has 8 significant bits, so the 3xTF32
+//   split's low part is zero and hi is the value: the products are those of
+//   the fp32 kernel on the rounded operand, less the one with the zero low
+//   part (two products of the three a tile; a zero product adds nothing).
 //
 // Plain C interface for ctypes: each entry returns cudaGetLastError() (or
 // the first CUDA error met) as an int; 0 means launched.
 
 #include <algorithm>
+#include <type_traits>
 
 #include "mma_tf32.cuh"
 
@@ -85,6 +96,7 @@ constexpr int kBO = 192;           // codes a block (12 m16 tiles; zero rows pas
 static_assert(4 * kNT * 8 == 128, "the wrapper's row blocks");
 constexpr int kXCH = 8;            // input channels a block stages
 constexpr int kYS = 68;            // floats between staged y rows: 4 mod 32
+constexpr int kYSb = 72;           // bf16 y rows: 144 bytes apart, 4 mod 32 words
 
 struct Args {
   MmaArgs x;         // x (N, I, D, H, W) with the taps and offsets
@@ -117,29 +129,37 @@ __device__ inline void mma_tf32_first(float* d, const uint32_t* a, const uint32_
 // kNT tiles' chains are interleaved: no product waits on the one just
 // before it. No branch: the loads and splits of the next code tile can be
 // scheduled under this one's products.
-template <int MT>
-__device__ inline void stage_products(float (&acc)[kMT][kNT][4], const float* const (&xb)[kNT],
-                                      const bool (&xok)[kNT], const float* const (&ya)[kMT][2]) {
+template <int MT, typename TX, typename TY>
+__device__ inline void stage_products(float (&acc)[kMT][kNT][4], const TX* const (&xb)[kNT],
+                                      const bool (&xok)[kNT], const TY* const (&ya)[kMT][2]) {
 #pragma unroll
   for (int k0 = 0; k0 < kTW; k0 += 8) {
     uint32_t bhi[kNT][2], blo[kNT][2];
 #pragma unroll
     for (int jj = 0; jj < kNT; ++jj) {
-      split_rn(xok[jj] ? xb[jj][k0] : 0.f, bhi[jj][0], blo[jj][0]);
-      split_rn(xok[jj] ? xb[jj][k0 + 4] : 0.f, bhi[jj][1], blo[jj][1]);
+      split_rn(xok[jj] ? to_f(xb[jj][k0]) : 0.f, bhi[jj][0], blo[jj][0]);
+      split_rn(xok[jj] ? to_f(xb[jj][k0 + 4]) : 0.f, bhi[jj][1], blo[jj][1]);
     }
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       uint32_t ahi[4], alo[4];
-      split_rn(ya[mt][0][k0], ahi[0], alo[0]);
-      split_rn(ya[mt][1][k0], ahi[1], alo[1]);
-      split_rn(ya[mt][0][k0 + 4], ahi[2], alo[2]);
-      split_rn(ya[mt][1][k0 + 4], ahi[3], alo[3]);
+      split_rn(to_f(ya[mt][0][k0]), ahi[0], alo[0]);
+      split_rn(to_f(ya[mt][1][k0]), ahi[1], alo[1]);
+      split_rn(to_f(ya[mt][0][k0 + 4]), ahi[2], alo[2]);
+      split_rn(to_f(ya[mt][1][k0 + 4]), ahi[3], alo[3]);
       float part[kNT][4];
+      // a bf16 operand's low part is zero, and so its product: it is skipped
+      if constexpr (sizeof(TY) == 4) {
 #pragma unroll
-      for (int jj = 0; jj < kNT; ++jj) mma_tf32_first(part[jj], alo, bhi[jj]);
+        for (int jj = 0; jj < kNT; ++jj) mma_tf32_first(part[jj], alo, bhi[jj]);
+        if constexpr (sizeof(TX) == 4) {
 #pragma unroll
-      for (int jj = 0; jj < kNT; ++jj) mma_tf32(part[jj], ahi, blo[jj]);
+          for (int jj = 0; jj < kNT; ++jj) mma_tf32(part[jj], ahi, blo[jj]);
+        }
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < kNT; ++jj) mma_tf32_first(part[jj], ahi, blo[jj]);
+      }
 #pragma unroll
       for (int jj = 0; jj < kNT; ++jj) mma_tf32(part[jj], ahi, bhi[jj]);
 #pragma unroll
@@ -150,15 +170,20 @@ __device__ inline void stage_products(float (&acc)[kMT][kNT][4], const float* co
   }
 }
 
-template <bool kRagged>
+// kHist: which operand is a bf16 history (0 none, 1 x, 2 y); its staged
+// tile holds bf16 elements in the fp32 layout's room.
+template <bool kRagged, int kHist = 0>
 __global__ void __launch_bounds__(kThreads, 1) lista3d_wgrad_mma(const Args w) {
+  using TX = std::conditional_t<kHist == 1, __nv_bfloat16, float>;
+  using TY = std::conditional_t<kHist == 2, __nv_bfloat16, float>;
+  constexpr int kYST = kHist == 2 ? kYSb : kYS;
   extern __shared__ float4 smem4[];
   __shared__ __align__(8) uint64_t bar[2];  // the two buffers
   float* smem = reinterpret_cast<float*>(smem4);
   const MmaArgs& xa = w.x;
-  const Tile tlx(xa, 1);
-  Tile tly(w.y, 1);
-  tly.slab = kYS;
+  const Tile tlx = tile_of<TX>(xa, 1);
+  Tile tly = tile_of<TY>(w.y, 1);
+  tly.slab = kYST;
   const int xfl = x_floats(xa), buf = buf_floats(xa);
   const int T = xa.Qd * xa.Qh * xa.Qw, O = w.y.I;
   const int* slots = w.table + xa.I * T;
@@ -206,14 +231,14 @@ __global__ void __launch_bounds__(kThreads, 1) lista3d_wgrad_mma(const Args w) {
     int n, d, h, w0;
     at(sidx, n, d, h, w0);
     float* bx = smem + b * buf;
-    const RowStager<kThreads, kXCH> rx(xa, tlx, n, d, h, w0);
-    const RowStager<kThreads, kBO> ry(w.y, tly, n, d, h, w0);
+    const RowStager<kThreads, kXCH, TX> rx(xa, tlx, n, d, h, w0);
+    const RowStager<kThreads, kBO, TY> ry(w.y, tly, n, d, h, w0);
     if (kRagged) {
-      rx.stage(bx, c_lo, &bar[b]);
-      ry.stage(bx + xfl, o0, &bar[b]);
+      rx.stage(reinterpret_cast<TX*>(bx), c_lo, &bar[b]);
+      ry.stage(reinterpret_cast<TY*>(bx + xfl), o0, &bar[b]);
     } else {
-      rx.stage_aligned(bx, c_lo, &bar[b]);
-      ry.stage_aligned(bx + xfl, o0, &bar[b]);
+      rx.stage_aligned(reinterpret_cast<TX*>(bx), c_lo, &bar[b]);
+      ry.stage_aligned(reinterpret_cast<TY*>(bx + xfl), o0, &bar[b]);
     }
     mbar_arrive(&bar[b]);
   };
@@ -230,9 +255,10 @@ __global__ void __launch_bounds__(kThreads, 1) lista3d_wgrad_mma(const Args w) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][jj][e] = 0.f;
 
-  // aligned rows (W % 4 == 0, x and y on the 16-byte grid): every staged x
-  // row sits (w0 + ow) % 4 = ow % 4 floats in, every y row at 0
-  const unsigned shx0 = (unsigned)xa.ow & 3u;
+  // aligned rows (W a multiple of the 16-byte grid, x and y on it): every
+  // staged x row sits (w0 + ow) % kGrid = ow % kGrid elements in, every y
+  // row at 0
+  const unsigned shx0 = (unsigned)xa.ow & (unsigned)(kGrid<TX> - 1);
   fence_proxy_async();
   if (st0 < st1) stage(st0, 0);
   for (int j = 0, sidx = st0; sidx < st1; ++j, ++sidx) {
@@ -240,11 +266,14 @@ __global__ void __launch_bounds__(kThreads, 1) lista3d_wgrad_mma(const Args w) {
     mbar_wait(&bar[b], (j >> 1) & 1);
     int n, d, h, w0;
     at(sidx, n, d, h, w0);
-    const RowStager<kThreads, kXCH> rx(xa, tlx, n, d, h, w0);
-    const RowStager<kThreads, kBO> ry(w.y, tly, n, d, h, w0);
-    const float* bx = smem + b * buf;
-    const float* by = bx + xfl;
-    if (kRagged) rx.fix(smem + b * buf, c_lo), ry.fix(smem + b * buf + xfl, o0);
+    const RowStager<kThreads, kXCH, TX> rx(xa, tlx, n, d, h, w0);
+    const RowStager<kThreads, kBO, TY> ry(w.y, tly, n, d, h, w0);
+    const float* bxf = smem + b * buf;
+    const TX* bx = reinterpret_cast<const TX*>(bxf);
+    const TY* by = reinterpret_cast<const TY*>(bxf + xfl);
+    if (kRagged)
+      rx.fix(reinterpret_cast<TX*>(smem + b * buf), c_lo),
+          ry.fix(reinterpret_cast<TY*>(smem + b * buf + xfl), o0);
     // the stage has landed for every thread, and every warp is done with
     // buffer b ^ 1, which the next stage's copies fill
     __syncthreads();
@@ -254,20 +283,20 @@ __global__ void __launch_bounds__(kThreads, 1) lista3d_wgrad_mma(const Args w) {
     }
     // this lane's B column starts, and its A rows' (codes g and g + 8 of
     // each m16 tile) offsets from the grid
-    const float* xb[kNT];
+    const TX* xb[kNT];
 #pragma unroll
     for (int jj = 0; jj < kNT; ++jj) {
       const int ci = xline[jj] / per_ch, qq = xline[jj] % per_ch;
       const unsigned sh = kRagged ? rx.sh(rx.sh0(c_lo, ci), qq / xa.Qh, qq % xa.Qh) : shx0;
       xb[jj] = bx + ci * tlx.slab + qq * tlx.pitch + xcol[jj] + sh + t;
     }
-    const float* ya[kMT][2];
+    const TY* ya[kMT][2];
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const int ol = min(16 * (mw * wc + mt) + 8 * hf + g, kBO - 1);  // past mw: unread
-        ya[mt][hf] = by + ol * kYS + (kRagged ? ry.sh(ry.sh0(o0, ol), 0, 0) : 0u) + t;
+        ya[mt][hf] = by + ol * kYST + (kRagged ? ry.sh(ry.sh0(o0, ol), 0, 0) : 0u) + t;
       }
     if (mw == 4)
       stage_products<4>(acc, xb, xok, ya);
@@ -329,12 +358,29 @@ inline int launch_of(int RB, int O, int N, int D, int H, int W, Launch& l) {
   return l.grid.z > 65535 ? (int)cudaErrorInvalidConfiguration : 0;
 }
 
+// The tensor-core kernel's launch with kHist.
+template <int kHist>
+inline int launch_mma(const Args& w, const dim3& grid, int smem, bool ragged,
+                      cudaStream_t stream) {
+  const void* kern = ragged ? reinterpret_cast<const void*>(lista3d_wgrad_mma<true, kHist>)
+                            : reinterpret_cast<const void*>(lista3d_wgrad_mma<false, kHist>);
+  static int limit[2][64] = {};
+  const cudaError_t err = raise_smem_limit(kern, smem, limit[ragged]);
+  if (err != cudaSuccess) return (int)err;
+  if (ragged)
+    lista3d_wgrad_mma<true, kHist><<<grid, kThreads, smem, stream>>>(w);
+  else
+    lista3d_wgrad_mma<false, kHist><<<grid, kThreads, smem, stream>>>(w);
+  return (int)cudaGetLastError();
+}
+
 // The weight gradient of x and y on the table's rows: the tensor-core
-// kernel, then fold_rows.
+// kernel, then fold_rows. hist: 0, or 1 (2) where x (y) is a bf16 history.
 inline int launch(const MmaArgs& x, const MmaArgs& y, const int* table, float* work, float* dw,
-                  int R, int RB, float alpha, cudaStream_t stream) {
+                  int R, int RB, float alpha, int hist, cudaStream_t stream) {
   const int O = y.I;
-  if (x.I <= 0 || x.Qd <= 0 || x.Qh <= 0 || x.Qw <= 0 || R <= 0 || x.Qw > 255)
+  if (x.I <= 0 || x.Qd <= 0 || x.Qh <= 0 || x.Qw <= 0 || R <= 0 || x.Qw > 255 || hist < 0 ||
+      hist > 2)
     return (int)cudaErrorInvalidValue;
   if ((long long)x.N * std::max(x.I, O) * x.D * x.H * x.W >= (1LL << 31) ||
       (long long)x.I * x.Qd * x.Qh * x.Qw * O >= (1LL << 31))
@@ -345,18 +391,17 @@ inline int launch(const MmaArgs& x, const MmaArgs& y, const int* table, float* w
   const Args w{x, y, table, work, R, l.chunk, l.stages};
   const int smem = (int)sizeof(float) * 2 * buf_floats(x);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidConfiguration;
-  const bool ragged = x.W % 4 != 0 || mis4(x.in) != 0 || mis4(y.in) != 0;
-  const void* kern = ragged ? reinterpret_cast<const void*>(lista3d_wgrad_mma<true>)
-                            : reinterpret_cast<const void*>(lista3d_wgrad_mma<false>);
-  static int limit[2][64] = {};
-  cudaError_t err = raise_smem_limit(kern, smem, limit[ragged]);
-  if (err != cudaSuccess) return (int)err;
-  if (ragged)
-    lista3d_wgrad_mma<true><<<l.grid, kThreads, smem, stream>>>(w);
-  else
-    lista3d_wgrad_mma<false><<<l.grid, kThreads, smem, stream>>>(w);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  // rows on the 16-byte grid: a width of whole 16-byte units (8 bf16
+  // values where an operand is a history) and both operands on the grid
+  const auto off_grid = [](const void* p, bool bf16) {
+    return bf16 ? mis<__nv_bfloat16>(p) != 0 : mis4(p) != 0;
+  };
+  const bool ragged =
+      x.W % (hist ? 8 : 4) != 0 || off_grid(x.in, hist == 1) || off_grid(y.in, hist == 2);
+  const int err = hist == 0   ? launch_mma<0>(w, l.grid, smem, ragged, stream)
+                  : hist == 1 ? launch_mma<1>(w, l.grid, smem, ragged, stream)
+                              : launch_mma<2>(w, l.grid, smem, ragged, stream);
+  if (err != 0) return err;
   const int rows = x.I * x.Qd * x.Qh * x.Qw;
   const long long total = (long long)rows * O;
   fold_rows<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(work, table, dw, rows, O, R,
@@ -384,17 +429,17 @@ int lista3d_wgrad_grid(int RB, int O, int N, int D, int H, int W, int* out) {
 // or -1 for a row written as zeros; the R slots' rows in ascending order;
 // the first slot of each of RB row blocks, then R: a block holds at most
 // 128 rows of at most 8 consecutive input channels). x (N, I, D, H, W); y
-// (N, O, D, H, W); work (splits, R, O); dw (I, Qd, Qh, Qw, O); off = (od,
-// oh, ow).
-int lista3d_wgrad(const float* x, const float* y, const int* table, float* work, float* dw,
+// (N, O, D, H, W); hist: 0 (both fp32), 1 (x in bf16) or 2 (y in bf16);
+// work (splits, R, O); dw (I, Qd, Qh, Qw, O); off = (od, oh, ow).
+int lista3d_wgrad(const void* x, const void* y, const int* table, float* work, float* dw,
                   int N, int I, int O, int D, int H, int W, int Qd, int Qh, int Qw, int od,
-                  int oh, int ow, int R, int RB, float alpha, void* stream) {
+                  int oh, int ow, int R, int RB, int hist, float alpha, void* stream) {
   tf32x3::MmaArgs xa{}, ya{};
-  xa.in = x, xa.N = N, xa.I = I, xa.D = D, xa.H = H, xa.W = W;
+  xa.in = static_cast<const float*>(x), xa.N = N, xa.I = I, xa.D = D, xa.H = H, xa.W = W;
   xa.Qd = Qd, xa.Qh = Qh, xa.Qw = Qw, xa.od = od, xa.oh = oh, xa.ow = ow;
-  ya.in = y, ya.N = N, ya.I = O, ya.D = D, ya.H = H, ya.W = W;
+  ya.in = static_cast<const float*>(y), ya.N = N, ya.I = O, ya.D = D, ya.H = H, ya.W = W;
   ya.Qd = ya.Qh = ya.Qw = 1;
-  return wgrad::launch(xa, ya, table, work, dw, R, RB, alpha, (cudaStream_t)stream);
+  return wgrad::launch(xa, ya, table, work, dw, R, RB, alpha, hist, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -16,6 +16,15 @@
 //       blocks in a fixed order). The same mainloop, with the round-to-nearest split.
 //   lista3d_syn_mma (synthesis): out = [mask *] u [- y].
 //
+// The bf16 training histories (kBf16, kernels/lista3d.py::hist_dtype): the
+// forward analysis and the synthesis also store their fp32 output, rounded
+// to nearest even, as bf16 into the history slice `hist`, in the same
+// epilogue (8 bytes a group of 4 positions where the fp32 store is 16); the
+// adjoint reads the codes z as bf16, for their zeros and signs alone, which
+// bf16 keeps. The fp32 arithmetic is the same, so the fp32 outputs are
+// bitwise those of the kBf16 = false instantiations, which the parameter
+// leaves as they were.
+//
 // They replace, for lista3d.cu's entry points, the TPU kernels
 // cdlnet_tpu/kernels/lista3d.py::_kernel_resident (K1) and _kernel_syn /
 // _kernel_ana (K3), the banded pair lista3d_tiled.py::_kernel_syn3_band /
@@ -189,11 +198,12 @@ __device__ inline void ana_products(float (&acc)[2][kAnaNT][4], const uint32_t (
 }
 
 // The analysis: kAdj false, the forward's soft threshold (truncating split;
-// e unread); kAdj true, the reverse pass's synthesis adjoint (AdjointArgs,
-// the round-to-nearest split).
-template <bool kAdj>
+// e unread), with kBf16 also its bf16 copy into hist; kAdj true, the
+// reverse pass's synthesis adjoint (AdjointArgs, the round-to-nearest
+// split), with kBf16 on bf16 codes a.z (hist unread).
+template <bool kAdj, bool kBf16 = false>
 __global__ void __launch_bounds__(kAnaThreads, 2)
-lista3d_ana_mma(const MmaArgs a, bool vec, const AdjointArgs e) {
+lista3d_ana_mma(const MmaArgs a, bool vec, const AdjointArgs e, __nv_bfloat16* hist) {
   extern __shared__ float4 smem4[];
   __shared__ __align__(8) uint64_t bar[2];  // the two weight buffers
   float* smem = reinterpret_cast<float*>(smem4);
@@ -381,10 +391,13 @@ lista3d_ana_mma(const MmaArgs a, bool vec, const AdjointArgs e) {
         if (idx[k] == ~(size_t)0) continue;
         const float4 st = make_float4(soft(v[k].x, tau[k]), soft(v[k].y, tau[k]),
                                       soft(v[k].z, tau[k]), soft(v[k].w, tau[k]));
-        if (v4)
+        if (v4) {
           *reinterpret_cast<float4*>(a.out + idx[k]) = st;
-        else
+          if constexpr (kBf16) store_bf16x4(hist + idx[k], st);
+        } else {
           a.out[idx[k]] = st.x;
+          if constexpr (kBf16) hist[idx[k]] = __float2bfloat16_rn(st.x);
+        }
       }
     }
   } else {
@@ -413,12 +426,19 @@ lista3d_ana_mma(const MmaArgs a, bool vec, const AdjointArgs e) {
             for (int q = 0; q < gw; ++q) e_s[on * kAnaEP + p + q] = 0.f;
           continue;
         }
+        const __nv_bfloat16* zb = reinterpret_cast<const __nv_bfloat16*>(a.z);
         if (vec) {
           if (e.base) bz[k] = *reinterpret_cast<const float4*>(e.base + idx[k]);
-          zz[k] = *reinterpret_cast<const float4*>(a.z + idx[k]);
+          if constexpr (kBf16)
+            zz[k] = load_bf16x4(zb + idx[k]);
+          else
+            zz[k] = *reinterpret_cast<const float4*>(a.z + idx[k]);
         } else {
           bz[k].x = e.base ? e.base[idx[k]] : 0.f;
-          zz[k].x = a.z[idx[k]];
+          if constexpr (kBf16)
+            zz[k].x = __bfloat162float(zb[idx[k]]);
+          else
+            zz[k].x = a.z[idx[k]];
         }
       }
 #pragma unroll
@@ -473,8 +493,10 @@ __host__ inline int syn_smem_floats(const MmaArgs& a) {
 // kRagged: staged rows sit at different offsets from the 16-byte grid (a
 // width that is not a multiple of 4, or an unaligned input); else they all
 // sit at the same one and the fragment loads skip the per-row offsets.
-template <bool kRagged>
-__global__ void __launch_bounds__(kSynThreads, 1) lista3d_syn_mma(const MmaArgs a, bool vec) {
+// kBf16: the output's bf16 copy into hist too.
+template <bool kRagged, bool kBf16 = false>
+__global__ void __launch_bounds__(kSynThreads, 1)
+lista3d_syn_mma(const MmaArgs a, bool vec, __nv_bfloat16* hist) {
   extern __shared__ float4 smem4[];
   __shared__ __align__(8) uint64_t bar[2];  // the two pipeline buffers
   float* smem = reinterpret_cast<float*>(smem4);
@@ -623,6 +645,7 @@ __global__ void __launch_bounds__(kSynThreads, 1) lista3d_syn_mma(const MmaArgs 
         u.x -= y4.x, u.y -= y4.y, u.z -= y4.z, u.w -= y4.w;
       }
       *reinterpret_cast<float4*>(a.out + idx) = u;
+      if constexpr (kBf16) store_bf16x4(hist + idx, u);
     } else {
       float u = 0.f;
 #pragma unroll
@@ -630,6 +653,7 @@ __global__ void __launch_bounds__(kSynThreads, 1) lista3d_syn_mma(const MmaArgs 
       if (a.mask) u *= a.mask[idx];
       if (a.y) u -= a.y[idx];
       a.out[idx] = u;
+      if constexpr (kBf16) hist[idx] = __float2bfloat16_rn(u);
     }
   }
 }
@@ -676,39 +700,57 @@ inline int adjoint_parts(const MmaArgs& a) {
 }
 
 // The synthesis adjoint: the analysis's mainloop with the AdjointArgs
-// epilogue, then the dtau partials summed over the blocks in a fixed order into
-// dtau (N, O).
-inline int launch_adjoint(const MmaArgs& a, const AdjointArgs& e, float* dtau,
+// epilogue (z_bf16: on bf16 codes a.z), then the dtau partials summed over
+// the blocks in a fixed order into dtau (N, O).
+template <bool kBf16>
+inline int launch_adjoint_as(const MmaArgs& a, const AdjointArgs& e, const dim3& grid, int smem,
+                             cudaStream_t stream) {
+  static int limit[64] = {};
+  const cudaError_t err = raise_smem_limit(
+      reinterpret_cast<const void*>(lista3d_ana_mma<true, kBf16>), smem, limit);
+  if (err != cudaSuccess) return (int)err;
+  const bool base_ok = !e.base || mis4(e.base) == 0;
+  const bool vec = (kBf16 ? vec_epilogue_bf16(a, a.z) : vec_epilogue(a)) && base_ok;
+  lista3d_ana_mma<true, kBf16><<<grid, kAnaThreads, smem, stream>>>(a, vec, e, nullptr);
+  return (int)cudaGetLastError();
+}
+
+inline int launch_adjoint(const MmaArgs& a, const AdjointArgs& e, float* dtau, bool z_bf16,
                           cudaStream_t stream) {
   dim3 grid;
   int smem;
   const int q = grid_of(false, a, grid, smem);
   if (q != 0) return q;
   if (!a.z) return (int)cudaErrorInvalidValue;
-  static int limit[64] = {};
-  cudaError_t err =
-      raise_smem_limit(reinterpret_cast<const void*>(lista3d_ana_mma<true>), smem, limit);
-  if (err != cudaSuccess) return (int)err;
-  const bool vec = vec_epilogue(a) && (!e.base || mis4(e.base) == 0);
-  lista3d_ana_mma<true><<<grid, kAnaThreads, smem, stream>>>(a, vec, e);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int err = z_bf16 ? launch_adjoint_as<true>(a, e, grid, smem, stream)
+                         : launch_adjoint_as<false>(a, e, grid, smem, stream);
+  if (err != 0) return err;
   return launch_sum_parts(e.part, dtau, a.N * a.O, (int)(grid.x * grid.y), stream);
 }
 
-inline int launch(bool synthesis, const MmaArgs& a, cudaStream_t stream) {
+// The forward pair; hist: NULL, or the bf16 history slice (N, O, D, H, W)
+// that takes the output's rounded copy.
+inline int launch(bool synthesis, const MmaArgs& a, __nv_bfloat16* hist, cudaStream_t stream) {
   dim3 grid;
   int smem;
   const int q = grid_of(synthesis, a, grid, smem);
   if (q != 0) return q;
+  const bool vec = hist ? vec_epilogue_bf16(a, hist) : vec_epilogue(a);
   if (!synthesis)
-    return launch_kernel(lista3d_ana_mma<false>, grid, kAnaThreads, smem, a, vec_epilogue(a),
-                         stream, AdjointArgs{});
-  return a.W % 4 == 0 && mis4(a.in) == 0
-             ? launch_kernel(lista3d_syn_mma<false>, grid, kSynThreads, smem, a, vec_epilogue(a),
-                             stream)
-             : launch_kernel(lista3d_syn_mma<true>, grid, kSynThreads, smem, a, vec_epilogue(a),
-                             stream);
+    return hist ? launch_kernel(lista3d_ana_mma<false, true>, grid, kAnaThreads, smem, a, vec,
+                                stream, AdjointArgs{}, hist)
+                : launch_kernel(lista3d_ana_mma<false>, grid, kAnaThreads, smem, a, vec, stream,
+                                AdjointArgs{}, hist);
+  const bool ragged = !(a.W % 4 == 0 && mis4(a.in) == 0);
+  if (hist)
+    return ragged ? launch_kernel(lista3d_syn_mma<true, true>, grid, kSynThreads, smem, a, vec,
+                                  stream, hist)
+                  : launch_kernel(lista3d_syn_mma<false, true>, grid, kSynThreads, smem, a, vec,
+                                  stream, hist);
+  return ragged ? launch_kernel(lista3d_syn_mma<true>, grid, kSynThreads, smem, a, vec, stream,
+                                hist)
+                : launch_kernel(lista3d_syn_mma<false>, grid, kSynThreads, smem, a, vec, stream,
+                                hist);
 }
 
 }  // namespace mma3d

@@ -6,11 +6,12 @@
 // operand split and the mma.sync TF32 product; the launches' host side (the
 // SM count, the shared-memory limit); and the synthesis adjoint's epilogue
 // arguments with sum_parts, the fixed-order sum of its per-block dtau
-// partials; the phase map's tap box. lista3d_mma.cuh says why the kernels
-// are built this way.
+// partials; the phase map's tap box; the bf16 training histories' loads
+// and stores. lista3d_mma.cuh says why the kernels are built this way.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -58,18 +59,43 @@ __host__ __device__ inline unsigned mis4(const void* p) {
   return (unsigned)(reinterpret_cast<uintptr_t>(p) >> 2) & 3u;
 }
 
+// The same for elements of type T: the offset from the 16-byte grid in
+// elements (0..3 for float, 0..7 for bf16); kGrid<T> elements make 16 bytes.
+template <typename T>
+constexpr int kGrid = 16 / (int)sizeof(T);
+template <typename T>
+__host__ __device__ inline unsigned mis(const void* p) {
+  return (unsigned)(reinterpret_cast<uintptr_t>(p) / sizeof(T)) & (unsigned)(kGrid<T> - 1);
+}
+
 // The staged input tile, one slab a channel: TH + Qh - 1 rows of 64 + Qw - 1
 // columns for each of the Qd depth taps. A staged row starts on the 16-byte
 // grid and holds its columns `sh` floats in (0..3: the global offset of
 // its first column from the grid, so that a bulk copy lands aligned), hence
-// a pitch of the columns + 3, rounded to 4.
+// a pitch of the columns + 3, rounded to 4. The three-argument form lays
+// the tile out in elements of which v make 16 bytes (v = 8: a bf16
+// history's tile; offsets 0..v-1, pitch the columns + v - 1 rounded to v);
+// tile_of<T> picks the form for element type T.
 struct Tile {
   int rows, cols, pitch, slab;
   __host__ __device__ Tile(const MmaArgs& a, int TH)
       : rows(TH + a.Qh - 1), cols(kTW + a.Qw - 1),
         pitch((kTW + a.Qw - 1 + 3 + 3) & ~3),
         slab(stride8(a.Qd * (TH + a.Qh - 1) * ((kTW + a.Qw - 1 + 3 + 3) & ~3))) {}
+  __host__ __device__ Tile(const MmaArgs& a, int TH, int v)
+      : rows(TH + a.Qh - 1), cols(kTW + a.Qw - 1),
+        pitch((kTW + a.Qw - 1 + (v - 1) + (v - 1)) & ~(v - 1)),
+        slab(stride8(a.Qd * (TH + a.Qh - 1) *
+                     ((kTW + a.Qw - 1 + (v - 1) + (v - 1)) & ~(v - 1)))) {}
 };
+
+template <typename T>
+__host__ __device__ inline Tile tile_of(const MmaArgs& a, int TH) {
+  if constexpr (sizeof(T) == 4)
+    return Tile(a, TH);
+  else
+    return Tile(a, TH, kGrid<T>);
+}
 
 // ---- asynchronous copies: the TMA engine's bulk copies, completed on an
 // mbarrier
@@ -102,23 +128,43 @@ __device__ inline void fence_proxy_async() {
 __device__ inline void zero(float* dst, int n) {  // dst 16-byte aligned, n % 4 == 0
   for (int i = 0; i < n; i += 4) *reinterpret_cast<float4*>(dst + i) = make_float4(0.f, 0.f, 0.f, 0.f);
 }
-// floats src[0, n) -> dst[0, n), dst and src at the same offset from the
+// n elements of type T (n % kGrid<T> == 0) at a 16-byte aligned dst
+template <typename T>
+__device__ inline void zero_n(T* dst, int n) {
+  if constexpr (sizeof(T) == 4)
+    zero(reinterpret_cast<float*>(dst), n);
+  else
+    zero(reinterpret_cast<float*>(dst), n / 2);
+}
+// The element zero: 0.f, or a bf16's zero bit pattern.
+template <typename T>
+__device__ inline T zero_of() {
+  if constexpr (sizeof(T) == 4)
+    return 0.f;
+  else
+    return __ushort_as_bfloat16((unsigned short)0);
+}
+// elements src[0, n) -> dst[0, n), dst and src at the same offset from the
 // 16-byte grid, by one bulk copy counted on bar, widened to the grid on
-// both sides: up to 3 floats before src and after src + n land in dst's
-// padding, or on columns the caller zeroes once the copy has landed. With
-// `post` false (src + n lies within 3 floats of the source's end), the
-// floats past the last grid line go by plain loads instead.
-__device__ inline void bulk_copy(float* dst, const float* src, int n, uint64_t* bar) {
-  mbar_expect_tx(bar, 4 * n);
+// both sides: up to kGrid<T> - 1 elements (3 floats) before src and after
+// src + n land in dst's padding, or on columns the caller zeroes once the
+// copy has landed. With `post` false (src + n lies within kGrid<T> - 1
+// elements of the source's end), the elements past the last grid line go by
+// plain loads instead.
+template <typename T>
+__device__ inline void bulk_copy(T* dst, const T* src, int n, uint64_t* bar) {
+  mbar_expect_tx(bar, (int)sizeof(T) * n);
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(4 * n), "r"(smem_addr(bar)) : "memory");
+      ::"r"(smem_addr(dst)), "l"(src), "r"((int)sizeof(T) * n), "r"(smem_addr(bar)) : "memory");
 }
-__device__ inline void copy_span(float* dst, const float* src, int n, uint64_t* bar, bool post) {
-  const int k = (int)mis4(src);
+template <typename T>
+__device__ inline void copy_span(T* dst, const T* src, int n, uint64_t* bar, bool post) {
+  constexpr int v = kGrid<T>;
+  const int k = (int)mis<T>(src);
   dst -= k, src -= k, n += k;
-  const int tail = post ? 0 : n & 3;
-  n = post ? (n + 3) & ~3 : n - tail;
+  const int tail = post ? 0 : n & (v - 1);
+  n = post ? (n + v - 1) & ~(v - 1) : n - tail;
   if (n > 0) bulk_copy(dst, src, n, bar);
   for (int j = n; j < n + tail; ++j) dst[j] = src[j];
 }
@@ -174,9 +220,14 @@ __device__ inline void load_a(const float* p, int slab, uint32_t* hi, uint32_t* 
 // Stages input channels [c0, c0 + CH) of sample n's depth-d tile (rows from
 // h0, columns from w0, with the tap halo) into s_in, zeros outside the
 // volume and past channel I: a thread a staged row, its in-volume columns
-// by copy_span, on bar. The 2D kernels run it at D = Qd = 1.
-template <int THREADS, int CH = 8>
+// by copy_span, on bar. The 2D kernels run it at D = Qd = 1. T is the
+// input's element type: float, or bf16 for a training history that the
+// weight gradient reads (a.in then points at bf16 values, the tile `tl` is
+// laid out in bf16 elements, Tile(.., 8), and rows keep their offsets from
+// the 16-byte grid in bf16 elements, 0..7).
+template <int THREADS, int CH = 8, typename T = float>
 struct RowStager {
+  static constexpr unsigned kM = kGrid<T> - 1;  // offsets from the grid: & kM
   const MmaArgs& a;
   const Tile& tl;
   int n, d, h0, wbase;  // wbase: the global column of staged column 0
@@ -188,24 +239,26 @@ struct RowStager {
         hi(max(min(a_.W - (w0 + a_.ow), tl_.cols), lo)),
         total((size_t)a_.N * a_.I * a_.D * a_.H * a_.W) {}
 
+  __device__ const T* in() const { return reinterpret_cast<const T*>(a.in); }
+
   // The offset of staged row (channel c0 + ci, depth tap q, row r) from the
-  // 16-byte grid, mod 4; a linear function of q and r, so that a lane can
-  // compute its rows' offsets from sh0 (q = r = 0) of its channel.
+  // 16-byte grid, mod kGrid<T>; a linear function of q and r, so that a
+  // lane can compute its rows' offsets from sh0 (q = r = 0) of its channel.
   __device__ unsigned sh0(int c0, int ci) const {
-    return mis4(a.in) + (unsigned)wbase +
+    return mis<T>(a.in) + (unsigned)wbase +
            ((((unsigned)n * a.I + c0 + ci) * a.D + d + a.od) * a.H + h0 + a.oh) * a.W;
   }
   __device__ unsigned sh(unsigned base, int q, int r) const {
-    return (base + ((unsigned)q * a.H + r) * a.W) & 3u;
+    return (base + ((unsigned)q * a.H + r) * a.W) & kM;
   }
 
   // staged row `line` of channels [c0, c0 + CH): its place in s_in, and
   // whether it lies in the volume
-  __device__ float* row(float* s_in, int line, int c0, size_t& f) const {
+  __device__ T* row(T* s_in, int line, int c0, size_t& f) const {
     const int per_ch = a.Qd * tl.rows;
     const int ci = line / per_ch, q = line % per_ch / tl.rows, r = line % tl.rows;
     const int i = c0 + ci, dd = d + q + a.od, hh = h0 + r + a.oh;
-    float* p = s_in + ci * tl.slab + (line % per_ch) * tl.pitch;
+    T* p = s_in + ci * tl.slab + (line % per_ch) * tl.pitch;
     if (i >= a.I || dd < 0 || dd >= a.D || hh < 0 || hh >= a.H || hi == lo) return nullptr;
     // the flat index of staged column 0 (wraps below 0 at the first row;
     // only [lo, hi) is read)
@@ -215,42 +268,44 @@ struct RowStager {
 
   // the copies, on bar: a row out of the volume is zeroed, one in it gets
   // zeros out of the volume and one bulk copy of its columns [lo, hi),
-  // `(mis4(a.in) + f) % 4` floats into the row, widened to the grid (onto
-  // those zeros only where rows are off the grid: fix() restores them)
-  __device__ void stage(float* s_in, int c0, uint64_t* bar) const {
+  // `(mis<T>(a.in) + f) % kGrid<T>` elements into the row, widened to the
+  // grid (onto those zeros only where rows are off the grid: fix() restores
+  // them)
+  __device__ void stage(T* s_in, int c0, uint64_t* bar) const {
     for (int line = threadIdx.x; line < CH * a.Qd * tl.rows; line += THREADS) {
       size_t f;
-      float* p = row(s_in, line, c0, f);
+      T* p = row(s_in, line, c0, f);
       if (!p) {
-        zero(s_in + (line / (a.Qd * tl.rows)) * tl.slab +
-                 (line % (a.Qd * tl.rows)) * tl.pitch, tl.pitch);
+        zero_n(s_in + (line / (a.Qd * tl.rows)) * tl.slab +
+                   (line % (a.Qd * tl.rows)) * tl.pitch, tl.pitch);
         continue;
       }
-      float* col0 = p + ((mis4(a.in) + (unsigned)f) & 3u);
-      for (int x = 0; x < lo; ++x) col0[x] = 0.f;
-      for (int x = hi; x < tl.cols; ++x) col0[x] = 0.f;
-      copy_span(col0 + lo, a.in + (f + lo), hi - lo, bar, f + hi + 3 <= total);
+      T* col0 = p + ((mis<T>(a.in) + (unsigned)f) & kM);
+      for (int x = 0; x < lo; ++x) col0[x] = zero_of<T>();
+      for (int x = hi; x < tl.cols; ++x) col0[x] = zero_of<T>();
+      copy_span(col0 + lo, in() + (f + lo), hi - lo, bar, f + hi + kM <= total);
     }
   }
 
-  // rows on the 16-byte grid (W % 4 == 0, an aligned input): the same
-  // placement, by the lean loop the synthesis wants (its staging threads
-  // run it before their products, and every warp waits for the slowest at
-  // the next barrier): each row from the 4-aligned column below wbase, its
-  // in-volume span aligned at both ends, zeros around it as float4s
-  __device__ void stage_aligned(float* s_in, int c0, uint64_t* bar) const {
-    const int per_ch = a.Qd * tl.rows, wb4 = wbase & ~3;
+  // rows on the 16-byte grid (W % kGrid<T> == 0, an aligned input): the
+  // same placement, by the lean loop the synthesis wants (its staging
+  // threads run it before their products, and every warp waits for the
+  // slowest at the next barrier): each row from the grid-aligned column
+  // below wbase, its in-volume span aligned at both ends, zeros around it as
+  // 16-byte stores
+  __device__ void stage_aligned(T* s_in, int c0, uint64_t* bar) const {
+    const int per_ch = a.Qd * tl.rows, wb4 = wbase & ~(int)kM;
     for (int line = threadIdx.x; line < CH * per_ch; line += THREADS) {
       const int ci = line / per_ch, q = line % per_ch / tl.rows, r = line % tl.rows;
       const int i = c0 + ci, dd = d + q + a.od, hh = h0 + r + a.oh;
-      float* p = s_in + ci * tl.slab + (line % per_ch) * tl.pitch;
+      T* p = s_in + ci * tl.slab + (line % per_ch) * tl.pitch;
       const bool ok = i < a.I && dd >= 0 && dd < a.D && hh >= 0 && hh < a.H;
       const int l = ok ? min(max(-wb4, 0), tl.pitch) : tl.pitch;
       const int h = ok ? max(min(a.W - wb4, tl.pitch), l) : tl.pitch;
-      zero(p, l);
-      zero(p + h, tl.pitch - h);
+      zero_n(p, l);
+      zero_n(p + h, tl.pitch - h);
       if (h > l)
-        bulk_copy(p + l, a.in + ((((size_t)n * a.I + i) * a.D + dd) * a.H + hh) * a.W + wb4 + l,
+        bulk_copy(p + l, in() + ((((size_t)n * a.I + i) * a.D + dd) * a.H + hh) * a.W + wb4 + l,
                   h - l, bar);
     }
   }
@@ -260,15 +315,15 @@ struct RowStager {
   // that publishes them: zeros again on the columns out of the volume,
   // where the widened copies wrote neighbouring floats (only a block at a
   // volume edge has such columns)
-  __device__ void fix(float* s_in, int c0) const {
+  __device__ void fix(T* s_in, int c0) const {
     if (lo == 0 && hi == tl.cols) return;
     for (int line = threadIdx.x; line < CH * a.Qd * tl.rows; line += THREADS) {
       size_t f;
-      float* p = row(s_in, line, c0, f);
+      T* p = row(s_in, line, c0, f);
       if (!p) continue;
-      float* col0 = p + ((mis4(a.in) + (unsigned)f) & 3u);
-      for (int x = 0; x < lo; ++x) col0[x] = 0.f;
-      for (int x = hi; x < tl.cols; ++x) col0[x] = 0.f;
+      T* col0 = p + ((mis<T>(a.in) + (unsigned)f) & kM);
+      for (int x = 0; x < lo; ++x) col0[x] = zero_of<T>();
+      for (int x = hi; x < tl.cols; ++x) col0[x] = zero_of<T>();
     }
   }
 };
@@ -313,6 +368,40 @@ inline bool vec_epilogue(const MmaArgs& a) {
   return a.W % 4 == 0 && mis4(a.out) == 0 && (!a.z || mis4(a.z) == 0) &&
          (!a.mask || mis4(a.mask) == 0) && (!a.y || mis4(a.y) == 0);
 }
+
+// ---- the bf16 training histories (kernels/lista3d.py::hist_dtype): the
+// forward's writers store a round-to-nearest-even bf16 copy of their fp32
+// output beside it, the synthesis adjoints read the codes, and the weight
+// gradient one operand, as bf16. A vector epilogue's group of 4 positions
+// is 8 bytes of bf16.
+
+// vec_epilogue with a bf16 history h beside the fp32 tensors (the
+// forward's copy, or the adjoint's codes in place of a.z): its groups 8-byte
+// aligned
+inline bool vec_epilogue_bf16(MmaArgs a, const void* h) {
+  if (h == a.z) a.z = nullptr;
+  return vec_epilogue(a) && (reinterpret_cast<uintptr_t>(h) & 7u) == 0;
+}
+
+// 4 floats rounded to nearest even, as 8 bytes at p (8-byte aligned)
+__device__ inline void store_bf16x4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __halves2bfloat162(__float2bfloat16_rn(v.x), __float2bfloat16_rn(v.y));
+  const __nv_bfloat162 hi = __halves2bfloat162(__float2bfloat16_rn(v.z), __float2bfloat16_rn(v.w));
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const unsigned*>(&lo), *reinterpret_cast<const unsigned*>(&hi));
+}
+
+// 4 bf16 values at p (8-byte aligned) as floats (exact)
+__device__ inline float4 load_bf16x4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+  return make_float4(__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi));
+}
+
+// an element as a float (a bf16 value exactly)
+__device__ inline float to_f(float x) { return x; }
+__device__ inline float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // ---- the launches' host side
 

@@ -36,6 +36,11 @@ kernel here runs on the tensor cores in 3xTF32 (csrc/lista2d_mma.cuh; the
 CSR analyses are the ST analysis with the prox in its epilogue), and the
 launches split the codes where the code grid is small, so that one 128^2
 image fills the card: launch_grid says how.
+
+The soft-threshold loop's training histories follow hist_dtype() (bf16 by
+default, the JAX package's lista2d.py::hist_dtype, whose counterpart this
+module re-exports), with the fp32 carries and in-epilogue bf16 copies of
+the 3D loop (kernels/lista3d.py); the CSR modes keep fp32 histories.
 """
 
 from __future__ import annotations
@@ -46,13 +51,16 @@ import torch
 import torch.nn.functional as F
 
 from cdlnet_tpu_torch.core.ops import ST, csr_f2_jump, prox_csr, prox_csr_f2
-from cdlnet_tpu_torch.kernels.lista3d import (
+from cdlnet_tpu_torch.kernels.lista3d import (  # noqa: F401 (hist_dtype: re-exported)
     Geom,
     _check,
+    _hist,
     _into,
     _out,
     _ptr,
     _raise_on,
+    hist_dtype,
+    hist_launches,
     launches,
     per_sample,
 )
@@ -130,12 +138,12 @@ def csrf2_jump_gap(v, zp, za, tau, gam2):
     return (v - csr_f2_jump(zp, za, tau[:, :, None, None], gam2[:, :, None, None])).abs()
 
 
-def _analysis(entry, r, z, wa, tau, geom, out, banks=(), codes=(), u_out=None):
+def _analysis(entry, r, z, wa, tau, geom, out, banks=(), codes=(), u_out=None, hist=None):
     """Launch the analysis kernel `entry` after checking its operands: the
     ST arguments, then the (N, M) gamma `banks` and the (N, M, Hc, Wc)
     neighbour `codes` of a CSR mode, each a (name, tensor) pair, and a CSR
     mode's u_out, where its kernel stores the prox argument (None: NULL,
-    not stored)."""
+    not stored), or the ST kernel's bf16 history slice `hist`."""
     from cdlnet_tpu_torch.kernels._build import library
 
     lib = library()
@@ -151,29 +159,33 @@ def _analysis(entry, r, z, wa, tau, geom, out, banks=(), codes=(), u_out=None):
     out = _out(out, (N, M, H, W), r)
     if u_out is not None:
         _check("u_out", u_out, (N, M, H, W))
-    u_ptr = (_ptr(u_out),) if banks else ()  # the ST kernel takes no u_out
+    # after the codes: a CSR kernel's u_out, the ST kernel's history slice
+    extra = _ptr(u_out) if banks else _hist(hist, (N, M, H, W))
     err = getattr(lib, entry)(
         _ptr(r), _ptr(wa), _ptr(z), _ptr(tau), *(_ptr(t) for _, t in banks),
-        *(_ptr(t) for _, t in codes), _ptr(out), *u_ptr,
+        *(_ptr(t) for _, t in codes), _ptr(out), extra,
         N, Cp, M, H, W, Qh, Qw, *geom.off_a, geom.s, *geom.P, *geom.pads,
         torch.cuda.current_stream(r.device).cuda_stream,
     )
     _raise_on(err, entry)
     launches[entry] += 1
+    hist_launches[entry] += hist is not None
     return out
 
 
-def lista2d_ana_threshold(r, z, wa, tau, geom, out=None):
+def lista2d_ana_threshold(r, z, wa, tau, geom, out=None, hist=None):
     """z_new = ST(z - A_k r, tau): the analysis + soft threshold.
 
     r: (N, Cp, Hc, Wc) residual; z: (N, M, Hc, Wc) codes, or None for zeros
     (k = 0); wa: (Cp, Qh, Qw, M) from prep_A2m_2d; tau: (N, M); geom: the
     Geom of the banks; out: a contiguous (N, M, Hc, Wc) tensor to write the
-    codes into (it may be z), or None for a new one. Returns the codes.
+    codes into (it may be z), or None for a new one; hist: a contiguous bf16
+    (N, M, Hc, Wc) history slice that also takes the codes, rounded to
+    nearest even, or None. Returns the codes.
     """
     if r.device.type == "cpu":
-        return _into(out, lista2d_ana_threshold_plain(r, z, wa, tau, geom))
-    return _analysis("lista2d_ana_threshold", r, z, wa, tau, geom, out)
+        return _into(out, lista2d_ana_threshold_plain(r, z, wa, tau, geom), hist)
+    return _analysis("lista2d_ana_threshold", r, z, wa, tau, geom, out, hist=hist)
 
 
 def lista2d_ana_csr(r, z, wa, tau, gam, zp, geom, out=None, u_out=None):
@@ -200,15 +212,15 @@ def lista2d_ana_csrf2(r, z, wa, tau, gam1, gam2, zp, za, geom, out=None, u_out=N
                      codes=(("zp", zp), ("za", za)), u_out=u_out)
 
 
-def lista2d_syn_residual(z, ws, geom, mask=None, y=None, out=None):
+def lista2d_syn_residual(z, ws, geom, mask=None, y=None, out=None, hist=None):
     """r = [mask *] (B_k^T z) [- y]: the synthesis (+ residual).
 
     z: (N, M, Hc, Wc); ws: (M, Qh, Qw, Cp) from prep_B2m_2d; geom: the Geom
-    of the banks; mask, y: (N, Cp, Hc, Wc) or None; out: as in
-    lista2d_ana_threshold (not z). Returns (N, Cp, Hc, Wc).
+    of the banks; mask, y: (N, Cp, Hc, Wc) or None; out, hist: as in
+    lista2d_ana_threshold (out not z). Returns (N, Cp, Hc, Wc).
     """
     if z.device.type == "cpu":
-        return _into(out, lista2d_syn_residual_plain(z, ws, geom, mask=mask, y=y))
+        return _into(out, lista2d_syn_residual_plain(z, ws, geom, mask=mask, y=y), hist)
     from cdlnet_tpu_torch.kernels._build import library
 
     lib = library()
@@ -222,12 +234,13 @@ def lista2d_syn_residual(z, ws, geom, mask=None, y=None, out=None):
             _check(name, t, (N, Cp, H, W))
     out = _out(out, (N, Cp, H, W), z)
     err = lib.lista2d_syn_residual(
-        _ptr(z), _ptr(ws), _ptr(mask), _ptr(y), _ptr(out),
+        _ptr(z), _ptr(ws), _ptr(mask), _ptr(y), _ptr(out), _hist(hist, out.shape),
         N, M, Cp, H, W, Qh, Qw, *geom.off_s,
         torch.cuda.current_stream(z.device).cuda_stream,
     )
     _raise_on(err, "lista2d_syn_residual")
     launches["lista2d_syn_residual"] += 1
+    hist_launches["lista2d_syn_residual"] += hist is not None
     return out
 
 
@@ -281,13 +294,20 @@ def threshold_bank(t, c, N, like):
     return bank.transpose(0, 1).contiguous()
 
 
-def lista2d_loop(y2, m2, wa, ws, tau, geom, return_hists=False, gams=(), codes=()):
+def lista2d_loop(y2, m2, wa, ws, tau, geom, return_hists=False, gams=(), codes=(),
+                 hists_dtype=None):
     """The 2K kernel launches of the fused loop on phase-domain operands
     (phase_operands). Returns (x2, z, hists): x2 = B_0^T z (N, Cp, Hc, Wc),
-    z the final codes (N, M, Hc, Wc), and with return_hists the fp32
-    histories (z_hist (K, N, M, Hc, Wc) of every z_k, r_hist (K-1, N, Cp,
-    Hc, Wc) of every residual r_k) that the reverse pass reads, else None.
-    Without histories z and r are updated in place.
+    z the final codes (N, M, Hc, Wc), and with return_hists the histories
+    (z_hist (K, N, M, Hc, Wc) of every z_k, r_hist (K-1, N, Cp, Hc, Wc) of
+    every residual r_k) that the reverse pass reads, else None. Without
+    histories z and r are updated in place.
+
+    hists_dtype: the soft threshold's histories' dtype, None for
+    hist_dtype(): fp32, the kernels write each z_k and r_k into its slice;
+    bf16, z and r are updated in place as without histories, and each
+    launch also stores its output's rounded copy into the slice (the
+    outputs bitwise the fp32 mode's).
 
     CSR prox modes: `codes` holds the neighbour codes (N, M, Hc, Wc) — one
     (prox_csr) or two (z_prev, z_after: prox_csr_f2) — and `gams` as many
@@ -295,22 +315,26 @@ def lista2d_loop(y2, m2, wa, ws, tau, geom, return_hists=False, gams=(), codes=(
     lista2d_ana_csr / lista2d_ana_csrf2. With return_hists they add a third
     fp32 history, u_hist (K, N, M, Hc, Wc): the prox argument u_k = z_{k-1}
     - A_k r_k of every iteration (u_0 = A_0 y2), which the CSR reverse
-    kernels recompute the prox's internals from."""
+    kernels recompute the prox's internals from: the CSR modes' histories
+    are fp32 whatever hists_dtype and hist_dtype() say."""
     K, M = wa.shape[0], wa.shape[-1]
     if len(gams) != len(codes) or len(codes) > 2:
         raise ValueError(f"{len(codes)} neighbour codes with {len(gams)} gamma banks")
 
     z_hist = r_hist = u_hist = None
-    if return_hists:  # the kernels write each z_k, r_k (and u_k) into its slice
+    bf16 = False
+    if return_hists:
+        dtype = hist_dtype() if hists_dtype is None else hists_dtype
+        bf16 = dtype == torch.bfloat16 and not codes
         N, _, H, W = y2.shape
-        z_hist = y2.new_empty((K, N, M, H, W))
-        r_hist = y2.new_empty((K - 1, *y2.shape))
+        z_hist = y2.new_empty((K, N, M, H, W), dtype=dtype if bf16 else torch.float32)
+        r_hist = y2.new_empty((K - 1, *y2.shape), dtype=z_hist.dtype)
         if codes:
             u_hist = y2.new_empty((K, N, M, H, W))
 
-    def analysis(r, z, k, out):
+    def analysis(r, z, k, out, hist):
         if not codes:
-            return lista2d_ana_threshold(r, z, wa[k], tau[k], geom, out=out)
+            return lista2d_ana_threshold(r, z, wa[k], tau[k], geom, out=out, hist=hist)
         u_out = None if u_hist is None else u_hist[k]
         if len(codes) == 1:
             return lista2d_ana_csr(r, z, wa[k], tau[k], gams[0][k], codes[0], geom,
@@ -318,12 +342,18 @@ def lista2d_loop(y2, m2, wa, ws, tau, geom, return_hists=False, gams=(), codes=(
         return lista2d_ana_csrf2(r, z, wa[k], tau[k], gams[0][k], gams[1][k], *codes,
                                  geom, out=out, u_out=u_out)
 
-    z = analysis(-y2, None, 0, None if z_hist is None else z_hist[0])
-    r = torch.empty_like(y2) if r_hist is None else None
+    # fp32 histories: each launch writes its slice, which the next one
+    # reads; else z and r are carries, updated in place (the first analysis
+    # makes z), and bf16 histories take each launch's rounded copy
+    slices = z_hist is not None and not bf16
+    zh = lambda k: z_hist[k] if bf16 else None
+    rh = lambda k: r_hist[k] if bf16 else None
+    z = analysis(-y2, None, 0, z_hist[0] if slices else None, zh(0))
+    r = None if slices else torch.empty_like(y2)
     for k in range(1, K):
         r = lista2d_syn_residual(z, ws[k], geom, mask=m2, y=y2,
-                                 out=r if r_hist is None else r_hist[k - 1])
-        z = analysis(r, z, k, z if z_hist is None else z_hist[k])
+                                 out=r_hist[k - 1] if slices else r, hist=rh(k - 1))
+        z = analysis(r, z, k, z_hist[k] if slices else z, zh(k))
     x2 = lista2d_syn_residual(z, ws[0], geom)
     if z_hist is None:
         return x2, z, None
@@ -351,7 +381,7 @@ def csr_mode(g, z_prev, g2, z_after):
 
 def lista2d_fused(yp, A, B, t, c, stride=1, mask=None, return_z=False,
                   g=None, z_prev=None, g2=None, z_after=None,
-                  return_hist=False):
+                  return_hist=False, hists_dtype=None):
     """Fused K-iteration 2D LISTA + final dictionary synthesis.
 
     yp: (N, C, H, W) pre-processed input (H, W divisible by stride); A, B:
@@ -359,8 +389,9 @@ def lista2d_fused(yp, A, B, t, c, stride=1, mask=None, return_z=False,
     scale; mask: optional (N, C, H, W) observation mask (JDD). Returns
     (xphat (N, C, H, W), z (N, M, H/s, W/s) or None) — ops.lista.lista_2d +
     conv_transpose2d(B[0]) to fp32 reassociation tolerance — and with
-    return_hist a third item, the fp32 histories (z_hist (K, N, M, Hc, Wc),
-    r_hist (K-1, N, Cp, Hc, Wc)) of lista2d_loop, in the phase domain: r_k
+    return_hist a third item, the histories (z_hist (K, N, M, Hc, Wc),
+    r_hist (K-1, N, Cp, Hc, Wc)) of lista2d_loop at hists_dtype (None:
+    hist_dtype(); fp32 in a CSR mode), in the phase domain: r_k
     has the space_to_depth layout of y2 (channel c*s^2 + a_h*s + a_w). The
     JAX kernel's one (N, K, Mp8+Rp8, Hc*Wc) array holds the same values
     (z_k in rows [0:M), r_k in rows [Mp8:Mp8+Cp) of its step k; in a CSR
@@ -380,7 +411,7 @@ def lista2d_fused(yp, A, B, t, c, stride=1, mask=None, return_z=False,
     gams = tuple(threshold_bank(b, c, yp.shape[0], yp) for b in banks)
     codes = tuple(z.contiguous() for z in codes)
     x2, z, hists = lista2d_loop(y2, m2, wa, ws, tau, geom, return_hist, gams=gams,
-                                codes=codes)
+                                codes=codes, hists_dtype=hists_dtype)
     xphat = pp.depth_to_space(x2, stride, 2, yp.shape[1])
     if return_hist:
         return xphat, (z if return_z else None), hists

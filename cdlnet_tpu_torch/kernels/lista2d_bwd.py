@@ -23,7 +23,9 @@ map; the reverse loop passes it the phase rows the prep keeps,
 lista3d_bwd.phase_rows). Each wrapper runs its CUDA kernel
 on CUDA tensors, or raises; it runs the plain PyTorch version beside it
 only for CPU tensors, and counts its launches in lista3d.launches under its
-2D name.
+2D name. As in 3D, the soft threshold's histories may be bf16
+(lista3d.hist_dtype): the ST adjoint reads bf16 codes and the weight
+gradient one bf16 operand as they are; the CSR adjoints take fp32 ones.
 """
 
 from __future__ import annotations
@@ -33,12 +35,20 @@ import torch.nn.functional as F
 
 from cdlnet_tpu_torch.core.ops import ST
 from cdlnet_tpu_torch.kernels.lista2d import _correlate_plain, lista2d_syn_residual
-from cdlnet_tpu_torch.kernels.lista3d import _check, _ptr, _raise_on, launches
+from cdlnet_tpu_torch.kernels.lista3d import (
+    HISTORY,
+    _check,
+    _ptr,
+    _raise_on,
+    hist_launches,
+    launches,
+)
 from cdlnet_tpu_torch.kernels.lista3d_bwd import _keep_rows, fused_bwd, launch_wgrad
 
 
 def lista2d_syn_adjoint_plain(g, wt, z, geom, base=None, alpha=1.0):
     """Plain version of lista2d_syn_adjoint."""
+    z = z.float()
     dz = alpha * _correlate_plain(g, wt, geom.off_a)
     if base is not None:
         dz = base + dz
@@ -141,6 +151,7 @@ def lista2d_syn_adjoint_csrf2_plain(g, wt, z, u, tau, gam1, gam2, zp, za, dzp, d
 def lista2d_wgrad_plain(x, y, taps, off, alpha=1.0, rows=None):
     """Plain version of lista2d_wgrad: the conv2d of the padded x with y as
     its filters, batch and channels swapped."""
+    x, y = x.float(), y.float()
     pad = []
     for q, o in zip(reversed(taps), reversed(off)):  # F.pad order: W, H
         pad += [-o, q - 1 + o]
@@ -155,9 +166,9 @@ def lista2d_syn_adjoint(g, wt, z, geom, base=None, alpha=1.0):
 
     g: (N, Cp, Hc, Wc) cotangent of a synthesis output; wt: (Cp, Qh, Qw,
     M), B_k's unflipped phase bank (adjoint_bank(ws_k, 2)); z: (N, M, Hc,
-    Wc) the codes; base: (N, M, Hc, Wc) or None. Returns (dv = 1{z != 0}
-    dz, dtau (N, M) = -sum sign(z) dz over the code grid), the per-block
-    sums added in a fixed order.
+    Wc) the codes, fp32 or a bf16 history; base: (N, M, Hc, Wc) or None.
+    Returns (dv = 1{z != 0} dz, dtau (N, M) = -sum sign(z) dz over the code
+    grid), fp32, the per-block sums added in a fixed order.
     """
     if g.device.type == "cpu":
         return lista2d_syn_adjoint_plain(g, wt, z, geom, base=base, alpha=alpha)
@@ -169,20 +180,22 @@ def lista2d_syn_adjoint(g, wt, z, geom, base=None, alpha=1.0):
     Qh, Qw = wt.shape[1:3]
     _check("g", g, g.shape)
     _check("wt", wt, (Cp, Qh, Qw, M))
-    _check("z", z, (N, M, H, W))
+    _check("z", z, (N, M, H, W), HISTORY)
     if base is not None:
         _check("base", base, (N, M, H, W))
-    dv = torch.empty_like(z)
+    dv = torch.empty(z.shape, dtype=g.dtype, device=g.device)
     dtau = torch.empty((N, M), dtype=g.dtype, device=g.device)
     parts = lib.lista2d_syn_adjoint_parts(N, Cp, M, H, W, Qh, Qw)
     work = torch.empty((max(parts, 1), N, M), dtype=g.dtype, device=g.device)
     err = lib.lista2d_syn_adjoint(
         _ptr(g), _ptr(wt), _ptr(base), _ptr(z), _ptr(work), _ptr(dv), _ptr(dtau),
         N, Cp, M, H, W, Qh, Qw, *geom.off_a, geom.s, *geom.P, *geom.pads,
-        float(alpha), torch.cuda.current_stream(g.device).cuda_stream,
+        int(z.dtype == torch.bfloat16), float(alpha),
+        torch.cuda.current_stream(g.device).cuda_stream,
     )
     _raise_on(err, "lista2d_syn_adjoint")
     launches["lista2d_syn_adjoint"] += 1
+    hist_launches["lista2d_syn_adjoint"] += z.dtype == torch.bfloat16
     return dv, dtau
 
 
@@ -190,7 +203,8 @@ def lista2d_wgrad(x, y, taps, off, alpha=1.0, rows=None):
     """dw[i, q, o] = alpha * sum_{n,p} x[n, i, p+q+off] y[n, o, p]: the
     gradient of the bank of corr(x, ., off) whose output's cotangent is y.
 
-    x: (N, I, Hc, Wc); y: (N, O, Hc, Wc); taps: (Qh, Qw); off: the (H, W)
+    x: (N, I, Hc, Wc); y: (N, O, Hc, Wc), fp32, one of them may be a bf16
+    history; taps: (Qh, Qw); off: the (H, W)
     tap offsets; rows: None (every row) or an (I, Qh, Qw) bool tensor of
     the phase rows to compute, the others written as zeros
     (lista3d_bwd.phase_rows). Returns dw (I, Qh, Qw, O), the bank layout;

@@ -15,6 +15,15 @@ stays in device memory between launches (at the flagship shape it is
 ~22 MB, which the 50 MB L2 mostly holds). Tensors are (N, ch, Dc, Hc, Wc),
 contiguous, fp32.
 
+For training the loop also keeps every z_k and r_k (the histories the
+reverse pass reads), in the dtype hist_dtype() names: bf16 by default, as
+in the JAX package, fp32 with CDLNET_HIST_DTYPE=f32. In bf16 the iteration
+still runs in fp32: z and r are fp32 carries, and each writer kernel stores
+its output's bf16 copy (round to nearest even) into the history slice in
+the same epilogue (the `hist` operand of the pair), so the forward's output
+and loss are bitwise the fp32 mode's; the reverse kernels read the bf16
+histories as they are (kernels/lista3d_bwd.py).
+
 Each wrapper runs its CUDA kernel on CUDA tensors, or raises; it runs the
 plain PyTorch version beside it (the same function on F.conv3d over the
 phase channels) only for CPU tensors. `launches` counts kernel launches,
@@ -25,6 +34,7 @@ those of the reverse kernels (kernels/lista3d_bwd.py) and of the 2D pair
 from __future__ import annotations
 
 import collections
+import os
 from dataclasses import dataclass
 
 import torch
@@ -35,6 +45,29 @@ from cdlnet_tpu_torch.ops import polyphase as pp
 
 # kernel launches per wrapper name; plain (CPU) calls do not count
 launches: collections.Counter = collections.Counter()
+# of those, the launches of the bf16-history instantiations (a writer with a
+# `hist` slice, a reader on a bf16 history), per wrapper name
+hist_launches: collections.Counter = collections.Counter()
+
+
+def hist_dtype() -> torch.dtype:
+    """The dtype of the training histories, z_k and r_k, that the fused 3D
+    and 2D soft-threshold loops store for their reverse passes (counterpart
+    of cdlnet_tpu/kernels/lista2d.py::hist_dtype, which is also
+    kernels/lista2d.py's and autodiff.hist3d_dtype here): torch.bfloat16
+    unless CDLNET_HIST_DTYPE (or its alias CDLNET_LISTA3D_HIST_DTYPE) is
+    "f32", "fp32" or "float32", then torch.float32. Read at every call.
+
+    bf16 halves the train step's largest memory term (the flagship video
+    step's 1.39 GB of fp32 histories) at a small relative gradient
+    deviation; fp32 gives gradients to fp32 reassociation. Either way the
+    iteration runs in fp32 and only the stored copies round (the JAX
+    package's resident 3D and 2D contract), on every clip and image size:
+    the JAX package's pair route, whose carry rounds too, has no
+    counterpart. The CSR modes keep fp32 histories."""
+    env = (os.environ.get("CDLNET_HIST_DTYPE")
+           or os.environ.get("CDLNET_LISTA3D_HIST_DTYPE", "bf16"))
+    return torch.float32 if env in ("f32", "fp32", "float32") else torch.bfloat16
 
 
 @dataclass(frozen=True)
@@ -101,10 +134,15 @@ def lista3d_syn_residual_plain(z, ws, geom, mask=None, y=None):
     return r if y is None else r - y
 
 
-def _check(name, t, shape):
-    if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous():
+FP32, BF16 = (torch.float32,), (torch.bfloat16,)
+HISTORY = (torch.float32, torch.bfloat16)  # a history operand the reverse kernels read
+
+
+def _check(name, t, shape, dtypes=FP32):
+    if t.device.type != "cuda" or t.dtype not in dtypes or not t.is_contiguous():
         raise ValueError(
-            f"{name}: the CUDA kernel takes contiguous float32 CUDA tensors, "
+            f"{name}: the CUDA kernel takes a contiguous "
+            f"{' or '.join(str(d) for d in dtypes)} CUDA tensor here, "
             f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
         )
     if tuple(t.shape) != tuple(shape):
@@ -123,8 +161,22 @@ def _out(out, shape, like):
     return out
 
 
-def _into(out, result):
-    return result if out is None else out.copy_(result)
+def _into(out, result, hist=None):
+    """The plain version's result, copied into `out` if given, and its
+    copy in the history's dtype into `hist` if given (round to nearest even
+    for bf16, as the kernels' epilogues)."""
+    result = result if out is None else out.copy_(result)
+    if hist is not None:
+        hist.copy_(result)
+    return result
+
+
+def _hist(hist, shape):
+    """The pointer of a writer's bf16 history slice (checked), or None."""
+    if hist is None:
+        return None
+    _check("hist", hist, shape, BF16)
+    return hist.data_ptr()
 
 
 # cudaErrorInvalidConfiguration: what a C entry returns, before launching,
@@ -137,17 +189,19 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name}: CUDA kernel launch failed (cudaError {err})")
 
 
-def lista3d_ana_threshold(r, z, wa, tau, geom, out=None):
+def lista3d_ana_threshold(r, z, wa, tau, geom, out=None, hist=None):
     """z_new = ST(z - A_k r, tau): the analysis + soft threshold.
 
     r: (N, Cp, Dc, Hc, Wc) residual; z: (N, M, Dc, Hc, Wc) codes, or None
     for zeros (k = 0); wa: (Cp, Qd, Qh, Qw, M) from prep_A2m_3d; tau: (N, M);
     geom: the Geom of the banks; out: a contiguous (N, M, Dc, Hc, Wc) tensor
-    that is not z to write the codes into, or None for a new one. Returns
-    the new code tensor.
+    to write the codes into (it may be z: each code is read, then written,
+    by one thread), or None for a new one; hist: a contiguous bf16 (N, M,
+    Dc, Hc, Wc) tensor (a history slice) that also takes the codes, rounded
+    to nearest even, or None. Returns the new code tensor.
     """
     if r.device.type == "cpu":
-        return _into(out, lista3d_ana_threshold_plain(r, z, wa, tau, geom))
+        return _into(out, lista3d_ana_threshold_plain(r, z, wa, tau, geom), hist)
     from cdlnet_tpu_torch.kernels._build import library
 
     lib = library()
@@ -161,33 +215,36 @@ def lista3d_ana_threshold(r, z, wa, tau, geom, out=None):
         _check("z", z, (N, M, D, H, W))
     out = _out(out, (N, M, D, H, W), r)
     err = lib.lista3d_ana_threshold(
-        _ptr(r), _ptr(wa), _ptr(z), _ptr(tau), _ptr(out),
+        _ptr(r), _ptr(wa), _ptr(z), _ptr(tau), _ptr(out), _hist(hist, out.shape),
         N, Cp, M, D, H, W, Qd, Qh, Qw, *geom.off_a, geom.s, *geom.P, *geom.pads,
         torch.cuda.current_stream(r.device).cuda_stream,
     )
     _raise_on(err, "lista3d_ana_threshold")
     launches["lista3d_ana_threshold"] += 1
+    hist_launches["lista3d_ana_threshold"] += hist is not None
     return out
 
 
-def lista3d_syn_residual(z, ws, geom, mask=None, y=None, out=None):
+def lista3d_syn_residual(z, ws, geom, mask=None, y=None, out=None, hist=None):
     """r = [mask *] (B_k^T z) [- y]: the synthesis (+ residual).
 
     z: (N, M, Dc, Hc, Wc); ws: (M, Qd, Qh, Qw, Cp) from prep_B2m_3d; geom:
-    the Geom of the banks; mask, y: (N, Cp, Dc, Hc, Wc) or None; out: as in
-    lista3d_ana_threshold. Returns (N, Cp, Dc, Hc, Wc).
+    the Geom of the banks; mask, y: (N, Cp, Dc, Hc, Wc) or None; out: a
+    contiguous (N, Cp, Dc, Hc, Wc) tensor that is not z, or None; hist: as
+    in lista3d_ana_threshold, for r. Returns (N, Cp, Dc, Hc, Wc).
     """
     if z.device.type == "cpu":
-        return _into(out, lista3d_syn_residual_plain(z, ws, geom, mask=mask, y=y))
-    return _syn_residual(z, ws, geom.off_s, mask, y, out)
+        return _into(out, lista3d_syn_residual_plain(z, ws, geom, mask=mask, y=y), hist)
+    return _syn_residual(z, ws, geom.off_s, mask, y, out, hist)
 
 
-def _syn_residual(z, ws, off, mask, y, out):
+def _syn_residual(z, ws, off, mask, y, out, hist=None):
     """lista3d_syn_residual's launch at tap offsets `off`. A bank whose
     stage does not fit a block's shared memory (the kernel returns
     cudaErrorInvalidConfiguration: the stride-1 3D banks, P = (7, 7, 5)'s
     245 taps) runs as two launches over halves of its depth taps (each split
-    again if need be), summed, with the mask and y applied after."""
+    again if need be), summed, with the mask and y applied after (and the
+    history's copy taken from the sum)."""
     from cdlnet_tpu_torch.kernels._build import library
 
     lib = library()
@@ -201,7 +258,7 @@ def _syn_residual(z, ws, off, mask, y, out):
             _check(name, t, (N, Cp, D, H, W))
     out = _out(out, (N, Cp, D, H, W), z)
     err = lib.lista3d_syn_residual(
-        _ptr(z), _ptr(ws), _ptr(mask), _ptr(y), _ptr(out),
+        _ptr(z), _ptr(ws), _ptr(mask), _ptr(y), _ptr(out), _hist(hist, out.shape),
         N, M, Cp, D, H, W, Qd, Qh, Qw, *off,
         torch.cuda.current_stream(z.device).cuda_stream,
     )
@@ -214,9 +271,10 @@ def _syn_residual(z, ws, off, mask, y, out):
             r.mul_(mask)
         if y is not None:
             r.sub_(y)
-        return out.copy_(r)
+        return _into(out, r, hist)
     _raise_on(err, "lista3d_syn_residual")
     launches["lista3d_syn_residual"] += 1
+    hist_launches["lista3d_syn_residual"] += hist is not None
     return out
 
 
@@ -259,41 +317,59 @@ def phase_operands(yp, A, B, t, c, stride, mask=None):
     return y2, m2, wa, ws, tau, geom
 
 
-def lista3d_loop(y2, m2, wa, ws, tau, geom, return_hists=False):
+def lista3d_loop(y2, m2, wa, ws, tau, geom, return_hists=False, hists_dtype=None):
     """The 2K kernel launches of the fused loop on phase-domain operands
     (phase_operands). Returns (x2, z, hists): x2 = B_0^T z (N, Cp, Dc, Hc,
-    Wc), z the final codes, and with return_hists the fp32 histories
-    (z_hist (K, N, M, Dc, Hc, Wc) of every z_k, r_hist (K-1, N, Cp, Dc, Hc,
-    Wc) of every residual r_k) that the reverse pass reads, else None."""
+    Wc), z the final codes, and with return_hists the histories (z_hist (K,
+    N, M, Dc, Hc, Wc) of every z_k, r_hist (K-1, N, Cp, Dc, Hc, Wc) of
+    every residual r_k) that the reverse pass reads, else None.
+
+    hists_dtype: the histories' dtype, None for hist_dtype(). fp32: the
+    kernels write each z_k and r_k into its slice. bf16: they write the
+    fp32 carries z and r (updated in place) and, in the same launch, the
+    rounded copy into the slice; the outputs are bitwise the fp32 mode's."""
     K, M = wa.shape[0], wa.shape[-1]
-    z_hist = r_hist = None
-    if return_hists:  # the kernels write each z_k and r_k into its slice
+    z_hist = r_hist = zc = rc = None
+    if return_hists:
+        dtype = hist_dtype() if hists_dtype is None else hists_dtype
         N, _, D, H, W = y2.shape
-        z_hist = y2.new_empty((K, N, M, D, H, W))
-        r_hist = y2.new_empty((K - 1, *y2.shape))
-    slot = lambda hist, k: None if hist is None else hist[k]
-    z = lista3d_ana_threshold(-y2, None, wa[0], tau[0], geom, out=slot(z_hist, 0))
+        z_hist = y2.new_empty((K, N, M, D, H, W), dtype=dtype)
+        r_hist = y2.new_empty((K - 1, *y2.shape), dtype=dtype)
+    # fp32 histories: each launch writes its slice, which the next one
+    # reads; bf16: the carries zc and rc, updated in place, and each
+    # launch's rounded copy in its slice; none: a new tensor a launch
+    slices = z_hist is not None and z_hist.dtype == torch.float32
+    bf16 = z_hist is not None and not slices
+    if bf16:
+        zc, rc = y2.new_empty(z_hist.shape[1:]), torch.empty_like(y2)
+    zh = lambda k: z_hist[k] if bf16 else None
+    rh = lambda k: r_hist[k] if bf16 else None
+    z = lista3d_ana_threshold(-y2, None, wa[0], tau[0], geom,
+                              out=z_hist[0] if slices else zc, hist=zh(0))
     for k in range(1, K):
-        r = lista3d_syn_residual(z, ws[k], geom, mask=m2, y=y2, out=slot(r_hist, k - 1))
-        z = lista3d_ana_threshold(r, z, wa[k], tau[k], geom, out=slot(z_hist, k))
+        r = lista3d_syn_residual(z, ws[k], geom, mask=m2, y=y2,
+                                 out=r_hist[k - 1] if slices else rc, hist=rh(k - 1))
+        z = lista3d_ana_threshold(r, z, wa[k], tau[k], geom,
+                                  out=z_hist[k] if slices else zc, hist=zh(k))
     x2 = lista3d_syn_residual(z, ws[0], geom)
     return x2, z, (None if z_hist is None else (z_hist, r_hist))
 
 
 def lista3d_fused(yp, A, B, t, c, stride=1, mask=None, return_z=True,
-                  return_hists=False):
+                  return_hists=False, hists_dtype=None):
     """Fused 3D LISTA + final dictionary synthesis.
 
     yp: (N, C, D, H, W) pre-processed clip batch (D, H, W divisible by
     stride); A, B: (K, M, C, Pd, Ph, Pw); t: (K, 2, M, 1, 1, 1); c: scalar
     or (N, 1, 1, 1, 1). Returns (xphat (N, C, D, H, W), z (N, M, Dc, Hc, Wc)
     or None) — ops.lista.lista_3d + conv_transpose3d(B[0]) to fp32
-    reassociation tolerance — and with return_hists a third item, the fp32
-    histories (z_hist, r_hist) of lista3d_loop. No gradient flows through
-    the kernels here: training goes through autodiff.lista3d_fused_diff.
+    reassociation tolerance — and with return_hists a third item, the
+    histories (z_hist, r_hist) of lista3d_loop, at hists_dtype (None:
+    hist_dtype()). No gradient flows through the kernels here: training
+    goes through autodiff.lista3d_fused_diff.
     """
     y2, m2, wa, ws, tau, geom = phase_operands(yp, A, B, t, c, stride, mask)
-    x2, z, hists = lista3d_loop(y2, m2, wa, ws, tau, geom, return_hists)
+    x2, z, hists = lista3d_loop(y2, m2, wa, ws, tau, geom, return_hists, hists_dtype)
     xphat = pp.depth_to_space(x2, stride, 3, yp.shape[1])
     if return_hists:
         return xphat, (z if return_z else None), hists

@@ -45,6 +45,12 @@ weight gradient the phase rows the weight prep keeps (phase_rows), so the
 structurally zero taps cost no products. Each wrapper runs its CUDA kernel
 on CUDA tensors, or raises; it runs the plain PyTorch version beside it
 only for CPU tensors, and counts its launches in lista3d.launches.
+
+The histories may be bf16 (lista3d.hist_dtype): the loop passes them to
+the kernels as they are, the codes to the synthesis adjoint (which reads
+only their zeros and signs) and one operand of each weight gradient (dA's
+r_{k-1}, dB's z_{k-1}), which stages it as bf16 and converts it exactly at
+its products. The plain versions upcast a bf16 history first.
 """
 
 from __future__ import annotations
@@ -57,11 +63,13 @@ import torch
 import torch.nn.functional as F
 
 from cdlnet_tpu_torch.kernels.lista3d import (
+    HISTORY,
     INVALID_CONFIGURATION,
     _check,
     _correlate_plain,
     _ptr,
     _raise_on,
+    hist_launches,
     launches,
     lista3d_syn_residual,
 )
@@ -86,6 +94,7 @@ def adjoint_bank(w: torch.Tensor, spatial: int = 3) -> torch.Tensor:
 
 def lista3d_syn_adjoint_plain(g, wt, z, geom, base=None, alpha=1.0):
     """Plain version of lista3d_syn_adjoint."""
+    z = z.float()
     dz = alpha * _correlate_plain(g, wt, geom.off_a)
     if base is not None:
         dz = base + dz
@@ -115,6 +124,7 @@ def _phase_rows(s, P, pads, Cp, spatial):
 def lista3d_wgrad_plain(x, y, taps, off, alpha=1.0, rows=None):
     """Plain version of lista3d_wgrad: the conv3d of the padded x with y as
     its filters, batch and channels swapped."""
+    x, y = x.float(), y.float()
     pad = []
     for q, o in zip(reversed(taps), reversed(off)):  # F.pad order: W, H, D
         pad += [-o, q - 1 + o]
@@ -181,30 +191,34 @@ def launch_wgrad(name, x, y, taps, off, alpha, rows):
     """Launch csrc/lista3d_bwd.cu's weight gradient on x (N, I, *grid), y
     (N, O, *grid) with 3 (video) or 2 (image, D = Qd = 1) grid dims, on
     the phase rows `rows` (I, *taps) bool or all of them; counts the launch
-    under `name`. Returns dw (I, *taps, O)."""
+    under `name`. x or y (not both) may be a bf16 history. Returns dw (I,
+    *taps, O), fp32."""
     from cdlnet_tpu_torch.kernels._build import library
 
     lib = library()
     N, I, *grid = x.shape
     O = y.shape[1]
-    _check("x", x, x.shape)
-    _check("y", y, (N, O, *grid))
+    _check("x", x, x.shape, HISTORY)
+    _check("y", y, (N, O, *grid), HISTORY)
+    if x.dtype == y.dtype == torch.bfloat16:
+        raise ValueError(f"{name}: one operand may be a bf16 history, not both")
+    hist = 1 if x.dtype == torch.bfloat16 else (2 if y.dtype == torch.bfloat16 else 0)
     if rows is None:
         rows = _all_rows((I, *taps))
     elif tuple(rows.shape) != (I, *taps):
         raise ValueError(f"{name}: rows {tuple(rows.shape)}, expected {(I, *taps)}")
     table, R, RB = _row_table(rows, x.device)
     if R == 0:
-        return torch.zeros((I, *taps, O), dtype=x.dtype, device=x.device)
+        return torch.zeros((I, *taps, O), dtype=torch.float32, device=x.device)
     D, H, W = (1,) * (3 - len(grid)) + tuple(grid)
     (Qd, Qh, Qw), offs = (1,) * (3 - len(taps)) + tuple(taps), (0,) * (3 - len(off)) + tuple(off)
     out = (ctypes.c_int * 3)()
     _raise_on(lib.lista3d_wgrad_grid(RB, O, N, D, H, W, out), name)
-    dw = torch.empty((I, *taps, O), dtype=x.dtype, device=x.device)
-    work = torch.empty((out[2], R, O), dtype=x.dtype, device=x.device)
+    dw = torch.empty((I, *taps, O), dtype=torch.float32, device=x.device)
+    work = torch.empty((out[2], R, O), dtype=torch.float32, device=x.device)
     err = lib.lista3d_wgrad(
         _ptr(x), _ptr(y), _ptr(table), _ptr(work), _ptr(dw),
-        N, I, O, D, H, W, Qd, Qh, Qw, *offs, R, RB,
+        N, I, O, D, H, W, Qd, Qh, Qw, *offs, R, RB, hist,
         float(alpha), torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err == INVALID_CONFIGURATION and Qd > 1:
@@ -218,6 +232,7 @@ def launch_wgrad(name, x, y, taps, off, alpha, rows):
             for q0, q1 in ((0, h), (h, Qd))], dim=1)
     _raise_on(err, name)
     launches[name] += 1
+    hist_launches[name] += hist != 0
     return dw
 
 
@@ -236,9 +251,10 @@ def lista3d_syn_adjoint(g, wt, z, geom, base=None, alpha=1.0):
 
     g: (N, Cp, Dc, Hc, Wc) cotangent of a synthesis output; wt: (Cp, Qd,
     Qh, Qw, M), B_k's unflipped phase bank (adjoint_bank of its synthesis
-    bank); z: (N, M, Dc, Hc, Wc) the codes; base: (N, M, Dc, Hc, Wc) or
-    None. Returns (dv = 1{z != 0} dz, dtau (N, M) = -sum sign(z) dz over
-    the code grid), the per-block sums added in a fixed order.
+    bank); z: (N, M, Dc, Hc, Wc) the codes, fp32 or a bf16 history (the
+    same dv and dtau as z.float()); base: (N, M, Dc, Hc, Wc) or None.
+    Returns (dv = 1{z != 0} dz, dtau (N, M) = -sum sign(z) dz over the code
+    grid), fp32, the per-block sums added in a fixed order.
     """
     if g.device.type == "cpu":
         return lista3d_syn_adjoint_plain(g, wt, z, geom, base=base, alpha=alpha)
@@ -250,20 +266,22 @@ def lista3d_syn_adjoint(g, wt, z, geom, base=None, alpha=1.0):
     Qd, Qh, Qw = wt.shape[1:4]
     _check("g", g, g.shape)
     _check("wt", wt, (Cp, Qd, Qh, Qw, M))
-    _check("z", z, (N, M, D, H, W))
+    _check("z", z, (N, M, D, H, W), HISTORY)
     if base is not None:
         _check("base", base, (N, M, D, H, W))
-    dv = torch.empty_like(z)
+    dv = torch.empty(z.shape, dtype=g.dtype, device=g.device)
     dtau = torch.empty((N, M), dtype=g.dtype, device=g.device)
     parts = lib.lista3d_syn_adjoint_parts(N, Cp, M, D, H, W, Qd, Qh, Qw)
     work = torch.empty((max(parts, 1), N, M), dtype=g.dtype, device=g.device)
     err = lib.lista3d_syn_adjoint(
         _ptr(g), _ptr(wt), _ptr(base), _ptr(z), _ptr(work), _ptr(dv), _ptr(dtau),
         N, Cp, M, D, H, W, Qd, Qh, Qw, *geom.off_a, geom.s, *geom.P, *geom.pads,
-        float(alpha), torch.cuda.current_stream(g.device).cuda_stream,
+        int(z.dtype == torch.bfloat16), float(alpha),
+        torch.cuda.current_stream(g.device).cuda_stream,
     )
     _raise_on(err, "lista3d_syn_adjoint")
     launches["lista3d_syn_adjoint"] += 1
+    hist_launches["lista3d_syn_adjoint"] += z.dtype == torch.bfloat16
     return dv, dtau
 
 
@@ -271,7 +289,8 @@ def lista3d_wgrad(x, y, taps, off, alpha=1.0, rows=None):
     """dw[i, q, o] = alpha * sum_{n,p} x[n, i, p+q+off] y[n, o, p]: the
     gradient of the bank of corr(x, ., off) whose output's cotangent is y.
 
-    x: (N, I, Dc, Hc, Wc); y: (N, O, Dc, Hc, Wc); taps: (Qd, Qh, Qw); off:
+    x: (N, I, Dc, Hc, Wc); y: (N, O, Dc, Hc, Wc), fp32, one of them may be a
+    bf16 history (dA's r, dB's z); taps: (Qd, Qh, Qw); off:
     per-dim tap offsets; rows: None (every row) or an (I, Qd, Qh, Qw) bool
     tensor of the phase rows (i, q) to compute, the others written as
     zeros (phase_rows: the rows the weight prep keeps). Returns dw (I, Qd,
@@ -292,7 +311,8 @@ def fused_bwd(kernels, spatial, dx2, y2, m2, banks, tau, z_hist, r_hist, geom,
     dx2: (N, Cp, *grid) cotangent of x2; y2, m2 (or None): the forward's
     phase-domain input and mask; banks: (wa, ws) as from phase_operands;
     tau: (K, N, M) (its shape only is read: the subgradients come from the
-    codes); z_hist, r_hist: from the loop's return_hists=True; dz_out:
+    codes); z_hist, r_hist: from the loop's return_hists=True, fp32 or bf16
+    (passed to the kernels as they are); dz_out:
     (N, M, *grid) cotangent of the returned code z_{K-1}, or None: it seeds
     dz_{K-1} (the base of the first adjoint call). Returns (dwa, dws,
     dtau), the gradients of wa, ws and tau.

@@ -67,8 +67,9 @@ def lista2d_with_codes(model, A, B, t, y, sigma, mask):
     """lista2d_forward that also returns every iteration's codes: (xhat, z,
     codes), codes (K, N, M, H/s, W/s) with codes[-1] == z (the reference's
     forward_generator, model/net.py:94-104). On backend "pallas"/"cuda"
-    the codes are the fp32 z histories the kernel loop writes for training
-    (lista2d_loop(return_hists=True)), from the 2K launches of one forward;
+    the codes are the z histories the kernel loop writes for training
+    (lista2d_loop(return_hists=True)), in fp32 whatever hist_dtype() says,
+    from the 2K launches of one forward;
     with gradients enabled that raises, as forward(return_z=True) does.
     Backend "xla" runs the plain loop."""
     yp, prm, mask, c = _prepare(model, y, sigma, mask)
@@ -76,7 +77,8 @@ def lista2d_with_codes(model, A, B, t, y, sigma, mask):
         if torch.is_grad_enabled():
             raise NotImplementedError(RETURN_Z_HINT)
         xphat, z, (codes, _) = lista2d_fused(yp, A, B, t, c, stride=model.s, mask=mask,
-                                             return_z=True, return_hist=True)
+                                             return_z=True, return_hist=True,
+                                             hists_dtype=torch.float32)
     else:
         z, codes = lista_2d(yp, A, B, t, c, mask=mask, stride=model.s, return_codes=True)
         xphat = conv_transpose2d(z, B[0], stride=model.s, padding=model.pad,

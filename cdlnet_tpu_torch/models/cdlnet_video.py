@@ -133,10 +133,11 @@ class CDLNetVideo(nn.Module):
         """forward() that also returns every iteration's codes: (xhat, z,
         codes), codes (K, N, M, D/s, H/s, W/s) with codes[-1] == z.
 
-        On the kernels (on_kernels) the codes are the fp32 z histories the
+        On the kernels (on_kernels) the codes are the z histories the
         kernel loop writes for training (lista3d_loop(return_hists=True)),
-        so the 2K launches of one forward produce them; with gradients
-        enabled that raises, as forward(return_z=True) does. Backend
+        in fp32 whatever hist_dtype() says, so the 2K launches of one
+        forward produce them; with gradients enabled that raises, as
+        forward(return_z=True) does. Backend
         "xla" and residual blocks run the plain loop."""
         yp, prm, mask = pre_process_3d(y, self.s, mask=mask)
         c = sigma_scale(sigma, self.adaptive, 5)
@@ -147,7 +148,8 @@ class CDLNetVideo(nn.Module):
                 raise NotImplementedError(RETURN_Z_HINT)
             xphat, z, (codes, _) = lista3d_fused(yp, self.A, self.B, self.t, c,
                                                  stride=self.s, mask=mask,
-                                                 return_hists=True)
+                                                 return_hists=True,
+                                                 hists_dtype=torch.float32)
         else:
             z, codes = lista_3d(yp, self.A, self.B, self.t, c, mask=mask, stride=self.s,
                                 residual=self.residual, return_codes=True)

@@ -13,7 +13,9 @@ on backend "pallas" (the CUDA kernels) and on "xla" (the plain PyTorch
 loop, cuDNN with TF32 off), with the same power-method weights, and feeds
 both the same uniform random input at sigma 25. Eval cases compare the
 output, train cases the loss and the gradient of every parameter of
-mean(xhat^2) (the histories are fp32 on both). Every row is numeric: ok,
+mean(xhat^2) (the kernels' training histories pinned to fp32 for the row,
+CDLNET_HIST_DTYPE=f32, as the JAX sweep pins its f32h rows: the gradient
+gates below are fp32 ones). Every row is numeric: ok,
 rel_vs_xla, its bound and its metric, and sec:
   - the K=30 (K=42 JDD) forwards: max|d| / max|ref| <= 1e-3;
   - gradients: per leaf max|d| / max|ref| <= 1e-3, against "xla" run in
@@ -43,6 +45,7 @@ CPU, where the kernels' wrappers run their plain versions. The rows go to
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import os
@@ -75,6 +78,20 @@ MRI = dict(K=30, M=169, P=(9, 9, 5), s=2, C=1, adaptive=True, depth=30)
 V3DT = dict(K=30, M=64, P=(7, 7, 5), s=1, C=1, adaptive=True, depth=16)
 CSR = dict(K=30, M=169, P=9, s=2, C=1, adaptive=True)
 GAB = dict(K=30, M=169, P=7, s=2, C=1, adaptive=True, order=1)
+
+
+@contextlib.contextmanager
+def _f32_histories():
+    """CDLNET_HIST_DTYPE=f32 within the block, as it was after."""
+    old = os.environ.get("CDLNET_HIST_DTYPE")
+    os.environ["CDLNET_HIST_DTYPE"] = "f32"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("CDLNET_HIST_DTYPE")
+        else:
+            os.environ["CDLNET_HIST_DTYPE"] = old
 
 
 def _max_rel(got, ref) -> float:
@@ -149,7 +166,8 @@ class Sweep:
         float64 within `bound`, or within F64_FACTOR times the fp32 loop's
         own distance where that leaf's fp32 sums cancel."""
         names = ["loss", *(n for n, _ in ref.named_parameters())]
-        got = self.loss_and_grads(ker, call, torch.float32)
+        with _f32_histories():
+            got = self.loss_and_grads(ker, call, torch.float32)
         want = self.loss_and_grads(ref, call, torch.float32)
         want64 = self.loss_and_grads(copy.deepcopy(ref).double(), call, torch.float64)
         leaves = {n: [rel(a, b), rel(a, c), rel(b, c)]

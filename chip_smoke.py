@@ -250,7 +250,7 @@ from cdlnet_tpu_torch.train.fit import fit, init_model, make_train_step, mesh_fo
 from cdlnet_tpu_torch.train.fit_csr import fit_csr, make_csr_train_step
 from cdlnet_tpu_torch.train import losses as losses_mod
 from cdlnet_tpu_torch.train.losses import mcsure_loss, mse_loss
-from cdlnet_tpu_torch.train.optim import get_lr, make_optimizer
+from cdlnet_tpu_torch.train.optim import get_lr, make_optimizer, set_lr
 from cdlnet_tpu_torch.utils import img_save, load_video
 
 FLAGSHIP = dict(K=30, M=169, P=(7, 7, 5), s=2, C=1, adaptive=True, depth=16)
@@ -799,7 +799,8 @@ def train_2d(dev, card, err) -> tuple[dict, dict]:
             yp, _, mask = pre_process(y, s, mask=mask)
             y2, m2, wa, ws, tau, geom = L2.phase_operands(yp, model.A, model.B, model.t,
                                                           sig / 255, s, mask)
-            _, _, (zh, rh) = L2.lista2d_loop(y2, m2, wa, ws, tau, geom, return_hists=True)
+            _, _, (zh, rh) = L2.lista2d_loop(y2, m2, wa, ws, tau, geom, return_hists=True,
+                                             hists_dtype=torch.float32)
             wa_adj, ws_adj = LB.adjoint_bank(wa, 2), LB.adjoint_bank(ws, 2)
             taps = tuple(wa.shape[2:4])
             if m2 is None:  # a random observation mask for the masked adjoint
@@ -859,15 +860,16 @@ def train_2d(dev, card, err) -> tuple[dict, dict]:
             prm = dict(m.named_parameters())
             return torch.autograd.grad(loss, [prm[n] for n in names])
 
-        L.launches.clear()
-        g1 = grads(model)
-        torch.cuda.synchronize()
-        want = step_launches_2d(model.K)
-        require(dict(L.launches) == want,
-                f"{label}: one gradient launched {dict(L.launches)}, expected {want}")
-        g2 = grads(model)
-        gp = grads(plain)
-        torch.cuda.synchronize()
+        with hist_env("f32"):
+            L.launches.clear()
+            g1 = grads(model)
+            torch.cuda.synchronize()
+            want = step_launches_2d(model.K)
+            require(dict(L.launches) == want,
+                    f"{label}: one gradient launched {dict(L.launches)}, expected {want}")
+            g2 = grads(model)
+            gp = grads(plain)
+            torch.cuda.synchronize()
         for name, a, b, ref in zip(names, g1, g2, gp):
             d, rel = rel_err(a, ref)
             print(f"parity {label} gradient d{name}: max|d| {d:.3e}, rel {rel:.3e}; two runs "
@@ -1168,7 +1170,8 @@ def reverse_parity(A, B, t, noisy, sig, s, tg, err, what="") -> dict:
     K = A.shape[0]
     yp, _, _ = pre_process_3d(noisy, s)
     y2, _, wa, ws, tau, geom = L.phase_operands(yp, A, B, t, sig / 255, s)
-    x2, _, (zh, rh) = L.lista3d_loop(y2, None, wa, ws, tau, geom, return_hists=True)
+    x2, _, (zh, rh) = L.lista3d_loop(y2, None, wa, ws, tau, geom, return_hists=True,
+                                     hists_dtype=torch.float32)
     wa_adj, ws_adj = LB.adjoint_bank(wa), LB.adjoint_bank(ws)
     taps = tuple(wa.shape[2:5])
     mask = (torch.rand(y2.shape, generator=tg) > 0.3).float().to(y2.device)
@@ -1541,14 +1544,15 @@ def bigframe(dev, card, err, model, t_par, tg, flagship_step_ms) -> tuple[dict, 
                               "1x8x256^2 ")
         times["train 1x8x256^2"] = reverse_times(native.A, native.B, tops, s, reps=10)
     del tops
-    L.launches.clear()
-    g1 = grads(native, noisy_bt, sig_bt, clean_bt)
-    torch.cuda.synchronize()
-    require(dict(L.launches) == step_launches_3d(K),
-            f"one 1x8x256^2 gradient launched {dict(L.launches)}")
-    g2 = grads(native, noisy_bt, sig_bt, clean_bt)
-    gp = grads(native_plain, noisy_bt, sig_bt, clean_bt)
-    torch.cuda.synchronize()
+    with hist_env("f32"):
+        L.launches.clear()
+        g1 = grads(native, noisy_bt, sig_bt, clean_bt)
+        torch.cuda.synchronize()
+        require(dict(L.launches) == step_launches_3d(K),
+                f"one 1x8x256^2 gradient launched {dict(L.launches)}")
+        g2 = grads(native, noisy_bt, sig_bt, clean_bt)
+        gp = grads(native_plain, noisy_bt, sig_bt, clean_bt)
+        torch.cuda.synchronize()
     for name, a, b, ref in zip("ABt", g1, g2, gp):
         dd, rel = rel_err(a, ref)
         print(f"parity K={K} gradient d{name} (1x{BIG_TRAIN}): max|d| {dd:.3e}, rel "
@@ -3372,9 +3376,10 @@ def losses_phase(dev, card, t_par) -> dict:
             return torch.mean((obs - x) ** 2) + 2.0 * torch.mean((sig / 255.0) ** 2 * b
                                                                  * (xb - x)) / h
 
-        loss1, g1, counts = grad_and_launches(model, names, sure)
-        loss2, g2, _ = grad_and_launches(model, names, sure)
-        _, gs, _ = grad_and_launches(model, names, sure_swapped)
+        with hist_env("f32"):
+            loss1, g1, counts = grad_and_launches(model, names, sure)
+            loss2, g2, _ = grad_and_launches(model, names, sure)
+            _, gs, _ = grad_and_launches(model, names, sure_swapped)
         lossp, gp, _ = grad_and_launches(plain, names, sure)
         loss64, g64, _ = grad_and_launches(plain64, names, lambda m: sure(m, torch.float64))
         launches.update(counts)
@@ -3958,18 +3963,31 @@ SCAN_RESIZE_TOL = 1e-5      # a resized clip frame vs F.interpolate on the CPU, 
 
 
 @contextlib.contextmanager
-def host_loop():
-    """fit's train phase on its host loop (CDLNET_DEVICE_SCAN=0): the
-    phases that measure the loader and the host-issued steps keep them."""
-    old = os.environ.get("CDLNET_DEVICE_SCAN")
-    os.environ["CDLNET_DEVICE_SCAN"] = "0"
+def pinned_env(name, value):
+    """$name = value within the block, as it was after."""
+    old = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            os.environ.pop("CDLNET_DEVICE_SCAN")
+            os.environ.pop(name)
         else:
-            os.environ["CDLNET_DEVICE_SCAN"] = old
+            os.environ[name] = old
+
+
+def host_loop():
+    """fit's train phase on its host loop (CDLNET_DEVICE_SCAN=0): the
+    phases that measure the loader and the host-issued steps keep them."""
+    return pinned_env("CDLNET_DEVICE_SCAN", "0")
+
+
+def hist_env(dtype):
+    """The training histories' dtype (kernels/lista3d.py::hist_dtype)
+    within the block: "f32" for the phases whose gates hold the kernels'
+    fp32 gradients against "xla" or float64, "bf16" (the default) for the
+    hist phase's other mode."""
+    return pinned_env("CDLNET_HIST_DTYPE", dtype)
 
 
 def scan_images(rng) -> list:
@@ -4378,6 +4396,389 @@ def scan_phase(dev, card) -> dict:
     return dict(total)
 
 
+# the hist phase: bf16 training histories (kernels/lista3d.py::hist_dtype,
+# the JAX package's default) against CDLNET_HIST_DTYPE=f32 in one run. The
+# bf16 gradients' gate is the JAX package's own (tests/test_kernels.py:
+# 573-724), the end metric's BASELINE.json's (FLAGSHIP_GATE.md's 0.05 dB)
+HIST_GRAD_GAP = 1e-1        # one step's bf16 vs fp32 gradients, max|d| / max|ref|
+HIST_PSNR_GAP_DB = 0.05     # held-out PSNR at sigma 25, bf16- vs fp32-trained
+HIST_PEAK_DROP_GB = {"video": 0.5, "native": 7.0}  # the step's peak, fp32 less bf16
+# H4's training, each run ending at a tenth of its learning rate: at a
+# constant rate the held-out PSNR of the weights at one step swings from
+# step to step (PERF.md §6 PR 18), and a gate on one step's weights reads
+# that swing. fit(device_scan=True) on the staged corpus: 10 epochs of 43
+# steps, lr 1e-3, x 0.1 after epoch 7 (StepLR); the video flagship: 100
+# replayed steps at 2e-4, then 20 at 2e-5
+HIST_2D_EPOCHS, HIST_2D_DECAY_EPOCH = 10, 7
+HIST_VIDEO_STEPS, HIST_VIDEO_TAIL = 100, 20
+HIST_EVAL_N = 16            # held-out 128^2 crops and 16x128^2 clips
+BF16 = " (bf16 history)"    # the kernels line's names of the bf16 instantiations
+# the TPU kernels' bf16 history handling that the bf16 instantiations carry
+HIST_REPLACES = {
+    "lista3d": "; their bf16 histories (cdlnet_tpu/kernels/autodiff.py:155-176 "
+               "_core3d_fwd, hist3d_dtype; cdlnet_tpu/dist/halo_fused.py)",
+    "lista2d": "; their bf16 histories (cdlnet_tpu/kernels/lista2d.py:1143-1153, "
+               "hist_dtype :753-773)",
+}
+HIST_KERNELS = ("lista3d_ana_threshold", "lista3d_syn_residual", "lista3d_syn_adjoint",
+                "lista3d_wgrad", "lista2d_ana_threshold", "lista2d_syn_residual",
+                "lista2d_syn_adjoint", "lista2d_wgrad")
+
+
+def history_bytes(K, M, N, Cp, grid, dtype) -> int:
+    """Bytes of one step's z (K, N, M, *grid) and r (K-1, N, Cp, *grid)
+    histories."""
+    n = int(np.prod(grid))
+    return (K * N * M + (K - 1) * N * Cp) * n * torch.empty((), dtype=dtype).element_size()
+
+
+def held_out_psnr(model, noisy, clean, sigma) -> float:
+    """Mean PSNR (dB) of model's denoised batch against clean (numpy)."""
+    with torch.no_grad():
+        out = model(noisy, sigma)[0].clamp(0, 1).cpu().numpy()
+    return float(np.mean([psnr(o, c) for o, c in zip(out, clean)]))
+
+
+def hist_phase(dev, card, model, t_par, err) -> tuple[dict, dict, dict]:
+    """hist: the bf16 training histories against fp32 ones, in one run.
+    H1 the four writers (3D and 2D analysis and synthesis) at the flagship
+    serve and train shapes with a bf16 history slice: the fp32 output
+    bitwise the launch without it, the slice bitwise the output rounded
+    (torch's round to nearest even). H2 the synthesis adjoints on bf16
+    codes, bitwise the launch on the upcast codes; the weight gradient with
+    a bf16 x (dA's r), then a bf16 y (dB's z), against its plain version on
+    the upcast operand (KERNEL_TOL) at the video and 2D train shapes, the
+    native code grid (8x240x427) and the stride-1 P=(7,7,5) bank. H3 the
+    video flagship step (N=2), the 2D step (10x128^2) and the native video
+    step (1x16x480x854) in both modes from the same weights and inputs:
+    the loss bitwise, the launches equal, ms, peak memory (the video and
+    native peaks at least HIST_PEAK_DROP_GB lower in bf16), the histories'
+    bytes, the gradients' gap within HIST_GRAD_GAP. H4 the flagship 2D
+    width trained by fit(device_scan=True) on the scan phase's staged
+    corpus for 430 steps and the video flagship for 120 replayed steps on
+    its staged videos, each from one init with the same device draws in
+    both modes and ending at a tenth of its learning rate: the held-out
+    PSNRs at sigma 25 within HIST_PSNR_GAP_DB (and their course, printed).
+    Returns (launches, bf16 launches, times) of H3-H4 (the main path's
+    run) and H1-H2 (the bf16 instantiations' times)."""
+    bf = torch.bfloat16
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(SEED + 180)
+    K = FLAGSHIP["K"]
+    vid = CDLNetVideo(**FLAGSHIP, backend="pallas").to(dev)
+    vid.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        vid.t.copy_(t_par)
+    flag2 = random_2d_model(FLAGSHIP_2D, dev)
+    times = {}
+
+    def operands(dims, N):
+        """One batch's phase operands and fp32 histories at the flagship
+        width, and the unprepped banks."""
+        if dims == 3:
+            clean = np.stack([smooth_clip(rng, *CLIP[:2])[None] for _ in range(N)])
+            noisy, sig = observed_3d(rng, clean, dev)
+            yp, _, _ = pre_process_3d(noisy, vid.s)
+            m, phase, loop = vid, L.phase_operands, L.lista3d_loop
+        else:
+            noisy, sig = observed(rng, natural_crops(rng, N, CROP), dev)
+            yp, _, _ = pre_process(noisy, flag2.s)
+            m, phase, loop = flag2, L2.phase_operands, L2.lista2d_loop
+        y2, m2, wa, ws, tau, geom = phase(yp, m.A, m.B, m.t, sig / 255, m.s)
+        _, _, (zh, rh) = loop(y2, m2, wa, ws, tau, geom, return_hists=True,
+                              hists_dtype=torch.float32)
+        return dict(y2=y2, wa=wa, ws=ws, tau=tau, geom=geom, zh=zh, rh=rh, A=m.A, B=m.B,
+                    s=m.s, C=m.C)
+
+    # --- H1 the writers, H2 the readers (no autograd: the banks come from
+    # the models' parameters) ---
+    k = K // 2
+    grad_mode = torch.is_grad_enabled()
+    torch.set_grad_enabled(False)
+    for dims, N, shape in ((3, 1, f"serve 1x{CLIP}"), (3, TRAIN_N, f"train {TRAIN_N}x{CLIP}"),
+                           (2, 1, f"serve 1x{CROP}^2"), (2, TRAIN_2D_N,
+                                                         f"train {TRAIN_2D_N}x{CROP}^2")):
+        o = operands(dims, N)
+        mod, bmod = (L, LB) if dims == 3 else (L2, LB2)
+        pre = f"lista{dims}d_"
+        y2, wa, ws, tau, geom, zh, rh = (o[n] for n in ("y2", "wa", "ws", "tau", "geom", "zh",
+                                                         "rh"))
+        conv = F.conv3d if dims == 3 else F.conv2d
+        conv_t = F.conv_transpose3d if dims == 3 else F.conv_transpose2d
+        pads, s = geom.pads, o["s"]
+        r_full = pp.depth_to_space(rh[k - 1], s, dims, o["C"])
+        n_pos = y2[:, 0].numel()
+        timed = N > 1  # the train shapes' times go into the kernels line
+        for name, run, plain, lib, bank, io in (
+            (pre + "ana_threshold",
+             lambda **kw: getattr(mod, pre + "ana_threshold")(rh[k - 1], zh[k - 1], wa[k],
+                                                              tau[k], geom, **kw),
+             lambda: getattr(mod, pre + "ana_threshold_plain")(rh[k - 1], zh[k - 1], wa[k],
+                                                               tau[k], geom),
+             lambda: conv(r_full, o["A"][k], stride=s, padding=pads),
+             wa[k], (rh[k - 1], zh[k - 1], wa[k], tau[k])),
+            (pre + "syn_residual",
+             lambda **kw: getattr(mod, pre + "syn_residual")(zh[k - 1], ws[k], geom, y=y2, **kw),
+             lambda: getattr(mod, pre + "syn_residual_plain")(zh[k - 1], ws[k], geom, y=y2),
+             lambda: conv_t(zh[k - 1], o["B"][k], stride=s, padding=pads, output_padding=s - 1),
+             ws[k], (zh[k - 1], ws[k], y2)),
+        ):
+            ref = run()
+            out, hist = torch.empty_like(ref), torch.empty(ref.shape, dtype=bf, device=dev)
+            got = run(out=out, hist=hist)
+            torch.cuda.synchronize()
+            same, rounded = torch.equal(got, ref), torch.equal(hist, ref.to(bf))
+            compare(name + BF16, f"{shape} fp32 output", got, plain(), err)
+            print(f"hist H1 [{card}]: {name} at {shape} with a bf16 history: fp32 output "
+                  f"bitwise the launch without it: {same}; history bitwise the output "
+                  f"rounded to bf16: {rounded}", flush=True)
+            require(same and rounded, f"hist H1: {name} at {shape}")
+            if timed:
+                tt = dict(ms=cuda_ms(lambda: run(out=out, hist=hist), reps=10),
+                          plain_ms=cuda_ms(lambda: hist.copy_(plain()), reps=10),
+                          library_ms=cuda_ms(lib, reps=10))
+                tt["bound_ms"], tt["bound_by"] = bound((bank,), n_pos, io + (out, hist),
+                                                       tf32x3=True)
+                fp32_ms = cuda_ms(lambda: run(out=out), reps=10)
+                times[name + BF16] = tt
+                print(f"time [{card}]: {shape} {name}{BF16} {tt['ms']:.4f} ms/call (without "
+                      f"the history {fp32_ms:.4f}), plain {tt['plain_ms']:.4f}, library "
+                      f"{tt['library_ms']:.4f}, bound {tt['bound_ms']:.4f} ({tt['bound_by']})",
+                      flush=True)
+            del ref, out, hist, got
+        if not timed:
+            continue
+        # H2: the readers on bf16 histories, at the train shapes
+        wa_adj, ws_adj = LB.adjoint_bank(wa, dims), LB.adjoint_bank(ws, dims)
+        taps = tuple(wa.shape[2:2 + dims])
+        rows = LB.phase_rows(geom, wa.shape[1], dims)
+        dx2 = torch.randn(y2.shape, generator=torch.Generator().manual_seed(SEED)).to(dev)
+        adj, adj_plain = getattr(bmod, pre + "syn_adjoint"), getattr(bmod, pre +
+                                                                     "syn_adjoint_plain")
+        dv, _ = adj_plain(dx2, ws_adj[0], zh[K - 1], geom)
+        g = getattr(mod, pre + "syn_residual_plain")(dv, wa_adj[k], geom)
+        z16, r16 = zh[k - 1].to(bf), rh[k - 1].to(bf)
+        got = adj(g, ws_adj[k], z16, geom, base=dv, alpha=-1.0)
+        ref = adj(g, ws_adj[k], z16.float(), geom, base=dv, alpha=-1.0)
+        torch.cuda.synchronize()
+        same = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        compare(pre + "syn_adjoint" + BF16, f"{shape} dz = dv - Bk*(g)", got,
+                adj_plain(g, ws_adj[k], z16, geom, base=dv, alpha=-1.0), err)
+        print(f"hist H2 [{card}]: {pre}syn_adjoint at {shape} on bf16 codes: dv and dtau "
+              f"bitwise the launch on the upcast codes: {same}", flush=True)
+        require(same, f"hist H2: {pre}syn_adjoint on bf16 codes at {shape}")
+        wgrad, wgrad_plain = getattr(bmod, pre + "wgrad"), getattr(bmod, pre + "wgrad_plain")
+        for what, x, y in (("dA = -dv (*) r, r bf16", r16, dv),
+                           ("dB = adjoint of -z (*) g, z bf16", g, z16)):
+            compare(pre + "wgrad" + BF16, f"{shape} {what}",
+                    wgrad(x, y, taps, geom.off_a, alpha=-1.0, rows=rows),
+                    wgrad_plain(x, y, taps, geom.off_a, alpha=-1.0, rows=rows), err)
+        g_full = pp.depth_to_space(g, s, dims, o["C"])
+        wg = torch.nn.grad.conv3d_weight if dims == 3 else torch.nn.grad.conv2d_weight
+        z32, r32 = z16.float(), r16.float()  # the fp32 launches on the same values
+        pair = lambda f, r_, z_: lambda: (f(r_, dv, taps, geom.off_a, alpha=-1.0, rows=rows),
+                                          f(g, z_, taps, geom.off_a, alpha=-1.0, rows=rows))
+        for name, run, fp32, plain, lib, banks, io in (
+            (pre + "syn_adjoint",
+             lambda: adj(g, ws_adj[k], z16, geom, base=dv, alpha=-1.0),
+             lambda: adj(g, ws_adj[k], z32, geom, base=dv, alpha=-1.0),
+             lambda: adj_plain(g, ws_adj[k], z16, geom, base=dv, alpha=-1.0),
+             lambda: conv(g_full, o["B"][k], stride=s, padding=pads),
+             (ws_adj[k],), (g, ws_adj[k], dv, z16, dv, tau[0])),
+            (pre + "wgrad", pair(wgrad, r16, z16), pair(wgrad, r32, z32),
+             pair(wgrad_plain, r16, z16),
+             lambda: (wg(r_full, o["A"][k].shape, dv, stride=s, padding=pads),
+                      wg(g_full, o["B"][k].shape, zh[k - 1], stride=s, padding=pads)),
+             (wa[k], ws[k]), (r16, dv, wa[k], g, z16, ws[k])),
+        ):
+            calls = len(banks)
+            tt = dict(zip(("ms", "plain_ms", "library_ms"),
+                          (cuda_ms(f, reps=10) / calls for f in (run, plain, lib))))
+            tt["bound_ms"], tt["bound_by"] = bound(banks, n_pos, io, calls, tf32x3=True)
+            fp32_ms = cuda_ms(fp32, reps=10) / calls
+            times[name + BF16] = tt
+            print(f"time [{card}]: {shape} {name}{BF16} {tt['ms']:.4f} ms/call (on fp32 "
+                  f"histories {fp32_ms:.4f}), plain {tt['plain_ms']:.4f}, library "
+                  f"{tt['library_ms']:.4f}, bound {tt['bound_ms']:.4f} ({tt['bound_by']})",
+                  flush=True)
+        del o, zh, rh, z16, r16, dv, g, got, ref
+    # the weight gradient at the native step's code grid (8x240x427: ragged
+    # for fp32 and bf16 rows) and on the stride-1 P=(7,7,5) bank (args3dt,
+    # launched over halves of its depth taps), random operands
+    gen = torch.Generator(device=dev).manual_seed(SEED + 181)
+    for label, geom, I, O, grid in (
+        ("native 1x8x240x427", L.Geom(2, (7, 7, 5), (3, 3, 2)), 8, FLAGSHIP["M"],
+         (NATIVE[0] // 2, NATIVE[1] // 2, NATIVE[2] // 2)),
+        ("s=1 P=(7,7,5) 1x16x64^2", L.Geom(1, (7, 7, 5), (3, 3, 2)), 1, 64, (16, 64, 64)),
+    ):
+        taps = tuple(hi - lo + 1 for lo, hi in geom.taps)
+        rows = LB.phase_rows(geom, I, 3)
+        xs = torch.randn((1, I, *grid), generator=gen, device=dev)
+        ys = torch.randn((1, O, *grid), generator=gen, device=dev)
+        for what, x, y in (("x bf16", xs.to(bf), ys), ("y bf16", xs, ys.to(bf))):
+            compare("lista3d_wgrad" + BF16, f"{label} {what}",
+                    LB.lista3d_wgrad(x, y, taps, geom.off_a, alpha=-1.0, rows=rows),
+                    LB.lista3d_wgrad_plain(x, y, taps, geom.off_a, alpha=-1.0, rows=rows), err)
+        del xs, ys
+    torch.set_grad_enabled(grad_mode)
+    torch.cuda.empty_cache()
+    t_h12 = time.perf_counter()
+
+    # --- H3 one step at three shapes in both modes (the main path's run
+    # starts here: the counts from 0) ---
+    L.launches.clear()
+    L.hist_launches.clear()
+    launches, bf16_launches = collections.Counter(), collections.Counter()
+    opt = make_optimizer(2e-4, clip_grad=0.05)
+    clean_v = np.stack([smooth_clip(rng, *CLIP[:2])[None] for _ in range(TRAIN_N)])
+    clean_n = smooth_clip(rng, NATIVE[0], NATIVE[1:])[None, None]
+    clean_2 = natural_crops(rng, TRAIN_2D_N, CROP)
+    for label, m, clean, obs_fn, grid, Cp in (
+        (f"video {TRAIN_N}x{CLIP}", vid, clean_v, observed_3d, (8, 64, 64), 8),
+        (f"2D {TRAIN_2D_N}x{CROP}^2", flag2, clean_2, observed, (64, 64), 4),
+        (f"native 1x{NATIVE}", vid, clean_n, observed_3d, (8, 240, 427), 8),
+    ):
+        obs, sig = obs_fn(rng, clean, dev)
+        clean_t = torch.from_numpy(clean).to(dev)
+        res = {}
+        for mode in ("f32", "bf16"):
+            with hist_env(mode):
+                L.launches.clear()
+                loss = mse_loss(m(obs, sig)[0], clean_t)
+                g = [t.detach() for t in torch.autograd.grad(loss, (m.A, m.B, m.t))]
+                torch.cuda.synchronize()
+                step_launches = dict(L.launches)
+                launches.update(L.launches)
+                mm = copy.deepcopy(m)
+                st = opt.init(dict(mm.named_parameters()))
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                L.launches.clear()
+                ms = host_ms(lambda: train_update(mm, opt, st, obs, sig, clean_t),
+                             rounds=2 if "native" in label else 5)
+                launches.update(L.launches)
+                peak = torch.cuda.max_memory_allocated() / 1e9
+                res[mode] = dict(loss=loss.detach(), g=g, launches=step_launches, ms=ms,
+                                 peak=peak)
+                del mm, st
+        hb = {mode: history_bytes(*m.A.shape[:2], clean.shape[0], Cp, grid, dt) / 1e9
+              for mode, dt in (("f32", torch.float32), ("bf16", bf))}
+        f, b = res["f32"], res["bf16"]
+        gaps = [rel_err(gb, gf)[1] for gb, gf in zip(b["g"], f["g"])]
+        print(f"hist H3 [{card}]: {label} step, fp32 / bf16 histories: loss {float(f['loss']):.8f}"
+              f" / {float(b['loss']):.8f} (bitwise equal: {torch.equal(f['loss'], b['loss'])});"
+              f" launches a step {f['launches']} / {b['launches']}; {f['ms']:.3f} / "
+              f"{b['ms']:.3f} ms a step; peak {f['peak']:.3f} / {b['peak']:.3f} GB; histories "
+              f"{hb['f32']:.3f} / {hb['bf16']:.3f} GB; gradient gap bf16 vs fp32 (dA, dB, dt) "
+              f"{', '.join(f'{v:.3e}' for v in gaps)}", flush=True)
+        require(torch.equal(f["loss"], b["loss"]), f"hist H3: {label} loss differs between modes")
+        require(f["launches"] == b["launches"], f"hist H3: {label} launches differ")
+        require(max(gaps) <= HIST_GRAD_GAP, f"hist H3: {label} gradient gap {max(gaps):.3e} "
+                f"> {HIST_GRAD_GAP}")
+        key = "native" if "native" in label else ("video" if "video" in label else None)
+        if key:
+            drop = f["peak"] - b["peak"]
+            require(drop >= HIST_PEAK_DROP_GB[key], f"hist H3: {label} peak fell by "
+                    f"{drop:.3f} GB < {HIST_PEAK_DROP_GB[key]} GB")
+        del res, obs, clean_t
+        torch.cuda.empty_cache()
+    t_h3 = time.perf_counter()
+
+    # --- H4 the end metric: the same training in both modes, held-out PSNR ---
+    erng = np.random.default_rng(SEED + 182)
+    eval_2d = natural_crops(erng, HIST_EVAL_N, CROP)
+    eval_3d = np.stack([smooth_clip(erng, *CLIP[:2])[None] for _ in range(HIST_EVAL_N)])
+    noisy = {n: torch.from_numpy(c + SIGMA / 255 * erng.standard_normal(c.shape)
+                                 .astype(np.float32)).to(dev)
+             for n, c in (("2d", eval_2d), ("3d", eval_3d))}
+    images = scan_images(np.random.default_rng(SEED + 60))  # the scan phase's corpus
+    loader = image_loader(images, CROP, TRAIN_2D_N)
+    val = [np.stack([im[:, :CROP, :CROP] for im in images[:4]])]
+    m2 = CDLNet(**FLAGSHIP_2D, backend="pallas").to(dev)
+    m2.init(torch.Generator().manual_seed(SEED))
+    init_2 = copy.deepcopy(m2.state_dict())
+    vcorpus = DeviceClipCorpus(scan_videos(dev), device=dev, **SCAN_CLIP)
+    m3 = CDLNetVideo(**FLAGSHIP, backend="pallas").to(dev)
+    m3.init(torch.Generator().manual_seed(SEED))
+    init_3 = copy.deepcopy(m3.state_dict())
+    end = {}
+    for mode in ("f32", "bf16"):
+        with hist_env(mode):
+            m2.load_state_dict(init_2)
+            opt2 = make_optimizer(FIT_2D_LR, clip_grad=FIT_2D_CLIP)
+            L.launches.clear()
+            t0 = time.perf_counter()
+            by_epoch2 = []  # the held-out PSNR after each epoch
+            with tempfile.TemporaryDirectory() as save_dir:
+                _, fit_hist = fit(m2, opt2, opt2.init(dict(m2.named_parameters())),
+                                  {"train": loader, "val": val, "test": val},
+                                  save_dir=save_dir, epochs=HIST_2D_EPOCHS,
+                                  noise_std=TRAIN_SIGMA, val_freq=100, save_freq=1,
+                                  backtrack_thresh=None, verbose=False, workload="2d",
+                                  seed=SEED, device_scan=True,
+                                  sched=dict(step_size=HIST_2D_DECAY_EPOCH, gamma=0.1),
+                                  epoch_fun=lambda e: by_epoch2.append(held_out_psnr(
+                                      m2, noisy["2d"], eval_2d, SIGMA)))
+                with open(os.path.join(save_dir, "metrics.jsonl")) as fh:
+                    steps2 = sum(json.loads(ln).get("steps", 0) for ln in fh
+                                 if ln.strip() and json.loads(ln).get("phase") == "train")
+            fit_s = time.perf_counter() - t0
+            launches.update(L.launches)
+            m3.load_state_dict(init_3)
+            opt3 = make_optimizer(2e-4, clip_grad=0.05)
+            st3 = opt3.init(dict(m3.named_parameters()))
+            step3, _ = make_train_step(m3, opt3, workload="3d", noise_std=TRAIN_SIGMA)
+            runner = make_epoch_runner(vcorpus, step3, m3, graph=True)
+            g3 = torch.Generator(device=dev).manual_seed(SEED)
+            L.launches.clear()
+            t0 = time.perf_counter()
+            vlosses, by_epoch3 = [], []  # the held-out PSNR every 20 steps
+            for steps in (HIST_VIDEO_STEPS, HIST_VIDEO_TAIL):
+                for _ in range(-(-steps // runner.steps)):
+                    vlosses.append(runner(st3, g3))
+                    if sum(map(len, vlosses)) % 20 == 0:
+                        by_epoch3.append(held_out_psnr(m3, noisy["3d"], eval_3d, SIGMA))
+                set_lr(st3, 2e-5)
+            vlosses = torch.cat(vlosses)
+            torch.cuda.synchronize()
+            video_s = time.perf_counter() - t0
+            launches.update(L.launches)
+            end[mode] = dict(
+                p2=held_out_psnr(m2, noisy["2d"], eval_2d, SIGMA),
+                p3=held_out_psnr(m3, noisy["3d"], eval_3d, SIGMA),
+                steps2=steps2, steps3=len(vlosses), by_epoch2=by_epoch2, by_epoch3=by_epoch3,
+                train2=[p for _, ph, p in fit_hist if ph == "train"],
+                loss3=float(vlosses[-runner.steps:].mean()), fit_s=fit_s, video_s=video_s)
+            del runner, step3, st3
+    bf16_launches.update(L.hist_launches)
+    f, b = end["f32"], end["bf16"]
+    gap2, gap3 = b["p2"] - f["p2"], b["p3"] - f["p3"]
+    fmt = lambda v: [f"{x:.3f}" for x in v]
+    print(f"hist H4 [{card}]: flagship 2D, fit(device_scan=True) {f['steps2']} steps on "
+          f"the staged corpus (train PSNR by epoch, fp32 {fmt(f['train2'])}, bf16 "
+          f"{fmt(b['train2'])}; held-out PSNR by epoch, fp32 {fmt(f['by_epoch2'])}, bf16 "
+          f"{fmt(b['by_epoch2'])}; {f['fit_s']:.2f} / {b['fit_s']:.2f} s): held-out PSNR at "
+          f"sigma {SIGMA:g} on {HIST_EVAL_N} crops: fp32 {f['p2']:.4f} dB, bf16 {b['p2']:.4f} dB "
+          f"(bf16 - fp32 {gap2:+.4f} dB)", flush=True)
+    print(f"hist H4 [{card}]: flagship video, {f['steps3']} replayed steps on the staged "
+          f"videos (last epoch's mean loss fp32 {f['loss3']:.6f}, bf16 {b['loss3']:.6f}; "
+          f"held-out PSNR every 20 steps, fp32 {fmt(f['by_epoch3'])}, bf16 {fmt(b['by_epoch3'])}; "
+          f"{f['video_s']:.2f} / {b['video_s']:.2f} s): held-out PSNR at sigma {SIGMA:g} on "
+          f"{HIST_EVAL_N} clips: fp32 {f['p3']:.4f} dB, bf16 {b['p3']:.4f} dB (bf16 - fp32 "
+          f"{gap3:+.4f} dB)", flush=True)
+    require(f["steps2"] >= 300 and f["steps3"] >= HIST_VIDEO_STEPS, "hist H4: too few steps")
+    require(abs(gap2) <= HIST_PSNR_GAP_DB and abs(gap3) <= HIST_PSNR_GAP_DB,
+            f"hist H4: PSNR gap 2D {gap2:+.4f}, video {gap3:+.4f} dB > {HIST_PSNR_GAP_DB} dB")
+    missing = [n for n in HIST_KERNELS if not bf16_launches[n]]
+    print(f"hist [{card}]: the main path's bf16 launches {dict(+bf16_launches)}; H1-H2 "
+          f"{t_h12 - t_start:.2f} s, H3 {t_h3 - t_h12:.2f} s, H4 "
+          f"{time.perf_counter() - t_h3:.2f} s", flush=True)
+    require(not missing, f"hist: no bf16-history launch of {missing} on the main path")
+    del m2, m3, vcorpus, vid, flag2
+    torch.cuda.empty_cache()
+    return dict(launches), dict(bf16_launches), times
+
+
 def sweep_phase(dev, card) -> dict:
     """sweep: the kernel matrix (cdlnet_tpu_torch/tools/kernel_sweep.py),
     the 25 reference-geometry cases of tools/hw_kernel_sweep.py through
@@ -4434,12 +4835,16 @@ def main() -> int:
     for ln in so.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in ln:
             entry = next((v for k, v in tc_entries.items() if k in ln), None)
+            if entry and re.search(r"L(b1|i[12])EEEv", ln):
+                entry += BF16
         elif entry and ("registers" in ln or "spill" in ln):
             print(f"ptxas {entry}: {ln.strip()}", flush=True)
     # their products in the machine code (cuobjdump, beside nvcc): the TF32
     # tensor-core instructions
     for fn, ins in compare_sass.disassemble(str(so)).items():
         label = next((v for k, v in tc_entries.items() if k in fn), None)
+        if label and re.search(r"L(b1|i[12])EEEv", fn):  # kBf16 / kHist last: bf16 histories
+            label += BF16
         if label:
             hmma = sum("HMMA" in i and "TF32" in i for i in ins)
             print(f"sass {label}: {hmma} HMMA TF32 of {len(ins)} instructions ({fn})", flush=True)
@@ -4554,14 +4959,15 @@ def main() -> int:
     plain_train = CDLNetVideo(**FLAGSHIP, backend="xla").to(dev)
     plain_train.load_state_dict(train_model.state_dict())
 
-    L.launches.clear()
-    g1 = grads(train_model, noisy_t, sig_t, clean_t)
-    torch.cuda.synchronize()
-    require(dict(L.launches) == STEP_LAUNCHES,
-            f"one gradient launched {dict(L.launches)}, expected {STEP_LAUNCHES}")
-    g2 = grads(train_model, noisy_t, sig_t, clean_t)
-    gp = grads(plain_train, noisy_t, sig_t, clean_t)
-    torch.cuda.synchronize()
+    with hist_env("f32"):
+        L.launches.clear()
+        g1 = grads(train_model, noisy_t, sig_t, clean_t)
+        torch.cuda.synchronize()
+        require(dict(L.launches) == STEP_LAUNCHES,
+                f"one gradient launched {dict(L.launches)}, expected {STEP_LAUNCHES}")
+        g2 = grads(train_model, noisy_t, sig_t, clean_t)
+        gp = grads(plain_train, noisy_t, sig_t, clean_t)
+        torch.cuda.synchronize()
     for name, a, b, ref in zip("ABt", g1, g2, gp):
         d, rel = rel_err(a, ref)
         print(f"parity K={K} gradient d{name} (N={TRAIN_N}, {CLIP}): max|d| {d:.3e}, "
@@ -4672,8 +5078,10 @@ def main() -> int:
     launches_loss = losses_phase(dev, card, t_par)
     t7 = time.perf_counter()
 
-    # --- 23. the distributed layer (dist) ---
-    launches_dist = dist_phase(dev, card)
+    # --- 23. the distributed layer (dist; its D2 gradients are gated
+    # against float64 and the unsharded fp32 ones) ---
+    with hist_env("f32"):
+        launches_dist = dist_phase(dev, card)
     t8 = time.perf_counter()
 
     # --- 24. one-dispatch training epochs (scan) ---
@@ -4682,10 +5090,16 @@ def main() -> int:
 
     # --- 25. the kernel matrix (sweep) ---
     launches_sweep = sweep_phase(dev, card)
+    t10 = time.perf_counter()
+
+    # --- 26. bf16 training histories against fp32 ones (hist) ---
+    launches_hist, bf16_launches, times_bf16 = hist_phase(dev, card, model, t_par, err)
+    times.update(times_bf16)
     print(f"phases: prefetch {t1 - t0:.2f} s, blind PCA {t2 - t1:.2f} s, residual "
           f"{t3 - t2:.2f} s, baselines {t4 - t3:.2f} s, ckpt {t5 - t4:.2f} s, server "
           f"{t6 - t5:.2f} s, losses {t7 - t6:.2f} s, dist {t8 - t7:.2f} s, scan "
-          f"{t9 - t8:.2f} s, sweep {time.perf_counter() - t9:.2f} s", flush=True)
+          f"{t9 - t8:.2f} s, sweep {t10 - t9:.2f} s, hist {time.perf_counter() - t10:.2f} s",
+          flush=True)
 
     launches = {name: serve_launches.get(name, 0) + fit_launches.get(name, 0)
                 + launches_2d.get(name, 0) + launches_t2.get(name, 0)
@@ -4693,7 +5107,8 @@ def main() -> int:
                 + launches_ct.get(name, 0) + launches_pca.get(name, 0)
                 + launches_ck.get(name, 0) + launches_srv.get(name, 0)
                 + launches_loss.get(name, 0) + launches_dist.get(name, 0)
-                + launches_scan.get(name, 0) + launches_sweep.get(name, 0) for name in KERNELS}
+                + launches_scan.get(name, 0) + launches_sweep.get(name, 0)
+                + launches_hist.get(name, 0) for name in KERNELS}
     for name in TC_KERNELS:
         tt = times[name]
         shape = "train shape" if "adjoint" in name or "wgrad" in name else "serve shape"
@@ -4707,6 +5122,13 @@ def main() -> int:
          **({"bigframe": times_bf[name]} if name in times_bf else {}),
          **({"csr P=9": syn_p9} if name == "lista2d_syn_residual" else {})}
         for name, (src, tpu) in KERNELS.items()
+    ] + [
+        # the bf16-history instantiations, launched by the same wrappers: the
+        # hist phase's main-path launches and its times at the train shapes
+        {"name": name + BF16, "route": "cuda", "source": KERNELS[name][0],
+         "replaces": KERNELS[name][1] + HIST_REPLACES[name[:7]], "launches": bf16_launches[name],
+         "max_abs_err": err[name + BF16], **times[name + BF16]}
+        for name in HIST_KERNELS
     ]}
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

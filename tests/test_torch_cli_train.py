@@ -69,10 +69,11 @@ def _images(n, seed, shape=(2, 1, 16, 20)):
 
 
 @pytest.mark.parametrize("family", ["cdlnet", "jdd"])
-def test_10_step_trajectory_tracks_jax(family):
+def test_10_step_trajectory_tracks_jax(family, monkeypatch):
     """Each step: the same noisy batch (fixed arrays) to both loops. Held at
     1e-4 relative on the loss and 2e-4 relative on the parameters after
     10 steps: fp32 rounding of ~1e-7 per step compounds through Adam."""
+    monkeypatch.setenv("CDLNET_HIST_DTYPE", "f32")  # the kernels' fp32 histories
     cfg, masked = FAMILIES[family]
     params = jax.tree_util.tree_map(
         np.asarray, JaxCDLNet(**cfg).init(jax.random.PRNGKey(1), init=True))

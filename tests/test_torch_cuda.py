@@ -187,8 +187,9 @@ def test_fused_on_cuda_matches_cpu_and_counts_launches(cuda):
     np.testing.assert_allclose(z.cpu().numpy(), z_ref.numpy(), atol=1e-4)
 
 
-def test_fused_histories_on_cuda_match_cpu(cuda):
+def test_fused_histories_on_cuda_match_cpu(cuda, monkeypatch):
     """The kernels write each z_k and r_k straight into its history slice."""
+    monkeypatch.setenv("CDLNET_HIST_DTYPE", "f32")  # the kernels' fp32 histories
     rng = np.random.default_rng(5)
     K, M, P, s = 3, 13, (7, 7, 5), 2
     f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
@@ -207,9 +208,10 @@ def test_fused_histories_on_cuda_match_cpu(cuda):
         assert _rel(got, ref) <= 1e-4
 
 
-def test_fused_grad_on_cuda_matches_cpu_and_counts_launches(cuda):
+def test_fused_grad_on_cuda_matches_cpu_and_counts_launches(cuda, monkeypatch):
     """The grad-enabled kernel forward and its reverse kernels give the
     CPU reverse loop's gradients, with 2K + K + (K-1) + 2K launches."""
+    monkeypatch.setenv("CDLNET_HIST_DTYPE", "f32")  # the kernels' fp32 histories
     rng = np.random.default_rng(4)
     K, M, P, s = 3, 13, (7, 7, 5), 2
     f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
@@ -396,12 +398,13 @@ def test_bigframe_reverse_kernels_match_plain(cuda, P, s, M, N, D, H, W, C):
         assert _rel(got, ref) <= 1e-4
 
 
-def test_bigframe_grad_on_cuda_matches_cpu_and_counts_launches(cuda):
+def test_bigframe_grad_on_cuda_matches_cpu_and_counts_launches(cuda, monkeypatch):
     """K=3 forward and gradient through the kernels at a ragged big frame
     with the (9,9,5) taps, a mask and per-sample thresholds, against the
     CPU reverse loop. The banks have bench.py's 0.02 scale: at 0.1 the
     405-tap banks make the iteration expansive, and the CPU's own fp32 dA
     is 1.9e-4 off its fp64 value."""
+    monkeypatch.setenv("CDLNET_HIST_DTYPE", "f32")  # the kernels' fp32 histories
     rng = np.random.default_rng(6)
     K, M, P, s = 3, 13, (9, 9, 5), 2
     f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
@@ -760,7 +763,7 @@ def _clipped(grads, clip):
 
 @pytest.mark.parametrize("C,s,use_mask", [(1, 2, False), (3, 1, True), (3, 2, True)])
 def test_2d_train_step_on_cuda_matches_cpu_and_counts_launches(cuda, C, s, use_mask,
-                                                                record_property):
+                                                                record_property, monkeypatch):
     """One 2D training step (noise drawn once on the CPU) on the card
     against the CPU's: the loss, dA, dB and dt (1e-4, the JAX package's gate
     for its reverse kernels) with 2K + K + (K-1) + 2K launches under the 2D
@@ -773,6 +776,7 @@ def test_2d_train_step_on_cuda_matches_cpu_and_counts_launches(cuda, C, s, use_m
     step is ~lr * sign(g), so on entries whose gradient is near eps it turns
     fp32 noise in g into an update difference of up to 2 lr. The recorded
     properties (pytest --junitxml) show where the largest difference lies."""
+    monkeypatch.setenv("CDLNET_HIST_DTYPE", "f32")  # the kernels' fp32 histories
     from cdlnet_tpu_torch.data.noise import awgn, gen_bayer_mask
     from cdlnet_tpu_torch.models import CDLNet
     from cdlnet_tpu_torch.train.fit import train_update
@@ -1432,9 +1436,10 @@ def test_stride1_wgrad_over_depth_tap_halves_matches_plain(cuda, P, s, M, N, D, 
     assert _rel(got, ref) <= 1e-5
 
 
-def test_stride1_grad_on_cuda_matches_cpu(cuda):
+def test_stride1_grad_on_cuda_matches_cpu(cuda, monkeypatch):
     """args3dt's banks (s = 1, P = (7, 7, 5)) through the kernel forward and
     reverse: the CPU reverse loop's gradients."""
+    monkeypatch.setenv("CDLNET_HIST_DTYPE", "f32")  # the kernels' fp32 histories
     rng = np.random.default_rng(8)
     K, M, P, s = 2, 8, (7, 7, 5), 1
     f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
@@ -1519,3 +1524,205 @@ def test_clipped_adam_on_device_state_matches_its_cpu_trajectory(cuda):
     for k in shapes:
         for a, b in ((pg[k], pc[k]), (sg["mu"][k], sc["mu"][k]), (sg["nu"][k], sc["nu"][k])):
             assert _rel(a, b) <= 1e-6
+
+
+# --- bf16 training histories (kernels/lista3d.py::hist_dtype): the writers'
+# rounded copies, the readers' bf16 operands, the loops in both modes ---
+
+BF16 = torch.bfloat16
+# (dims, shape): the 3D pair at the flagship serve and train shapes and at a
+# ragged 427-wide code grid; the 2D pair at the flagship 10 x 128^2 train
+# shape and a ragged width with two images
+WRITER_CASES = [
+    (3, ((7, 7, 5), 2, 169, 1, 16, 128, 128, 1)),
+    (3, ((7, 7, 5), 2, 169, 2, 16, 128, 128, 1)),
+    (3, ((7, 7, 5), 2, 24, 1, 4, 20, 854, 1)),
+    (2, (7, 2, 169, 10, 128, 128, 1)),
+    (2, (7, 2, 20, 2, 40, 150, 1)),
+]
+
+
+def _bf16_slot(shape, dev, off_grid):
+    """A bf16 tensor of `shape` on dev, 2 bytes off the 16-byte grid where
+    off_grid (the scalar epilogue's path)."""
+    n = int(np.prod(shape))
+    buf = torch.full((n + 1,), float("nan"), dtype=BF16, device=dev)
+    return buf[1:].view(shape) if off_grid else buf[:n].view(shape)
+
+
+def _pair(dims, shape, cuda):
+    if dims == 3:
+        d = _setup(*shape)
+        ana, syn, adj = L.lista3d_ana_threshold, L.lista3d_syn_residual, LB.lista3d_syn_adjoint
+        ws_adj = d["ws_adj"]
+    else:
+        d = _setup2d(*shape)
+        ana, syn, adj = L2.lista2d_ana_threshold, L2.lista2d_syn_residual, LB2.lista2d_syn_adjoint
+        ws_adj = LB.adjoint_bank(d["ws"], 2)
+    g = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in d.items()}
+    g["ws_adj"] = ws_adj.to(cuda)
+    return g, ana, syn, adj
+
+
+@pytest.mark.parametrize("dims,shape", WRITER_CASES)
+@pytest.mark.parametrize("writer", ["analysis", "synthesis"])
+@pytest.mark.parametrize("off_grid", [False, True])
+def test_bf16_writers_store_the_rounded_fp32_output(cuda, dims, shape, writer, off_grid):
+    """With a bf16 history slice the writer's fp32 output is bitwise the
+    launch without it, and the slice holds that output rounded to nearest
+    even (torch's own rounding), on and off the 16-byte grid."""
+    d, ana, syn, _ = _pair(dims, shape, cuda)
+    if writer == "analysis":
+        call = lambda **kw: ana(d["r"], d["z"], d["wa"], d["tau"], d["geom"], **kw)
+    else:
+        call = lambda **kw: syn(d["z"], d["ws"], d["geom"], mask=d["mask"], y=d["y"], **kw)
+    ref = call()
+    hist = _bf16_slot(ref.shape, cuda, off_grid)
+    got = call(hist=hist)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert torch.equal(hist, ref.to(BF16))
+
+
+@pytest.mark.parametrize("dims,shape", WRITER_CASES)
+@pytest.mark.parametrize("with_base,alpha", [(False, 1.0), (True, -1.0)])
+@pytest.mark.parametrize("off_grid", [False, True])
+def test_bf16_syn_adjoint_is_the_launch_on_the_upcast_codes(cuda, dims, shape, with_base,
+                                                            alpha, off_grid):
+    """The synthesis adjoint on bf16 codes: dv and dtau bitwise the same
+    launch on z.float() (it reads the codes' zeros and signs only)."""
+    d, _, _, adj = _pair(dims, shape, cuda)
+    z16 = _bf16_slot(d["z"].shape, cuda, off_grid)
+    z16.copy_(d["z"])
+    base = (0.5 * d["z"] + 0.1) if with_base else None
+    ref = adj(d["y"], d["ws_adj"], z16.float(), d["geom"], base=base, alpha=alpha)
+    got = adj(d["y"], d["ws_adj"], z16, d["geom"], base=base, alpha=alpha)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.float32
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+# the weight gradient with a bf16 operand: the flagship train shape, a
+# 427-wide code grid and a 20-wide one (whole 16-byte units in fp32, not in
+# bf16: the aligned fp32 operand beside a ragged bf16 one), the stride-1
+# P = (7, 7, 5) bank (launched over halves of its depth taps)
+WGRAD_BF16_SHAPES = [
+    ((7, 7, 5), 2, 169, 2, 16, 128, 128, 1),
+    ((7, 7, 5), 2, 24, 1, 4, 20, 854, 1),
+    ((5, 5, 3), 2, 32, 2, 8, 16, 40, 1),
+    ((7, 7, 5), 1, 8, 1, 6, 16, 20, 1),
+]
+
+
+@pytest.mark.parametrize("P,s,M,N,D,H,W,C", WGRAD_BF16_SHAPES)
+@pytest.mark.parametrize("form", ["dA: x = r", "dB: y = z"])
+@pytest.mark.parametrize("on_rows,off_grid", [(False, False), (True, False), (True, True)])
+def test_bf16_wgrad_matches_plain_on_the_upcast_history(cuda, P, s, M, N, D, H, W, C, form,
+                                                        on_rows, off_grid):
+    d = _setup(P, s, M, N, D, H, W, C)
+    geom = d["geom"]
+    rows = LB.phase_rows(geom, d["wa"].shape[0], 3) if on_rows else None
+    hist = d["r"] if form.startswith("dA") else d["z"]
+    h16 = _bf16_slot(hist.shape, cuda, off_grid)
+    h16.copy_(hist)
+    x, y = (h16, d["z"].to(cuda)) if form.startswith("dA") else (d["y"].to(cuda), h16)
+    ref = LB.lista3d_wgrad_plain(x.cpu().float(), y.cpu().float(), d["taps"], geom.off_a,
+                                 alpha=-1.0, rows=rows)
+    got = LB.lista3d_wgrad(x, y, d["taps"], geom.off_a, alpha=-1.0, rows=rows)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert _rel(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(7, 2, 169, 10, 128, 128, 1), (7, 2, 20, 2, 40, 150, 1),
+                                   (7, 1, 16, 1, 24, 36, 3)])
+@pytest.mark.parametrize("form", ["dA: x = r", "dB: y = z"])
+def test_bf16_2d_wgrad_matches_plain_on_the_upcast_history(cuda, shape, form):
+    d = _setup2d(*shape)
+    geom, taps = d["geom"], tuple(d["wa"].shape[1:3])
+    rows = LB.phase_rows(geom, d["wa"].shape[0], 2)
+    if form.startswith("dA"):
+        x, y = d["r"].to(BF16), d["z"]
+    else:
+        x, y = d["y"], d["z"].to(BF16)
+    ref = LB2.lista2d_wgrad_plain(x.float(), y.float(), taps, geom.off_a, alpha=-1.0, rows=rows)
+    got = LB2.lista2d_wgrad(x.to(cuda), y.to(cuda), taps, geom.off_a, alpha=-1.0, rows=rows)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= 1e-5
+
+
+def _fused_operands(dims, rng, K=3, M=13):
+    f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+    shape = (2, 1, 8, 16, 24) if dims == 3 else (2, 1, 24, 40)
+    P = (7, 7, 5) if dims == 3 else (7, 7)
+    yp = 0.3 * f(*shape)
+    A, B = 0.1 * f(K, M, 1, *P), 0.1 * f(K, M, 1, *P)
+    t = 0.02 * f(K, 2, M, *(1,) * dims).abs()
+    c = torch.tensor([0.1, 0.2]).reshape(2, *(1,) * (dims + 1))
+    mask = (f(*shape) > 0).float()
+    return yp, A, B, t, c, mask
+
+
+@pytest.mark.parametrize("dims", [3, 2])
+def test_bf16_fused_forward_is_the_f32_modes_with_rounded_histories(cuda, dims):
+    """The loop in bf16 mode on the card: output and codes bitwise the fp32
+    mode's, histories the fp32 histories rounded, the same launches."""
+    ops = [v.to(cuda) for v in _fused_operands(dims, np.random.default_rng(9))]
+    fused = L.lista3d_fused if dims == 3 else L2.lista2d_fused
+    kw = dict(stride=2, mask=ops[5], return_z=True)
+    kw["return_hists" if dims == 3 else "return_hist"] = True
+    out = {}
+    for dtype in (torch.float32, BF16):
+        L.launches.clear()
+        out[dtype] = (*fused(*ops[:5], hists_dtype=dtype, **kw), dict(L.launches))
+    (xf, zf, hf, lf), (xb, zb, hb, lb) = out[torch.float32], out[BF16]
+    assert lf == lb
+    assert torch.equal(xb, xf) and torch.equal(zb, zf)
+    assert all(h.dtype == BF16 for h in hb)
+    assert all(torch.equal(b, f.to(BF16)) for b, f in zip(hb, hf))
+
+
+@pytest.mark.parametrize("dims", [3, 2])
+def test_bf16_grad_on_cuda_matches_cpu_and_the_f32_mode(cuda, dims, monkeypatch):
+    """The default (bf16) gradients on the card: within 1e-3 of the CPU's
+    bf16 gradients (the same rounded histories but where fp32 sums round
+    to another bf16 neighbour), within the JAX package's 1e-1 of the fp32
+    mode's, with the fp32 mode's launches."""
+    from cdlnet_tpu_torch.kernels.autodiff import lista2d_fused_diff
+
+    yp, A, B, t, c, mask = _fused_operands(dims, np.random.default_rng(10))
+    tgt = torch.from_numpy(np.random.default_rng(11).uniform(size=yp.shape).astype(np.float32))
+    diff = lista3d_fused_diff if dims == 3 else lista2d_fused_diff
+
+    def grads(dev, dtype):
+        monkeypatch.setenv("CDLNET_HIST_DTYPE", dtype)
+        prm = [v.to(dev).requires_grad_() for v in (A, B, t)]
+        L.launches.clear()
+        x = diff(yp.to(dev), *prm, c.to(dev), stride=2, mask=mask.to(dev))
+        loss = ((x - tgt.to(dev)) ** 2).mean()
+        return [g.cpu() for g in torch.autograd.grad(loss, prm)], dict(L.launches)
+
+    (gb, lb), (gf, lf) = grads(cuda, "bf16"), grads(cuda, "f32")
+    cpu, _ = grads("cpu", "bf16")
+    assert lb == lf
+    for name, b, f, w in zip("ABt", gb, gf, cpu):
+        assert _rel(b, w) <= 1e-3, name
+        assert _rel(b, f) <= 1e-1, name
+
+
+def test_bf16_operands_only_where_the_kernels_take_them(cuda):
+    """A bf16 tensor where no history goes, two bf16 weight-gradient
+    operands, or an fp32 history slice: ValueError, before any launch."""
+    d = _setup((5, 5, 3), 2, 8, 1, 8, 16, 16)
+    g = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in d.items()}
+    with pytest.raises(ValueError):
+        L.lista3d_ana_threshold(g["r"].to(BF16), None, g["wa"], g["tau"], g["geom"])
+    with pytest.raises(ValueError):
+        L.lista3d_ana_threshold(g["r"], None, g["wa"], g["tau"], g["geom"],
+                                hist=torch.empty_like(g["z"]))
+    with pytest.raises(ValueError):
+        L.lista3d_syn_residual(g["z"].to(BF16), g["ws"], g["geom"])
+    with pytest.raises(ValueError):
+        LB.lista3d_wgrad(g["r"].to(BF16), g["z"].to(BF16), g["taps"], g["geom"].off_a)
+    with pytest.raises(ValueError):
+        LB.lista3d_syn_adjoint(g["y"].to(BF16), g["ws_adj"], g["z"], g["geom"])

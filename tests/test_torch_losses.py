@@ -92,11 +92,12 @@ def _jax_mcsure(family):
 
 @pytest.mark.parametrize("backend", ["pallas", "xla"])
 @pytest.mark.parametrize("family", list(FAMILIES))
-def test_mcsure_loss_and_gradients_match_jax(family, backend):
+def test_mcsure_loss_and_gradients_match_jax(family, backend, monkeypatch):
     """The same obsrv, per-sample sigma and probe b (JAX's draw from the
     key its mcsure_loss takes, passed to the port): the loss and every
     parameter's gradient, the port through its reverse loop ("pallas") and
     through torch autograd ("xla")."""
+    monkeypatch.setenv("CDLNET_HIST_DTYPE", "f32")  # the kernels' fp32 histories
     _, cls, cfg, _ = FAMILIES[family]
     params, y, sigma, b = _mcsure_case(family)
     v_ref, g_ref = _jax_mcsure(family)

@@ -193,7 +193,8 @@ def test_fused_histories_match_jax_k5(use_mask, monkeypatch):
 
 @pytest.mark.parametrize("P,s,C,use_mask", [(7, 2, 1, False), (7, 2, 1, True),
                                             (7, 1, 3, True), (5, 2, 3, False)])
-def test_fused_diff_matches_jax_xla_scan(P, s, C, use_mask):
+def test_fused_diff_matches_jax_xla_scan(P, s, C, use_mask, monkeypatch):
+    monkeypatch.setenv("CDLNET_HIST_DTYPE", "f32")  # the kernels' fp32 histories
     d = _inputs(P, C=C, shape=(2, 18, 14), seed=2)
     mask = jnp.asarray(d["mask"]) if use_mask else None
 
@@ -234,9 +235,10 @@ def test_reverse_matches_jax_k6_interpret(P, C, M, K, use_mask, N, monkeypatch):
         assert _rel(a, b) <= 1e-4, name
 
 
-def test_reverse_matches_jax_k8_interpret():
+def test_reverse_matches_jax_k8_interpret(monkeypatch):
     """K8 at N=2 x 32x256: a 16x128 code grid in two bands of 8, masked,
     per-image c."""
+    monkeypatch.setenv("CDLNET_HIST_DTYPE", "f32")  # the kernels' fp32 histories
     P, s, K, M = 5, 2, 2, 8
     d = _inputs(P, K=K, M=M, shape=(2, 32, 256), seed=5)
     args = [jnp.asarray(d[k]) for k in ("yp", "A", "B", "t", "c")]
@@ -271,7 +273,8 @@ def _family_params(jax_cls, cfg, seed=0):
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))
-def test_model_gradients_match_xla_and_jax(family):
+def test_model_gradients_match_xla_and_jax(family, monkeypatch):
+    monkeypatch.setenv("CDLNET_HIST_DTYPE", "f32")  # the kernels' fp32 histories
     jax_cls, cls, cfg, masked = FAMILIES[family]
     params = _family_params(jax_cls, cfg)
     rng = np.random.default_rng(5)

@@ -168,7 +168,8 @@ def test_adjoint_bank_swaps_the_two_preps():
 
 @pytest.mark.parametrize("P,s,use_mask", [((7, 7, 5), 2, False), ((7, 7, 5), 2, True),
                                           ((5, 5, 3), 2, True), ((5, 5, 3), 1, False)])
-def test_fused_diff_matches_jax_xla_scan(P, s, use_mask):
+def test_fused_diff_matches_jax_xla_scan(P, s, use_mask, monkeypatch):
+    monkeypatch.setenv("CDLNET_HIST_DTYPE", "f32")  # the kernels' fp32 histories
     d = _inputs(P, seed=2)
     pads = tuple(p // 2 for p in P)
     mask = jnp.asarray(d["mask"]) if use_mask else None
@@ -187,8 +188,9 @@ def test_fused_diff_matches_jax_xla_scan(P, s, use_mask):
         assert _rel(a, b) <= 1e-4, name
 
 
-def test_fused_forward_histories_match_jax():
+def test_fused_forward_histories_match_jax(monkeypatch):
     """return_hists keeps every z_k and r_k, in fp32: JAX's contract."""
+    monkeypatch.setenv("CDLNET_HIST_DTYPE", "f32")  # the kernels' fp32 histories
     P, s, K, M = (5, 5, 3), 2, 3, 6
     d = _inputs(P, K=K, M=M, seed=3)
     _, _, (zj, rj) = jax_lista3d_fused(
@@ -227,7 +229,8 @@ def reverse_case():
 
 
 @pytest.mark.parametrize("kernel", ["K2", "K4"])
-def test_reverse_matches_jax_reverse_kernel_interpret(kernel, reverse_case):
+def test_reverse_matches_jax_reverse_kernel_interpret(kernel, reverse_case, monkeypatch):
+    monkeypatch.setenv("CDLNET_HIST_DTYPE", "f32")  # the kernels' fp32 histories
     d, s, args, mask, zh, rh, dxp = reverse_case
     run = jax_k2_bwd if kernel == "K2" else jax_k4_bwd
     g_ref = run(dxp, *args[:4], args[4], mask, zh, rh, stride=s, interpret=True)
@@ -250,7 +253,8 @@ def _small_params(seed=0):
     return params
 
 
-def test_model_gradients_match_xla_and_jax():
+def test_model_gradients_match_xla_and_jax(monkeypatch):
+    monkeypatch.setenv("CDLNET_HIST_DTYPE", "f32")  # the kernels' fp32 histories
     params = _small_params()
     rng = np.random.default_rng(5)
     y = rng.uniform(size=(2, 1, 7, 18, 22)).astype(np.float32)  # odd sizes pad
@@ -335,11 +339,12 @@ def _clips(n, seed, shape=(2, 1, 4, 16, 16)):
     return out
 
 
-def test_30_step_trajectory_tracks_jax():
+def test_30_step_trajectory_tracks_jax(monkeypatch):
     """Each step: the same noisy batch (fixed arrays) to both loops. The
     trajectory is held at 1e-4 relative on the loss and 2e-4 relative on
     the parameters after 30 steps: fp32 rounding differences of ~1e-7 per
     step compound through Adam's normalized updates."""
+    monkeypatch.setenv("CDLNET_HIST_DTYPE", "f32")  # the kernels' fp32 histories
     params = jax.tree_util.tree_map(
         np.asarray, JaxCDLNetVideo(**TRAJ).init(jax.random.PRNGKey(1), init=True))
     params["t"] = np.full(params["t"].shape, 0.01, np.float32)
