@@ -42,7 +42,14 @@ import torch
 from cdlnet_tpu_torch import nle
 from cdlnet_tpu_torch.cli import train as cli_train
 from cdlnet_tpu_torch.data.noise import awgn, gen_bayer_mask
-from cdlnet_tpu_torch.utils import append_metric, img_load, img_save, make_grid, psnr
+from cdlnet_tpu_torch.utils import (
+    append_metric,
+    img_load,
+    img_save,
+    make_grid,
+    psnr,
+    setup_debug,
+)
 
 def build_argparser():
     p = argparse.ArgumentParser()
@@ -226,6 +233,7 @@ def main(ARGS, model_args, device=None):
     from cdlnet_tpu_torch.data.images import get_data_loader
     from cdlnet_tpu_torch.train.fit import init_model
 
+    setup_debug()
     model_args = cli_train.apply_backend(ARGS.backend, model_args)
     model = init_model(model_args, device=device)[0].eval()
 

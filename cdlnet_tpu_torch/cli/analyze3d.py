@@ -37,7 +37,14 @@ from cdlnet_tpu_torch import nle
 from cdlnet_tpu_torch.cli import train as cli_train
 from cdlnet_tpu_torch.cli.analyze import build_argparser, resolve_noise_levels
 from cdlnet_tpu_torch.data.noise import awgn3d, gen_bayer_mask3d
-from cdlnet_tpu_torch.utils import append_metric, img_save, load_video, make_grid, psnr
+from cdlnet_tpu_torch.utils import (
+    append_metric,
+    img_save,
+    load_video,
+    make_grid,
+    psnr,
+    setup_debug,
+)
 
 
 def _central_slice(W5):
@@ -214,6 +221,7 @@ def main(ARGS, model_args, device=None):
     from cdlnet_tpu_torch.data.video import get_video_loader
     from cdlnet_tpu_torch.train.fit import init_model
 
+    setup_debug()
     model_args = cli_train.apply_backend(ARGS.backend, model_args)
     model = init_model(model_args, device=device)[0].eval()
 

@@ -42,7 +42,7 @@ from cdlnet_tpu_torch.cli.analyze3d import _save_frames
 from cdlnet_tpu_torch.data.noise import awgn3d, gen_bayer_mask3d
 from cdlnet_tpu_torch.models.csr import blind_sigma
 from cdlnet_tpu_torch.train.losses import ssim
-from cdlnet_tpu_torch.utils import append_metric, load_video, psnr
+from cdlnet_tpu_torch.utils import append_metric, load_video, psnr, setup_debug
 
 CSR_TYPES = ("CDLNet_CSR", "CDLNet_CSRf2")
 FRAME_TYPES = ("CDLNet", "GDLNet", "DnCNN", "FFDNet")
@@ -157,6 +157,7 @@ def main(ARGS, model_args, device=None):
     from cdlnet_tpu_torch.data.fastmri import get_fastmri_data_loader
     from cdlnet_tpu_torch.train.fit import init_model
 
+    setup_debug()
     model_args = cli_train.apply_backend(ARGS.backend, model_args)
     model = init_model(model_args, device=device)[0].eval()
     mtype = model_args["type"]

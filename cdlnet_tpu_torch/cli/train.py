@@ -27,6 +27,7 @@ import json
 from pprint import pprint
 
 from cdlnet_tpu_torch.models.base import resolve_backend
+from cdlnet_tpu_torch.utils import setup_debug
 
 IMAGE_FAMILIES = ("CDLNet", "GDLNet", "JDD_CDLNet", "DnCNN", "FFDNet")
 CSR_FAMILIES = ("CDLNet_CSR", "CDLNet_CSRf2")
@@ -71,6 +72,7 @@ def main(args: dict, device=None):
     from cdlnet_tpu_torch.train.fit import fit, init_model
     from cdlnet_tpu_torch.train.fit_csr import fit_csr
 
+    setup_debug()
     loaders, workload = make_loaders(args)
     model, opt, opt_state, epoch0, _ = init_model(args, device=device)
     fit_args = dict(args["train"].get("fit", {}))

@@ -5,7 +5,9 @@ objects link into one shared library with a plain C interface, loaded with
 ctypes — no PyTorch headers, so a build takes seconds. The library is built
 at first use into kernels/_build/ (listed in .gitignore), named by a hash of
 the sources, headers and flags, so a changed file rebuilds and an unchanged
-one loads the cached library. Nothing here runs at import time.
+one loads the cached library. Nothing here runs at import time. With
+CDLNET_LOG_COMPILES set (utils.setup_debug), each build logs every nvcc
+call: its source, its seconds and its result.
 """
 
 from __future__ import annotations
@@ -13,11 +15,13 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 SRC_DIR = Path(__file__).parent / "csrc"
@@ -44,11 +48,25 @@ SIGNATURES = {
     "lista2d_ana_threshold": [_P] * 6 + [_I] * 14 + [_P],
     "lista2d_syn_residual": [_P] * 6 + [_I] * 9 + [_P],
     "lista2d_launch_grid": [_I] * 8 + [_P],
-    "lista2d_ana_csr": [_P] * 8 + [_I] * 14 + [_P],
-    "lista2d_ana_csrf2": [_P] * 10 + [_I] * 14 + [_P],
-    "lista2d_syn_adjoint_csr": [_P] * 13 + [_I] * 14 + [_F, _P],
-    "lista2d_syn_adjoint_csrf2": [_P] * 17 + [_I] * 14 + [_F, _P],
+    "lista2d_ana_csr": [_P] * 9 + [_I] * 14 + [_P],
+    "lista2d_ana_csrf2": [_P] * 11 + [_I] * 14 + [_P],
+    "lista2d_syn_adjoint_csr": [_P] * 13 + [_I] * 15 + [_F, _P],
+    "lista2d_syn_adjoint_csrf2": [_P] * 17 + [_I] * 15 + [_F, _P],
 }
+
+
+_log = logging.getLogger(__name__)
+
+
+def _nvcc(args, label) -> tuple[int, str]:
+    """Run nvcc with args; (returncode, its output). Logged under
+    CDLNET_LOG_COMPILES."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(args, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if os.environ.get("CDLNET_LOG_COMPILES"):
+        _log.warning("nvcc %s: %.2f s, %s", label, time.perf_counter() - t0,
+                     "ok" if proc.returncode == 0 else f"failed (exit {proc.returncode})")
+    return proc.returncode, proc.stdout
 
 
 def nvcc_path() -> str:
@@ -89,25 +107,20 @@ def build() -> tuple[Path, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
-        procs = [
-            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                             text=True)
-            for src, obj in zip(_sources(), objs)
-        ]
-        logs = [p.communicate()[0] for p in procs]  # waits for every nvcc
-        failed = [(p.returncode, log) for p, log in zip(procs, logs) if p.returncode]
+        srcs = _sources()
+        objs = [os.path.join(tmp, src.stem + ".o") for src in srcs]
+        with ThreadPoolExecutor(len(srcs)) as pool:  # every nvcc started together
+            runs = list(pool.map(lambda src, obj: _nvcc(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)], src.name), srcs, objs))
+        logs = [log for _, log in runs]
+        failed = [(rc, log) for rc, log in runs if rc]
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(
                 f"({rc})\n{log}" for rc, log in failed))
         lib = os.path.join(tmp, so.name)
-        proc = subprocess.run([nvcc, "-shared", "-o", lib, *objs],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
+        rc, log = _nvcc([nvcc, "-shared", "-o", lib, *objs], f"link {so.name}")
+        if rc != 0:
+            raise RuntimeError(f"nvcc link failed ({rc}):\n{log}")
         so.with_suffix(".log").write_text("".join(logs))
         os.replace(lib, so)  # atomic: a concurrent build never loads half a file
     return so, time.perf_counter() - t0

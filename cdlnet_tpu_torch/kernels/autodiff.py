@@ -23,8 +23,9 @@ gradients (saliency, input optimization) use backend "xla".
 
 The frame-recurrent CSR models train through csr_fused_2d_train, a
 Function of its own: it returns the code z beside x, and its gradients
-reach the carried neighbour codes and the gamma banks too (below). Its
-histories stay fp32 whatever hist_dtype() says.
+reach the carried neighbour codes and the gamma banks too (below). Its z,
+r and u histories follow hist_dtype() too, read at every forward, as the
+JAX package's csr_fused_2d_train stores them.
 
 On CPU tensors the same Functions run the kernels' plain versions, so the
 reverse loop is the port's own on either device, never torch autograd
@@ -108,16 +109,17 @@ class _CsrFused(torch.autograd.Function):
     """(x2, z) = the fused loop in a CSR prox mode (or the soft threshold
     with no codes) on (y2, m2, wa, ws, tau) with the gamma banks and
     neighbour codes; backward: the reverse loop over the z, r and u
-    histories, seeded by the cotangent of the returned z."""
+    histories (at hist_dtype() of the forward), seeded by the cotangent of
+    the returned z."""
 
     @staticmethod
     def forward(ctx, geom, y2, m2, wa, ws, tau, gam1, gam2, zp, za):
         gams = tuple(b for b in (gam1, gam2) if b is not None)
         codes = tuple(z for z in (zp, za) if z is not None)
-        # fp32 histories in every mode, the first frame's soft threshold too:
-        # the CSR models' training keeps them (hist_dtype does not reach it)
+        # histories at hist_dtype() in every mode, the first frame's soft
+        # threshold too; a remat rerun reads the same setting
         x2, z, hists = lista2d.lista2d_loop(y2, m2, wa, ws, tau, geom, return_hists=True,
-                                            gams=gams, codes=codes, hists_dtype=torch.float32)
+                                            gams=gams, codes=codes)
         z_hist, r_hist, u_hist = (*hists, None)[:3]
         ctx.geom = geom
         ctx.set_materialize_grads(False)

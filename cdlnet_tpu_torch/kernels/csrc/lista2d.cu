@@ -37,11 +37,13 @@
 //       dv, add the neighbour codes' cotangents into dzp (dza) in place, and
 //       reduce dtau, dgam1 (dgam2) per (n, m) in a fixed order.
 //
-// The soft-threshold training histories in bf16 (kernels/lista3d.py::
-// hist_dtype; the TPU kernel K5's bf16 `hist` rows): lista2d_ana_threshold
-// and lista2d_syn_residual also store their output rounded to nearest even
-// into `hist`, and lista2d_syn_adjoint reads bf16 codes (z_bf16). The CSR
-// entries keep fp32 histories.
+// The training histories in bf16 (kernels/lista3d.py::hist_dtype; the TPU
+// kernel K5's bf16 `hist` rows, its prox modes' u rows too):
+// lista2d_ana_threshold, lista2d_ana_csr(f2) and lista2d_syn_residual also
+// store their output rounded to nearest even into `hist` (the CSR analyses
+// then store the prox argument to a bf16 u_out), lista2d_syn_adjoint reads
+// bf16 codes (z_bf16), and lista2d_syn_adjoint_csr(f2) bf16 codes and prox
+// arguments (hist_bf16). The iteration itself stays fp32.
 //
 // Every entry runs on the tensor cores in 3xTF32 (lista2d_mma.cuh says what
 // bounds them and how their tiling fills the card at a single 128^2 image):
@@ -110,31 +112,35 @@ int lista2d_ana_threshold(const float* r, const float* wt, const float* z_old,
 
 // z_out = prox_csr(z_old - A_k * r, zp; tau, gam): as lista2d_ana_threshold,
 // with gam (N, M) and the neighbour code zp (N, M, H, W); u_out (N, M, H, W)
-// takes the prox argument z_old - A_k * r, or is NULL.
+// takes the prox argument z_old - A_k * r, or is NULL; hist: NULL (u_out
+// fp32), or a bf16 (N, M, H, W) that takes z_out rounded to nearest even,
+// and then u_out (or NULL) is bf16 and takes the prox argument rounded.
 int lista2d_ana_csr(const float* r, const float* wt, const float* z_old,
                     const float* tau, const float* gam, const float* zp,
-                    float* z_out, float* u_out, int N, int Cp, int M, int H,
-                    int W, int Qh, int Qw, int oh, int ow, int s, int Ph,
+                    float* z_out, void* u_out, void* hist, int N, int Cp, int M,
+                    int H, int W, int Qh, int Qw, int oh, int ow, int s, int Ph,
                     int Pw, int ph, int pw, void* stream) {
   const tf32x3::MmaArgs a = analysis_args(r, wt, z_old, tau, z_out, N, Cp, M, H, W, Qh, Qw,
                                           oh, ow, s, Ph, Pw, ph, pw);
-  return mma2d::launch_csr(a, mma2d::CsrArgs{gam, nullptr, zp, nullptr, u_out}, false,
-                           (cudaStream_t)stream);
+  return mma2d::launch_csr(
+      a, mma2d::CsrArgs{gam, nullptr, zp, nullptr, static_cast<float*>(u_out)}, false,
+      static_cast<__nv_bfloat16*>(hist), (cudaStream_t)stream);
 }
 
 // z_out = prox_csr_f2(z_old - A_k * r, zp, za; tau, gam1, gam2): the
 // two-sided form, with the previous and following frames' codes zp, za;
-// u_out as in lista2d_ana_csr.
+// u_out and hist as in lista2d_ana_csr.
 int lista2d_ana_csrf2(const float* r, const float* wt, const float* z_old,
                       const float* tau, const float* gam1, const float* gam2,
                       const float* zp, const float* za, float* z_out,
-                      float* u_out, int N, int Cp, int M, int H, int W, int Qh,
-                      int Qw, int oh, int ow, int s, int Ph, int Pw, int ph,
+                      void* u_out, void* hist, int N, int Cp, int M, int H, int W,
+                      int Qh, int Qw, int oh, int ow, int s, int Ph, int Pw, int ph,
                       int pw, void* stream) {
   const tf32x3::MmaArgs a = analysis_args(r, wt, z_old, tau, z_out, N, Cp, M, H, W, Qh, Qw,
                                           oh, ow, s, Ph, Pw, ph, pw);
-  return mma2d::launch_csr(a, mma2d::CsrArgs{gam1, gam2, zp, za, u_out}, true,
-                           (cudaStream_t)stream);
+  return mma2d::launch_csr(
+      a, mma2d::CsrArgs{gam1, gam2, zp, za, static_cast<float*>(u_out)}, true,
+      static_cast<__nv_bfloat16*>(hist), (cudaStream_t)stream);
 }
 
 // r_out = [mask *] B_k^T z [- y]: z (N, M, H, W); wt (M, Qh, Qw, Cp)
@@ -182,40 +188,43 @@ int lista2d_syn_adjoint_csr_parts(int H, int W) {
 // dz = [base +] alpha * (B_k^* g), then the adjoint of z = prox_csr(v, zp;
 // tau, gam) at the stored v = u and z: dv (the cotangent of v), dzp += the
 // cotangent of zp, and dtau, dgam (N, M). g (N, Cp, H, W); wt (Cp, Qh, Qw,
-// M); base (may be NULL), z, u, zp, dv, dzp (N, M, H, W); work (2, parts,
-// N, M), parts = lista2d_syn_adjoint_csr_parts(H, W); s, P, pad as for
+// M); base (may be NULL), z, u, zp, dv, dzp (N, M, H, W), z and u bf16
+// where hist_bf16 != 0; work (2, parts, N, M), parts =
+// lista2d_syn_adjoint_csr_parts(H, W); s, P, pad as for
 // lista2d_ana_threshold.
-int lista2d_syn_adjoint_csr(const float* g, const float* wt, const float* base, const float* z,
-                            const float* u, const float* tau, const float* gam, const float* zp,
+int lista2d_syn_adjoint_csr(const float* g, const float* wt, const float* base, const void* z,
+                            const void* u, const float* tau, const float* gam, const float* zp,
                             float* work, float* dv, float* dzp, float* dtau, float* dgam, int N,
                             int Cp, int M, int H, int W, int Qh, int Qw, int oh, int ow, int s,
-                            int Ph, int Pw, int ph, int pw, float alpha, void* stream) {
-  const tf32x3::MmaArgs a = analysis_args(g, wt, z, tau, dv, N, Cp, M, H, W, Qh, Qw, oh, ow, s,
-                                          Ph, Pw, ph, pw);
+                            int Ph, int Pw, int ph, int pw, int hist_bf16, float alpha,
+                            void* stream) {
+  const tf32x3::MmaArgs a = analysis_args(g, wt, static_cast<const float*>(z), tau, dv, N, Cp, M,
+                                          H, W, Qh, Qw, oh, ow, s, Ph, Pw, ph, pw);
   float* sums[2] = {dtau, dgam};
   return mma2d::launch_adjoint_csr(
       a, tf32x3::AdjointArgs{base, work, alpha},
-      mma2d::CsrArgs{gam, nullptr, zp, nullptr, nullptr, u, dzp, nullptr}, false, sums,
-      (cudaStream_t)stream);
+      mma2d::CsrArgs{gam, nullptr, zp, nullptr, nullptr, static_cast<const float*>(u), dzp,
+                     nullptr},
+      false, sums, hist_bf16 != 0, (cudaStream_t)stream);
 }
 
 // The two-sided form: the adjoint of z = prox_csr_f2(v, zp, za; tau, gam1,
 // gam2); dza (N, M, H, W) += the cotangent of za; work (3, parts, N, M);
 // dgam1, dgam2 (N, M); the rest as in lista2d_syn_adjoint_csr.
-int lista2d_syn_adjoint_csrf2(const float* g, const float* wt, const float* base, const float* z,
-                              const float* u, const float* tau, const float* gam1,
+int lista2d_syn_adjoint_csrf2(const float* g, const float* wt, const float* base, const void* z,
+                              const void* u, const float* tau, const float* gam1,
                               const float* gam2, const float* zp, const float* za, float* work,
                               float* dv, float* dzp, float* dza, float* dtau, float* dgam1,
                               float* dgam2, int N, int Cp, int M, int H, int W, int Qh, int Qw,
-                              int oh, int ow, int s, int Ph, int Pw, int ph, int pw, float alpha,
-                              void* stream) {
-  const tf32x3::MmaArgs a = analysis_args(g, wt, z, tau, dv, N, Cp, M, H, W, Qh, Qw, oh, ow, s,
-                                          Ph, Pw, ph, pw);
+                              int oh, int ow, int s, int Ph, int Pw, int ph, int pw,
+                              int hist_bf16, float alpha, void* stream) {
+  const tf32x3::MmaArgs a = analysis_args(g, wt, static_cast<const float*>(z), tau, dv, N, Cp, M,
+                                          H, W, Qh, Qw, oh, ow, s, Ph, Pw, ph, pw);
   float* sums[3] = {dtau, dgam1, dgam2};
   return mma2d::launch_adjoint_csr(
       a, tf32x3::AdjointArgs{base, work, alpha},
-      mma2d::CsrArgs{gam1, gam2, zp, za, nullptr, u, dzp, dza}, true, sums,
-      (cudaStream_t)stream);
+      mma2d::CsrArgs{gam1, gam2, zp, za, nullptr, static_cast<const float*>(u), dzp, dza}, true,
+      sums, hist_bf16 != 0, (cudaStream_t)stream);
 }
 
 // The launch that lista2d_syn_residual (synthesis != 0) or the analyses

@@ -37,8 +37,11 @@
 //
 // The bf16 training histories (kBf16; lista3d_mma.cuh says how): the ST
 // analysis and the synthesis also store their output's bf16 copy into
-// `hist`, the ST adjoint reads bf16 codes z; the other epilogues take no
-// bf16 operand (the CSR histories stay fp32).
+// `hist`, the ST adjoint reads bf16 codes z; the CSR analyses store the
+// codes' bf16 copy into `hist` and the prox argument v into a bf16 u_out,
+// and the CSR adjoints read bf16 codes z and a bf16 prox argument u. Every
+// other operand, the carried codes zp and za too, stays fp32, and the
+// epilogues upcast a bf16 value once, where they load it.
 //
 // The analyses share the mainloop and the code-split launch rule. They
 // replace, for lista2d.cu's lista2d_ana_threshold, lista2d_ana_csr,
@@ -246,7 +249,9 @@ enum AnaEpilogue : int {
 // adjoints' stored prox argument u and the neighbour codes' cotangents dzp
 // (dza: two-sided only) (N, O, H, W), added into in place. The adjoints'
 // fields come last, so that the other epilogues' parameters keep their
-// offsets.
+// offsets. In a kBf16 instantiation u_out and u point at bf16 values (the
+// kernel reads them through a cast), so that the fp32 instantiations keep
+// this layout and their code.
 struct CsrArgs {
   const float* gam1;
   const float* gam2;
@@ -260,12 +265,13 @@ struct CsrArgs {
 
 // The analysis with epilogue kEpi (an AnaEpilogue); e is read by the
 // adjoints alone, c by the CSR epilogues alone; kBf16 (kAnaSt: the codes'
-// bf16 copy into hist; kAnaAdjoint: bf16 codes a.z).
+// bf16 copy into hist; kAnaAdjoint: bf16 codes a.z; kAnaCsr, kAnaCsrF2: the
+// codes' bf16 copy into hist and a bf16 u_out; kAnaAdjointCsr,
+// kAnaAdjointCsrF2: bf16 codes a.z and prox argument c.u).
 template <int kEpi, bool kBf16 = false>
 __global__ void __launch_bounds__(kAnaThreads, kAnaBlocksPerSM)
 lista2d_ana_mma(const MmaArgs a, int BN, bool vec, const AdjointArgs e, const CsrArgs c,
                 __nv_bfloat16* hist) {
-  static_assert(!kBf16 || kEpi == kAnaSt || kEpi == kAnaAdjoint, "bf16: the ST epilogues");
   extern __shared__ float4 smem4[];
   __shared__ __align__(8) uint64_t bar[2];  // the two weight buffers
   float* smem = reinterpret_cast<float*>(smem4);
@@ -564,7 +570,24 @@ lista2d_ana_mma(const MmaArgs a, int BN, bool vec, const AdjointArgs e, const Cs
         auto prox = [&](float x, float p, float q) {
           return kF2 ? prox_csr_f2(x, p, q, tau[k], g1[k], g2[k]) : prox_csr(x, p, tau[k], g1[k]);
         };
-        if (vec) {
+        if constexpr (kBf16) {
+          // the fp32 codes, then their rounded copy and v's into the bf16
+          // histories (8-byte groups where vec)
+          __nv_bfloat16* ub = reinterpret_cast<__nv_bfloat16*>(c.u_out);
+          if (vec) {
+            const float4 o =
+                make_float4(prox(v[k].x, zp[k].x, za[k].x), prox(v[k].y, zp[k].y, za[k].y),
+                            prox(v[k].z, zp[k].z, za[k].z), prox(v[k].w, zp[k].w, za[k].w));
+            *reinterpret_cast<float4*>(a.out + idx[k]) = o;
+            store_bf16x4(hist + idx[k], o);
+            if (ub) store_bf16x4(ub + idx[k], v[k]);
+          } else {
+            const float o = prox(v[k].x, zp[k].x, za[k].x);
+            a.out[idx[k]] = o;
+            hist[idx[k]] = __float2bfloat16_rn(o);
+            if (ub) ub[idx[k]] = __float2bfloat16_rn(v[k].x);
+          }
+        } else if (vec) {
           *reinterpret_cast<float4*>(a.out + idx[k]) =
               make_float4(prox(v[k].x, zp[k].x, za[k].x), prox(v[k].y, zp[k].y, za[k].y),
                           prox(v[k].z, zp[k].z, za[k].z), prox(v[k].w, zp[k].w, za[k].w));
@@ -614,10 +637,18 @@ lista2d_ana_mma(const MmaArgs a, int BN, bool vec, const AdjointArgs e, const Cs
         bz[k] = zz[k] = uu[k] = pz[k] = az[k] = dp[k] = da[k] = zero4;
         if (!nw[k]) continue;
         const size_t i = idx[k];
+        // kBf16: z and u are bf16 histories, upcast here (exact)
+        const __nv_bfloat16* zb = reinterpret_cast<const __nv_bfloat16*>(a.z);
+        const __nv_bfloat16* ub = reinterpret_cast<const __nv_bfloat16*>(c.u);
         if (vec) {
           if (e.base) bz[k] = *reinterpret_cast<const float4*>(e.base + i);
-          zz[k] = *reinterpret_cast<const float4*>(a.z + i);
-          uu[k] = *reinterpret_cast<const float4*>(c.u + i);
+          if constexpr (kBf16) {
+            zz[k] = load_bf16x4(zb + i);
+            uu[k] = load_bf16x4(ub + i);
+          } else {
+            zz[k] = *reinterpret_cast<const float4*>(a.z + i);
+            uu[k] = *reinterpret_cast<const float4*>(c.u + i);
+          }
           pz[k] = *reinterpret_cast<const float4*>(c.zp + i);
           dp[k] = *reinterpret_cast<const float4*>(c.dzp + i);
           if (kF2) {
@@ -629,8 +660,13 @@ lista2d_ana_mma(const MmaArgs a, int BN, bool vec, const AdjointArgs e, const Cs
           for (int q = 0; q < 4; ++q) {
             if (q >= nw[k]) continue;
             elem4(bz[k], q) = e.base ? e.base[i + q] : 0.f;
-            elem4(zz[k], q) = a.z[i + q];
-            elem4(uu[k], q) = c.u[i + q];
+            if constexpr (kBf16) {
+              elem4(zz[k], q) = __bfloat162float(zb[i + q]);
+              elem4(uu[k], q) = __bfloat162float(ub[i + q]);
+            } else {
+              elem4(zz[k], q) = a.z[i + q];
+              elem4(uu[k], q) = c.u[i + q];
+            }
             elem4(pz[k], q) = c.zp[i + q];
             elem4(dp[k], q) = c.dzp[i + q];
             if (kF2) elem4(az[k], q) = c.za[i + q], elem4(da[k], q) = c.dza[i + q];
@@ -1147,18 +1183,22 @@ inline int launch_adjoint(const MmaArgs& a, const AdjointArgs& e, float* dtau, b
 // then the partials of each of the 2 (3) sums, e.part + q * blocks * N * O,
 // summed over the blocks in a fixed order into sums[q]: dtau, dgam1 (and
 // dgam2). 16-byte accesses where the codes' rows are a multiple of 4 floats
-// and every code tensor sits on the grid.
+// and every code tensor sits on the grid (bf16: a.z and c.u bf16
+// histories, on the 8-byte grid).
 inline int launch_adjoint_csr(const MmaArgs& a, const AdjointArgs& e, const CsrArgs& c, bool f2,
-                              float* const* sums, cudaStream_t stream) {
+                              float* const* sums, bool bf16, cudaStream_t stream) {
   if (!a.z || !a.tau || !c.gam1 || !c.zp || !c.u || !c.dzp ||
       (f2 && (!c.gam2 || !c.za || !c.dza)))
     return (int)cudaErrorInvalidValue;
-  const bool vec = vec_epilogue(a) && (!e.base || mis4(e.base) == 0) && mis4(c.u) == 0 &&
-                   mis4(c.zp) == 0 && mis4(c.dzp) == 0 &&
-                   (!f2 || (mis4(c.za) == 0 && mis4(c.dza) == 0));
+  const bool hists = bf16 ? vec_epilogue_bf16(a, a.z) && aligned8(c.u)
+                          : vec_epilogue(a) && mis4(c.u) == 0;
+  const bool vec = hists && (!e.base || mis4(e.base) == 0) && mis4(c.zp) == 0 &&
+                   mis4(c.dzp) == 0 && (!f2 || (mis4(c.za) == 0 && mis4(c.dza) == 0));
   Launch l;
-  int err = f2 ? launch_ana<kAnaAdjointCsrF2>(a, vec, e, c, l, stream)
-               : launch_ana<kAnaAdjointCsr>(a, vec, e, c, l, stream);
+  int err = f2 ? (bf16 ? launch_ana<kAnaAdjointCsrF2, true>(a, vec, e, c, l, stream)
+                       : launch_ana<kAnaAdjointCsrF2>(a, vec, e, c, l, stream))
+               : (bf16 ? launch_ana<kAnaAdjointCsr, true>(a, vec, e, c, l, stream)
+                       : launch_ana<kAnaAdjointCsr>(a, vec, e, c, l, stream));
   const size_t rows = (size_t)a.N * a.O;
   for (int q = 0; err == 0 && q < (f2 ? 3 : 2); ++q)
     err = launch_sum_parts(e.part + q * l.grid.x * rows, sums[q], (int)rows, (int)l.grid.x,
@@ -1167,16 +1207,24 @@ inline int launch_adjoint_csr(const MmaArgs& a, const AdjointArgs& e, const CsrA
 }
 
 // The CSR analyses: the one-sided prox (f2 false: c.gam1, c.zp) or the
-// two-sided one (also c.gam2, c.za); 16-byte accesses where the codes' rows
-// are a multiple of 4 floats and every code tensor sits on the grid.
-inline int launch_csr(const MmaArgs& a, const CsrArgs& c, bool f2, cudaStream_t stream) {
+// two-sided one (also c.gam2, c.za); hist: NULL, or the bf16 history slice
+// (N, O, H, W) that takes the codes' rounded copy, and then u_out is bf16
+// too. 16-byte accesses where the codes' rows are a multiple of 4 floats
+// and every code tensor sits on the grid (the bf16 ones on the 8-byte grid).
+inline int launch_csr(const MmaArgs& a, const CsrArgs& c, bool f2, __nv_bfloat16* hist,
+                      cudaStream_t stream) {
   if (!a.tau || !c.gam1 || !c.zp || (f2 && (!c.gam2 || !c.za)))
     return (int)cudaErrorInvalidValue;
-  const bool vec = vec_epilogue(a) && mis4(c.zp) == 0 && (!f2 || mis4(c.za) == 0) &&
-                   (!c.u_out || mis4(c.u_out) == 0);
+  const bool outs = hist ? vec_epilogue_bf16(a, hist) && (!c.u_out || aligned8(c.u_out))
+                         : vec_epilogue(a) && (!c.u_out || mis4(c.u_out) == 0);
+  const bool vec = outs && mis4(c.zp) == 0 && (!f2 || mis4(c.za) == 0);
   Launch l;
-  return f2 ? launch_ana<kAnaCsrF2>(a, vec, AdjointArgs{}, c, l, stream)
-            : launch_ana<kAnaCsr>(a, vec, AdjointArgs{}, c, l, stream);
+  const AdjointArgs e{};
+  if (hist)
+    return f2 ? launch_ana<kAnaCsrF2, true>(a, vec, e, c, l, stream, hist)
+              : launch_ana<kAnaCsr, true>(a, vec, e, c, l, stream, hist);
+  return f2 ? launch_ana<kAnaCsrF2>(a, vec, e, c, l, stream)
+            : launch_ana<kAnaCsr>(a, vec, e, c, l, stream);
 }
 
 // The forward pair; hist: NULL, or the bf16 history slice (N, O, H, W)

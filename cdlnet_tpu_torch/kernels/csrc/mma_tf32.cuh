@@ -375,12 +375,15 @@ inline bool vec_epilogue(const MmaArgs& a) {
 // gradient one operand, as bf16. A vector epilogue's group of 4 positions
 // is 8 bytes of bf16.
 
+// 8-byte aligned: a vector epilogue's group of 4 bf16 values
+inline bool aligned8(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 7u) == 0; }
+
 // vec_epilogue with a bf16 history h beside the fp32 tensors (the
 // forward's copy, or the adjoint's codes in place of a.z): its groups 8-byte
 // aligned
 inline bool vec_epilogue_bf16(MmaArgs a, const void* h) {
   if (h == a.z) a.z = nullptr;
-  return vec_epilogue(a) && (reinterpret_cast<uintptr_t>(h) & 7u) == 0;
+  return vec_epilogue(a) && aligned8(h);
 }
 
 // 4 floats rounded to nearest even, as 8 bytes at p (8-byte aligned)

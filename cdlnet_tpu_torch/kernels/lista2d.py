@@ -37,10 +37,11 @@ CSR analyses are the ST analysis with the prox in its epilogue), and the
 launches split the codes where the code grid is small, so that one 128^2
 image fills the card: launch_grid says how.
 
-The soft-threshold loop's training histories follow hist_dtype() (bf16 by
-default, the JAX package's lista2d.py::hist_dtype, whose counterpart this
-module re-exports), with the fp32 carries and in-epilogue bf16 copies of
-the 3D loop (kernels/lista3d.py); the CSR modes keep fp32 histories.
+The loop's training histories follow hist_dtype() (bf16 by default, the
+JAX package's lista2d.py::hist_dtype, whose counterpart this module
+re-exports), in every prox mode, with the fp32 carries and in-epilogue bf16
+copies of the 3D loop (kernels/lista3d.py): in a CSR mode the analysis also
+stores the prox argument's rounded copy into the bf16 u history.
 """
 
 from __future__ import annotations
@@ -52,6 +53,8 @@ import torch.nn.functional as F
 
 from cdlnet_tpu_torch.core.ops import ST, csr_f2_jump, prox_csr, prox_csr_f2
 from cdlnet_tpu_torch.kernels.lista3d import (  # noqa: F401 (hist_dtype: re-exported)
+    BF16,
+    FP32,
     Geom,
     _check,
     _hist,
@@ -141,9 +144,10 @@ def csrf2_jump_gap(v, zp, za, tau, gam2):
 def _analysis(entry, r, z, wa, tau, geom, out, banks=(), codes=(), u_out=None, hist=None):
     """Launch the analysis kernel `entry` after checking its operands: the
     ST arguments, then the (N, M) gamma `banks` and the (N, M, Hc, Wc)
-    neighbour `codes` of a CSR mode, each a (name, tensor) pair, and a CSR
+    neighbour `codes` of a CSR mode, each a (name, tensor) pair, a CSR
     mode's u_out, where its kernel stores the prox argument (None: NULL,
-    not stored), or the ST kernel's bf16 history slice `hist`."""
+    not stored; bf16 exactly where `hist` is given), and the bf16 history
+    slice `hist` that takes the codes' rounded copy (None: NULL)."""
     from cdlnet_tpu_torch.kernels._build import library
 
     lib = library()
@@ -158,12 +162,12 @@ def _analysis(entry, r, z, wa, tau, geom, out, banks=(), codes=(), u_out=None, h
         _check(name, t, (N, M, H, W))
     out = _out(out, (N, M, H, W), r)
     if u_out is not None:
-        _check("u_out", u_out, (N, M, H, W))
-    # after the codes: a CSR kernel's u_out, the ST kernel's history slice
-    extra = _ptr(u_out) if banks else _hist(hist, (N, M, H, W))
+        _check("u_out", u_out, (N, M, H, W), FP32 if hist is None else BF16)
+    # after the codes: a CSR kernel's u_out, then the history slice
+    extra = (_ptr(u_out),) if banks else ()
     err = getattr(lib, entry)(
         _ptr(r), _ptr(wa), _ptr(z), _ptr(tau), *(_ptr(t) for _, t in banks),
-        *(_ptr(t) for _, t in codes), _ptr(out), extra,
+        *(_ptr(t) for _, t in codes), _ptr(out), *extra, _hist(hist, (N, M, H, W)),
         N, Cp, M, H, W, Qh, Qw, *geom.off_a, geom.s, *geom.P, *geom.pads,
         torch.cuda.current_stream(r.device).cuda_stream,
     )
@@ -188,28 +192,32 @@ def lista2d_ana_threshold(r, z, wa, tau, geom, out=None, hist=None):
     return _analysis("lista2d_ana_threshold", r, z, wa, tau, geom, out, hist=hist)
 
 
-def lista2d_ana_csr(r, z, wa, tau, gam, zp, geom, out=None, u_out=None):
+def lista2d_ana_csr(r, z, wa, tau, gam, zp, geom, out=None, u_out=None, hist=None):
     """z_new = prox_csr(z - A_k r, zp; tau, gam): the analysis + the
-    one-sided CSR prox toward the neighbour code zp (N, M, Hc, Wc, not
+    one-sided CSR prox toward the neighbour code zp (N, M, Hc, Wc, fp32, not
     `out`), gam (N, M); u_out: a contiguous (N, M, Hc, Wc) tensor that
-    takes the prox argument z - A_k r (the u history), or None; the rest as
-    in lista2d_ana_threshold."""
+    takes the prox argument z - A_k r (the u history), or None; hist: a
+    contiguous bf16 (N, M, Hc, Wc) history slice that also takes the codes
+    rounded to nearest even, or None, and where it is given u_out is bf16
+    and takes the prox argument rounded; the rest as in
+    lista2d_ana_threshold."""
     if r.device.type == "cpu":
-        return _into(out, lista2d_ana_csr_plain(r, z, wa, tau, gam, zp, geom, u_out))
+        return _into(out, lista2d_ana_csr_plain(r, z, wa, tau, gam, zp, geom, u_out), hist)
     return _analysis("lista2d_ana_csr", r, z, wa, tau, geom, out,
-                     banks=(("gam", gam),), codes=(("zp", zp),), u_out=u_out)
+                     banks=(("gam", gam),), codes=(("zp", zp),), u_out=u_out, hist=hist)
 
 
-def lista2d_ana_csrf2(r, z, wa, tau, gam1, gam2, zp, za, geom, out=None, u_out=None):
+def lista2d_ana_csrf2(r, z, wa, tau, gam1, gam2, zp, za, geom, out=None, u_out=None,
+                      hist=None):
     """z_new = prox_csr_f2(z - A_k r, zp, za; tau, gam1, gam2): the analysis
     + the two-sided CSR prox with the previous and following frames' codes
     zp, za (N, M, Hc, Wc); the rest as in lista2d_ana_csr."""
     if r.device.type == "cpu":
         return _into(out, lista2d_ana_csrf2_plain(r, z, wa, tau, gam1, gam2, zp, za,
-                                                  geom, u_out))
+                                                  geom, u_out), hist)
     return _analysis("lista2d_ana_csrf2", r, z, wa, tau, geom, out,
                      banks=(("gam1", gam1), ("gam2", gam2)),
-                     codes=(("zp", zp), ("za", za)), u_out=u_out)
+                     codes=(("zp", zp), ("za", za)), u_out=u_out, hist=hist)
 
 
 def lista2d_syn_residual(z, ws, geom, mask=None, y=None, out=None, hist=None):
@@ -303,20 +311,20 @@ def lista2d_loop(y2, m2, wa, ws, tau, geom, return_hists=False, gams=(), codes=(
     every residual r_k) that the reverse pass reads, else None. Without
     histories z and r are updated in place.
 
-    hists_dtype: the soft threshold's histories' dtype, None for
-    hist_dtype(): fp32, the kernels write each z_k and r_k into its slice;
-    bf16, z and r are updated in place as without histories, and each
-    launch also stores its output's rounded copy into the slice (the
-    outputs bitwise the fp32 mode's).
+    hists_dtype: the histories' dtype, None for hist_dtype(): fp32, the
+    kernels write each z_k and r_k into its slice; bf16, z and r are
+    updated in place as without histories, and each launch also stores its
+    output's rounded copy into the slice (the outputs bitwise the fp32
+    mode's).
 
-    CSR prox modes: `codes` holds the neighbour codes (N, M, Hc, Wc) — one
-    (prox_csr) or two (z_prev, z_after: prox_csr_f2) — and `gams` as many
-    (K, N, M) gamma banks (threshold_bank); the analysis is then
+    CSR prox modes: `codes` holds the neighbour codes (N, M, Hc, Wc), fp32
+    — one (prox_csr) or two (z_prev, z_after: prox_csr_f2) — and `gams` as
+    many (K, N, M) gamma banks (threshold_bank); the analysis is then
     lista2d_ana_csr / lista2d_ana_csrf2. With return_hists they add a third
-    fp32 history, u_hist (K, N, M, Hc, Wc): the prox argument u_k = z_{k-1}
-    - A_k r_k of every iteration (u_0 = A_0 y2), which the CSR reverse
-    kernels recompute the prox's internals from: the CSR modes' histories
-    are fp32 whatever hists_dtype and hist_dtype() say."""
+    history at the same dtype, u_hist (K, N, M, Hc, Wc): the prox argument
+    u_k = z_{k-1} - A_k r_k of every iteration (u_0 = A_0 y2), which the
+    CSR reverse kernels recompute the prox's internals from (in bf16, each
+    analysis stores u_k's rounded copy beside the codes')."""
     K, M = wa.shape[0], wa.shape[-1]
     if len(gams) != len(codes) or len(codes) > 2:
         raise ValueError(f"{len(codes)} neighbour codes with {len(gams)} gamma banks")
@@ -325,12 +333,12 @@ def lista2d_loop(y2, m2, wa, ws, tau, geom, return_hists=False, gams=(), codes=(
     bf16 = False
     if return_hists:
         dtype = hist_dtype() if hists_dtype is None else hists_dtype
-        bf16 = dtype == torch.bfloat16 and not codes
+        bf16 = dtype == torch.bfloat16
         N, _, H, W = y2.shape
-        z_hist = y2.new_empty((K, N, M, H, W), dtype=dtype if bf16 else torch.float32)
-        r_hist = y2.new_empty((K - 1, *y2.shape), dtype=z_hist.dtype)
+        z_hist = y2.new_empty((K, N, M, H, W), dtype=dtype)
+        r_hist = y2.new_empty((K - 1, *y2.shape), dtype=dtype)
         if codes:
-            u_hist = y2.new_empty((K, N, M, H, W))
+            u_hist = y2.new_empty((K, N, M, H, W), dtype=dtype)
 
     def analysis(r, z, k, out, hist):
         if not codes:
@@ -338,9 +346,9 @@ def lista2d_loop(y2, m2, wa, ws, tau, geom, return_hists=False, gams=(), codes=(
         u_out = None if u_hist is None else u_hist[k]
         if len(codes) == 1:
             return lista2d_ana_csr(r, z, wa[k], tau[k], gams[0][k], codes[0], geom,
-                                   out=out, u_out=u_out)
+                                   out=out, u_out=u_out, hist=hist)
         return lista2d_ana_csrf2(r, z, wa[k], tau[k], gams[0][k], gams[1][k], *codes,
-                                 geom, out=out, u_out=u_out)
+                                 geom, out=out, u_out=u_out, hist=hist)
 
     # fp32 histories: each launch writes its slice, which the next one
     # reads; else z and r are carries, updated in place (the first analysis
@@ -391,7 +399,7 @@ def lista2d_fused(yp, A, B, t, c, stride=1, mask=None, return_z=False,
     conv_transpose2d(B[0]) to fp32 reassociation tolerance — and with
     return_hist a third item, the histories (z_hist (K, N, M, Hc, Wc),
     r_hist (K-1, N, Cp, Hc, Wc)) of lista2d_loop at hists_dtype (None:
-    hist_dtype(); fp32 in a CSR mode), in the phase domain: r_k
+    hist_dtype()), in the phase domain: r_k
     has the space_to_depth layout of y2 (channel c*s^2 + a_h*s + a_w). The
     JAX kernel's one (N, K, Mp8+Rp8, Hc*Wc) array holds the same values
     (z_k in rows [0:M), r_k in rows [Mp8:Mp8+Cp) of its step k; in a CSR

@@ -23,9 +23,10 @@ map; the reverse loop passes it the phase rows the prep keeps,
 lista3d_bwd.phase_rows). Each wrapper runs its CUDA kernel
 on CUDA tensors, or raises; it runs the plain PyTorch version beside it
 only for CPU tensors, and counts its launches in lista3d.launches under its
-2D name. As in 3D, the soft threshold's histories may be bf16
-(lista3d.hist_dtype): the ST adjoint reads bf16 codes and the weight
-gradient one bf16 operand as they are; the CSR adjoints take fp32 ones.
+2D name. As in 3D, the histories may be bf16 (lista3d.hist_dtype): the ST
+adjoint reads bf16 codes, the CSR adjoints bf16 codes and prox arguments,
+and the weight gradient one bf16 operand as they are, each upcast once
+where it is read; every sum is fp32.
 """
 
 from __future__ import annotations
@@ -33,9 +34,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from cdlnet_tpu_torch.core.ops import ST
+from cdlnet_tpu_torch.core.ops import ST, csr_f2_jump
 from cdlnet_tpu_torch.kernels.lista2d import _correlate_plain, lista2d_syn_residual
 from cdlnet_tpu_torch.kernels.lista3d import (
+    BF16,
     HISTORY,
     _check,
     _ptr,
@@ -117,6 +119,31 @@ def prox_csr_f2_adjoint_plain(dz, z, u, zp, za, tau, g1, g2):
     return du, dCa, dCb, dtau, dg1, dg2
 
 
+def csr_prox_branches(u, zp, za, tau, g1, g2=None):
+    """The branch of the CSR prox that an argument u falls in, elementwise:
+    the signs that the prox adjoints (and the CSR adjoint kernels) read,
+    sign(0) = 0, stacked on a new first dim. One-sided (za None, prox_csr
+    toward zp with g1): the inner soft threshold's sign and the output's.
+    Two-sided (prox_csr_f2): the sign of u - Ca, then of the inner, middle
+    and outer soft thresholds. Two prox arguments whose branches are equal
+    give the same adjoint masks; a code whose branch differs between a bf16
+    and an fp32 u history (or two programs' fp32 ones) takes another piece
+    of the prox, and its cotangent moves by the whole local gradient."""
+    soft = lambda x, th: torch.sign(x) * torch.relu(x.abs() - th)
+    sg = torch.sign
+    u = u.float()
+    if za is None:
+        shift = zp + tau * sg(zp)
+        inner = soft(u - shift, tau * g1)
+        return torch.stack([sg(inner), sg(soft(inner + shift, tau))])
+    Ca = csr_f2_jump(zp, za, tau, g2)
+    Cb = za + tau * sg(za) + tau * g1 * sg(za - zp)
+    inner = soft(u - Ca, g1 * tau)
+    corr = tau * g1 * sg(u - Ca)
+    midder = soft(inner - Cb + corr, g2 * tau)
+    return torch.stack([sg(u - Ca), sg(inner), sg(midder), sg(soft(midder + Cb - corr, tau))])
+
+
 def _synthesis_adjoint_plain(g, wt, geom, base, alpha):
     """dz = [base +] alpha * corr(g, wt, off_a)."""
     dz = alpha * _correlate_plain(g, wt, geom.off_a)
@@ -129,9 +156,11 @@ def _bank(b):
 
 def lista2d_syn_adjoint_csr_plain(g, wt, z, u, tau, gam, zp, dzp, geom, base=None,
                                   alpha=1.0):
-    """Plain version of lista2d_syn_adjoint_csr (dzp updated in place)."""
+    """Plain version of lista2d_syn_adjoint_csr (dzp updated in place; z
+    and u may be bf16 histories, upcast once)."""
     dz = _synthesis_adjoint_plain(g, wt, geom, base, alpha)
-    du, dzp_k, dtau, dgam = prox_csr_adjoint_plain(dz, z, u, zp, _bank(tau), _bank(gam))
+    du, dzp_k, dtau, dgam = prox_csr_adjoint_plain(dz, z.float(), u.float(), zp, _bank(tau),
+                                                   _bank(gam))
     dzp += dzp_k
     return du, dtau.sum(dim=(2, 3)), dgam.sum(dim=(2, 3))
 
@@ -139,10 +168,10 @@ def lista2d_syn_adjoint_csr_plain(g, wt, z, u, tau, gam, zp, dzp, geom, base=Non
 def lista2d_syn_adjoint_csrf2_plain(g, wt, z, u, tau, gam1, gam2, zp, za, dzp, dza,
                                     geom, base=None, alpha=1.0):
     """Plain version of lista2d_syn_adjoint_csrf2 (dzp, dza updated in
-    place)."""
+    place; z and u may be bf16 histories, upcast once)."""
     dz = _synthesis_adjoint_plain(g, wt, geom, base, alpha)
     du, dzp_k, dza_k, dtau, dg1, dg2 = prox_csr_f2_adjoint_plain(
-        dz, z, u, zp, za, _bank(tau), _bank(gam1), _bank(gam2))
+        dz, z.float(), u.float(), zp, za, _bank(tau), _bank(gam1), _bank(gam2))
     dzp += dzp_k
     dza += dza_k
     return du, dtau.sum(dim=(2, 3)), dg1.sum(dim=(2, 3)), dg2.sum(dim=(2, 3))
@@ -217,9 +246,10 @@ def lista2d_wgrad(x, y, taps, off, alpha=1.0, rows=None):
 
 def _csr_adjoint(entry, g, wt, z, u, tau, gams, codes, dcodes, geom, base, alpha):
     """Launch the CSR adjoint kernel `entry` after checking its operands:
-    gams the (N, M) gamma banks, codes the neighbour codes and dcodes their
-    cotangent buffers (N, M, Hc, Wc), which the kernel adds into. Returns
-    (dv, dtau, *dgams)."""
+    z and u, the histories, both fp32 or both bf16; gams the (N, M) gamma
+    banks, codes the neighbour codes and dcodes their cotangent buffers
+    (N, M, Hc, Wc), which the kernel adds into, fp32. Returns (dv, dtau,
+    *dgams)."""
     from cdlnet_tpu_torch.kernels._build import library
 
     lib = library()
@@ -228,14 +258,17 @@ def _csr_adjoint(entry, g, wt, z, u, tau, gams, codes, dcodes, geom, base, alpha
     Qh, Qw = wt.shape[1:3]
     _check("g", g, g.shape)
     _check("wt", wt, (Cp, Qh, Qw, M))
-    named = [("z", z), ("u", u), *zip(("zp", "za"), codes), *zip(("dzp", "dza"), dcodes)]
+    _check("z", z, (N, M, H, W), HISTORY)
+    _check("u", u, (N, M, H, W), (z.dtype,))
+    named = [*zip(("zp", "za"), codes), *zip(("dzp", "dza"), dcodes)]
     if base is not None:
         named.append(("base", base))
     for name, t in named:
         _check(name, t, (N, M, H, W))
     for name, t in (("tau", tau), *zip(("gam1", "gam2"), gams)):
         _check(name, t, (N, M))
-    dv = torch.empty_like(z)
+    bf16 = z.dtype in BF16
+    dv = torch.empty(z.shape, dtype=g.dtype, device=g.device)
     sums = [torch.empty((N, M), dtype=g.dtype, device=g.device) for _ in range(1 + len(gams))]
     work = torch.empty((len(sums), lib.lista2d_syn_adjoint_csr_parts(H, W), N, M),
                        dtype=g.dtype, device=g.device)
@@ -244,21 +277,22 @@ def _csr_adjoint(entry, g, wt, z, u, tau, gams, codes, dcodes, geom, base, alpha
         *(_ptr(t) for t in gams), *(_ptr(t) for t in codes), _ptr(work), _ptr(dv),
         *(_ptr(t) for t in dcodes), *(_ptr(t) for t in sums),
         N, Cp, M, H, W, Qh, Qw, *geom.off_a, geom.s, *geom.P, *geom.pads,
-        float(alpha), torch.cuda.current_stream(g.device).cuda_stream,
+        int(bf16), float(alpha), torch.cuda.current_stream(g.device).cuda_stream,
     )
     _raise_on(err, entry)
     launches[entry] += 1
+    hist_launches[entry] += bf16
     return (dv, *sums)
 
 
 def lista2d_syn_adjoint_csr(g, wt, z, u, tau, gam, zp, dzp, geom, base=None, alpha=1.0):
     """dz = [base +] alpha * corr(g, wt, off_a), then the adjoint of the
     one-sided CSR prox z = prox_csr(u, zp; tau, gam) at the stored prox
-    argument u and code z (N, M, Hc, Wc).
+    argument u and code z (N, M, Hc, Wc): both fp32, or both bf16 histories.
 
     g, wt, base, alpha as in lista2d_syn_adjoint; tau, gam: (N, M); zp: the
     neighbour code; dzp: (N, M, Hc, Wc), which the cotangent of zp is added
-    into. Returns (dv (N, M, Hc, Wc), dtau (N, M), dgam (N, M)), the
+    into; fp32. Returns (dv (N, M, Hc, Wc), dtau (N, M), dgam (N, M)), the
     per-block sums added in a fixed order.
     """
     if g.device.type == "cpu":

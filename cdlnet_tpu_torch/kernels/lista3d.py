@@ -64,7 +64,8 @@ def hist_dtype() -> torch.dtype:
     iteration runs in fp32 and only the stored copies round (the JAX
     package's resident 3D and 2D contract), on every clip and image size:
     the JAX package's pair route, whose carry rounds too, has no
-    counterpart. The CSR modes keep fp32 histories."""
+    counterpart. The CSR models' training (autodiff.csr_fused_2d_train)
+    stores its z, r and u histories at this dtype too."""
     env = (os.environ.get("CDLNET_HIST_DTYPE")
            or os.environ.get("CDLNET_LISTA3D_HIST_DTYPE", "bf16"))
     return torch.float32 if env in ("f32", "fp32", "float32") else torch.bfloat16

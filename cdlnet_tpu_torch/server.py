@@ -356,7 +356,7 @@ def main(argv=None):
     import os
 
     from cdlnet_tpu_torch.serve import Denoiser
-    from cdlnet_tpu_torch.utils import default_device
+    from cdlnet_tpu_torch.utils import default_device, setup_debug
 
     p = argparse.ArgumentParser(
         description="Serve a trained cdlnet model over HTTP (.npy in/out)")
@@ -375,6 +375,7 @@ def main(argv=None):
                    help="coalesce up to this many concurrent single-image "
                         "requests into one forward (1 disables)")
     a = p.parse_args(argv)
+    setup_debug()
 
     # "cuda" goes through default_device's check: no card raises
     device = default_device(None if a.device == "cuda" else a.device)

@@ -40,6 +40,13 @@ corpus on the device and runs each training epoch there: batches drawn
 and assembled on the device, one step captured into a CUDA graph and
 replayed on the card (eagerly under a mesh and on the CPU), the host
 synchronized once an epoch.
+
+Tracing and debugging (utils.py, as the JAX package's fit): with
+CDLNET_PROFILE_DIR set the first trained epoch is traced by torch.profiler
+into that directory, each step a span named "{phase}_step" and a device
+epoch one named "train_epoch_scan"; with CDLNET_DEBUG_NANS set every
+step's loss is checked and a NaN or Inf raises FloatingPointError (a
+device epoch then runs its steps eagerly, without a CUDA graph).
 """
 
 from __future__ import annotations
@@ -64,7 +71,15 @@ from cdlnet_tpu_torch.train.checkpoint import (
 )
 from cdlnet_tpu_torch.train.losses import combined_loss, mcsure_loss, mse_loss, psnr_from_mse
 from cdlnet_tpu_torch.train.optim import get_lr, make_optimizer, set_lr
-from cdlnet_tpu_torch.utils import append_metric, default_device
+from cdlnet_tpu_torch.utils import (
+    append_metric,
+    check_finite,
+    debug_nans,
+    default_device,
+    maybe_start_trace,
+    stop_trace,
+    trace_span,
+)
 
 _NOT_PORTED = "is not ported to cdlnet_tpu_torch yet (see ROADMAP.md)"
 _NOT_STAGEABLE = ("device_scan=True but the train loader is not stageable "
@@ -376,8 +391,10 @@ def fit(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1,
             def step(opt_state, batch, generator):
                 check_batch(batch)
                 return train_step(opt_state, batch, generator)
-        epoch_runner = make_epoch_runner(corpus, step, model,
-                                         graph=None if mesh is None else False)
+        # eager under a mesh, and under CDLNET_DEBUG_NANS: anomaly mode's
+        # per-op checks read the device, which a CUDA graph capture forbids
+        graph = None if mesh is None and not debug_nans() else False
+        epoch_runner = make_epoch_runner(corpus, step, model, graph=graph)
 
     ckpt0 = os.path.join(save_dir, "0.ckpt")
     save_ckpt(ckpt0, model, 0, opt_state, get_lr(opt_state), background=background)
@@ -400,18 +417,26 @@ def fit(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1,
             if phase == "val" and epoch % val_freq != 0:
                 continue
             t_start = time.time()
+            # the first trained epoch goes to $CDLNET_PROFILE_DIR when set
+            tracing = phase == "train" and epoch == start_epoch and maybe_start_trace(dev)
             # device scalars: one host transfer per phase, not per step
             losses = []
             if phase == "train" and epoch_runner is not None:
-                losses.append(epoch_runner(opt_state, gen))
+                with trace_span("train_epoch_scan"):
+                    losses.append(epoch_runner(opt_state, gen))
+                check_finite(losses[-1], f"in epoch {epoch}'s train steps")
             else:
                 for batch in device_prefetch(loaders[phase], device=dev):
-                    if phase == "train":
-                        if check_batch is not None:
-                            check_batch(batch)
-                        losses.append(train_step(opt_state, batch, gen))
-                    else:
-                        losses.append(eval_step(batch, gen))
+                    with trace_span(f"{phase}_step"):
+                        if phase == "train":
+                            if check_batch is not None:
+                                check_batch(batch)
+                            losses.append(train_step(opt_state, batch, gen))
+                        else:
+                            losses.append(eval_step(batch, gen))
+                    check_finite(losses[-1], f"at epoch {epoch} {phase} step {len(losses)}")
+            if tracing:
+                stop_trace()
             vals = torch.cat([v.reshape(-1) for v in losses]).cpu().tolist() if losses else []
             last_loss = vals[-1] if vals else 0.0
             psnr = sum(psnr_from_mse(v) for v in vals) / max(len(vals), 1)

@@ -40,7 +40,7 @@ from cdlnet_tpu_torch.models.csr import CDLNetCSRf2
 from cdlnet_tpu_torch.train.checkpoint import save_ckpt, settles_checkpoints
 from cdlnet_tpu_torch.train.losses import mse_loss, psnr_from_mse
 from cdlnet_tpu_torch.train.optim import get_lr, set_lr
-from cdlnet_tpu_torch.utils import append_metric
+from cdlnet_tpu_torch.utils import append_metric, check_finite
 
 # remat="auto" recomputes the applies past this many pixels a frame: the
 # JAX package's threshold, between the half-native 320x184 frame and the
@@ -191,6 +191,7 @@ def fit_csr(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1
                     losses.append(train_step(opt_state, batch, gen))
                 else:
                     losses.append(eval_step(batch, gen))
+                check_finite(losses[-1], f"at epoch {epoch} {phase} step {len(losses)}")
             vals = torch.stack(losses).cpu().tolist() if losses else []
             psnr = sum(psnr_from_mse(v) for v in vals) / max(len(vals), 1)
             history.append((epoch, phase, psnr))

@@ -1,7 +1,7 @@
 """Small shared helpers (counterpart of cdlnet_tpu/utils.py without its
-JAX compile-cache and profiler switches): the device default, the metrics
-log, PSNR, and image, video and grid IO on numpy arrays. PIL is imported
-where a file is read or written, and only there."""
+JAX compile cache): the device default, the debug and trace switches, the
+metrics log, PSNR, and image, video and grid IO on numpy arrays. PIL is
+imported where a file is read or written, and only there."""
 
 from __future__ import annotations
 
@@ -25,6 +25,87 @@ def default_device(device=None) -> torch.device:
             'pass device="cpu" to run on the CPU (the kernels\' plain versions)'
         )
     return torch.device("cuda")
+
+
+def debug_nans() -> bool:
+    """CDLNET_DEBUG_NANS is set (to anything but the empty string, as the
+    JAX package reads it)."""
+    return bool(os.environ.get("CDLNET_DEBUG_NANS"))
+
+
+def setup_debug():
+    """The debug switches (counterpart of cdlnet_tpu/utils.py::setup_debug,
+    which the CLIs and the server call first):
+
+    CDLNET_DEBUG_NANS=1   torch.autograd.set_detect_anomaly(True): a backward
+                          op that makes a NaN raises there; and fit and
+                          fit_csr check each step's loss (check_finite),
+                          raising FloatingPointError on a NaN or Inf, as
+                          jax_debug_nans stops at a forward NaN
+    CDLNET_LOG_COMPILES=1 log each nvcc build of the kernels
+                          (kernels/_build.py reads it at the build): source,
+                          seconds and result; the port's only compilation
+    """
+    if debug_nans():
+        torch.autograd.set_detect_anomaly(True)
+
+
+def check_finite(loss: torch.Tensor, what: str):
+    """Under CDLNET_DEBUG_NANS, raise FloatingPointError if `loss` holds a NaN
+    or an Inf (a host read: it synchronizes); else nothing, and no sync."""
+    if debug_nans() and not bool(torch.isfinite(loss).all()):
+        raise FloatingPointError(f"CDLNET_DEBUG_NANS: non-finite loss {what}: "
+                                 f"{loss.detach().flatten()[:8].tolist()}")
+
+
+def trace_span(name: str):
+    """A named span of the profiler's trace (torch.profiler.record_function;
+    the JAX package's jax.profiler.TraceAnnotation). Cheap when no profiler
+    runs."""
+    return torch.profiler.record_function(name)
+
+
+_trace = None  # the running trace: (profiler, directory, on the card)
+
+
+def maybe_start_trace(device=None) -> bool:
+    """Start a torch.profiler trace for $CDLNET_PROFILE_DIR, if it is set:
+    the directory is made, and the trace records CPU activity, and the
+    card's (CUDA) too where `device` is a CUDA device (None: where there is
+    a card). Returns True; without the variable it returns False and does
+    nothing. stop_trace ends it."""
+    global _trace
+    d = os.environ.get("CDLNET_PROFILE_DIR")
+    if not d:
+        return False
+    os.makedirs(d, exist_ok=True)
+    on_card = (torch.device(device).type == "cuda" if device is not None
+               else torch.cuda.is_available())
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if on_card:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    _trace = (prof, d, on_card)
+    return True
+
+
+def stop_trace() -> str:
+    """Stop the trace maybe_start_trace started (after the card's queued
+    work has run) and write it as a Chrome trace (chrome://tracing,
+    Perfetto) into its directory. Returns the file's path; raises
+    RuntimeError when no trace runs, as jax.profiler.stop_trace does."""
+    global _trace
+    if _trace is None:
+        raise RuntimeError("stop_trace: no trace is running")
+    prof, d, on_card = _trace
+    _trace = None
+    if on_card:
+        torch.cuda.synchronize()
+    prof.stop()
+    path = os.path.join(d, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    return path
 
 
 def append_metric(save_dir: str, **kv):

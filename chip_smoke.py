@@ -156,6 +156,20 @@ Builds the hand-written CUDA kernels from cdlnet_tpu_torch/kernels/csrc
   sweep     the kernel matrix (tools/kernel_sweep.py): the 25 reference
             geometries of KERNELMATRIX.json through the kernels against
             backend "xla", each row within its bound;
+  hist      bf16 training histories (CDLNET_HIST_DTYPE) against fp32 ones
+            on the 3D and 2D soft-threshold paths: the writers' rounded
+            copies, the readers, three steps and two trainings;
+  csr_hist  the same for the CSR models at the argscsr width: the CSR
+            analyses' bf16 z and u copies and the CSR adjoints on them
+            (bitwise the fp32 launches' rounding and upcast), the codes
+            whose prox branch differs between bf16 and fp32 u, native
+            640x368 steps of both models with remat on and off in both
+            modes (loss bitwise, launches, ms, peak GB, history bytes,
+            gradient gap), and fit_csr of CDLNet_CSRf2 in both modes to a
+            held-out PSNR;
+  trace     CDLNET_PROFILE_DIR: a one-epoch fit of the flagship 2D width
+            traced on the device epoch and on the host loop, each Chrome
+            trace holding its span and the kernels launched beneath it;
 
 and times every kernel (CUDA events) beside its plain version, the one
 PyTorch call that computes the same function, and its bound on this card
@@ -219,6 +233,7 @@ from cdlnet_tpu_torch.data.synthetic import (
 from cdlnet_tpu_torch.kernels import _build
 from cdlnet_tpu_torch.kernels import lista2d as L2
 from cdlnet_tpu_torch.kernels import lista2d_bwd as LB2
+from cdlnet_tpu_torch.kernels.lista2d_bwd import csr_prox_branches
 from cdlnet_tpu_torch.kernels import lista3d as L
 from cdlnet_tpu_torch.kernels import lista3d_bwd as LB
 from cdlnet_tpu_torch.models import (
@@ -251,7 +266,7 @@ from cdlnet_tpu_torch.train.fit_csr import fit_csr, make_csr_train_step
 from cdlnet_tpu_torch.train import losses as losses_mod
 from cdlnet_tpu_torch.train.losses import mcsure_loss, mse_loss
 from cdlnet_tpu_torch.train.optim import get_lr, make_optimizer, set_lr
-from cdlnet_tpu_torch.utils import img_save, load_video
+from cdlnet_tpu_torch.utils import img_save, load_video, setup_debug
 
 FLAGSHIP = dict(K=30, M=169, P=(7, 7, 5), s=2, C=1, adaptive=True, depth=16)
 CLIP = (16, 128, 128)
@@ -2047,26 +2062,6 @@ class GradRecorder:
 
     def update(self, params, grads, state):
         state.update({n: g.clone() for n, g in grads.items()})
-
-
-def csr_prox_branches(u, zp, za, tau, g1, g2):
-    """The branch of the CSR prox that an argument u falls in, elementwise:
-    the signs that the adjoint kernels read (sign(0) = 0), stacked. One-sided
-    (za None, prox_csr toward zp with g1): the inner soft threshold's sign
-    and the output's. Two-sided (prox_csr_f2): the sign of u - Ca, then of
-    the inner, middle and outer soft thresholds."""
-    soft = lambda x, th: torch.sign(x) * torch.relu(x.abs() - th)
-    sg = torch.sign
-    if za is None:
-        shift = zp + tau * sg(zp)
-        inner = soft(u - shift, tau * g1)
-        return torch.stack([sg(inner), sg(soft(inner + shift, tau))])
-    Ca = csr_f2_jump(zp, za, tau, g2)
-    Cb = za + tau * sg(za) + tau * g1 * sg(za - zp)
-    inner = soft(u - Ca, g1 * tau)
-    corr = tau * g1 * sg(u - Ca)
-    midder = soft(inner - Cb + corr, g2 * tau)
-    return torch.stack([sg(u - Ca), sg(inner), sg(midder), sg(soft(midder + Cb - corr, tau))])
 
 
 def csr_branch_flips(model, y, codes) -> tuple:
@@ -4779,6 +4774,419 @@ def hist_phase(dev, card, model, t_par, err) -> tuple[dict, dict, dict]:
     return dict(launches), dict(bf16_launches), times
 
 
+# --- csr_hist: the CSR models' bf16 training histories against fp32 ones
+# (CDLNET_HIST_DTYPE), in one run, at the argscsr width
+CSR_HIST_KERNELS = ("lista2d_ana_csr", "lista2d_ana_csrf2", "lista2d_syn_adjoint_csr",
+                    "lista2d_syn_adjoint_csrf2")
+CSR_HIST_REPLACES = ("; their bf16 z, u and r histories (cdlnet_tpu/kernels/lista2d.py:"
+                     "1139-1153; the reverse's upcast :534-535, :662-668)")
+# CH4: fit_csr fine-tunes the trained examples/csr-demo (CDLNet_CSRf2, K=8,
+# M=32, P=7, s=2) on CSR_FIT_BATCHES batches of 2 x 3 x 128^2 smooth volumes
+# for 20 epochs, from its last learning rate (the demo's 1e-3 after five
+# StepLR decays of 0.8) and the last 5 epochs at a tenth of it. From the
+# power-method init at the argscsr width a run of this length is far from
+# its plateau (on an H100 the held-out PSNR still rose ~0.5 dB an epoch
+# after 96 steps and swung by up to 1.8 dB between epochs: PERF.md,
+# Findings), so the two modes' trajectories part by chance and a 0.05 dB
+# gate would read that; near a trained optimum it reads what bf16
+# gradients cost
+CSR_FIT_BATCHES, CSR_FIT_EPOCHS, CSR_FIT_DECAY_EPOCH, CSR_FIT_LR = 8, 20, 15, 3.3e-4
+CSR_EVAL_VOLUMES = (4, 4, 128, 128)  # held-out volumes (n, D, H, W) at sigma 25
+
+
+def csr_history_bytes(K, M, N, Cp, grid, dtype) -> int:
+    """Bytes of one make_csr_train_step step's histories: four applies, each
+    z (K, N, M, *grid) and r (K-1, N, Cp, *grid), and u like z in the
+    three applies that carry a code (the first frame's is a soft
+    threshold)."""
+    n = int(np.prod(grid)) * torch.empty((), dtype=dtype).element_size()
+    return (4 * (K * N * M + (K - 1) * N * Cp) + 3 * K * N * M) * n
+
+
+def csr_hist_phase(dev, card, err) -> tuple[dict, dict, dict]:
+    """csr_hist: the CSR models' bf16 training histories against fp32 ones,
+    at the argscsr width. CH1 the CSR analyses (one code, two codes) with a
+    bf16 history slice and a bf16 u_out at 2x128^2 and the 640x384 bucket:
+    the fp32 codes bitwise the launch without them, the slices bitwise the
+    fp32 codes and prox argument rounded (torch's round to nearest even).
+    CH2 the CSR adjoints (one code, z_after alone, two codes) on bf16 z and
+    u: bitwise the launch on the upcast histories, within KERNEL_TOL of the
+    plain version on the same bf16 operands; the codes whose prox branch
+    differs between a K=30 forward's bf16 and fp32 u histories, counted
+    (csr_prox_branches). CH3 CDLNet_CSR and CDLNet_CSRf2 steps at native
+    640x368, remat on and off, in both modes from the same weights and
+    noise: the loss bitwise, the launches equal, host ms, peak GB, the
+    histories' bytes, the gradients' gap within HIST_GRAD_GAP. CH4 the
+    trained csr-demo fine-tuned by fit_csr in both modes from its weights,
+    ending at a tenth of its rate: the held-out PSNRs at sigma 25 through
+    Denoiser within HIST_PSNR_GAP_DB. Returns (launches, bf16 launches) of CH3-CH4 (the
+    main path's run) and the bf16 instantiations' times (CH1-CH2)."""
+    bf = torch.bfloat16
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(SEED + 190)
+    models = csr_models(dev)
+    f2 = models["CDLNet_CSRf2"][0]
+    K, s = f2.K, f2.s
+    times = {}
+
+    # --- CH1 the writers, CH2 the readers (no autograd) ---
+    grad_mode = torch.is_grad_enabled()
+    torch.set_grad_enabled(False)
+    for label, N, shape in (("2x128^2", 2, IMAGE), ("640x384 (bucket)", 1, (640, 384))):
+        timed = N == 1
+        clean = np.stack([smooth_clip(rng, 3, shape) for _ in range(N)])[:, :, None]
+        y = torch.from_numpy(clean + SIGMA / 255 * rng.standard_normal(clean.shape)
+                             .astype(np.float32)).to(dev)  # (N, 3, 1, H, W)
+        zp = f2(y[:, 0], sigma=SIGMA)[1]
+        za = f2(y[:, 2], sigma=SIGMA)[1]
+        yp, _, _ = pre_process(y[:, 1], s)
+        c = SIGMA / 255
+        y2, _, wa, ws, tau, geom = L2.phase_operands(yp, f2.A, f2.B, f2.t, c, s)
+        ws_adj = LB.adjoint_bank(ws, 2)
+        gams = tuple(L2.threshold_bank(b, c, N, yp) for b in (f2.g1, f2.g2))
+        n_pos = y2[:, 0].numel()
+        k = K // 2
+        gen = torch.Generator().manual_seed(SEED)
+        g = torch.randn(y2.shape, generator=gen).to(dev)
+        base = 1e-2 * torch.randn(zp.shape, generator=gen).to(dev)
+        g_full = pp.depth_to_space(g, s, 2, 1)
+        for name, mode, codes, banks in (
+                ("lista2d_ana_csr", "csr", (zp,), gams[:1]),
+                ("lista2d_syn_adjoint_csr", "z_after alone", (za,), gams[1:]),
+                ("lista2d_ana_csrf2", "csrf2", (zp, za), gams)):
+            loop = lambda dt: L2.lista2d_loop(y2, None, wa, ws, tau, geom, return_hists=True,
+                                              gams=banks, codes=codes, hists_dtype=dt)[2]
+            zh, rh, uh = loop(torch.float32)
+            z16h, _, u16h = loop(bf)
+            # the codes whose branch differs between the bf16 and fp32 u
+            zp_, za_ = (codes[0], codes[1]) if len(codes) == 2 else (codes[0], None)
+            flips = torch.zeros(zp.shape, dtype=torch.bool, device=dev)
+            for kk in range(K):
+                th = [b[kk][:, :, None, None] for b in (tau, *banks)] + [None]
+                flips |= (csr_prox_branches(u16h[kk], zp_, za_, *th[:3])
+                          != csr_prox_branches(uh[kk], zp_, za_, *th[:3])).any(0)
+            print(f"csr_hist CH2 [{card}]: {label} K={K} {mode} forward: {int(flips.sum())} of "
+                  f"{flips.numel()} codes take another prox branch at some iteration on the "
+                  f"bf16 u history than on the fp32 one", flush=True)
+            require(torch.equal(z16h, zh.to(bf)) and torch.equal(u16h, uh.to(bf)),
+                    f"csr_hist: {label} {mode} bf16 histories are not the fp32 ones rounded")
+            del z16h, u16h
+            if mode != "z_after alone":
+                # CH1: the analysis of iteration k with the copies
+                ana = getattr(L2, name)
+                plain = getattr(L2, name + "_plain")
+                args = (rh[k - 1], zh[k - 1], wa[k], tau[k], *(b[k] for b in banks), *codes)
+                u32 = torch.empty_like(zp)
+                ref = ana(*args, geom, u_out=u32)
+                out, hist, u16 = (torch.empty_like(ref), torch.empty(ref.shape, dtype=bf,
+                                                                      device=dev),
+                                  torch.empty(ref.shape, dtype=bf, device=dev))
+                got = ana(*args, geom, out=out, u_out=u16, hist=hist)
+                torch.cuda.synchronize()
+                same = torch.equal(got, ref)
+                rounded = torch.equal(hist, ref.to(bf)) and torch.equal(u16, u32.to(bf))
+                print(f"csr_hist CH1 [{card}]: {name} at {label} with bf16 z and u slices: "
+                      f"fp32 codes bitwise the launch without them: {same}; slices bitwise "
+                      f"the fp32 codes and prox argument rounded: {rounded}", flush=True)
+                require(same and rounded, f"csr_hist CH1: {name} at {label}")
+                pu = torch.empty_like(u16)
+                p_out = plain(*args, geom, u_out=pu)
+                if name == "lista2d_ana_csr":
+                    compare(name + BF16, f"{label} fp32 codes", got, p_out, err)
+                else:  # the jump: held away from it, as csr C1 holds the kernel
+                    keep = L2.csrf2_jump_gap(u32, zp, za, tau[k], banks[1][k]) \
+                        > CSR_JUMP_EPS * u32.abs().max()
+                    compare(name + BF16, f"{label} fp32 codes, {int((~keep).sum())} codes "
+                            f"within {CSR_JUMP_EPS} max|v| of the jump set apart",
+                            got * keep, p_out * keep, err)
+                if timed:
+                    r_full = pp.depth_to_space(rh[k - 1], s, 2, 1)
+                    tt = dict(ms=cuda_ms(lambda: ana(*args, geom, out=out, u_out=u16,
+                                                     hist=hist), reps=20),
+                              plain_ms=cuda_ms(lambda: hist.copy_(plain(*args, geom,
+                                                                        u_out=pu)), reps=20),
+                              library_ms=cuda_ms(lambda: F.conv2d(r_full, f2.A[k], stride=s,
+                                                                  padding=f2.pad), reps=20))
+                    tt["bound_ms"], tt["bound_by"] = bound((wa[k],), n_pos,
+                                                           (*args, out, hist, u16), tf32x3=True)
+                    fp32_ms = cuda_ms(lambda: ana(*args, geom, out=out, u_out=u32), reps=20)
+                    times[name + BF16] = tt
+                    print(f"time [{card}]: csr_hist {label} {name}{BF16} {tt['ms']:.4f} ms/call "
+                          f"(fp32 u history {fp32_ms:.4f}), plain {tt['plain_ms']:.4f}, "
+                          f"library {tt['library_ms']:.4f}, bound {tt['bound_ms']:.4f} "
+                          f"({tt['bound_by']})", flush=True)
+                del ref, out, hist, u16, u32, got, pu, p_out
+            # CH2: the adjoint of iteration k - 1 on the bf16 histories
+            adj_name = ("lista2d_syn_adjoint_csrf2" if len(codes) == 2
+                        else "lista2d_syn_adjoint_csr")
+            adj, adj_plain = getattr(LB2, adj_name), getattr(LB2, adj_name + "_plain")
+            z16, u16 = zh[k - 1].to(bf), uh[k - 1].to(bf)
+            rest = (tau[k - 1], *(b[k - 1] for b in banks), *codes)
+
+            def call(f, zz, uu, bufs):
+                return (*f(g, ws_adj[k], zz, uu, *rest, *bufs, geom, base=base, alpha=-1.0),
+                        *bufs)
+
+            bufs = lambda: [torch.zeros_like(zp) for _ in codes]
+            got = call(adj, z16, u16, bufs())
+            ref = call(adj, z16.float(), u16.float(), bufs())
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, ref))
+            compare(adj_name + BF16, f"{label} {mode} k={k - 1} (dv, dtau, dgam..., dcodes)",
+                    got, call(adj_plain, z16, u16, bufs()), err)
+            print(f"csr_hist CH2 [{card}]: {adj_name} at {label} {mode} on bf16 z and u: every "
+                  f"output bitwise the launch on the upcast histories: {same}", flush=True)
+            require(same, f"csr_hist CH2: {adj_name} {mode} at {label}")
+            if timed and mode != "z_after alone":
+                b1, b2 = bufs(), bufs()
+                tt = dict(ms=cuda_ms(lambda: call(adj, z16, u16, b1), reps=20),
+                          plain_ms=cuda_ms(lambda: call(adj_plain, z16, u16, b2), reps=20),
+                          library_ms=cuda_ms(lambda: F.conv2d(g_full, f2.B[k], stride=s,
+                                                              padding=f2.pad), reps=20))
+                fp32_ms = cuda_ms(lambda: call(adj, zh[k - 1], uh[k - 1], b1), reps=20)
+                # read: g, the bank, z, u, base, tau, the gammas, the codes and
+                # their cotangent buffers; written: dv, the cotangents, the sums
+                io = (g, ws_adj[k], z16, u16, base, *rest, *b1, zp, *b1, *rest[:1 + len(codes)])
+                tt["bound_ms"], tt["bound_by"] = bound((ws_adj[k],), n_pos, io, tf32x3=True)
+                times[adj_name + BF16] = tt
+                print(f"time [{card}]: csr_hist {label} {adj_name}{BF16} {tt['ms']:.4f} ms/call "
+                      f"(on fp32 histories {fp32_ms:.4f}), plain {tt['plain_ms']:.4f}, library "
+                      f"{tt['library_ms']:.4f}, bound {tt['bound_ms']:.4f} ({tt['bound_by']})",
+                      flush=True)
+            del zh, rh, uh, z16, u16, got, ref
+        del y, zp, za, y2, g, base
+        torch.cuda.empty_cache()
+    torch.set_grad_enabled(grad_mode)
+    t_ch12 = time.perf_counter()
+
+    # --- CH3 native steps in both modes, remat on and off (the main path's
+    # run starts here: the counts from 0) ---
+    L.launches.clear()
+    L.hist_launches.clear()
+    launches = collections.Counter()
+    vol = smooth_clip(rng, 3, MRI_FRAME)
+    grid = (MRI_FRAME[0] // s, MRI_FRAME[1] // s)
+    for family, (model, _) in models.items():
+        two_sided = family == "CDLNet_CSRf2"
+        batch = torch.from_numpy(vol[None, None, :3 if two_sided else 2]).to(dev)
+        hb = {mode: csr_history_bytes(K, model.M, 1, s * s, grid, dt) / 1e9
+              for mode, dt in (("f32", torch.float32), ("bf16", bf))}
+        for remat in (False, True):
+            res = {}
+            for mode in ("f32", "bf16"):
+                with hist_env(mode):
+                    step, _ = make_csr_train_step(model, GradRecorder(), noise_std=TRAIN_SIGMA,
+                                                  remat=remat)
+                    rec = {}
+                    L.launches.clear()
+                    loss = step(rec, batch, torch.Generator(device=dev).manual_seed(SEED))
+                    torch.cuda.synchronize()
+                    step_launches = dict(L.launches)
+                    launches.update(L.launches)
+                    mm = copy.deepcopy(model)
+                    opt = make_optimizer(1e-4, clip_grad=0.05)
+                    st = opt.init(dict(mm.named_parameters()))
+                    tstep, _ = make_csr_train_step(mm, opt, noise_std=TRAIN_SIGMA, remat=remat)
+                    gen = torch.Generator(device=dev).manual_seed(SEED)
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    L.launches.clear()
+                    ms = host_ms(lambda: tstep(st, batch, gen), rounds=3)
+                    launches.update(L.launches)
+                    res[mode] = dict(loss=loss, g=rec, launches=step_launches, ms=ms,
+                                     peak=torch.cuda.max_memory_allocated() / 1e9)
+                    del mm, st, opt
+            f, b = res["f32"], res["bf16"]
+            gaps = {n: rel_err(b["g"][n], f["g"][n])[1] for n in f["g"]}
+            label = f"{family} native 1x1x{batch.shape[2]}x{MRI_FRAME[0]}x{MRI_FRAME[1]} " \
+                    f"remat={remat}"
+            print(f"csr_hist CH3 [{card}]: {label} step, fp32 / bf16 histories: loss "
+                  f"{float(f['loss']):.8f} / {float(b['loss']):.8f} (bitwise equal: "
+                  f"{torch.equal(f['loss'], b['loss'])}); launches equal: "
+                  f"{f['launches'] == b['launches']} ({b['launches']}); {f['ms']:.3f} / "
+                  f"{b['ms']:.3f} ms a step (host clock, fwd + bwd + Adam); peak {f['peak']:.3f} "
+                  f"/ {b['peak']:.3f} GB; histories {hb['f32']:.3f} / {hb['bf16']:.3f} GB; "
+                  f"gradient gap bf16 vs fp32 (max|d| / max|ref|) "
+                  f"{', '.join(f'd{n} {v:.3e}' for n, v in gaps.items())}", flush=True)
+            require(torch.equal(f["loss"], b["loss"]), f"csr_hist CH3: {label} loss differs")
+            require(f["launches"] == b["launches"], f"csr_hist CH3: {label} launches differ")
+            require(all(torch.isfinite(v).all() for v in b["g"].values()),
+                    f"csr_hist CH3: {label} non-finite bf16 gradient")
+            require(max(gaps.values()) <= HIST_GRAD_GAP, f"csr_hist CH3: {label} gradient gap "
+                    f"{max(gaps.values()):.3e} > {HIST_GRAD_GAP}")
+            del res
+        del batch
+        torch.cuda.empty_cache()
+    t_ch3 = time.perf_counter()
+
+    # --- CH4 the end metric: the csr-demo fine-tuned by fit_csr in both
+    # modes, held-out PSNR ---
+    erng = np.random.default_rng(SEED + 191)
+    n_eval, depth, h, w = CSR_EVAL_VOLUMES
+    eval_clean = [smooth_clip(erng, depth, (h, w)) for _ in range(n_eval)]
+    eval_noisy = [v + SIGMA / 255 * erng.standard_normal(v.shape).astype(np.float32)
+                  for v in eval_clean]
+    held_out = lambda m: float(np.mean([psnr(Denoiser(m).denoise_video(v, sigma=SIGMA), c)
+                                        for v, c in zip(eval_noisy, eval_clean)]))
+    train = [np.stack([smooth_clip(rng, 3, IMAGE)[None] for _ in range(2)])
+             for _ in range(CSR_FIT_BATCHES)]
+    fit_model = Denoiser.from_dir(CSR_DEMO).model
+    init = copy.deepcopy(fit_model.state_dict())
+    start = held_out(fit_model)
+    end = {}
+    for mode in ("f32", "bf16"):
+        with hist_env(mode):
+            fit_model.load_state_dict(init)
+            opt = make_optimizer(CSR_FIT_LR, clip_grad=0.05)
+            by_epoch = []
+            L.launches.clear()
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory() as save_dir:
+                _, history = fit_csr(fit_model, opt, opt.init(dict(fit_model.named_parameters())),
+                                     {"train": train, "val": [], "test": train[:1]},
+                                     save_dir=save_dir, epochs=CSR_FIT_EPOCHS,
+                                     noise_std=TRAIN_SIGMA, val_freq=100, save_freq=1,
+                                     verbose=False, seed=SEED,
+                                     sched=dict(step_size=CSR_FIT_DECAY_EPOCH, gamma=0.1),
+                                     epoch_fun=lambda e: by_epoch.append(held_out(fit_model)))
+            torch.cuda.synchronize()
+            launches.update(L.launches)
+            end[mode] = dict(p=by_epoch[-1], by_epoch=by_epoch, s=time.perf_counter() - t0,
+                             train=[p for _, ph, p in history if ph == "train"])
+    f, b = end["f32"], end["bf16"]
+    gap = b["p"] - f["p"]
+    fmt = lambda v: [f"{x:.3f}" for x in v]
+    print(f"csr_hist CH4 [{card}]: the csr-demo (CDLNet_CSRf2 K={fit_model.K} M={fit_model.M}) "
+          f"fine-tuned by fit_csr, {CSR_FIT_EPOCHS * CSR_FIT_BATCHES} steps on 2x3x{IMAGE[0]}^2 "
+          f"volumes from a held-out PSNR of {start:.4f} dB (train PSNR by epoch, fp32 "
+          f"{fmt(f['train'])}, "
+          f"bf16 {fmt(b['train'])}; held-out PSNR by epoch, fp32 {fmt(f['by_epoch'])}, bf16 "
+          f"{fmt(b['by_epoch'])}; {f['s']:.2f} / {b['s']:.2f} s): held-out PSNR at sigma "
+          f"{SIGMA:g} on {n_eval} {(depth, h, w)} volumes through Denoiser: fp32 {f['p']:.4f} "
+          f"dB, bf16 {b['p']:.4f} dB (bf16 - fp32 {gap:+.4f} dB)", flush=True)
+    require(f["p"] > start, "csr_hist CH4: the fp32 fine-tune did not learn")
+    require(abs(gap) <= HIST_PSNR_GAP_DB, f"csr_hist CH4: PSNR gap {gap:+.4f} dB > "
+            f"{HIST_PSNR_GAP_DB} dB")
+    bf16_launches = collections.Counter(L.hist_launches)
+    missing = [n for n in CSR_HIST_KERNELS if not bf16_launches[n]]
+    print(f"csr_hist [{card}]: the main path's bf16 launches {dict(+bf16_launches)}; CH1-CH2 "
+          f"{t_ch12 - t_start:.2f} s, CH3 {t_ch3 - t_ch12:.2f} s, CH4 "
+          f"{time.perf_counter() - t_ch3:.2f} s", flush=True)
+    require(not missing, f"csr_hist: no bf16-history launch of {missing} on the main path")
+    del models, fit_model
+    torch.cuda.empty_cache()
+    return dict(launches), dict(bf16_launches), times
+
+
+# --- trace: CDLNET_PROFILE_DIR on the card
+TRACE_KERNELS = ("lista2d_ana_mma", "lista2d_syn_mma", "lista3d_wgrad_mma")
+
+
+def trace_check(trace_dir, span) -> tuple[int, dict]:
+    """Read the one Chrome trace in trace_dir: the `span` events (CPU side)
+    and, per name in TRACE_KERNELS, the kernels whose launch (a runtime
+    call with the kernel's correlation id: a kernel launch, or the CUDA
+    graph launch that replays it) lies inside one of them. Returns (spans,
+    {name: kernels beneath})."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    require(len(files) == 1, f"trace: {len(files)} trace files in {trace_dir}")
+    with open(os.path.join(trace_dir, files[0])) as fh:
+        events = json.load(fh)["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("name") == span and e.get("cat") == "user_annotation"]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    beneath = collections.Counter()
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        ts = launch_ts.get(e.get("args", {}).get("correlation"))
+        name = next((n for n in TRACE_KERNELS if n in e["name"]), None)
+        if name and ts is not None and any(lo <= ts <= hi for lo, hi in spans):
+            beneath[name] += 1
+    return len(spans), dict(beneath)
+
+
+def trace_phase(dev, card) -> dict:
+    """trace: a one-epoch fit of the flagship 2D width with
+    CDLNET_PROFILE_DIR set, on the scan phase's staged corpus (the device
+    epoch: its warm-up, capture and replays under the profiler) and on the
+    host loop (three batches): each writes one Chrome trace holding its
+    span (train_epoch_scan, train_step) and the 2D kernels beneath it.
+    Then CDLNET_DEBUG_NANS (utils.setup_debug: anomaly mode) on the device
+    epoch: a clean epoch trains (its steps eager), and one with NaN images
+    raises at the backward op that makes the first NaN. Returns the
+    launches."""
+    images = scan_images(np.random.default_rng(SEED + 60))[:8 * TRAIN_2D_N]
+    batches = [np.stack([im[:, :CROP, :CROP] for im in images[i:i + TRAIN_2D_N]])
+               for i in range(0, 3 * TRAIN_2D_N, TRAIN_2D_N)]
+    m = CDLNet(**FLAGSHIP_2D, backend="pallas").to(dev)
+    m.init(torch.Generator().manual_seed(SEED))
+    init = copy.deepcopy(m.state_dict())
+    launches = collections.Counter()
+    for label, train, span, device_scan in (
+            ("device epoch", image_loader(images, CROP, TRAIN_2D_N), "train_epoch_scan", True),
+            ("host loop", batches, "train_step", False)):
+        m.load_state_dict(init)
+        opt = make_optimizer(FIT_2D_LR, clip_grad=FIT_2D_CLIP)
+        with tempfile.TemporaryDirectory() as tmp:
+            trace_dir = os.path.join(tmp, "prof")
+            L.launches.clear()
+            t0 = time.perf_counter()
+            with pinned_env("CDLNET_PROFILE_DIR", trace_dir):
+                _, history = fit(m, opt, opt.init(dict(m.named_parameters())),
+                                 {"train": train, "val": [], "test": batches[:1]},
+                                 save_dir=os.path.join(tmp, "run"), epochs=1,
+                                 noise_std=TRAIN_SIGMA, val_freq=100, save_freq=1,
+                                 backtrack_thresh=None, verbose=False, workload="2d",
+                                 seed=SEED, device_scan=device_scan)
+            fit_s = time.perf_counter() - t0
+            launches.update(L.launches)
+            size = sum(os.path.getsize(os.path.join(trace_dir, f)) for f in os.listdir(trace_dir))
+            n_spans, beneath = trace_check(trace_dir, span)
+        steps = len(train) if isinstance(train, list) else len(images) // TRAIN_2D_N
+        print(f"trace [{card}]: one-epoch fit on the {label} with CDLNET_PROFILE_DIR "
+              f"({fit_s:.2f} s, train PSNR {history[0][2]:.3f} dB): {size / 1e6:.1f} MB of "
+              f"Chrome trace, {n_spans} {span} spans, kernels launched beneath them "
+              f"{beneath}", flush=True)
+        want_spans = 1 if device_scan else steps
+        require(n_spans == want_spans, f"trace: {n_spans} {span} spans, expected {want_spans}")
+        require(all(beneath.get(n) for n in TRACE_KERNELS),
+                f"trace: the {label}'s trace lacks kernels beneath {span}: {beneath}")
+    nan_images = [np.full_like(im, np.nan) if i % 2 else im for i, im in enumerate(images)]
+    for label, imgs in (("clean", images), ("NaN", nan_images)):
+        m.load_state_dict(init)
+        opt = make_optimizer(FIT_2D_LR, clip_grad=FIT_2D_CLIP)
+        L.launches.clear()
+        t0 = time.perf_counter()
+        raised = None
+        with pinned_env("CDLNET_DEBUG_NANS", "1"), tempfile.TemporaryDirectory() as tmp:
+            setup_debug()
+            try:
+                _, history = fit(m, opt, opt.init(dict(m.named_parameters())),
+                                 {"train": image_loader(imgs, CROP, TRAIN_2D_N), "val": [],
+                                  "test": []}, save_dir=tmp, epochs=1, noise_std=TRAIN_SIGMA,
+                                 backtrack_thresh=None, verbose=False, workload="2d",
+                                 seed=SEED, device_scan=True)
+            except (RuntimeError, FloatingPointError) as e:
+                raised = e
+            finally:
+                torch.autograd.set_detect_anomaly(False)
+        launches.update(L.launches)
+        what = (f"raised {type(raised).__name__}: {str(raised)[:160]}" if raised
+                else f"train PSNR {history[0][2]:.3f} dB")
+        print(f"trace [{card}]: CDLNET_DEBUG_NANS, a device epoch on {label} images "
+              f"({time.perf_counter() - t0:.2f} s, launches {dict(L.launches)}): {what}",
+              flush=True)
+        if label == "clean":
+            require(raised is None and np.isfinite(history[0][2]),
+                    f"trace: CDLNET_DEBUG_NANS on a clean epoch: {raised}")
+        else:
+            require(raised is not None and "nan" in str(raised).lower(),
+                    "trace: CDLNET_DEBUG_NANS did not stop a NaN epoch")
+    return dict(launches)
+
+
 def sweep_phase(dev, card) -> dict:
     """sweep: the kernel matrix (cdlnet_tpu_torch/tools/kernel_sweep.py),
     the 25 reference-geometry cases of tools/hw_kernel_sweep.py through
@@ -5043,8 +5451,10 @@ def main() -> int:
     launches_csr, times_csr = csr(dev, card, err)
     times.update(times_csr)
 
-    # --- 15. frame-recurrent CSR training (csr_train) ---
-    launches_ct, times_ct, syn_p9 = csr_train(dev, card, err)
+    # --- 15. frame-recurrent CSR training (csr_train; its gates hold the
+    # kernels' fp32 gradients and histories: csr_hist runs the bf16 ones) ---
+    with hist_env("f32"):
+        launches_ct, times_ct, syn_p9 = csr_train(dev, card, err)
     times.update(times_ct)
 
     # --- 16. the input pipeline: device_prefetch (P1; the train CLI's loader
@@ -5095,11 +5505,21 @@ def main() -> int:
     # --- 26. bf16 training histories against fp32 ones (hist) ---
     launches_hist, bf16_launches, times_bf16 = hist_phase(dev, card, model, t_par, err)
     times.update(times_bf16)
+    t11 = time.perf_counter()
+
+    # --- 27. the CSR models' bf16 training histories (csr_hist) ---
+    launches_csrh, bf16_csr_launches, times_csrh = csr_hist_phase(dev, card, err)
+    times.update(times_csrh)
+    bf16_launches.update(bf16_csr_launches)
+    t12 = time.perf_counter()
+
+    # --- 28. CDLNET_PROFILE_DIR: a traced epoch, device and host (trace) ---
+    launches_trace = trace_phase(dev, card)
     print(f"phases: prefetch {t1 - t0:.2f} s, blind PCA {t2 - t1:.2f} s, residual "
           f"{t3 - t2:.2f} s, baselines {t4 - t3:.2f} s, ckpt {t5 - t4:.2f} s, server "
           f"{t6 - t5:.2f} s, losses {t7 - t6:.2f} s, dist {t8 - t7:.2f} s, scan "
-          f"{t9 - t8:.2f} s, sweep {t10 - t9:.2f} s, hist {time.perf_counter() - t10:.2f} s",
-          flush=True)
+          f"{t9 - t8:.2f} s, sweep {t10 - t9:.2f} s, hist {t11 - t10:.2f} s, csr_hist "
+          f"{t12 - t11:.2f} s, trace {time.perf_counter() - t12:.2f} s", flush=True)
 
     launches = {name: serve_launches.get(name, 0) + fit_launches.get(name, 0)
                 + launches_2d.get(name, 0) + launches_t2.get(name, 0)
@@ -5108,7 +5528,8 @@ def main() -> int:
                 + launches_ck.get(name, 0) + launches_srv.get(name, 0)
                 + launches_loss.get(name, 0) + launches_dist.get(name, 0)
                 + launches_scan.get(name, 0) + launches_sweep.get(name, 0)
-                + launches_hist.get(name, 0) for name in KERNELS}
+                + launches_hist.get(name, 0) + launches_csrh.get(name, 0)
+                + launches_trace.get(name, 0) for name in KERNELS}
     for name in TC_KERNELS:
         tt = times[name]
         shape = "train shape" if "adjoint" in name or "wgrad" in name else "serve shape"
@@ -5124,11 +5545,13 @@ def main() -> int:
         for name, (src, tpu) in KERNELS.items()
     ] + [
         # the bf16-history instantiations, launched by the same wrappers: the
-        # hist phase's main-path launches and its times at the train shapes
+        # hist and csr_hist phases' main-path launches and their times at the
+        # train shapes (the CSR ones at the native 640x384 bucket)
         {"name": name + BF16, "route": "cuda", "source": KERNELS[name][0],
-         "replaces": KERNELS[name][1] + HIST_REPLACES[name[:7]], "launches": bf16_launches[name],
-         "max_abs_err": err[name + BF16], **times[name + BF16]}
-        for name in HIST_KERNELS
+         "replaces": KERNELS[name][1] + (CSR_HIST_REPLACES if name in CSR_HIST_KERNELS
+                                         else HIST_REPLACES[name[:7]]),
+         "launches": bf16_launches[name], "max_abs_err": err[name + BF16], **times[name + BF16]}
+        for name in HIST_KERNELS + CSR_HIST_KERNELS
     ]}
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -178,10 +178,12 @@ def test_fused_csr_modes_match_jax_tiled_interpret(mode):
     np.testing.assert_allclose(zt.numpy(), np.asarray(zj), atol=1e-5)
 
 
-def test_fused_csr_mode_needs_its_gamma_bank_and_takes_no_history():
+def test_fused_csr_mode_needs_its_gamma_bank_and_takes_no_history(monkeypatch):
     """A neighbour code needs its gamma bank; with return_hist a CSR mode
     returns the u history (the prox argument of every iteration) beside
-    the z and r histories, fp32, the last u_k giving the returned codes."""
+    the z and r histories, fp32 (CDLNET_HIST_DTYPE=f32), the last u_k
+    giving the returned codes."""
+    monkeypatch.setenv("CDLNET_HIST_DTYPE", "f32")
     ops, modes = _fused_inputs(16, 16)
     args = map(torch.from_numpy, ops)
     with pytest.raises(ValueError, match="gamma bank"):
@@ -373,11 +375,13 @@ def test_params_round_trip_and_init(family):
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))
-def test_grad_enabled_kernel_forward_raises(family):
+def test_grad_enabled_kernel_forward_raises(family, monkeypatch):
     """Under autograd the kernel backend trains (the test's name is from
     before CSR training was ported): its gradients, through the kernels'
-    plain versions and the CSR reverse loop, equal backend "xla"'s torch
-    autograd, for every parameter and the carried neighbour code."""
+    plain versions and the CSR reverse loop over fp32 histories
+    (CDLNET_HIST_DTYPE=f32), equal backend "xla"'s torch autograd, for
+    every parameter and the carried neighbour code."""
+    monkeypatch.setenv("CDLNET_HIST_DTYPE", "f32")
     _, params = _params(family)
     rng = np.random.default_rng(6)
     y = torch.from_numpy(rng.uniform(size=(1, 1, 16, 16)).astype(np.float32))

@@ -234,7 +234,7 @@ def _jax_loss(jm, family, frames, hats, sigmas, codes):
 
 @pytest.mark.parametrize("backend", ["cuda", "xla"])
 @pytest.mark.parametrize("family", list(FAMILIES))
-def test_csr_train_step_loss_and_grads_match_jax(family, backend):
+def test_csr_train_step_loss_and_grads_match_jax(family, backend, monkeypatch):
     """make_csr_train_step's loss and every parameter's gradient against
     jax.value_and_grad of JAX model.apply(train=True) calls composed in
     fit_csr.loss_fn's order, on the same noisy frames (drawn here as the
@@ -248,7 +248,9 @@ def test_csr_train_step_loss_and_grads_match_jax(family, backend):
     which moves its jump point Ca by 2 tau gamma2. Two fp32 programs that
     sum in other orders differ there (at 32^2 here such codes flip, and
     the gradients move far past 1e-4), so the recurrence is held with each
-    apply's code inputs equal."""
+    apply's code inputs equal. fp32 histories in both packages (the 1e-4
+    gate is an fp32 one)."""
+    monkeypatch.setenv("CDLNET_HIST_DTYPE", "f32")
     jm, params = _params(family)
     model = _port(family, params, backend)
     batch = _volumes(1)

@@ -17,6 +17,7 @@ from cdlnet_tpu_torch.kernels import lista3d as L
 from cdlnet_tpu_torch.kernels import lista3d_bwd as LB
 from cdlnet_tpu_torch.core.ops import ST, prox_csr, prox_csr_f2
 from cdlnet_tpu_torch.kernels.autodiff import csr_fused_2d_train, lista3d_fused_diff
+from cdlnet_tpu_torch.kernels.lista2d_bwd import csr_prox_branches
 
 pytestmark = pytest.mark.cuda
 
@@ -1207,12 +1208,14 @@ def test_2d_csr_analysis_writes_the_u_history(cuda, P, s, M, N, H, W, two_sided)
 
 @pytest.mark.parametrize("names", [(), ("z_prev", "g"), ("z_after", "g2"),
                                    ("z_prev", "z_after", "g", "g2")])
-def test_2d_csr_train_on_cuda_matches_cpu_and_counts_launches(cuda, names):
+def test_2d_csr_train_on_cuda_matches_cpu_and_counts_launches(cuda, names, monkeypatch):
     """csr_fused_2d_train on the card: x, z and every gradient (A, B, t, the
     gamma banks, the neighbour codes; the returned code's cotangent seeding
     the reverse) as on the CPU, with the designed launches: K of the mode's
     analysis and 2K - 1 syntheses forward, K of its adjoint, K - 1
-    syntheses (the analysis adjoint) and 2K wgrads in reverse."""
+    syntheses (the analysis adjoint) and 2K wgrads in reverse (fp32
+    histories: the kernels' fp32 gradients)."""
+    monkeypatch.setenv("CDLNET_HIST_DTYPE", "f32")
     rng = np.random.default_rng(8)
     K, M, P, N = 3, 13, 7, 2
     f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
@@ -1726,3 +1729,199 @@ def test_bf16_operands_only_where_the_kernels_take_them(cuda):
         LB.lista3d_wgrad(g["r"].to(BF16), g["z"].to(BF16), g["taps"], g["geom"].off_a)
     with pytest.raises(ValueError):
         LB.lista3d_syn_adjoint(g["y"].to(BF16), g["ws_adj"], g["z"], g["geom"])
+
+
+# --- the CSR models' bf16 histories: the CSR analyses' rounded copies, the
+# CSR adjoints on bf16 codes and prox arguments, the CSR loop and training ---
+
+def _csr_analysis_args(P, s, M, N, H, W, two_sided, cuda):
+    d, zp, za, gam1, gam2 = _csr_operands(P, s, M, N, H, W)
+    if two_sided:
+        name, args = "lista2d_ana_csrf2", (d["r"], 0.5 * zp, d["wa"], d["tau"], gam1, gam2,
+                                           zp, za)
+    else:
+        name, args = "lista2d_ana_csr", (d["r"], 0.5 * zp, d["wa"], d["tau"], gam1, zp)
+    return name, tuple(a.to(cuda) for a in args), d["geom"]
+
+
+@pytest.mark.parametrize("P,s,M,N,H,W", SHAPES_CSR)
+@pytest.mark.parametrize("two_sided", [False, True], ids=["csr", "csrf2"])
+@pytest.mark.parametrize("off_grid", [False, True])
+def test_bf16_csr_analyses_store_the_rounded_codes_and_prox_argument(cuda, P, s, M, N, H, W,
+                                                                     two_sided, off_grid):
+    """With a bf16 history slice the CSR analysis's fp32 codes are bitwise
+    the launch without it, the slice holds them rounded to nearest even,
+    and the bf16 u_out the fp32 launch's prox argument rounded, on and off
+    the 16-byte grid; the bf16 launch counts in hist_launches."""
+    name, args, geom = _csr_analysis_args(P, s, M, N, H, W, two_sided, cuda)
+    u32 = torch.empty_like(args[1])
+    ref = getattr(L2, name)(*args, geom, u_out=u32)
+    hist = _bf16_slot(ref.shape, cuda, off_grid)
+    u16 = _bf16_slot(ref.shape, cuda, off_grid)
+    L.launches.clear()
+    L.hist_launches.clear()
+    got = getattr(L2, name)(*args, geom, u_out=u16, hist=hist)
+    torch.cuda.synchronize()
+    assert dict(L.launches) == dict(L.hist_launches) == {name: 1}
+    assert torch.equal(got, ref)
+    assert torch.equal(hist, ref.to(BF16)) and torch.equal(u16, u32.to(BF16))
+
+
+@pytest.mark.parametrize("P,s,M,N,H,W", SHAPES_CSR[:2])
+@pytest.mark.parametrize("two_sided", [False, True], ids=["csr", "csrf2"])
+def test_bf16_csr_analysis_takes_u_out_in_the_historys_dtype(cuda, P, s, M, N, H, W,
+                                                             two_sided):
+    """u_out is bf16 exactly where a bf16 history is given: an fp32 u_out
+    beside a history, a bf16 one without it, or an fp32 history raise
+    before any launch."""
+    name, args, geom = _csr_analysis_args(P, s, M, N, H, W, two_sided, cuda)
+    f32, b16 = torch.empty_like(args[1]), torch.empty_like(args[1], dtype=BF16)
+    L.launches.clear()
+    for kw in (dict(u_out=f32, hist=b16.clone()), dict(u_out=b16),
+               dict(u_out=b16.clone(), hist=f32.clone())):
+        with pytest.raises(ValueError):
+            getattr(L2, name)(*args, geom, **kw)
+    assert not L.launches
+
+
+@pytest.mark.parametrize("P,s,M,N,H,W", SHAPES_CSR)
+@pytest.mark.parametrize("mode", ["csr", "z_after alone", "csrf2"])
+@pytest.mark.parametrize("with_base,off_grid", [(False, False), (True, False), (True, True)])
+def test_bf16_csr_adjoint_is_the_launch_on_the_upcast_histories(cuda, P, s, M, N, H, W, mode,
+                                                                with_base, off_grid):
+    """The CSR adjoints on bf16 codes and prox arguments: every output and
+    the cotangent buffers bitwise the same launch on z.float() and
+    u.float() (the epilogue upcasts them where it loads them), and the
+    plain version's on the same bf16 operands within 1e-4, on and off the
+    16-byte grid."""
+    d, z, ops = _setup_csr_adjoint(P, s, M, N, H, W, mode)
+    name = "lista2d_syn_adjoint_csrf2" if mode == "csrf2" else "lista2d_syn_adjoint_csr"
+    base = d["base"] if with_base else None
+    codes = ops[-(2 if mode == "csrf2" else 1):]
+    z16, u16 = (_bf16_slot(z.shape, cuda, off_grid).copy_(t) for t in (z, ops[0]))
+    rest = [t.to(cuda) for t in ops[1:]]  # tau, the gamma banks, the codes
+
+    def call(zz, uu):
+        bufs = [0.5 * c.to(cuda) for c in codes]
+        got = getattr(LB2, name)(d["g"].to(cuda), d["ws_adj"].to(cuda), zz, uu, *rest, *bufs,
+                                 d["geom"], base=None if base is None else base.to(cuda),
+                                 alpha=-1.0)
+        return (*got, *bufs)
+
+    L.hist_launches.clear()
+    got = call(z16, u16)
+    assert dict(L.hist_launches) == {name: 1}
+    ref = call(z16.float(), u16.float())
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+    pbufs = [0.5 * c for c in codes]
+    plain = getattr(LB2, name + "_plain")(d["g"], d["ws_adj"], z16.cpu(), u16.cpu(), *ops[1:],
+                                          *pbufs, d["geom"], base=base, alpha=-1.0)
+    for a, b in zip(got, (*plain, *pbufs)):
+        assert _rel(a, b) <= 1e-4
+
+
+def test_bf16_csr_adjoint_rejects_mixed_histories(cuda):
+    """z and u both fp32 or both bf16: a bf16 z with an fp32 u (or the
+    reverse) raises before any launch."""
+    d, z, ops = _setup_csr_adjoint(7, 2, 8, 1, 16, 16, "csr")
+    args = [t.to(cuda) for t in (d["g"], d["ws_adj"], z, *ops)]
+    L.launches.clear()
+    for zz, uu in ((args[2].to(BF16), args[3]), (args[2], args[3].to(BF16))):
+        with pytest.raises(ValueError, match="u: the CUDA kernel takes"):
+            LB2.lista2d_syn_adjoint_csr(args[0], args[1], zz, uu, *args[4:],
+                                        torch.zeros_like(args[2]), d["geom"])
+    assert not L.launches
+
+
+def _csr_fused_operands(rng, names, K=3, M=13, P=7, N=2):
+    f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+    yp = 0.3 * f(N, 1, 24, 40)
+    leaves = dict(A=0.1 * f(K, M, 1, P, P), B=0.1 * f(K, M, 1, P, P),
+                  t=0.02 * f(K, 2, M, 1, 1).abs())
+    leaves.update({n: (f(N, M, 12, 20) if n.startswith("z") else 0.5 * f(K, 2, M, 1, 1).abs())
+                   for n in names})
+    c = torch.tensor([0.1, 0.2]).reshape(2, 1, 1, 1)
+    cot = (f(N, 1, 24, 40), f(N, M, 12, 20))
+    return yp, leaves, c, cot
+
+
+CSR_NAMES = [(), ("z_prev", "g"), ("z_after", "g2"), ("z_prev", "z_after", "g", "g2")]
+
+
+@pytest.mark.parametrize("names", CSR_NAMES, ids=["st", "z_prev", "z_after", "both"])
+def test_bf16_csr_fused_forward_is_the_f32_modes_with_rounded_histories(cuda, names):
+    """lista2d_fused's CSR modes in bf16 on the card: output and codes
+    bitwise the fp32 mode's, the z, r and u histories its histories
+    rounded, the same launches."""
+    yp, leaves, c, _ = _csr_fused_operands(np.random.default_rng(12), names)
+    ops = [v.to(cuda) for v in (yp, leaves["A"], leaves["B"], leaves["t"], c)]
+    kw = {n: leaves[n].to(cuda) for n in names}
+    out = {}
+    for dtype in (torch.float32, BF16):
+        L.launches.clear()
+        out[dtype] = (*L2.lista2d_fused(*ops, stride=2, return_z=True, return_hist=True,
+                                        hists_dtype=dtype, **kw), dict(L.launches))
+    (xf, zf, hf, lf), (xb, zb, hb, lb) = out[torch.float32], out[BF16]
+    assert lf == lb and len(hb) == len(hf) == (3 if names else 2)
+    assert torch.equal(xb, xf) and torch.equal(zb, zf)
+    assert all(b.dtype == BF16 and torch.equal(b, f.to(BF16)) for b, f in zip(hb, hf))
+
+
+@pytest.mark.parametrize("names", CSR_NAMES, ids=["st", "z_prev", "z_after", "both"])
+def test_bf16_csr_train_on_cuda_matches_the_f32_mode_and_cpu(cuda, names, monkeypatch):
+    """csr_fused_2d_train at the default (bf16) on the card: x and z
+    bitwise the f32 mode's, the same launches, every launch of the mode's
+    analysis and adjoint a bf16 one; the parameters' gradients within 1e-3
+    of the CPU's bf16 gradients and 1e-1 of the f32 mode's (the JAX
+    package's bf16 gate); the carried codes' within 1e-3 of the CPU's over
+    the codes whose prox branch is the same in the two devices' bf16 u
+    histories (a code whose prox argument falls in another branch moves by
+    its whole local gradient; fewer than 1e-3 of the codes flip)."""
+    yp, leaves, c, cot = _csr_fused_operands(np.random.default_rng(13), names)
+
+    def run(dev, dtype):
+        monkeypatch.setenv("CDLNET_HIST_DTYPE", dtype)
+        lv = {n: v.to(dev).requires_grad_() for n, v in leaves.items()}
+        L.launches.clear()
+        L.hist_launches.clear()
+        x, z = csr_fused_2d_train(yp.to(dev), lv["A"], lv["B"], lv["t"], c.to(dev), stride=2,
+                                  **{n: lv[n] for n in names})
+        grads = torch.autograd.grad([x, z], list(lv.values()), [g.to(dev) for g in cot])
+        counts = dict(L.launches), dict(L.hist_launches)
+        with torch.no_grad():
+            hists = L2.lista2d_fused(*(v.to(dev) for v in (yp, leaves["A"], leaves["B"],
+                                                            leaves["t"], c)),
+                                     stride=2, return_hist=True,
+                                     **{n: leaves[n].to(dev) for n in names})[2]
+        return ([a.detach().cpu() for a in (x, z)], [g.cpu() for g in grads], *counts,
+                [h.cpu() for h in hists])
+
+    (ob, gb, lb, hb, ub), (of, gf, lf, _, _) = run(cuda, "bf16"), run(cuda, "f32")
+    _, gc, _, _, uc = run("cpu", "bf16")
+    K = leaves["A"].shape[0]
+    ana, adj = {0: ("lista2d_ana_threshold", "lista2d_syn_adjoint"),
+                2: ("lista2d_ana_csr", "lista2d_syn_adjoint_csr"),
+                4: ("lista2d_ana_csrf2", "lista2d_syn_adjoint_csrf2")}[len(names)]
+    assert lb == lf
+    assert hb[ana] == hb[adj] == K
+    assert all(torch.equal(a, b) for a, b in zip(ob, of))
+    flipped = torch.zeros(ob[1].shape, dtype=torch.bool)
+    if names:
+        bank = lambda b, k: L2.threshold_bank(b, c, 2, yp)[k][:, :, None, None]
+        zp, za = leaves.get("z_prev", leaves.get("z_after")), leaves.get("z_after")
+        za = za if "z_prev" in names else None
+        g1 = leaves.get("g", leaves.get("g2"))
+        for k in range(K):
+            prox = (zp, za, bank(leaves["t"], k), bank(g1, k),
+                    None if za is None else bank(leaves["g2"], k))
+            flipped |= (csr_prox_branches(ub[2][k], *prox)
+                        != csr_prox_branches(uc[2][k], *prox)).any(0)
+        assert float(flipped.float().mean()) < 1e-3
+    for name, b, f, w in zip(leaves, gb, gf, gc):
+        if name.startswith("z"):
+            assert float((b - w).abs()[~flipped].max() / w.abs().max()) <= 1e-3, name
+        else:
+            assert _rel(b, w) <= 1e-3, name
+            assert _rel(b, f) <= 1e-1, name

@@ -289,13 +289,23 @@ def test_plain_writers_store_the_rounded_copy():
     assert z.dtype == torch.float32 and torch.equal(hist, z.to(torch.bfloat16))
 
 
-def test_csr_modes_keep_fp32_histories():
-    """The CSR prox modes keep fp32 z, r and u histories in bf16 mode."""
+@pytest.mark.parametrize("env,want", [(None, torch.bfloat16), ("f32", torch.float32)])
+@pytest.mark.parametrize("two_sided", [False, True], ids=["csr", "csrf2"])
+def test_csr_modes_store_at_hist_dtype(env, want, two_sided, monkeypatch):
+    """The CSR prox modes store their z, r and u histories at hist_dtype():
+    bf16 by default, fp32 under CDLNET_HIST_DTYPE=f32, the codes and output
+    the same either way."""
     rng = np.random.default_rng(1)
     d = _inputs(7, 1, 8, 3, (1, 1, 16, 16), 2, seed=1)
     ops = [torch.from_numpy(d[k]) for k in ("yp", "A", "B", "t", "c")]
-    zp = torch.from_numpy(rng.standard_normal((1, 8, 8, 8)).astype(np.float32))
-    _, _, hists = L2.lista2d_fused(*ops, stride=2, g=torch.full((3, 2, 8, 1, 1), 0.1),
-                                   z_prev=zp, return_hist=True)
-    assert L2.hist_dtype() == torch.bfloat16
-    assert [h.dtype for h in hists] == [torch.float32] * 3
+    f = lambda: torch.from_numpy(rng.standard_normal((1, 8, 8, 8)).astype(np.float32))
+    kw = dict(g=torch.full((3, 2, 8, 1, 1), 0.1), z_prev=f())
+    if two_sided:
+        kw.update(g2=torch.full((3, 2, 8, 1, 1), 0.2), z_after=f())
+    x0, z0 = L2.lista2d_fused(*ops, stride=2, return_z=True, **kw)
+    if env is not None:
+        monkeypatch.setenv("CDLNET_HIST_DTYPE", env)
+    x, z, hists = L2.lista2d_fused(*ops, stride=2, return_z=True, return_hist=True, **kw)
+    assert L2.hist_dtype() == want
+    assert [h.dtype for h in hists] == [want] * 3
+    assert torch.equal(x, x0) and torch.equal(z, z0)

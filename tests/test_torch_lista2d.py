@@ -160,10 +160,12 @@ def test_wrappers_write_into_out():
 
 @pytest.mark.parametrize("names", [("z_prev", "g"), ("z_after", "g2"),
                                    ("z_prev", "z_after", "g", "g2"), ("z_after", "g", "g2")])
-def test_unported_modes_raise(names):
+def test_unported_modes_raise(names, monkeypatch):
     """The CSR prox modes run, and with histories (training; the test's
     name is from before they were ported) they return the z, r and u
-    histories and the same output and codes as without."""
+    histories (fp32: CDLNET_HIST_DTYPE=f32) and the same output and codes
+    as without."""
+    monkeypatch.setenv("CDLNET_HIST_DTYPE", "f32")
     yp, A, B, t, c, _ = _torch(*_inputs(5, 2, 1, 12, 8))
     kw = {name: torch.zeros(2, M, 6, 4) if name.startswith("z") else 0.5 * t
           for name in names}
