@@ -68,6 +68,7 @@ from cdlnet_tpu_torch.kernels.lista3d import (  # noqa: F401 (hist_dtype: re-exp
     per_sample,
 )
 from cdlnet_tpu_torch.ops import polyphase as pp
+from cdlnet_tpu_torch.utils import trace_span
 
 def prep_A2m_2d(A: torch.Tensor, s: int, pads) -> torch.Tensor:
     """Phase-domain analysis banks in kernel layout (K, Cp, Qh, Qw, M)."""
@@ -274,23 +275,24 @@ def phase_operands(yp, A, B, t, c, stride, mask=None):
     geom) with y2 = space_to_depth(yp), m2 the mask's (or None), the banks
     wa = prep_A2m_2d(A) (K, Cp, Qh, Qw, M) and ws = prep_B2m_2d(B) (K, M,
     Qh, Qw, Cp), and tau[k, n] = t[k,0] + c[n] * t[k,1] (K, N, M)."""
-    N, C, H, W = yp.shape
-    P = tuple(A.shape[-2:])
-    s = stride
-    if H % s or W % s:
-        raise ValueError(f"image {(H, W)} is not divisible by stride {s}")
-    pads = tuple((p - 1) // 2 for p in P)
-    geom = Geom(s, P, pads)
-    wa = prep_A2m_2d(A, s, pads)
-    ws = prep_B2m_2d(B, s, pads)
-    y2 = pp.space_to_depth(yp, s, 2).contiguous()  # (N, Cp, Hc, Wc)
-    m2 = (
-        pp.space_to_depth(mask.expand(yp.shape), s, 2).contiguous()
-        if mask is not None
-        else None
-    )
-    tau = threshold_bank(t, c, N, yp)
-    return y2, m2, wa, ws, tau, geom
+    with trace_span("lista2d_operands"):
+        N, C, H, W = yp.shape
+        P = tuple(A.shape[-2:])
+        s = stride
+        if H % s or W % s:
+            raise ValueError(f"image {(H, W)} is not divisible by stride {s}")
+        pads = tuple((p - 1) // 2 for p in P)
+        geom = Geom(s, P, pads)
+        wa = prep_A2m_2d(A, s, pads)
+        ws = prep_B2m_2d(B, s, pads)
+        y2 = pp.space_to_depth(yp, s, 2).contiguous()  # (N, Cp, Hc, Wc)
+        m2 = (
+            pp.space_to_depth(mask.expand(yp.shape), s, 2).contiguous()
+            if mask is not None
+            else None
+        )
+        tau = threshold_bank(t, c, N, yp)
+        return y2, m2, wa, ws, tau, geom
 
 
 def threshold_bank(t, c, N, like):
@@ -325,47 +327,48 @@ def lista2d_loop(y2, m2, wa, ws, tau, geom, return_hists=False, gams=(), codes=(
     u_k = z_{k-1} - A_k r_k of every iteration (u_0 = A_0 y2), which the
     CSR reverse kernels recompute the prox's internals from (in bf16, each
     analysis stores u_k's rounded copy beside the codes')."""
-    K, M = wa.shape[0], wa.shape[-1]
-    if len(gams) != len(codes) or len(codes) > 2:
-        raise ValueError(f"{len(codes)} neighbour codes with {len(gams)} gamma banks")
+    with trace_span("lista2d_loop"):
+        K, M = wa.shape[0], wa.shape[-1]
+        if len(gams) != len(codes) or len(codes) > 2:
+            raise ValueError(f"{len(codes)} neighbour codes with {len(gams)} gamma banks")
 
-    z_hist = r_hist = u_hist = None
-    bf16 = False
-    if return_hists:
-        dtype = hist_dtype() if hists_dtype is None else hists_dtype
-        bf16 = dtype == torch.bfloat16
-        N, _, H, W = y2.shape
-        z_hist = y2.new_empty((K, N, M, H, W), dtype=dtype)
-        r_hist = y2.new_empty((K - 1, *y2.shape), dtype=dtype)
-        if codes:
-            u_hist = y2.new_empty((K, N, M, H, W), dtype=dtype)
+        z_hist = r_hist = u_hist = None
+        bf16 = False
+        if return_hists:
+            dtype = hist_dtype() if hists_dtype is None else hists_dtype
+            bf16 = dtype == torch.bfloat16
+            N, _, H, W = y2.shape
+            z_hist = y2.new_empty((K, N, M, H, W), dtype=dtype)
+            r_hist = y2.new_empty((K - 1, *y2.shape), dtype=dtype)
+            if codes:
+                u_hist = y2.new_empty((K, N, M, H, W), dtype=dtype)
 
-    def analysis(r, z, k, out, hist):
-        if not codes:
-            return lista2d_ana_threshold(r, z, wa[k], tau[k], geom, out=out, hist=hist)
-        u_out = None if u_hist is None else u_hist[k]
-        if len(codes) == 1:
-            return lista2d_ana_csr(r, z, wa[k], tau[k], gams[0][k], codes[0], geom,
-                                   out=out, u_out=u_out, hist=hist)
-        return lista2d_ana_csrf2(r, z, wa[k], tau[k], gams[0][k], gams[1][k], *codes,
-                                 geom, out=out, u_out=u_out, hist=hist)
+        def analysis(r, z, k, out, hist):
+            if not codes:
+                return lista2d_ana_threshold(r, z, wa[k], tau[k], geom, out=out, hist=hist)
+            u_out = None if u_hist is None else u_hist[k]
+            if len(codes) == 1:
+                return lista2d_ana_csr(r, z, wa[k], tau[k], gams[0][k], codes[0], geom,
+                                       out=out, u_out=u_out, hist=hist)
+            return lista2d_ana_csrf2(r, z, wa[k], tau[k], gams[0][k], gams[1][k], *codes,
+                                     geom, out=out, u_out=u_out, hist=hist)
 
-    # fp32 histories: each launch writes its slice, which the next one
-    # reads; else z and r are carries, updated in place (the first analysis
-    # makes z), and bf16 histories take each launch's rounded copy
-    slices = z_hist is not None and not bf16
-    zh = lambda k: z_hist[k] if bf16 else None
-    rh = lambda k: r_hist[k] if bf16 else None
-    z = analysis(-y2, None, 0, z_hist[0] if slices else None, zh(0))
-    r = None if slices else torch.empty_like(y2)
-    for k in range(1, K):
-        r = lista2d_syn_residual(z, ws[k], geom, mask=m2, y=y2,
-                                 out=r_hist[k - 1] if slices else r, hist=rh(k - 1))
-        z = analysis(r, z, k, z_hist[k] if slices else z, zh(k))
-    x2 = lista2d_syn_residual(z, ws[0], geom)
-    if z_hist is None:
-        return x2, z, None
-    return x2, z, (z_hist, r_hist) if u_hist is None else (z_hist, r_hist, u_hist)
+        # fp32 histories: each launch writes its slice, which the next one
+        # reads; else z and r are carries, updated in place (the first analysis
+        # makes z), and bf16 histories take each launch's rounded copy
+        slices = z_hist is not None and not bf16
+        zh = lambda k: z_hist[k] if bf16 else None
+        rh = lambda k: r_hist[k] if bf16 else None
+        z = analysis(-y2, None, 0, z_hist[0] if slices else None, zh(0))
+        r = None if slices else torch.empty_like(y2)
+        for k in range(1, K):
+            r = lista2d_syn_residual(z, ws[k], geom, mask=m2, y=y2,
+                                     out=r_hist[k - 1] if slices else r, hist=rh(k - 1))
+            z = analysis(r, z, k, z_hist[k] if slices else z, zh(k))
+        x2 = lista2d_syn_residual(z, ws[0], geom)
+        if z_hist is None:
+            return x2, z, None
+        return x2, z, (z_hist, r_hist) if u_hist is None else (z_hist, r_hist, u_hist)
 
 
 def csr_mode(g, z_prev, g2, z_after):

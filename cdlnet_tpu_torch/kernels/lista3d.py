@@ -42,6 +42,7 @@ import torch.nn.functional as F
 
 from cdlnet_tpu_torch.core.ops import ST
 from cdlnet_tpu_torch.ops import polyphase as pp
+from cdlnet_tpu_torch.utils import trace_span
 
 # kernel launches per wrapper name; plain (CPU) calls do not count
 launches: collections.Counter = collections.Counter()
@@ -296,26 +297,27 @@ def phase_operands(yp, A, B, t, c, stride, mask=None):
     wa = prep_A2m_3d(A) (K, Cp, Qd, Qh, Qw, M) and ws = prep_B2m_3d(B)
     (K, M, Qd, Qh, Qw, Cp), and tau[k, n] = t[k,0] + c[n] * t[k,1] (K, N, M).
     Differentiable in A, B and t (gathers, flips and products)."""
-    N, C, D, H, W = yp.shape
-    P = A.shape[-3:]
-    s = stride
-    if D % s or H % s or W % s:
-        raise ValueError(f"clip {(D, H, W)} is not divisible by stride {s}")
-    pads = tuple(p // 2 for p in P)
-    geom = Geom(s, tuple(P), pads)
-    wa = prep_A2m_3d(A, s, pads)
-    ws = prep_B2m_3d(B, s, pads)
-    y2 = pp.space_to_depth(yp, s, 3).contiguous()  # (N, Cp, Dc, Hc, Wc)
-    m2 = (
-        pp.space_to_depth(mask.expand(yp.shape), s, 3).contiguous()
-        if mask is not None
-        else None
-    )
-    c_arr = per_sample(c, N, yp)
-    # tau[k] = t[k,0] + c * t[k,1] per sample: (K, N, M)
-    tau = (t[None, :, 0, :, 0, 0, 0] + c_arr[:, None, None] * t[None, :, 1, :, 0, 0, 0])
-    tau = tau.transpose(0, 1).contiguous()
-    return y2, m2, wa, ws, tau, geom
+    with trace_span("lista3d_operands"):
+        N, C, D, H, W = yp.shape
+        P = A.shape[-3:]
+        s = stride
+        if D % s or H % s or W % s:
+            raise ValueError(f"clip {(D, H, W)} is not divisible by stride {s}")
+        pads = tuple(p // 2 for p in P)
+        geom = Geom(s, tuple(P), pads)
+        wa = prep_A2m_3d(A, s, pads)
+        ws = prep_B2m_3d(B, s, pads)
+        y2 = pp.space_to_depth(yp, s, 3).contiguous()  # (N, Cp, Dc, Hc, Wc)
+        m2 = (
+            pp.space_to_depth(mask.expand(yp.shape), s, 3).contiguous()
+            if mask is not None
+            else None
+        )
+        c_arr = per_sample(c, N, yp)
+        # tau[k] = t[k,0] + c * t[k,1] per sample: (K, N, M)
+        tau = (t[None, :, 0, :, 0, 0, 0] + c_arr[:, None, None] * t[None, :, 1, :, 0, 0, 0])
+        tau = tau.transpose(0, 1).contiguous()
+        return y2, m2, wa, ws, tau, geom
 
 
 def lista3d_loop(y2, m2, wa, ws, tau, geom, return_hists=False, hists_dtype=None):
@@ -329,31 +331,32 @@ def lista3d_loop(y2, m2, wa, ws, tau, geom, return_hists=False, hists_dtype=None
     kernels write each z_k and r_k into its slice. bf16: they write the
     fp32 carries z and r (updated in place) and, in the same launch, the
     rounded copy into the slice; the outputs are bitwise the fp32 mode's."""
-    K, M = wa.shape[0], wa.shape[-1]
-    z_hist = r_hist = zc = rc = None
-    if return_hists:
-        dtype = hist_dtype() if hists_dtype is None else hists_dtype
-        N, _, D, H, W = y2.shape
-        z_hist = y2.new_empty((K, N, M, D, H, W), dtype=dtype)
-        r_hist = y2.new_empty((K - 1, *y2.shape), dtype=dtype)
-    # fp32 histories: each launch writes its slice, which the next one
-    # reads; bf16: the carries zc and rc, updated in place, and each
-    # launch's rounded copy in its slice; none: a new tensor a launch
-    slices = z_hist is not None and z_hist.dtype == torch.float32
-    bf16 = z_hist is not None and not slices
-    if bf16:
-        zc, rc = y2.new_empty(z_hist.shape[1:]), torch.empty_like(y2)
-    zh = lambda k: z_hist[k] if bf16 else None
-    rh = lambda k: r_hist[k] if bf16 else None
-    z = lista3d_ana_threshold(-y2, None, wa[0], tau[0], geom,
-                              out=z_hist[0] if slices else zc, hist=zh(0))
-    for k in range(1, K):
-        r = lista3d_syn_residual(z, ws[k], geom, mask=m2, y=y2,
-                                 out=r_hist[k - 1] if slices else rc, hist=rh(k - 1))
-        z = lista3d_ana_threshold(r, z, wa[k], tau[k], geom,
-                                  out=z_hist[k] if slices else zc, hist=zh(k))
-    x2 = lista3d_syn_residual(z, ws[0], geom)
-    return x2, z, (None if z_hist is None else (z_hist, r_hist))
+    with trace_span("lista3d_loop"):
+        K, M = wa.shape[0], wa.shape[-1]
+        z_hist = r_hist = zc = rc = None
+        if return_hists:
+            dtype = hist_dtype() if hists_dtype is None else hists_dtype
+            N, _, D, H, W = y2.shape
+            z_hist = y2.new_empty((K, N, M, D, H, W), dtype=dtype)
+            r_hist = y2.new_empty((K - 1, *y2.shape), dtype=dtype)
+        # fp32 histories: each launch writes its slice, which the next one
+        # reads; bf16: the carries zc and rc, updated in place, and each
+        # launch's rounded copy in its slice; none: a new tensor a launch
+        slices = z_hist is not None and z_hist.dtype == torch.float32
+        bf16 = z_hist is not None and not slices
+        if bf16:
+            zc, rc = y2.new_empty(z_hist.shape[1:]), torch.empty_like(y2)
+        zh = lambda k: z_hist[k] if bf16 else None
+        rh = lambda k: r_hist[k] if bf16 else None
+        z = lista3d_ana_threshold(-y2, None, wa[0], tau[0], geom,
+                                  out=z_hist[0] if slices else zc, hist=zh(0))
+        for k in range(1, K):
+            r = lista3d_syn_residual(z, ws[k], geom, mask=m2, y=y2,
+                                     out=r_hist[k - 1] if slices else rc, hist=rh(k - 1))
+            z = lista3d_ana_threshold(r, z, wa[k], tau[k], geom,
+                                      out=z_hist[k] if slices else zc, hist=zh(k))
+        x2 = lista3d_syn_residual(z, ws[0], geom)
+        return x2, z, (None if z_hist is None else (z_hist, r_hist))
 
 
 def lista3d_fused(yp, A, B, t, c, stride=1, mask=None, return_z=True,

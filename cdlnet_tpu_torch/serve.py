@@ -62,7 +62,7 @@ from cdlnet_tpu_torch.models import streaming
 from cdlnet_tpu_torch.models.base import build_model, resolve_backend
 from cdlnet_tpu_torch.models.csr import CDLNetCSR, CDLNetCSRf2, blind_sigma
 from cdlnet_tpu_torch.train.checkpoint import load_params
-from cdlnet_tpu_torch.utils import default_device
+from cdlnet_tpu_torch.utils import default_device, trace_span
 
 # share of the free device memory a streamed clip may take when staged
 # whole (input and output together); the JAX package staged up to a fixed
@@ -163,36 +163,45 @@ class Denoiser:
         return 255.0 * s
 
     def _run(self, y: np.ndarray, sigma):
-        """y: (N, C, [D,] H, W) float32 in [0,1]; pads H/W up to buckets."""
-        spatial = y.shape[-2:]
-        pads = [(_bucket(n, self.bucket) - n) for n in spatial]
-        if any(pads):
-            y = np.pad(y, [(0, 0)] * (y.ndim - 2) + [(0, p) for p in pads],
-                       mode="reflect")
-        if np.ndim(sigma) > 0:
-            # per-sample sigmas in ONE forward
-            sigma = np.asarray(sigma, np.float32).reshape(-1)
-            if sigma.shape[0] != y.shape[0]:
-                raise ValueError(f"{sigma.shape[0]} sigmas for {y.shape[0]} inputs")
-            sigma = torch.from_numpy(sigma)
-        elif sigma is not None:
-            sigma = float(sigma)
-        yt = torch.from_numpy(np.ascontiguousarray(y, np.float32)).to(self.device)
+        """y: (N, C, [D,] H, W) float32 in [0,1]; pads H/W up to buckets.
+        Its spans, in order: serve_input (pad, copy to the device),
+        serve_sigma (the blind estimate, when taken), serve_forward (the
+        model), serve_fetch (the wait for the device and the copy back),
+        serve_output (the numpy view and the crop)."""
+        with trace_span("serve_input"):
+            spatial = y.shape[-2:]
+            pads = [(_bucket(n, self.bucket) - n) for n in spatial]
+            if any(pads):
+                y = np.pad(y, [(0, 0)] * (y.ndim - 2) + [(0, p) for p in pads],
+                           mode="reflect")
+            if np.ndim(sigma) > 0:
+                # per-sample sigmas in ONE forward
+                sigma = np.asarray(sigma, np.float32).reshape(-1)
+                if sigma.shape[0] != y.shape[0]:
+                    raise ValueError(f"{sigma.shape[0]} sigmas for {y.shape[0]} inputs")
+                sigma = torch.from_numpy(sigma)
+            elif sigma is not None:
+                sigma = float(sigma)
+            yt = torch.from_numpy(np.ascontiguousarray(y, np.float32)).to(self.device)
         with torch.inference_mode():
             recurrent_clip = self._recurrent and yt.ndim == 5
             if sigma is None and self.model.adaptive:
-                sigma = (blind_sigma(yt, self.blind) if recurrent_clip
-                         else self._blind_sigma(yt))
-            if self.mesh is not None:
-                out = self._mesh_forward(yt, sigma)
-            elif not self._recurrent:
-                out = self.model(yt, sigma, return_z=False)[0]
-            elif recurrent_clip:
-                out = self.model.video_denoise(yt, sigma)[0]
-            else:  # a frame with no neighbour code
-                out = self.model(yt, sigma=sigma)[0]
-        out = out.cpu().numpy()
-        return out[..., : spatial[0], : spatial[1]]
+                with trace_span("serve_sigma"):
+                    sigma = (blind_sigma(yt, self.blind) if recurrent_clip
+                             else self._blind_sigma(yt))
+            with trace_span("serve_forward"):
+                if self.mesh is not None:
+                    out = self._mesh_forward(yt, sigma)
+                elif not self._recurrent:
+                    out = self.model(yt, sigma, return_z=False)[0]
+                elif recurrent_clip:
+                    out = self.model.video_denoise(yt, sigma)[0]
+                else:  # a frame with no neighbour code
+                    out = self.model(yt, sigma=sigma)[0]
+        with trace_span("serve_fetch"):
+            out = out.cpu()
+        with trace_span("serve_output"):
+            return out.numpy()[..., : spatial[0], : spatial[1]]
 
     def _forward(self, y, sigma):
         """The model's output for y on this rank alone."""
@@ -233,14 +242,15 @@ class Denoiser:
     def denoise_image(self, img: np.ndarray, sigma=None) -> np.ndarray:
         """img: (H, W), (C, H, W) or (N, C, H, W) in [0,1]; sigma: a scalar,
         one per image, or None (blind on adaptive models)."""
-        img = np.asarray(img, np.float32)
-        squeeze = 4 - img.ndim
-        for _ in range(squeeze):
-            img = img[None]
-        out = self._run(img, sigma)
-        for _ in range(squeeze):
-            out = out[0]
-        return out
+        with trace_span("serve_request"):
+            img = np.asarray(img, np.float32)
+            squeeze = 4 - img.ndim
+            for _ in range(squeeze):
+                img = img[None]
+            out = self._run(img, sigma)
+            for _ in range(squeeze):
+                out = out[0]
+            return out
 
     def denoise_image_batch(self, imgs, sigmas=None) -> np.ndarray:
         """One forward over a stack of same-shape images with per-image
@@ -250,18 +260,19 @@ class Denoiser:
         (C, H, W) images; sigmas: None (all blind), a scalar, or a length-N
         sequence. Returns the denoised stack with the input's per-image
         layout."""
-        if not isinstance(imgs, np.ndarray):
-            imgs = np.stack([np.asarray(im, np.float32) for im in imgs])
-        imgs = np.asarray(imgs, np.float32)
-        squeeze = 4 - imgs.ndim  # (N, H, W) stacks need a channel dim
-        for _ in range(squeeze):
-            imgs = imgs[:, None]
-        if sigmas is not None and np.ndim(sigmas) > 0 and len(sigmas) != imgs.shape[0]:
-            raise ValueError(f"{len(sigmas)} sigmas for {imgs.shape[0]} images")
-        out = self._run(imgs, sigmas)
-        for _ in range(squeeze):
-            out = out[:, 0]
-        return out
+        with trace_span("serve_request"):
+            if not isinstance(imgs, np.ndarray):
+                imgs = np.stack([np.asarray(im, np.float32) for im in imgs])
+            imgs = np.asarray(imgs, np.float32)
+            squeeze = 4 - imgs.ndim  # (N, H, W) stacks need a channel dim
+            for _ in range(squeeze):
+                imgs = imgs[:, None]
+            if sigmas is not None and np.ndim(sigmas) > 0 and len(sigmas) != imgs.shape[0]:
+                raise ValueError(f"{len(sigmas)} sigmas for {imgs.shape[0]} images")
+            out = self._run(imgs, sigmas)
+            for _ in range(squeeze):
+                out = out[:, 0]
+            return out
 
     def _clip_sigma(self, clip: np.ndarray, sigma, chunk_depth: int):
         """sigma as given, or on an adaptive model with sigma None the blind
@@ -304,45 +315,46 @@ class Denoiser:
         With tile_hw set (an int or (th, tw)) the frames also split into
         tiles with overlap_hw pixels of context, without the bucket pad.
         Blind sigma is estimated once per clip, over all its frames."""
-        clip = np.asarray(clip, np.float32)
-        squeeze = 5 - clip.ndim
-        for _ in range(squeeze):
-            clip = clip[None]
-        D = clip.shape[2]
-        if self._recurrent and (tile_hw is not None
-                                      or (chunk_depth is not None and D > chunk_depth)):
-            raise TypeError(
-                f"{type(self.model).__name__} runs whole clips by its frame recurrence: "
-                "chunk_depth below the clip's depth and tile_hw stream a clip "
-                "denoiser, as in the JAX package's Denoiser, where they fail too")
-        if tile_hw is not None:
-            depth = chunk_depth or D
-            sig = self._clip_sigma(clip, sigma, depth)
-            y = torch.from_numpy(clip).to(self.device)
-            out = streaming.denoise_video_tiled(
-                self.model, y, _sigma_arg(sig, self.device), chunk_depth=depth,
-                overlap=overlap, tile_hw=tile_hw, overlap_hw=overlap_hw).cpu().numpy()
-        elif chunk_depth is not None and D > chunk_depth:
-            spatial = clip.shape[3:]
-            pads = [(_bucket(n, self.bucket) - n) for n in spatial]
-            if any(pads):
-                clip = np.pad(clip, [(0, 0)] * 3 + [(0, p) for p in pads], mode="reflect")
-            sig = self._clip_sigma(clip, sigma, chunk_depth)
-            if clip.nbytes <= self.staging_limit():
+        with trace_span("serve_request"):
+            clip = np.asarray(clip, np.float32)
+            squeeze = 5 - clip.ndim
+            for _ in range(squeeze):
+                clip = clip[None]
+            D = clip.shape[2]
+            if self._recurrent and (tile_hw is not None
+                                    or (chunk_depth is not None and D > chunk_depth)):
+                raise TypeError(
+                    f"{type(self.model).__name__} runs whole clips by its frame recurrence: "
+                    "chunk_depth below the clip's depth and tile_hw stream a clip "
+                    "denoiser, as in the JAX package's Denoiser, where they fail too")
+            if tile_hw is not None:
+                depth = chunk_depth or D
+                sig = self._clip_sigma(clip, sigma, depth)
                 y = torch.from_numpy(clip).to(self.device)
-                out = streaming.denoise_long_video(
-                    self.model, y, _sigma_arg(sig, self.device), chunk_depth=chunk_depth,
-                    overlap=overlap).cpu().numpy()
+                out = streaming.denoise_video_tiled(
+                    self.model, y, _sigma_arg(sig, self.device), chunk_depth=depth,
+                    overlap=overlap, tile_hw=tile_hw, overlap_hw=overlap_hw).cpu().numpy()
+            elif chunk_depth is not None and D > chunk_depth:
+                spatial = clip.shape[3:]
+                pads = [(_bucket(n, self.bucket) - n) for n in spatial]
+                if any(pads):
+                    clip = np.pad(clip, [(0, 0)] * 3 + [(0, p) for p in pads], mode="reflect")
+                sig = self._clip_sigma(clip, sigma, chunk_depth)
+                if clip.nbytes <= self.staging_limit():
+                    y = torch.from_numpy(clip).to(self.device)
+                    out = streaming.denoise_long_video(
+                        self.model, y, _sigma_arg(sig, self.device), chunk_depth=chunk_depth,
+                        overlap=overlap).cpu().numpy()
+                else:
+                    out = streaming.denoise_long_video_pipelined(
+                        self.model, clip, _sigma_arg(sig, self.device),
+                        chunk_depth=chunk_depth, overlap=overlap)
+                out = out[..., : spatial[0], : spatial[1]]
             else:
-                out = streaming.denoise_long_video_pipelined(
-                    self.model, clip, _sigma_arg(sig, self.device),
-                    chunk_depth=chunk_depth, overlap=overlap)
-            out = out[..., : spatial[0], : spatial[1]]
-        else:
-            out = self._run(clip, sigma)
-        for _ in range(squeeze):
-            out = out[0]
-        return out
+                out = self._run(clip, sigma)
+            for _ in range(squeeze):
+                out = out[0]
+            return out
 
     def warmup(self, shapes):
         """Build the kernels and run each bucket once, for a list of (H, W)

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cdlnet_tpu_torch.utils import default_device
+from cdlnet_tpu_torch.utils import default_device, trace_span
 
 # eager steps on a side stream before a capture: they fill the caches a step
 # reads (cuDNN plans, the kernels' row tables, the gather indices), and
@@ -387,24 +387,31 @@ class EpochRunner:
 
     def begin(self, generator) -> None:
         """Draw the epoch's permutation and rewind to its first step."""
-        perm = self.corpus.epoch_perm(generator)
-        self._perm.copy_(perm[: self._perm.numel()].view_as(self._perm))
-        self._at.zero_()
+        with trace_span("train_epoch_begin"):
+            perm = self.corpus.epoch_perm(generator)
+            self._perm.copy_(perm[: self._perm.numel()].view_as(self._perm))
+            self._at.zero_()
 
     def advance(self, opt_state, generator) -> None:
         """One step: the graph's replay, or the step run eagerly."""
-        if self.graphed:
-            self.graph.replay()
-        else:
-            self._step(opt_state, generator)
+        with trace_span("train_epoch_step"):
+            if self.graphed:
+                self.graph.replay()
+            else:
+                self._step(opt_state, generator)
 
     def __call__(self, opt_state, generator) -> torch.Tensor:
+        """The epoch, in a train_epoch_scan span (begin, each advance and
+        the losses' copy in spans of their own); a capture it needs first
+        is set-up, outside the span."""
         if self.graphed and self._captured != self._key(opt_state, generator):
             self.capture(opt_state, generator)
-        self.begin(generator)
-        for _ in range(self.steps):
-            self.advance(opt_state, generator)
-        return self.losses.clone()
+        with trace_span("train_epoch_scan"):
+            self.begin(generator)
+            for _ in range(self.steps):
+                self.advance(opt_state, generator)
+            with trace_span("train_epoch_losses"):
+                return self.losses.clone()
 
 
 def make_epoch_runner(corpus, train_step, model, *, graph=None) -> EpochRunner:

@@ -422,8 +422,7 @@ def fit(model, opt, opt_state, loaders, *, save_dir, epochs=1, start_epoch=1,
             # device scalars: one host transfer per phase, not per step
             losses = []
             if phase == "train" and epoch_runner is not None:
-                with trace_span("train_epoch_scan"):
-                    losses.append(epoch_runner(opt_state, gen))
+                losses.append(epoch_runner(opt_state, gen))  # a train_epoch_scan span
                 check_finite(losses[-1], f"in epoch {epoch}'s train steps")
             else:
                 for batch in device_prefetch(loaders[phase], device=dev):

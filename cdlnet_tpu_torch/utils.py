@@ -5,13 +5,16 @@ imported where a file is read or written, and only there."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
+import threading
 import time
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 def default_device(device=None) -> torch.device:
@@ -58,11 +61,102 @@ def check_finite(loss: torch.Tensor, what: str):
                                  f"{loss.detach().flatten()[:8].tolist()}")
 
 
+_NO_SPAN = contextlib.nullcontext()  # the span of every call made while no profiler runs
+SPAN_CAP = 1 << 20  # records kept; later spans are counted in spans_dropped
+_spans: list = []  # (name, start_ns, end_ns, parent, root); end_ns None while open
+_spans_lock = threading.Lock()
+_spans_epoch = 0  # bumped by clear_spans: an open span of an older list is not written back
+_span_stack = threading.local()  # .open: this thread's open spans, [(epoch, index)]
+spans_dropped = 0
+
+
+class _Span:
+    """A recorded span (trace_span): record_function's, and a record in
+    _spans, its parent and root read off this thread's stack of open
+    spans."""
+
+    __slots__ = ("name", "rf", "at")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        global spans_dropped
+        stack = getattr(_span_stack, "open", None)
+        if stack is None:
+            stack = _span_stack.open = []
+        with _spans_lock:
+            epoch = _spans_epoch
+            if len(_spans) >= SPAN_CAP:
+                spans_dropped += 1
+                self.at = (epoch, -1)
+            else:
+                index = len(_spans)
+                up_epoch, parent = stack[-1] if stack else (epoch, -1)
+                if up_epoch != epoch or parent < 0:
+                    parent = -1
+                root = _spans[parent][4] if parent >= 0 else index
+                self.at = (epoch, index)
+                _spans.append((self.name, time.time_ns(), None, parent, root))
+        stack.append(self.at)
+        self.rf = torch.profiler.record_function(self.name)
+        self.rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.rf.__exit__(*exc)
+        end = time.time_ns()
+        _span_stack.open.pop()
+        epoch, index = self.at
+        if index >= 0:
+            with _spans_lock:
+                if epoch == _spans_epoch:
+                    name, start, _, parent, root = _spans[index]
+                    _spans[index] = (name, start, end, parent, root)
+        return False
+
+
 def trace_span(name: str):
-    """A named span of the profiler's trace (torch.profiler.record_function;
-    the JAX package's jax.profiler.TraceAnnotation). Cheap when no profiler
-    runs."""
-    return torch.profiler.record_function(name)
+    """A named span of the program (the JAX package's
+    jax.profiler.TraceAnnotation), recorded only while a torch.profiler
+    session runs: maybe_start_trace's, or any caller's, a CUDA-only one
+    too. torch.autograd.profiler._is_profiler_enabled says so: the
+    profiler sets it at its start in every activity mode, and it holds in
+    every thread of the process, where torch._C._autograd._profiler_enabled()
+    holds only in the thread that started the session (checked on the H100
+    under profile(activities=[CUDA])).
+
+    With no session it returns one shared context that does nothing. Under
+    one the span enters torch.profiler.record_function(name), so it shows
+    in the profiler's trace beside the kernels, and appends a record
+    (name, start_ns, end_ns, parent, root) that recorded_spans() returns:
+    times from time.time_ns() around record_function's own entry and exit,
+    the clock of the profiler's host events (its card events keep to that
+    clock when the session records CPU activity too; in a CUDA-only one
+    they strayed by up to 17 ms on the H100); parent the index of the span open around it on the same thread (-1:
+    none), root the index of the outermost one, so the spans of one request
+    or epoch share it. Past SPAN_CAP records spans are counted in
+    spans_dropped and not kept."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _Span(name)
+
+
+def recorded_spans() -> list:
+    """The spans recorded since clear_spans (or the process's start), in
+    the order they opened: (name, start_ns, end_ns, parent, root) each,
+    end_ns None for a span still open."""
+    with _spans_lock:
+        return list(_spans)
+
+
+def clear_spans() -> None:
+    """Forget the recorded spans and the count of dropped ones."""
+    global _spans_epoch, spans_dropped
+    with _spans_lock:
+        _spans.clear()
+        _spans_epoch += 1
+        spans_dropped = 0
 
 
 _trace = None  # the running trace: (profiler, directory, on the card)
@@ -79,6 +173,7 @@ def maybe_start_trace(device=None) -> bool:
     if not d:
         return False
     os.makedirs(d, exist_ok=True)
+    clear_spans()
     on_card = (torch.device(device).type == "cuda" if device is not None
                else torch.cuda.is_available())
     acts = [torch.profiler.ProfilerActivity.CPU]

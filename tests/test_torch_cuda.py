@@ -1500,6 +1500,64 @@ def test_epoch_runner_graph_replays_equal_the_eager_runner(cuda):
     assert all(torch.equal(a, b) for a, b in zip(sa, sb)) and int(sb[0]) == 6
 
 
+def test_epoch_runner_captured_under_a_cuda_profile_records_its_spans(cuda):
+    """utils.trace_span under a CUDA-only torch.profiler session (the
+    benchmark's): an epoch runner captured and replayed inside it records
+    per epoch one train_epoch_scan holding train_epoch_begin, a
+    train_epoch_step a step and train_epoch_losses, the capture's forward
+    spans outside any epoch, spans of another thread too, and the same
+    losses as a runner captured with no profiler."""
+    import contextlib
+    import threading
+
+    from cdlnet_tpu_torch import utils
+    from cdlnet_tpu_torch.models import CDLNet
+    from cdlnet_tpu_torch.train.device_data import DeviceImageCorpus, make_epoch_runner
+    from cdlnet_tpu_torch.train.fit import make_train_step
+    from cdlnet_tpu_torch.train.optim import make_optimizer
+
+    rng = np.random.default_rng(4)
+    images = [rng.uniform(0, 1, (1, 40, 52)).astype(np.float32) for _ in range(9)]
+    corpus = DeviceImageCorpus(images, 32, 3, device=cuda)
+    model = CDLNet(K=3, M=12, P=5, s=2, adaptive=True, backend="pallas").to(cuda)
+    model.init(torch.Generator().manual_seed(0))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    opt = make_optimizer(1e-3, clip_grad=0.05)
+
+    def other_thread():
+        with utils.trace_span("other"):
+            pass
+
+    losses = {}
+    for traced in (False, True):
+        model.load_state_dict(init)
+        st = opt.init(dict(model.named_parameters()))
+        step, _ = make_train_step(model, opt, workload="2d", noise_std=(20, 30))
+        runner = make_epoch_runner(corpus, step, model)
+        g = torch.Generator(device=cuda).manual_seed(5)
+        utils.clear_spans()
+        session = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+                   if traced else contextlib.nullcontext())
+        with session:
+            losses[traced] = torch.cat([runner(st, g), runner(st, g)]).cpu()
+            other = threading.Thread(target=other_thread)
+            other.start()
+            other.join(timeout=10)
+        assert not other.is_alive()
+        spans = utils.recorded_spans()
+        utils.clear_spans()
+    assert torch.isfinite(losses[True]).all() and torch.equal(losses[False], losses[True])
+    roots = [i for i, s in enumerate(spans) if s[3] == -1]
+    names = [spans[i][0] for i in roots]
+    assert names.count("train_epoch_scan") == 2 and names[-1] == "other"
+    assert {"lista2d_operands", "lista2d_loop"} <= set(names)  # the capture's forward
+    for i in roots:
+        if spans[i][0] == "train_epoch_scan":
+            kids = [s[0] for s in spans if s[3] == i]
+            assert kids == (["train_epoch_begin"] + ["train_epoch_step"] * runner.steps
+                            + ["train_epoch_losses"])
+
+
 def test_clipped_adam_on_device_state_matches_its_cpu_trajectory(cuda):
     """The optimizer's count and hyperparameters live on the parameters'
     device: five clipped steps (an lr change after the second) on the card

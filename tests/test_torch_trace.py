@@ -12,6 +12,7 @@ import logging
 import os
 import stat
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -107,6 +108,151 @@ def test_trace_span_without_a_profiler_is_a_plain_context():
     with utils.trace_span("train_step"):
         y = torch.ones(3) * 2
     assert torch.equal(y, torch.full((3,), 2.0))
+
+
+# --- the span recorder (utils.trace_span, recorded_spans, clear_spans) ---
+
+@pytest.fixture
+def cpu_profile():
+    """A CPU-only torch.profiler session, the recorder cleared first."""
+    utils.clear_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        yield prof
+    utils.clear_spans()
+
+
+def _named(spans):
+    return [s[0] for s in spans]
+
+
+def test_trace_span_without_a_profiler_records_nothing():
+    utils.clear_spans()
+    spans = [utils.trace_span(n) for n in ("a", "b")]
+    assert spans[0] is spans[1]
+    with spans[0], spans[1]:
+        pass
+    assert utils.recorded_spans() == []
+
+
+def test_nested_spans_record_parent_and_root(cpu_profile):
+    with utils.trace_span("request"):
+        with utils.trace_span("input"):
+            pass
+        with utils.trace_span("forward"):
+            with utils.trace_span("loop"):
+                pass
+    with utils.trace_span("request"):
+        pass
+    spans = utils.recorded_spans()
+    assert _named(spans) == ["request", "input", "forward", "loop", "request"]
+    assert [(s[3], s[4]) for s in spans] == [(-1, 0), (0, 0), (0, 0), (2, 0), (-1, 4)]
+    for name, start, end, parent, _ in spans:
+        assert start <= end
+        if parent >= 0:
+            assert spans[parent][1] <= start and end <= spans[parent][2]
+    assert utils.recorded_spans() == spans  # reading does not clear
+    utils.clear_spans()
+    assert utils.recorded_spans() == []
+
+
+def test_threads_keep_their_own_span_stacks(cpu_profile):
+    """Threads open spans at once (a short switch interval interleaves
+    them): each span's parent and root are its own thread's."""
+    n_threads, n_spans = 8, 50
+    interval = sys.getswitchinterval()
+    barrier = threading.Barrier(n_threads)
+
+    def work(i):
+        barrier.wait(timeout=10)
+        for _ in range(n_spans):
+            with utils.trace_span(f"outer{i}"):
+                with utils.trace_span(f"inner{i}"):
+                    pass
+
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    spans = utils.recorded_spans()
+    assert len(spans) == 2 * n_threads * n_spans
+    for j, (name, _, end, parent, root) in enumerate(spans):
+        assert end is not None
+        if name.startswith("outer"):
+            assert (parent, root) == (-1, j)
+        else:
+            assert spans[parent][0] == "outer" + name[len("inner"):] and root == parent
+
+
+def test_spans_past_the_cap_are_counted_not_kept(cpu_profile, monkeypatch):
+    monkeypatch.setattr(utils, "SPAN_CAP", 3)
+    for _ in range(5):
+        with utils.trace_span("s"):
+            pass
+    assert len(utils.recorded_spans()) == 3 and utils.spans_dropped == 2
+    utils.clear_spans()
+    assert utils.spans_dropped == 0
+
+
+def _within(spans, i):
+    """The names of the spans whose parent is span i, in order."""
+    return [s[0] for s in spans if s[3] == i]
+
+
+def test_denoise_video_records_a_request_tree(cpu_profile):
+    """A served clip on the CPU (the kernels' plain versions): one
+    serve_request holding its stages in order, the fused loop's operands and
+    launches inside serve_forward, each child inside its parent's bounds."""
+    from cdlnet_tpu_torch.models import CDLNetVideo
+    from cdlnet_tpu_torch.serve import Denoiser
+
+    model = CDLNetVideo(K=2, M=4, P=(3, 3, 3), s=2, adaptive=True, backend="cuda")
+    model.init(torch.Generator().manual_seed(0), init=False)
+    clip = np.random.default_rng(0).uniform(0.2, 0.8, (4, 6, 10)).astype(np.float32)
+    out = Denoiser(model, bucket=8).denoise_video(clip, sigma=25)
+    assert out.shape == clip.shape
+    spans = utils.recorded_spans()
+    assert spans[0][0] == "serve_request" and sum(s[3] == -1 for s in spans) == 1
+    assert _within(spans, 0) == ["serve_input", "serve_forward", "serve_fetch",
+                                 "serve_output"]
+    fwd = _named(spans).index("serve_forward")
+    assert _within(spans, fwd) == ["lista3d_operands", "lista3d_loop"]
+    for name, start, end, parent, root in spans:
+        assert root == 0 and start <= end
+        if parent >= 0:
+            assert spans[parent][1] <= start and end <= spans[parent][2]
+    children = [s for s in spans if s[3] == 0]
+    assert all(a[2] <= b[1] for a, b in zip(children, children[1:]))
+
+
+def test_epoch_runner_records_its_epochs(cpu_profile):
+    """An eager epoch runner on the CPU: per epoch one train_epoch_scan
+    holding one train_epoch_begin, `steps` train_epoch_step and the losses'
+    copy."""
+    from cdlnet_tpu_torch.train.device_data import DeviceImageCorpus, make_epoch_runner
+    from cdlnet_tpu_torch.train.fit import make_train_step
+
+    model = CDLNet(K=2, M=4, P=3, s=1, adaptive=True)
+    model.init(torch.Generator().manual_seed(0))
+    opt = make_optimizer(1e-3, clip_grad=0.05)
+    step, _ = make_train_step(model, opt, workload="2d", noise_std=(20, 30))
+    corpus = DeviceImageCorpus(_images(6), 16, 2, device="cpu")
+    runner = make_epoch_runner(corpus, step, model, graph=False)
+    st, g = opt.init(dict(model.named_parameters())), torch.Generator().manual_seed(1)
+    for _ in range(2):
+        runner(st, g)
+    spans = utils.recorded_spans()
+    roots = [i for i, s in enumerate(spans) if s[3] == -1]
+    assert [spans[i][0] for i in roots] == ["train_epoch_scan"] * 2
+    for i in roots:
+        assert _within(spans, i) == (["train_epoch_begin"]
+                                     + ["train_epoch_step"] * runner.steps
+                                     + ["train_epoch_losses"])
 
 
 def test_start_and_stop_write_a_chrome_trace(tmp_path, monkeypatch):
